@@ -10,12 +10,14 @@ result line:
   build    compile every CUDA source under quantizedmha_tpu_torch/csrc/
            (one nvcc each, in parallel) and report the card.
   kernels  hold each kernel against its plain PyTorch version on the card
-           at the main paths' shapes: max abs error within the stated
-           tolerance, kernel / plain / library times (CUDA events) and the
+           at the main paths' shapes, every element within its stated
+           tolerance (err_over_tol <= 1), then on small cases off the main
+           paths; kernel / plain / library times (CUDA events) and the
            least time the card could take (bound).
   solve    the reference ABI, solve(kernel="fa_int8") at N=8192,
-           d_model=1024, h=32 in float32: time, error against the plain
-           golden, and the constant-input gate (all-ones -> exactly 1.0).
+           d_model=1024, h=32 in float32: time, relative RMS error against
+           the float golden, and the constant-input gate (all-ones ->
+           exactly 1.0).
   serve    Llama-3-8B width and depth (32 layers), random INT8 (w8a16)
            weights with a bf16 lm_head, flash_int8 prefill and paged INT8
            decode through the continuous-batching engine: 8 requests of
@@ -49,6 +51,7 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 EXP_PER_S = 132 * 16 * 1.98e9
 REFERENCE_L4_MS = 7.70  # the reference study's fa_tc_int8_b on an NVIDIA L4
+SOLVE_REL_RMS_TOL = 0.03  # int8 solve vs the float golden (phase_solve)
 
 PHASES = ("build", "kernels", "solve", "serve")
 
@@ -90,6 +93,63 @@ def bound(nbytes: float, ops: dict):
     return t_bytes * 1e3, "bytes"
 
 
+def err_over_tol(got, want, tol) -> float:
+    """max |got - want| / tol over the elements (tol broadcasts); equal
+    values, infinities included, count 0 and a NaN counts inf. The check
+    passes at <= 1."""
+    import torch
+    got, want = got.double(), want.double()
+    ratio = torch.where(got == want, torch.zeros_like(got), (got - want).abs() / tol)
+    return float(torch.nan_to_num(ratio, nan=float("inf")).max())
+
+
+def flash_tolerances(o_plain, lse_plain, l, v_i8, v_scales, block_kv, mode):
+    """Per-element tolerances of the flash kernel's output and lse (None
+    when not saved) against its plain version, from the plain version's
+    final P' sum per row (l: [B, H, Sq, 1]).
+
+    The kernel's P' = exp2(fma(...)) sits a few f32 ulps from the plain
+    version's exp(s - shift), so a P' within those ulps of a rounding
+    boundary can round the other way: an int8 P by one unit, a bf16 P by
+    one bf16 ulp (<= 0.5, as P' <= 127). One flip of key j moves the row's
+    output by at most max|v| / l (int8 P: P·V moves by |v_j|; bf16 P: P·V
+    and l move together, by at most 0.5 |v_j - o|), where max|v| is taken
+    over the row's (batch, kv head) and l is the row's final P' sum; two
+    flips are allowed. 1e-5 max|v| covers the f32 summation order and the
+    ulps of P' itself; a bf16 output adds one bf16 ulp of |o|. lse moves by at most
+    0.5 / l a flip in the bf16 P mode (l sums the rounded P), otherwise only
+    by f32 rounding."""
+    import torch
+    from quantizedmha_tpu_torch.ops.quantize import dequantize_kv_blocks
+    group = o_plain.shape[1] // v_i8.shape[1]
+    vmax = dequantize_kv_blocks(v_i8, v_scales, block_kv).abs().amax(dim=(-2, -1))
+    vmax = vmax.repeat_interleave(group, dim=1)[:, :, None, None].double()
+    l = l.double()
+    inv_l = torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
+    flip = vmax * (2.0 * inv_l + 1e-5)
+    tol_o = flip
+    if o_plain.dtype == torch.bfloat16:
+        tol_o = flip + 2.0**-7 * (o_plain.double().abs() + flip)
+    if lse_plain is None:
+        return tol_o, None
+    tol_lse = ((inv_l[..., 0] if mode == 1 else 0.0) + 1e-5
+               + 1e-6 * torch.nan_to_num(lse_plain.double().abs(), posinf=0.0))
+    return tol_o, tol_lse
+
+
+def decode_tolerance(o_plain, v_pages, v_scales):
+    """Per-element tolerance of the decode kernel against its plain version:
+    both compute in f32 and differ only in summation order (1e-5 of the kv
+    head's max|v|); a bf16 output adds one bf16 ulp of |o|."""
+    import torch
+    group = o_plain.shape[1] // v_pages.shape[0]
+    vmax = (v_pages.float().abs().amax(dim=(-2, -1)) * v_scales).amax(dim=-1)  # [Hkv]
+    tol = 1e-5 * vmax.repeat_interleave(group)[None, :, None].double()
+    if o_plain.dtype == torch.bfloat16:
+        tol = tol + 2.0**-7 * o_plain.double().abs()
+    return tol
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -112,9 +172,8 @@ def phase_build(st):
 def _flash_case(name, route_mode, q, k, v, block_kv, causal, *, replaces, library):
     """Kernel vs plain at one shape; returns the kernels-line entry."""
     import torch
-    from quantizedmha_tpu_torch.harness.verify import compare
     from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
-    from quantizedmha_tpu_torch.ops.quantize import dequantize_kv_blocks, quantize_kv_blocks
+    from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
     B, H, S, D = q.shape
     k_i8, ks = quantize_kv_blocks(k, block_kv)
     v_i8, vs = quantize_kv_blocks(v, block_kv)
@@ -128,12 +187,11 @@ def _flash_case(name, route_mode, q, k, v, block_kv, causal, *, replaces, librar
     kernel(*args)
     torch.cuda.synchronize()
     plain = fa8._flash_int8_plain(q, k_i8, ks, v_i8, vs, offsets, **kw)
-    vmax = dequantize_kv_blocks(v_i8, vs, block_kv).abs().max().item()
-    # Tolerance: one P-rounding flip per row moves o by at most
-    # max|v| / p_scale (int8 P: a unit step; bf16 P: half a bf16 ulp of
-    # P <= 127) — two flips allowed — plus one bf16 ulp of a bf16 output.
-    tol = vmax * (2.0 / 127.0 + (2.0**-7 if q.dtype == torch.bfloat16 else 0.0)) + 1e-5
-    report = compare(out, plain, abs_tol=tol, rel_tol=0.0)
+    _, _, l = fa8._flash_int8_plain_state(
+        q, k_i8, ks, v_i8, vs, offsets,
+        **{k: x for k, x in kw.items() if k != "save_residuals"})
+    tol, _ = flash_tolerances(plain, None, l, v_i8, vs, block_kv, route_mode)
+    ratio = err_over_tol(out, plain, tol)
     ms = cuda_ms(lambda: kernel(*args), iters=20)
     plain_ms = cuda_ms(lambda: fa8._flash_int8_plain(q, k_i8, ks, v_i8, vs, offsets, **kw),
                        iters=2, warmup=1)
@@ -154,7 +212,9 @@ def _flash_case(name, route_mode, q, k, v, block_kv, causal, *, replaces, librar
     return {"name": name, "route": "cuda",
             "source": "quantizedmha_tpu_torch/csrc/flash_int8_fwd.cu",
             "replaces": replaces, "launches": None,
-            "max_abs_err": report.max_abs, "tol": tol, "ok": report.ok,
+            "max_abs_err": (out.float() - plain.float()).abs().max().item(),
+            "err_over_tol": ratio, "tol_range": [tol.min().item(), tol.max().item()],
+            "ok": ratio <= 1.0,
             "shape": {"B": B, "Hq": H, "Hkv": Hkv, "S": S, "D": D,
                       "causal": causal, "block_kv": block_kv, "q": str(q.dtype)},
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -163,7 +223,6 @@ def _flash_case(name, route_mode, q, k, v, block_kv, causal, *, replaces, librar
 
 def _decode_case(name, Hkv, *, replaces, seed):
     import torch
-    from quantizedmha_tpu_torch.harness.verify import compare
     from quantizedmha_tpu_torch.ops import decode as dec
     g = torch.Generator(device="cuda").manual_seed(seed)
     B, Hq, D, P = 8, 32, 128, 128
@@ -185,11 +244,8 @@ def _decode_case(name, Hkv, *, replaces, seed):
     kernel(*args)
     torch.cuda.synchronize()
     plain = dec._paged_decode_plain(*operands, **kw)
-    # f32 math on both sides (summation order differs), bf16 output: one
-    # bf16 ulp of the largest output magnitude, which max|v| bounds.
-    vmax = (v_pages.float().abs().amax(dim=(-2, -1)) * v_scales).max().item()
-    tol = vmax * 2.0**-7 + 1e-5
-    report = compare(out, plain, abs_tol=tol, rel_tol=0.0)
+    tol = decode_tolerance(plain, v_pages, v_scales)
+    ratio = err_over_tol(out, plain, tol)
     ms = cuda_ms(lambda: kernel(*args), iters=50)
     plain_ms = cuda_ms(lambda: dec._paged_decode_plain(*operands, **kw), iters=3, warmup=1)
     ctx = int(lengths.sum().item())
@@ -199,7 +255,9 @@ def _decode_case(name, Hkv, *, replaces, seed):
     return {"name": name, "route": "cuda",
             "source": "quantizedmha_tpu_torch/csrc/paged_decode.cu",
             "replaces": replaces, "launches": None,
-            "max_abs_err": report.max_abs, "tol": tol, "ok": report.ok,
+            "max_abs_err": (out.float() - plain.float()).abs().max().item(),
+            "err_over_tol": ratio, "tol_range": [tol.min().item(), tol.max().item()],
+            "ok": ratio <= 1.0,
             "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "page": P,
                       "lengths": lengths.tolist()},
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -209,8 +267,8 @@ def _decode_case(name, Hkv, *, replaces, seed):
 # Small shapes off the main paths, so that every branch of the two kernels
 # is held against its plain version: ragged q tiles, quant blocks that are
 # not a multiple of the kernel's 64-wide tile, a padded cache (kv tail
-# mask), per-sequence offsets, GQA/MQA, window + sinks, softcap, all three
-# numerics modes, both q dtypes and lse.
+# mask), per-sequence offsets, GQA/MQA, window + sinks, softcap, both
+# numerics modes at every head dim, both q dtypes and lse.
 #   (B, H, Hkv, Sq, Skv, kv_len, D, block_kv, causal, window, sinks,
 #    softcap, mode, bf16 q, q_offset or None for end-aligned)
 FLASH_COVERAGE = (
@@ -218,7 +276,7 @@ FLASH_COVERAGE = (
     (2, 4, 2, 100, 192, 192, 64, 96, True, None, 0, None, 0, True, None),
     (1, 4, 1, 130, 256, 200, 128, 128, True, None, 0, None, 0, False, None),
     (1, 4, 2, 96, 192, 192, 128, 64, True, 40, 4, 30.0, 0, True, None),
-    (1, 4, 4, 64, 320, 320, 32, 160, True, 50, 0, None, 2, False, None),
+    (1, 4, 4, 64, 320, 320, 32, 160, True, 50, 0, None, 0, False, None),
     (1, 8, 2, 77, 77, 77, 64, 77, True, None, 0, None, 1, True, None),
     (1, 2, 2, 200, 384, 384, 128, 384, False, None, 0, None, 1, False, None),
     (2, 4, 2, 64, 128, 128, 64, 64, True, None, 0, None, 0, False, (10, 50)),
@@ -237,10 +295,9 @@ def _coverage():
     the card with output and lse checked; returns the summary entry, with
     each case's [output, lse] error over its tolerance."""
     import torch
-    from quantizedmha_tpu_torch.harness.verify import compare
     from quantizedmha_tpu_torch.ops import decode as dec
     from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
-    from quantizedmha_tpu_torch.ops.quantize import dequantize_kv_blocks, quantize_kv_blocks
+    from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
     g = torch.Generator(device="cuda").manual_seed(5)
     ratios, failed = {}, []
     for i, (B, H, Hkv, Sq, Skv, kv_len, D, bkv, causal, window, sinks, cap, mode,
@@ -260,18 +317,13 @@ def _coverage():
         kernel(*args)
         torch.cuda.synchronize()
         p_out, p_lse = fa8._flash_int8_plain(q, k_i8, ks, v_i8, vs, offsets, **kw)
-        vmax = dequantize_kv_blocks(v_i8, vs, bkv).abs().max().item()
-        tol = vmax * (2.0 / 127.0 + (2.0**-7 if qbf16 else 0.0)) + 1e-5
-        # lse: where l sums the f32 P', only f32 summation order separates
-        # the two; where it sums the bf16-rounded P (mode 1), one rounding
-        # flip of a P moves l by at most 2^-8 of itself — two allowed.
-        lse_tol = 2.0**-7 if mode == 1 else 1e-4
-        r_o = compare(out, p_out, abs_tol=tol, rel_tol=0.0)
-        r_l = compare(lse, p_lse, abs_tol=lse_tol, rel_tol=0.0)
-        ratios[f"flash{i}"] = [r_o.max_abs / tol, r_l.max_abs / lse_tol]
-        if not (r_o.ok and r_l.ok):
-            failed.append({"flash_case": i, "err": r_o.max_abs, "tol": tol,
-                           "lse_err": r_l.max_abs})
+        _, _, l = fa8._flash_int8_plain_state(
+            q, k_i8, ks, v_i8, vs, offsets,
+            **{k: x for k, x in kw.items() if k != "save_residuals"})
+        tol, lse_tol = flash_tolerances(p_out, p_lse, l, v_i8, vs, bkv, mode)
+        ratios[f"flash{i}"] = [err_over_tol(out, p_out, tol), err_over_tol(lse, p_lse, lse_tol)]
+        if max(ratios[f"flash{i}"]) > 1.0:
+            failed.append(f"flash{i}")
     for i, (B, Hq, Hkv, D, P, window, sinks, cap, qbf16) in enumerate(DECODE_COVERAGE):
         max_pages = 6
         num_pages = B * max_pages + 1
@@ -291,14 +343,13 @@ def _coverage():
         kernel(*args)
         torch.cuda.synchronize()
         p_out, p_lse = dec._paged_decode_plain(*operands, **kw)
-        vmax = (v_pages.float().abs().amax(dim=(-2, -1)) * v_scales).max().item()
-        tol = vmax * (2.0**-7 if qbf16 else 1e-5) + 1e-5
-        r_o = compare(out, p_out, abs_tol=tol, rel_tol=0.0)
-        r_l = compare(lse, p_lse, abs_tol=1e-4, rel_tol=0.0)
-        ratios[f"decode{i}"] = [r_o.max_abs / tol, r_l.max_abs / 1e-4]
-        if not (r_o.ok and r_l.ok):
-            failed.append({"decode_case": i, "err": r_o.max_abs, "tol": tol,
-                           "lse_err": r_l.max_abs})
+        # lse: f32 on both sides, summation order only.
+        lse_tol = 1e-5 + 1e-6 * torch.nan_to_num(p_lse.double().abs(), posinf=0.0)
+        ratios[f"decode{i}"] = [
+            err_over_tol(out, p_out, decode_tolerance(p_out, v_pages, v_scales)),
+            err_over_tol(lse, p_lse, lse_tol)]
+        if max(ratios[f"decode{i}"]) > 1.0:
+            failed.append(f"decode{i}")
     return {"flash_cases": len(FLASH_COVERAGE), "decode_cases": len(DECODE_COVERAGE),
             "err_over_tol": ratios, "failed": failed, "ok": not failed}
 
@@ -306,10 +357,6 @@ def _coverage():
 def phase_kernels(st):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
-    coverage = _coverage()
-    emit({"phase": "kernels_coverage", **coverage})
-    if not coverage["ok"]:
-        raise AssertionError("a kernel disagrees with its plain version off the main paths")
     g = torch.Generator(device="cuda").manual_seed(1)
     # Prefill attention of the serve path: Llama-3-8B heads, a 256 bucket,
     # bf16 activations, block_kv = min(1024, 256) (pick_blocks).
@@ -336,20 +383,25 @@ def phase_kernels(st):
     mqa = _decode_case("paged_decode", 1, seed=3,
                        replaces="quantizedmha_tpu/ops/decode.py:53")
     cases[-1]["also_replaces"] = mqa["replaces"]
-    cases[-1]["mqa"] = {k: mqa[k] for k in ("replaces", "max_abs_err", "tol", "ok", "shape",
-                                            "ms", "plain_ms", "bound_ms", "bound_by")}
+    cases[-1]["mqa"] = {k: mqa[k] for k in ("replaces", "max_abs_err", "err_over_tol", "ok",
+                                            "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
     cases[-1]["ok"] = cases[-1]["ok"] and mqa["ok"]
     st["kernels"] = {c["name"]: c for c in cases}
     ok = all(c["ok"] for c in cases)
     emit({"phase": "kernels", "ok": ok, "kernels": cases})
+    # Off the main paths second, so that a failing kernel reports its
+    # main-path errors as well.
+    coverage = _coverage()
+    emit({"phase": "kernels_coverage", **coverage})
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version")
+    if not coverage["ok"]:
+        raise AssertionError("a kernel disagrees with its plain version off the main paths")
 
 
 def phase_solve(st):
     import torch
     from quantizedmha_tpu_torch import solve
-    from quantizedmha_tpu_torch.harness.verify import compare
     from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
     N, d_model, h = 8192, 1024, 32
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -363,15 +415,24 @@ def phase_solve(st):
     st["launches"].update({"flash_int8_fwd[bf16_p]": launches["flash_int8_fwd[bf16_p]"]})
     ms = cuda_ms(lambda: solve(q, k, v, d_model, h, kernel="fa_int8"), iters=10)
     # Random inputs: the int8 Q/K/V quantization error against the float
-    # golden (the JAX package's bench gates the same error at 1e-1).
-    report = compare(out, solve(q, k, v, d_model, h, kernel="reference"),
-                     abs_tol=2e-2, rel_tol=0.0)
+    # golden, as the RMS of the error over the RMS of the golden. Each
+    # quantizer's step is 1/127 of its block's max|x| (about 1% of the RMS of
+    # a normal block), and the plain int8 version lands at 1.4% on these
+    # inputs at N=2048, so the limit is 3%: a fault that is off by a few per
+    # cent across the output (a wrong V scale, say) exceeds it, while the
+    # per-element check against the plain version (kernels phase) holds
+    # the kernel itself far tighter.
+    ref = solve(q, k, v, d_model, h, kernel="reference")
+    rel_rms = ((out - ref).norm() / ref.norm()).item()
+    max_abs = (out - ref).abs().max().item()
+    finite = bool(torch.isfinite(out).all().item())
     ones = torch.ones((N, d_model), device="cuda")
     const_dev = (solve(ones, ones, ones, d_model, h, kernel="fa_int8") - 1.0).abs().max().item()
-    ok = (launches["flash_int8_fwd[bf16_p]"] == 1 and report.ok
+    ok = (launches["flash_int8_fwd[bf16_p]"] == 1 and finite and rel_rms <= SOLVE_REL_RMS_TOL
           and tuple(out.shape) == (N, d_model) and const_dev <= 1e-6)
     emit({"phase": "solve", "ok": ok, "ms": ms, "launches": launches,
-          "max_abs_err_vs_reference": report.max_abs, "err_tol": 2e-2,
+          "rel_rms_err_vs_reference": rel_rms, "rel_rms_tol": SOLVE_REL_RMS_TOL,
+          "max_abs_err_vs_reference": max_abs, "ref_rms": (ref.norm() / N**0.5 / d_model**0.5).item(),
           "ones_max_dev": const_dev, "ones_tol": 1e-6,
           "reference_l4_ms": REFERENCE_L4_MS})
     if not ok:
@@ -480,33 +541,65 @@ def phase_serve(st):
 
 
 def _profile_decode_chunk(eng, prompts, max_new):
-    """Where a full-batch decode chunk's time goes: torch.profiler over one
-    engine step (decode_chunk steps, one host sync), device kernels grouped
-    by name, and the device's idle share of the step's wall time."""
+    """Where a full-batch decode chunk's time goes. One engine step
+    (decode_chunk steps, one host sync) runs untraced, the next under
+    torch.profiler; each window is timed on the host clock and with CUDA
+    events. The device kernels of the traced window are grouped by name,
+    and its idle share is 1 - their busy time / that same window's
+    CUDA-event time (tracing slows the host, so this share is an upper
+    bound; the untraced window's times stand beside it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for p in prompts:
         eng.add_request(p, max_new=max_new)
-    eng.step()  # admissions + the first chunk, outside the window
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.step()
+    eng.step()  # admissions + the first chunk, outside both windows
+
+    def window():
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        eng.step()
+        end.record()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+    untraced_wall, untraced_events = window()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced_wall, traced_events = window()
     eng.run()
-    by_name = {}
+    steps = eng.ecfg.decode_chunk
+    groups = (("flash_int8_fwd", "flash_int8"), ("paged_decode", "paged_decode"),
+              ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
+              ("direct_copy (dtype casts: w8a16 weights)", "direct_copy"))
+    by_name, by_group = {}, {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            t, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + us, n + 1)
+        group = next((g for g, keys in groups
+                      if any(k in e.name for k in ((keys,) if isinstance(keys, str) else keys))),
+                     "other")
+        t, n = by_group.get(group, (0.0, 0))
+        by_group[group] = (t + us, n + 1)
     busy_s = sum(t for t, _ in by_name.values()) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    return {"chunk_steps": eng.ecfg.decode_chunk, "chunk_wall_s": wall,
-            "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / wall,
-            "top_kernels": [{"kernel": k[:90], "ms": t / 1e3, "calls": n}
-                            for k, (t, n) in top]}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"chunk_steps": steps,
+            "untraced_wall_ms_per_step": untraced_wall * 1e3 / steps,
+            "untraced_events_ms_per_step": untraced_events * 1e3 / steps,
+            "traced_wall_ms_per_step": traced_wall * 1e3 / steps,
+            "traced_events_ms_per_step": traced_events * 1e3 / steps,
+            "device_busy_ms_per_step": busy_s * 1e3 / steps,
+            "device_idle_share_traced": 1.0 - busy_s / traced_events,
+            "groups_per_step": {g: {"ms": t / 1e3 / steps, "launches": n / steps}
+                                for g, (t, n) in sorted(by_group.items(),
+                                                        key=lambda kv: -kv[1][0])},
+            "top_kernels_per_step": [{"kernel": k[:80], "ms": t / 1e3 / steps,
+                                      "launches": n / steps} for k, (t, n) in top]}
 
 
 def main(argv=None) -> int:

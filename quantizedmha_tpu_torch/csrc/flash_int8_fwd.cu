@@ -6,8 +6,7 @@
 //     the f32 P')
 //   * quantizedmha_tpu/ops/flash_attention_int8.py:437 _int8_fwd_kernel_t
 //     (MODE_BF16_P: P' cast to bf16, bf16 x int8 P·V in f32, l sums the
-//     bf16-rounded P' — the numerics of its default summode="mxu";
-//     MODE_BF16_P_F32L is its summode="vpu" variant, l summing f32 P')
+//     bf16-rounded P' — the numerics of its default summode="mxu")
 // The TPU kernel pair differ in orientation AND numerics; here the route
 // chooses only the numerics mode, the layout is the same.
 //
@@ -66,7 +65,6 @@ namespace {
 constexpr int BKV = 64;   // kv positions per shared-memory tile
 constexpr int MODE_INT8_P = 0;
 constexpr int MODE_BF16_P = 1;
-constexpr int MODE_BF16_P_F32L = 2;  // bf16 P·V, l sums the f32 P' (summode="vpu")
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr uint32_t BF16_ONES = 0x3F803F80u;  // two bf16 1.0: the ones column that sums l
 
@@ -518,10 +516,9 @@ flash_int8_fwd_kernel(const Params p) {
               for (int r = 0; r < 2; ++r) {
                 const float v0 = pe[2 * kk + hh][2 * r], v1 = pe[2 * kk + hh][2 * r + 1];
                 const __nv_bfloat162 pb = __floats2bfloat162_rn(v0, v1);
-                if (MODE == MODE_BF16_P_F32L) lsum[r] += v0 + v1;
                 a[2 * hh + r] = *reinterpret_cast<const uint32_t*>(&pb);
               }
-            if (MODE == MODE_BF16_P) mma_bf16(lmma, a, BF16_ONES, BF16_ONES);
+            mma_bf16(lmma, a, BF16_ONES, BF16_ONES);
             // rows 32c + 16kk + (lane & 15) of V, n-tiles n and n+1
             const unsigned char* vrow = vt + (32 * c + 16 * kk + (lane & 15)) * S::V16_ROW;
 #pragma unroll
@@ -609,10 +606,6 @@ cudaError_t dispatch_mode(const Params& p, int mode, int q_bf16, cudaStream_t st
   if (mode == MODE_INT8_P) {
     return q_bf16 ? launch<D, MODE_INT8_P, true>(p, stream) : launch<D, MODE_INT8_P, false>(p, stream);
   }
-  if (mode == MODE_BF16_P_F32L) {
-    return q_bf16 ? launch<D, MODE_BF16_P_F32L, true>(p, stream)
-                  : launch<D, MODE_BF16_P_F32L, false>(p, stream);
-  }
   return q_bf16 ? launch<D, MODE_BF16_P, true>(p, stream) : launch<D, MODE_BF16_P, false>(p, stream);
 }
 
@@ -653,7 +646,7 @@ extern "C" int flash_int8_fwd(const void* q, const void* k, const void* v, const
   p.mask_kv_tail = mask_kv_tail;
   p.mask_value = mask_value;
   p.mask_half = mask_half;
-  if (mode < MODE_INT8_P || mode > MODE_BF16_P_F32L) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode < MODE_INT8_P || mode > MODE_BF16_P) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {

@@ -10,7 +10,8 @@ so P' lies in (0, p_static_scale]; then one of two numerics modes:
     the JAX package): P = round(P'), int8·int8 P·V in int32, l sums f32 P'.
   * "bf16" P (the transposed orientation's default, `_int8_fwd_kernel_t`):
     P' cast to bf16, bf16·int8 P·V in f32, l sums the same bf16 P'
-    (summode "mxu"), or the f32 P' (summode "vpu").
+    (summode "mxu"). Its summode "vpu" variant (l summing the f32 P') is
+    not ported yet and raises (ROADMAP.md queue 1 item 2).
 
 On a CUDA tensor every entry point launches the hand-written kernel in
 `csrc/flash_int8_fwd.cu`; on a CPU tensor it runs `_flash_int8_plain`, the
@@ -36,17 +37,17 @@ from quantizedmha_tpu_torch.ops.flash_attention import (
 )
 from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks, true_div
 
-_MODES = {("int8", "vpu"): 0, ("bf16", "mxu"): 1, ("bf16", "vpu"): 2}
+_MODES = {("int8", "vpu"): 0, ("bf16", "mxu"): 1}
 
 _ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
          + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_float]
          + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
          + [ctypes.c_void_p])
 # One launch counter per numerics mode: mode 0 stands for the JAX
-# package's `_int8_fwd_kernel`, modes 1-2 for `_int8_fwd_kernel_t`.
+# package's `_int8_fwd_kernel`, mode 1 for `_int8_fwd_kernel_t`.
 FLASH_INT8_P = cuda_lib.CudaKernel("flash_int8_fwd", "flash_int8_fwd", _ARGS)
 FLASH_BF16_P = cuda_lib.CudaKernel("flash_int8_fwd", "flash_int8_fwd", _ARGS)
-_KERNEL_OF_MODE = {0: FLASH_INT8_P, 1: FLASH_BF16_P, 2: FLASH_BF16_P}
+_KERNEL_OF_MODE = {0: FLASH_INT8_P, 1: FLASH_BF16_P}
 _HEAD_DIMS = (32, 64, 128)
 
 
@@ -57,15 +58,16 @@ def _offsets(q_offset, kv_offset, batch: int, device) -> torch.Tensor:
     return torch.stack([col(q_offset), col(kv_offset)], dim=1).contiguous()
 
 
-def _flash_int8_plain(q, k_i8, k_scales, v_i8, v_scales, offsets, *, sm_scale,
-                      causal, kv_len, block_kv, scale_clamp, p_scale, window,
-                      softcap, sinks, mode, save_residuals):
+def _flash_int8_plain_state(q, k_i8, k_scales, v_i8, v_scales, offsets, *, sm_scale,
+                            causal, kv_len, block_kv, scale_clamp, p_scale, window,
+                            softcap, sinks, mode):
     """The kernel's algorithm, step by step, over whole tensors: per-row Q
     quantization, then the online softmax at exactly block_kv granularity.
     Integer products are taken in float64 (exact); the bf16-P product in
     float32 with TF32 off (bf16·int8 products are exact in f32). A block
     masked for every row of every sequence is skipped, as the kernel skips
-    it (block_should_run over the batch's widest position ranges)."""
+    it (block_should_run over the batch's widest position ranges).
+    Returns the final state: acc [B, H, Sq, D], m and l [B, H, Sq, 1]."""
     torch.backends.cuda.matmul.allow_tf32 = False
     B, H, Sq, D = q.shape
     Hkv, Skv = k_i8.shape[1], k_i8.shape[2]
@@ -119,10 +121,18 @@ def _flash_int8_plain(q, k_i8, k_scales, v_i8, v_scales, offsets, *, sm_scale,
             pv = (torch.round(p).double() @ v_rep[:, :, kb].double()).float()
         else:
             pb = p.to(torch.bfloat16).float()
-            l = alpha * l + (pb if mode == 1 else p).sum(dim=-1, keepdim=True)
+            l = alpha * l + pb.sum(dim=-1, keepdim=True)
             pv = pb @ v_rep[:, :, kb].float()
         acc = acc * alpha + pv * vs_rep[:, :, j][:, :, None, None]
         m = m_next
+    return acc, m, l
+
+
+def _flash_int8_plain(q, *operands, save_residuals, p_scale, **kw):
+    """Plain version of the kernel: o (and lse with save_residuals) from
+    the final state of _flash_int8_plain_state."""
+    acc, m, l = _flash_int8_plain_state(q, *operands, p_scale=p_scale, **kw)
+    ln_p = math.log(p_scale)
     l_inv = torch.where(l == 0.0, torch.ones_like(l), 1.0 / l)
     o = (acc * l_inv).to(q.dtype)
     if not save_residuals:
@@ -177,6 +187,10 @@ def _prequant(q, k_i8, k_scales, v_i8, v_scales, *, kv_len, sm_scale, causal,
               save_residuals, window, logit_softcap, attention_sinks,
               pv_dtype, summode):
     validate_masking(causal, window, attention_sinks)
+    if (pv_dtype, summode) == ("bf16", "vpu"):
+        raise NotImplementedError(
+            "bf16 P with l summing the f32 P (summode='vpu') is not ported yet "
+            "(ROADMAP.md queue 1 item 2); use summode='mxu'")
     if (pv_dtype, summode) not in _MODES:
         raise ValueError(f"unsupported pv_dtype/summode {pv_dtype!r}/{summode!r}")
     batch, heads, q_len, head_dim = q.shape

@@ -1,67 +1,19 @@
-"""Metrics / observability (a copy of quantizedmha_tpu/utils/metrics.py,
-which imports no JAX; the port keeps its own so it imports nothing of the
-JAX package).
+"""Metrics (counterpart of quantizedmha_tpu/utils/metrics.py, which imports
+no JAX; the port keeps its own so it imports nothing of the JAX package).
 
-Counters, gauges, and latency histograms with a one-line text rendering
-and a JSON snapshot — host-side only, cheap enough to leave on.
+Counters, gauges and accumulated timings — host-side only, cheap enough
+to leave on. Only what the engine and chip_smoke.py use is here; the JAX
+module's histograms, rates and renderings come over with their first
+caller.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
-import json
-import math
 import threading
 import time
-from typing import Dict
-
-
-class _Histogram:
-    """Fixed log-bucketed latency histogram (seconds)."""
-
-    # 16 buckets: 1us .. ~32s, doubling.
-    _EDGES = [1e-6 * 2**i for i in range(25)]
-
-    def __init__(self):
-        self.counts = [0] * (len(self._EDGES) + 1)
-        self.total = 0.0
-        self.n = 0
-        self.max = 0.0
-
-    def record(self, value_s: float) -> None:
-        idx = 0
-        while idx < len(self._EDGES) and value_s > self._EDGES[idx]:
-            idx += 1
-        self.counts[idx] += 1
-        self.total += value_s
-        self.n += 1
-        self.max = max(self.max, value_s)
-
-    @property
-    def mean(self) -> float:
-        return self.total / self.n if self.n else 0.0
-
-    def quantile(self, q: float) -> float:
-        """Approximate quantile from bucket upper edges."""
-        if not self.n:
-            return 0.0
-        target = math.ceil(q * self.n)
-        seen = 0
-        for i, c in enumerate(self.counts):
-            seen += c
-            if seen >= target:
-                return self._EDGES[min(i, len(self._EDGES) - 1)]
-        return self.max
-
-    def snapshot(self) -> dict:
-        return {
-            "count": self.n,
-            "mean_s": self.mean,
-            "p50_s": self.quantile(0.5),
-            "p99_s": self.quantile(0.99),
-            "max_s": self.max,
-        }
+from typing import Dict, List
 
 
 class Metrics:
@@ -71,8 +23,7 @@ class Metrics:
         self._lock = threading.Lock()
         self._counters: Dict[str, float] = collections.defaultdict(float)
         self._gauges: Dict[str, float] = {}
-        self._hists: Dict[str, _Histogram] = {}
-        self._t0 = time.monotonic()
+        self._timings: Dict[str, List[float]] = {}  # name -> [count, total seconds]
 
     def inc(self, name: str, value: float = 1.0) -> None:
         with self._lock:
@@ -82,49 +33,18 @@ class Metrics:
         with self._lock:
             self._gauges[name] = value
 
-    def observe(self, name: str, value_s: float) -> None:
-        with self._lock:
-            self._hists.setdefault(name, _Histogram()).record(value_s)
-
     @contextlib.contextmanager
     def timed(self, name: str):
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            self.observe(name, time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            with self._lock:
+                entry = self._timings.setdefault(name, [0, 0.0])
+                entry[0] += 1
+                entry[1] += dt
 
     def counter(self, name: str) -> float:
         with self._lock:
             return self._counters.get(name, 0.0)
-
-    def rate(self, name: str) -> float:
-        """Counter value per second of registry lifetime."""
-        dt = time.monotonic() - self._t0
-        return self.counter(name) / dt if dt > 0 else 0.0
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            return {
-                "uptime_s": time.monotonic() - self._t0,
-                "counters": dict(self._counters),
-                "gauges": dict(self._gauges),
-                "timings": {k: h.snapshot() for k, h in self._hists.items()},
-            }
-
-    def render(self) -> str:
-        snap = self.snapshot()
-        parts = [f"uptime={snap['uptime_s']:.1f}s"]
-        parts += [f"{k}={v:g}" for k, v in sorted(snap["counters"].items())]
-        parts += [f"{k}={v:g}" for k, v in sorted(snap["gauges"].items())]
-        for k, h in sorted(snap["timings"].items()):
-            parts.append(
-                f"{k}[n={h['count']} mean={h['mean_s'] * 1e3:.2f}ms "
-                f"p99<={h['p99_s'] * 1e3:.2f}ms]"
-            )
-        return " ".join(parts)
-
-    def dump_json(self, path) -> None:
-        import pathlib
-
-        pathlib.Path(path).write_text(json.dumps(self.snapshot(), indent=2))

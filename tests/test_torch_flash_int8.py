@@ -68,14 +68,64 @@ def test_flash_attention_int8_matches_jax(name):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=_tol(v))
 
 
-@pytest.mark.parametrize("pv_dtype,summode", [("int8", "vpu"), ("bf16", "mxu"), ("bf16", "vpu")])
+@pytest.mark.parametrize("pv_dtype,summode", [("int8", "vpu"), ("bf16", "mxu")])
 def test_numerics_modes_match_jax(pv_dtype, summode):
-    """All three numerics variants, forced through the transposed route."""
+    """Both ported numerics variants, forced through the transposed route."""
     q, k, v = _qkv(1, 2, 1, 64, 64, 32, seed=11)
     kw = dict(causal=True, block_kv=32, transposed=True, pv_dtype=pv_dtype, summode=summode)
     got = tfa.flash_attention_int8(*_t(q, k, v), **kw)
     want = jfa.flash_attention_int8(*_j(q, k, v), **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=_tol(v))
+
+
+@pytest.mark.parametrize("transposed", [True, False])
+def test_bf16_p_with_f32_l_is_not_ported(transposed):
+    """bf16 P with l summing the f32 P (summode "vpu") has no kernel yet: it
+    raises, naming the roadmap, on either route."""
+    q, k, v = _t(*_qkv(1, 2, 1, 64, 64, 32, seed=11))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfa.flash_attention_int8(q, k, v, causal=True, transposed=transposed,
+                                 pv_dtype="bf16", summode="vpu" if transposed else None)
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_chip_smoke_flash_check_holds_jax_and_catches_faults(mode):
+    """chip_smoke.py holds the CUDA kernel to the plain version with a
+    per-row bound on P-rounding flips (max|v| / l). Here the JAX kernel, an
+    independent implementation whose exp differs by ulps, stands in for the
+    CUDA kernel and must pass; the plain version with a planted fault (the
+    next block's V scale; one 64-key tile of V dropped) must fail."""
+    import chip_smoke
+
+    b, h, hkv, s, d, causal, bkv = (1, 4, 2, 256, 128, True, 64) if mode == 0 else \
+        (1, 4, 2, 256, 32, False, 64)
+    q, k, v = _qkv(b, h, hkv, s, s, d, seed=21 + mode, scale=1.0)
+    kq, ks = quantize_kv_blocks(torch.from_numpy(k), bkv)
+    vq, vs = quantize_kv_blocks(torch.from_numpy(v), bkv)
+    tq = torch.from_numpy(q)
+    offs = tfa._offsets(0, 0, b, "cpu")
+    kw = dict(sm_scale=d**-0.5, causal=causal, kv_len=s, block_kv=bkv, scale_clamp=1e-8,
+              p_scale=127.0, window=None, softcap=None, sinks=0, mode=mode)
+    o, lse = tfa._flash_int8_plain(tq, kq, ks, vq, vs, offs, save_residuals=True, **kw)
+    _, _, l = tfa._flash_int8_plain_state(tq, kq, ks, vq, vs, offs, **kw)
+    tol, lse_tol = chip_smoke.flash_tolerances(o, lse, l, vq, vs, bkv, mode)
+    if mode == 0:
+        jo, jlse = jfa.flash_attention_int8_prequant(
+            jnp.asarray(q), *_j(kq.numpy(), ks.numpy(), vq.numpy(), vs.numpy()),
+            causal=causal, block_kv=bkv, save_residuals=True)
+    else:
+        jo, jlse = jfa.flash_attention_int8_t_prequant(
+            jnp.asarray(q), *_j(kq.numpy(), ks.numpy(), vq.numpy(), vs.numpy()),
+            causal=causal, save_residuals=True)
+    assert chip_smoke.err_over_tol(torch.tensor(np.asarray(jo)), o, tol) <= 1.0
+    assert chip_smoke.err_over_tol(torch.tensor(np.asarray(jlse)), lse, lse_tol) <= 1.0
+    shifted = tfa._flash_int8_plain(tq, kq, ks, vq, torch.roll(vs, 1, dims=-1), offs,
+                                    save_residuals=False, **kw)
+    dropped = vq.clone()
+    dropped[:, :, 64:128] = 0
+    no_tile = tfa._flash_int8_plain(tq, kq, ks, dropped, vs, offs, save_residuals=False, **kw)
+    assert chip_smoke.err_over_tol(shifted, o, tol) > 5.0
+    assert chip_smoke.err_over_tol(no_tile, o, tol) > 5.0
 
 
 def test_prequant_save_residuals_and_tail_mask_match_jax():
