@@ -22,10 +22,20 @@ result line:
            weights with a bf16 lm_head, flash_int8 prefill and paged INT8
            decode through the continuous-batching engine: 8 requests of
            256-token prompts, 32 new tokens each, greedy.
+  serve_w4 "llama3-8b-shape-int4-lmh8": the same model's random weights
+           quantized to INT4 (group 128, halves packing, wq|wk|wv and
+           w_gate|w_up fused) with an int8 lm_head, served by the serving
+           benchmark (harness/serving_bench.run_decode_bench) at batch 1,
+           8 and 32: 512-token prompts, 64 new tokens each, decode chunk
+           16. Every decode matmul goes through the w4_matmul kernel
+           (exactly 4 launches a layer a decode step; 512-row prefills
+           take the dequantize-then-matmul lowering). A 64-token prefill
+           is held against the dequantized weights as plain bf16 tensors.
 
 Launch counts: every kernel wrapper counts its launches; the counts are
-zeroed just before each main path (solve, serve) runs and read just after,
-and a kernel of that path that never launched fails the run. The last
+zeroed just before each main path (solve, serve, each serve_w4 batch)
+runs and read just after, and a kernel of that path that never launched
+fails the run. The last
 lines are the kernels summary, the card's name and power limit, and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -53,7 +63,7 @@ EXP_PER_S = 132 * 16 * 1.98e9
 REFERENCE_L4_MS = 7.70  # the reference study's fa_tc_int8_b on an NVIDIA L4
 SOLVE_REL_RMS_TOL = 0.03  # int8 solve vs the float golden (phase_solve)
 
-PHASES = ("build", "kernels", "solve", "serve")
+PHASES = ("build", "kernels", "solve", "serve", "serve_w4")
 
 
 def emit(obj) -> None:
@@ -135,6 +145,24 @@ def flash_tolerances(o_plain, lse_plain, l, v_i8, v_scales, block_kv, mode):
     tol_lse = ((inv_l[..., 0] if mode == 1 else 0.0) + 1e-5
                + 1e-6 * torch.nan_to_num(lse_plain.double().abs(), posinf=0.0))
     return tol_o, tol_lse
+
+
+def w4_tolerance(x, w, ref, *, golden=False):
+    """Per-element tolerance of a w4a16 product against `ref`: the plain
+    version, or with golden=True x.float() @ dequantize_weight4(w) in f32.
+    Kernel and plain version both round w = q*s to x's dtype once and sum
+    x*w in f32, so they differ by the f32 summation order (1e-5 of
+    sum_k |x_k w_k|) and, for a bf16 output, one bf16 ulp (2^-7 |ref|);
+    f32's ulp lies inside the first term. The golden keeps w unrounded: a
+    bf16 x adds one bf16 rounding of each weight, 2^-8 sum_k |x_k w_k|."""
+    import torch
+    from quantizedmha_tpu_torch.quant.weights import dequantize_weight4
+    bf16 = x.dtype == torch.bfloat16
+    sum_abs = x.float().abs() @ dequantize_weight4(w).abs()
+    tol = (1e-5 + (2.0**-8 if golden and bf16 else 0.0)) * sum_abs.double()
+    if bf16:
+        tol = tol + 2.0**-7 * ref.double().abs()
+    return tol
 
 
 def decode_tolerance(o_plain, v_pages, v_scales):
@@ -354,6 +382,139 @@ def _coverage():
             "err_over_tol": ratios, "failed": failed, "ok": not failed}
 
 
+# The four fused w4a16 matmuls of one Llama-3-8B decoder layer (serve_w4):
+# (name, in, out), group 128, halves packing, bf16 x at the serve_w4 batches.
+W4_MAIN = (("wqkv", 4096, 6144), ("wo", 4096, 4096), ("w_gateup", 4096, 28672),
+           ("w_down", 14336, 4096))
+W4_BATCHES = (8, 1, 32)  # the first is the entry's headline
+# Off the main path: pairs packing, f32 x, groups 32/64, R = 5, 17 and 64,
+# out widths with a tail (and not a multiple of 8: byte-wise loads), a
+# layer > 0 of a 3-layer stack.
+#   (R, in, out, group, packing, f32 x, stacked layer or None)
+W4_COVERAGE = (
+    (5, 1024, 1000, 64, "pairs", False, None),
+    (64, 2048, 768, 128, "halves", False, None),
+    (3, 512, 333, 32, "pairs", True, None),
+    (2, 768, 520, 64, "halves", True, 2),
+    (1, 14336, 264, 128, "pairs", False, 1),
+    (17, 256, 96, 32, "halves", False, None),
+)
+
+
+def _int4pack_library(x, w, golden):
+    """torch._weight_int4pack_mm on the same weights in its layout (q + 8
+    unsigned, [out, in/2] bytes with the even input row in the high nibble,
+    bf16 scales, zero point 0; it computes (q' - 8) * s + z): (ms, its
+    relative RMS error against the f32 golden, why there is no time). The
+    port never calls it: it is the yardstick beside the kernel."""
+    import torch
+    from quantizedmha_tpu_torch.quant.weights import unpack_weight4
+    try:
+        q = (unpack_weight4(w).to(torch.int32) + 8).t().contiguous()
+        wpk = torch._convert_weight_to_int4pack(((q[:, 0::2] << 4) | q[:, 1::2]).to(torch.uint8), 8)
+        sz = torch.stack([w.scale, torch.zeros_like(w.scale)], dim=-1).to(torch.bfloat16)
+
+        def fn():
+            return torch._weight_int4pack_mm(x, wpk, w.group, sz.contiguous())
+        got = fn()
+        torch.cuda.synchronize()
+    except (AttributeError, RuntimeError, TypeError) as e:
+        return None, None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    rel = ((got.float() - golden).norm() / golden.norm()).item()
+    return cuda_ms(fn, iters=50), rel, None
+
+
+def _w4_case(x, w, layer=None, *, timed):
+    """One w4_matmul case on the card: the wrapper's output (launched twice:
+    the two must be bitwise equal) against the plain version and the f32
+    golden; with timed, kernel / plain / library times and the bound."""
+    import torch
+    from quantizedmha_tpu_torch.ops import w4_matmul as w4
+    from quantizedmha_tpu_torch.quant.weights import dequantize_weight4
+    view = w if layer is None else w.layer(layer)
+    kw = dict(group=w.group, packing=w.packing)
+    out = w4.w4_matmul(x, w.packed, w.scale, layer=layer, **kw)
+    again = w4.w4_matmul(x, w.packed, w.scale, layer=layer, **kw)
+    torch.cuda.synchronize()
+    plain = w4._w4_matmul_plain(x, view.packed, view.scale, **kw)
+    golden = x.float() @ dequantize_weight4(view)
+    R, in_dim = x.shape
+    n = view.out_features
+    ratio = err_over_tol(out, plain, w4_tolerance(x, view, plain))
+    golden_ratio = err_over_tol(out, golden, w4_tolerance(x, view, golden, golden=True))
+    bitwise = bool(torch.equal(out, again))
+    e = {"rows": R, "in": in_dim, "out": n, "group": w.group, "packing": w.packing,
+         "x": str(x.dtype), "layer": layer,
+         "splits": w4.split_k(R, in_dim // 2, n)[1],
+         "max_abs_err": (out.float() - plain.float()).abs().max().item(),
+         "err_over_tol": ratio, "golden_err_over_tol": golden_ratio,
+         "bitwise_repeat": bitwise, "ok": ratio <= 1.0 and golden_ratio <= 1.0 and bitwise}
+    if timed:
+        kernel, args, _, _operands = w4._w4_matmul_launch(x, view.packed, view.scale, **kw)
+        e["ms"] = cuda_ms(lambda: kernel(*args), iters=50)
+        # The whole wrapper (checks, allocations, ctypes call) on the host
+        # clock, 50 calls and one sync: where it exceeds ms, the decode
+        # step's host loop, not the kernel, sets this matmul's pace.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            w4.w4_matmul(x, w.packed, w.scale, layer=layer, **kw)
+        torch.cuda.synchronize()
+        e["wrapper_ms"] = (time.perf_counter() - t0) * 1e3 / 50
+        e["plain_ms"] = cuda_ms(lambda: w4._w4_matmul_plain(x, view.packed, view.scale, **kw),
+                                iters=3, warmup=1)
+        e["nbytes"] = (view.packed.numel() + view.scale.numel() * 4
+                       + (R * in_dim + R * n) * x.element_size())
+        e["ops"] = {"bf16" if x.dtype == torch.bfloat16 else "fp32": 2 * R * in_dim * n}
+        e["bound_ms"], e["bound_by"] = bound(e["nbytes"], e["ops"])
+        e["library_ms"], e["library_rel_rms_err"], e["library_note"] = \
+            _int4pack_library(x, view, golden)
+    return e
+
+
+def _w4_kernels(g):
+    """The w4_matmul entry of the kernels line. Its ms, plain_ms, bound_ms
+    and library_ms are sums over the four fused matmuls of one layer at
+    R = 8 (a decode step runs them once per layer); `shapes` holds each
+    matmul at R = 8, 1 and 32, `coverage` the cases off the main path."""
+    import torch
+    from quantizedmha_tpu_torch.quant.weights import quantize_weight4
+    shapes = []
+    for name, in_dim, n in W4_MAIN:
+        w = quantize_weight4(torch.randn((in_dim, n), generator=g, device="cuda") * in_dim**-0.5,
+                             group=128, packing="halves")
+        for R in W4_BATCHES:
+            x = torch.randn((R, in_dim), generator=g, device="cuda").to(torch.bfloat16)
+            shapes.append({"matmul": name, **_w4_case(x, w, timed=True)})
+        del w
+    coverage = []
+    for R, in_dim, n, group, packing, f32, layer in W4_COVERAGE:
+        shape = (in_dim, n) if layer is None else (3, in_dim, n)
+        w = quantize_weight4(torch.randn(shape, generator=g, device="cuda"), group=group,
+                             packing=packing)
+        x = torch.randn((R, in_dim), generator=g, device="cuda")
+        coverage.append(_w4_case(x if f32 else x.to(torch.bfloat16), w, layer, timed=False))
+    main = [e for e in shapes if e["rows"] == W4_BATCHES[0]]
+    ops = {}
+    for e in main:
+        for k, v in e["ops"].items():
+            ops[k] = ops.get(k, 0) + v
+    bms, by = bound(sum(e["nbytes"] for e in main), ops)
+    lib = [e["library_ms"] for e in main]
+    return {"name": "w4_matmul", "route": "cuda",
+            "source": "quantizedmha_tpu_torch/csrc/w4_matmul.cu",
+            "replaces": "quantizedmha_tpu/ops/w4_matmul.py:62",
+            "also_replaces": "quantizedmha_tpu/ops/w4_matmul.py:46", "launches": None,
+            "max_abs_err": max(e["max_abs_err"] for e in main),
+            "err_over_tol": max(e["err_over_tol"] for e in shapes + coverage),
+            "ok": all(e["ok"] for e in shapes + coverage),
+            "ms": sum(e["ms"] for e in main), "plain_ms": sum(e["plain_ms"] for e in main),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": None if None in lib else sum(lib),
+            "library_note": next((e["library_note"] for e in main if e["library_note"]), None),
+            "shapes": shapes, "coverage": coverage}
+
+
 def phase_kernels(st):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -386,6 +547,7 @@ def phase_kernels(st):
     cases[-1]["mqa"] = {k: mqa[k] for k in ("replaces", "max_abs_err", "err_over_tol", "ok",
                                             "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
     cases[-1]["ok"] = cases[-1]["ok"] and mqa["ok"]
+    cases.append(_w4_kernels(g))
     st["kernels"] = {c["name"]: c for c in cases}
     ok = all(c["ok"] for c in cases)
     emit({"phase": "kernels", "ok": ok, "kernels": cases})
@@ -540,14 +702,168 @@ def phase_serve(st):
         raise AssertionError("serve phase failed its checks")
 
 
+def _dequantized(params, dtype):
+    """params with every QuantizedWeight4 layer stack replaced by its
+    dequantized weights as plain `dtype` tensors, one layer at a time."""
+    import torch
+    from quantizedmha_tpu_torch.quant.weights import QuantizedWeight4, dequantize_weight4
+    layers = {}
+    for k, v in params["layers"].items():
+        if isinstance(v, QuantizedWeight4):
+            plain = torch.empty(v.shape, dtype=dtype, device=v.packed.device)
+            for i in range(plain.shape[0]):
+                plain[i] = dequantize_weight4(v.layer(i)).to(dtype)
+            v = plain
+        layers[k] = v
+    return dict(params, layers=layers)
+
+
+W4_SERVE = dict(prompt_len=512, max_new=64, chunk=16)  # the JAX bench's defaults
+W4_PEAK_HEADROOM_GB = 2.0  # activations and prefill dequant transients
+
+
+def phase_serve_w4(st):
+    """w4a16 serving of "llama3-8b-shape-int4-lmh8" through the benchmark's
+    run_decode_bench at batch 1, 8 and 32."""
+    import torch
+    from quantizedmha_tpu_torch.harness import serving_bench
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.ops import w4_matmul as w4
+    from quantizedmha_tpu_torch.quant.weights import (
+        fuse_w4_projections,
+        quantize_llama_params,
+        weight_bytes,
+    )
+    from quantizedmha_tpu_torch.serving import llama_adapter
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), attention_impl="flash_int8")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = quantize_llama_params(llama.init_params(cfg, gen, device="cuda"), bits=4,
+                                   group=128, packing="halves", lm_head_bits=8)
+    params = dict(params, layers=fuse_w4_projections(params["layers"]))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    wbytes = weight_bytes(params)
+
+    # A 64-token prefill (R = 64: the kernel's side of _W4_DECODE_ROWS)
+    # against the same model with the dequantized weights as plain bf16
+    # tensors: the same weights, summed in another order.
+    toks = torch.randint(1, cfg.vocab_size, (1, 64), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    w4.W4_MATMUL.reset()
+    logits, _, _ = llama_adapter.prefill_at(cfg, params, toks, 63)
+    prefill_launches = w4.W4_MATMUL.launches
+    plain = _dequantized(params, cfg.dtype)
+    ref = llama.forward(cfg, plain, toks)[:, -1]
+    del plain
+    torch.cuda.empty_cache()
+    rel = ((logits - ref).abs().max() / ref.std()).item()
+    finite = bool(torch.isfinite(logits).all().item())
+
+    kernels = {"w4_matmul": w4.W4_MATMUL, "flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P,
+               "flash_int8_fwd[bf16_p]": fa8.FLASH_BF16_P, "paged_decode": dec.PAGED_DECODE}
+    rows, ok = [], finite and rel <= 0.25 and prefill_launches == 4 * L
+    for batch in (1, 8, 32):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for kern in kernels.values():
+            kern.reset()
+        row = serving_bench.run_decode_bench(cfg, params, batch=batch, **W4_SERVE)
+        torch.cuda.synchronize()
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        steps = row["decode_steps"]
+        want = {"w4_matmul": 4 * L * steps, "flash_int8_fwd[int8_p]": L * (batch + 1),
+                "flash_int8_fwd[bf16_p]": 0, "paged_decode": L * steps}
+        mpps = -(-(W4_SERVE["prompt_len"] + W4_SERVE["max_new"] + W4_SERVE["chunk"] + 1) // 128)
+        cache_gb = (batch * mpps + 2) * L * 2 * cfg.num_kv_heads * (128 * cfg.hd + 4) / 1e9
+        extra_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        row.update(launches=launches, launches_expected=want, cache_gb=cache_gb,
+                   peak_extra_gb=extra_gb,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        row_ok = (launches == want and row["requests_failed"] == 0
+                  and row["tokens_per_request"] == [W4_SERVE["max_new"]]
+                  and extra_gb <= cache_gb + W4_PEAK_HEADROOM_GB)
+        row["ok"] = row_ok
+        ok = ok and row_ok
+        rows.append(row)
+        for name, n in launches.items():
+            st["launches"][name] = st["launches"].get(name, 0) + n
+    if st.get("profile"):
+        emit({"phase": "serve_w4_profile", **_profile_w4(cfg, params)})
+    emit({"phase": "serve_w4", "ok": ok, "model": "llama3-8b-shape-int4-lmh8",
+          "layers": L, "weights_gb": wbytes / 1e9, "init_s": init_s,
+          "prefill64_w4_launches": prefill_launches,
+          "prefill64_logits_rel_err_vs_bf16_dequant": rel, "rel_err_tol": 0.25,
+          "peak_headroom_gb": W4_PEAK_HEADROOM_GB, "sweep": rows})
+    if not ok:
+        raise AssertionError("serve_w4 phase failed its checks")
+
+
+def _profile_w4(cfg, params):
+    """Profiled full-batch decode chunks of the w4 model at batch 8."""
+    import numpy as np
+    from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
+    batch, page, new = 8, 128, 4 * W4_SERVE["chunk"]
+    mpps = -(-(W4_SERVE["prompt_len"] + new + W4_SERVE["chunk"] + 1) // page)
+    ecfg = EngineConfig(num_pages=batch * mpps + 2, page_size=page, max_batch=batch,
+                        max_pages_per_seq=mpps, prefill_buckets=(W4_SERVE["prompt_len"],),
+                        max_new_tokens=new, decode_chunk=W4_SERVE["chunk"])
+    eng = Engine(cfg, params, ecfg, device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, W4_SERVE["prompt_len"]).tolist()
+               for _ in range(batch)]
+    return _profile_decode_chunk(eng, prompts, new)
+
+
+def _host_profile(eng, steps):
+    """One engine step under cProfile: the host's time a decode step by
+    function. `own` ranks own time (a C call such as a torch op is its own
+    entry; a ctypes launch counts in its caller), `port` the port's
+    functions by cumulative time with their calls a step, `c_share` the
+    share of own time spent in C calls. cProfile slows every Python
+    call, so its shares, not its times, carry over to an untraced step."""
+    import cProfile
+    import pstats
+    import torch
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    eng.step()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats  # (file, line, name) -> (cc, nc, tt, ct, callers)
+    total = sum(v[2] for v in stats.values())
+
+    def row(f, v, t):
+        fn = f[2] if f[0] == "~" else f"{os.path.basename(f[0])}:{f[1]}({f[2]})"
+        return {"fn": fn[:90], "calls": v[1] / steps, "ms": t * 1e3 / steps,
+                "share": t / total, "us_per_call": t * 1e6 / max(v[1], 1)}
+    own = sorted(stats.items(), key=lambda kv: -kv[1][2])[:16]
+    port = sorted(((f, v) for f, v in stats.items() if "quantizedmha_tpu_torch" in f[0]),
+                  key=lambda kv: -kv[1][3])[:16]
+    return {"wall_ms_per_step": wall * 1e3 / steps, "own_ms_per_step": total * 1e3 / steps,
+            "c_share": sum(v[2] for f, v in stats.items() if f[0] == "~") / total,
+            "own": [row(f, v, v[2]) for f, v in own],
+            "port": [row(f, v, v[3]) for f, v in port]}
+
+
 def _profile_decode_chunk(eng, prompts, max_new):
     """Where a full-batch decode chunk's time goes. One engine step
     (decode_chunk steps, one host sync) runs untraced, the next under
-    torch.profiler; each window is timed on the host clock and with CUDA
-    events. The device kernels of the traced window are grouped by name,
-    and its idle share is 1 - their busy time / that same window's
-    CUDA-event time (tracing slows the host, so this share is an upper
-    bound; the untraced window's times stand beside it)."""
+    torch.profiler, a third under cProfile (`host`); the first two are
+    timed on the host clock and with CUDA events. The device kernels of
+    the traced window are grouped by name, and its idle share is 1 -
+    their busy time / that same window's CUDA-event time (tracing slows
+    the host, so this share is an upper bound; the untraced window's
+    times stand beside it). Needs four chunks of max_new."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -569,11 +885,13 @@ def _profile_decode_chunk(eng, prompts, max_new):
     untraced_wall, untraced_events = window()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_wall, traced_events = window()
-    eng.run()
     steps = eng.ecfg.decode_chunk
-    groups = (("flash_int8_fwd", "flash_int8"), ("paged_decode", "paged_decode"),
+    host = _host_profile(eng, steps)
+    eng.run()
+    groups = (("w4_matmul", ("w4_matmul_kernel", "w4_reduce_kernel")),
+              ("flash_int8_fwd", "flash_int8"), ("paged_decode", "paged_decode"),
               ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
-              ("direct_copy (dtype casts: w8a16 weights)", "direct_copy"))
+              ("direct_copy (dtype casts)", "direct_copy"))
     by_name, by_group = {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -599,7 +917,8 @@ def _profile_decode_chunk(eng, prompts, max_new):
                                 for g, (t, n) in sorted(by_group.items(),
                                                         key=lambda kv: -kv[1][0])},
             "top_kernels_per_step": [{"kernel": k[:80], "ms": t / 1e3 / steps,
-                                      "launches": n / steps} for k, (t, n) in top]}
+                                      "launches": n / steps} for k, (t, n) in top],
+            "host": host}
 
 
 def main(argv=None) -> int:
@@ -608,7 +927,7 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
                     help="also trace one full-batch decode chunk of the serve "
-                         "phase with torch.profiler")
+                         "and serve_w4 phases with torch.profiler")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     bad = [p for p in phases if p not in PHASES]
@@ -647,12 +966,15 @@ def main(argv=None) -> int:
         for name, c in st["kernels"].items():
             e = {k: c[k] for k in ("name", "route", "source", "replaces", "max_abs_err",
                                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            e.update({k: c[k] for k in ("also_replaces", "mqa") if k in c})
+            e.update({k: c[k] for k in ("also_replaces", "mqa", "library_note") if k in c})
+            if "shapes" in c:
+                e["shapes"] = [{k: s[k] for k in ("matmul", "rows", "ms", "wrapper_ms", "plain_ms",
+                                                  "bound_ms", "library_ms")} for s in c["shapes"]]
             e["launches"] = st["launches"].get(name, 0)
             entries.append(e)
         emit({"kernels": entries})
         idle = [e["name"] for e in entries if e["launches"] == 0]
-        if {"solve", "serve"} <= set(phases) and idle:
+        if {"solve", "serve", "serve_w4"} <= set(phases) and idle:
             print(f"chip_smoke: kernels never launched on a main path: {idle}",
                   file=sys.stderr)
             return 1

@@ -2,7 +2,8 @@
 
 `params_from_numpy` takes a models.llama params tree of the JAX package as
 nested dicts of numpy arrays — a QuantizedWeight arriving as
-{"values": ..., "scale": ...} — and returns the port's parameters, leaf for
+{"values": ..., "scale": ...} and a QuantizedWeight4 as {"packed", "scale",
+"group", "packing"} — and returns the port's parameters, leaf for
 leaf, so both packages compute the same function from the same numbers.
 """
 
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from quantizedmha_tpu_torch.device import resolve_device
-from quantizedmha_tpu_torch.quant.weights import QuantizedWeight
+from quantizedmha_tpu_torch.quant.weights import QuantizedWeight, QuantizedWeight4
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
@@ -30,5 +31,9 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
         if set(tree) == {"values", "scale"}:
             return QuantizedWeight(values=_tensor(tree["values"], dev),
                                    scale=_tensor(tree["scale"], dev))
+        if set(tree) == {"packed", "scale", "group", "packing"}:
+            return QuantizedWeight4(packed=_tensor(tree["packed"], dev),
+                                    scale=_tensor(tree["scale"], dev),
+                                    group=int(tree["group"]), packing=str(tree["packing"]))
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     return _tensor(tree, dev)

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from quantizedmha_tpu_torch.device import resolve_device
 from quantizedmha_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
 from quantizedmha_tpu_torch.ops.quantize import true_div
-from quantizedmha_tpu_torch.quant.weights import QuantizedWeight, qdense
+from quantizedmha_tpu_torch.quant.weights import QuantizedWeight, QuantizedWeight4, qdense
 from quantizedmha_tpu_torch.reference.mha import apply_rope, mha_masked_reference
 
 _FLASH_TODO = ("attention_impl='flash' needs ops/flash_attention.py's "
@@ -192,7 +192,7 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
 
 def layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Views of layer i of the layer-stacked parameter dict."""
-    return {k: (v.layer(i) if isinstance(v, QuantizedWeight) else v[i])
+    return {k: (v.layer(i) if isinstance(v, (QuantizedWeight, QuantizedWeight4)) else v[i])
             for k, v in layers.items()}
 
 
@@ -218,22 +218,34 @@ def _act(cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown hidden_act {cfg.hidden_act!r}")
 
 
+def _with_bias(out, p: Dict[str, Any], b: str):
+    return out + p[b] if b in p else out
+
+
 def qkv_proj(dense, h, p: Dict[str, Any], w: str, b: str):
-    out = dense(h, p[w])
-    if b in p:
-        out = out + p[b]
-    return out
+    return _with_bias(dense(h, p[w]), p, b)
 
 
 def qkv_triple(cfg, dense, h, p: Dict[str, Any]):
-    """The (q, k, v) flat projections, with optional Qwen2-style biases."""
+    """The (q, k, v) flat projections, with optional Qwen2-style biases; one
+    matmul when the layer carries a fused `wqkv`
+    (quant.weights.fuse_w4_projections), split at static widths."""
+    if "wqkv" in p:
+        nkv = cfg.num_kv_heads * cfg.hd
+        qkv = torch.split(dense(h, p["wqkv"]), (cfg.num_heads * cfg.hd, nkv, nkv), dim=-1)
+        return tuple(_with_bias(t, p, b) for t, b in zip(qkv, ("bq", "bk", "bv")))
     return (qkv_proj(dense, h, p, "wq", "bq"),
             qkv_proj(dense, h, p, "wk", "bk"),
             qkv_proj(dense, h, p, "wv", "bv"))
 
 
 def mlp_gate_up(cfg, dense, h, p: Dict[str, Any]):
-    """(pre-activation gate, up) MLP projections."""
+    """(pre-activation gate, up) MLP projections, one matmul when the layer
+    carries a fused `w_gateup`."""
+    if "w_gateup" in p:
+        gu = dense(h, p["w_gateup"])
+        inter = gu.shape[-1] // 2
+        return gu[..., :inter], gu[..., inter:]
     return dense(h, p["w_gate"]), dense(h, p["w_up"])
 
 

@@ -30,6 +30,9 @@ def to_numpy_tree(t):
     """The JAX params tree as nested dicts of numpy arrays."""
     if isinstance(t, jw.QuantizedWeight):
         return {"values": np.asarray(t.values), "scale": np.asarray(t.scale)}
+    if isinstance(t, jw.QuantizedWeight4):
+        return {"packed": np.asarray(t.packed), "scale": np.asarray(t.scale),
+                "group": t.group, "packing": t.packing}
     if isinstance(t, dict):
         return {k: to_numpy_tree(v) for k, v in t.items()}
     return np.asarray(t)
@@ -129,8 +132,6 @@ def test_unported_paths_raise():
     _, _, tc, tp = _pair("d32", impl="flash")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tl.forward(tc, tp, torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tw.quantize_llama_params(tp, bits=4)
     q = tw.quantize_weight(torch.ones(4, 4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tw.qdense(torch.ones(1, 4), q, mode="w8a8")
