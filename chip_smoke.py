@@ -14,10 +14,11 @@ result line:
            tolerance (err_over_tol <= 1), then on small cases off the main
            paths; kernel / plain / library times (CUDA events) and the
            least time the card could take (bound).
-  solve    the reference ABI, solve(kernel="fa_int8") at N=8192,
-           d_model=1024, h=32 in float32: time, relative RMS error against
-           the float golden, and the constant-input gate (all-ones ->
-           exactly 1.0).
+  solve    the reference ABI at N=8192, d_model=1024, h=32 in float32:
+           solve(kernel="fa_int8"), then the float rungs "fa", "fa_bf16"
+           and "unfused": time, relative RMS error against the float
+           golden with each rung's limit, and the constant-input gate
+           (all-ones -> exactly 1.0).
   serve    Llama-3-8B width and depth (32 layers), random INT8 (w8a16)
            weights with a bf16 lm_head, flash_int8 prefill and paged INT8
            decode through the continuous-batching engine: 8 requests of
@@ -31,11 +32,29 @@ result line:
            (exactly 4 launches a layer a decode step; 512-row prefills
            take the dequantize-then-matmul lowering). A 64-token prefill
            is held against the dequantized weights as plain bf16 tensors.
+  serve_flash  Llama-3-8B as configured (attention_impl="flash", random
+           bf16 weights, 32 layers) through the engine with the default
+           buckets (128-2048), page 128, prefix caching and interleaved
+           prefill: prompts of 256, 700, 1500 and 2000 tokens (float flash
+           prefill), 5000 and 7900 (chunked prefill through the paged INT8
+           cache, one chunk per engine step), then two prompts sharing the
+           7900-token prompt's first 4096 tokens (prefix hits: only their
+           suffixes prefill); 32 new tokens each, greedy. Then eight fresh
+           2000-token prompts, 72 new tokens each: the engine steps that
+           decode all eight for a whole chunk time decode at batch 8.
+           Gates: exact launch counts, 2 hits reusing 8192 tokens, the
+           2000-token and the chunked 5000-token prefills' last logits
+           within 0.25 std of the float attention golden.
+  faults   each line of PLANTED_FAULTS planted in a copy of csrc/, the
+           float kernel sources that the changed file is part of
+           (flash_fwd.cu, paged_prefill.cu, their shared f32_tile.cuh)
+           built in parallel and bound in turn in place of the committed
+           kernels, their checks rerun: every fault must fail them.
 
 Launch counts: every kernel wrapper counts its launches; the counts are
-zeroed just before each main path (solve, serve, each serve_w4 batch)
-runs and read just after, and a kernel of that path that never launched
-fails the run. The last
+zeroed just before each main path (each solve rung, serve, each serve_w4
+batch, serve_flash) runs and read just after, and a kernel of that path
+that never launched fails the run. The last
 lines are the kernels summary, the card's name and power limit, and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -63,7 +82,7 @@ EXP_PER_S = 132 * 16 * 1.98e9
 REFERENCE_L4_MS = 7.70  # the reference study's fa_tc_int8_b on an NVIDIA L4
 SOLVE_REL_RMS_TOL = 0.03  # int8 solve vs the float golden (phase_solve)
 
-PHASES = ("build", "kernels", "solve", "serve", "serve_w4")
+PHASES = ("build", "kernels", "solve", "serve", "serve_w4", "serve_flash", "faults")
 
 
 def emit(obj) -> None:
@@ -178,6 +197,95 @@ def decode_tolerance(o_plain, v_pages, v_scales):
     return tol
 
 
+def score_err(q_norm, k_norm, D):
+    """Bound of the f32 summation-order difference of one score q·k between
+    two orders (the kernel's, the plain version's): (D + 16) ulps of the
+    Cauchy-Schwarz bound |q|·|k| on the sum of |q_i k_i|."""
+    return (D + 16) * 2.0**-24 * q_norm * k_norm
+
+
+def flash_fwd_tolerances(q, k, v, o_plain, lse_plain, w_abs, *, sm_scale, softcap):
+    """Per-element tolerances of the float flash kernel's output and lse
+    (None when not saved) against its plain version on the same inputs.
+
+    Scores: the two sum Q·K in other orders (the kernel's tensor-core or
+    FMA order, the plain version's matmul), by at most ds per row
+    (score_err over the row's scaled |q| and its kv head's largest |k|;
+    softcap's tanh adds ulps of the cap). A score moved by ds moves the
+    row's output by at most 4 ds max|v|. P·V and l: f32 summation order,
+    1e-5 of max|v|. bf16 P: the kernel rounds P to bf16 against its running
+    max after each 64-key tile, the plain version after each block_kv keys.
+    Each rounding is off by at most half an ulp, 2^-8 |p|, so the two
+    rounded P of one key differ by at most 2^-7 |p|, and the outputs by at
+    most 2^-7 of sum_j p_j |v_j| / l, w_abs (the plain version's output on
+    |v|). A bf16 output adds one bf16 ulp (2^-7 |o|). lse: ds + 1e-5 (l's
+    order) + f32 rounding of m + log l."""
+    import torch
+    from quantizedmha_tpu_torch.ops.flash_attention import scaled_q
+    D = q.shape[-1]
+    group = q.shape[1] // k.shape[1]
+    qn = scaled_q(q, sm_scale).double().norm(dim=-1)                        # [B, H, Sq]
+    kn = k.double().norm(dim=-1).amax(dim=-1).repeat_interleave(group, dim=1)  # [B, H]
+    vmax = v.double().abs().amax(dim=(-2, -1)).repeat_interleave(group, dim=1)
+    ds = score_err(qn, kn[..., None], D)
+    if softcap is not None:
+        ds = ds + 2.0**-22 * softcap
+    tol_o = (4.0 * ds + 1e-5)[..., None] * vmax[:, :, None, None]
+    if q.dtype == torch.bfloat16:
+        tol_o = tol_o + 2.0**-7 * w_abs.double()
+        tol_o = tol_o + 2.0**-7 * (o_plain.double().abs() + tol_o)
+    if lse_plain is None:
+        return tol_o, None
+    tol_lse = ds + 1e-5 + 1e-6 * torch.nan_to_num(lse_plain.double().abs(), posinf=0.0)
+    return tol_o, tol_lse
+
+
+def paged_prefill_tolerances(q, k_pages, v_pages, k_scales, v_scales, o_plain, lse_plain,
+                             *, sm_scale, softcap):
+    """Per-element tolerances of the paged prefill kernel against its plain
+    version: both compute in f32 from the same int8 pages, so only the
+    summation orders differ. Scores by at most ds per row (score_err over
+    |q·sm_scale| and the kv head's largest dequantized |k|), moving the
+    output by at most 4 ds max|v|; P·V and l by 1e-5 of max|v| (max|v|
+    over the kv head's pages, dequantized); a bf16 output adds one ulp. lse:
+    ds + 1e-5 + f32 rounding of m + log l."""
+    import torch
+    D = q.shape[-1]
+    group = q.shape[1] // k_pages.shape[0]
+    qn = (q.double() * sm_scale).norm(dim=-1)                                 # [B, Hq, C]
+    kn = (k_pages.double().norm(dim=-1) * k_scales.double()[..., None]).flatten(1).amax(dim=1)
+    vmax = (v_pages.double().abs().amax(dim=-1) * v_scales.double()[..., None]).flatten(1).amax(dim=1)
+    kn, vmax = (x.repeat_interleave(group)[None, :, None] for x in (kn, vmax))
+    ds = score_err(qn, kn, D)
+    if softcap is not None:
+        ds = ds + 2.0**-22 * softcap
+    tol_o = ((4.0 * ds + 1e-5) * vmax)[..., None]
+    if o_plain.dtype == torch.bfloat16:
+        tol_o = tol_o + 2.0**-7 * (o_plain.double().abs() + tol_o)
+    tol_lse = ds + 1e-5 + 1e-6 * torch.nan_to_num(lse_plain.double().abs(), posinf=0.0)
+    return tol_o, tol_lse
+
+
+def _sdpa(q, k, v, **kw):
+    """(ms, backend) of one F.scaled_dot_product_attention call on these
+    inputs: the first of flash, memory-efficient, cuDNN and math attention
+    that takes them. The port never calls it: it is the yardstick."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                sdpa(q, k, v, **kw)
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        with sdpa_kernel(backend):
+            return cuda_ms(lambda: sdpa(q, k, v, **kw), iters=10), backend.name
+    return None, None
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -249,13 +357,16 @@ def _flash_case(name, route_mode, q, k, v, block_kv, causal, *, replaces, librar
             "library_ms": lib_ms}
 
 
-def _decode_case(name, Hkv, *, replaces, seed):
+def _decode_case(name, Hkv, *, replaces, seed, lengths=(257, 300), max_pages=4):
+    """The decode kernel against its plain version at batch 8, Llama-3-8B
+    heads, page 128: context lengths drawn from the closed range `lengths`,
+    block tables of max_pages slots."""
     import torch
     from quantizedmha_tpu_torch.ops import decode as dec
     g = torch.Generator(device="cuda").manual_seed(seed)
     B, Hq, D, P = 8, 32, 128, 128
-    lengths = torch.randint(257, 301, (B,), generator=g, device="cuda", dtype=torch.int32)
-    max_pages = 4
+    lengths = torch.randint(lengths[0], lengths[1] + 1, (B,), generator=g, device="cuda",
+                            dtype=torch.int32)
     num_pages = B * max_pages + 1
     perm = torch.randperm(num_pages - 1, generator=g, device="cuda")[:B * max_pages] + 1
     tables = perm.reshape(B, max_pages).to(torch.int32)
@@ -287,9 +398,155 @@ def _decode_case(name, Hkv, *, replaces, seed):
             "err_over_tol": ratio, "tol_range": [tol.min().item(), tol.max().item()],
             "ok": ratio <= 1.0,
             "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "page": P,
-                      "lengths": lengths.tolist()},
+                      "max_pages": max_pages, "lengths": lengths.tolist()},
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None}
+
+
+def _flash_fwd_check(q, k, v, offsets, *, causal, window=None, sinks=0, softcap=None,
+                     save_residuals=True):
+    """One float flash launch against its plain version on the card:
+    (kernel output, plain output, [output, lse] err_over_tol, launch,
+    plain call)."""
+    import torch
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    sm = q.shape[-1] ** -0.5
+    kw = dict(sm_scale=sm, causal=causal, block_kv=min(1024, k.shape[2]), window=window,
+              softcap=softcap, sinks=sinks, save_residuals=save_residuals)
+    kernel, args, (out, lse), _operands = fa._flash_fwd_launch(q, k, v, offsets, **kw)
+    kernel(*args)
+    torch.cuda.synchronize()
+    p_out, p_lse = fa._flash_fwd_plain(q, k, v, offsets, **dict(kw, save_residuals=True))
+    w_abs = fa._flash_fwd_plain(q, k, v.abs(), offsets, **dict(kw, save_residuals=False))
+    tol, lse_tol = flash_fwd_tolerances(q, k, v, p_out, p_lse if save_residuals else None,
+                                        w_abs, sm_scale=sm, softcap=softcap)
+    ratios = [err_over_tol(out, p_out, tol)]
+    if save_residuals:
+        ratios.append(err_over_tol(lse, p_lse, lse_tol))
+    return (out, p_out, ratios, tol, lambda: kernel(*args),
+            lambda: fa._flash_fwd_plain(q, k, v, offsets, **kw))
+
+
+def _visible_pairs(sq, skv, causal):
+    """(q, kv) pairs an end-aligned causal (or full) attention computes."""
+    if not causal:
+        return sq * skv
+    return sum(min(skv, skv - sq + i + 1) for i in range(sq) if skv - sq + i + 1 > 0)
+
+
+def _flash_fwd_case(name, q, k, v, causal, *, replaces, label):
+    """The float flash kernel at one main-path shape (end-aligned, no
+    window): check, kernel / plain / SDPA times, the bound."""
+    import torch
+    from quantizedmha_tpu_torch.ops.flash_attention import _offsets
+    B, H, S, D = q.shape
+    Skv = k.shape[2]
+    offsets = _offsets(Skv - S, 0, B, q.device)
+    out, p_out, ratios, tol, launch, plain = _flash_fwd_check(q, k, v, offsets, causal=causal,
+                                                              save_residuals=False)
+    ms = cuda_ms(launch, iters=10)
+    plain_ms = cuda_ms(plain, iters=2, warmup=1)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    lib_ms, backend = _sdpa(qb, kb, vb, is_causal=causal, enable_gqa=kb.shape[1] != qb.shape[1])
+    pairs = B * H * _visible_pairs(S, Skv, causal)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    unit = "bf16" if q.dtype == torch.bfloat16 else "fp32"
+    bms, by = bound(nbytes, {unit: 4 * pairs * D, "exp": pairs})
+    return {"name": name, "route": "cuda", "source": "quantizedmha_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": replaces, "launches": None, "label": label,
+            "max_abs_err": (out.float() - p_out.float()).abs().max().item(),
+            "err_over_tol": ratios[0], "tol_range": [tol.min().item(), tol.max().item()],
+            "ok": ratios[0] <= 1.0,
+            "shape": {"B": B, "Hq": H, "Hkv": k.shape[1], "Sq": S, "Skv": Skv, "D": D,
+                      "causal": causal, "dtype": str(q.dtype)},
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms, "library_backend": backend}
+
+
+def _paged_cache(g, Hkv, num_pages, P, D):
+    """Random int8 pages and per-(head, page) scales on the card."""
+    import torch
+    k_pages, v_pages = torch.randint(-127, 128, (2, Hkv, num_pages, P, D), generator=g,
+                                     device="cuda", dtype=torch.int8)
+    k_scales, v_scales = torch.rand((2, Hkv, num_pages), generator=g, device="cuda") * 0.02 + 0.005
+    return k_pages, v_pages, k_scales, v_scales
+
+
+def _paged_prefill_check(q, cache, lengths, q_starts, tables, *, window=None, sinks=0,
+                         softcap=None):
+    """One paged prefill launch (with lse) against its plain version:
+    (kernel output, plain output, [output, lse] err_over_tol, tolerance,
+    launch, plain call)."""
+    import torch
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    sm = q.shape[-1] ** -0.5
+    kw = dict(sm_scale=sm, window=window, softcap=softcap, sinks=sinks, save_residuals=True)
+    operands = (q, *cache, lengths, q_starts, tables)
+    kernel, args, (out, lse), _operands = pp._paged_prefill_launch(*operands, **kw)
+    kernel(*args)
+    torch.cuda.synchronize()
+    p_out, p_lse = pp._paged_prefill_plain(*operands, **kw)
+    tol, lse_tol = paged_prefill_tolerances(q, *cache, p_out, p_lse, sm_scale=sm,
+                                            softcap=softcap)
+    ratios = [err_over_tol(out, p_out, tol), err_over_tol(lse, p_lse, lse_tol)]
+    return (out, p_out, ratios, tol, lambda: kernel(*args),
+            lambda: pp._paged_prefill_plain(*operands, **kw))
+
+
+# The serve_flash path's heaviest chunk shape: a 2048-row chunk at 4096 of
+# context (lengths 6144), Llama-3-8B heads, page 128, bf16 q.
+PAGED_MAIN = dict(Hq=32, Hkv=8, D=128, P=128, C=2048, q_start=4096)
+
+
+def _paged_main_inputs(g):
+    """(q, cache, lengths, q_starts, tables) at PAGED_MAIN."""
+    import torch
+    Hq, Hkv, D, P, C, q0 = (PAGED_MAIN[x] for x in ("Hq", "Hkv", "D", "P", "C", "q_start"))
+    n_pages = (q0 + C) // P
+    cache = _paged_cache(g, Hkv, n_pages + 1, P, D)
+    tables = (torch.randperm(n_pages, generator=g, device="cuda") + 1)[None].to(torch.int32)
+    q = torch.randn((1, Hq, C, D), generator=g, device="cuda").to(torch.bfloat16)
+    lengths = torch.tensor([q0 + C], dtype=torch.int32, device="cuda")
+    q_starts = torch.tensor([q0], dtype=torch.int32, device="cuda")
+    return q, cache, lengths, q_starts, tables
+
+
+def _paged_prefill_case(g, *, replaces):
+    Hq, Hkv, D, P, C, q0 = (PAGED_MAIN[x] for x in ("Hq", "Hkv", "D", "P", "C", "q_start"))
+    ctx = q0 + C
+    n_pages = ctx // P
+    q, cache, lengths, q_starts, tables = _paged_main_inputs(g)
+    out, p_out, ratios, tol, launch, plain = _paged_prefill_check(q, cache, lengths, q_starts,
+                                                                  tables)
+    ms = cuda_ms(launch, iters=5)
+    plain_ms = cuda_ms(plain, iters=2, warmup=1)
+    # SDPA on the same K/V dequantized to bf16 and expanded to the q heads
+    # beforehand (untimed), with the chunk's causal mask made explicit.
+    import torch
+    k_pages, v_pages, k_scales, v_scales = cache
+    idx = tables[0].long()
+
+    def dense(pages, scales):
+        x = pages[:, idx].float() * scales[:, idx][..., None, None]      # [Hkv, n, P, D]
+        return x.reshape(Hkv, ctx, D).repeat_interleave(Hq // Hkv, dim=0)[None].to(torch.bfloat16)
+    kd, vd = dense(k_pages, k_scales), dense(v_pages, v_scales)
+    mask = (torch.arange(ctx, device="cuda")[None, :]
+            <= q0 + torch.arange(C, device="cuda")[:, None])
+    lib_ms, backend = _sdpa(q, kd, vd, attn_mask=mask)
+    del kd, vd
+    pairs = Hq * (C * q0 + C * (C + 1) // 2)
+    nbytes = (2 * q.numel() * 2 + 2 * ctx * Hkv * D + 2 * Hkv * n_pages * 4
+              + tables.numel() * 4 + Hq * C * 4)
+    bms, by = bound(nbytes, {"fp32": 4 * pairs * D, "exp": pairs})
+    return {"name": "paged_prefill", "route": "cuda",
+            "source": "quantizedmha_tpu_torch/csrc/paged_prefill.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": (out.float() - p_out.float()).abs().max().item(),
+            "err_over_tol": max(ratios), "tol_range": [tol.min().item(), tol.max().item()],
+            "ok": max(ratios) <= 1.0,
+            "shape": dict(PAGED_MAIN, lengths=ctx, save_residuals=True, q="bfloat16"),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms, "library_backend": backend}
 
 
 # Small shapes off the main paths, so that every branch of the two kernels
@@ -316,6 +573,63 @@ DECODE_COVERAGE = (
     (3, 4, 4, 64, 32, 20, 3, 50.0, True),
     (2, 8, 1, 128, 16, 7, 0, None, False),
 )
+
+
+#   (B, H, Hkv, Sq, Skv, D, causal, window, sinks, softcap, bf16, (q_off, kv_off) or None)
+FLASH_FWD_COVERAGE = (
+    (2, 4, 2, 100, 190, 32, False, None, 0, None, False, None),
+    (2, 4, 2, 100, 190, 64, True, None, 0, None, True, None),
+    (1, 4, 1, 130, 130, 128, True, 40, 4, None, True, None),
+    (1, 4, 1, 130, 130, 128, True, 40, 4, None, False, None),
+    (1, 8, 2, 77, 77, 64, True, None, 0, 20.0, True, None),
+    (1, 2, 2, 96, 160, 32, True, None, 0, 30.0, False, (10, 50)),
+    (2, 4, 4, 64, 64, 128, False, None, 0, None, False, None),
+)
+#   (Hq, Hkv, D, page, C, lengths, q_starts, window, sinks, softcap, bf16 q)
+PAGED_PREFILL_COVERAGE = (
+    (8, 2, 32, 16, 40, (40, 90), (0, 50), None, 0, None, False),
+    (4, 4, 64, 32, 33, (100,), (67,), 30, 3, None, True),
+    (8, 1, 128, 128, 70, (200, 70, 0), (130, 0, 0), None, 0, 10.0, True),
+    (6, 2, 64, 64, 20, (300,), (280,), 64, 0, None, False),
+    (32, 8, 128, 128, 130, (900,), (770,), None, 0, None, True),
+)
+
+
+def _coverage_float(g):
+    """FLASH_FWD_COVERAGE and PAGED_PREFILL_COVERAGE: kernel against plain
+    on the card, [output, lse] err_over_tol per case."""
+    import torch
+    from quantizedmha_tpu_torch.ops.flash_attention import _offsets
+    ratios, failed = {}, []
+    for i, (B, H, Hkv, Sq, Skv, D, causal, window, sinks, cap, bf16,
+            offs) in enumerate(FLASH_FWD_COVERAGE):
+        dt = torch.bfloat16 if bf16 else torch.float32
+        q = (torch.randn((B, H, Sq, D), generator=g, device="cuda") * 1.5).to(dt)
+        k, v = torch.randn((2, B, Hkv, Skv, D), generator=g, device="cuda").to(dt)
+        q_off, kv_off = offs if offs is not None else (Skv - Sq, 0)
+        _, _, r, *_ = _flash_fwd_check(q, k, v, _offsets(q_off, kv_off, B, q.device),
+                                       causal=causal, window=window, sinks=sinks,
+                                       softcap=cap)
+        ratios[f"flash_fwd{i}"] = r
+        if max(r) > 1.0:
+            failed.append(f"flash_fwd{i}")
+    for i, (Hq, Hkv, D, P, C, lengths, q_starts, window, sinks, cap,
+            bf16) in enumerate(PAGED_PREFILL_COVERAGE):
+        B = len(lengths)
+        max_pages = max(-(-n // P) for n in lengths) + 1
+        cache = _paged_cache(g, Hkv, B * max_pages + 1, P, D)
+        tables = (torch.randperm(B * max_pages, generator=g, device="cuda") + 1).reshape(
+            B, max_pages).to(torch.int32)
+        q = torch.randn((B, Hq, C, D), generator=g, device="cuda")
+        q = q.to(torch.bfloat16) if bf16 else q
+        _, _, r, *_ = _paged_prefill_check(
+            q, cache, torch.tensor(lengths, dtype=torch.int32, device="cuda"),
+            torch.tensor(q_starts, dtype=torch.int32, device="cuda"), tables,
+            window=window, sinks=sinks, softcap=cap)
+        ratios[f"paged_prefill{i}"] = r
+        if max(r) > 1.0:
+            failed.append(f"paged_prefill{i}")
+    return ratios, failed
 
 
 def _coverage():
@@ -378,7 +692,12 @@ def _coverage():
             err_over_tol(lse, p_lse, lse_tol)]
         if max(ratios[f"decode{i}"]) > 1.0:
             failed.append(f"decode{i}")
+    r, f = _coverage_float(g)
+    ratios.update(r)
+    failed += f
     return {"flash_cases": len(FLASH_COVERAGE), "decode_cases": len(DECODE_COVERAGE),
+            "flash_fwd_cases": len(FLASH_FWD_COVERAGE),
+            "paged_prefill_cases": len(PAGED_PREFILL_COVERAGE),
             "err_over_tol": ratios, "failed": failed, "ok": not failed}
 
 
@@ -543,11 +862,37 @@ def phase_kernels(st):
     # is checked and timed here and reported inside the paged_decode entry.
     mqa = _decode_case("paged_decode", 1, seed=3,
                        replaces="quantizedmha_tpu/ops/decode.py:53")
+    # serve_flash decodes at up to 8192 tokens of context (64 table slots):
+    # the same kernel at lengths over 2048-8192, reported beside the entry.
+    deep = _decode_case("paged_decode", 8, seed=6, lengths=(2048, 8192), max_pages=64,
+                        replaces="quantizedmha_tpu/ops/decode.py:527")
+    keys = ("replaces", "max_abs_err", "err_over_tol", "ok", "shape", "ms", "plain_ms",
+            "bound_ms", "bound_by")
     cases[-1]["also_replaces"] = mqa["replaces"]
-    cases[-1]["mqa"] = {k: mqa[k] for k in ("replaces", "max_abs_err", "err_over_tol", "ok",
-                                            "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
-    cases[-1]["ok"] = cases[-1]["ok"] and mqa["ok"]
+    cases[-1]["mqa"] = {k: mqa[k] for k in keys}
+    cases[-1]["serve_flash"] = {k: deep[k] for k in keys}
+    cases[-1]["ok"] = cases[-1]["ok"] and mqa["ok"] and deep["ok"]
     cases.append(_w4_kernels(g))
+    # The float flash kernel: the serve_flash bucketed prefill (bf16, a
+    # 2048 bucket, Llama-3-8B heads, causal) and solve's fa / fa_bf16 rungs
+    # (N=8192, 32 heads of d=32, not causal), the bf16 one reported inside
+    # the bf16 entry.
+    qf = torch.randn((1, 32, 2048, 128), generator=g, device="cuda").to(torch.bfloat16)
+    kf, vf = torch.randn((2, 1, 8, 2048, 128), generator=g, device="cuda").to(torch.bfloat16)
+    fwd = _flash_fwd_case("flash_fwd[bf16]", qf, kf, vf, True, label="serve_flash prefill",
+                          replaces="quantizedmha_tpu/ops/flash_attention.py:124")
+    del qf, kf, vf
+    solve_bf16 = _flash_fwd_case("flash_fwd[bf16]", *(x.to(torch.bfloat16) for x in (qs, ks, vs)),
+                                 False, label="solve fa_bf16",
+                                 replaces="quantizedmha_tpu/ops/flash_attention.py:124")
+    fwd["solve"] = {k: solve_bf16[k] for k in ("max_abs_err", "err_over_tol", "ok", "shape", "ms",
+                                               "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                               "library_backend")}
+    fwd["ok"] = fwd["ok"] and solve_bf16["ok"]
+    cases.append(fwd)
+    cases.append(_flash_fwd_case("flash_fwd[f32]", qs, ks, vs, False, label="solve fa",
+                                 replaces="quantizedmha_tpu/ops/flash_attention.py:124"))
+    cases.append(_paged_prefill_case(g, replaces="quantizedmha_tpu/ops/paged_prefill.py:63"))
     st["kernels"] = {c["name"]: c for c in cases}
     ok = all(c["ok"] for c in cases)
     emit({"phase": "kernels", "ok": ok, "kernels": cases})
@@ -559,6 +904,107 @@ def phase_kernels(st):
         raise AssertionError("a kernel disagrees with its plain version")
     if not coverage["ok"]:
         raise AssertionError("a kernel disagrees with its plain version off the main paths")
+
+
+# One line of a kernel source changed: (file under csrc/, what the fault
+# does, the line as committed, the line planted). Each must fail the kernels
+# phase's checks (main shapes and coverage cases, err_over_tol > 1) of every
+# float kernel built from that file.
+PLANTED_FAULTS = (
+    ("flash_fwd.cu", "kv edge unmasked (keys past Skv kept)",
+     "bool valid = kloc < p.Skv;", "bool valid = true;"),
+    ("flash_fwd.cu", "bf16 P·V: odd output n-tiles take the even tile's V fragment",
+     "mma_bf16(acc[n + 1], a, bfr[2], bfr[3]);", "mma_bf16(acc[n + 1], a, bfr[0], bfr[1]);"),
+    ("f32_tile.cuh", "f32 tile: each thread's own tile max, not the row's",
+     "const float m_next = fmaxf(m[i], row_max16(mt));", "const float m_next = fmaxf(m[i], mt);"),
+    ("paged_prefill.cu", "diagonal masked (kpos < qpos)",
+     "bool valid = kpos <= qpos[i] && kpos < kend;", "bool valid = kpos < qpos[i] && kpos < kend;"),
+    ("paged_prefill.cu", "V scale of the next physical page",
+     "vss[tid] = ok ? p.vs[sidx] : 0.f;", "vss[tid] = ok ? p.vs[sidx + 1] : 0.f;"),
+    ("paged_prefill.cu", "window one key wider (kpos >= qpos - window)",
+     "valid &= kpos > qpos[i] - p.window || kpos < p.sinks;",
+     "valid &= kpos >= qpos[i] - p.window || kpos < p.sinks;"),
+)
+FAULT_SOURCES = ("flash_fwd", "paged_prefill")  # the float kernels the faults are held to
+
+
+def _fault_checks(src):
+    """The float kernel checks of one source with whatever library is bound:
+    ({main shape: [err_over_tol]}, {coverage case: err_over_tol})."""
+    import torch
+    from quantizedmha_tpu_torch.ops.flash_attention import _offsets
+    g = torch.Generator(device="cuda").manual_seed(1)
+    main = {}
+    if src == "flash_fwd":
+        for label, dt, shape, hkv, causal in (
+                ("serve_flash prefill", torch.bfloat16, (1, 32, 2048, 128), 8, True),
+                ("solve fa", torch.float32, (1, 32, 8192, 32), 32, False)):
+            q = torch.randn(shape, generator=g, device="cuda").to(dt)
+            kv = torch.randn((2, 1, hkv) + shape[2:], generator=g, device="cuda").to(dt)
+            main[label] = _flash_fwd_check(q, kv[0], kv[1], _offsets(0, 0, 1, q.device),
+                                           causal=causal, save_residuals=False)[2]
+    else:
+        main["serve_flash chunk"] = _paged_prefill_check(*_paged_main_inputs(g))[2]
+    ratios, _ = _coverage_float(torch.Generator(device="cuda").manual_seed(5))
+    return main, {k: max(r) for k, r in ratios.items() if k.startswith(src)}
+
+
+def phase_faults(st):
+    """Plant each PLANTED_FAULTS line in a copy of csrc/, build every float
+    kernel source that the changed file is part of (all copies in
+    parallel), bind each library in turn in place of the committed one and
+    rerun that kernel's main-shape and coverage checks: every fault must
+    fail them."""
+    import ctypes
+    import shutil
+    from quantizedmha_tpu_torch.ops import cuda_lib
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    out_dir = cuda_lib.BUILD_DIR / "faults"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    builds = []
+    for i, (fname, what, old, new) in enumerate(PLANTED_FAULTS):
+        text = (cuda_lib.CSRC / fname).read_text()
+        if text.count(old) != 1:
+            raise AssertionError(f"fault {i}: the committed line is not unique in {fname}")
+        copy = out_dir / f"fault{i}"
+        shutil.copytree(cuda_lib.CSRC, copy)
+        (copy / fname).write_text(text.replace(old, new))
+        srcs = [s for s in FAULT_SOURCES if fname == f"{s}.cu"
+                or f'#include "{fname}"' in (cuda_lib.CSRC / f"{s}.cu").read_text()]
+        for src in srcs:
+            lib = copy / f"lib{src}.so"
+            proc = subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(lib),
+                                     str(copy / f"{src}.cu")],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            builds.append((what, src, proc, lib))
+    for _, _, proc, _ in builds:
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for a planted fault:\n{log}")
+    kernels = {"flash_fwd": (fa.FLASH_FWD_BF16, fa.FLASH_FWD_F32), "paged_prefill": (pp.PAGED_PREFILL,)}
+    rows = []
+    try:
+        for what, src, _, lib in builds:
+            variant = ctypes.CDLL(str(lib))
+            for kern in kernels[src]:
+                fn = getattr(variant, kern.symbol)
+                fn.argtypes, fn.restype = kern.argtypes, ctypes.c_int
+                kern._fn = fn
+            main, cov = _fault_checks(src)
+            worst = max([max(r) for r in main.values()] + list(cov.values()))
+            rows.append({"source": src, "fault": what, "main_err_over_tol": main,
+                         "coverage_failing": sorted(k for k, r in cov.items() if r > 1.0),
+                         "coverage_err_over_tol": cov, "max_err_over_tol": worst,
+                         "caught": worst > 1.0})
+    finally:
+        for kerns in kernels.values():
+            for kern in kerns:
+                kern._fn = None  # rebind the committed kernel at its next call
+    ok = all(r["caught"] for r in rows)
+    emit({"phase": "faults", "ok": ok, "faults": rows})
+    if not ok:
+        raise AssertionError("a planted fault passed the kernel checks")
 
 
 def phase_solve(st):
@@ -592,13 +1038,53 @@ def phase_solve(st):
     const_dev = (solve(ones, ones, ones, d_model, h, kernel="fa_int8") - 1.0).abs().max().item()
     ok = (launches["flash_int8_fwd[bf16_p]"] == 1 and finite and rel_rms <= SOLVE_REL_RMS_TOL
           and tuple(out.shape) == (N, d_model) and const_dev <= 1e-6)
+    rungs = {name: _solve_rung(name, q, k, v, ref, ones, st) for name in SOLVE_RUNG_TOL}
+    ok = ok and all(r["ok"] for r in rungs.values())
     emit({"phase": "solve", "ok": ok, "ms": ms, "launches": launches,
           "rel_rms_err_vs_reference": rel_rms, "rel_rms_tol": SOLVE_REL_RMS_TOL,
           "max_abs_err_vs_reference": max_abs, "ref_rms": (ref.norm() / N**0.5 / d_model**0.5).item(),
           "ones_max_dev": const_dev, "ones_tol": 1e-6,
-          "reference_l4_ms": REFERENCE_L4_MS})
+          "reference_l4_ms": REFERENCE_L4_MS, "rungs": rungs})
     if not ok:
-        raise AssertionError("solve(fa_int8) failed its checks")
+        raise AssertionError("solve failed its checks")
+
+
+# The float rungs of the solve ladder: relative RMS error limit against the
+# float golden, and the kernel each launches once a call. fa and unfused
+# compute in f32 and differ from the golden by summation order alone
+# (~1e-7); fa_bf16 rounds Q, K, V and P to bf16 (2^-9 relative each, ~0.3%
+# RMS at the output on random inputs), so a fault that moves the output by
+# a few per cent exceeds its 1% limit.
+SOLVE_RUNG_TOL = {"fa": (1e-5, "flash_fwd[f32]"), "fa_bf16": (1e-2, "flash_fwd[bf16]"),
+                  "unfused": (1e-5, None)}
+
+
+def _solve_rung(kernel, q, k, v, ref, ones, st):
+    """One float rung at the reference workload: launches of its kernel in
+    one call (counts zeroed just before), time, error against the golden,
+    the all-ones gate."""
+    import torch
+    from quantizedmha_tpu_torch import solve
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    N, d_model = q.shape
+    h = 32
+    tol, name = SOLVE_RUNG_TOL[kernel]
+    counters = {"flash_fwd[f32]": fa.FLASH_FWD_F32, "flash_fwd[bf16]": fa.FLASH_FWD_BF16}
+    for c in counters.values():
+        c.reset()
+    out = solve(q, k, v, d_model, h, kernel=kernel)
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    if name is not None:
+        st["launches"][name] = st["launches"].get(name, 0) + launches[name]
+    ms = cuda_ms(lambda: solve(q, k, v, d_model, h, kernel=kernel), iters=5)
+    rel_rms = ((out - ref).norm() / ref.norm()).item()
+    const_dev = (solve(ones, ones, ones, d_model, h, kernel=kernel) - 1.0).abs().max().item()
+    want = {n: int(n == name) for n in counters}
+    ok = (launches == want and bool(torch.isfinite(out).all().item()) and rel_rms <= tol
+          and out.dtype == torch.float32 and const_dev <= 1e-6)
+    return {"ok": ok, "ms": ms, "launches": launches, "rel_rms_err_vs_reference": rel_rms,
+            "rel_rms_tol": tol, "ones_max_dev": const_dev, "ones_tol": 1e-6}
 
 
 def phase_serve(st):
@@ -700,6 +1186,211 @@ def phase_serve(st):
           "rel_err_tol": 0.25, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     if not ok:
         raise AssertionError("serve phase failed its checks")
+
+
+SERVE_FLASH = dict(bucketed=(256, 700, 1500, 2000), long=(5000, 7900), shared=4096,
+                   hit_suffixes=(300, 1000), max_new=32, chunk=8, page=128, num_pages=256,
+                   decode_new=72)
+
+
+def _first_token_at(eng, rid):
+    """True once request rid has its first sampled token."""
+    return rid in eng.finished or any(s.seq_id == rid for s in eng.active)
+
+
+def phase_serve_flash(st):
+    """Llama-3-8B as configured (attention_impl="flash", bf16 weights, all
+    32 layers) through the engine with the JAX default buckets, prefix
+    caching and interleaved prefill: four bucketed prompts, two long ones
+    prefilled in chunks between the others' decode steps, then two prompts
+    that share the longest one's first 4096 tokens (prefix hits)."""
+    import numpy as np
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    from quantizedmha_tpu_torch.serving import llama_adapter
+    from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
+    from quantizedmha_tpu_torch.serving.kv_cache import PageAllocator
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sf = SERVE_FLASH
+    cfg = llama.LlamaConfig.llama3_8b()
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ecfg = EngineConfig(num_pages=sf["num_pages"], page_size=sf["page"], max_batch=8,
+                        max_pages_per_seq=64, prefill_buckets=(128, 256, 512, 1024, 2048),
+                        max_new_tokens=sf["max_new"], decode_chunk=sf["chunk"],
+                        prefix_cache=True, interleaved_prefill=True)
+    eng = Engine(cfg, params, ecfg, device="cuda")
+    rng = np.random.default_rng(0)
+    vocab = cfg.vocab_size
+    prompts = [rng.integers(1, vocab, n).tolist() for n in sf["bucketed"] + sf["long"]]
+    longest = prompts[-1]
+    hits = [longest[:sf["shared"]] + rng.integers(1, vocab, n).tolist()
+            for n in sf["hit_suffixes"]]
+    # Warm-up outside the measured run: a bucketed prompt and a two-chunk
+    # one (first cuBLAS and kernel use), on tokens no later prompt shares.
+    for n in (100, 2100):
+        eng.add_request(rng.integers(1, vocab, n).tolist(), max_new=sf["chunk"] + 1)
+    eng.run()
+    eng.finished.clear()
+
+    kernels = {"flash_fwd[bf16]": fa.FLASH_FWD_BF16, "flash_fwd[f32]": fa.FLASH_FWD_F32,
+               "paged_prefill": pp.PAGED_PREFILL, "paged_decode": dec.PAGED_DECODE,
+               "flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P,
+               "flash_int8_fwd[bf16_p]": fa8.FLASH_BF16_P}
+    counters = ("decode_steps", "tokens_generated", "prefix_cache_hits",
+                "prefix_tokens_reused", "prefill_chunks_interleaved", "requests_admitted")
+    base = {c: eng.metrics.counter(c) for c in counters}
+    for kern in kernels.values():
+        kern.reset()
+    t_add, ttft = {}, {}
+    t_start = time.perf_counter()
+    rids = []
+    for p in prompts:
+        rids.append(eng.add_request(p, max_new=sf["max_new"]))
+        t_add[rids[-1]] = t_start
+    long_rid, hit_rids = rids[-1], []
+    while eng.queue or eng.active or eng.prefilling:
+        eng.step()
+        torch.cuda.synchronize()
+        te = time.perf_counter()
+        for rid in t_add:
+            if rid not in ttft and _first_token_at(eng, rid):
+                ttft[rid] = te - t_add[rid]
+        if not hit_rids and any(s.seq_id == long_rid for s in eng.active):
+            # The 7900-token prompt is prefilled and decoding: its pages are
+            # registered, so these two share its first 32 pages.
+            for p in hits:
+                hit_rids.append(eng.add_request(p, max_new=sf["max_new"]))
+                t_add[hit_rids[-1]] = time.perf_counter()
+    run_s = time.perf_counter() - t_start
+    # Decode at a full batch: eight fresh prompts of the largest bucketed
+    # length, admitted in one step; every later step that decodes all
+    # eight for a whole chunk (no admission, no sequence finished) is timed.
+    batch_prompts = [rng.integers(1, vocab, sf["bucketed"][-1]).tolist() for _ in range(8)]
+    batch_rids = [eng.add_request(p, max_new=sf["decode_new"]) for p in batch_prompts]
+    decode_wall = []
+    while eng.queue or eng.active or eng.prefilling:
+        before = {c: eng.metrics.counter(c) for c in ("requests_admitted", "decode_steps",
+                                                      "tokens_generated")}
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - ts
+        d = {c: eng.metrics.counter(c) - before[c] for c in before}
+        if (d["requests_admitted"] == 0 and d["decode_steps"] == sf["chunk"]
+                and d["tokens_generated"] == 8 * sf["chunk"]):
+            decode_wall.append(dt)
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    delta = {c: eng.metrics.counter(c) - base[c] for c in counters}
+    results = eng.finished
+    n_chunks = (sum(-(-n // 2048) for n in sf["long"])
+                + sum(1 for _ in sf["hit_suffixes"]))  # each suffix fits one bucket
+    n_bucketed = len(sf["bucketed"]) + len(batch_rids)
+    want = {"flash_fwd[bf16]": L * n_bucketed, "flash_fwd[f32]": 0,
+            "paged_prefill": L * n_chunks, "paged_decode": L * int(delta["decode_steps"]),
+            "flash_int8_fwd[int8_p]": 0, "flash_int8_fwd[bf16_p]": 0}
+    for name in ("flash_fwd[bf16]", "paged_prefill", "paged_decode"):
+        st["launches"][name] = st["launches"].get(name, 0) + launches[name]
+    all_rids = rids + hit_rids
+    lens_ok = (len(hit_rids) == 2
+               and all(len(results.get(r, [])) == sf["max_new"] for r in all_rids)
+               and all(len(results.get(r, [])) == sf["decode_new"] for r in batch_rids))
+    in_vocab = all(0 <= t < vocab for r in all_rids + batch_rids for t in results.get(r, []))
+    counts_ok = (launches == want and delta["prefix_cache_hits"] == 2
+                 and delta["prefix_tokens_reused"] == 2 * sf["shared"]
+                 and delta["prefill_chunks_interleaved"] > 0 and len(decode_wall) >= 4)
+
+    # Right by the repo's own means: last-token logits against the float
+    # attention golden (attention_impl="reference") on the same tokens, for
+    # the 2000-token bucketed prefill and the 5000-token prompt prefilled in
+    # chunks through a fresh paged cache. Each path runs twice; the second
+    # run is timed (prefill tok/s).
+    ref_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    checks = {}
+    n_b = sf["bucketed"][-1]
+    toks = torch.zeros((1, 2048), dtype=torch.int32, device="cuda")
+    toks[0, :n_b] = torch.tensor(prompts[len(sf["bucketed"]) - 1], device="cuda")
+    def bucketed():
+        return llama_adapter.prefill_at(cfg, params, toks, n_b - 1)[0]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        logits = bucketed()
+        torch.cuda.synchronize()
+        bucket_s = time.perf_counter() - tb
+    ref = llama.forward(ref_cfg, params, toks[:, :n_b])[:, -1]
+    checks["bucketed_2000"] = ((logits - ref).abs().max() / ref.std()).item()
+    del ref
+    n_c = sf["long"][0]
+    chunk = 2048
+    slots = -(-n_c // chunk) * chunk // sf["page"]
+    cache = llama_adapter.make_cache(cfg, slots + 1, sf["page"], device="cuda")
+    alloc = PageAllocator(slots + 1, sf["page"], scrap_page=0)
+    alloc.admit(0, n_c)
+    table = torch.tensor(alloc.block_table_array([0], slots)[0], device="cuda")
+    ctoks = torch.tensor(prompts[len(sf["bucketed"])], dtype=torch.int32, device="cuda")
+
+    def chunked():
+        for start in range(0, n_c, chunk):
+            part = torch.zeros((1, chunk), dtype=torch.int32, device="cuda")
+            n_part = min(chunk, n_c - start)
+            part[0, :n_part] = ctoks[start:start + n_part]
+            out, _ = llama_adapter.prefill_chunk(cfg, params, cache, part, start, table,
+                                                 n_part - 1, page_size=sf["page"])
+        return out
+    for _ in range(2):
+        torch.cuda.synchronize()
+        tc = time.perf_counter()
+        clog = chunked()
+        torch.cuda.synchronize()
+        chunked_s = time.perf_counter() - tc
+    if st.get("profile"):
+        emit({"phase": "serve_flash_profile",
+              "bucketed_2000": _profile_prefill(bucketed),
+              "chunked_5000": _profile_prefill(chunked)})
+    del cache
+    ref = llama.forward(ref_cfg, params, ctoks[None])[:, -1]
+    checks["chunked_5000"] = ((clog - ref).abs().max() / ref.std()).item()
+    finite = bool(torch.isfinite(logits).all().item() and torch.isfinite(clog).all().item())
+    del ref
+    torch.cuda.empty_cache()
+
+    dec_s = sum(decode_wall)
+    dec_steps = sf["chunk"] * len(decode_wall)
+    ok = (lens_ok and in_vocab and counts_ok and not eng.failed and finite
+          and max(checks.values()) <= 0.25)
+    emit({"phase": "serve_flash", "ok": ok, "model": "llama3_8b", "attention_impl": "flash",
+          "layers": L, "weights": "bf16", "init_s": init_s,
+          "prompts": list(sf["bucketed"] + sf["long"]),
+          "prefix_hits": [sf["shared"] + n for n in sf["hit_suffixes"]],
+          "max_new": sf["max_new"], "decode_chunk": sf["chunk"],
+          "tokens_each": sorted({len(results.get(r, [])) for r in all_rids}),
+          "failed": eng.failed, "launches": launches, "launches_expected": want,
+          "counters": delta, "run_s": run_s,
+          "ttft_cold_long_s": [ttft.get(r) for r in rids[len(sf["bucketed"]):]],
+          "ttft_bucketed_s": [ttft.get(r) for r in rids[:len(sf["bucketed"])]],
+          "ttft_prefix_hit_s": [ttft.get(r) for r in hit_rids],
+          "prefill_tok_s_bucketed": n_b / bucket_s, "prefill_2000_s": bucket_s,
+          "prefill_tok_s_chunked": n_c / chunked_s, "prefill_chunked_5000_s": chunked_s,
+          "decode_batch": 8, "decode_prompt_len": sf["bucketed"][-1],
+          "decode_new": sf["decode_new"], "decode_engine_steps_timed": len(decode_wall),
+          "decode_tok_s_batch8": 8 * dec_steps / dec_s if dec_s else None,
+          "decode_ms_per_step_batch8": dec_s * 1e3 / dec_steps if dec_steps else None,
+          "logits_rel_err_vs_reference": checks, "rel_err_tol": 0.25,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if not ok:
+        raise AssertionError("serve_flash phase failed its checks")
 
 
 def _dequantized(params, dtype):
@@ -855,6 +1546,52 @@ def _host_profile(eng, steps):
             "port": [row(f, v, v[3]) for f, v in port]}
 
 
+KERNEL_GROUPS = (("w4_matmul", ("w4_matmul_kernel", "w4_reduce_kernel")),
+                 ("flash_int8_fwd", "flash_int8"), ("flash_fwd", "flash_fwd"),
+                 ("paged_prefill", "paged_prefill"), ("paged_decode", "paged_decode"),
+                 ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
+                 ("direct_copy (dtype casts)", "direct_copy"))
+
+
+def _kernel_groups(prof):
+    """Device kernels of a torch.profiler window: ({name: (us, launches)},
+    {KERNEL_GROUPS group or "other": (us, launches)}, busy seconds)."""
+    from torch.autograd import DeviceType
+    by_name, by_group = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + us, n + 1)
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in e.name for k in ((keys,) if isinstance(keys, str) else keys))),
+                     "other")
+        t, n = by_group.get(group, (0.0, 0))
+        by_group[group] = (t + us, n + 1)
+    return by_name, by_group, sum(t for t, _ in by_name.values()) / 1e6
+
+
+def _profile_prefill(fn):
+    """Where one prefill's device time goes: fn() under torch.profiler
+    between two synchronizes; kernels grouped by KERNEL_GROUPS, wall and
+    busy ms, and the idle share 1 - busy / wall (tracing slows the host,
+    so an upper bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _, by_group, busy_s = _kernel_groups(prof)
+    return {"traced_wall_ms": wall * 1e3, "device_busy_ms": busy_s * 1e3,
+            "device_idle_share_traced": 1.0 - busy_s / wall,
+            "groups": {g: {"ms": t / 1e3, "launches": n}
+                       for g, (t, n) in sorted(by_group.items(), key=lambda kv: -kv[1][0])}}
+
+
 def _profile_decode_chunk(eng, prompts, max_new):
     """Where a full-batch decode chunk's time goes. One engine step
     (decode_chunk steps, one host sync) runs untraced, the next under
@@ -865,7 +1602,6 @@ def _profile_decode_chunk(eng, prompts, max_new):
     the host, so this share is an upper bound; the untraced window's
     times stand beside it). Needs four chunks of max_new."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for p in prompts:
         eng.add_request(p, max_new=max_new)
@@ -888,23 +1624,7 @@ def _profile_decode_chunk(eng, prompts, max_new):
     steps = eng.ecfg.decode_chunk
     host = _host_profile(eng, steps)
     eng.run()
-    groups = (("w4_matmul", ("w4_matmul_kernel", "w4_reduce_kernel")),
-              ("flash_int8_fwd", "flash_int8"), ("paged_decode", "paged_decode"),
-              ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
-              ("direct_copy (dtype casts)", "direct_copy"))
-    by_name, by_group = {}, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + us, n + 1)
-        group = next((g for g, keys in groups
-                      if any(k in e.name for k in ((keys,) if isinstance(keys, str) else keys))),
-                     "other")
-        t, n = by_group.get(group, (0.0, 0))
-        by_group[group] = (t + us, n + 1)
-    busy_s = sum(t for t, _ in by_name.values()) / 1e6
+    by_name, by_group, busy_s = _kernel_groups(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"chunk_steps": steps,
             "untraced_wall_ms_per_step": untraced_wall * 1e3 / steps,
@@ -927,7 +1647,8 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
                     help="also trace one full-batch decode chunk of the serve "
-                         "and serve_w4 phases with torch.profiler")
+                         "and serve_w4 phases, and serve_flash's bucketed and "
+                         "chunked prefills, with torch.profiler")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     bad = [p for p in phases if p not in PHASES]
@@ -966,7 +1687,8 @@ def main(argv=None) -> int:
         for name, c in st["kernels"].items():
             e = {k: c[k] for k in ("name", "route", "source", "replaces", "max_abs_err",
                                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            e.update({k: c[k] for k in ("also_replaces", "mqa", "library_note") if k in c})
+            e.update({k: c[k] for k in ("also_replaces", "mqa", "serve_flash", "library_note",
+                                        "library_backend", "solve") if k in c})
             if "shapes" in c:
                 e["shapes"] = [{k: s[k] for k in ("matmul", "rows", "ms", "wrapper_ms", "plain_ms",
                                                   "bound_ms", "library_ms")} for s in c["shapes"]]
@@ -974,7 +1696,7 @@ def main(argv=None) -> int:
             entries.append(e)
         emit({"kernels": entries})
         idle = [e["name"] for e in entries if e["launches"] == 0]
-        if {"solve", "serve", "serve_w4"} <= set(phases) and idle:
+        if {"solve", "serve", "serve_w4", "serve_flash"} <= set(phases) and idle:
             print(f"chip_smoke: kernels never launched on a main path: {idle}",
                   file=sys.stderr)
             return 1

@@ -19,7 +19,10 @@ from quantizedmha_tpu_torch.configs import (
     ReferenceWorkload,
 )
 from quantizedmha_tpu_torch.ops.decode import paged_decode_attention
+from quantizedmha_tpu_torch.ops.flash_attention import flash_attention
 from quantizedmha_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
+from quantizedmha_tpu_torch.ops.paged_prefill import paged_prefill_attention
+from quantizedmha_tpu_torch.ops.unfused import unfused_mha
 
 __all__ = [
     "__version__",
@@ -27,7 +30,10 @@ __all__ = [
     "BlockSizes",
     "QuantConfig",
     "ReferenceWorkload",
+    "flash_attention",
     "flash_attention_int8",
     "paged_decode_attention",
+    "paged_prefill_attention",
     "solve",
+    "unfused_mha",
 ]

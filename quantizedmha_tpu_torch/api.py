@@ -2,11 +2,12 @@
 
 The reference CUDA study exposes one C ABI, `solve(Q, K, V, out, N,
 d_model, h)` over flat [N, d_model] float32 matrices; here it is a PyTorch
-function. Only the rungs whose kernels are ported are served: "fa_int8"
-(the fused INT8 attention, csrc/flash_int8_fwd.cu) and "reference" (the
-plain golden). The other rungs raise NotImplementedError until their
-kernels land (ROADMAP.md queue 2). The JAX package's `abi_fast` layout
-path is a TPU relayout with bitwise-equal output and has no counterpart.
+function serving every rung of the JAX ladder: "unfused" (three plain
+products, ops/unfused.py), "fa" and "fa_bf16" (the float FlashAttention
+forward, csrc/flash_fwd.cu, in f32 and in bf16), "fa_int8" (the fused INT8
+attention, csrc/flash_int8_fwd.cu) and "reference" (the plain golden). The
+JAX package's `abi_fast` layout path is a TPU relayout with bitwise-equal
+output and has no counterpart.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ import torch
 
 from quantizedmha_tpu_torch.configs.attention import AttentionConfig
 from quantizedmha_tpu_torch.device import resolve_device
-from quantizedmha_tpu_torch.ops.flash_attention import validate_masking
+from quantizedmha_tpu_torch.ops.flash_attention import flash_attention, validate_masking
 from quantizedmha_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
+from quantizedmha_tpu_torch.ops.unfused import unfused_mha
 from quantizedmha_tpu_torch.reference.mha import (
     apply_rope,
     mha_masked_reference,
@@ -26,7 +28,6 @@ from quantizedmha_tpu_torch.reference.mha import (
 )
 
 KERNELS = ("unfused", "fa", "fa_bf16", "fa_int8", "reference")
-PORTED_KERNELS = ("fa_int8", "reference")
 
 
 def solve(
@@ -58,11 +59,6 @@ def solve(
     """
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; choose from {KERNELS}")
-    if kernel not in PORTED_KERNELS:
-        raise NotImplementedError(
-            f"kernel {kernel!r} is not ported to PyTorch/CUDA yet "
-            "(ROADMAP.md queue 1 item 3, queue 2: ops/flash_attention.py "
-            "_fwd_kernel); ported rungs: " + ", ".join(PORTED_KERNELS))
     dev = resolve_device(device)
     quant_kw = {}
     if config is not None:
@@ -101,7 +97,20 @@ def solve(
         qh = apply_rope(qh, rope_theta)
         kh = apply_rope(kh, rope_theta)
 
-    if kernel == "fa_int8":
+    masked_kw = dict(window=window, logit_softcap=logit_softcap,
+                     attention_sinks=attention_sinks)
+    if kernel == "unfused":
+        if window is not None or logit_softcap is not None:
+            raise ValueError("unfused kernel has no window/softcap support")
+        oh = unfused_mha(qh, kh, vh, sm_scale=sm_scale, causal=causal)
+    elif kernel == "fa":
+        oh = flash_attention(qh, kh, vh, sm_scale=sm_scale, causal=causal,
+                             block_q=block_q, block_kv=block_kv, **masked_kw)
+    elif kernel == "fa_bf16":
+        bf = [x.to(torch.bfloat16) for x in (qh, kh, vh)]
+        oh = flash_attention(*bf, sm_scale=sm_scale, causal=causal, block_q=block_q,
+                             block_kv=block_kv, **masked_kw).to(qh.dtype)
+    elif kernel == "fa_int8":
         oh = flash_attention_int8(
             qh, kh, vh, sm_scale=sm_scale, causal=causal,
             block_q=block_q, block_kv=block_kv, window=window,

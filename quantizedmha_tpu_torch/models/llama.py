@@ -4,9 +4,9 @@ quantizedmha_tpu/models/llama.py).
 RMSNorm + interleaved RoPE + GQA attention + SwiGLU MLP, parameters as a
 plain dict of layer-stacked tensors (the JAX package's pytree, so
 models.convert.params_from_numpy maps one onto the other leaf by leaf).
-Layers run in a Python loop. attention_impl "flash_int8" goes through the
-fused INT8 kernel and "reference" through the plain golden; "flash" (the
-floating-point `_fwd_kernel`) is not ported yet. The JAX package's 8-row
+Layers run in a Python loop. attention_impl "flash" (the default) goes
+through the float FlashAttention kernel, "flash_int8" through the fused
+INT8 kernel and "reference" through the plain golden. The JAX package's 8-row
 lm_head pad is a TPU lowering trick with bitwise-equal logits and has no
 counterpart here.
 """
@@ -21,15 +21,11 @@ import torch
 import torch.nn.functional as F
 
 from quantizedmha_tpu_torch.device import resolve_device
+from quantizedmha_tpu_torch.ops.flash_attention import flash_attention
 from quantizedmha_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
 from quantizedmha_tpu_torch.ops.quantize import true_div
 from quantizedmha_tpu_torch.quant.weights import QuantizedWeight, QuantizedWeight4, qdense
 from quantizedmha_tpu_torch.reference.mha import apply_rope, mha_masked_reference
-
-_FLASH_TODO = ("attention_impl='flash' needs ops/flash_attention.py's "
-               "floating-point _fwd_kernel, not ported yet (ROADMAP.md queue 2 "
-               "item 3); use 'flash_int8' or 'reference'")
-
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
@@ -45,7 +41,7 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16
     attention_impl: str = "flash"  # flash | flash_int8 | reference
     block_q: Optional[int] = None
-    block_kv: Optional[int] = None  # int8 K/V quant block (numerics)
+    block_kv: Optional[int] = None  # numerics: int8 quant block, softmax step
     weight_quant_mode: str = "w8a16"
     sliding_window: Optional[int] = None
     logit_softcap: Optional[float] = None
@@ -253,20 +249,25 @@ _UNSET = object()  # sentinel: "use cfg.sliding_window" for window overrides
 
 
 def check_attention_impl(cfg: LlamaConfig) -> None:
-    if cfg.attention_impl == "flash":
-        raise NotImplementedError(_FLASH_TODO)
-    if cfg.attention_impl not in ("flash_int8", "reference"):
+    if cfg.attention_impl not in ("flash", "flash_int8", "reference"):
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
 
 
 def _attention(cfg: LlamaConfig, q, k, v, *, causal=True, window=_UNSET):
-    """k/v may carry num_kv_heads < num_heads (the int8 kernel is GQA-native;
+    """k/v may carry num_kv_heads < num_heads (both kernels are GQA-native;
     the golden expands). window: per-layer override, else cfg.sliding_window."""
     if window is _UNSET:
         window = cfg.sliding_window
     window = window if causal else None
     sinks = cfg.attention_sinks if window is not None else 0
     check_attention_impl(cfg)
+    if cfg.attention_impl == "flash":
+        return flash_attention(
+            q, k, v, sm_scale=cfg.sm_scale, causal=causal,
+            block_q=cfg.block_q, block_kv=cfg.block_kv,
+            window=window, logit_softcap=cfg.logit_softcap,
+            attention_sinks=sinks,
+        )
     if cfg.attention_impl == "flash_int8":
         return flash_attention_int8(
             q, k, v, sm_scale=cfg.sm_scale, causal=causal,

@@ -4,7 +4,8 @@ Each source under `quantizedmha_tpu_torch/csrc/` is compiled by `nvcc` for
 Hopper (`sm_90a`) into a shared library with a plain C interface, loaded
 with ctypes (no PyTorch headers: a build takes seconds, not minutes). A
 library is built at first use into `quantizedmha_tpu_torch/_build/`, keyed
-by a hash of its source and flags, so a fresh checkout builds everything
+by a hash of its source, the shared headers (`csrc/*.cuh`) and the flags,
+so a fresh checkout builds everything
 it needs on the first call. `build_all()` compiles every source at once,
 one `nvcc` process each.
 
@@ -27,7 +28,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_int8_fwd", "paged_decode", "w4_matmul")
+SOURCES = ("flash_int8_fwd", "paged_decode", "w4_matmul", "flash_fwd", "paged_prefill")
 # No --use_fast_math: its approximate division and expf would break the
 # bit-parity of the quantized payloads with the plain versions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,6 +47,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))  # shared headers
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

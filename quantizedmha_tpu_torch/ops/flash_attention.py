@@ -1,17 +1,37 @@
-"""Masking and block helpers shared by the attention entry points
-(counterpart of the helper half of quantizedmha_tpu/ops/flash_attention.py).
+"""FlashAttention-2 forward in f32 or bf16, and the masking and block
+helpers every attention entry point shares (counterpart of
+quantizedmha_tpu/ops/flash_attention.py).
 
-The floating-point FlashAttention kernels of that module (`_fwd_kernel`
-and the two backward kernels) are not ported yet; see ROADMAP.md queue 2.
+On a CUDA tensor `flash_attention` launches the hand-written kernel in
+`csrc/flash_fwd.cu` (TPU kernel `_fwd_kernel`); on a CPU tensor it runs
+`_flash_fwd_plain`, the same online softmax step by step in PyTorch at the
+JAX package's kv step (block_kv, default 1024). The TPU grid's shrunk
+windowed kv dimension and its ones-column l sum (`summode="mxu"`) are TPU
+devices with no counterpart: the only sum mode is "vpu" (l sums the f32
+P). The forward is not differentiable yet: the two backward kernels come
+with the training slice (ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
+from quantizedmha_tpu_torch.ops import cuda_lib
+from quantizedmha_tpu_torch.ops.quantize import true_div
+
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+         + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 3
+         + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+# One launch counter per input dtype: bf16 runs on the tensor cores
+# (mma.sync), f32 on the CUDA cores; both stand for `_fwd_kernel`.
+FLASH_FWD_BF16 = cuda_lib.CudaKernel("flash_fwd", "flash_fwd", _ARGS)
+FLASH_FWD_F32 = cuda_lib.CudaKernel("flash_fwd", "flash_fwd", _ARGS)
+_HEAD_DIMS = (32, 64, 128)
 
 
 def validate_masking(causal: bool, window, sinks: int) -> None:
@@ -53,8 +73,174 @@ def pick_blocks(
 ):
     """(block_q, block_kv) of the standard route. block_kv keeps the JAX
     package's default of 1024 because it fixes the numerics (the K/V quant
-    block and the online-softmax step); block_q has no numerical effect
-    and the TPU's VMEM caps on it do not apply, so it is the whole q_len
-    unless given. head_dim is accepted for signature parity."""
+    block of the int8 kernels and the online-softmax step of every one);
+    block_q has no numerical effect and the TPU's VMEM caps on it do not
+    apply, so it is the whole q_len unless given. head_dim is accepted for
+    signature parity."""
     del head_dim
     return min(block_q or q_len, q_len), min(block_kv or 1024, kv_len)
+
+
+def _offsets(q_offset, kv_offset, batch: int, device) -> torch.Tensor:
+    """Per-sequence (q_off, kv_off) global positions, [batch, 2] int32."""
+    def col(x):
+        return torch.as_tensor(x, dtype=torch.int32, device=device).expand(batch)
+    return torch.stack([col(q_offset), col(kv_offset)], dim=1).contiguous()
+
+
+def scaled_q(q: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """Q times sm_scale in Q's own dtype, as the TPU kernel folds it: in
+    bf16 the scale is rounded to bf16 first, then the product."""
+    return q * torch.tensor(sm_scale, dtype=q.dtype, device=q.device)
+
+
+def _flash_fwd_plain(q, k, v, offsets, *, sm_scale, causal, block_kv, window,
+                     softcap, sinks, save_residuals):
+    """The TPU kernel's algorithm over whole tensors: Q scaled in its dtype,
+    f32 scores (TF32 off), softcap, masks at global positions, then the
+    online softmax stepping exactly block_kv keys at a time, P cast to V's
+    dtype for P·V while l sums the f32 P. A block masked for every row of
+    every sequence is skipped, as the kernels skip it (no bit changes)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    dev = q.device
+    qs = scaled_q(q, sm_scale).float().reshape(B, Hkv, group, Sq, D)
+    kf = k.float()[:, :, None]
+    vf = v[:, :, None]
+    qpos = (torch.arange(Sq, device=dev)[None, :]
+            + offsets[:, 0:1].long())[:, None, None, :, None]   # [B, 1, 1, Sq, 1]
+    m = torch.full((B, Hkv, group, Sq, 1), float("-inf"), device=dev)
+    l = torch.zeros((B, Hkv, group, Sq, 1), device=dev)
+    acc = torch.zeros((B, Hkv, group, Sq, D), device=dev)
+    first_q = int(offsets[:, 0].min())
+    last_q = int(offsets[:, 0].max()) + Sq - 1
+    kv_lo, kv_hi = int(offsets[:, 1].min()), int(offsets[:, 1].max())
+    for j0 in range(0, Skv, block_kv):
+        j1 = min(j0 + block_kv, Skv)
+        if not block_should_run(causal, window, sinks, first_q, last_q,
+                                kv_lo + j0, kv_hi + j1 - 1):
+            continue
+        s = qs @ kf[..., j0:j1, :].transpose(-1, -2)
+        if softcap is not None:
+            s = softcap * torch.tanh(true_div(s, softcap))
+        if causal:
+            kpos = (torch.arange(j0, j1, device=dev)[None, :]
+                    + offsets[:, 1:2].long())[:, None, None, None, :]
+            valid = kpos <= qpos
+            if window is not None:
+                in_win = (qpos - kpos) < window
+                if sinks:
+                    in_win = in_win | (kpos < sinks)
+                valid = valid & in_win
+            s = torch.where(valid, s, torch.full_like(s, DEFAULT_MASK_VALUE))
+        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        p = torch.exp(s - m_next)
+        p = torch.where(m_next > DEFAULT_MASK_VALUE * 0.5, p, torch.zeros_like(p))
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        pv = p.to(v.dtype).float() @ vf[..., j0:j1, :].float()
+        acc = acc * alpha + pv
+        m = m_next
+    l_inv = torch.where(l == 0.0, torch.ones_like(l), 1.0 / l)
+    o = (acc * l_inv).to(q.dtype).reshape(B, H, Sq, D)
+    if not save_residuals:
+        return o
+    lse = torch.where(l > 0.0, m + torch.log(l), torch.full_like(l, float("-inf")))
+    return o, lse[..., 0].reshape(B, H, Sq)
+
+
+def _flash_fwd_launch(q, k, v, offsets, *, sm_scale, causal, block_kv, window,
+                      softcap, sinks, save_residuals):
+    """Checked operands of one kernel launch: (kernel, ctypes args,
+    outputs, operands). block_kv is the plain version's step; the kernel
+    picks its own tiles."""
+    del block_kv
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA flash attention takes head_dim in {_HEAD_DIMS}, got {D}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k and v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    # The kernel multiplies by the scale in q's dtype: round it there first.
+    scale = float(torch.tensor(sm_scale, dtype=q.dtype))
+    o = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if save_residuals else None)
+    ptr = cuda_lib.ptr
+    args = (ptr(q, 16), ptr(k, 16), ptr(v, 16), ptr(offsets), ptr(o, 16), ptr(lse),
+            B, H, Hkv, Sq, Skv, D, scale, int(softcap is not None), float(softcap or 0.0),
+            int(causal), -1 if window is None else int(window), int(sinks),
+            DEFAULT_MASK_VALUE, DEFAULT_MASK_VALUE * 0.5, int(bf16),
+            cuda_lib.stream_of(q))
+    kernel = FLASH_FWD_BF16 if bf16 else FLASH_FWD_F32
+    return kernel, args, (o, lse), (q, k, v, offsets)
+
+
+def _flash_fwd_cuda(*operands, save_residuals, **kw):
+    kernel, args, (o, lse), _ = _flash_fwd_launch(
+        *operands, save_residuals=save_residuals, **kw)
+    kernel(*args)
+    return (o, lse) if save_residuals else o
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    causal: bool = False,
+    block_q: Optional[int] = None,
+    block_kv: Optional[int] = None,
+    save_residuals: bool = False,
+    q_offset=None,
+    kv_offset=None,
+    window: Optional[int] = None,
+    logit_softcap: Optional[float] = None,
+    attention_sinks: int = 0,
+):
+    """Fused FlashAttention-2 forward.
+
+    q: [batch, heads, q_len, head_dim]; k, v: [batch, kv_heads, kv_len,
+    head_dim], kv_heads dividing heads (GQA/MQA: q head h reads kv head
+    h // group, K/V are never repeated in memory); f32 or bf16, output in
+    q's dtype. save_residuals=True also returns the log-sum-exp [batch,
+    heads, q_len] f32 (-inf on a fully masked row, whose output is 0).
+    q_offset/kv_offset are global positions for the causal mask (ints or
+    [batch] tensors; they require save_residuals=True); the default is
+    end-aligned, q_offset = kv_len - q_len. window, logit_softcap and
+    attention_sinks as in the int8 kernels. block_kv sets the plain
+    version's online-softmax step (default 1024, as the JAX package);
+    block_q has no numerical effect. Not differentiable yet: inputs that
+    require grad raise.
+    """
+    if q.ndim != 4:
+        raise ValueError(f"expected [batch, heads, seq, head_dim], got {tuple(q.shape)}")
+    validate_masking(causal, window, attention_sinks)
+    if any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward yet: the dK/dV and dQ kernels come "
+            "with the training slice (ROADMAP.md queue 1 item 7)")
+    if not save_residuals and (q_offset is not None or kv_offset is not None):
+        raise ValueError("q_offset/kv_offset require save_residuals=True")
+    batch, heads, q_len, head_dim = q.shape
+    kv_len = k.shape[2]
+    if heads % k.shape[1]:
+        raise ValueError(f"q heads {heads} not a multiple of kv heads {k.shape[1]}")
+    scale = sm_scale if sm_scale is not None else head_dim**-0.5
+    _, block_kv = pick_blocks(q_len, kv_len, head_dim, block_q=block_q, block_kv=block_kv)
+    if q_offset is None:
+        q_offset = kv_len - q_len
+    if kv_offset is None:
+        kv_offset = 0
+    offsets = _offsets(q_offset, kv_offset, batch, q.device)
+    fn = _flash_fwd_cuda if q.is_cuda else _flash_fwd_plain
+    return fn(q, k, v, offsets, sm_scale=scale, causal=causal, block_kv=block_kv,
+              window=window, softcap=logit_softcap, sinks=attention_sinks,
+              save_residuals=save_residuals)

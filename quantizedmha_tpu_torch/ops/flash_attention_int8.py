@@ -31,6 +31,7 @@ import torch
 from quantizedmha_tpu_torch.ops import cuda_lib
 from quantizedmha_tpu_torch.ops.flash_attention import (
     DEFAULT_MASK_VALUE,
+    _offsets,
     block_should_run,
     pick_blocks,
     validate_masking,
@@ -49,13 +50,6 @@ FLASH_INT8_P = cuda_lib.CudaKernel("flash_int8_fwd", "flash_int8_fwd", _ARGS)
 FLASH_BF16_P = cuda_lib.CudaKernel("flash_int8_fwd", "flash_int8_fwd", _ARGS)
 _KERNEL_OF_MODE = {0: FLASH_INT8_P, 1: FLASH_BF16_P}
 _HEAD_DIMS = (32, 64, 128)
-
-
-def _offsets(q_offset, kv_offset, batch: int, device) -> torch.Tensor:
-    """Per-sequence (q_off, kv_off) global positions, [batch, 2] int32."""
-    def col(x):
-        return torch.as_tensor(x, dtype=torch.int32, device=device).expand(batch)
-    return torch.stack([col(q_offset), col(kv_offset)], dim=1).contiguous()
 
 
 def _flash_int8_plain_state(q, k_i8, k_scales, v_i8, v_scales, offsets, *, sm_scale,

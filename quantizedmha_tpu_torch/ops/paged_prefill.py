@@ -1,0 +1,189 @@
+"""Paged multi-token (q_len > 1) causal attention over the INT8 paged KV
+cache (counterpart of quantizedmha_tpu/ops/paged_prefill.py).
+
+A prefill chunk's or a prefix-cache suffix's queries attend straight from
+the pages, with per-sequence global offsets (`q_starts`) and visible
+context (`lengths`); nothing gathers the block table into a dense K/V. On a
+CUDA tensor the call launches `csrc/paged_prefill.cu` (TPU kernel
+`_prefill_kernel`); on a CPU tensor it runs `_paged_prefill_plain`, the
+same page walk step by step. Scores and P·V are f32 throughout: s = (q ·
+sm_scale) · k_int8 · k_scale, pv = (p · v_int8) · v_scale, as the JAX
+kernel computes them on the CPU (on the TPU its Precision.DEFAULT dots run
+as bf16 passes; the port follows the f32 numerics). The INT4 sibling
+(`_prefill_kernel_int4`) is not ported yet (ROADMAP.md queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from quantizedmha_tpu_torch.ops import cuda_lib
+from quantizedmha_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE, validate_masking
+from quantizedmha_tpu_torch.ops.quantize import true_div
+
+PAGED_PREFILL = cuda_lib.CudaKernel(
+    "paged_prefill", "paged_prefill",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+       ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_HEAD_DIMS = (32, 64, 128)
+_MAX_GROUP = 64  # the kernel holds a whole GQA group in its 64 q rows
+
+
+def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts,
+                         block_tables, *, sm_scale, window, softcap, sinks,
+                         save_residuals):
+    """The kernel's page walk in PyTorch, vectorized over sequences and kv
+    heads with each GQA group's q heads flattened into one row operand:
+    per logical page, f32 scores, softcap, masks (kpos <= qpos, kpos <
+    length, the window and sinks), the online softmax with dead rows
+    zeroed, acc = acc·alpha + (p·v)·v_scale. A page no row of a sequence
+    can see leaves that sequence's state untouched, as the kernels skip it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Hq, C, D = q.shape
+    Hkv, _, P, _ = k_pages.shape
+    G = Hq // Hkv
+    dev = q.device
+    lengths, q_starts = lengths.long(), q_starts.long()
+    qg = q.float().reshape(B, Hkv, G * C, D) * sm_scale
+    qpos = (q_starts[:, None] + torch.arange(C, device=dev)).repeat(1, G)  # [B, G*C]
+    m = torch.full((B, Hkv, G * C, 1), float("-inf"), device=dev)
+    l = torch.zeros((B, Hkv, G * C, 1), device=dev)
+    acc = torch.zeros((B, Hkv, G * C, D), device=dev)
+    heads = torch.arange(Hkv, device=dev)
+    last_q = q_starts + C - 1
+    n_pages = min(int(((lengths.max() + P - 1) // P).item()), block_tables.shape[1])
+    for i in range(n_pages):
+        base = i * P
+        run = (base <= last_q) & (base < lengths)                     # [B]
+        if window is not None:
+            in_win = base + P - 1 > q_starts - window
+            if sinks:
+                in_win = in_win | (base < sinks)
+            run = run & in_win
+        page = block_tables[:, i].long()
+        kp = k_pages[:, page].float().transpose(0, 1)                 # [B, Hkv, P, D]
+        vp = v_pages[:, page].float().transpose(0, 1)
+        ks = k_scales[heads[None, :], page[:, None]][..., None, None]  # [B, Hkv, 1, 1]
+        vs = v_scales[heads[None, :], page[:, None]][..., None, None]
+        s = (qg @ kp.transpose(-1, -2)) * ks                          # [B, Hkv, G*C, P]
+        if softcap is not None:
+            s = softcap * torch.tanh(true_div(s, softcap))
+        kpos = base + torch.arange(P, device=dev)
+        valid = ((kpos[None, None, :] <= qpos[:, :, None])
+                 & (kpos[None, None, :] < lengths[:, None, None]))    # [B, G*C, P]
+        if window is not None:
+            in_win = kpos[None, None, :] > qpos[:, :, None] - window
+            if sinks:
+                in_win = in_win | (kpos < sinks)[None, None, :]
+            valid = valid & in_win
+        s = torch.where(valid[:, None], s, torch.full_like(s, DEFAULT_MASK_VALUE))
+        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        p = torch.exp(s - m_next)
+        p = torch.where(m_next > DEFAULT_MASK_VALUE * 0.5, p, torch.zeros_like(p))
+        l_new = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc_new = acc * alpha + (p @ vp) * vs
+        sel = run[:, None, None, None]
+        m = torch.where(sel, m_next, m)
+        l = torch.where(sel, l_new, l)
+        acc = torch.where(sel, acc_new, acc)
+    l_inv = torch.where(l == 0.0, torch.ones_like(l), 1.0 / l)
+    o = (acc * l_inv).reshape(B, Hq, C, D).to(q.dtype)
+    if not save_residuals:
+        return o
+    lse = torch.where(l == 0.0, torch.full_like(l, float("-inf")),
+                      m + torch.log(torch.clamp(l, min=1e-38)))
+    return o, lse.reshape(B, Hq, C)
+
+
+def _paged_prefill_launch(q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts,
+                          block_tables, *, sm_scale, window, softcap, sinks,
+                          save_residuals):
+    """Checked operands of one kernel launch: (kernel, ctypes args,
+    outputs, operands)."""
+    B, Hq, C, D = q.shape
+    Hkv, num_pages, P, _ = k_pages.shape
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA paged prefill takes head_dim in {_HEAD_DIMS}, got {D}")
+    if Hq // Hkv > _MAX_GROUP:
+        raise ValueError(f"the CUDA paged prefill takes GQA groups up to {_MAX_GROUP}, "
+                         f"got {Hq // Hkv}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+        raise ValueError("k/v pages must be int8")
+    q = q.contiguous()
+    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    k_scales = k_scales.float().contiguous()
+    v_scales = v_scales.float().contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    q_starts = q_starts.to(torch.int32).contiguous()
+    block_tables = block_tables.to(torch.int32).contiguous()
+    o = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, C), dtype=torch.float32, device=q.device)
+           if save_residuals else None)
+    ptr = cuda_lib.ptr
+    args = (ptr(q, 16), ptr(k_pages, 16), ptr(v_pages, 16), ptr(k_scales), ptr(v_scales),
+            ptr(lengths), ptr(q_starts), ptr(block_tables), ptr(o, 16), ptr(lse),
+            B, Hq, Hkv, C, num_pages, P, block_tables.shape[1], D,
+            sm_scale, int(softcap is not None), float(softcap or 0.0),
+            -1 if window is None else int(window), int(sinks),
+            DEFAULT_MASK_VALUE, DEFAULT_MASK_VALUE * 0.5, int(q.dtype == torch.bfloat16),
+            cuda_lib.stream_of(q))
+    keep = (q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts, block_tables)
+    return PAGED_PREFILL, args, (o, lse), keep
+
+
+def _paged_prefill_cuda(*operands, save_residuals, **kw):
+    kernel, args, (o, lse), _ = _paged_prefill_launch(
+        *operands, save_residuals=save_residuals, **kw)
+    kernel(*args)
+    return (o, lse) if save_residuals else o
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_scales: torch.Tensor,
+    v_scales: torch.Tensor,
+    lengths: torch.Tensor,
+    q_starts: torch.Tensor,
+    block_tables: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    block_q: int = 256,
+    window: Optional[int] = None,
+    logit_softcap: Optional[float] = None,
+    attention_sinks: int = 0,
+    save_residuals: bool = False,
+):
+    """Multi-token causal attention straight from the paged INT8 cache.
+
+    q:            [batch, num_q_heads, q_len, head_dim] f32/bf16 — a prefill
+                  chunk's queries (post-RoPE)
+    k/v_pages:    [num_kv_heads, num_pages, page_size, head_dim] int8
+    k/v_scales:   [num_kv_heads, num_pages] f32
+    lengths:      [batch] int — TOTAL visible context (prefix + this chunk)
+    q_starts:     [batch] int — global position of each sequence's q row 0
+    block_tables: [batch, max_pages] int
+    Returns [batch, num_q_heads, q_len, head_dim] in q's dtype; with
+    save_residuals, also lse [batch, num_q_heads, q_len] f32 (m + log l
+    over the scaled logits, -inf for a row with no visible position).
+    block_q is accepted for signature parity; it has no numerical effect.
+    """
+    del block_q
+    validate_masking(True, window, attention_sinks)
+    num_q_heads, head_dim = q.shape[1], q.shape[3]
+    num_kv_heads = k_pages.shape[0]
+    if num_q_heads % num_kv_heads:
+        raise ValueError(f"q heads {num_q_heads} not a multiple of kv heads {num_kv_heads}")
+    scale = sm_scale if sm_scale is not None else head_dim**-0.5
+    fn = _paged_prefill_cuda if q.is_cuda else _paged_prefill_plain
+    return fn(q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts, block_tables,
+              sm_scale=scale, window=window, softcap=logit_softcap,
+              sinks=attention_sinks, save_residuals=save_residuals)

@@ -2,25 +2,29 @@
 quantizedmha_tpu/serving/engine.py, single paged INT8 pool).
 
 Requests stream in and are admitted when the paged INT8 KV cache has room
-(skip-ahead admission with a starvation bound); each prefill runs at a
-bucketed length; all active sequences decode together, one token per step
-or `decode_chunk` tokens per host round-trip through the on-device decode
-loop. Finished sequences release their pages at once, so queued requests
-join mid-flight. A request that can never be served fails ITSELF into
-`failed`; the rest of the batch keeps decoding.
+(skip-ahead admission with a starvation bound); a prompt up to the largest
+bucket prefills at a bucketed length through the model's attention, a
+longer one in chunks of the largest bucket through the paged cache
+(llama_adapter.prefill_chunk); all active sequences decode together, one
+token per step or `decode_chunk` tokens per host round-trip through the
+on-device decode loop. Finished sequences release their pages at once, so
+queued requests join mid-flight. A request that can never be served fails
+ITSELF into `failed`; the rest of the batch keeps decoding.
 
-Not ported yet, and refused with NotImplementedError when set: prefix
-caching and interleaved prefill (they run through chunked prefill,
-ops/paged_prefill.py), the hybrid and mixed-precision KV pools, and
-context-parallel prefill (ROADMAP.md queue 1 items 5-8). A prompt longer
-than the largest prefill bucket needs chunked prefill too, so it fails
-into `failed`. `async_dispatch` (a TPU host-overlap trick) accepts only
-False.
+prefix_cache shares page-aligned prompt prefixes already in the cache
+(refcounted pages, a sha1 chain over page-sized token chunks) and
+prefills only the suffix; interleaved_prefill runs a long prompt's chunks
+one per engine step, so active sequences keep decoding between them.
+Not ported yet, and refused with NotImplementedError when set: the hybrid
+and mixed-precision KV pools and context-parallel prefill (ROADMAP.md
+queue 1 items 6 and 8). `async_dispatch` (a TPU host-overlap trick)
+accepts only False.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -33,10 +37,6 @@ from quantizedmha_tpu_torch.serving import llama_adapter
 from quantizedmha_tpu_torch.serving.kv_cache import PageAllocator
 from quantizedmha_tpu_torch.serving.sampling import SamplingParams, sample
 from quantizedmha_tpu_torch.utils.metrics import Metrics
-
-_CHUNKED_TODO = ("chunked prefill (ops/paged_prefill.py), not ported yet "
-                 "(ROADMAP.md queue 1 item 5)")
-
 
 @dataclasses.dataclass
 class EngineConfig:
@@ -67,8 +67,6 @@ class EngineConfig:
 
 
 _UNPORTED = {
-    "prefix_cache": "prefix caching (suffix prefill runs through " + _CHUNKED_TODO + ")",
-    "interleaved_prefill": "interleaved prefill (" + _CHUNKED_TODO + ")",
     "hybrid_kv": "the hybrid per-window-group KV pools (ROADMAP.md queue 1 item 6)",
     "mixed_kv": "the mixed int8/int4 KV cache (ROADMAP.md queue 1 item 6, "
                 "queue 2 rows ops/decode.py:_decode_kernel_int4, "
@@ -88,6 +86,18 @@ class _Sequence:
     @property
     def done_by_len(self) -> bool:
         return len(self.out) >= self.max_new
+
+
+@dataclasses.dataclass
+class _PrefillTask:
+    """An in-flight interleaved chunked prefill: its pages are admitted
+    (the table is fixed), its chunks run one per engine step."""
+    rid: int
+    prompt: List[int]
+    max_new: int
+    table: torch.Tensor  # [max_pages_per_seq] int32 on the device
+    next_start: int
+    chunk: int
 
 
 class Engine:
@@ -111,8 +121,15 @@ class Engine:
         self.cache = llama_adapter.make_cache(cfg, ecfg.num_pages, ecfg.page_size,
                                               device=self.device)
         self.alloc = PageAllocator(ecfg.num_pages, ecfg.page_size, scrap_page=0)
+        # Prefix cache: chain digest -> page id and back; the allocator's
+        # on_free hook drops a page's entry when its last reference goes.
+        self._prefix_map: Dict[bytes, int] = {}
+        self._page_hash: Dict[int, bytes] = {}
+        if ecfg.prefix_cache:
+            self.alloc.on_free = self._on_page_free
         self.queue: deque = deque()
         self.active: List[_Sequence] = []
+        self.prefilling: List[_PrefillTask] = []  # interleaved_prefill FIFO
         self.finished: Dict[int, List[int]] = {}
         # Requests that can never be served: {rid: reason}; they also land
         # in `finished` with an empty token list (one terminal surface).
@@ -146,8 +163,24 @@ class Engine:
                 return b
         raise ValueError(f"prompt length {n} exceeds largest bucket")
 
+    def _resolve_prefix(self, prompt: List[int]) -> List[Optional[int]]:
+        """Usable cached-prefix slots for this prompt; empty when disabled,
+        missed, or when suffix chunking cannot fit the table."""
+        if not self.ecfg.prefix_cache:
+            return []
+        cached = self._cached_prefix(prompt)
+        if cached and self._suffix_chunk(len(prompt), len(cached)) is None:
+            return []
+        return cached
+
+    def _fits(self, prompt: List[int]) -> bool:
+        cached = self._resolve_prefix(prompt)
+        # Fresh pages are needed only past the reused slots.
+        return self.alloc.pages_needed(len(prompt)) - len(cached) <= self.alloc.free_pages
+
     def _try_admit(self) -> bool:
-        if not self.queue or len(self.active) >= self.ecfg.max_batch:
+        if (not self.queue or len(self.active) + len(self.prefilling)
+                >= self.ecfg.max_batch):
             return False
         starved = self._head_bypass >= self.ecfg.starvation_limit
         scan = 1 if starved else min(
@@ -161,7 +194,7 @@ class Engine:
                 del self.queue[idx]
                 self._fail_request(rid, f"request {rid} (len {n}): {reason}")
                 return True
-            if not self.alloc.can_admit(n):
+            if not self._fits(prompt):
                 continue
             del self.queue[idx]
             if idx == 0:
@@ -179,18 +212,30 @@ class Engine:
         self.metrics.inc("requests_failed")
 
     def _structural_reject(self, n: int) -> Optional[str]:
-        """Why a prompt of length n can NEVER be admitted, or None."""
-        if n > max(self.ecfg.prefill_buckets):
-            return (f"longer than the largest prefill bucket "
-                    f"({max(self.ecfg.prefill_buckets)}) — needs {_CHUNKED_TODO}")
-        pages = self.alloc.pages_needed(n)
-        if pages > self.ecfg.max_pages_per_seq:
-            return (f"needs {pages} pages > max_pages_per_seq "
+        """Why a prompt of length n can NEVER be admitted (its block table
+        cannot hold it), or None. Chunked prefill claims whole chunks of
+        table slots, the padded last chunk included."""
+        ps = self.ecfg.page_size
+        chunk = max(self.ecfg.prefill_buckets)
+        if n > chunk:
+            claim = -(-n // chunk) * chunk // ps
+            if claim > self.ecfg.max_pages_per_seq:
+                return (f"chunked prefill needs {claim} table slots > "
+                        f"max_pages_per_seq ({self.ecfg.max_pages_per_seq})")
+        elif -(-n // ps) > self.ecfg.max_pages_per_seq:
+            return (f"needs {-(-n // ps)} pages > max_pages_per_seq "
                     f"({self.ecfg.max_pages_per_seq})")
         return None
 
     def _dispatch_admit(self, rid: int, prompt: List[int], max_new: int) -> None:
         n = len(prompt)
+        cached = self._resolve_prefix(prompt)
+        if cached:
+            self._admit_cached(rid, prompt, max_new, cached)
+            return
+        if n > max(self.ecfg.prefill_buckets):
+            self._admit_chunked(rid, prompt, max_new)
+            return
         pages = self.alloc.admit(rid, n)
         bucket = self._bucket(n)
         toks = np.zeros((1, bucket), np.int32)
@@ -212,8 +257,144 @@ class Engine:
                                     self._t(np.asarray(pages, np.int32)),
                                     page_size=self.ecfg.page_size)
         first = self._sample(logits)
+        self._register_prefix(prompt, rid)
         self._activate(_Sequence(rid, prompt, [first], first, max_new))
         self._trim_windows()
+
+    def _table(self, rid: int) -> torch.Tensor:
+        """One sequence's block table row, [max_pages_per_seq] on the device."""
+        return self._t(self.alloc.block_table_array([rid], self.ecfg.max_pages_per_seq)[0])
+
+    def _run_chunk(self, prompt: List[int], start: int, chunk: int, table: torch.Tensor):
+        """Prefill prompt[start:start + chunk] (right-padded) through the
+        paged cache; returns the logits of its last real token."""
+        part = prompt[start:start + chunk]
+        toks = np.zeros((1, chunk), np.int32)
+        toks[0, :len(part)] = part
+        with self.metrics.timed("prefill"):
+            logits, self.cache = llama_adapter.prefill_chunk(
+                self.cfg, self.params, self.cache, self._t(toks), start, table,
+                len(part) - 1, page_size=self.ecfg.page_size)
+        return logits
+
+    def _admit_chunked(self, rid: int, prompt: List[int], max_new: int) -> None:
+        """Prefill a prompt longer than the largest bucket in chunks of that
+        bucket: each chunk's K/V go to the paged INT8 cache, then the chunk
+        attends to the prefix (itself included) from the pages. With
+        interleaved_prefill the chunks run one per step() instead."""
+        chunk = max(self.ecfg.prefill_buckets)
+        n = len(prompt)
+        self.alloc.admit(rid, n)
+        table = self._table(rid)
+        if self.ecfg.interleaved_prefill:
+            self.prefilling.append(_PrefillTask(rid, prompt, max_new, table, 0, chunk))
+            return
+        logits = None
+        for start in range(0, n, chunk):
+            logits = self._run_chunk(prompt, start, chunk, table)
+        self._complete_prefill(rid, prompt, max_new, logits, n)
+
+    def _complete_prefill(self, rid: int, prompt: List[int], max_new: int, logits,
+                          n_prefilled: int) -> None:
+        self.metrics.inc("requests_admitted")
+        self.metrics.inc("prefill_tokens", n_prefilled)
+        first = self._sample(logits)
+        self._register_prefix(prompt, rid)
+        self._activate(_Sequence(rid, prompt, [first], first, max_new))
+        # Never trim mid-chunked-prefill (later chunks read earlier slots):
+        # only once the whole prompt is in the cache.
+        self._trim_windows()
+
+    # -- automatic prefix caching ---------------------------------------------
+
+    def _page_chain(self, prompt: List[int]):
+        """Yield (page_index, chain_digest) for each FULL page of the
+        prompt: digest_i = sha1(digest_{i-1} || tokens of page i), so a hit
+        certifies the whole prefix, not just one page."""
+        ps = self.ecfg.page_size
+        h = b""
+        for i in range(len(prompt) // ps):
+            h = hashlib.sha1(
+                h + np.asarray(prompt[i * ps:(i + 1) * ps], np.int32).tobytes()).digest()
+            yield i, h
+
+    def _cached_prefix(self, prompt: List[int]) -> List[Optional[int]]:
+        """Longest usable run of cached prefix pages, capped so that at least
+        one suffix token remains to prefill (its logits give the first
+        sampled token). A model whose every layer shares one sliding window
+        needs only the pages a sequence of that prefix length would still
+        hold after trim_window (sink pages and pages not wholly behind the
+        window); older slots are None, ride the scrap page and stay unread
+        under the window mask. Shrinking the run slides the window back, so
+        runs are tried longest first."""
+        ps = self.ecfg.page_size
+        limit = (len(prompt) - 1) // ps
+        hits = [self._prefix_map.get(h) for i, h in self._page_chain(prompt) if i < limit]
+        sinks = self.cfg.attention_sinks or 0
+        sink_blocks = -(-sinks // ps) if sinks else 0
+        w = self.cfg.recyclable_window
+        for m in range(limit, 0, -1):
+            first_block = max(m * ps - w, 0) // ps if w else 0
+            row: List[Optional[int]] = []
+            for i in range(m):
+                needed = i < sink_blocks or i >= first_block
+                if needed and hits[i] is None:
+                    break
+                row.append(hits[i] if needed else None)
+            else:
+                return row
+        return []
+
+    def _register_prefix(self, prompt: List[int], rid: int) -> None:
+        if not self.ecfg.prefix_cache:
+            return
+        table = self.alloc.tables[rid]
+        for i, h in self._page_chain(prompt):
+            page = table[i]
+            if page is None:  # window-trimmed slot
+                continue
+            if h not in self._prefix_map and page not in self._page_hash:
+                self._prefix_map[h] = page
+                self._page_hash[page] = h
+
+    def _on_page_free(self, page: int) -> None:
+        h = self._page_hash.pop(page, None)
+        if h is not None:
+            self._prefix_map.pop(h, None)
+
+    def _suffix_chunk(self, n: int, n_cached_pages: int) -> Optional[int]:
+        """Chunk size for prefilling the uncached suffix (the smallest
+        bucket that holds it, else the largest), or None if no bucket fits
+        the block table: every chunk, the padded last one included, claims
+        chunk // page_size contiguous slots past the cached prefix."""
+        ps = self.ecfg.page_size
+        suffix = n - n_cached_pages * ps
+        largest = max(self.ecfg.prefill_buckets)
+        for b in sorted(self.ecfg.prefill_buckets):
+            if b < suffix and b != largest:
+                continue
+            slots = n_cached_pages + -(-suffix // b) * (b // ps)
+            if slots <= self.ecfg.max_pages_per_seq:
+                return b
+        return None
+
+    def _admit_cached(self, rid: int, prompt: List[int], max_new: int,
+                      cached_pages: List[Optional[int]]) -> None:
+        """Admission with a shared page-aligned prefix: the cached pages are
+        shared by refcount (identical tokens quantize identically) and only
+        the suffix runs through prefill_chunk at its global offset."""
+        n = len(prompt)
+        m = len(cached_pages)
+        c = m * self.ecfg.page_size
+        chunk = self._suffix_chunk(n, m)
+        self.alloc.admit_with_prefix(rid, n, cached_pages)
+        table = self._table(rid)
+        logits = None
+        for start in range(c, n, chunk):
+            logits = self._run_chunk(prompt, start, chunk, table)
+        self.metrics.inc("prefix_tokens_reused", c)
+        self.metrics.inc("prefix_cache_hits")
+        self._complete_prefill(rid, prompt, max_new, logits, n - c)
 
     def _activate(self, seq: _Sequence) -> None:
         """Admit a freshly prefilled sequence — unless its FIRST sampled
@@ -266,9 +447,31 @@ class Engine:
 
     # -- one engine step -----------------------------------------------------
 
+    def _prefill_tick(self) -> None:
+        """Run ONE chunk of the oldest in-flight interleaved prefill; after
+        its final chunk, sample the first token and activate the sequence.
+        The chunk schedule is that of blocking chunked admission, so greedy
+        token streams are the same."""
+        if not self.prefilling:
+            return
+        t = self.prefilling[0]
+        logits = self._run_chunk(t.prompt, t.next_start, t.chunk, t.table)
+        self.metrics.inc("prefill_chunks_interleaved")
+        t.next_start += t.chunk
+        if t.next_start < len(t.prompt):
+            return
+        self.prefilling.pop(0)
+        self._complete_prefill(t.rid, t.prompt, t.max_new, logits, len(t.prompt))
+        self._on_prefill_complete(t.rid, t.prompt)
+
+    def _on_prefill_complete(self, rid: int, prompt: List[int]) -> None:
+        """Hook: an interleaved chunked prefill's final chunk landed (the
+        sequence may have finished at activation: check self.active)."""
+
     def step(self) -> None:
         while self._try_admit():
             pass
+        self._prefill_tick()
         if not self.active:
             return
         if self.ecfg.decode_chunk > 1:
@@ -363,10 +566,11 @@ class Engine:
 
     def run(self) -> Dict[int, List[int]]:
         """Drive until queue and active set drain; returns {req_id: tokens}."""
-        while self.queue or self.active:
+        while self.queue or self.active or self.prefilling:
             before = len(self.finished)
             self.step()
-            if not self.active and self.queue and len(self.finished) == before:
+            if (not self.active and not self.prefilling and self.queue
+                    and len(self.finished) == before):
                 # Nothing fits an EMPTY cache: the head request needs more
                 # pages than the whole pool. Fail IT and keep draining.
                 rid, prompt, _ = self.queue.popleft()

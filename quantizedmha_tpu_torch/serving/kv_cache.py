@@ -11,7 +11,7 @@ only the slots it writes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -125,10 +125,13 @@ class PageAllocator:
         ]
         self.tables: Dict[int, List[Optional[int]]] = {}
         self.lengths: Dict[int, int] = {}
-        # Pages referenced by more than one sequence (share) carry a
-        # refcount; a page returns to the free list when its LAST reference
-        # drops.
+        # Pages referenced by more than one sequence (prefix sharing) carry
+        # a refcount; a page returns to the free list when its LAST
+        # reference drops, and on_free(page), if set, fires then (the
+        # engine drops the page from its prefix-hash map before the id is
+        # reused).
         self._ref: Dict[int, int] = {}
+        self.on_free: Optional[Callable[[int], None]] = None
 
     @property
     def free_pages(self) -> int:
@@ -138,6 +141,8 @@ class PageAllocator:
         r = self._ref.get(page, 1) - 1
         if r <= 0:
             self._ref.pop(page, None)
+            if self.on_free is not None:
+                self.on_free(page)
             self._free.append(page)
         else:
             self._ref[page] = r
@@ -148,6 +153,24 @@ class PageAllocator:
         for p in pages:
             if p is not None:
                 self._ref[p] = self._ref.get(p, 1) + 1
+
+    def admit_with_prefix(self, seq_id: int, n_tokens: int,
+                          shared_pages: List[Optional[int]]) -> List[int]:
+        """Admit with the first len(shared_pages) table slots reused from
+        another sequence (their refcounts go up here); only the remainder is
+        freshly allocated. None entries are window-trimmed slots: they keep
+        the table position-indexed, reference no page and map to the scrap
+        page. Returns the fresh pages."""
+        need = self.pages_needed(n_tokens) - len(shared_pages)
+        if need < 0:
+            raise ValueError("shared prefix longer than the prompt")
+        if need > self.free_pages:
+            raise RuntimeError(f"out of pages: need {need}, have {self.free_pages}")
+        self.share(shared_pages)
+        fresh = [self._free.pop() for _ in range(need)]
+        self.tables[seq_id] = list(shared_pages) + fresh
+        self.lengths[seq_id] = n_tokens
+        return fresh
 
     def pages_needed(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)

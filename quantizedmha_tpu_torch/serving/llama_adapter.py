@@ -9,11 +9,14 @@
     with ops.decode.paged_decode_attention.
   - decode_loop: n_steps of decode_step with on-device sampling feeding
     the next step, no host round-trip per token.
+  - prefill_chunk: one chunk of a prompt (past the largest bucket, or the
+    suffix past a cached prefix): its K/V are written to their pages
+    first, then its queries attend from the pages with
+    ops.paged_prefill.paged_prefill_attention.
 
 The cache is layer-stacked ([num_layers, ...] tensors); each layer works on
-views of its slice. Not ported yet: chunked prefill and speculative verify
-(ops/paged_prefill.py), the hybrid and mixed-precision caches, tensor and
-context parallelism.
+views of its slice. Not ported yet: speculative verify, the hybrid and
+mixed-precision caches, tensor and context parallelism.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from quantizedmha_tpu_torch.models.llama import (
     rms_norm,
 )
 from quantizedmha_tpu_torch.ops.decode import paged_decode_attention
+from quantizedmha_tpu_torch.ops.paged_prefill import paged_prefill_attention
 from quantizedmha_tpu_torch.quant.weights import qdense
 from quantizedmha_tpu_torch.reference.mha import apply_rope
 from quantizedmha_tpu_torch.serving.kv_cache import (
@@ -132,6 +136,72 @@ def write_prefill(
     for i in range(cfg.num_layers):
         write_pages(cache.layer(i), k_all[i], v_all[i], page_ids, page_size)
     return cache
+
+
+def prefill_chunk(
+    cfg: LlamaConfig,
+    params: Dict[str, Any],
+    cache: PagedKVCacheState,  # layer-stacked, updated in place
+    tokens: torch.Tensor,      # [1, C] one chunk, right-padded
+    chunk_start: int,          # multiple of page_size
+    table: torch.Tensor,       # [max_pages] this sequence's block table
+    last_index: int,           # last REAL token index within the chunk
+    *,
+    page_size: int,
+) -> Tuple[torch.Tensor, PagedKVCacheState]:
+    """One chunk of a chunked prefill: per layer, project and RoPE the
+    chunk at its global positions, write its K/V into its pages (padding
+    rows zeroed, so they cannot coarsen the per-page scales), then attend
+    its queries from the pages: the prefix and the chunk's own keys, INT8
+    as decode reads them, causal by global position (q_starts =
+    chunk_start, lengths = chunk_start + C).
+
+    Returns (logits [1, vocab] at last_index, cache)."""
+    if isinstance(cache, dict):
+        raise NotImplementedError(
+            "prefill_chunk over the hybrid per-window-group caches is not ported "
+            "yet (ROADMAP.md queue 1 item 6)")
+    if isinstance(table, tuple):
+        raise NotImplementedError(
+            "prefill_chunk over the mixed int8/int4 cache is not ported yet "
+            "(ROADMAP.md queue 1 item 6)")
+    b, C = tokens.shape
+    if b != 1:
+        raise ValueError("chunked prefill is per-sequence")
+    if chunk_start % page_size or C % page_size:
+        raise ValueError(f"chunk [{chunk_start}, +{C}) is not page-aligned ({page_size})")
+    hd = cfg.hd
+    dev = tokens.device
+    dense = functools.partial(qdense, mode=cfg.weight_quant_mode)
+    positions = chunk_start + torch.arange(C, device=dev)
+    keep = (torch.arange(C, device=dev) <= last_index)[None, :, None]
+    first = chunk_start // page_size
+    chunk_pages = table[first:first + C // page_size]
+    lengths = torch.tensor([chunk_start + C], dtype=torch.int32, device=dev)
+    q_starts = torch.tensor([chunk_start], dtype=torch.int32, device=dev)
+    x = embed_tokens(cfg, params, tokens)
+    for i, window in enumerate(cfg.layer_windows):
+        p = layer_params(params["layers"], i)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_eps, cfg.rms_plus_one)
+        q, k, v = qkv_triple(cfg, dense, h, p)
+        q = q.reshape(b, C, cfg.num_heads, hd).transpose(1, 2)
+        k = k.reshape(b, C, cfg.num_kv_heads, hd).transpose(1, 2)
+        v = v.reshape(b, C, cfg.num_kv_heads, hd).transpose(1, 2)
+        q = apply_rope(q, cfg.rope_theta, positions)
+        k = apply_rope(k, cfg.rope_theta, positions)
+        layer = cache.layer(i)
+        write_pages(layer, k[0] * keep, v[0] * keep, chunk_pages, page_size)
+        o = paged_prefill_attention(
+            q, layer.k_pages, layer.v_pages, layer.k_scales, layer.v_scales,
+            lengths, q_starts, table[None], sm_scale=cfg.sm_scale, window=window,
+            logit_softcap=cfg.logit_softcap,
+            attention_sinks=cfg.attention_sinks if window is not None else 0,
+        )
+        o = o.transpose(1, 2).reshape(b, C, cfg.num_heads * hd)
+        x = _attn_residual(cfg, dense, p, x, o)
+        x = _mlp_residual(cfg, dense, p, x)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
+    return final_logits(cfg, x[0, last_index], params["lm_head"])[None], cache
 
 
 def _rope_single(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

@@ -114,8 +114,8 @@ def test_decode_loop_matches_stepwise(models):
 
 
 def _serve(engine_cls, cfg_cls, cfg, params, prompts, **kw):
-    ecfg = cfg_cls(num_pages=16, page_size=16, max_batch=2, max_pages_per_seq=16,
-                   prefill_buckets=(128, 256), max_new_tokens=6, **kw)
+    ecfg = cfg_cls(**{**dict(num_pages=16, page_size=16, max_batch=2, max_pages_per_seq=16,
+                             prefill_buckets=(128, 256), max_new_tokens=6), **kw})
     eng = engine_cls(cfg, params, ecfg) if engine_cls is JEngine else engine_cls(
         cfg, params, ecfg, device="cpu")
     rids = [eng.add_request(p) for p in prompts]
@@ -136,14 +136,17 @@ def test_engine_greedy_streams_match_jax(models, chunk):
     assert eng.alloc.free_pages == 15  # every page back but the scrap page
 
 
-def test_long_prompt_fails_alone(models):
-    """A prompt past the largest bucket needs chunked prefill, which is not
-    ported: that request fails into `failed`, the others are served."""
-    _, _, tc, tp = models
+def test_long_prompt_served_with_the_others(models):
+    """A prompt past the largest bucket (300 > 128 tokens) is prefilled in
+    three chunks through the paged cache beside two bucketed ones: every
+    request is served, and the streams equal the JAX engine's."""
+    jc, jp, tc, tp = models
     prompts = [[1] * 30, [2] * 300, [3] * 40]
-    eng, out, rids = _serve(Engine, EngineConfig, tc, tp, prompts, decode_chunk=2)
-    assert set(eng.failed) == {rids[1]} and "chunked prefill" in eng.failed[rids[1]]
-    assert out[rids[1]] == [] and len(out[rids[0]]) == 6 and len(out[rids[2]]) == 6
+    kw = dict(decode_chunk=2, num_pages=40, max_pages_per_seq=24, prefill_buckets=(64, 128))
+    _, want, _ = _serve(JEngine, JEngineConfig, jc, jp, prompts, **kw)
+    eng, out, rids = _serve(Engine, EngineConfig, tc, tp, prompts, **kw)
+    assert not eng.failed and out == want
+    assert all(len(out[r]) == 6 for r in rids)
 
 
 def test_eos_and_max_new(models):
@@ -164,7 +167,7 @@ def test_eos_and_max_new(models):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("prefix_cache", True), ("interleaved_prefill", True), ("hybrid_kv", True),
+    ("hybrid_kv", True),
     ("mixed_kv", {"boundary_tokens": 16, "int8_pages": 4, "int4_pages": 4}),
     ("cp_mesh", object())])
 def test_unported_engine_options_raise(models, field, value):

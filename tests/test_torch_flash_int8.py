@@ -238,13 +238,6 @@ def test_verify_compare_matches_jax():
         tverify.assert_close(torch.from_numpy(got), ref)
 
 
-@pytest.mark.parametrize("kernel", ["fa", "fa_bf16", "unfused"])
-def test_solve_unported_rungs_raise(kernel):
-    x = torch.ones((8, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.solve(x, x, x, 16, 2, kernel=kernel, device="cpu")
-
-
 def test_masking_contract_raises():
     q, k, v = _t(*_qkv(1, 2, 2, 16, 16, 32, seed=18))
     with pytest.raises(ValueError):

@@ -129,9 +129,6 @@ def test_init_params_shapes_match_jax():
 
 
 def test_unported_paths_raise():
-    _, _, tc, tp = _pair("d32", impl="flash")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.forward(tc, tp, torch.zeros((1, 4), dtype=torch.int32))
     q = tw.quantize_weight(torch.ones(4, 4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tw.qdense(torch.ones(1, 4), q, mode="w8a8")
