@@ -12,8 +12,10 @@ result line:
   kernels  hold each kernel against its plain PyTorch version on the card
            at the main paths' shapes, every element within its stated
            tolerance (err_over_tol <= 1), then on small cases off the main
-           paths; kernel / plain / library times (CUDA events) and the
-           least time the card could take (bound).
+           paths and on the two mixed-cache compositions (INT8 and INT4
+           partials merged by lse) against their plain compositions;
+           kernel / plain / library times (CUDA events) and the least time
+           the card could take (bound).
   solve    the reference ABI at N=8192, d_model=1024, h=32 in float32:
            solve(kernel="fa_int8"), then the float rungs "fa", "fa_bf16"
            and "unfused": time, relative RMS error against the float
@@ -45,15 +47,30 @@ result line:
            Gates: exact launch counts, 2 hits reusing 8192 tokens, the
            2000-token and the chunked 5000-token prefills' last logits
            within 0.25 std of the float attention golden.
+  serve_mixed  the same model served from the mixed INT8-sink / INT4-bulk
+           paged cache (mixed_kv: boundary 256, 32 INT8 and 512 INT4 pages,
+           4 scale sub-tiles a page): prompts of 240, 1000 and 2000 tokens
+           (bucketed, written 2 INT8 pages + the rest INT4; the 240-token
+           one crosses the boundary while it decodes), 5000 and 7900
+           (chunked and interleaved: every chunk runs the INT8 and the INT4
+           paged prefill), 32 new tokens each; then eight 2000-token
+           prompts, 72 new tokens each, time decode at batch 8 (every step
+           runs the INT8 and the INT4 paged decode). Gates: exact launch
+           counts, every token, both pools drained, the 5000-token prompt's
+           last logits through a fresh mixed cache within 0.25 std of the
+           golden whose float attention reads K/V through the same INT8 /
+           INT4 quantization; their distance from the float golden, and the
+           plain INT8 cache's, printed beside it.
   faults   each line of PLANTED_FAULTS planted in a copy of csrc/, the
-           float kernel sources that the changed file is part of
-           (flash_fwd.cu, paged_prefill.cu, their shared f32_tile.cuh)
-           built in parallel and bound in turn in place of the committed
-           kernels, their checks rerun: every fault must fail them.
+           kernel sources that the changed file is part of (flash_fwd.cu,
+           paged_prefill.cu, paged_decode.cu, their shared f32_tile.cuh and
+           int4.cuh) built in parallel and bound in turn in place of the
+           committed kernels, their checks rerun: every fault must fail
+           them.
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 zeroed just before each main path (each solve rung, serve, each serve_w4
-batch, serve_flash) runs and read just after, and a kernel of that path
+batch, serve_flash, serve_mixed) runs and read just after, and a kernel of that path
 that never launched fails the run. The last
 lines are the kernels summary, the card's name and power limit, and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -63,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -82,7 +100,8 @@ EXP_PER_S = 132 * 16 * 1.98e9
 REFERENCE_L4_MS = 7.70  # the reference study's fa_tc_int8_b on an NVIDIA L4
 SOLVE_REL_RMS_TOL = 0.03  # int8 solve vs the float golden (phase_solve)
 
-PHASES = ("build", "kernels", "solve", "serve", "serve_w4", "serve_flash", "faults")
+PHASES = ("build", "kernels", "solve", "serve", "serve_w4", "serve_flash", "serve_mixed",
+          "faults")
 
 
 def emit(obj) -> None:
@@ -240,22 +259,20 @@ def flash_fwd_tolerances(q, k, v, o_plain, lse_plain, w_abs, *, sm_scale, softca
     return tol_o, tol_lse
 
 
-def paged_prefill_tolerances(q, k_pages, v_pages, k_scales, v_scales, o_plain, lse_plain,
-                             *, sm_scale, softcap):
-    """Per-element tolerances of the paged prefill kernel against its plain
-    version: both compute in f32 from the same int8 pages, so only the
-    summation orders differ. Scores by at most ds per row (score_err over
-    |q·sm_scale| and the kv head's largest dequantized |k|), moving the
-    output by at most 4 ds max|v|; P·V and l by 1e-5 of max|v| (max|v|
-    over the kv head's pages, dequantized); a bf16 output adds one ulp. lse:
-    ds + 1e-5 + f32 rounding of m + log l."""
+def attention_tolerances(q, kn, vmax, o_plain, lse_plain, *, sm_scale, softcap):
+    """Per-element tolerances of a paged kernel (decode, q [B, Hq, D], or
+    prefill, q [B, Hq, C, D]) against its plain version: both compute in
+    f32 from the same pages, so only the summation orders differ. Scores by
+    at most ds per row (score_err over |q·sm_scale| and kn, the kv head's
+    largest dequantized |k|), moving the output by at most 4 ds max|v|; P·V
+    and l by 1e-5 of vmax (the kv head's largest dequantized |v|); a bf16
+    output adds one ulp. lse: ds + 1e-5 + f32 rounding of m + log l."""
     import torch
     D = q.shape[-1]
-    group = q.shape[1] // k_pages.shape[0]
-    qn = (q.double() * sm_scale).norm(dim=-1)                                 # [B, Hq, C]
-    kn = (k_pages.double().norm(dim=-1) * k_scales.double()[..., None]).flatten(1).amax(dim=1)
-    vmax = (v_pages.double().abs().amax(dim=-1) * v_scales.double()[..., None]).flatten(1).amax(dim=1)
-    kn, vmax = (x.repeat_interleave(group)[None, :, None] for x in (kn, vmax))
+    group = q.shape[1] // kn.shape[0]
+    shape = (1, -1) + (1,) * (q.dim() - 3)
+    qn = (q.double() * sm_scale).norm(dim=-1)                                 # [B, Hq(, C)]
+    kn, vmax = (x.double().repeat_interleave(group).reshape(shape) for x in (kn, vmax))
     ds = score_err(qn, kn, D)
     if softcap is not None:
         ds = ds + 2.0**-22 * softcap
@@ -264,6 +281,54 @@ def paged_prefill_tolerances(q, k_pages, v_pages, k_scales, v_scales, o_plain, l
         tol_o = tol_o + 2.0**-7 * (o_plain.double().abs() + tol_o)
     tol_lse = ds + 1e-5 + 1e-6 * torch.nan_to_num(lse_plain.double().abs(), posinf=0.0)
     return tol_o, tol_lse
+
+
+def paged_prefill_tolerances(q, k_pages, v_pages, k_scales, v_scales, o_plain, lse_plain,
+                             *, sm_scale, softcap):
+    """attention_tolerances over int8 pages with one scale per (head, page)."""
+    kn = (k_pages.double().norm(dim=-1) * k_scales.double()[..., None]).flatten(1).amax(dim=1)
+    vmax = (v_pages.double().abs().amax(dim=-1) * v_scales.double()[..., None]).flatten(1).amax(dim=1)
+    return attention_tolerances(q, kn, vmax, o_plain, lse_plain, sm_scale=sm_scale,
+                                softcap=softcap)
+
+
+def int4_tolerances(q, k_pages, v_pages, k_scales, v_scales, o_plain, lse_plain,
+                    *, sm_scale, softcap):
+    """attention_tolerances over nibble-packed pages with per-sub-tile
+    scales [Hkv, num_pages, subs]."""
+    from quantizedmha_tpu_torch.ops.quantize import unpack_int4_halves
+
+    def rows(pages, scales):  # dequantized rows, one kv head at a time: [n, P, D]
+        sub = pages.shape[2] // scales.shape[-1]
+        for h in range(pages.shape[0]):
+            x = torch.cat(unpack_int4_halves(pages[h]), dim=-1).double()
+            yield x * scales[h].double().repeat_interleave(sub, dim=-1)[..., None]
+    import torch
+    kn = torch.stack([r.norm(dim=-1).max() for r in rows(k_pages, k_scales)])
+    vmax = torch.stack([r.abs().max() for r in rows(v_pages, v_scales)])
+    return attention_tolerances(q, kn, vmax, o_plain, lse_plain, sm_scale=sm_scale,
+                                softcap=softcap)
+
+
+def merge_tolerance(o, lse_parts, o_parts, tols, lse_tols):
+    """Tolerance of a merged output (parallel/combine.merge_two_partials)
+    from its two partials' tolerances: o = w_a o_a + w_b o_b with w = exp(
+    lse_part - lse), taken from the plain partials. A partial's output
+    error moves o by w times it; its lse error moves o by at most w_a w_b
+    |o_a - o_b| per unit; the merged bf16 output adds one ulp of |o|."""
+    import torch
+    (la, lb), (oa, ob) = lse_parts, o_parts
+    lse = torch.logaddexp(la.double(), lb.double())
+    fin = torch.isfinite(lse)
+    wa, wb = (torch.where(fin & torch.isfinite(x), torch.exp(x.double() - lse),
+                          torch.zeros_like(lse))[..., None] for x in (la, lb))
+    d_lse = (torch.where(torch.isfinite(la), lse_tols[0], 0.0)
+             + torch.where(torch.isfinite(lb), lse_tols[1], 0.0))[..., None]
+    tol = (wa * tols[0] + wb * tols[1]
+           + wa * wb * (oa.double() - ob.double()).abs() * d_lse)
+    if o.dtype == torch.bfloat16:
+        tol = tol + 2.0**-7 * (o.double().abs() + tol)
+    return tol
 
 
 def _sdpa(q, k, v, **kw):
@@ -357,6 +422,41 @@ def _flash_case(name, route_mode, q, k, v, block_kv, causal, *, replaces, librar
             "library_ms": lib_ms}
 
 
+def _dense_kv(pages, scales, tables, Hq, dtype=None):
+    """The K or V that a paged cache holds for each sequence of `tables`,
+    dequantized, as dense [B, Hq, max_pages * P, D] (bf16 unless `dtype`)
+    with the kv heads expanded to the q heads (int8 pages with [Hkv, n]
+    scales, or nibble-packed pages with [Hkv, n, subs] scales)."""
+    import torch
+    from quantizedmha_tpu_torch.ops.quantize import unpack_int4_halves
+    idx = tables.long()
+    x = pages[:, idx]                                                 # [Hkv, B, mp, P, *]
+    sc = scales[:, idx]
+    if scales.dim() == 3:
+        x = torch.cat(unpack_int4_halves(x), dim=-1)
+        sc = sc.repeat_interleave(pages.shape[2] // scales.shape[-1], dim=-1)[..., None]
+    else:
+        sc = sc[..., None, None]
+    x = (x.float() * sc).transpose(0, 1)                              # [B, Hkv, mp, P, D]
+    B, Hkv = x.shape[:2]
+    x = x.reshape(B, Hkv, -1, x.shape[-1]).to(dtype or torch.bfloat16)
+    return x.repeat_interleave(Hq // Hkv, dim=1)
+
+
+def _sdpa_decode(q, k_pages, v_pages, k_scales, v_scales, lengths, tables):
+    """(ms, backend) of SDPA in bf16 for one decode step on the same K/V
+    dequantized beforehand (untimed), each sequence's length as a mask:
+    the yardstick of the paged decode kernels."""
+    import torch
+    Hq = q.shape[1]
+    kd = _dense_kv(k_pages, k_scales, tables, Hq)
+    vd = _dense_kv(v_pages, v_scales, tables, Hq)
+    mask = (torch.arange(kd.shape[2], device=q.device)[None, :] < lengths[:, None].long())
+    out = _sdpa(q[:, :, None].to(torch.bfloat16), kd, vd, attn_mask=mask[:, None, None])
+    del kd, vd
+    return out
+
+
 def _decode_case(name, Hkv, *, replaces, seed, lengths=(257, 300), max_pages=4):
     """The decode kernel against its plain version at batch 8, Llama-3-8B
     heads, page 128: context lengths drawn from the closed range `lengths`,
@@ -387,6 +487,7 @@ def _decode_case(name, Hkv, *, replaces, seed, lengths=(257, 300), max_pages=4):
     ratio = err_over_tol(out, plain, tol)
     ms = cuda_ms(lambda: kernel(*args), iters=50)
     plain_ms = cuda_ms(lambda: dec._paged_decode_plain(*operands, **kw), iters=3, warmup=1)
+    lib_ms, backend = _sdpa_decode(q, k_pages, v_pages, k_scales, v_scales, lengths, tables)
     ctx = int(lengths.sum().item())
     nbytes = (q.numel() * 2 * 2 + 2 * ctx * Hkv * D
               + 2 * B * Hkv * max_pages * 4 + B * 4 + tables.numel() * 4)
@@ -400,7 +501,7 @@ def _decode_case(name, Hkv, *, replaces, seed, lengths=(257, 300), max_pages=4):
             "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "page": P,
                       "max_pages": max_pages, "lengths": lengths.tolist()},
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None}
+            "library_ms": lib_ms, "library_backend": backend}
 
 
 def _flash_fwd_check(q, k, v, offsets, *, causal, window=None, sinks=0, softcap=None,
@@ -637,7 +738,6 @@ def _coverage():
     the card with output and lse checked; returns the summary entry, with
     each case's [output, lse] error over its tolerance."""
     import torch
-    from quantizedmha_tpu_torch.ops import decode as dec
     from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
     from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -666,39 +766,298 @@ def _coverage():
         ratios[f"flash{i}"] = [err_over_tol(out, p_out, tol), err_over_tol(lse, p_lse, lse_tol)]
         if max(ratios[f"flash{i}"]) > 1.0:
             failed.append(f"flash{i}")
-    for i, (B, Hq, Hkv, D, P, window, sinks, cap, qbf16) in enumerate(DECODE_COVERAGE):
-        max_pages = 6
-        num_pages = B * max_pages + 1
-        lengths = torch.randint(1, P * max_pages + 1, (B,), generator=g, device="cuda",
-                                dtype=torch.int32)
-        tables = (torch.randperm(num_pages - 1, generator=g, device="cuda")[:B * max_pages]
-                  + 1).reshape(B, max_pages).to(torch.int32)
-        k_pages, v_pages = torch.randint(-127, 128, (2, Hkv, num_pages, P, D), generator=g,
-                                         device="cuda", dtype=torch.int8)
-        k_scales, v_scales = torch.rand((2, Hkv, num_pages), generator=g, device="cuda") * 0.05
-        dt = torch.bfloat16 if qbf16 else torch.float32
-        q = torch.randn((B, Hq, D), generator=g, device="cuda").to(dt)
-        kw = dict(sm_scale=D**-0.5, window=window, softcap=cap, sinks=sinks,
-                  save_residuals=True)
-        operands = (q, k_pages, v_pages, k_scales, v_scales, lengths, tables)
-        kernel, args, (out, lse), _operands = dec._paged_decode_launch(*operands, **kw)
-        kernel(*args)
-        torch.cuda.synchronize()
-        p_out, p_lse = dec._paged_decode_plain(*operands, **kw)
-        # lse: f32 on both sides, summation order only.
-        lse_tol = 1e-5 + 1e-6 * torch.nan_to_num(p_lse.double().abs(), posinf=0.0)
-        ratios[f"decode{i}"] = [
-            err_over_tol(out, p_out, decode_tolerance(p_out, v_pages, v_scales)),
-            err_over_tol(lse, p_lse, lse_tol)]
-        if max(ratios[f"decode{i}"]) > 1.0:
-            failed.append(f"decode{i}")
+    r = _decode_coverage_ratios(g)
+    ratios.update(r)
+    failed += [k for k, x in r.items() if max(x) > 1.0]
     r, f = _coverage_float(g)
     ratios.update(r)
     failed += f
+    r = _coverage_int4(g)
+    ratios.update(r)
+    failed += [k for k, x in r.items() if max(x) > 1.0]
+    composites = _mixed_composites(g)
+    failed += [k for k, c in composites.items() if c["err_over_tol"] > 1.0]
     return {"flash_cases": len(FLASH_COVERAGE), "decode_cases": len(DECODE_COVERAGE),
             "flash_fwd_cases": len(FLASH_FWD_COVERAGE),
             "paged_prefill_cases": len(PAGED_PREFILL_COVERAGE),
-            "err_over_tol": ratios, "failed": failed, "ok": not failed}
+            "int4_cases": len(DECODE_INT4_COVERAGE) + len(PREFILL_INT4_COVERAGE),
+            "err_over_tol": ratios, "mixed_composites": composites, "failed": failed,
+            "ok": not failed}
+
+
+# --- INT4 pages (the mixed cache's bulk): rows 11 and 12 -------------------
+
+# serve_mixed's shapes: Llama-3-8B heads, page 128, 4 scale sub-tiles a page,
+# the INT8 region the first 256 positions, an INT4 table of 64 slots.
+MIXED_MAIN = dict(Hq=32, Hkv=8, D=128, P=128, subs=4, boundary=256, max_pages4=64)
+
+
+def _int4_cache(g, Hkv, num_pages, P, D, subs):
+    """Random nibble-packed pages (every byte value) and per-sub-tile
+    scales [Hkv, num_pages, subs] on the card."""
+    import torch
+    k_pages, v_pages = torch.randint(-128, 128, (2, Hkv, num_pages, P, D // 2), generator=g,
+                                     device="cuda", dtype=torch.int8)
+    k_scales, v_scales = torch.rand((2, Hkv, num_pages, subs), generator=g, device="cuda") * 0.2 + 0.1
+    return k_pages, v_pages, k_scales, v_scales
+
+
+def _tables_for(g, B, max_pages, num_pages):
+    """[B, max_pages] tables of distinct random pages past scrap page 0."""
+    import torch
+    perm = torch.randperm(num_pages - 1, generator=g, device="cuda")[:B * max_pages] + 1
+    return perm.reshape(B, max_pages).to(torch.int32)
+
+
+def _int4_check(q, cache, lengths, tables, q_starts=None, *, window=None, sinks=0,
+                softcap=None):
+    """One INT4 launch with lse, decode (q [B, Hq, D]) or prefill (q [B,
+    Hq, C, D], q_starts), against its plain version: (kernel output, plain
+    output, [output, lse] err_over_tol, output tolerance, launch, plain
+    call, plain lse, lse tolerance)."""
+    import torch
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    sm = q.shape[-1] ** -0.5
+    kw = dict(sm_scale=sm, window=window, softcap=softcap, sinks=sinks, save_residuals=True)
+    if q_starts is None:
+        operands = (q, *cache, lengths, tables)
+        launch_fn, plain_fn = dec._paged_decode_launch, dec._paged_decode_int4_plain
+    else:
+        operands = (q, *cache, lengths, q_starts, tables)
+        launch_fn, plain_fn = pp._paged_prefill_launch, pp._paged_prefill_int4_plain
+    kernel, args, (out, lse), _operands = launch_fn(*operands, int4=True, **kw)
+    kernel(*args)
+    torch.cuda.synchronize()
+    p_out, p_lse = plain_fn(*operands, **kw)
+    tol, lse_tol = int4_tolerances(q, *cache, p_out, p_lse, sm_scale=sm, softcap=softcap)
+    ratios = [err_over_tol(out, p_out, tol), err_over_tol(lse, p_lse, lse_tol)]
+    return (out, p_out, ratios, tol, lambda: kernel(*args), lambda: plain_fn(*operands, **kw),
+            p_lse, lse_tol)
+
+
+def _int4_decode_main_inputs(g):
+    """serve_mixed's decode at batch 8: INT4 contexts of 1.7k-7.7k tokens
+    (lengths less the 256-token INT8 region) through 64-slot tables."""
+    import torch
+    m = MIXED_MAIN
+    B = 8
+    cache = _int4_cache(g, m["Hkv"], B * m["max_pages4"] + 1, m["P"], m["D"], m["subs"])
+    tables = _tables_for(g, B, m["max_pages4"], B * m["max_pages4"] + 1)
+    lengths = torch.randint(1700, 7701, (B,), generator=g, device="cuda", dtype=torch.int32)
+    q = torch.randn((B, m["Hq"], m["D"]), generator=g, device="cuda").to(torch.bfloat16)
+    return q, cache, lengths, tables
+
+
+def _int4_prefill_main_inputs(g):
+    """serve_mixed's heaviest chunk in the INT4 frame: 2048 rows at 4096 of
+    context (q_start 4096 - 256, length 6144 - 256), bf16 q."""
+    import torch
+    m = MIXED_MAIN
+    C, q0 = 2048, 4096 - m["boundary"]
+    n_pages = -(-(q0 + C) // m["P"])
+    cache = _int4_cache(g, m["Hkv"], n_pages + 1, m["P"], m["D"], m["subs"])
+    tables = _tables_for(g, 1, n_pages, n_pages + 1)
+    q = torch.randn((1, m["Hq"], C, m["D"]), generator=g, device="cuda").to(torch.bfloat16)
+    return (q, cache, torch.tensor([q0 + C], dtype=torch.int32, device="cuda"),
+            tables, torch.tensor([q0], dtype=torch.int32, device="cuda"))
+
+
+def _int4_decode_case(g):
+    """Row 12 at serve_mixed's decode shape: check, kernel / plain / SDPA
+    times, the bound (the INT4 bytes of the context once, q, o, lse)."""
+    m = MIXED_MAIN
+    q, cache, lengths, tables = _int4_decode_main_inputs(g)
+    out, p_out, ratios, tol, launch, plain, *_ = _int4_check(q, cache, lengths, tables)
+    ms = cuda_ms(launch, iters=20)
+    plain_ms = cuda_ms(plain, iters=2, warmup=1)
+    lib_ms, backend = _sdpa_decode(q, *cache, lengths, tables)
+    B, Hq, D = q.shape
+    ctx = int(lengths.sum().item())
+    pages = sum(-(-int(n) // m["P"]) for n in lengths.tolist())
+    nbytes = (q.numel() * 2 * 2 + B * Hq * 4 + 2 * ctx * m["Hkv"] * D // 2
+              + 2 * pages * m["Hkv"] * m["subs"] * 4 + B * 4 + tables.numel() * 4)
+    bms, by = bound(nbytes, {"fp32": 2 * 2 * ctx * Hq * D, "exp": ctx * Hq})
+    return {"name": "paged_decode_int4", "route": "cuda",
+            "source": "quantizedmha_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "quantizedmha_tpu/ops/decode.py:897", "launches": None,
+            "max_abs_err": (out.float() - p_out.float()).abs().max().item(),
+            "err_over_tol": max(ratios), "tol_range": [tol.min().item(), tol.max().item()],
+            "ok": max(ratios) <= 1.0,
+            "shape": {"B": B, "Hq": Hq, "Hkv": m["Hkv"], "D": D, "page": m["P"],
+                      "subs": m["subs"], "max_pages": m["max_pages4"],
+                      "lengths": lengths.tolist(), "save_residuals": True, "q": "bfloat16"},
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms, "library_backend": backend}
+
+
+def _int4_prefill_case(g):
+    """Row 11 at serve_mixed's heaviest chunk: check, kernel / plain / SDPA
+    times (SDPA on the same K/V dequantized to bf16, causal mask explicit),
+    the bound (f32 operations of the visible pairs)."""
+    import torch
+    m = MIXED_MAIN
+    q, cache, lengths, tables, q_starts = _int4_prefill_main_inputs(g)
+    out, p_out, ratios, tol, launch, plain, *_ = _int4_check(q, cache, lengths, tables, q_starts)
+    ms = cuda_ms(launch, iters=5)
+    plain_ms = cuda_ms(plain, iters=2, warmup=1)
+    B, Hq, C, D = q.shape
+    q0, ctx = int(q_starts[0]), int(lengths[0])
+    kd = _dense_kv(cache[0], cache[2], tables, Hq)[:, :, :ctx]
+    vd = _dense_kv(cache[1], cache[3], tables, Hq)[:, :, :ctx]
+    mask = (torch.arange(ctx, device="cuda")[None, :]
+            <= q0 + torch.arange(C, device="cuda")[:, None])
+    lib_ms, backend = _sdpa(q, kd, vd, attn_mask=mask)
+    del kd, vd
+    pairs = Hq * (C * q0 + C * (C + 1) // 2)
+    n_pages = tables.shape[1]
+    nbytes = (2 * q.numel() * 2 + 2 * ctx * m["Hkv"] * D // 2
+              + 2 * m["Hkv"] * n_pages * m["subs"] * 4 + tables.numel() * 4 + Hq * C * 4)
+    bms, by = bound(nbytes, {"fp32": 4 * pairs * D, "exp": pairs})
+    return {"name": "paged_prefill_int4", "route": "cuda",
+            "source": "quantizedmha_tpu_torch/csrc/paged_prefill.cu",
+            "replaces": "quantizedmha_tpu/ops/paged_prefill.py:323", "launches": None,
+            "max_abs_err": (out.float() - p_out.float()).abs().max().item(),
+            "err_over_tol": max(ratios), "tol_range": [tol.min().item(), tol.max().item()],
+            "ok": max(ratios) <= 1.0,
+            "shape": {"Hq": Hq, "Hkv": m["Hkv"], "D": D, "P": m["P"], "subs": m["subs"],
+                      "C": C, "q_start": q0, "lengths": ctx, "save_residuals": True,
+                      "q": "bfloat16"},
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms, "library_backend": backend}
+
+
+# Small INT4 shapes off the main paths: subs 1 and 4, window, window + sinks,
+# softcap, Hkv 1 and 2, GQA groups 4, 3 and 8, every head dim, both q dtypes,
+# an empty sequence (length 0) in every decode case, and prefill chunks whose
+# q_start is negative and straddles 0 inside a q tile.
+#   (B, Hq, Hkv, D, page, subs, window, sinks, softcap, bf16 q)
+DECODE_INT4_COVERAGE = (
+    (3, 8, 2, 32, 16, 1, None, 0, None, False),
+    (3, 4, 1, 64, 32, 4, 20, 3, 50.0, True),
+    (2, 8, 2, 128, 16, 4, 7, 0, None, False),
+    (4, 8, 1, 128, 64, 2, None, 0, 30.0, True),
+)
+#   (Hq, Hkv, D, page, subs, C, lengths, q_starts, window, sinks, softcap, bf16 q)
+PREFILL_INT4_COVERAGE = (
+    (8, 2, 32, 16, 1, 40, (40, 90), (0, 50), None, 0, None, False),
+    (4, 1, 64, 32, 4, 33, (100, 20), (67, -13), 30, 3, None, True),
+    (8, 2, 128, 128, 4, 70, (200, 0, 50), (130, -70, -20), None, 0, 10.0, True),
+    (6, 2, 64, 64, 2, 20, (300,), (280,), 64, 0, None, False),
+    (32, 8, 128, 128, 4, 130, (900, 60), (770, -70), None, 0, None, True),
+)
+
+
+def _coverage_int4(g):
+    """DECODE_INT4_COVERAGE and PREFILL_INT4_COVERAGE: kernel against plain
+    on the card, {case: [output, lse] err_over_tol}."""
+    import torch
+    ratios = {}
+    for i, (B, Hq, Hkv, D, P, subs, window, sinks, cap, bf16) in enumerate(DECODE_INT4_COVERAGE):
+        max_pages = 6
+        cache = _int4_cache(g, Hkv, B * max_pages + 1, P, D, subs)
+        tables = _tables_for(g, B, max_pages, B * max_pages + 1)
+        lengths = torch.randint(1, P * max_pages + 1, (B,), generator=g, device="cuda",
+                                dtype=torch.int32)
+        lengths[0] = 0
+        q = torch.randn((B, Hq, D), generator=g, device="cuda")
+        q = q.to(torch.bfloat16) if bf16 else q
+        ratios[f"paged_decode_int4_{i}"] = _int4_check(
+            q, cache, lengths, tables, window=window, sinks=sinks, softcap=cap)[2]
+    for i, (Hq, Hkv, D, P, subs, C, lengths, q_starts, window, sinks, cap,
+            bf16) in enumerate(PREFILL_INT4_COVERAGE):
+        B = len(lengths)
+        max_pages = max(-(-n // P) for n in lengths) + 1
+        cache = _int4_cache(g, Hkv, B * max_pages + 1, P, D, subs)
+        tables = _tables_for(g, B, max_pages, B * max_pages + 1)
+        q = torch.randn((B, Hq, C, D), generator=g, device="cuda")
+        q = q.to(torch.bfloat16) if bf16 else q
+        ratios[f"paged_prefill_int4_{i}"] = _int4_check(
+            q, cache, torch.tensor(lengths, dtype=torch.int32, device="cuda"), tables,
+            torch.tensor(q_starts, dtype=torch.int32, device="cuda"), window=window,
+            sinks=sinks, softcap=cap)[2]
+    return ratios
+
+
+def _mixed_composites(g):
+    """mixed_paged_decode_attention and mixed_paged_prefill_attention on the
+    card (two kernels each and the merge) against their plain compositions
+    (the plain INT8 and INT4 walks, the same merge), held within
+    merge_tolerance of the partials' tolerances; and the decode composite's
+    largest deviation from float attention over the dequantized mixed cache
+    (scripts/run13_mixed_kv.py's check), printed."""
+    import torch
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    from quantizedmha_tpu_torch.parallel.combine import merge_two_partials
+    from quantizedmha_tpu_torch.serving.mixed_kv import (
+        MixedPagedKVState,
+        mixed_paged_decode_attention,
+        mixed_paged_prefill_attention,
+    )
+    m = MIXED_MAIN
+    Hq, Hkv, D, P, bnd = m["Hq"], m["Hkv"], m["D"], m["P"], m["boundary"]
+    bp, mp4, B = bnd // P, 16, 8
+    c8 = _paged_cache(g, Hkv, B * bp + 1, P, D)
+    c4 = _int4_cache(g, Hkv, B * mp4 + 1, P, D, m["subs"])
+    state = MixedPagedKVState(*c8, *c4)
+    t8, t4 = _tables_for(g, B, bp, B * bp + 1), _tables_for(g, B, mp4, B * mp4 + 1)
+    lengths = torch.tensor([100, 256, 257, 300, 900, 1500, 2000, 2304], dtype=torch.int32,
+                           device="cuda")
+    sm = D**-0.5
+    kw = dict(sm_scale=sm, window=None, softcap=None, sinks=0, save_residuals=True)
+    out = {}
+
+    def held(name, got, parts, tols):
+        (o8, l8), (o4, l4) = parts
+        plain = merge_two_partials(o8, l8, o4, l4)[0]
+        tol = merge_tolerance(plain, (l8, l4), (o8, o4), (tols[0][0], tols[1][0]),
+                              (tols[0][1], tols[1][1]))
+        out[name] = {"err_over_tol": err_over_tol(got, plain, tol),
+                     "max_abs_err": (got.float() - plain.float()).abs().max().item()}
+        return plain
+
+    # Decode: lengths below, at and past the boundary, bf16 q.
+    q = torch.randn((B, Hq, D), generator=g, device="cuda").to(torch.bfloat16)
+    got = mixed_paged_decode_attention(q, state, lengths, t8, t4, bnd)
+    len8, len4 = lengths.clamp(max=bnd), (lengths - bnd).clamp(min=0)
+    p8 = dec._paged_decode_plain(q, *c8, len8, t8, **kw)
+    p4 = dec._paged_decode_int4_plain(q, *c4, len4, t4, **kw)
+    tol8 = decode_tolerance(p8[0], c8[1], c8[3])
+    lse_tol8 = 1e-5 + 1e-6 * torch.nan_to_num(p8[1].double().abs(), posinf=0.0)
+    tols4 = int4_tolerances(q, *c4, *p4, sm_scale=sm, softcap=None)
+    held("mixed_decode", got, (p8, p4), ((tol8, lse_tol8), tols4))
+    # Float attention over the dequantized mixed cache, one sequence at a time.
+    f32 = torch.float32
+    k = torch.cat([_dense_kv(c8[0], c8[2], t8, Hq, f32), _dense_kv(c4[0], c4[2], t4, Hq, f32)],
+                  dim=2)
+    v = torch.cat([_dense_kv(c8[1], c8[3], t8, Hq, f32), _dense_kv(c4[1], c4[3], t4, Hq, f32)],
+                  dim=2)
+    dev = 0.0
+    for b in range(B):
+        n = int(lengths[b])
+        n8 = min(n, bnd)
+        keep = torch.cat([torch.arange(bnd, device="cuda") < n8,
+                          torch.arange(k.shape[2] - bnd, device="cuda") < n - n8])
+        s = (q[b].float()[:, None] @ k[b, :, keep].transpose(-1, -2))[:, 0] * sm
+        ref = (torch.softmax(s, dim=-1)[:, None] @ v[b, :, keep])[:, 0]
+        dev = max(dev, (got[b].float() - ref).abs().max().item())
+    out["mixed_decode"]["max_abs_dev_vs_float_dequant"] = dev
+    del k, v
+    # Prefill: one chunk of 512 rows at 128 (spanning the boundary: its INT4
+    # rows start at -128), one past it at 1024, bf16 q.
+    C = 512
+    q = torch.randn((2, Hq, C, D), generator=g, device="cuda").to(torch.bfloat16)
+    starts = torch.tensor([128, 1024], dtype=torch.int32, device="cuda")
+    lengths = starts + C
+    got = mixed_paged_prefill_attention(q, state, lengths, starts, t8[:2], t4[:2], bnd)
+    len8, len4 = lengths.clamp(max=bnd), (lengths - bnd).clamp(min=0)
+    p8 = pp._paged_prefill_plain(q, *c8, len8, starts, t8[:2], **kw)
+    p4 = pp._paged_prefill_int4_plain(q, *c4, len4, starts - bnd, t4[:2], **kw)
+    tols8 = paged_prefill_tolerances(q, *c8, *p8, sm_scale=sm, softcap=None)
+    tols4 = int4_tolerances(q, *c4, *p4, sm_scale=sm, softcap=None)
+    held("mixed_prefill", got, (p8, p4), (tols8, tols4))
+    return out
 
 
 # The four fused w4a16 matmuls of one Llama-3-8B decoder layer (serve_w4):
@@ -867,7 +1226,7 @@ def phase_kernels(st):
     deep = _decode_case("paged_decode", 8, seed=6, lengths=(2048, 8192), max_pages=64,
                         replaces="quantizedmha_tpu/ops/decode.py:527")
     keys = ("replaces", "max_abs_err", "err_over_tol", "ok", "shape", "ms", "plain_ms",
-            "bound_ms", "bound_by")
+            "bound_ms", "bound_by", "library_ms", "library_backend")
     cases[-1]["also_replaces"] = mqa["replaces"]
     cases[-1]["mqa"] = {k: mqa[k] for k in keys}
     cases[-1]["serve_flash"] = {k: deep[k] for k in keys}
@@ -893,6 +1252,9 @@ def phase_kernels(st):
     cases.append(_flash_fwd_case("flash_fwd[f32]", qs, ks, vs, False, label="solve fa",
                                  replaces="quantizedmha_tpu/ops/flash_attention.py:124"))
     cases.append(_paged_prefill_case(g, replaces="quantizedmha_tpu/ops/paged_prefill.py:63"))
+    # The INT4 kernels of the mixed cache at serve_mixed's shapes.
+    cases.append(_int4_prefill_case(g))
+    cases.append(_int4_decode_case(g))
     st["kernels"] = {c["name"]: c for c in cases}
     ok = all(c["ok"] for c in cases)
     emit({"phase": "kernels", "ok": ok, "kernels": cases})
@@ -924,16 +1286,64 @@ PLANTED_FAULTS = (
     ("paged_prefill.cu", "window one key wider (kpos >= qpos - window)",
      "valid &= kpos > qpos[i] - p.window || kpos < p.sinks;",
      "valid &= kpos >= qpos[i] - p.window || kpos < p.sinks;"),
+    ("int4.cuh", "high nibble shifted as unsigned (0..15, not -8..7)",
+     "__device__ __forceinline__ int int4_hi(int b) { return b >> 4; }",
+     "__device__ __forceinline__ int int4_hi(int b) { return (b & 0xff) >> 4; }"),
+    ("paged_decode.cu", "INT4 sub-tile scale index off by one",
+     "const int sub = t / sub_w;", "const int sub = (t / sub_w + 1) % p.subs;"),
+    ("paged_prefill.cu", "negative q_start clamped to 0",
+     "const int qstart = p.qstarts[b];", "const int qstart = max(p.qstarts[b], 0);"),
+    ("paged_decode.cu", "empty row's lse 0, not -inf",
+     "l == 0.f ? -INFINITY : mrow[g] + logf(fmaxf(l, 1e-38f));",
+     "l == 0.f ? 0.f : mrow[g] + logf(fmaxf(l, 1e-38f));"),
 )
-FAULT_SOURCES = ("flash_fwd", "paged_prefill")  # the float kernels the faults are held to
+# The kernel sources the faults are held to, and the prefixes of their
+# coverage cases.
+FAULT_SOURCES = {"flash_fwd": ("flash_fwd",), "paged_prefill": ("paged_prefill",),
+                 "paged_decode": ("decode", "paged_decode")}
+
+
+def _decode_coverage_ratios(g):
+    """DECODE_COVERAGE: the INT8 decode kernel against plain on the card,
+    {case: [output, lse] err_over_tol}."""
+    import torch
+    from quantizedmha_tpu_torch.ops import decode as dec
+    ratios = {}
+    for i, (B, Hq, Hkv, D, P, window, sinks, cap, qbf16) in enumerate(DECODE_COVERAGE):
+        max_pages = 6
+        num_pages = B * max_pages + 1
+        lengths = torch.randint(1, P * max_pages + 1, (B,), generator=g, device="cuda",
+                                dtype=torch.int32)
+        tables = (torch.randperm(num_pages - 1, generator=g, device="cuda")[:B * max_pages]
+                  + 1).reshape(B, max_pages).to(torch.int32)
+        k_pages, v_pages = torch.randint(-127, 128, (2, Hkv, num_pages, P, D), generator=g,
+                                         device="cuda", dtype=torch.int8)
+        k_scales, v_scales = torch.rand((2, Hkv, num_pages), generator=g, device="cuda") * 0.05
+        dt = torch.bfloat16 if qbf16 else torch.float32
+        q = torch.randn((B, Hq, D), generator=g, device="cuda").to(dt)
+        kw = dict(sm_scale=D**-0.5, window=window, softcap=cap, sinks=sinks,
+                  save_residuals=True)
+        operands = (q, k_pages, v_pages, k_scales, v_scales, lengths, tables)
+        kernel, args, (out, lse), _operands = dec._paged_decode_launch(*operands, **kw)
+        kernel(*args)
+        torch.cuda.synchronize()
+        p_out, p_lse = dec._paged_decode_plain(*operands, **kw)
+        # lse: f32 on both sides, summation order only.
+        lse_tol = 1e-5 + 1e-6 * torch.nan_to_num(p_lse.double().abs(), posinf=0.0)
+        ratios[f"decode{i}"] = [
+            err_over_tol(out, p_out, decode_tolerance(p_out, v_pages, v_scales)),
+            err_over_tol(lse, p_lse, lse_tol)]
+    return ratios
 
 
 def _fault_checks(src):
-    """The float kernel checks of one source with whatever library is bound:
+    """The kernel checks of one source with whatever library is bound:
     ({main shape: [err_over_tol]}, {coverage case: err_over_tol})."""
     import torch
+    from quantizedmha_tpu_torch.ops import decode as dec
     from quantizedmha_tpu_torch.ops.flash_attention import _offsets
     g = torch.Generator(device="cuda").manual_seed(1)
+    g5 = torch.Generator(device="cuda").manual_seed(5)
     main = {}
     if src == "flash_fwd":
         for label, dt, shape, hkv, causal in (
@@ -943,10 +1353,18 @@ def _fault_checks(src):
             kv = torch.randn((2, 1, hkv) + shape[2:], generator=g, device="cuda").to(dt)
             main[label] = _flash_fwd_check(q, kv[0], kv[1], _offsets(0, 0, 1, q.device),
                                            causal=causal, save_residuals=False)[2]
-    else:
+        ratios, _ = _coverage_float(g5)
+    elif src == "paged_prefill":
         main["serve_flash chunk"] = _paged_prefill_check(*_paged_main_inputs(g))[2]
-    ratios, _ = _coverage_float(torch.Generator(device="cuda").manual_seed(5))
-    return main, {k: max(r) for k, r in ratios.items() if k.startswith(src)}
+        q, cache, lengths, tables, q_starts = _int4_prefill_main_inputs(g)
+        main["serve_mixed chunk"] = _int4_check(q, cache, lengths, tables, q_starts)[2]
+        ratios = {**_coverage_float(g5)[0], **_coverage_int4(g5)}
+    else:
+        case = _decode_case("paged_decode", 8, seed=2, replaces="")
+        main["serve decode"] = [case["err_over_tol"]]
+        main["serve_mixed decode"] = _int4_check(*_int4_decode_main_inputs(g))[2]
+        ratios = {**_decode_coverage_ratios(g5), **_coverage_int4(g5)}
+    return main, {k: max(r) for k, r in ratios.items() if k.startswith(FAULT_SOURCES[src])}
 
 
 def phase_faults(st):
@@ -958,6 +1376,7 @@ def phase_faults(st):
     import ctypes
     import shutil
     from quantizedmha_tpu_torch.ops import cuda_lib
+    from quantizedmha_tpu_torch.ops import decode as dec
     from quantizedmha_tpu_torch.ops import flash_attention as fa
     from quantizedmha_tpu_torch.ops import paged_prefill as pp
     out_dir = cuda_lib.BUILD_DIR / "faults"
@@ -982,7 +1401,9 @@ def phase_faults(st):
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for a planted fault:\n{log}")
-    kernels = {"flash_fwd": (fa.FLASH_FWD_BF16, fa.FLASH_FWD_F32), "paged_prefill": (pp.PAGED_PREFILL,)}
+    kernels = {"flash_fwd": (fa.FLASH_FWD_BF16, fa.FLASH_FWD_F32),
+               "paged_prefill": (pp.PAGED_PREFILL, pp.PAGED_PREFILL_INT4),
+               "paged_decode": (dec.PAGED_DECODE, dec.PAGED_DECODE_INT4)}
     rows = []
     try:
         for what, src, _, lib in builds:
@@ -1393,6 +1814,274 @@ def phase_serve_flash(st):
         raise AssertionError("serve_flash phase failed its checks")
 
 
+SERVE_MIXED = dict(bucketed=(240, 1000, 2000), long=(5000, 7900), max_new=32, chunk=8,
+                   page=128, decode_new=72, logit_tol=0.25,
+                   mixed={"boundary_tokens": 256, "int8_pages": 32, "int4_pages": 512,
+                          "subs": 4})
+
+
+def _cache_page_bytes(cfg, page, subs=None):
+    """Bytes of one page of a layer-stacked cache: K and V of every layer
+    and kv head, payload and scales (INT8, or nibble-packed INT4 with subs
+    scales)."""
+    per_head = page * cfg.hd + 4 if subs is None else page * cfg.hd // 2 + 4 * subs
+    return cfg.num_layers * 2 * cfg.num_kv_heads * per_head
+
+
+def _kv_quantized_logits(cfg, params, toks, *, boundary, page, subs):
+    """Last-token logits of the model with float attention over K/V passed
+    through the mixed cache's quantization and back: each layer's K and V
+    (after RoPE, in the model's dtype), page by page, INT8 with one scale a
+    head below `boundary` and INT4 with one scale a head and sub-tile past
+    it, dequantized to f32. The golden of the mixed cache's numerics,
+    without its kernels, its paging or its chunking."""
+    import functools
+    import torch
+    from quantizedmha_tpu_torch.models.llama import (
+        embed_tokens, final_logits, layer_params, qkv_triple, rms_norm)
+    from quantizedmha_tpu_torch.ops.quantize import unpack_int4_halves
+    from quantizedmha_tpu_torch.quant.weights import qdense
+    from quantizedmha_tpu_torch.reference.mha import apply_rope, mha_masked_reference
+    from quantizedmha_tpu_torch.serving.kv_cache import quantize_page
+    from quantizedmha_tpu_torch.serving.llama_adapter import _attn_residual, _mlp_residual
+    from quantizedmha_tpu_torch.serving.mixed_kv import quantize_page_int4
+    b, n = toks.shape
+    n_pad = -(-n // page) * page
+    nb = boundary // page
+
+    def through_cache(x):  # [Hkv, n, D] -> the dequantized cache contents, f32
+        h, _, d = x.shape
+        xp = torch.zeros((h, n_pad, d), dtype=torch.float32, device=x.device)
+        xp[:, :n] = x.float()
+        pages = xp.reshape(h, n_pad // page, page, d).transpose(0, 1)  # [pages, Hkv, P, D]
+        q8, s8 = quantize_page(pages[:nb])
+        q4, s4 = quantize_page_int4(pages[nb:], subs)
+        d4 = torch.cat(unpack_int4_halves(q4), dim=-1).float()
+        d4 = d4 * s4.repeat_interleave(page // subs, dim=-1)[..., None]
+        out = torch.cat([q8.float() * s8[..., None, None], d4])
+        return out.transpose(0, 1).reshape(h, n_pad, d)[:, :n]
+    dense = functools.partial(qdense, mode=cfg.weight_quant_mode)
+    x = embed_tokens(cfg, params, toks)
+    hd = cfg.hd
+    for i in range(cfg.num_layers):
+        p = layer_params(params["layers"], i)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_eps, cfg.rms_plus_one)
+        q, k, v = qkv_triple(cfg, dense, h, p)
+        q = apply_rope(q.reshape(b, n, cfg.num_heads, hd).transpose(1, 2), cfg.rope_theta)
+        k = apply_rope(k.reshape(b, n, cfg.num_kv_heads, hd).transpose(1, 2), cfg.rope_theta)
+        v = v.reshape(b, n, cfg.num_kv_heads, hd).transpose(1, 2)
+        o = mha_masked_reference(q, through_cache(k[0])[None], through_cache(v[0])[None],
+                                 sm_scale=cfg.sm_scale, causal=True,
+                                 softcap=cfg.logit_softcap)
+        x = _attn_residual(cfg, dense, p, x, o.transpose(1, 2).reshape(b, n, -1))
+        x = _mlp_residual(cfg, dense, p, x)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
+    return final_logits(cfg, x[:, -1], params["lm_head"])
+
+
+def phase_serve_mixed(st):
+    """Llama-3-8B as configured (flash attention, random bf16 weights, 32
+    layers) served from the mixed INT8-sink / INT4-bulk paged cache:
+    bucketed prompts written split across the two pools, chunked and
+    interleaved prompts through rows 10 + 11, fused decode through rows 3 +
+    12 and the lse merge; then eight 2000-token prompts time decode at
+    batch 8."""
+    import numpy as np
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    from quantizedmha_tpu_torch.serving import llama_adapter
+    from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
+    from quantizedmha_tpu_torch.serving.kv_cache import MixedPageAllocator, PageAllocator
+
+    # An earlier phase's engine sits in reference cycles with its model:
+    # collect it, so that the peak below is this phase's.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sm_ = SERVE_MIXED
+    mk = sm_["mixed"]
+    cfg = llama.LlamaConfig.llama3_8b()
+    L, page, bnd = cfg.num_layers, sm_["page"], mk["boundary_tokens"]
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ecfg = EngineConfig(page_size=page, prefill_buckets=(128, 256, 512, 1024, 2048), max_batch=8,
+                        max_pages_per_seq=64, max_new_tokens=sm_["max_new"],
+                        decode_chunk=sm_["chunk"], interleaved_prefill=True, mixed_kv=dict(mk))
+    eng = Engine(cfg, params, ecfg, device="cuda")
+    rng = np.random.default_rng(0)
+    vocab = cfg.vocab_size
+    prompts = [rng.integers(1, vocab, n).tolist() for n in sm_["bucketed"] + sm_["long"]]
+    # Warm-up outside the measured run: a bucketed prompt and a two-chunk one.
+    for n in (100, 2100):
+        eng.add_request(rng.integers(1, vocab, n).tolist(), max_new=sm_["chunk"] + 1)
+    eng.run()
+    eng.finished.clear()
+
+    kernels = {"flash_fwd[bf16]": fa.FLASH_FWD_BF16, "flash_fwd[f32]": fa.FLASH_FWD_F32,
+               "paged_prefill": pp.PAGED_PREFILL, "paged_prefill_int4": pp.PAGED_PREFILL_INT4,
+               "paged_decode": dec.PAGED_DECODE, "paged_decode_int4": dec.PAGED_DECODE_INT4,
+               "flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P,
+               "flash_int8_fwd[bf16_p]": fa8.FLASH_BF16_P}
+    counters = ("decode_steps", "tokens_generated", "prefill_chunks_interleaved",
+                "requests_admitted", "prefill_tokens")
+    base = {c: eng.metrics.counter(c) for c in counters}
+    for kern in kernels.values():
+        kern.reset()
+    t_start = time.perf_counter()
+    rids = [eng.add_request(p, max_new=sm_["max_new"]) for p in prompts]
+    long_rid = rids[-1]
+    # The 7900-token sequence's pages at its release: its final length.
+    long_pages, release = [], eng.alloc.release
+
+    def release_counting(seq_id):
+        if seq_id == long_rid:
+            long_pages.extend((len(eng.alloc.a8.tables[seq_id]),
+                               len(eng.alloc.a4.tables[seq_id]), eng.alloc.lengths[seq_id]))
+        release(seq_id)
+    eng.alloc.release = release_counting
+    ttft = {}
+    while eng.queue or eng.active or eng.prefilling:
+        eng.step()
+        torch.cuda.synchronize()
+        te = time.perf_counter()
+        for rid in rids:
+            if rid not in ttft and _first_token_at(eng, rid):
+                ttft[rid] = te - t_start
+    run_s = time.perf_counter() - t_start
+    batch_prompts = [rng.integers(1, vocab, sm_["bucketed"][-1]).tolist() for _ in range(8)]
+    batch_rids = [eng.add_request(p, max_new=sm_["decode_new"]) for p in batch_prompts]
+    decode_wall = []
+    while eng.queue or eng.active or eng.prefilling:
+        before = {c: eng.metrics.counter(c) for c in ("requests_admitted", "decode_steps",
+                                                      "tokens_generated")}
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - ts
+        d = {c: eng.metrics.counter(c) - before[c] for c in before}
+        if (d["requests_admitted"] == 0 and d["decode_steps"] == sm_["chunk"]
+                and d["tokens_generated"] == 8 * sm_["chunk"]):
+            decode_wall.append(dt)
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    delta = {c: eng.metrics.counter(c) - base[c] for c in counters}
+    results = eng.finished
+    n_chunks = sum(-(-n // 2048) for n in sm_["long"])
+    n_bucketed = len(sm_["bucketed"]) + len(batch_rids)
+    steps = int(delta["decode_steps"])
+    want = {"flash_fwd[bf16]": L * n_bucketed, "flash_fwd[f32]": 0,
+            "paged_prefill": L * n_chunks, "paged_prefill_int4": L * n_chunks,
+            "paged_decode": L * steps, "paged_decode_int4": L * steps,
+            "flash_int8_fwd[int8_p]": 0, "flash_int8_fwd[bf16_p]": 0}
+    for name in ("flash_fwd[bf16]", "paged_prefill", "paged_prefill_int4", "paged_decode",
+                 "paged_decode_int4"):
+        st["launches"][name] = st["launches"].get(name, 0) + launches[name]
+    lens_ok = (all(len(results.get(r, [])) == sm_["max_new"] for r in rids)
+               and all(len(results.get(r, [])) == sm_["decode_new"] for r in batch_rids))
+    in_vocab = all(0 <= t < vocab for r in rids + batch_rids for t in results.get(r, []))
+    drained = (eng.alloc.a8.free_pages == mk["int8_pages"] - 1
+               and eng.alloc.a4.free_pages == mk["int4_pages"] - 1)
+    counts_ok = (launches == want and delta["prefill_chunks_interleaved"] == n_chunks
+                 and len(decode_wall) >= 4)
+
+    # The 5000-token prompt's last logits, chunk-prefilled through a fresh
+    # mixed cache (and, beside it, a plain INT8 cache), against the float
+    # attention golden on the same tokens, and, gated, against the golden
+    # whose attention reads K/V through the mixed cache's quantization (the
+    # INT4 step itself moves the logits ~1 std of the float golden on these
+    # random weights); the 2000-token bucketed prefill timed. Each path
+    # runs twice; the second run is timed.
+    ref_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    n_b, n_c, chunk = sm_["bucketed"][-1], sm_["long"][0], 2048
+    toks = torch.zeros((1, 2048), dtype=torch.int32, device="cuda")
+    toks[0, :n_b] = torch.tensor(prompts[len(sm_["bucketed"]) - 1], device="cuda")
+    for _ in range(2):
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        llama_adapter.prefill_at(cfg, params, toks, n_b - 1)
+        torch.cuda.synchronize()
+        bucket_s = time.perf_counter() - tb
+    slots = -(-n_c // chunk) * chunk // page
+    ctoks = torch.tensor(prompts[len(sm_["bucketed"])], dtype=torch.int32, device="cuda")
+
+    def chunked(cache, table):
+        for start in range(0, n_c, chunk):
+            part = torch.zeros((1, chunk), dtype=torch.int32, device="cuda")
+            n_part = min(chunk, n_c - start)
+            part[0, :n_part] = ctoks[start:start + n_part]
+            out, _ = llama_adapter.prefill_chunk(cfg, params, cache, part, start, table,
+                                                 n_part - 1, page_size=page,
+                                                 boundary_tokens=bnd)
+        return out
+    bp = bnd // page
+    a = MixedPageAllocator(bp + 1, slots - bp + 1, page, bnd)
+    a.admit(0, n_c)
+    table = tuple(torch.tensor(t[0], device="cuda") for t in a.block_tables([0], slots - bp))
+    cache = llama_adapter.make_cache_mixed(cfg, bp + 1, slots - bp + 1, page, mk["subs"],
+                                           device="cuda")
+    for _ in range(2):
+        torch.cuda.synchronize()
+        tc = time.perf_counter()
+        mixed_logits = chunked(cache, table)
+        torch.cuda.synchronize()
+        chunked_s = time.perf_counter() - tc
+    del cache
+    plain = PageAllocator(slots + 1, page, scrap_page=0)
+    plain.admit(0, n_c)
+    cache = llama_adapter.make_cache(cfg, slots + 1, page, device="cuda")
+    int8_logits = chunked(cache, torch.tensor(plain.block_table_array([0], slots)[0],
+                                              device="cuda"))
+    del cache
+    ref = llama.forward(ref_cfg, params, ctoks[None])[:, -1]
+    checks = {"mixed_chunked_5000": ((mixed_logits - ref).abs().max() / ref.std()).item(),
+              "int8_chunked_5000": ((int8_logits - ref).abs().max() / ref.std()).item()}
+    del ref
+    ref = _kv_quantized_logits(cfg, params, ctoks[None], boundary=bnd, page=page,
+                               subs=mk["subs"])
+    gated = ((mixed_logits - ref).abs().max() / ref.std()).item()
+    finite = bool(torch.isfinite(mixed_logits).all().item())
+    del ref
+    torch.cuda.empty_cache()
+
+    n8, n4, n_long = long_pages or (0, 0, 0)
+    kv_mixed = n8 * _cache_page_bytes(cfg, page) + n4 * _cache_page_bytes(cfg, page, mk["subs"])
+    kv_int8 = -(-n_long // page) * _cache_page_bytes(cfg, page)
+    dec_s = sum(decode_wall)
+    dec_steps = sm_["chunk"] * len(decode_wall)
+    ok = (lens_ok and in_vocab and counts_ok and drained and not eng.failed and finite
+          and gated <= sm_["logit_tol"])
+    emit({"phase": "serve_mixed", "ok": ok, "model": "llama3_8b", "attention_impl": "flash",
+          "layers": L, "weights": "bf16", "init_s": init_s, "mixed_kv": mk,
+          "prompts": list(sm_["bucketed"] + sm_["long"]), "max_new": sm_["max_new"],
+          "decode_chunk": sm_["chunk"],
+          "tokens_each": sorted({len(results.get(r, [])) for r in rids}),
+          "failed": eng.failed, "launches": launches, "launches_expected": want,
+          "counters": delta, "pools_drained": drained,
+          "free_pages": [eng.alloc.a8.free_pages, eng.alloc.a4.free_pages], "run_s": run_s,
+          "ttft_s": {n: ttft.get(r) for n, r in zip(sm_["bucketed"] + sm_["long"], rids)},
+          "prefill_tok_s_bucketed": n_b / bucket_s, "prefill_2000_s": bucket_s,
+          "prefill_tok_s_chunked": n_c / chunked_s, "prefill_chunked_5000_s": chunked_s,
+          "decode_batch": 8, "decode_prompt_len": sm_["bucketed"][-1],
+          "decode_new": sm_["decode_new"], "decode_engine_steps_timed": len(decode_wall),
+          "decode_tok_s_batch8": 8 * dec_steps / dec_s if dec_s else None,
+          "decode_ms_per_step_batch8": dec_s * 1e3 / dec_steps if dec_steps else None,
+          "kv_bytes_long": {"tokens": n_long, "int8_pages": n8, "int4_pages": n4,
+                            "mixed": kv_mixed, "plain_int8": kv_int8,
+                            "ratio": kv_mixed / kv_int8 if kv_int8 else None},
+          "logits_rel_err_vs_reference": checks,
+          "logits_rel_err_vs_kv_quantized_golden": {"mixed_chunked_5000": gated},
+          "rel_err_tol": sm_["logit_tol"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if not ok:
+        raise AssertionError("serve_mixed phase failed its checks")
+
+
 def _dequantized(params, dtype):
     """params with every QuantizedWeight4 layer stack replaced by its
     dequantized weights as plain `dtype` tensors, one layer at a time."""
@@ -1696,7 +2385,7 @@ def main(argv=None) -> int:
             entries.append(e)
         emit({"kernels": entries})
         idle = [e["name"] for e in entries if e["launches"] == 0]
-        if {"solve", "serve", "serve_w4", "serve_flash"} <= set(phases) and idle:
+        if {"solve", "serve", "serve_w4", "serve_flash", "serve_mixed"} <= set(phases) and idle:
             print(f"chip_smoke: kernels never launched on a main path: {idle}",
                   file=sys.stderr)
             return 1

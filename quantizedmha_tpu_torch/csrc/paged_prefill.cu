@@ -1,10 +1,12 @@
-// Paged multi-token causal attention over the INT8 KV cache, for Hopper
-// (sm_90a).
+// Paged multi-token causal attention over the INT8 KV cache, or over the
+// nibble-packed INT4 one, for Hopper (sm_90a): one kernel template, two
+// page formats.
 //
-// Replaces the Pallas TPU kernel quantizedmha_tpu/ops/paged_prefill.py:63
-// _prefill_kernel: a prefill chunk's (or a prefix-cache suffix's) queries
-// attend straight from the int8 pages through the block table, with
-// per-sequence q_starts and lengths.
+// Replaces the Pallas TPU kernels quantizedmha_tpu/ops/paged_prefill.py:63
+// _prefill_kernel (entry paged_prefill) and :323 _prefill_kernel_int4
+// (entry paged_prefill_int4): a prefill chunk's (or a prefix-cache
+// suffix's) queries attend straight from the pages through the block
+// table, with per-sequence q_starts and lengths.
 //
 // Numerics contract (what _paged_prefill_plain in ops/paged_prefill.py
 // computes, up to the f32 summation order and a few ulps of exp/tanh): q in
@@ -20,10 +22,20 @@
 // page's product, the kernel 64 keys at a time with v_scale folded into P:
 // both are f32 rounding differences only.
 //
+// INT4 form: a packed row holds D/2 bytes (byte j: element j low nibble,
+// element j + D/2 high nibble; int4.cuh), and key t of a page takes the
+// scales of its sub-tile, scales[h, page, t / (P / subs)]: the INT8 form
+// is the case subs = 1. q_starts may be negative (the INT4 partial of a
+// mixed-cache chunk that starts below the boundary): rows at negative
+// positions see no key and give o = 0, lse = -inf; a tile whose rows are
+// all negative loads nothing (kend <= 0).
+//
 // What bounds it on the H100: the serving path's heaviest launch, the last
 // 2048-row chunk of a ~7.9k-token prompt at Hq=32, d=128, is ~2.3e11 f32
 // operations, 3.4 ms at the CUDA cores' 67 TFLOP/s; the pages it reads are
 // tens of MB. So it is compute-bound on the CUDA cores.
+//
+// The INT4 form does the same operations from half the page bytes.
 //
 // What this design does about it: one block per (sequence, kv head, q tile)
 // holds all `group` q heads of its tile as 64 rows (16 positions x 4 heads at
@@ -44,6 +56,7 @@
 #include <stdint.h>
 
 #include "f32_tile.cuh"
+#include "int4.cuh"
 
 namespace {
 
@@ -55,19 +68,19 @@ struct Params {
   const void* q;         // [B, Hq, C, D] f32 or bf16
   const int8_t* kp;      // [Hkv, num_pages, P, D]
   const int8_t* vp;
-  const float* ks;       // [Hkv, num_pages]
+  const float* ks;       // [Hkv, num_pages, subs] (INT8: subs = 1)
   const float* vs;
   const int* lengths;    // [B] visible context
   const int* qstarts;    // [B] global position of q row 0
   const int* tables;     // [B, max_pages]
   void* o;               // [B, Hq, C, D], q's dtype
   float* lse;            // [B, Hq, C] or nullptr
-  int B, Hq, Hkv, C, num_pages, P, max_pages, G, BQ;
+  int B, Hq, Hkv, C, num_pages, P, max_pages, G, BQ, subs;
   float sm_scale, softcap, mask_value, mask_half;
   int has_softcap, window, sinks;  // window < 0: none
 };
 
-template <int D>
+template <int D, bool INT4>
 struct Smem {
   static constexpr int ROW = F32Tile<D>::ROW;
   static constexpr int Q_OFF = 0;
@@ -77,14 +90,37 @@ struct Smem {
   static constexpr int KS_OFF = P_OFF + ROWS * F32Tile<D>::PROW;
   static constexpr int VS_OFF = KS_OFF + BK;
   static constexpr int F32_BYTES = (VS_OFF + BK) * 4;
-  static constexpr int STAGE = BK * D;  // int8 bytes of one staged K or V tile
+  static constexpr int RB = INT4 ? D / 2 : D;  // bytes of a stored K or V row
+  static constexpr int STAGE = BK * RB;  // bytes of one staged K or V tile
   static constexpr int BYTES = F32_BYTES + 4 * STAGE;  // + 2 K and 2 V stages
-  static constexpr int CPR = D / 16;    // 16-byte chunks of an int8 row
+  static constexpr int CPR = RB / 16;   // 16-byte chunks of a stored row
 };
 
-template <int D, bool QBF16>
+// One staged 16-byte chunk (chunk c of a stored row) to f32 in the tile's
+// row `dst`: 16 int8 elements at 16c, or 16 packed bytes whose low nibbles
+// are elements 16c.. and high nibbles elements D/2 + 16c..
+template <int D, bool INT4>
+__device__ __forceinline__ void chunk_to_f32(const int4 raw, int c, float* dst) {
+  const int words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    int b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) b[i] = packed_byte(words[w], i);
+    if (INT4) {
+      *reinterpret_cast<float4*>(dst + 16 * c + 4 * w) =
+          make_float4(int4_lo(b[0]), int4_lo(b[1]), int4_lo(b[2]), int4_lo(b[3]));
+      *reinterpret_cast<float4*>(dst + D / 2 + 16 * c + 4 * w) =
+          make_float4(int4_hi(b[0]), int4_hi(b[1]), int4_hi(b[2]), int4_hi(b[3]));
+    } else {
+      *reinterpret_cast<float4*>(dst + 16 * c + 4 * w) = make_float4(b[0], b[1], b[2], b[3]);
+    }
+  }
+}
+
+template <int D, bool QBF16, bool INT4>
 __global__ void __launch_bounds__(NT) paged_prefill_kernel(const Params p) {
-  using S = Smem<D>;
+  using S = Smem<D, INT4>;
   using T = F32Tile<D>;
 
   extern __shared__ __align__(16) float sm[];
@@ -126,9 +162,9 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(const Params p) {
       const int kpos = t0 + r;
       const bool ok = kpos < kend;
       const int page = ok ? table[kpos / p.P] : 0;
-      const size_t src = ((head_pages + page) * p.P + (ok ? kpos % p.P : 0)) * D + 16 * c;
-      cp_async16(k8 + buf * S::STAGE + r * D + 16 * c, p.kp + src, ok);
-      cp_async16(v8 + buf * S::STAGE + r * D + 16 * c, p.vp + src, ok);
+      const size_t src = ((head_pages + page) * p.P + (ok ? kpos % p.P : 0)) * S::RB + 16 * c;
+      cp_async16(k8 + buf * S::STAGE + r * S::RB + 16 * c, p.kp + src, ok);
+      cp_async16(v8 + buf * S::STAGE + r * S::RB + 16 * c, p.vp + src, ok);
     }
     cp_async_commit();
   };
@@ -179,25 +215,19 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(const Params p) {
     __syncthreads();  // this stage landed; every thread is done with the last tile
     const int tn = next_run(t0 + BK);
     if (tn < kend) issue(tn, buf ^ 1);
-    // int8 -> f32 tiles, and each key's page scales (0 past the context).
+    // int8 / int4 -> f32 tiles, and each key's scales (0 past the context).
     for (int e = tid; e < BK * S::CPR; e += NT) {
       const int r = e / S::CPR, c = e % S::CPR;
-      const int4 kraw = *reinterpret_cast<const int4*>(k8 + buf * S::STAGE + r * D + 16 * c);
-      const int4 vraw = *reinterpret_cast<const int4*>(v8 + buf * S::STAGE + r * D + 16 * c);
-      const int8_t* kb = reinterpret_cast<const int8_t*>(&kraw);
-      const int8_t* vb = reinterpret_cast<const int8_t*>(&vraw);
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        *reinterpret_cast<float4*>(kf + r * S::ROW + 16 * c + 4 * w) =
-            make_float4(kb[4 * w], kb[4 * w + 1], kb[4 * w + 2], kb[4 * w + 3]);
-        *reinterpret_cast<float4*>(vf + r * S::ROW + 16 * c + 4 * w) =
-            make_float4(vb[4 * w], vb[4 * w + 1], vb[4 * w + 2], vb[4 * w + 3]);
-      }
+      const size_t off = buf * S::STAGE + r * S::RB + 16 * c;
+      chunk_to_f32<D, INT4>(*reinterpret_cast<const int4*>(k8 + off), c, kf + r * S::ROW);
+      chunk_to_f32<D, INT4>(*reinterpret_cast<const int4*>(v8 + off), c, vf + r * S::ROW);
     }
     if (tid < BK) {
       const int kpos = t0 + tid;
       const bool ok = kpos < kend;
-      const size_t sidx = head_pages + (ok ? table[kpos / p.P] : 0);
+      const int slot = ok ? kpos % p.P : 0;
+      const size_t sidx = (head_pages + (ok ? table[kpos / p.P] : 0)) * p.subs
+                          + slot / (p.P / p.subs);
       kss[tid] = ok ? p.ks[sidx] : 0.f;
       vss[tid] = ok ? p.vs[sidx] : 0.f;
     }
@@ -246,30 +276,39 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(const Params p) {
   }
 }
 
-template <int D, bool QBF16>
+template <int D, bool QBF16, bool INT4>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr int smem = Smem<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(paged_prefill_kernel<D, QBF16>,
+  constexpr int smem = Smem<D, INT4>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(paged_prefill_kernel<D, QBF16, INT4>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.C + p.BQ - 1) / p.BQ, p.Hkv, p.B);
-  paged_prefill_kernel<D, QBF16><<<grid, NT, smem, stream>>>(p);
+  paged_prefill_kernel<D, QBF16, INT4><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dispatch_dtype(const Params& p, int q_bf16, cudaStream_t stream) {
-  return q_bf16 ? launch<D, true>(p, stream) : launch<D, false>(p, stream);
+template <bool INT4>
+int dispatch(const Params& p, int D, int q_bf16, void* stream) {
+  if (p.G < 1 || p.G > ROWS || p.subs < 1 || p.P % p.subs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (p.B == 0 || p.C == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (D) {
+    case 32: err = q_bf16 ? launch<32, true, INT4>(p, s) : launch<32, false, INT4>(p, s); break;
+    case 64: err = q_bf16 ? launch<64, true, INT4>(p, s) : launch<64, false, INT4>(p, s); break;
+    case 128: err = q_bf16 ? launch<128, true, INT4>(p, s) : launch<128, false, INT4>(p, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
-}  // namespace
-
-extern "C" int paged_prefill(const void* q, const void* kp, const void* vp, const void* ks,
-                             const void* vs, const void* lengths, const void* qstarts,
-                             const void* tables, void* o, void* lse, int B, int Hq, int Hkv,
-                             int C, int num_pages, int P, int max_pages, int D, float sm_scale,
-                             int has_softcap, float softcap, int window, int sinks,
-                             float mask_value, float mask_half, int q_bf16, void* stream) {
+Params make_params(const void* q, const void* kp, const void* vp, const void* ks,
+                   const void* vs, const void* lengths, const void* qstarts, const void* tables,
+                   void* o, void* lse, int B, int Hq, int Hkv, int C, int num_pages, int P,
+                   int max_pages, int subs, float sm_scale, int has_softcap, float softcap,
+                   int window, int sinks, float mask_value, float mask_half) {
   Params p;
   p.q = q;
   p.kp = static_cast<const int8_t*>(kp);
@@ -289,8 +328,8 @@ extern "C" int paged_prefill(const void* q, const void* kp, const void* vp, cons
   p.P = P;
   p.max_pages = max_pages;
   p.G = Hq / Hkv;
-  if (p.G < 1 || p.G > ROWS) return static_cast<int>(cudaErrorInvalidValue);
-  p.BQ = ROWS / p.G;
+  p.BQ = p.G >= 1 && p.G <= ROWS ? ROWS / p.G : 1;
+  p.subs = subs;
   p.sm_scale = sm_scale;
   p.softcap = softcap;
   p.mask_value = mask_value;
@@ -298,16 +337,35 @@ extern "C" int paged_prefill(const void* q, const void* kp, const void* vp, cons
   p.has_softcap = has_softcap;
   p.window = window;
   p.sinks = sinks;
-  if (B == 0 || C == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (D) {
-    case 32: err = dispatch_dtype<32>(p, q_bf16, s); break;
-    case 64: err = dispatch_dtype<64>(p, q_bf16, s); break;
-    case 128: err = dispatch_dtype<128>(p, q_bf16, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  return p;
+}
+
+}  // namespace
+
+extern "C" int paged_prefill(const void* q, const void* kp, const void* vp, const void* ks,
+                             const void* vs, const void* lengths, const void* qstarts,
+                             const void* tables, void* o, void* lse, int B, int Hq, int Hkv,
+                             int C, int num_pages, int P, int max_pages, int D, float sm_scale,
+                             int has_softcap, float softcap, int window, int sinks,
+                             float mask_value, float mask_half, int q_bf16, void* stream) {
+  const Params p = make_params(q, kp, vp, ks, vs, lengths, qstarts, tables, o, lse, B, Hq, Hkv,
+                               C, num_pages, P, max_pages, 1, sm_scale, has_softcap, softcap,
+                               window, sinks, mask_value, mask_half);
+  return dispatch<false>(p, D, q_bf16, stream);
+}
+
+// INT4 pages [Hkv, num_pages, P, D/2], scales [Hkv, num_pages, subs].
+extern "C" int paged_prefill_int4(const void* q, const void* kp, const void* vp, const void* ks,
+                                  const void* vs, const void* lengths, const void* qstarts,
+                                  const void* tables, void* o, void* lse, int B, int Hq,
+                                  int Hkv, int C, int num_pages, int P, int max_pages, int D,
+                                  int subs, float sm_scale, int has_softcap, float softcap,
+                                  int window, int sinks, float mask_value, float mask_half,
+                                  int q_bf16, void* stream) {
+  const Params p = make_params(q, kp, vp, ks, vs, lengths, qstarts, tables, o, lse, B, Hq, Hkv,
+                               C, num_pages, P, max_pages, subs, sm_scale, has_softcap, softcap,
+                               window, sinks, mask_value, mask_half);
+  return dispatch<true>(p, D, q_bf16, stream);
 }
 
 extern "C" const char* qmha_error_string(int err) {

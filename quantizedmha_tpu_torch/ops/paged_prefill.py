@@ -9,8 +9,11 @@ CUDA tensor the call launches `csrc/paged_prefill.cu` (TPU kernel
 same page walk step by step. Scores and P·V are f32 throughout: s = (q ·
 sm_scale) · k_int8 · k_scale, pv = (p · v_int8) · v_scale, as the JAX
 kernel computes them on the CPU (on the TPU its Precision.DEFAULT dots run
-as bf16 passes; the port follows the f32 numerics). The INT4 sibling
-(`_prefill_kernel_int4`) is not ported yet (ROADMAP.md queue 1 item 6).
+as bf16 passes; the port follows the f32 numerics).
+`paged_prefill_attention_int4` is the same over nibble-packed INT4 pages
+with per-sub-tile scales (TPU kernel `_prefill_kernel_int4`, the same CUDA
+source): the INT4 partial of a chunk over the mixed KV cache, whose
+q_starts may be negative.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from quantizedmha_tpu_torch.ops import cuda_lib
 from quantizedmha_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE, validate_masking
+from quantizedmha_tpu_torch.ops.decode import _int4_page, int4_scales
 from quantizedmha_tpu_torch.ops.quantize import true_div
 
 PAGED_PREFILL = cuda_lib.CudaKernel(
@@ -29,22 +33,28 @@ PAGED_PREFILL = cuda_lib.CudaKernel(
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+PAGED_PREFILL_INT4 = cuda_lib.CudaKernel(
+    "paged_prefill", "paged_prefill_int4",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+       ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GROUP = 64  # the kernel holds a whole GQA group in its 64 q rows
 
 
-def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts,
-                         block_tables, *, sm_scale, window, softcap, sinks,
-                         save_residuals):
+def _prefill_walk(q, num_kv_heads, lengths, q_starts, block_tables, page_size, load_page,
+                  *, sm_scale, window, softcap, sinks, save_residuals):
     """The kernel's page walk in PyTorch, vectorized over sequences and kv
     heads with each GQA group's q heads flattened into one row operand:
     per logical page, f32 scores, softcap, masks (kpos <= qpos, kpos <
     length, the window and sinks), the online softmax with dead rows
-    zeroed, acc = acc·alpha + (p·v)·v_scale. A page no row of a sequence
-    can see leaves that sequence's state untouched, as the kernels skip it."""
+    zeroed, acc = acc·alpha + P·V with the V scales. A page no row of a
+    sequence can see leaves that sequence's state untouched, as the kernels
+    skip it. load_page(page ids [B]) -> (k [B, Hkv, P, D] f32, k scales
+    broadcasting to [B, Hkv, 1, P], pv(p) -> [B, Hkv, G*C, D])."""
     torch.backends.cuda.matmul.allow_tf32 = False
     B, Hq, C, D = q.shape
-    Hkv, _, P, _ = k_pages.shape
+    Hkv, P = num_kv_heads, page_size
     G = Hq // Hkv
     dev = q.device
     lengths, q_starts = lengths.long(), q_starts.long()
@@ -53,7 +63,6 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lengths, q_sta
     m = torch.full((B, Hkv, G * C, 1), float("-inf"), device=dev)
     l = torch.zeros((B, Hkv, G * C, 1), device=dev)
     acc = torch.zeros((B, Hkv, G * C, D), device=dev)
-    heads = torch.arange(Hkv, device=dev)
     last_q = q_starts + C - 1
     n_pages = min(int(((lengths.max() + P - 1) // P).item()), block_tables.shape[1])
     for i in range(n_pages):
@@ -64,12 +73,8 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lengths, q_sta
             if sinks:
                 in_win = in_win | (base < sinks)
             run = run & in_win
-        page = block_tables[:, i].long()
-        kp = k_pages[:, page].float().transpose(0, 1)                 # [B, Hkv, P, D]
-        vp = v_pages[:, page].float().transpose(0, 1)
-        ks = k_scales[heads[None, :], page[:, None]][..., None, None]  # [B, Hkv, 1, 1]
-        vs = v_scales[heads[None, :], page[:, None]][..., None, None]
-        s = (qg @ kp.transpose(-1, -2)) * ks                          # [B, Hkv, G*C, P]
+        k, ks, pv = load_page(block_tables[:, i].long())
+        s = (qg @ k.transpose(-1, -2)) * ks                           # [B, Hkv, G*C, P]
         if softcap is not None:
             s = softcap * torch.tanh(true_div(s, softcap))
         kpos = base + torch.arange(P, device=dev)
@@ -86,7 +91,7 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lengths, q_sta
         p = torch.exp(s - m_next)
         p = torch.where(m_next > DEFAULT_MASK_VALUE * 0.5, p, torch.zeros_like(p))
         l_new = alpha * l + p.sum(dim=-1, keepdim=True)
-        acc_new = acc * alpha + (p @ vp) * vs
+        acc_new = acc * alpha + pv(p)
         sel = run[:, None, None, None]
         m = torch.where(sel, m_next, m)
         l = torch.where(sel, l_new, l)
@@ -100,11 +105,43 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lengths, q_sta
     return o, lse.reshape(B, Hq, C)
 
 
+def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts,
+                         block_tables, **kw):
+    """The INT8 kernel's walk: one K and V scale per (head, page); the V
+    scale multiplies each page's P·V."""
+    heads = torch.arange(k_pages.shape[0], device=q.device)
+
+    def load(page):
+        kp = k_pages[:, page].float().transpose(0, 1)                 # [B, Hkv, P, D]
+        vp = v_pages[:, page].float().transpose(0, 1)
+        ks = k_scales[heads[None, :], page[:, None]][..., None, None]  # [B, Hkv, 1, 1]
+        vs = v_scales[heads[None, :], page[:, None]][..., None, None]
+        return kp, ks, lambda p: (p @ vp) * vs
+    return _prefill_walk(q, k_pages.shape[0], lengths, q_starts, block_tables,
+                         k_pages.shape[2], load, **kw)
+
+
+def _paged_prefill_int4_plain(q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts,
+                              block_tables, **kw):
+    """The INT4 kernel's walk: scores and P·V over the unpacked halves,
+    per-key sub-tile scales, the V scale folded into P (scales [Hkv,
+    num_pages, subs])."""
+    heads = torch.arange(k_pages.shape[0], device=q.device)
+
+    def load(page):
+        kp, ks = _int4_page(k_pages, k_scales, heads, page)
+        vp, vs = _int4_page(v_pages, v_scales, heads, page)
+        return kp, ks, lambda p: (p * vs) @ vp
+    return _prefill_walk(q, k_pages.shape[0], lengths, q_starts, block_tables,
+                         k_pages.shape[2], load, **kw)
+
+
 def _paged_prefill_launch(q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts,
                           block_tables, *, sm_scale, window, softcap, sinks,
-                          save_residuals):
+                          save_residuals, int4=False):
     """Checked operands of one kernel launch: (kernel, ctypes args,
-    outputs, operands)."""
+    outputs, operands). int4: nibble-packed pages [Hkv, num_pages, P, D/2]
+    with scales [Hkv, num_pages, subs]."""
     B, Hq, C, D = q.shape
     Hkv, num_pages, P, _ = k_pages.shape
     if D not in _HEAD_DIMS:
@@ -112,6 +149,9 @@ def _paged_prefill_launch(q, k_pages, v_pages, k_scales, v_scales, lengths, q_st
     if Hq // Hkv > _MAX_GROUP:
         raise ValueError(f"the CUDA paged prefill takes GQA groups up to {_MAX_GROUP}, "
                          f"got {Hq // Hkv}")
+    if int4 and P % 16:
+        raise ValueError(f"the CUDA INT4 paged prefill takes page sizes that are "
+                         f"multiples of 16, got {P}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
@@ -127,15 +167,17 @@ def _paged_prefill_launch(q, k_pages, v_pages, k_scales, v_scales, lengths, q_st
     lse = (torch.empty((B, Hq, C), dtype=torch.float32, device=q.device)
            if save_residuals else None)
     ptr = cuda_lib.ptr
+    dims = (B, Hq, Hkv, C, num_pages, P, block_tables.shape[1], D)
+    if int4:
+        dims += (k_scales.shape[-1],)
     args = (ptr(q, 16), ptr(k_pages, 16), ptr(v_pages, 16), ptr(k_scales), ptr(v_scales),
-            ptr(lengths), ptr(q_starts), ptr(block_tables), ptr(o, 16), ptr(lse),
-            B, Hq, Hkv, C, num_pages, P, block_tables.shape[1], D,
+            ptr(lengths), ptr(q_starts), ptr(block_tables), ptr(o, 16), ptr(lse), *dims,
             sm_scale, int(softcap is not None), float(softcap or 0.0),
             -1 if window is None else int(window), int(sinks),
             DEFAULT_MASK_VALUE, DEFAULT_MASK_VALUE * 0.5, int(q.dtype == torch.bfloat16),
             cuda_lib.stream_of(q))
     keep = (q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts, block_tables)
-    return PAGED_PREFILL, args, (o, lse), keep
+    return PAGED_PREFILL_INT4 if int4 else PAGED_PREFILL, args, (o, lse), keep
 
 
 def _paged_prefill_cuda(*operands, save_residuals, **kw):
@@ -187,3 +229,43 @@ def paged_prefill_attention(
     return fn(q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts, block_tables,
               sm_scale=scale, window=window, softcap=logit_softcap,
               sinks=attention_sinks, save_residuals=save_residuals)
+
+
+def paged_prefill_attention_int4(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_scales: torch.Tensor,
+    v_scales: torch.Tensor,
+    lengths: torch.Tensor,
+    q_starts: torch.Tensor,
+    block_tables: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    block_q: int = 256,
+    window: Optional[int] = None,
+    logit_softcap: Optional[float] = None,
+    attention_sinks: int = 0,
+    save_residuals: bool = False,
+):
+    """paged_prefill_attention over a nibble-packed INT4 cache.
+
+    k/v_pages: [num_kv_heads, num_pages, page_size, head_dim // 2] int8 in
+    ops.quantize.quantize_kv_blocks_int4's deinterleaved layout; k/v_scales:
+    [num_kv_heads, num_pages] or [num_kv_heads, num_pages, subs]. q_starts
+    may be negative: rows at negative positions see nothing and give o = 0,
+    lse = -inf. Everything else matches paged_prefill_attention."""
+    del block_q
+    validate_masking(True, window, attention_sinks)
+    num_q_heads, head_dim = q.shape[1], q.shape[3]
+    num_kv_heads = k_pages.shape[0]
+    k_scales, v_scales = int4_scales(head_dim, k_pages, k_scales, v_scales)
+    if num_q_heads % num_kv_heads:
+        raise ValueError(f"q heads {num_q_heads} not a multiple of kv heads {num_kv_heads}")
+    scale = sm_scale if sm_scale is not None else head_dim**-0.5
+    kw = dict(sm_scale=scale, window=window, softcap=logit_softcap, sinks=attention_sinks,
+              save_residuals=save_residuals)
+    operands = (q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts, block_tables)
+    if q.is_cuda:
+        return _paged_prefill_cuda(*operands, int4=True, **kw)
+    return _paged_prefill_int4_plain(*operands, **kw)

@@ -1,7 +1,8 @@
 """Continuous-batching inference engine (counterpart of
-quantizedmha_tpu/serving/engine.py, single paged INT8 pool).
+quantizedmha_tpu/serving/engine.py: a single paged INT8 pool, or the mixed
+INT8 / INT4 pool pair).
 
-Requests stream in and are admitted when the paged INT8 KV cache has room
+Requests stream in and are admitted when the paged KV cache has room
 (skip-ahead admission with a starvation bound); a prompt up to the largest
 bucket prefills at a bucketed length through the model's attention, a
 longer one in chunks of the largest bucket through the paged cache
@@ -15,10 +16,22 @@ prefix_cache shares page-aligned prompt prefixes already in the cache
 (refcounted pages, a sha1 chain over page-sized token chunks) and
 prefills only the suffix; interleaved_prefill runs a long prompt's chunks
 one per engine step, so active sequences keep decoding between them.
+
+mixed_kv serves from the mixed-precision cache (serving/mixed_kv.py):
+INT8 pages for positions below `boundary_tokens` (the attention-sink /
+early-context region), nibble-packed INT4 pages for the rest, about twice
+the context per byte of cache; attention merges the two partial softmaxes
+exactly by lse. Keys: boundary_tokens (page-aligned), int8_pages,
+int4_pages, optional subs (INT4 scale sub-tiles a page, default 4). It
+needs a uniform window pattern, attention_sinks == boundary_tokens when
+windowed, and no prefix_cache. Per-sequence capacity becomes
+boundary_tokens + max_pages_per_seq * page_size (the int4 table is the
+growth frame).
+
 Not ported yet, and refused with NotImplementedError when set: the hybrid
-and mixed-precision KV pools and context-parallel prefill (ROADMAP.md
-queue 1 items 6 and 8). `async_dispatch` (a TPU host-overlap trick)
-accepts only False.
+per-window-group KV pools and context-parallel prefill (ROADMAP.md queue 1
+items 6 and 8). `async_dispatch` (a TPU host-overlap trick) accepts only
+False.
 """
 
 from __future__ import annotations
@@ -34,7 +47,7 @@ import torch
 from quantizedmha_tpu_torch.device import resolve_device
 from quantizedmha_tpu_torch.models.llama import LlamaConfig
 from quantizedmha_tpu_torch.serving import llama_adapter
-from quantizedmha_tpu_torch.serving.kv_cache import PageAllocator
+from quantizedmha_tpu_torch.serving.kv_cache import MixedPageAllocator, PageAllocator
 from quantizedmha_tpu_torch.serving.sampling import SamplingParams, sample
 from quantizedmha_tpu_torch.utils.metrics import Metrics
 
@@ -68,9 +81,6 @@ class EngineConfig:
 
 _UNPORTED = {
     "hybrid_kv": "the hybrid per-window-group KV pools (ROADMAP.md queue 1 item 6)",
-    "mixed_kv": "the mixed int8/int4 KV cache (ROADMAP.md queue 1 item 6, "
-                "queue 2 rows ops/decode.py:_decode_kernel_int4, "
-                "ops/paged_prefill.py:_prefill_kernel_int4)",
     "cp_mesh": "context-parallel prefill (ROADMAP.md queue 1 item 8)",
 }
 
@@ -95,7 +105,7 @@ class _PrefillTask:
     rid: int
     prompt: List[int]
     max_new: int
-    table: torch.Tensor  # [max_pages_per_seq] int32 on the device
+    table: Any  # [max_pages_per_seq] int32 on the device; mixed: (table8, table4)
     next_start: int
     chunk: int
 
@@ -118,9 +128,31 @@ class Engine:
         self.params = params
         self.ecfg = ecfg
         self.device = resolve_device(device)
-        self.cache = llama_adapter.make_cache(cfg, ecfg.num_pages, ecfg.page_size,
-                                              device=self.device)
-        self.alloc = PageAllocator(ecfg.num_pages, ecfg.page_size, scrap_page=0)
+        self.mixed = ecfg.mixed_kv is not None
+        if self.mixed:
+            mk = dict(ecfg.mixed_kv)
+            boundary = mk["boundary_tokens"]
+            if len(set(cfg.layer_windows)) != 1:
+                raise ValueError("mixed_kv needs a uniform window pattern (use hybrid_kv "
+                                 "for per-layer patterns)")
+            if cfg.recyclable_window and cfg.attention_sinks != boundary:
+                raise ValueError(
+                    f"windowed mixed_kv needs attention_sinks ({cfg.attention_sinks}) == "
+                    f"boundary_tokens ({boundary}): the int8 region must be exactly the "
+                    "always-visible sinks")
+            if ecfg.prefix_cache:
+                raise ValueError("prefix_cache does not compose with mixed_kv yet (shared "
+                                 "pages would need per-pool digest maps AND a "
+                                 "boundary-stable split)")
+            self.cache = llama_adapter.make_cache_mixed(
+                cfg, mk["int8_pages"], mk["int4_pages"], ecfg.page_size,
+                subs=mk.get("subs", 4), device=self.device)
+            self.alloc = MixedPageAllocator(mk["int8_pages"], mk["int4_pages"],
+                                            ecfg.page_size, boundary)
+        else:
+            self.cache = llama_adapter.make_cache(cfg, ecfg.num_pages, ecfg.page_size,
+                                                  device=self.device)
+            self.alloc = PageAllocator(ecfg.num_pages, ecfg.page_size, scrap_page=0)
         # Prefix cache: chain digest -> page id and back; the allocator's
         # on_free hook drops a page's entry when its last reference goes.
         self._prefix_map: Dict[bytes, int] = {}
@@ -175,6 +207,8 @@ class Engine:
 
     def _fits(self, prompt: List[int]) -> bool:
         cached = self._resolve_prefix(prompt)
+        if not cached:
+            return self.alloc.can_admit(len(prompt))
         # Fresh pages are needed only past the reused slots.
         return self.alloc.pages_needed(len(prompt)) - len(cached) <= self.alloc.free_pages
 
@@ -217,14 +251,17 @@ class Engine:
         table slots, the padded last chunk included."""
         ps = self.ecfg.page_size
         chunk = max(self.ecfg.prefill_buckets)
+        # Mixed: the int8 region adds boundary pages of per-sequence
+        # capacity on top of the int4 table, the frame of the claims.
+        bp = self.alloc.bp if self.mixed else 0
         if n > chunk:
-            claim = -(-n // chunk) * chunk // ps
+            claim = max(-(-n // chunk) * chunk // ps - bp, 0)
             if claim > self.ecfg.max_pages_per_seq:
                 return (f"chunked prefill needs {claim} table slots > "
                         f"max_pages_per_seq ({self.ecfg.max_pages_per_seq})")
-        elif -(-n // ps) > self.ecfg.max_pages_per_seq:
+        elif -(-n // ps) > self.ecfg.max_pages_per_seq + bp:
             return (f"needs {-(-n // ps)} pages > max_pages_per_seq "
-                    f"({self.ecfg.max_pages_per_seq})")
+                    f"({self.ecfg.max_pages_per_seq + bp})")
         return None
 
     def _dispatch_admit(self, rid: int, prompt: List[int], max_new: int) -> None:
@@ -248,24 +285,34 @@ class Engine:
         # Zero the padding rows past the prompt before the page write: the
         # per-(head, page) scale is fitted over the whole page, and padding
         # K/V would coarsen it for the page's real tokens.
-        n_write = len(pages) * self.ecfg.page_size
+        n_write = self.alloc.pages_needed(n) * self.ecfg.page_size
         k_w, v_w = k_all[:, :, :n_write], v_all[:, :, :n_write]
         if n < n_write:
             keep = (torch.arange(n_write, device=self.device) < n)[None, None, :, None]
             k_w, v_w = k_w * keep, v_w * keep
-        llama_adapter.write_prefill(self.cfg, self.cache, k_w, v_w,
-                                    self._t(np.asarray(pages, np.int32)),
-                                    page_size=self.ecfg.page_size)
+        if self.mixed:
+            p8, p4 = pages  # the prompt's pages below the boundary, then past it
+            llama_adapter.write_prefill_mixed(
+                self.cfg, self.cache, k_w, v_w, self._t(np.asarray(p8, np.int32)),
+                self._t(np.asarray(p4, np.int32)), page_size=self.ecfg.page_size)
+        else:
+            llama_adapter.write_prefill(self.cfg, self.cache, k_w, v_w,
+                                        self._t(np.asarray(pages, np.int32)),
+                                        page_size=self.ecfg.page_size)
         first = self._sample(logits)
         self._register_prefix(prompt, rid)
         self._activate(_Sequence(rid, prompt, [first], first, max_new))
         self._trim_windows()
 
-    def _table(self, rid: int) -> torch.Tensor:
-        """One sequence's block table row, [max_pages_per_seq] on the device."""
-        return self._t(self.alloc.block_table_array([rid], self.ecfg.max_pages_per_seq)[0])
+    def _table(self, rid: int):
+        """One sequence's block table row, [max_pages_per_seq] on the
+        device; mixed: the ([boundary_pages], [max_pages_per_seq]) pair."""
+        mp = self.ecfg.max_pages_per_seq
+        if self.mixed:
+            return tuple(self._t(t[0]) for t in self.alloc.block_tables([rid], mp))
+        return self._t(self.alloc.block_table_array([rid], mp)[0])
 
-    def _run_chunk(self, prompt: List[int], start: int, chunk: int, table: torch.Tensor):
+    def _run_chunk(self, prompt: List[int], start: int, chunk: int, table):
         """Prefill prompt[start:start + chunk] (right-padded) through the
         paged cache; returns the logits of its last real token."""
         part = prompt[start:start + chunk]
@@ -274,7 +321,8 @@ class Engine:
         with self.metrics.timed("prefill"):
             logits, self.cache = llama_adapter.prefill_chunk(
                 self.cfg, self.params, self.cache, self._t(toks), start, table,
-                len(part) - 1, page_size=self.ecfg.page_size)
+                len(part) - 1, page_size=self.ecfg.page_size,
+                boundary_tokens=self.alloc.boundary if self.mixed else None)
         return logits
 
     def _admit_chunked(self, rid: int, prompt: List[int], max_new: int) -> None:
@@ -413,6 +461,10 @@ class Engine:
     def _check_extend_headroom(self, n_tokens: int) -> None:
         """Raise BEFORE mutating the allocator if extending every active
         sequence by n_tokens could exhaust the pool or a block table."""
+        if self.mixed:
+            self.alloc.check_extend_headroom([s.seq_id for s in self.active], n_tokens,
+                                             self.ecfg.max_pages_per_seq)
+            return
         needed = 0
         for seq in self.active:
             length = self.alloc.lengths[seq.seq_id]
@@ -436,13 +488,20 @@ class Engine:
     def _sample(self, logits) -> int:
         return int(self._sample_batch(logits)[0])
 
-    def _tables(self, seq_ids: List[int]) -> torch.Tensor:
+    def _tables(self, seq_ids: List[int]):
         """[max_batch, max_pages_per_seq] block tables, padded lanes on the
-        scrap page."""
-        full = np.full((self.ecfg.max_batch, self.ecfg.max_pages_per_seq),
-                       self.alloc.scrap_page, np.int32)
-        full[:len(seq_ids)] = self.alloc.block_table_array(
-            seq_ids, self.ecfg.max_pages_per_seq)
+        scrap page; mixed: the ([max_batch, boundary_pages], [max_batch,
+        max_pages_per_seq]) pair."""
+        B, mp = self.ecfg.max_batch, self.ecfg.max_pages_per_seq
+        if self.mixed:
+            pair = []
+            for t in self.alloc.block_tables(seq_ids, mp):
+                full = np.full((B, t.shape[1]), self.alloc.scrap_page, np.int32)
+                full[:len(seq_ids)] = t
+                pair.append(self._t(full))
+            return tuple(pair)
+        full = np.full((B, mp), self.alloc.scrap_page, np.int32)
+        full[:len(seq_ids)] = self.alloc.block_table_array(seq_ids, mp)
         return self._t(full)
 
     # -- one engine step -----------------------------------------------------
@@ -477,6 +536,9 @@ class Engine:
         if self.ecfg.decode_chunk > 1:
             self._step_fused(self.ecfg.decode_chunk)
             return
+        if self.mixed:
+            self._step_mixed()
+            return
         B = self.ecfg.max_batch
         nseq = len(self.active)
         self._check_extend_headroom(1)
@@ -502,6 +564,36 @@ class Engine:
         self.metrics.set("active_sequences", nseq)
         self._commit(next_tokens[None, :])
 
+    def _step_mixed(self) -> None:
+        """One decode step over the mixed cache: MixedPageAllocator.extend
+        routes each lane's append (the pool that does not own its position
+        gets its scrap page), both tables go to decode_step_mixed."""
+        B = self.ecfg.max_batch
+        nseq = len(self.active)
+        self._check_extend_headroom(1)
+        tokens = np.zeros(B, np.int32)
+        positions = np.zeros(B, np.int32)
+        slots = np.zeros(B, np.int32)
+        lengths = np.ones(B, np.int32)
+        pid8 = np.zeros(B, np.int32)
+        pid4 = np.zeros(B, np.int32)
+        for i, seq in enumerate(self.active):
+            positions[i] = self.alloc.lengths[seq.seq_id]
+            pid8[i], pid4[i], slots[i], _ = self.alloc.extend(seq.seq_id)
+            tokens[i] = seq.pending
+            lengths[i] = self.alloc.lengths[seq.seq_id]
+        t8, t4 = self._tables([s.seq_id for s in self.active])
+        with self.metrics.timed("decode_step"):
+            logits, self.cache = llama_adapter.decode_step_mixed(
+                self.cfg, self.params, self.cache, self._t(tokens), self._t(positions),
+                self._t(pid8), self._t(pid4), self._t(slots), self._t(lengths), t8, t4,
+                boundary_tokens=self.alloc.boundary)
+            next_tokens = self._sample_batch(logits).cpu().numpy()
+        self.metrics.inc("decode_steps")
+        self.metrics.inc("tokens_generated", nseq)
+        self.metrics.set("active_sequences", nseq)
+        self._commit(next_tokens[None, :])
+
     def _step_fused(self, chunk: int) -> None:
         """`chunk` decode iterations on device with one host sync; pages for
         every chunk slot are reserved up front."""
@@ -517,11 +609,18 @@ class Engine:
             for _ in range(chunk):
                 self.alloc.extend(seq.seq_id)
         with self.metrics.timed("decode_chunk"):
-            out, self.cache = llama_adapter.decode_loop(
-                self.cfg, self.params, self.cache, self._t(tokens),
-                self._t(lengths0), self._tables(ids), self._generator,
-                n_steps=chunk, page_size=self.ecfg.page_size,
-                sampling=self.sampling)
+            if self.mixed:
+                out, self.cache = llama_adapter.decode_loop_mixed(
+                    self.cfg, self.params, self.cache, self._t(tokens),
+                    self._t(lengths0), *self._tables(ids), self._generator,
+                    n_steps=chunk, page_size=self.ecfg.page_size,
+                    boundary_tokens=self.alloc.boundary, sampling=self.sampling)
+            else:
+                out, self.cache = llama_adapter.decode_loop(
+                    self.cfg, self.params, self.cache, self._t(tokens),
+                    self._t(lengths0), self._tables(ids), self._generator,
+                    n_steps=chunk, page_size=self.ecfg.page_size,
+                    sampling=self.sampling)
             out = out.cpu().numpy()  # [chunk, B] — the single host sync
         self.metrics.inc("decode_steps", chunk)
         self.metrics.set("active_sequences", nseq)

@@ -2,7 +2,9 @@
 
 Physical pages of `page_size` tokens hold int8 payloads with one symmetric
 max-abs scale per (kv_head, page); sequences map logical to physical pages
-through block tables kept by the host-side PageAllocator. Device state is
+through block tables kept by the host-side PageAllocator
+(MixedPageAllocator keeps the two pools of the mixed INT8 / INT4 cache,
+serving/mixed_kv.py). Device state is
 updated IN PLACE (index_put_): the JAX package had to thread the cache
 through functional updates and fight XLA's copies; here a write touches
 only the slots it writes.
@@ -233,3 +235,112 @@ class PageAllocator:
 
     def lengths_array(self, seq_ids: List[int]) -> np.ndarray:
         return np.asarray([self.lengths[s] for s in seq_ids], np.int32)
+
+
+class MixedPageAllocator:
+    """Host bookkeeping for the mixed (INT8-sink / INT4-bulk) cache: one
+    PageAllocator per pool with a page-aligned position boundary. A
+    sequence's logical page i lives in the int8 pool for i < boundary_pages
+    and in the int4 pool at slot i - boundary_pages past it; both pools
+    reserve page 0 as scrap. Per-sequence capacity is boundary_tokens +
+    max_pages_per_seq * page_size (the int4 table is the growth frame; the
+    int8 table is exactly boundary_pages wide)."""
+
+    def __init__(self, pages8: int, pages4: int, page_size: int, boundary_tokens: int):
+        if boundary_tokens % page_size:
+            raise ValueError(f"boundary_tokens {boundary_tokens} not a multiple of "
+                             f"page_size {page_size}")
+        if boundary_tokens <= 0:
+            raise ValueError("boundary_tokens must be positive (pure-int4 serving is "
+                             "paged_decode_attention_int4; the mixed mode exists for the "
+                             "int8 sink region)")
+        self.page_size = page_size
+        self.boundary = boundary_tokens
+        self.bp = boundary_tokens // page_size
+        self.a8 = PageAllocator(pages8, page_size, scrap_page=0)
+        self.a4 = PageAllocator(pages4, page_size, scrap_page=0)
+        self.lengths: Dict[int, int] = {}
+        self.scrap_page = 0
+
+    @property
+    def free_pages(self) -> int:
+        return self.a4.free_pages  # the growth pool
+
+    def pages_needed(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.page_size)
+
+    def _split(self, n_tokens: int) -> Tuple[int, int]:
+        return min(n_tokens, self.boundary), max(n_tokens - self.boundary, 0)
+
+    def can_admit(self, n_tokens: int) -> bool:
+        n8, n4 = self._split(n_tokens)
+        return self.a8.can_admit(n8) and self.a4.can_admit(n4)
+
+    def admit(self, seq_id: int, n_tokens: int) -> Tuple[List[int], List[int]]:
+        """Returns the fresh (int8 pages, int4 pages)."""
+        n8, n4 = self._split(n_tokens)
+        if not self.can_admit(n_tokens):
+            raise RuntimeError(f"out of pages admitting {n_tokens} tokens (int8 free "
+                               f"{self.a8.free_pages}, int4 free {self.a4.free_pages})")
+        p8 = self.a8.admit(seq_id, n8)
+        p4 = self.a4.admit(seq_id, n4)  # n4 == 0: an empty table, kept
+        self.lengths[seq_id] = n_tokens
+        return p8, p4
+
+    def extend(self, seq_id: int) -> Tuple[int, int, int, bool]:
+        """Account one more token. Returns (pid8, pid4, slot, below): the
+        owning pool's physical page and the OTHER pool's scrap page, what
+        the batched mixed append consumes."""
+        n = self.lengths[seq_id]
+        below = n < self.boundary
+        if below:
+            pid, slot, _ = self.a8.extend(seq_id)
+            out = (pid, self.a4.scrap_page, slot, True)
+        else:
+            pid, slot, _ = self.a4.extend(seq_id)
+            out = (self.a8.scrap_page, pid, slot, False)
+        self.lengths[seq_id] = n + 1
+        return out
+
+    def trim_window(self, seq_id: int, window: int, sinks: int = 0) -> int:
+        """Windowed mixed serving has sinks == boundary (the int8 pool is
+        the always-visible sink region; the engine checks), so only the int4
+        bulk trims, in its own frame: its local length n - boundary less the
+        window lands exactly at the absolute n - window cut."""
+        return self.a4.trim_window(seq_id, window, 0)
+
+    def release(self, seq_id: int) -> None:
+        self.a8.release(seq_id)
+        self.a4.release(seq_id)
+        self.lengths.pop(seq_id)
+
+    def block_tables(self, seq_ids: List[int], max_pages4: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """([B, boundary_pages] int8 table, [B, max_pages4] int4 table)."""
+        return (self.a8.block_table_array(seq_ids, self.bp),
+                self.a4.block_table_array(seq_ids, max_pages4))
+
+    def lengths_array(self, seq_ids: List[int]) -> np.ndarray:
+        return np.asarray([self.lengths[s] for s in seq_ids], np.int32)
+
+    def check_extend_headroom(self, seq_ids: List[int], n_tokens: int,
+                              max_pages_per_seq: int) -> None:
+        """Per-pool headroom BEFORE mutating: the int4 table bound and both
+        free lists."""
+        ps = self.page_size
+        need8 = need4 = 0
+        for sid in seq_ids:
+            n8, n4 = self._split(self.lengths[sid] + n_tokens)
+            p4_after = -(-n4 // ps)
+            if p4_after > max_pages_per_seq:
+                raise RuntimeError(
+                    f"seq {sid}: extending by {n_tokens} token(s) needs {p4_after} int4 "
+                    f"pages > max_pages_per_seq ({max_pages_per_seq})")
+            need8 += max(0, -(-n8 // ps) - len(self.a8.tables[sid]))
+            need4 += max(0, p4_after - len(self.a4.tables[sid]))
+        if need8 > self.a8.free_pages or need4 > self.a4.free_pages:
+            raise RuntimeError(
+                f"page pool exhausted: +{n_tokens} token(s) for {len(seq_ids)} sequences "
+                f"needs int8 {need8} (free {self.a8.free_pages}) / int4 {need4} (free "
+                f"{self.a4.free_pages}). Raise int8_pages/int4_pages or lower "
+                "max_batch/max_new_tokens.")

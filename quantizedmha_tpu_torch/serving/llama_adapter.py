@@ -1,5 +1,6 @@
 """Llama model adapter for the serving engine: prefill + paged decode
-(counterpart of the plain-cache half of quantizedmha_tpu/serving/llama_adapter.py).
+(counterpart of the plain- and mixed-cache parts of
+quantizedmha_tpu/serving/llama_adapter.py).
 
   - prefill: causal attention over the (right-padded) prompt through the
     fused INT8 kernel; returns the per-layer K/V (post-RoPE) for cache
@@ -14,9 +15,13 @@
     first, then its queries attend from the pages with
     ops.paged_prefill.paged_prefill_attention.
 
+The mixed-precision cache (serving/mixed_kv.py: INT8 pages below a
+boundary, INT4 past it) has its own write_prefill_mixed, decode_step_mixed,
+decode_loop_mixed and prefill_chunk_mixed, for a uniform window pattern.
+
 The cache is layer-stacked ([num_layers, ...] tensors); each layer works on
-views of its slice. Not ported yet: speculative verify, the hybrid and
-mixed-precision caches, tensor and context parallelism.
+views of its slice. Not ported yet: speculative verify, the hybrid
+per-window-group caches, tensor and context parallelism.
 """
 
 from __future__ import annotations
@@ -46,6 +51,13 @@ from quantizedmha_tpu_torch.serving.kv_cache import (
     PagedKVCacheState,
     append_tokens_batched,
     write_pages,
+)
+from quantizedmha_tpu_torch.serving.mixed_kv import (
+    MixedPagedKVState,
+    append_tokens_batched_mixed,
+    mixed_paged_decode_attention,
+    mixed_paged_prefill_attention,
+    write_pages_mixed,
 )
 from quantizedmha_tpu_torch.serving.sampling import SamplingParams, sample
 
@@ -148,13 +160,15 @@ def prefill_chunk(
     last_index: int,           # last REAL token index within the chunk
     *,
     page_size: int,
+    boundary_tokens: Optional[int] = None,
 ) -> Tuple[torch.Tensor, PagedKVCacheState]:
     """One chunk of a chunked prefill: per layer, project and RoPE the
     chunk at its global positions, write its K/V into its pages (padding
     rows zeroed, so they cannot coarsen the per-page scales), then attend
     its queries from the pages: the prefix and the chunk's own keys, INT8
     as decode reads them, causal by global position (q_starts =
-    chunk_start, lengths = chunk_start + C).
+    chunk_start, lengths = chunk_start + C). A (table8, table4) pair over
+    a mixed cache goes to prefill_chunk_mixed with boundary_tokens.
 
     Returns (logits [1, vocab] at last_index, cache)."""
     if isinstance(cache, dict):
@@ -162,9 +176,10 @@ def prefill_chunk(
             "prefill_chunk over the hybrid per-window-group caches is not ported "
             "yet (ROADMAP.md queue 1 item 6)")
     if isinstance(table, tuple):
-        raise NotImplementedError(
-            "prefill_chunk over the mixed int8/int4 cache is not ported yet "
-            "(ROADMAP.md queue 1 item 6)")
+        if boundary_tokens is None:
+            raise ValueError("a mixed-cache chunk needs boundary_tokens")
+        return prefill_chunk_mixed(cfg, params, cache, tokens, chunk_start, *table, last_index,
+                                   page_size=page_size, boundary_tokens=boundary_tokens)
     b, C = tokens.shape
     if b != 1:
         raise ValueError("chunked prefill is per-sequence")
@@ -283,4 +298,188 @@ def decode_loop(
         lens = lens + 1
     if return_logits:
         return torch.stack(out), cache, torch.stack(all_logits)
+    return torch.stack(out), cache
+
+
+# --- Mixed-precision KV (INT8 sinks + INT4 bulk, serving/mixed_kv.py) -------
+#
+# Positions below boundary_tokens live in an INT8 page pool, the rest
+# nibble-packed INT4; attention merges the two partial softmaxes exactly by
+# lse. The mode needs a uniform window pattern.
+
+def ensure_mixed_supported(cfg: LlamaConfig) -> None:
+    if len(set(cfg.layer_windows)) != 1:
+        raise ValueError(
+            "mixed KV needs a uniform window pattern (hybrid_kv covers per-layer "
+            "patterns; their composition is not supported yet)")
+
+
+def make_cache_mixed(cfg: LlamaConfig, n8_pages: int, n4_pages: int, page_size: int,
+                     subs: int = 4, device="cuda") -> MixedPagedKVState:
+    """Layer-stacked MixedPagedKVState (leading num_layers dim)."""
+    ensure_serving_supported(cfg)
+    ensure_mixed_supported(cfg)
+    return MixedPagedKVState.create(cfg.num_kv_heads, n8_pages, n4_pages, page_size, cfg.hd,
+                                    subs, num_layers=cfg.num_layers, device=device)
+
+
+def write_prefill_mixed(
+    cfg: LlamaConfig,
+    cache: MixedPagedKVState,  # layer-stacked
+    k_all: torch.Tensor,       # [L, Hkv, n_tokens, hd]
+    v_all: torch.Tensor,
+    page_ids8: torch.Tensor,   # [p8] the prompt's below-boundary pages
+    page_ids4: torch.Tensor,   # [p4] the rest (p8 + p4 pages in all)
+    *,
+    page_size: int,
+) -> MixedPagedKVState:
+    """write_prefill for the mixed cache, all layers."""
+    del page_size
+    for i in range(cfg.num_layers):
+        write_pages_mixed(cache.layer(i), k_all[i], v_all[i], page_ids8, page_ids4)
+    return cache
+
+
+def decode_step_mixed(
+    cfg: LlamaConfig,
+    params: Dict[str, Any],
+    cache: MixedPagedKVState,  # layer-stacked, updated in place
+    tokens: torch.Tensor,      # [B] the tokens just sampled
+    positions: torch.Tensor,   # [B] their absolute positions
+    page_ids8: torch.Tensor,   # [B] int8 page owning the slot (or scrap)
+    page_ids4: torch.Tensor,   # [B] int4 page owning the slot (or scrap)
+    slots: torch.Tensor,       # [B]
+    lengths: torch.Tensor,     # [B] context length INCLUDING this token
+    tables8: torch.Tensor,     # [B, boundary_pages]
+    tables4: torch.Tensor,     # [B, max_pages4]
+    *,
+    boundary_tokens: int,
+) -> Tuple[torch.Tensor, MixedPagedKVState]:
+    """decode_step over the mixed cache: batched appends routed by
+    position (the other pool's scrap page takes each lane's copy) and the
+    two-partial attention. Returns (logits [B, vocab], cache)."""
+    ensure_mixed_supported(cfg)
+    b = tokens.shape[0]
+    hd = cfg.hd
+    w = cfg.layer_windows[0]
+    dense = functools.partial(qdense, mode=cfg.weight_quant_mode)
+    x = embed_tokens(cfg, params, tokens)[:, None, :]  # [B, 1, hid]
+    for i in range(cfg.num_layers):
+        p = layer_params(params["layers"], i)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_eps, cfg.rms_plus_one)
+        q, k, v = qkv_triple(cfg, dense, h, p)
+        q = _rope_single(q.reshape(b, cfg.num_heads, hd), positions, cfg.rope_theta)
+        k = _rope_single(k.reshape(b, cfg.num_kv_heads, hd), positions, cfg.rope_theta)
+        v = v.reshape(b, cfg.num_kv_heads, hd)
+        layer = cache.layer(i)
+        append_tokens_batched_mixed(layer, k, v, positions, boundary_tokens, page_ids8,
+                                    page_ids4, slots)
+        o = mixed_paged_decode_attention(
+            q, layer, lengths, tables8, tables4, boundary_tokens, sm_scale=cfg.sm_scale,
+            window=w, logit_softcap=cfg.logit_softcap,
+            attention_sinks=cfg.attention_sinks if w is not None else 0)
+        o = o.reshape(b, 1, cfg.num_heads * hd)
+        x = _attn_residual(cfg, dense, p, x, o)
+        x = _mlp_residual(cfg, dense, p, x)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
+    return final_logits(cfg, x[:, 0], params["lm_head"]), cache
+
+
+def prefill_chunk_mixed(
+    cfg: LlamaConfig,
+    params: Dict[str, Any],
+    cache: MixedPagedKVState,  # layer-stacked, updated in place
+    tokens: torch.Tensor,      # [1, C] one chunk, right-padded
+    chunk_start: int,          # multiple of page_size
+    table8: torch.Tensor,      # [boundary_pages]
+    table4: torch.Tensor,      # [max_pages4]
+    last_index: int,           # last REAL token index within the chunk
+    *,
+    page_size: int,
+    boundary_tokens: int,
+) -> Tuple[torch.Tensor, MixedPagedKVState]:
+    """prefill_chunk over the mixed cache. The chunk's pages below the
+    boundary are written INT8 and the rest INT4, split on the host (a
+    table index past the int4 table clips to its last slot, as the JAX
+    package's routed write does); the queries attend through
+    mixed_paged_prefill_attention. Returns (logits [1, vocab], cache)."""
+    ensure_mixed_supported(cfg)
+    b, C = tokens.shape
+    if b != 1:
+        raise ValueError("chunked prefill is per-sequence")
+    if chunk_start % page_size or C % page_size:
+        raise ValueError(f"chunk [{chunk_start}, +{C}) is not page-aligned ({page_size})")
+    hd = cfg.hd
+    w = cfg.layer_windows[0]
+    dev = tokens.device
+    dense = functools.partial(qdense, mode=cfg.weight_quant_mode)
+    bp = boundary_tokens // page_size
+    logical = range(chunk_start // page_size, chunk_start // page_size + C // page_size)
+    pid8 = table8[[i for i in logical if i < bp]]
+    pid4 = table4[[min(i - bp, table4.shape[0] - 1) for i in logical if i >= bp]]
+    positions = chunk_start + torch.arange(C, device=dev)
+    keep = (torch.arange(C, device=dev) <= last_index)[None, :, None]
+    lengths = torch.tensor([chunk_start + C], dtype=torch.int32, device=dev)
+    q_starts = torch.tensor([chunk_start], dtype=torch.int32, device=dev)
+    x = embed_tokens(cfg, params, tokens)
+    for i in range(cfg.num_layers):
+        p = layer_params(params["layers"], i)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_eps, cfg.rms_plus_one)
+        q, k, v = qkv_triple(cfg, dense, h, p)
+        q = q.reshape(b, C, cfg.num_heads, hd).transpose(1, 2)
+        k = k.reshape(b, C, cfg.num_kv_heads, hd).transpose(1, 2)
+        v = v.reshape(b, C, cfg.num_kv_heads, hd).transpose(1, 2)
+        q = apply_rope(q, cfg.rope_theta, positions)
+        k = apply_rope(k, cfg.rope_theta, positions)
+        layer = cache.layer(i)
+        write_pages_mixed(layer, k[0] * keep, v[0] * keep, pid8, pid4)
+        o = mixed_paged_prefill_attention(
+            q, layer, lengths, q_starts, table8[None], table4[None], boundary_tokens,
+            sm_scale=cfg.sm_scale, window=w, logit_softcap=cfg.logit_softcap,
+            attention_sinks=cfg.attention_sinks if w is not None else 0)
+        o = o.transpose(1, 2).reshape(b, C, cfg.num_heads * hd)
+        x = _attn_residual(cfg, dense, p, x, o)
+        x = _mlp_residual(cfg, dense, p, x)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
+    return final_logits(cfg, x[0, last_index], params["lm_head"])[None], cache
+
+
+def decode_loop_mixed(
+    cfg: LlamaConfig,
+    params: Dict[str, Any],
+    cache: MixedPagedKVState,  # layer-stacked
+    tokens: torch.Tensor,      # [B] pending tokens (K/V not yet cached)
+    lengths: torch.Tensor,     # [B] context EXCLUDING the pending token
+    tables8: torch.Tensor,     # [B, boundary_pages]
+    tables4: torch.Tensor,     # [B, max_pages4] covering lengths + n_steps
+    generator: Optional[torch.Generator] = None,  # used only when sampling
+    *,
+    n_steps: int,
+    page_size: int,
+    boundary_tokens: int,
+    sampling: Optional[SamplingParams] = None,
+):
+    """decode_loop over the mixed cache: each step picks the pool of every
+    lane's append on the device (below = position < boundary selects which
+    table feeds it; the other pool gets scrap page 0), so a chunk crosses
+    the boundary without a host round-trip. Returns (tokens [n_steps, B],
+    cache)."""
+    sampling = sampling or SamplingParams()
+    toks, lens = tokens, lengths.long()
+    t8, t4 = tables8.long(), tables4.long()
+
+    def take(t, idx):
+        return torch.gather(t, 1, idx.clamp(0, t.shape[1] - 1)[:, None])[:, 0]
+    out = []
+    for _ in range(n_steps):
+        below = lens < boundary_tokens
+        pid8 = torch.where(below, take(t8, lens // page_size), 0)
+        pid4 = torch.where(below, 0, take(t4, torch.div(lens - boundary_tokens, page_size,
+                                                         rounding_mode="floor")))
+        logits, cache = decode_step_mixed(cfg, params, cache, toks, lens, pid8, pid4,
+                                          lens % page_size, lens + 1, tables8, tables4,
+                                          boundary_tokens=boundary_tokens)
+        toks = sample(logits, generator, sampling)
+        out.append(toks)
+        lens = lens + 1
     return torch.stack(out), cache

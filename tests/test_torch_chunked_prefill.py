@@ -87,10 +87,6 @@ def test_prefill_chunk_refuses_other_caches(models):
     toks = torch.zeros((1, 16), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="hybrid"):
         tad.prefill_chunk(tc, tp, {"full": None}, toks, 0, torch.zeros(4), 15, page_size=8)
-    cache = tad.make_cache(tc, 4, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="mixed"):
-        tad.prefill_chunk(tc, tp, cache, toks, 0, (torch.zeros(4), torch.zeros(4)), 15,
-                          page_size=8)
 
 
 def test_admit_with_prefix_and_on_free_match_jax():

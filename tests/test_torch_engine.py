@@ -168,7 +168,6 @@ def test_eos_and_max_new(models):
 
 @pytest.mark.parametrize("field,value", [
     ("hybrid_kv", True),
-    ("mixed_kv", {"boundary_tokens": 16, "int8_pages": 4, "int4_pages": 4}),
     ("cp_mesh", object())])
 def test_unported_engine_options_raise(models, field, value):
     _, _, tc, tp = models
