@@ -13,7 +13,9 @@ result line:
            at the main paths' shapes, every element within its stated
            tolerance (err_over_tol <= 1), then on small cases off the main
            paths and on the two mixed-cache compositions (INT8 and INT4
-           partials merged by lse) against their plain compositions;
+           partials merged by lse) against their plain compositions; the
+           backward's two kernels at the training step's attention shape
+           and on 11 small cases;
            kernel / plain / library times (CUDA events) and the least time
            the card could take (bound).
   solve    the reference ABI at N=8192, d_model=1024, h=32 in float32:
@@ -61,17 +63,28 @@ result line:
            golden whose float attention reads K/V through the same INT8 /
            INT4 quantization; their distance from the float golden, and the
            plain INT8 cache's, printed beside it.
+  train    sgd_train_step of LlamaConfig.llama3_8b() as configured (bf16,
+           attention_impl="flash", 32 layers, random weights from seed 0)
+           on one batch of 2048 random tokens, 4 steps at lr 0.5: every
+           forward through the float flash kernel, every backward through
+           the dK/dV and dQ kernels of flash_bwd.cu. Gates: exactly 32
+           launches a step of each, finite loss and weights, step 0's loss
+           equal to loss_fn without grad, the loss falling every step; then
+           at the same width cut to 2 layers, every leaf's gradient of one
+           step within 2^-4 of its largest entry of the same step through
+           the float golden (attention_impl="reference"). Prints the losses,
+           ms a step, tokens/s, the share of weights changed, peak memory.
   faults   each line of PLANTED_FAULTS planted in a copy of csrc/, the
            kernel sources that the changed file is part of (flash_fwd.cu,
-           paged_prefill.cu, paged_decode.cu, their shared f32_tile.cuh and
-           int4.cuh) built in parallel and bound in turn in place of the
-           committed kernels, their checks rerun: every fault must fail
-           them.
+           paged_prefill.cu, paged_decode.cu, flash_bwd.cu, their shared
+           f32_tile.cuh and int4.cuh) built in parallel and bound in turn in
+           place of the committed kernels, their checks rerun: every fault
+           must fail them.
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 zeroed just before each main path (each solve rung, serve, each serve_w4
-batch, serve_flash, serve_mixed) runs and read just after, and a kernel of that path
-that never launched fails the run. The last
+batch, serve_flash, serve_mixed, train's steps) runs and read just after,
+and a kernel of that path that never launched fails the run. The last
 lines are the kernels summary, the card's name and power limit, and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -82,6 +95,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -101,7 +115,7 @@ REFERENCE_L4_MS = 7.70  # the reference study's fa_tc_int8_b on an NVIDIA L4
 SOLVE_REL_RMS_TOL = 0.03  # int8 solve vs the float golden (phase_solve)
 
 PHASES = ("build", "kernels", "solve", "serve", "serve_w4", "serve_flash", "serve_mixed",
-          "faults")
+          "train", "faults")
 
 
 def emit(obj) -> None:
@@ -777,8 +791,12 @@ def _coverage():
     failed += [k for k, x in r.items() if max(x) > 1.0]
     composites = _mixed_composites(g)
     failed += [k for k, c in composites.items() if c["err_over_tol"] > 1.0]
+    r = _coverage_bwd(g)
+    ratios.update(r)
+    failed += [k for k, x in r.items() if max(x) > 1.0]
     return {"flash_cases": len(FLASH_COVERAGE), "decode_cases": len(DECODE_COVERAGE),
             "flash_fwd_cases": len(FLASH_FWD_COVERAGE),
+            "flash_bwd_cases": len(FLASH_BWD_COVERAGE),
             "paged_prefill_cases": len(PAGED_PREFILL_COVERAGE),
             "int4_cases": len(DECODE_INT4_COVERAGE) + len(PREFILL_INT4_COVERAGE),
             "err_over_tol": ratios, "mixed_composites": composites, "failed": failed,
@@ -1193,6 +1211,221 @@ def _w4_kernels(g):
             "shapes": shapes, "coverage": coverage}
 
 
+# --- The FlashAttention backward: rows 6 and 7 ------------------------------
+
+
+def flash_bwd_tolerances(q, k, v, o, lse, do, dlse, offsets, grads, *, sm_scale, causal,
+                         window, softcap, sinks):
+    """Per-element tolerances (dq, dk, dv) of the two backward kernels
+    against _flash_bwd_plain on the same inputs (o, lse, di and dlse equal
+    on both sides: the wrapper's di prepass is the plain version's op).
+
+    Both compute in f32 from the same values and differ in summation order
+    (u = 2^-24): a raw dot Q·K or dO·V of D exact products by at most
+    2(D+16) u |q||k|max (two orders, Cauchy-Schwarz), so s moves by e_s =
+    (2D+33) u |q||k|max sm_scale (with its rounding), plus 2^-22 cap under
+    softcap (tanh ulps). p = exp(s - lse) moves by p·delta, delta = 1.01 e_s
+    + 2^-22 (1 + |lse|) + 2^-21 (exp ulps, the subtraction); dp by e_dp =
+    2(D+16) u |dO||v|max. ds = p (dp - di) sm_scale (1 - th²) moves by A =
+    p (a |dp - di| + sm_scale e_dp), a = sm_scale (delta + 2 e_s / cap under
+    softcap + 4u). A gradient sums N terms: dQ = dS·K over Skv keys, dK =
+    dSᵀQ and dV = PᵀdO over the group's G·Sq rows; it moves by the sum of
+    the terms' errors times the other factor, plus 2(N+1) u of the sum of
+    the terms' magnitudes (two summation orders). A bf16 gradient adds one
+    bf16 ulp, 2^-7 (|g| + tol)."""
+    import torch
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    u = 2.0**-24
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    di = fa._bwd_di(o, do, dlse)
+    q_pos, k_pos = fa._bwd_positions(offsets, Sq, Skv)
+    tols = [torch.zeros(x.shape, dtype=torch.float64, device=x.device) for x in grads]
+    for h in range(Hkv):
+        grp = slice(h * G, (h + 1) * G)
+        qh, doh = q[:, grp].float(), do[:, grp].float()
+        kh, vh = k[:, h].float(), v[:, h].float()
+        p, dp, ds = fa._bwd_pairs(qh, kh, vh, doh, lse[:, grp], di[:, grp], q_pos, k_pos,
+                                  sm_scale=sm_scale, causal=causal, window=window,
+                                  softcap=softcap, sinks=sinks)
+        kn = kh.norm(dim=-1).amax(dim=-1)[:, None, None]          # [B, 1, 1]
+        vn = vh.norm(dim=-1).amax(dim=-1)[:, None, None]
+        e_s = (2 * D + 33) * u * qh.norm(dim=-1) * kn * sm_scale  # [B, G, Sq]
+        if softcap is not None:
+            e_s = e_s + 2.0**-22 * softcap
+        lse_h = torch.nan_to_num(lse[:, grp].float().abs(), posinf=0.0)
+        delta = 1.01 * e_s + 2.0**-22 * (1.0 + lse_h) + 2.0**-21
+        a = delta + 4 * u + (2.0 * e_s / softcap if softcap is not None else 0.0)
+        e_dp = 2 * (D + 16) * u * doh.norm(dim=-1) * vn
+        A = p * (sm_scale * a[..., None] * (dp - di[:, grp, :, None]).abs()
+                 + sm_scale * e_dp[..., None])
+        g_kv, g_q = 2 * (Skv + 1) * u, 2 * (G * Sq + 1) * u
+        ka, qa, da = kh.abs()[:, None], qh.abs(), doh.abs()
+        tols[0][:, grp] = (A @ ka + g_kv * (ds.abs() @ ka)).double()
+        tols[1][:, h] = (torch.einsum("bgqk,bgqd->bkd", A, qa)
+                         + g_q * torch.einsum("bgqk,bgqd->bkd", ds.abs(), qa)).double()
+        tols[2][:, h] = (torch.einsum("bgqk,bgqd->bkd", p * delta[..., None], da)
+                         + g_q * torch.einsum("bgqk,bgqd->bkd", p, da)).double()
+        del p, dp, ds, A
+    if q.dtype == torch.bfloat16:
+        tols = [t + 2.0**-7 * (g.double().abs() + t) for t, g in zip(tols, grads)]
+    return tols
+
+
+def _flash_bwd_check(q, k, v, offsets, do, dlse=None, *, causal, window=None, sinks=0,
+                     softcap=None):
+    """The float flash forward on the card (its o and lse), then the two
+    backward launches against _flash_bwd_plain: (kernel grads, plain grads,
+    [dq, dk, dv] err_over_tol, [launch of dK/dV, of dQ], plain call, lse)."""
+    import torch
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    sm = q.shape[-1] ** -0.5
+    kw = dict(sm_scale=sm, causal=causal, window=window, softcap=softcap, sinks=sinks)
+    o, lse = fa._flash_fwd_cuda(q, k, v, offsets, block_kv=min(1024, k.shape[2]),
+                                save_residuals=True, **kw)
+    launches, grads, operands = fa._flash_bwd_launch(q, k, v, o, lse, do, offsets, dlse, **kw)
+    for kernel, args in launches:
+        kernel(*args)
+    torch.cuda.synchronize()
+    # Each launch closure holds the operands (the di prepass among them),
+    # whose memory its raw pointers name.
+    launches = [lambda kernel=kernel, args=args, keep=operands: kernel(*args)
+                for kernel, args in launches]
+    plain = fa._flash_bwd_plain(q, k, v, o, lse, do, offsets, dlse, **kw)
+    tols = flash_bwd_tolerances(q, k, v, o, lse, do, dlse, offsets, plain, **kw)
+    ratios = [err_over_tol(g, p, t) for g, p, t in zip(grads, plain, tols)]
+    return (grads, plain, ratios, launches,
+            lambda: fa._flash_bwd_plain(q, k, v, o, lse, do, offsets, dlse, **kw), lse)
+
+
+def _sdpa_bwd(q, k, v, do, *, is_causal):
+    """(ms, backend) of SDPA's backward in bf16 on these inputs, K/V
+    expanded to the q heads beforehand (untimed): the time of
+    torch.autograd.grad through one call minus the time of the call alone,
+    the first of the flash, memory-efficient and cuDNN backends that takes
+    them. One call computes dQ, dK and dV. The port never calls it."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    group = q.shape[1] // k.shape[1]
+    qb, kb, vb = (x.to(torch.bfloat16).repeat_interleave(r, dim=1).detach().requires_grad_()
+                  for x, r in ((q, 1), (k, group), (v, group)))
+    dob = do.to(torch.bfloat16)
+
+    def fwd():
+        return sdpa(qb, kb, vb, is_causal=is_causal)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qb, kb, vb), dob)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel(backend):
+                fwd_bwd()
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        with sdpa_kernel(backend):
+            both = cuda_ms(fwd_bwd, iters=10)
+            alone = cuda_ms(fwd, iters=10)
+        return both - alone, backend.name
+    return None, None
+
+
+# The training step's attention: Llama-3-8B heads, 2048 tokens, bf16, causal.
+BWD_MAIN = dict(B=1, H=32, Hkv=8, S=2048, D=128)
+
+
+def _flash_bwd_cases(g):
+    """Rows 6 and 7 at the training step's shape with a seeded random dO:
+    check, kernel / plain / SDPA-backward times, each kernel's bound."""
+    import torch
+    from quantizedmha_tpu_torch.ops.flash_attention import _offsets
+    B, H, Hkv, S, D = (BWD_MAIN[x] for x in ("B", "H", "Hkv", "S", "D"))
+    bf = torch.bfloat16
+    q = torch.randn((B, H, S, D), generator=g, device="cuda").to(bf)
+    k, v = torch.randn((2, B, Hkv, S, D), generator=g, device="cuda").to(bf)
+    do = torch.randn((B, H, S, D), generator=g, device="cuda").to(bf)
+    grads, plain, ratios, launches, plain_call, _ = _flash_bwd_check(
+        q, k, v, _offsets(0, 0, B, q.device), do, causal=True)
+    plain_ms = cuda_ms(plain_call, iters=1, warmup=1)
+    lib_ms, backend = _sdpa_bwd(q, k, v, do, is_causal=True)
+    pairs = B * H * _visible_pairs(S, S, True)
+    rows = 2 * B * H * S * D * 2                        # q and dO, bf16
+    kv = 2 * B * Hkv * S * D * 2                        # k and v (dK, dV the same)
+    stats = 2 * B * H * S * 4                           # lse and di, f32
+    shape = dict(BWD_MAIN, causal=True, dtype="bfloat16")
+    entries = []
+    for (name, replaces, ops, nbytes, idx), launch in zip((
+            ("flash_bwd_dkv", "quantizedmha_tpu/ops/flash_attention.py:507",
+             {"bf16": 4 * pairs * D, "fp32": 4 * pairs * D, "exp": pairs},
+             rows + kv + stats + kv, (1, 2)),
+            ("flash_bwd_dq", "quantizedmha_tpu/ops/flash_attention.py:600",
+             {"bf16": 4 * pairs * D, "fp32": 2 * pairs * D, "exp": pairs},
+             rows + kv + stats + B * H * S * D * 2, (0,))), launches):
+        ms = cuda_ms(launch, iters=5)
+        bms, by = bound(nbytes, ops)
+        entries.append({
+            "name": name, "route": "cuda", "source": "quantizedmha_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": max((grads[i].float() - plain[i].float()).abs().max().item()
+                               for i in idx),
+            "err_over_tol": max(ratios[i] for i in idx), "ok": max(ratios[i] for i in idx) <= 1.0,
+            "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms, "library_backend": backend,
+            "library_note": ("SDPA backward in bf16 (K/V expanded to the q heads): one call "
+                             "computes dQ, dK and dV; plain_ms is _flash_bwd_plain, both "
+                             "kernels' work")})
+    return entries
+
+
+# Small cases off the training path, each kernel against plain on the card:
+# f32, d 32/64, MQA, group 1, cross attention at unaligned lengths, a window
+# smaller than a tile with and without sinks that end mid-tile, softcap,
+# per-batch offsets with fully masked rows, a non-zero dlse.
+#   (B, H, Hkv, Sq, Skv, D, causal, window, sinks, softcap, bf16,
+#    per-batch (q_off, kv_off) or None for end-aligned, dlse)
+FLASH_BWD_COVERAGE = (
+    (2, 4, 2, 100, 190, 32, False, None, 0, None, False, None, False),
+    (1, 4, 1, 130, 130, 64, True, None, 0, None, True, None, False),
+    (1, 4, 4, 96, 96, 128, True, None, 0, None, False, None, False),
+    (1, 2, 2, 200, 392, 64, False, None, 0, None, True, None, False),
+    (1, 4, 2, 150, 150, 64, True, 40, 0, None, True, None, False),
+    (1, 4, 2, 150, 200, 64, True, 40, 37, None, True, None, False),
+    (1, 8, 2, 77, 77, 32, True, None, 0, 20.0, True, None, False),
+    (1, 4, 2, 64, 96, 32, True, 24, 5, 10.0, False, None, False),
+    (2, 4, 2, 64, 100, 64, True, None, 0, None, False, ((30, 0), (0, 20)), False),
+    (1, 4, 2, 90, 90, 128, True, None, 0, None, True, None, True),
+    (1, 2, 1, 70, 120, 32, True, 16, 0, None, False, ((10, 40),), True),
+)
+
+
+def _coverage_bwd(g):
+    """FLASH_BWD_COVERAGE: {case: [dq, dk, dv] err_over_tol}; a row whose
+    lse is -inf (it sees no key) must get dq exactly 0."""
+    import torch
+    ratios = {}
+    for i, (B, H, Hkv, Sq, Skv, D, causal, window, sinks, cap, bf16, offs,
+            with_dlse) in enumerate(FLASH_BWD_COVERAGE):
+        dt = torch.bfloat16 if bf16 else torch.float32
+        q = (torch.randn((B, H, Sq, D), generator=g, device="cuda") * 1.5).to(dt)
+        k, v = torch.randn((2, B, Hkv, Skv, D), generator=g, device="cuda").to(dt)
+        do = torch.randn((B, H, Sq, D), generator=g, device="cuda").to(dt)
+        dlse = torch.randn((B, H, Sq), generator=g, device="cuda") if with_dlse else None
+        if offs is None:
+            offsets = torch.tensor([[Skv - Sq, 0]] * B, dtype=torch.int32, device="cuda")
+        else:
+            offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        grads, _, r, _, _, lse = _flash_bwd_check(q, k, v, offsets, do, dlse, causal=causal,
+                                                  window=window, sinks=sinks, softcap=cap)
+        empty = torch.isinf(lse)
+        if empty.any() and not bool((grads[0][empty] == 0).all()):
+            r = r + [float("inf")]
+        ratios[f"flash_bwd{i}"] = r
+    return ratios
+
+
 def phase_kernels(st):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1255,6 +1488,8 @@ def phase_kernels(st):
     # The INT4 kernels of the mixed cache at serve_mixed's shapes.
     cases.append(_int4_prefill_case(g))
     cases.append(_int4_decode_case(g))
+    # The training step's backward: rows 6 (dK/dV) and 7 (dQ).
+    cases += _flash_bwd_cases(g)
     st["kernels"] = {c["name"]: c for c in cases}
     ok = all(c["ok"] for c in cases)
     emit({"phase": "kernels", "ok": ok, "kernels": cases})
@@ -1296,11 +1531,19 @@ PLANTED_FAULTS = (
     ("paged_decode.cu", "empty row's lse 0, not -inf",
      "l == 0.f ? -INFINITY : mrow[g] + logf(fmaxf(l, 1e-38f));",
      "l == 0.f ? 0.f : mrow[g] + logf(fmaxf(l, 1e-38f));"),
+    ("flash_bwd.cu", "dK/dV: the group's first q head left out of the sum",
+     "for (int g = 0; g < group; ++g) {", "for (int g = 1; g < group; ++g) {"),
+    ("flash_bwd.cu", "softcap's 1 - tanh² chain factor dropped",
+     "if (p.has_softcap) ds *= 1.f - th * th;", "if (p.has_softcap) ds *= 1.f;"),
+    ("flash_bwd.cu", "dlse folded with the wrong sign (di + dlse)",
+     "if (p.dlse != nullptr) d = d - p.dlse[at];", "if (p.dlse != nullptr) d = d + p.dlse[at];"),
+    ("flash_bwd.cu", "window one key wider (qpos - kpos <= window)",
+     "bool in_win = (qpos - kpos) < p.window;", "bool in_win = (qpos - kpos) <= p.window;"),
 )
 # The kernel sources the faults are held to, and the prefixes of their
 # coverage cases.
 FAULT_SOURCES = {"flash_fwd": ("flash_fwd",), "paged_prefill": ("paged_prefill",),
-                 "paged_decode": ("decode", "paged_decode")}
+                 "paged_decode": ("decode", "paged_decode"), "flash_bwd": ("flash_bwd",)}
 
 
 def _decode_coverage_ratios(g):
@@ -1354,6 +1597,14 @@ def _fault_checks(src):
             main[label] = _flash_fwd_check(q, kv[0], kv[1], _offsets(0, 0, 1, q.device),
                                            causal=causal, save_residuals=False)[2]
         ratios, _ = _coverage_float(g5)
+    elif src == "flash_bwd":
+        B, H, Hkv, S, D = (BWD_MAIN[x] for x in ("B", "H", "Hkv", "S", "D"))
+        q = torch.randn((B, H, S, D), generator=g, device="cuda").to(torch.bfloat16)
+        k, v = torch.randn((2, B, Hkv, S, D), generator=g, device="cuda").to(torch.bfloat16)
+        do = torch.randn((B, H, S, D), generator=g, device="cuda").to(torch.bfloat16)
+        main["train step"] = _flash_bwd_check(q, k, v, _offsets(0, 0, B, q.device), do,
+                                              causal=True)[2]
+        ratios = _coverage_bwd(g5)
     elif src == "paged_prefill":
         main["serve_flash chunk"] = _paged_prefill_check(*_paged_main_inputs(g))[2]
         q, cache, lengths, tables, q_starts = _int4_prefill_main_inputs(g)
@@ -1403,7 +1654,8 @@ def phase_faults(st):
             raise RuntimeError(f"nvcc failed for a planted fault:\n{log}")
     kernels = {"flash_fwd": (fa.FLASH_FWD_BF16, fa.FLASH_FWD_F32),
                "paged_prefill": (pp.PAGED_PREFILL, pp.PAGED_PREFILL_INT4),
-               "paged_decode": (dec.PAGED_DECODE, dec.PAGED_DECODE_INT4)}
+               "paged_decode": (dec.PAGED_DECODE, dec.PAGED_DECODE_INT4),
+               "flash_bwd": (fa.FLASH_BWD_DKV, fa.FLASH_BWD_DQ)}
     rows = []
     try:
         for what, src, _, lib in builds:
@@ -2082,6 +2334,135 @@ def phase_serve_mixed(st):
         raise AssertionError("serve_mixed phase failed its checks")
 
 
+# Llama-3-8B as configured, trained by SGD on one batch of random tokens.
+# lr: a bf16 weight of the 8B init (|w| ~ 0.016, an ulp ~ 1e-4) moves only
+# where lr·|g| passes half an ulp; the lm_head's target columns see
+# gradients ~ |x| / tokens ~ 5e-4, so lr 0.5 moves them while a step stays
+# small against the weights.
+TRAIN = dict(tokens=2048, steps=4, lr=0.5, check_layers=2, grad_rel_tol=2.0**-4)
+
+
+def _leaf_grads(cfg, params, tokens):
+    """Every float leaf's gradient of loss_fn through sgd_train_step's
+    leaves (one a layer): {name: tensor}, layers stacked."""
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    leaves = llama.float_leaves(params)
+    llama.loss_fn(cfg, leaves, tokens).backward()
+    grads = {k: v.grad for k, v in leaves.items() if k != "layers"}
+    grads.update({f"layers.{k}": torch.stack([r.grad for r in rows])
+                  for k, rows in leaves["layers"].items()})
+    return grads
+
+
+def phase_train(st):
+    """sgd_train_step of LlamaConfig.llama3_8b() as configured (bf16,
+    attention_impl="flash", 32 layers, random weights from seed 0) on one
+    batch of 2048 random tokens, TRAIN["steps"] steps (the first pays the
+    one-time costs: tokens/s is over the others): every forward through
+    row 5, every backward through rows 6 and 7. Then the same width cut to
+    2 layers: one step's gradients through the kernels against autograd
+    through the float golden (attention_impl="reference")."""
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = TRAIN
+    cfg = llama.LlamaConfig.llama3_8b()
+    L, steps = cfg.num_layers, tr["steps"]
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, tr["tokens"]), generator=g, device="cuda",
+                           dtype=torch.int32)
+    with torch.no_grad():
+        loss_direct = float(llama.loss_fn(cfg, params, tokens))
+
+    kernels = {"flash_fwd[bf16]": fa.FLASH_FWD_BF16, "flash_fwd[f32]": fa.FLASH_FWD_F32,
+               "flash_bwd_dkv": fa.FLASH_BWD_DKV, "flash_bwd_dq": fa.FLASH_BWD_DQ,
+               "flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P,
+               "flash_int8_fwd[bf16_p]": fa8.FLASH_BF16_P}
+    for kern in kernels.values():
+        kern.reset()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        params, loss = llama.sgd_train_step(cfg, params, tokens, lr=tr["lr"])
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_fwd[bf16]": L * steps, "flash_fwd[f32]": 0, "flash_bwd_dkv": L * steps,
+            "flash_bwd_dq": L * steps, "flash_int8_fwd[int8_p]": 0, "flash_int8_fwd[bf16_p]": 0}
+    for name in ("flash_fwd[bf16]", "flash_bwd_dkv", "flash_bwd_dq"):
+        st["launches"][name] = st["launches"].get(name, 0) + launches[name]
+
+    # Finite weights after the steps (a NaN or inf gradient would reach
+    # them) and the share of weights the steps changed, against a fresh
+    # draw of the same init.
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 [params[k] for k in params if k != "layers"] + list(params["layers"].values()))
+    init = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    changed = n_all = 0
+    for a, b in zip([params[k] for k in params if k != "layers"] + list(params["layers"].values()),
+                    [init[k] for k in init if k != "layers"] + list(init["layers"].values())):
+        changed += int((a != b).sum())
+        n_all += a.numel()
+    del init
+    if st.get("profile"):
+        emit({"phase": "train_profile", "step": _profile_prefill(
+            lambda: llama.sgd_train_step(cfg, params, tokens, lr=tr["lr"]))})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The wiring of the autograd Function on the card: at the same width cut
+    # to 2 layers, one step's gradient of every leaf through the kernels
+    # against autograd through mha_masked_reference (its S x S tensors do
+    # not fit at 32 layers). Both compute attention in f32 from bf16 inputs
+    # but round its bf16 output at other places (the kernel's P in bf16 for
+    # P·V), which moves a bf16 gradient by a few per cent of its leaf's
+    # largest entry; a lost GQA head or a swapped dK/dV moves it by 25-100%.
+    cut = dataclasses.replace(cfg, num_layers=tr["check_layers"])
+    grads = {}
+    for impl in ("flash", "reference"):
+        p2 = llama.init_params(cut, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        grads[impl] = _leaf_grads(dataclasses.replace(cut, attention_impl=impl), p2, tokens)
+        del p2
+    grad_rel = {k: ((grads["flash"][k].float() - grads["reference"][k].float()).abs().max()
+                    / grads["reference"][k].float().abs().max()).item() for k in grads["flash"]}
+    grads_finite = all(bool(torch.isfinite(x).all()) for x in grads["flash"].values())
+    del grads
+    torch.cuda.empty_cache()
+
+    ok = (launches == want and finite and grads_finite
+          and all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - loss_direct) <= 1e-5 * abs(loss_direct)
+          and all(b < a for a, b in zip(losses, losses[1:]))
+          and max(grad_rel.values()) <= tr["grad_rel_tol"])
+    step_s = sum(step_ms[1:]) / len(step_ms[1:]) / 1e3
+    emit({"phase": "train", "ok": ok, "model": "llama3_8b", "attention_impl": "flash",
+          "layers": L, "weights": "bf16", "init_s": init_s, "batch": 1, "tokens": tr["tokens"],
+          "lr": tr["lr"], "steps": steps, "losses": losses, "loss_no_grad": loss_direct,
+          "step_ms": step_ms, "tokens_per_s_after_first": tr["tokens"] / step_s,
+          "share_of_weights_changed": changed / n_all, "weights_finite": finite,
+          "launches": launches, "launches_expected": want, "peak_mem_gb": peak_gb,
+          "grad_check_layers": tr["check_layers"], "grad_rel_err_vs_reference": grad_rel,
+          "grad_rel_tol": tr["grad_rel_tol"], "gpu": st["gpu"]})
+    if not ok:
+        raise AssertionError("train phase failed its checks")
+
+
 def _dequantized(params, dtype):
     """params with every QuantizedWeight4 layer stack replaced by its
     dequantized weights as plain `dtype` tensors, one layer at a time."""
@@ -2237,6 +2618,7 @@ def _host_profile(eng, steps):
 
 KERNEL_GROUPS = (("w4_matmul", ("w4_matmul_kernel", "w4_reduce_kernel")),
                  ("flash_int8_fwd", "flash_int8"), ("flash_fwd", "flash_fwd"),
+                 ("flash_bwd", "flash_bwd"),
                  ("paged_prefill", "paged_prefill"), ("paged_decode", "paged_decode"),
                  ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
                  ("direct_copy (dtype casts)", "direct_copy"))
@@ -2337,7 +2719,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one full-batch decode chunk of the serve "
                          "and serve_w4 phases, and serve_flash's bucketed and "
-                         "chunked prefills, with torch.profiler")
+                         "chunked prefills and one train step, with torch.profiler")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     bad = [p for p in phases if p not in PHASES]
@@ -2385,7 +2767,8 @@ def main(argv=None) -> int:
             entries.append(e)
         emit({"kernels": entries})
         idle = [e["name"] for e in entries if e["launches"] == 0]
-        if {"solve", "serve", "serve_w4", "serve_flash", "serve_mixed"} <= set(phases) and idle:
+        if ({"solve", "serve", "serve_w4", "serve_flash", "serve_mixed", "train"} <= set(phases)
+                and idle):
             print(f"chip_smoke: kernels never launched on a main path: {idle}",
                   file=sys.stderr)
             return 1

@@ -8,7 +8,9 @@ Layers run in a Python loop. attention_impl "flash" (the default) goes
 through the float FlashAttention kernel, "flash_int8" through the fused
 INT8 kernel and "reference" through the plain golden. The JAX package's 8-row
 lm_head pad is a TPU lowering trick with bitwise-equal logits and has no
-counterpart here.
+counterpart here. `loss_fn` and `sgd_train_step` train through the flash
+kernel's backward (or autograd of the golden); the INT8 kernel raises
+under grad, as its JAX counterpart does.
 """
 
 from __future__ import annotations
@@ -336,3 +338,52 @@ def forward(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
                           window=window)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
     return final_logits(cfg, x, params["lm_head"])
+
+
+def loss_fn(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy (shifted): log_softmax of the f32 logits,
+    the target's entry, minus the mean."""
+    logits = forward(cfg, params, tokens)[:, :-1]
+    logp = F.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
+    return -ll.mean()
+
+
+def float_leaves(params: Dict[str, Any]) -> Dict[str, Any]:
+    """params with every float tensor an autograd leaf that shares its
+    storage, each layer-stacked tensor split into a list of one leaf a
+    layer (layer_params indexes it as it indexes the stack). A layer's leaf
+    is a detached view of its row, so its gradient is that layer's alone
+    (the backward of a select on a stacked leaf would write a zero-filled
+    gradient of the whole stack for every layer), and an in-place update of
+    a leaf writes the stack. Quantized weights hold no float leaf and raise,
+    as jax.value_and_grad refuses integer leaves."""
+    for v in list(params["layers"].values()) + [params[k] for k in params if k != "layers"]:
+        if isinstance(v, (QuantizedWeight, QuantizedWeight4)) or not v.is_floating_point():
+            raise TypeError(
+                "sgd_train_step differentiates float parameters only: quantized "
+                "weights hold integer leaves (jax.value_and_grad refuses them too)")
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items() if k != "layers"}
+    leaves["layers"] = {k: [row.detach().requires_grad_() for row in v.unbind(0)]
+                        for k, v in params["layers"].items()}
+    return leaves
+
+
+def sgd_train_step(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
+                   lr: float = 1e-3) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """One SGD step: the loss and the gradient of every float leaf, then p
+    <- p - lr * g in the parameter's dtype, lr rounded to that dtype first
+    (JAX's weakly typed Python float becomes a constant of the leaf's dtype,
+    as scaled_q rounds sm_scale). Unlike JAX's fresh pytree, the update is
+    in place: the same dict comes back, its tensors updated (no second copy
+    of the weights). Raises on quantized weights."""
+    leaves = float_leaves(params)
+    loss = loss_fn(cfg, leaves, tokens)
+    loss.backward()
+    with torch.no_grad():
+        for p in [v for k, v in leaves.items() if k != "layers"] + [
+                p for rows in leaves["layers"].values() for p in rows]:
+            if p.grad is None:  # a leaf the loss does not reach: zero gradient
+                continue
+            p.sub_(torch.tensor(lr, dtype=p.dtype, device=p.device) * p.grad.to(p.dtype))
+    return params, loss.detach()

@@ -28,7 +28,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_int8_fwd", "paged_decode", "w4_matmul", "flash_fwd", "paged_prefill")
+SOURCES = ("flash_int8_fwd", "paged_decode", "w4_matmul", "flash_fwd", "paged_prefill",
+           "flash_bwd")
 # No --use_fast_math: its approximate division and expf would break the
 # bit-parity of the quantized payloads with the plain versions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

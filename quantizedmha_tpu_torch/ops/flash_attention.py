@@ -1,5 +1,5 @@
-"""FlashAttention-2 forward in f32 or bf16, and the masking and block
-helpers every attention entry point shares (counterpart of
+"""FlashAttention-2 forward and backward in f32 or bf16, and the masking
+and block helpers every attention entry point shares (counterpart of
 quantizedmha_tpu/ops/flash_attention.py).
 
 On a CUDA tensor `flash_attention` launches the hand-written kernel in
@@ -8,8 +8,9 @@ On a CUDA tensor `flash_attention` launches the hand-written kernel in
 JAX package's kv step (block_kv, default 1024). The TPU grid's shrunk
 windowed kv dimension and its ones-column l sum (`summode="mxu"`) are TPU
 devices with no counterpart: the only sum mode is "vpu" (l sums the f32
-P). The forward is not differentiable yet: the two backward kernels come
-with the training slice (ROADMAP.md queue 1 item 7).
+P). Under autograd the call is a `torch.autograd.Function` whose backward
+is `csrc/flash_bwd.cu`'s dK/dV and dQ kernels (TPU `_bwd_dkv_kernel`,
+`_bwd_dq_kernel`) on a CUDA tensor and `_flash_bwd_plain` on a CPU one.
 """
 
 from __future__ import annotations
@@ -189,6 +190,175 @@ def _flash_fwd_cuda(*operands, save_residuals, **kw):
     return (o, lse) if save_residuals else o
 
 
+# ---------------------------------------------------------------------------
+# Backward: P = exp(S·scale − lse); di = rowsum(dO·O) − dlse;
+#   dV = PᵀdO; dS = P(dO·Vᵀ − di)·scale; dQ = dS·K; dK = dSᵀQ.
+
+
+def _bwd_reference(sm_scale, causal, q, k, v, o, lse, do):
+    """Full-materialization oracle of the backward (equal head counts,
+    end-aligned causal mask), in f32 with TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qf, kf, vf, dof, of = (x.float() for x in (q, k, v, do, o))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+    q_len, kv_len = s.shape[-2], s.shape[-1]
+    if causal:
+        qi = torch.arange(q_len, device=s.device)[:, None] + (kv_len - q_len)
+        ki = torch.arange(kv_len, device=s.device)[None, :]
+        s = torch.where(ki <= qi, s, torch.full_like(s, DEFAULT_MASK_VALUE))
+    p = torch.exp(s - lse[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    di = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (dp - di) * sm_scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_di(o, do, dlse):
+    """The di prepass: rowsum(dO·O) in f32 [B, H, Sq], minus dlse when given
+    (the lse cotangent folds in as di − dlse)."""
+    di = (do.float() * o.float()).sum(dim=-1)
+    return di if dlse is None else di - dlse.float()
+
+
+def _bwd_pairs(qh, kh, vh, doh, lse, di, q_pos, k_pos, *, sm_scale, causal, window,
+               softcap, sinks):
+    """(p, dp, ds) of one kv head's group, f32 [B, G, Sq, Skv], from q and
+    dO rows [B, G, Sq, D], K and V rows [B, Skv, D], lse and di [B, G, Sq]
+    and global positions q_pos [B, Sq], k_pos [B, Skv]: the masks of
+    `_mk_mask`, p exactly 0 where masked (never exp(+inf)·0 on a row whose
+    lse is -inf), softcap's 1 − tanh² chain factor on ds."""
+    s = qh.float() @ kh.float()[:, None].transpose(-1, -2) * sm_scale
+    th = None
+    if softcap is not None:
+        th = torch.tanh(true_div(s, softcap))
+        s = softcap * th
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        qp, kp = q_pos[:, None, :, None], k_pos[:, None, None, :]
+        valid = kp <= qp
+        if window is not None:
+            in_win = (qp - kp) < window
+            if sinks:
+                in_win = in_win | (kp < sinks)
+            valid = valid & in_win
+        p = torch.where(valid, p, torch.zeros_like(p))
+    dp = doh.float() @ vh.float()[:, None].transpose(-1, -2)
+    ds = p * (dp - di[..., None]) * sm_scale
+    if th is not None:
+        ds = ds * (1.0 - th * th)
+    return p, dp, ds
+
+
+def _bwd_positions(offsets, sq, skv):
+    """Global q and kv positions, [B, Sq] and [B, Skv], from [B, 2] offsets."""
+    dev = offsets.device
+    q_pos = torch.arange(sq, device=dev)[None, :] + offsets[:, 0:1].long()
+    k_pos = torch.arange(skv, device=dev)[None, :] + offsets[:, 1:2].long()
+    return q_pos, k_pos
+
+
+def _flash_bwd_plain(q, k, v, o, lse, do, offsets, dlse=None, *, sm_scale, causal,
+                     window, softcap, sinks):
+    """The two backward kernels' algorithm over whole tensors, one kv head's
+    GQA group at a time: f32 throughout (TF32 off), dK and dV summed over
+    the group, results cast to the inputs' dtypes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    di = _bwd_di(o, do, dlse)
+    q_pos, k_pos = _bwd_positions(offsets, Sq, Skv)
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for h in range(Hkv):
+        grp = slice(h * G, (h + 1) * G)
+        qh, doh = q[:, grp], do[:, grp]
+        p, _, ds = _bwd_pairs(qh, k[:, h], v[:, h], doh, lse[:, grp], di[:, grp], q_pos, k_pos,
+                              sm_scale=sm_scale, causal=causal, window=window,
+                              softcap=softcap, sinks=sinks)
+        dv[:, h] = torch.einsum("bgqk,bgqd->bkd", p, doh.float()).to(v.dtype)
+        dk[:, h] = torch.einsum("bgqk,bgqd->bkd", ds, qh.float()).to(k.dtype)
+        dq[:, grp] = (ds @ k[:, h].float()[:, None]).to(q.dtype)
+    return dq, dk, dv
+
+
+# q, k, v, dO, lse, di, dlse, offsets, then dk, dv (flash_bwd_dq: dq alone).
+_BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4
+             + [ctypes.c_void_p])
+# Rows 6 and 7 of the kernel table; each entry takes f32 or bf16.
+FLASH_BWD_DKV = cuda_lib.CudaKernel("flash_bwd", "flash_bwd_dkv", _BWD_ARGS)
+FLASH_BWD_DQ = cuda_lib.CudaKernel(
+    "flash_bwd", "flash_bwd_dq", [ctypes.c_void_p] * 9 + _BWD_ARGS[10:])
+
+
+def _flash_bwd_launch(q, k, v, o, lse, do, offsets, dlse=None, *, sm_scale, causal, window,
+                      softcap, sinks):
+    """Checked operands of the two backward launches: ([(kernel, ctypes
+    args) for dK/dV, then dQ], (dq, dk, dv), operands). The di prepass runs
+    here; the dlse fold runs in the kernels. The args hold raw pointers:
+    the caller keeps `operands` alive until the launches are done."""
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA flash backward takes head_dim in {_HEAD_DIMS}, got {D}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if any(x.dtype != q.dtype for x in (k, v, do)):
+        raise ValueError("q, k, v and the output gradient must share a dtype")
+    q, k, v, do = (x.contiguous() for x in (q, k, v, do))
+    lse = lse.float().contiguous()
+    di = _bwd_di(o, do, None).contiguous()
+    dlse = None if dlse is None else dlse.float().contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ptr = cuda_lib.ptr
+    ins = (ptr(q, 16), ptr(k, 16), ptr(v, 16), ptr(do, 16), ptr(lse), ptr(di), ptr(dlse),
+           ptr(offsets))
+    tail = (B, H, Hkv, Sq, Skv, D, float(sm_scale), int(softcap is not None),
+            float(softcap or 0.0), int(causal), -1 if window is None else int(window),
+            int(sinks), int(q.dtype == torch.bfloat16), cuda_lib.stream_of(q))
+    launches = [(FLASH_BWD_DKV, ins + (ptr(dk, 16), ptr(dv, 16)) + tail),
+                (FLASH_BWD_DQ, ins + (ptr(dq, 16),) + tail)]
+    return launches, (dq, dk, dv), (q, k, v, do, lse, di, dlse, offsets)
+
+
+def _flash_bwd_cuda(*operands, **kw):
+    launches, grads, _operands = _flash_bwd_launch(*operands, **kw)
+    for kernel, args in launches:
+        kernel(*args)
+    return grads
+
+
+class _FlashAttention(torch.autograd.Function):
+    """flash_attention as a differentiable function (JAX's
+    `_flash_attention_custom` and `_flash_attention_lse_custom`): the forward
+    saves (q, k, v, o, lse, offsets), O(S·d) and no S×S tensor; with
+    save_residuals both o and lse are differentiable; the offsets get no
+    gradient. The backward is the two CUDA kernels on a CUDA tensor, else
+    `_flash_bwd_plain`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, offsets, kw, save_residuals):
+        fwd = _flash_fwd_cuda if q.is_cuda else _flash_fwd_plain
+        o, lse = fwd(q, k, v, offsets, save_residuals=True, **kw)
+        ctx.save_for_backward(q, k, v, o, lse, offsets)
+        ctx.kw = {n: kw[n] for n in ("sm_scale", "causal", "window", "softcap", "sinks")}
+        ctx.set_materialize_grads(False)
+        return (o, lse) if save_residuals else o
+
+    @staticmethod
+    def backward(ctx, do, dlse=None):
+        q, k, v, o, lse, offsets = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        bwd = _flash_bwd_cuda if q.is_cuda else _flash_bwd_plain
+        dq, dk, dv = bwd(q, k, v, o, lse, do.to(q.dtype), offsets, dlse, **ctx.kw)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -217,16 +387,17 @@ def flash_attention(
     end-aligned, q_offset = kv_len - q_len. window, logit_softcap and
     attention_sinks as in the int8 kernels. block_kv sets the plain
     version's online-softmax step (default 1024, as the JAX package);
-    block_q has no numerical effect. Not differentiable yet: inputs that
-    require grad raise.
+    block_q has no numerical effect.
+
+    Differentiable in q, k and v (and through lse with save_residuals):
+    with grad enabled and an input that requires grad the call goes
+    through `_FlashAttention`, whose backward launches the dK/dV and dQ
+    kernels of `csrc/flash_bwd.cu` on a CUDA tensor. Otherwise (every
+    serving path) it calls the forward directly.
     """
     if q.ndim != 4:
         raise ValueError(f"expected [batch, heads, seq, head_dim], got {tuple(q.shape)}")
     validate_masking(causal, window, attention_sinks)
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward yet: the dK/dV and dQ kernels come "
-            "with the training slice (ROADMAP.md queue 1 item 7)")
     if not save_residuals and (q_offset is not None or kv_offset is not None):
         raise ValueError("q_offset/kv_offset require save_residuals=True")
     batch, heads, q_len, head_dim = q.shape
@@ -240,7 +411,9 @@ def flash_attention(
     if kv_offset is None:
         kv_offset = 0
     offsets = _offsets(q_offset, kv_offset, batch, q.device)
+    kw = dict(sm_scale=scale, causal=causal, block_kv=block_kv, window=window,
+              softcap=logit_softcap, sinks=attention_sinks)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, offsets, kw, save_residuals)
     fn = _flash_fwd_cuda if q.is_cuda else _flash_fwd_plain
-    return fn(q, k, v, offsets, sm_scale=scale, causal=causal, block_kv=block_kv,
-              window=window, softcap=logit_softcap, sinks=attention_sinks,
-              save_residuals=save_residuals)
+    return fn(q, k, v, offsets, save_residuals=save_residuals, **kw)

@@ -176,10 +176,24 @@ def _flash_int8_cuda(*operands, save_residuals, **kw):
     return (o, lse) if save_residuals else o
 
 
+def refuse_grad(*tensors) -> None:
+    """The INT8 attention has no backward, in the JAX package as here:
+    `jax.grad` through its flash_attention_int8 fails (an AssertionError in
+    its Pallas lowering). On the card the kernel's output would carry no
+    autograd history and silently drop the gradient of q, k and v, so every
+    INT8 entry point raises when grad is enabled and an input requires it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "the INT8 flash attention is not differentiable (jax.grad through "
+            "the JAX package's flash_attention_int8 fails too): use "
+            "attention_impl='flash' or 'reference' to train")
+
+
 def _prequant(q, k_i8, k_scales, v_i8, v_scales, *, kv_len, sm_scale, causal,
               block_kv, scale_clamp, p_static_scale, q_offset, kv_offset,
               save_residuals, window, logit_softcap, attention_sinks,
               pv_dtype, summode):
+    refuse_grad(q, k_scales, v_scales)
     validate_masking(causal, window, attention_sinks)
     if (pv_dtype, summode) == ("bf16", "vpu"):
         raise NotImplementedError(
@@ -356,6 +370,7 @@ def flash_attention_int8_t(
     transposed route's numerics (bf16 P by default)."""
     if q.ndim != 4:
         raise ValueError(f"expected [batch, heads, seq, head_dim], got {tuple(q.shape)}")
+    refuse_grad(q, k, v)
     validate_masking(causal, window, attention_sinks)
     q_len, kv_len = q.shape[2], k.shape[2]
     if causal and q_len > kv_len:
@@ -397,9 +412,11 @@ def flash_attention_int8(
     (flash_attention_int8.py:956): head_dim <= 64, or head_dim <= 128 and
     not causal, takes the transposed route's numerics (bf16 P, block_kv
     512); otherwise the standard route's (int8 P, block_kv 1024).
+    Not differentiable (refuse_grad).
     """
     if q.ndim != 4:
         raise ValueError(f"expected [batch, heads, seq, head_dim], got {tuple(q.shape)}")
+    refuse_grad(q, k, v)
     validate_masking(causal, window, attention_sinks)
     q_len, kv_len, head_dim = q.shape[2], k.shape[2], q.shape[-1]
     if transposed is None:

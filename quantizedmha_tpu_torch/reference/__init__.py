@@ -1,7 +1,9 @@
 from quantizedmha_tpu_torch.reference.mha import (
     apply_rope,
     mha_masked_reference,
+    mha_reference,
     mha_reference_shaped,
+    mha_with_intermediates,
 )
 from quantizedmha_tpu_torch.reference.quant_ref import (
     mha_int8_reference,
@@ -11,7 +13,9 @@ from quantizedmha_tpu_torch.reference.quant_ref import (
 __all__ = [
     "apply_rope",
     "mha_masked_reference",
+    "mha_reference",
     "mha_reference_shaped",
+    "mha_with_intermediates",
     "mha_int8_reference",
     "quantize_int8_tile",
 ]

@@ -8,7 +8,7 @@ PyTorch code. The goldens compute in float32 with TF32 off.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -47,7 +47,7 @@ def apply_rope(x: torch.Tensor, theta: float = 10000.0,
     return out.to(x.dtype)
 
 
-def mha_reference_shaped(
+def mha_with_intermediates(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
@@ -56,8 +56,11 @@ def mha_reference_shaped(
     causal: bool = False,
     use_rope: bool = False,
     rope_theta: float = 10000.0,
-) -> torch.Tensor:
-    """Full-materialization golden MHA over [..., seq, head_dim]."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-materialization golden MHA over [..., seq, head_dim] returning
+    (O in q's dtype, the scaled f32 scores S, the f32 probabilities P);
+    differentiable, so a loss on the lse recomputed from S checks the
+    flash backward's lse cotangent."""
     if use_rope:
         q = apply_rope(q, rope_theta)
         k = apply_rope(k, rope_theta)
@@ -73,7 +76,47 @@ def mha_reference_shaped(
     p = torch.exp(s - m)
     p = p / p.sum(dim=-1, keepdim=True)
     o = torch.einsum("...qk,...kd->...qd", p, v.float())
-    return o.to(q.dtype)
+    return o.to(q.dtype), s, p
+
+
+def mha_reference_shaped(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    causal: bool = False,
+    use_rope: bool = False,
+    rope_theta: float = 10000.0,
+) -> torch.Tensor:
+    """Full-materialization golden MHA over [..., seq, head_dim]."""
+    return mha_with_intermediates(q, k, v, sm_scale=sm_scale, causal=causal,
+                                  use_rope=use_rope, rope_theta=rope_theta)[0]
+
+
+def mha_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    d_model: int,
+    num_heads: int,
+    *,
+    use_rope: bool = True,
+    sm_scale: Optional[float] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Reference-ABI golden: flat [N, d_model] in and out; each head's [N, d]
+    columns get RoPE (on by default) and stable softmax attention, then the
+    heads are concatenated back."""
+    n = q.shape[0]
+    d = d_model // num_heads
+
+    def split(x):
+        return x.reshape(n, num_heads, d).transpose(0, 1)  # [h, N, d]
+    oh = mha_reference_shaped(
+        split(q), split(k), split(v), sm_scale=sm_scale if sm_scale is not None else d**-0.5,
+        causal=causal, use_rope=use_rope)
+    return oh.transpose(0, 1).reshape(n, d_model)
 
 
 def mha_masked_reference(

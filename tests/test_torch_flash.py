@@ -127,8 +127,12 @@ def test_masking_contract_and_grad_refusal():
         tfa.flash_attention(q, k, v, causal=True, q_offset=3)
     with pytest.raises(ValueError, match="multiple of kv heads"):
         tfa.flash_attention(q, k[:, :1].repeat(1, 3, 1, 1), v[:, :1].repeat(1, 3, 1, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        tfa.flash_attention(q.requires_grad_(), k, v, causal=True)
+    # Inputs that require grad no longer raise: the call is differentiable
+    # (tests/test_torch_flash_bwd.py), and the contract holds under grad too.
+    q.requires_grad_()
+    with pytest.raises(ValueError, match="window requires causal"):
+        tfa.flash_attention(q, k, v, causal=False, window=4)
+    assert tfa.flash_attention(q, k, v, causal=True).grad_fn is not None
 
 
 @pytest.mark.parametrize("kernel", ["fa", "fa_bf16", "unfused"])
