@@ -15,7 +15,8 @@ result line:
            paths and on the two mixed-cache compositions (INT8 and INT4
            partials merged by lse) against their plain compositions; the
            backward's two kernels at the training step's attention shape
-           and on 11 small cases;
+           and on 11 small cases, each pair launched twice (the same bits
+           both times, or the check fails);
            kernel / plain / library times (CUDA events) and the least time
            the card could take (bound).
   solve    the reference ABI at N=8192, d_model=1024, h=32 in float32:
@@ -368,6 +369,27 @@ def _sdpa(q, k, v, **kw):
 # ---------------------------------------------------------------------------
 
 
+def _ptxas_kernels(log):
+    """{kernel<template args>: [registers, spill store bytes]} from one
+    `nvcc -Xptxas -v` log."""
+    out = {}
+    for entry in log.split("Compiling entry function")[1:]:
+        regs = re.search(r"Used (\d+) registers", entry)
+        spills = re.search(r"(\d+) bytes spill stores", entry)
+        mangled = entry.split("'")[1] if "'" in entry else ""
+        # _ZN <length><identifier>... (namespaces, then the kernel) I<args>E
+        pos, name = 3, ""
+        while pos < len(mangled) and mangled[pos].isdigit():
+            m = re.match(r"\d+", mangled[pos:])
+            pos += len(m.group())
+            name = mangled[pos:pos + int(m.group())]
+            pos += len(name)
+        if name and regs and spills:
+            args = ",".join(re.findall(r"L[ib](\d+)E", mangled[pos:].split("EE")[0] + "E"))
+            out[f"{name}<{args}>"] = [int(regs.group(1)), int(spills.group(1))]
+    return out
+
+
 def phase_build(st):
     from quantizedmha_tpu_torch.ops import cuda_lib
     t0 = time.perf_counter()
@@ -378,7 +400,8 @@ def phase_build(st):
         used = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
         regs[name] = {"max_registers": max(used, default=None),
-                      "max_spill_store_bytes": max(spills, default=None)}
+                      "max_spill_store_bytes": max(spills, default=None),
+                      "kernels": _ptxas_kernels(log)}
     st["gpu"] = gpu_line()
     emit({"phase": "build", "ok": True, "seconds": round(secs, 2),
           "ptxas": regs, "gpu": st["gpu"]})
@@ -551,7 +574,10 @@ def _visible_pairs(sq, skv, causal):
 
 def _flash_fwd_case(name, q, k, v, causal, *, replaces, label):
     """The float flash kernel at one main-path shape (end-aligned, no
-    window): check, kernel / plain / SDPA times, the bound."""
+    window): check, kernel / plain / SDPA times, the bound. SDPA runs in
+    bf16 (the library's fast path); for f32 inputs it also runs in f32
+    (the first backend that takes it, memory-efficient attention, with
+    TF32 off), the same function as the f32 route."""
     import torch
     from quantizedmha_tpu_torch.ops.flash_attention import _offsets
     B, H, S, D = q.shape
@@ -563,6 +589,12 @@ def _flash_fwd_case(name, q, k, v, causal, *, replaces, label):
     plain_ms = cuda_ms(plain, iters=2, warmup=1)
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
     lib_ms, backend = _sdpa(qb, kb, vb, is_causal=causal, enable_gqa=kb.shape[1] != qb.shape[1])
+    library_f32 = None
+    if q.dtype == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        f32_ms, f32_backend = _sdpa(q, k, v, is_causal=causal,
+                                    enable_gqa=k.shape[1] != q.shape[1])
+        library_f32 = {"ms": f32_ms, "backend": f32_backend, "allow_tf32": False}
     pairs = B * H * _visible_pairs(S, Skv, causal)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     unit = "bf16" if q.dtype == torch.bfloat16 else "fp32"
@@ -575,7 +607,8 @@ def _flash_fwd_case(name, q, k, v, causal, *, replaces, label):
             "shape": {"B": B, "Hq": H, "Hkv": k.shape[1], "Sq": S, "Skv": Skv, "D": D,
                       "causal": causal, "dtype": str(q.dtype)},
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms, "library_backend": backend}
+            "library_ms": lib_ms, "library_backend": backend,
+            **({"library_f32": library_f32} if library_f32 else {})}
 
 
 def _paged_cache(g, Hkv, num_pages, P, D):
@@ -1232,7 +1265,18 @@ def flash_bwd_tolerances(q, k, v, o, lse, do, dlse, offsets, grads, *, sm_scale,
     dSᵀQ and dV = PᵀdO over the group's G·Sq rows; it moves by the sum of
     the terms' errors times the other factor, plus 2(N+1) u of the sum of
     the terms' magnitudes (two summation orders). A bf16 gradient adds one
-    bf16 ulp, 2^-7 (|g| + tol)."""
+    bf16 ulp, 2^-7 (|g| + tol).
+
+    bf16 inputs: both sides round p and ds to bf16 (round to nearest even)
+    as the operands of dV = PᵀdO, dK = dSᵀQ and dQ = dS·K (the TPU's
+    Precision.DEFAULT). Each side rounds its own f32 p and ds, which differ
+    by the errors above, so two values that sit on either side of a
+    rounding boundary round one bf16 ulp apart (at most 2^-7 of the
+    magnitude, 8 significant bits) on top of that difference: a term's
+    error grows by 2^-7 |p| (in dV) and 2^-7 |ds| (in dK and dQ), carried
+    through the three sums as A is (times |dO|, |q| and |k|). Rounding
+    never moves a value by more than half an ulp, so the magnitudes in the
+    summation-order terms grow by at most 2^-8, far inside that term."""
     import torch
     from quantizedmha_tpu_torch.ops import flash_attention as fa
     u = 2.0**-24
@@ -1260,14 +1304,18 @@ def flash_bwd_tolerances(q, k, v, o, lse, do, dlse, offsets, grads, *, sm_scale,
         e_dp = 2 * (D + 16) * u * doh.norm(dim=-1) * vn
         A = p * (sm_scale * a[..., None] * (dp - di[:, grp, :, None]).abs()
                  + sm_scale * e_dp[..., None])
+        e_p = p * delta[..., None]
+        if q.dtype == torch.bfloat16:
+            A = A + 2.0**-7 * ds.abs()
+            e_p = e_p + 2.0**-7 * p
         g_kv, g_q = 2 * (Skv + 1) * u, 2 * (G * Sq + 1) * u
         ka, qa, da = kh.abs()[:, None], qh.abs(), doh.abs()
         tols[0][:, grp] = (A @ ka + g_kv * (ds.abs() @ ka)).double()
         tols[1][:, h] = (torch.einsum("bgqk,bgqd->bkd", A, qa)
                          + g_q * torch.einsum("bgqk,bgqd->bkd", ds.abs(), qa)).double()
-        tols[2][:, h] = (torch.einsum("bgqk,bgqd->bkd", p * delta[..., None], da)
+        tols[2][:, h] = (torch.einsum("bgqk,bgqd->bkd", e_p, da)
                          + g_q * torch.einsum("bgqk,bgqd->bkd", p, da)).double()
-        del p, dp, ds, A
+        del p, dp, ds, A, e_p
     if q.dtype == torch.bfloat16:
         tols = [t + 2.0**-7 * (g.double().abs() + t) for t, g in zip(tols, grads)]
     return tols
@@ -1277,7 +1325,8 @@ def _flash_bwd_check(q, k, v, offsets, do, dlse=None, *, causal, window=None, si
                      softcap=None):
     """The float flash forward on the card (its o and lse), then the two
     backward launches against _flash_bwd_plain: (kernel grads, plain grads,
-    [dq, dk, dv] err_over_tol, [launch of dK/dV, of dQ], plain call, lse)."""
+    [dq, dk, dv] err_over_tol, [launch of dK/dV, of dQ], plain call, lse,
+    whether a second pair of launches gave the same bits)."""
     import torch
     from quantizedmha_tpu_torch.ops import flash_attention as fa
     sm = q.shape[-1] ** -0.5
@@ -1288,6 +1337,12 @@ def _flash_bwd_check(q, k, v, offsets, do, dlse=None, *, causal, window=None, si
     for kernel, args in launches:
         kernel(*args)
     torch.cuda.synchronize()
+    first = [x.clone() for x in grads]
+    for kernel, args in launches:
+        kernel(*args)
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                    for a, b in zip(first, grads))
     # Each launch closure holds the operands (the di prepass among them),
     # whose memory its raw pointers name.
     launches = [lambda kernel=kernel, args=args, keep=operands: kernel(*args)
@@ -1296,7 +1351,7 @@ def _flash_bwd_check(q, k, v, offsets, do, dlse=None, *, causal, window=None, si
     tols = flash_bwd_tolerances(q, k, v, o, lse, do, dlse, offsets, plain, **kw)
     ratios = [err_over_tol(g, p, t) for g, p, t in zip(grads, plain, tols)]
     return (grads, plain, ratios, launches,
-            lambda: fa._flash_bwd_plain(q, k, v, o, lse, do, offsets, dlse, **kw), lse)
+            lambda: fa._flash_bwd_plain(q, k, v, o, lse, do, offsets, dlse, **kw), lse, same_bits)
 
 
 def _sdpa_bwd(q, k, v, do, *, is_causal):
@@ -1347,7 +1402,7 @@ def _flash_bwd_cases(g):
     q = torch.randn((B, H, S, D), generator=g, device="cuda").to(bf)
     k, v = torch.randn((2, B, Hkv, S, D), generator=g, device="cuda").to(bf)
     do = torch.randn((B, H, S, D), generator=g, device="cuda").to(bf)
-    grads, plain, ratios, launches, plain_call, _ = _flash_bwd_check(
+    grads, plain, ratios, launches, plain_call, _, same_bits = _flash_bwd_check(
         q, k, v, _offsets(0, 0, B, q.device), do, causal=True)
     plain_ms = cuda_ms(plain_call, iters=1, warmup=1)
     lib_ms, backend = _sdpa_bwd(q, k, v, do, is_causal=True)
@@ -1359,10 +1414,9 @@ def _flash_bwd_cases(g):
     entries = []
     for (name, replaces, ops, nbytes, idx), launch in zip((
             ("flash_bwd_dkv", "quantizedmha_tpu/ops/flash_attention.py:507",
-             {"bf16": 4 * pairs * D, "fp32": 4 * pairs * D, "exp": pairs},
-             rows + kv + stats + kv, (1, 2)),
+             {"bf16": 8 * pairs * D, "exp": pairs}, rows + kv + stats + kv, (1, 2)),
             ("flash_bwd_dq", "quantizedmha_tpu/ops/flash_attention.py:600",
-             {"bf16": 4 * pairs * D, "fp32": 2 * pairs * D, "exp": pairs},
+             {"bf16": 6 * pairs * D, "exp": pairs},
              rows + kv + stats + B * H * S * D * 2, (0,))), launches):
         ms = cuda_ms(launch, iters=5)
         bms, by = bound(nbytes, ops)
@@ -1371,8 +1425,8 @@ def _flash_bwd_cases(g):
             "replaces": replaces, "launches": None,
             "max_abs_err": max((grads[i].float() - plain[i].float()).abs().max().item()
                                for i in idx),
-            "err_over_tol": max(ratios[i] for i in idx), "ok": max(ratios[i] for i in idx) <= 1.0,
-            "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "err_over_tol": max(ratios[i] for i in idx), "same_bits_twice": same_bits,
+            "ok": max(ratios[i] for i in idx) <= 1.0 and same_bits, "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms, "library_backend": backend,
             "library_note": ("SDPA backward in bf16 (K/V expanded to the q heads): one call "
                              "computes dQ, dK and dV; plain_ms is _flash_bwd_plain, both "
@@ -1403,7 +1457,8 @@ FLASH_BWD_COVERAGE = (
 
 def _coverage_bwd(g):
     """FLASH_BWD_COVERAGE: {case: [dq, dk, dv] err_over_tol}; a row whose
-    lse is -inf (it sees no key) must get dq exactly 0."""
+    lse is -inf (it sees no key) must get dq exactly 0, and a second pair of
+    launches must give the same bits (inf appended otherwise)."""
     import torch
     ratios = {}
     for i, (B, H, Hkv, Sq, Skv, D, causal, window, sinks, cap, bf16, offs,
@@ -1417,10 +1472,12 @@ def _coverage_bwd(g):
             offsets = torch.tensor([[Skv - Sq, 0]] * B, dtype=torch.int32, device="cuda")
         else:
             offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
-        grads, _, r, _, _, lse = _flash_bwd_check(q, k, v, offsets, do, dlse, causal=causal,
-                                                  window=window, sinks=sinks, softcap=cap)
+        grads, _, r, _, _, lse, same_bits = _flash_bwd_check(
+            q, k, v, offsets, do, dlse, causal=causal, window=window, sinks=sinks, softcap=cap)
         empty = torch.isinf(lse)
         if empty.any() and not bool((grads[0][empty] == 0).all()):
+            r = r + [float("inf")]
+        if not same_bits:
             r = r + [float("inf")]
         ratios[f"flash_bwd{i}"] = r
     return ratios
@@ -1531,14 +1588,25 @@ PLANTED_FAULTS = (
     ("paged_decode.cu", "empty row's lse 0, not -inf",
      "l == 0.f ? -INFINITY : mrow[g] + logf(fmaxf(l, 1e-38f));",
      "l == 0.f ? 0.f : mrow[g] + logf(fmaxf(l, 1e-38f));"),
-    ("flash_bwd.cu", "dK/dV: the group's first q head left out of the sum",
-     "for (int g = 0; g < group; ++g) {", "for (int g = 1; g < group; ++g) {"),
+    ("flash_bwd.cu", "bf16 dK/dV: the group's last q head left out of the sum",
+     "const bool more = hd_next < group;", "const bool more = hd_next < group - 1;"),
     ("flash_bwd.cu", "softcap's 1 - tanh² chain factor dropped",
-     "if (p.has_softcap) ds *= 1.f - th * th;", "if (p.has_softcap) ds *= 1.f;"),
-    ("flash_bwd.cu", "dlse folded with the wrong sign (di + dlse)",
+     "if (capped) ds *= 1.f - th * th;", "if (capped) ds *= 1.f;"),
+    ("flash_bwd.cu", "dlse folded with the wrong sign (di + dlse: f32, bf16 dQ)",
      "if (p.dlse != nullptr) d = d - p.dlse[at];", "if (p.dlse != nullptr) d = d + p.dlse[at];"),
+    ("flash_bwd.cu", "bf16 dK/dV: dlse folded with the wrong sign",
+     "const float dr = st_s[BR + r] - st_s[2 * BR + r];",
+     "const float dr = st_s[BR + r] + st_s[2 * BR + r];"),
     ("flash_bwd.cu", "window one key wider (qpos - kpos <= window)",
      "bool in_win = (qpos - kpos) < p.window;", "bool in_win = (qpos - kpos) <= p.window;"),
+    ("flash_bwd.cu", "bf16: P/dS packed into the A operand with its halves swapped",
+     "__floats2bfloat162_rn(x[2 * kk + hh][2 * r], x[2 * kk + hh][2 * r + 1]);",
+     "__floats2bfloat162_rn(x[2 * kk + hh][2 * r + 1], x[2 * kk + hh][2 * r]);"),
+    ("flash_bwd.cu", "bf16 dK/dV: lse/di of the transposed tile's q row from the key half",
+     "const int r = 32 * h + 8 * n + 2 * t + (e & 1);",
+     "const int r = 32 * h + 8 * n + 2 * t + (e >> 1);"),
+    ("flash_bwd.cu", "bf16 dK/dV: next Q/dO tile copied into the stage being read (stale reads)",
+     "if (more) issue(hd_next, q_next, buf ^ 1);", "if (more) issue(hd_next, q_next, buf);"),
 )
 # The kernel sources the faults are held to, and the prefixes of their
 # coverage cases.
@@ -2759,7 +2827,7 @@ def main(argv=None) -> int:
             e = {k: c[k] for k in ("name", "route", "source", "replaces", "max_abs_err",
                                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             e.update({k: c[k] for k in ("also_replaces", "mqa", "serve_flash", "library_note",
-                                        "library_backend", "solve") if k in c})
+                                        "library_backend", "library_f32", "solve") if k in c})
             if "shapes" in c:
                 e["shapes"] = [{k: s[k] for k in ("matmul", "rows", "ms", "wrapper_ms", "plain_ms",
                                                   "bound_ms", "library_ms")} for s in c["shapes"]]

@@ -1,6 +1,7 @@
 // Device code shared by flash_fwd.cu (its f32 kernel) and paged_prefill.cu:
-// the cp.async helpers and one step of the f32 online softmax on the CUDA
-// cores over a 64-row x 64-key tile held in shared memory.
+// one step of the f32 online softmax on the CUDA cores over a 64-row x
+// 64-key tile held in shared memory (and, through cp_async.cuh, the copies
+// that fill it).
 //
 // Layout of the tile step: 256 threads; thread (ty, tx) = (tid / 16, tid %
 // 16) owns rows 4ty..4ty+3, keys tx + 16j (j < 4) of S, and output columns
@@ -13,22 +14,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int TILE_ROWS = 64;      // q rows of a tile step
 constexpr int TILE_KEYS = 64;      // keys of a tile step
 constexpr int TILE_THREADS = 256;  // threads that run it
-
-// 16-byte global -> shared copy; zero-fills the destination when !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Reductions over the 16 threads (tx) of one row.
 __device__ __forceinline__ float row_max16(float x) {

@@ -7,37 +7,70 @@
 //
 // Numerics contract (what _flash_bwd_plain in ops/flash_attention.py
 // computes, up to the f32 summation order and a few ulps of exp/tanh):
-//   every product in f32 on the CUDA cores, TF32 never; bf16 inputs are
-//   widened to f32 once in shared memory, so S = Q·Kᵀ and dP = dO·Vᵀ are
-//   sums of exact products, as a bf16 mma.sync with f32 accumulation would
-//   give. s = (Q·Kᵀ)·sm_scale (Q unscaled, as the TPU backward does), softcap
-//   s = cap·tanh(s/cap), p = valid ? exp(s − lse) : 0 (a fully masked row
+//   s = (Q·Kᵀ)·sm_scale (Q unscaled, as the TPU backward does), softcap s =
+//   cap·tanh(s/cap), p = valid ? exp(s − lse) : 0 in f32 (a fully masked row
 //   has lse = −inf and no valid pair, so p is exactly 0, never exp(+inf)·0),
-//   ds = p·(dp − di)·sm_scale, times 1 − tanh² under softcap, where di =
-//   rowsum(dO·O) (the wrapper's f32 prepass) − dlse (folded here). dV = PᵀdO
-//   and dK = dSᵀQ summed over the GQA group, dQ = dS·K, all in f32, cast
-//   once to the inputs' dtypes. Masks at global positions (offs [B, 2]):
-//   causal kpos <= qpos, window qpos − kpos < window OR kpos < sinks, and the
-//   q and kv edges (no padding).
+//   ds = p·(dp − di)·sm_scale from the f32 p, times 1 − tanh² under softcap,
+//   where dp = dO·Vᵀ and di = rowsum(dO·O) (the wrapper's f32 prepass) −
+//   dlse (folded here). dV = PᵀdO and dK = dSᵀQ summed over the GQA group,
+//   dQ = dS·K, each accumulated in f32 and cast once to the inputs' dtype.
+//   Masks at global positions (offs [B, 2]): causal kpos <= qpos, window
+//   qpos − kpos < window OR kpos < sinks, and the q and kv edges.
+//   bf16 inputs: the TPU backward runs its dots at Precision.DEFAULT, one
+//   bf16 pass, so S and dP are sums of exact products of the bf16 inputs and
+//   P and dS enter dV, dK and dQ rounded to bf16 (round to nearest even).
+//   Here all five products run on the tensor cores (wgmma, bf16 operands,
+//   f32 accumulation) with P and dS rounded the same way.
+//   f32 inputs: Precision.HIGHEST, every product a true f32 FMA on the CUDA
+//   cores (never TF32), P and dS in f32.
 //
 // What bounds them on the H100: at the training shape (B=1, H=32, Hkv=8,
-// S=2048, d=128, causal) the two kernels do seven products of 2·S²·d a head
-// (four in dK/dV: S, dP, dV, dK; three in dQ: S, dP, dQ), 1.2e11 flop a
-// layer with the causal half skipped: 1.8 ms at the CUDA cores' 67 TFLOP/s,
-// 0.12 ms at the bf16 tensor-core peak. This first version keeps all seven
-// on the CUDA cores, so it is bound by f32 operations.
+// S=2048, d=128, bf16, causal) dK/dV does four products of 2·d flop a
+// visible (q, key) pair (S, dP, dV, dK) and dQ three (S, dP, dQ): 6.9e10 and
+// 5.2e10 flop, 0.069 and 0.052 ms at the 989 TFLOP/s bf16 peak; the 6.7e7
+// exponentials a kernel (0.016 ms on the SFUs) and the ~50 MB of operands
+// (0.015 ms) are below that, so the bound is the tensor cores. Between the
+// products sits per-pair f32 work (exp, masks, the ds chain, bf16 packing)
+// that the tensor cores wait on, and the causal mask makes the work of a
+// block uneven: the dK/dV block of key tile 0 walks every q tile of its
+// group, the last one a single tile per head.
 //
-// What this design does about it: 256 threads a block, each owning 4 rows x
-// 4 columns of a 64 x 64 score tile and 4 rows x D/16 columns of a 64-row
-// accumulator, float4 shared-memory reads (the layout of f32_tile.cuh's
-// forward step). dK/dV: one block per (batch, kv head, 64-key tile) holds
-// K and V and walks every q tile of every q head of its group, so the
-// group's sum stays in registers and no atomics are needed (a kv tile has
-// one owner). dQ: one block per (batch, q head, 64-row q tile) walks the kv
-// tiles it can see. Tiles wholly above the diagonal or behind the window
-// are skipped exactly (sink tiles stay visible). P and dS go through shared
-// memory to the second products. Tensor cores (P and dS rounded to bf16),
-// cp.async double buffering and wgmma are the later redesign's.
+// What this design does about it (bf16): one warpgroup (4 warps) computes
+// each 64 x 64 score tile with wgmma, both operands read by the tensor
+// cores straight from shared memory (Q·Kᵀ and dO·Vᵀ in dQ; the transposed
+// Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ in dK/dV, so that keys are the rows); warp w
+// owns the accumulator rows 16w..16w+15, whose fragments are those of
+// mma.sync, so P and dS stay in registers: p and ds in f32 in place,
+// packed to bf16 as the register A operand of the second products' wgmma
+// (PᵀdO, dSᵀQ; dS·K), whose B (dO, Q; K) the tensor cores read transposed
+// (MN-major) from the same tiles. Tiles stay bf16 in wgmma's 128-byte-
+// swizzled layout; the streamed ones (Q, dO and their lse/di/dlse rows in
+// dK/dV; K and V in dQ) are double-buffered with cp.async, so the next
+// tile's copy overlaps this tile's math. Per-pair choices (a fully valid
+// warp tile, softcap) are compile-time: a runtime branch inside the
+// unrolled per-pair loop is if-converted, and tanh ran for every pair.
+// Load balance: the grid puts the tile index in its slow dimension,
+// heaviest first (key tile 0 in dK/dV, the last q tile in dQ). dK/dV has
+// only 256 blocks at the training shape and the heaviest does 32x the
+// work of the lightest, so one block is two warpgroups that take turns
+// over the (q head, q tile) steps of its key tile, each with its own
+// stages and named barrier (164 KB, one block of 8 warps an SM): the
+// heaviest tile gets a whole SM and its walk halves. Each group sums dK and
+// dV over its steps in registers; at the end group 1 hands its sums to
+// group 0 through shared memory, added in that fixed order: no atomics,
+// and the same bits every launch. dQ (1024 blocks, evenly loaded under the
+// heaviest-first order): one warpgroup, 97 KB, two blocks an SM.
+// Registers at d=128: a dK/dV thread holds 2·16·d/32 = 128 f32 of
+// accumulators, so it computes Sᵀ and dPᵀ 32 q rows at a time (32 more);
+// a dQ thread 64 of dQ and 64 of S and dP. ptxas -v: no spills.
+// Tiles wholly above the diagonal or behind the window are skipped exactly
+// (sink tiles stay visible); a warp whose 16 rows see nothing in a tile
+// skips its per-pair work and adds zeros. Each wgmma sequence is waited on
+// before its results are read: the score products do not yet overlap the
+// per-pair work (warp specialisation and TMA are later work).
+// f32: 256 threads, each owning 4 x 4 of a 64 x 64 score tile and 4 rows x
+// d/16 columns of a 64-row accumulator on the CUDA cores, P and dS through
+// shared memory, as the first version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,10 +79,14 @@
 
 #include <type_traits>
 
+#include "cp_async.cuh"
+#include "mma_bf16.cuh"
+
 namespace {
 
-constexpr int BR = 64;   // rows of a tile: q rows or keys
-constexpr int NT = 256;  // threads a block
+constexpr int BR = 64;    // rows of a tile: q rows or keys
+constexpr int NT = 256;   // threads of an f32 block
+constexpr int NTB = 128;  // threads of a bf16 dQ block: 4 warps of 16 q rows
 
 struct Params {
   const void* q;     // [B, H, Sq, D]
@@ -67,6 +104,93 @@ struct Params {
   float sm_scale, softcap;
   int has_softcap, causal, window, sinks;  // window < 0: none
 };
+
+// Block-level skip at global positions, as flash_fwd.cu: false when every
+// pair of the two ranges is above the causal diagonal or behind the window.
+__device__ __forceinline__ bool range_should_run(const Params& p, int first_q, int last_q,
+                                                 int first_kv, int last_kv) {
+  if (!p.causal) return true;
+  bool run = last_q >= first_kv;
+  if (p.window >= 0) {
+    bool in_window = (first_q - last_kv) < p.window;
+    if (p.sinks) in_window |= first_kv < p.sinks;
+    run &= in_window;
+  }
+  return run;
+}
+
+// True when every pair of local q rows [q_lo, q_hi] and local keys [k_lo,
+// k_hi] is valid: inside both edges, on or below the diagonal, in the window.
+__device__ __forceinline__ bool range_unmasked(const Params& p, int q_lo, int q_hi, int k_lo,
+                                               int k_hi, int q_off, int kv_off) {
+  if (q_hi >= p.Sq || k_hi >= p.Skv) return false;
+  if (!p.causal) return true;
+  bool ok = k_hi + kv_off <= q_lo + q_off;
+  if (p.window >= 0) ok &= (q_hi + q_off) - (k_lo + kv_off) < p.window;
+  return ok;
+}
+
+// _mk_mask of the TPU backward: edges, causal, window and sinks.
+__device__ __forceinline__ bool pair_valid(const Params& p, int qloc, int kloc, int q_off,
+                                           int kv_off) {
+  bool valid = qloc < p.Sq && kloc < p.Skv;
+  if (p.causal) {
+    const int qpos = qloc + q_off, kpos = kloc + kv_off;
+    valid &= kpos <= qpos;
+    if (p.window >= 0) {
+      bool in_win = (qpos - kpos) < p.window;
+      if (p.sinks) in_win |= kpos < p.sinks;
+      valid &= in_win;
+    }
+  }
+  return valid;
+}
+
+// (p, ds) of one pair from its raw dot Q·K (dot) and dO·V (dp). CAP: 1 or 0
+// when the caller knows at compile time whether softcap is on (a runtime
+// branch inside an unrolled per-pair loop is if-converted, so tanh would
+// run for every pair), -1 to read p.has_softcap.
+template <int CAP = -1>
+__device__ __forceinline__ float2 score_grad(const Params& p, bool valid, float dot, float dp,
+                                             float lse, float di) {
+  const bool capped = CAP < 0 ? p.has_softcap != 0 : CAP == 1;
+  float s = dot * p.sm_scale;
+  float th = 0.f;
+  if (capped) {
+    th = tanhf(s / p.softcap);
+    s = p.softcap * th;
+  }
+  const float pe = valid ? expf(s - lse) : 0.f;
+  float ds = pe * (dp - di) * p.sm_scale;
+  if (capped) ds *= 1.f - th * th;
+  return make_float2(pe, ds);
+}
+
+// f(unmasked tag, softcap tag): the two per-pair choices made compile-time.
+template <typename F>
+__device__ __forceinline__ void with_tags(bool unmasked, bool capped, F&& f) {
+  if (unmasked) {
+    if (capped) {
+      f(std::true_type{}, std::true_type{});
+    } else {
+      f(std::true_type{}, std::false_type{});
+    }
+  } else if (capped) {
+    f(std::false_type{}, std::true_type{});
+  } else {
+    f(std::false_type{}, std::false_type{});
+  }
+}
+
+// di − dlse of q row `at` (the lse cotangent folds into di).
+__device__ __forceinline__ float row_di(const Params& p, size_t at) {
+  float d = p.di[at];
+  if (p.dlse != nullptr) d = d - p.dlse[at];
+  return d;
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores.
 
 template <int N>
 struct VecF;
@@ -90,77 +214,17 @@ struct Tile {
   using Vec = typename VecF<VW>::T;
 };
 
-// Block-level skip at global positions, as flash_fwd.cu: false when every
-// pair of the two ranges is above the causal diagonal or behind the window.
-__device__ __forceinline__ bool range_should_run(const Params& p, int first_q, int last_q,
-                                                 int first_kv, int last_kv) {
-  if (!p.causal) return true;
-  bool run = last_q >= first_kv;
-  if (p.window >= 0) {
-    bool in_window = (first_q - last_kv) < p.window;
-    if (p.sinks) in_window |= first_kv < p.sinks;
-    run &= in_window;
-  }
-  return run;
-}
-
-// _mk_mask of the TPU backward: edges, causal, window and sinks.
-__device__ __forceinline__ bool pair_valid(const Params& p, int qloc, int kloc, int q_off,
-                                           int kv_off) {
-  bool valid = qloc < p.Sq && kloc < p.Skv;
-  if (p.causal) {
-    const int qpos = qloc + q_off, kpos = kloc + kv_off;
-    valid &= kpos <= qpos;
-    if (p.window >= 0) {
-      bool in_win = (qpos - kpos) < p.window;
-      if (p.sinks) in_win |= kpos < p.sinks;
-      valid &= in_win;
-    }
-  }
-  return valid;
-}
-
-// (p, ds) of one pair from its raw dot Q·K (dot) and dO·V (dp).
-__device__ __forceinline__ float2 score_grad(const Params& p, bool valid, float dot, float dp,
-                                             float lse, float di) {
-  float s = dot * p.sm_scale;
-  float th = 0.f;
-  if (p.has_softcap) {
-    th = tanhf(s / p.softcap);
-    s = p.softcap * th;
-  }
-  const float pe = valid ? expf(s - lse) : 0.f;
-  float ds = pe * (dp - di) * p.sm_scale;
-  if (p.has_softcap) ds *= 1.f - th * th;
-  return make_float2(pe, ds);
-}
-
-// A [64][D] tile of rows r0.. of a row-major [n][D] matrix into f32 shared
+// A [64][D] tile of rows r0.. of a row-major [n][D] matrix into shared
 // memory ([64][ROW]); rows past n are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0, int n) {
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, int n) {
   constexpr int ROW = Tile<D>::ROW;
-  if constexpr (std::is_same<T, float>::value) {
-    constexpr int CPR = D / 4;
-    for (int e = threadIdx.x; e < BR * CPR; e += NT) {
-      const int r = e / CPR, c = e % CPR;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + r < n) x = *reinterpret_cast<const float4*>(src + size_t(r0 + r) * D + 4 * c);
-      *reinterpret_cast<float4*>(dst + r * ROW + 4 * c) = x;
-    }
-  } else {
-    constexpr int CPR = D / 8;
-    for (int e = threadIdx.x; e < BR * CPR; e += NT) {
-      const int r = e / CPR, c = e % CPR;
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (r0 + r < n) raw = *reinterpret_cast<const uint4*>(src + size_t(r0 + r) * D + 8 * c);
-      const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
-      float* d = dst + r * ROW + 8 * c;
-      *reinterpret_cast<float4*>(d) = make_float4(__bfloat162float(x[0]), __bfloat162float(x[1]),
-                                                  __bfloat162float(x[2]), __bfloat162float(x[3]));
-      *reinterpret_cast<float4*>(d + 4) = make_float4(__bfloat162float(x[4]), __bfloat162float(x[5]),
-                                                      __bfloat162float(x[6]), __bfloat162float(x[7]));
-    }
+  constexpr int CPR = D / 4;
+  for (int e = threadIdx.x; e < BR * CPR; e += NT) {
+    const int r = e / CPR, c = e % CPR;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n) x = *reinterpret_cast<const float4*>(src + size_t(r0 + r) * D + 4 * c);
+    *reinterpret_cast<float4*>(dst + r * ROW + 4 * c) = x;
   }
 }
 
@@ -224,8 +288,8 @@ __device__ __forceinline__ void acc_tile(const float* w, const float* m, float (
 }
 
 // Rows r0 + 4ty + i (< n) of a [n][D] output from the accumulator.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* dst, int r0, int n, const float (&acc)[4][D / 16]) {
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, int r0, int n, const float (&acc)[4][D / 16]) {
   using TL = Tile<D>;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
@@ -235,11 +299,7 @@ __device__ __forceinline__ void store_rows(T* dst, int r0, int n, const float (&
 #pragma unroll
     for (int c = 0; c < TL::CPT; ++c) {
       const int col = tx * TL::VW + 16 * TL::VW * (c / TL::VW) + c % TL::VW;
-      if constexpr (std::is_same<T, float>::value) {
-        dst[size_t(row) * D + col] = acc[i][c];
-      } else {
-        dst[size_t(row) * D + col] = __float2bfloat16_rn(acc[i][c]);
-      }
+      dst[size_t(row) * D + col] = acc[i][c];
     }
   }
 }
@@ -255,8 +315,7 @@ __device__ __forceinline__ void load_row_stats(const Params& p, size_t bh, int r
     if (row < p.Sq) {
       const size_t at = bh * p.Sq + row;
       l = p.lse[at];
-      d = p.di[at];
-      if (p.dlse != nullptr) d = d - p.dlse[at];
+      d = row_di(p, at);
     }
     lse_s[r] = l;
     di_s[r] = d;
@@ -269,7 +328,7 @@ struct DqSmem {
   static constexpr int FLOATS = 4 * T::SZ + BR * T::PROW + 2 * BR;  // Q, dO, K, V, dS, lse, di
 };
 
-template <typename TIn, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   using T = Tile<D>;
   extern __shared__ __align__(16) float sm[];
@@ -289,11 +348,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   const int q_off = p.offs[2 * b], kv_off = p.offs[2 * b + 1];
   const size_t bh = size_t(b) * p.H + h;
   const size_t kvbase = (size_t(b) * p.Hkv + kvh) * p.Skv * D;
-  const TIn* kg = reinterpret_cast<const TIn*>(p.k) + kvbase;
-  const TIn* vg = reinterpret_cast<const TIn*>(p.v) + kvbase;
+  const float* kg = reinterpret_cast<const float*>(p.k) + kvbase;
+  const float* vg = reinterpret_cast<const float*>(p.v) + kvbase;
 
-  load_tile<TIn, D>(qs, reinterpret_cast<const TIn*>(p.q) + bh * p.Sq * D, q0, p.Sq);
-  load_tile<TIn, D>(dos, reinterpret_cast<const TIn*>(p.dout) + bh * p.Sq * D, q0, p.Sq);
+  load_tile<D>(qs, reinterpret_cast<const float*>(p.q) + bh * p.Sq * D, q0, p.Sq);
+  load_tile<D>(dos, reinterpret_cast<const float*>(p.dout) + bh * p.Sq * D, q0, p.Sq);
   load_row_stats(p, bh, q0, lse_s, di_s);
 
   float acc[4][T::CPT];
@@ -307,8 +366,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
     if (!range_should_run(p, first_q, last_q, kv_off + t0, kv_off + min(t0 + BR, p.Skv) - 1))
       continue;
     __syncthreads();  // every thread is done with the last tile's K and dS
-    load_tile<TIn, D>(ks, kg, t0, p.Skv);
-    load_tile<TIn, D>(vs, vg, t0, p.Skv);
+    load_tile<D>(ks, kg, t0, p.Skv);
+    load_tile<D>(vs, vg, t0, p.Skv);
     __syncthreads();
     float s[4][4], dp[4][4];
     dot_tile<D>(qs, ks, s);
@@ -326,7 +385,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
     __syncthreads();  // the dS tile is complete
     acc_tile<D>(dss, ks, acc);  // dQ += dS·K
   }
-  store_rows<TIn, D>(reinterpret_cast<TIn*>(p.dq) + bh * p.Sq * D, q0, p.Sq, acc);
+  store_rows<D>(reinterpret_cast<float*>(p.dq) + bh * p.Sq * D, q0, p.Sq, acc);
 }
 
 template <int D>
@@ -335,7 +394,7 @@ struct DkvSmem {
   static constexpr int FLOATS = 4 * T::SZ + 2 * BR * T::PROW + 2 * BR;  // K, V, Q, dO, Pᵀ, dSᵀ, lse, di
 };
 
-template <typename TIn, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
   using T = Tile<D>;
   extern __shared__ __align__(16) float sm[];
@@ -356,8 +415,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
   const int q_off = p.offs[2 * b], kv_off = p.offs[2 * b + 1];
   const size_t kvbase = (size_t(b) * p.Hkv + kvh) * p.Skv * D;
 
-  load_tile<TIn, D>(ks, reinterpret_cast<const TIn*>(p.k) + kvbase, k0, p.Skv);
-  load_tile<TIn, D>(vs, reinterpret_cast<const TIn*>(p.v) + kvbase, k0, p.Skv);
+  load_tile<D>(ks, reinterpret_cast<const float*>(p.k) + kvbase, k0, p.Skv);
+  load_tile<D>(vs, reinterpret_cast<const float*>(p.v) + kvbase, k0, p.Skv);
 
   float acc_k[4][T::CPT], acc_v[4][T::CPT];
 #pragma unroll
@@ -368,14 +427,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
   const int first_kv = kv_off + k0, last_kv = kv_off + min(k0 + BR, p.Skv) - 1;
   for (int g = 0; g < group; ++g) {
     const size_t bh = size_t(b) * p.H + kvh * group + g;
-    const TIn* qg = reinterpret_cast<const TIn*>(p.q) + bh * p.Sq * D;
-    const TIn* dog = reinterpret_cast<const TIn*>(p.dout) + bh * p.Sq * D;
+    const float* qg = reinterpret_cast<const float*>(p.q) + bh * p.Sq * D;
+    const float* dog = reinterpret_cast<const float*>(p.dout) + bh * p.Sq * D;
     for (int q0 = 0; q0 < p.Sq; q0 += BR) {
       if (!range_should_run(p, q_off + q0, q_off + min(q0 + BR, p.Sq) - 1, first_kv, last_kv))
         continue;
       __syncthreads();  // every thread is done with the last q tile, Pᵀ and dSᵀ
-      load_tile<TIn, D>(qs, qg, q0, p.Sq);
-      load_tile<TIn, D>(dos, dog, q0, p.Sq);
+      load_tile<D>(qs, qg, q0, p.Sq);
+      load_tile<D>(dos, dog, q0, p.Sq);
       load_row_stats(p, bh, q0, lse_s, di_s);
       __syncthreads();
       // Transposed tiles: st[i][j] pairs key 4ty + i with q row tx + 16j.
@@ -399,37 +458,538 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
       acc_tile<D>(dsts, qs, acc_k);   // dK += dSᵀ·Q
     }
   }
-  store_rows<TIn, D>(reinterpret_cast<TIn*>(p.dk) + kvbase, k0, p.Skv, acc_k);
-  store_rows<TIn, D>(reinterpret_cast<TIn*>(p.dv) + kvbase, k0, p.Skv, acc_v);
+  store_rows<D>(reinterpret_cast<float*>(p.dk) + kvbase, k0, p.Skv, acc_k);
+  store_rows<D>(reinterpret_cast<float*>(p.dv) + kvbase, k0, p.Skv, acc_v);
 }
 
-template <typename TIn, int D>
-cudaError_t launch(const Params& p, bool dkv, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16: tensor cores.
+//
+// Shared-memory tiles: [64 rows][D] bf16 in wgmma's K-major layout with the
+// 128-byte swizzle: D in blocks of 64 columns ([block][64][64], 8 KB each,
+// 1024-byte aligned; d=32 fills half of one block), 16-byte chunk c of row
+// r stored at chunk c ^ (r % 8) of its 128-byte row. wgmma reads the tiles
+// through descriptors, K-major (tile_desc) or MN-major (tile_desc_mn).
+
+template <int D>
+struct Bf16Tile {
+  static constexpr int BLOCKS = D < 64 ? 1 : D / 64;  // 64-column blocks
+  static constexpr int TILE = BLOCKS * BR * 64;      // bf16 per tile
+  static constexpr int CPR = D / 8;                  // 16-byte chunks a row
+  static constexpr int KC = D / 16;                  // k16 steps over D
+  static constexpr int ND = D / 8;                   // n8 tiles of a D-wide accumulator
+};
+
+// Element offset of 16-byte chunk c of row r in a tile.
+__device__ __forceinline__ int sw(int r, int c) {
+  return (c >> 3) * (BR * 64) + r * 64 + (((c & 7) ^ (r & 7)) << 3);
+}
+
+// Descriptor of the K-major wgmma operand made of rows r0.. (r0 a multiple
+// of 8) of a tile, at k16 step kc.
+__device__ __forceinline__ uint64_t tile_desc(const __nv_bfloat16* tile, int r0, int kc) {
+  return sw128_desc(tile + (kc >> 2) * (BR * 64) + r0 * 64 + (kc & 3) * 16);
+}
+
+// The dynamic shared memory from its first 1024-byte boundary (the swizzle
+// atoms must be aligned; the launch asks for 1 KB more).
+__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return p + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// cp.async of rows r0.. of a row-major [n][D] bf16 matrix into a tile by
+// THREADS threads (this one is `tid`); rows past n are zero-filled.
+template <int D, int THREADS>
+__device__ __forceinline__ void issue_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
+                                           int n, int tid) {
+  using T = Bf16Tile<D>;
+  for (int e = tid; e < BR * T::CPR; e += THREADS) {
+    const int r = e / T::CPR, c = e % T::CPR;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + sw(r, c), src + size_t(ok ? r0 + r : 0) * D + 8 * c, ok);
+  }
+}
+
+// Every copy of this thread landed and is visible to wgmma's reads.
+__device__ __forceinline__ void stage_landed() {
+  cp_async_wait_all();
+  fence_async_shared();
+}
+
+// Barrier of one 128-thread warp group (named barrier 1 + group).
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(group + 1) : "memory");
+}
+
+// The A fragment of k16 step kk of a product whose left operand is a warp's
+// 16-row score tile x (x[n][e]: row g + 8(e >> 1), column 8n + 2t + (e & 1)),
+// each value rounded to bf16.
+template <int NN>
+__device__ __forceinline__ void pack_a(const float (&x)[NN][4], int kk, uint32_t (&a)[4]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const __nv_bfloat162 pb = __floats2bfloat162_rn(x[2 * kk + hh][2 * r], x[2 * kk + hh][2 * r + 1]);
+      a[2 * hh + r] = *reinterpret_cast<const uint32_t*>(&pb);
+    }
+}
+
+// Descriptor of the MN-major wgmma B operand made of tile rows r0..r0+15
+// (its k) by all D columns (its n).
+__device__ __forceinline__ uint64_t tile_desc_mn(const __nv_bfloat16* tile, int r0) {
+  return sw128_desc_mn(tile + r0 * 64, BR * 64 * 2);
+}
+
+// The warpgroup's acc[64 x D] += x · m over one k16 step: x the A
+// fragments of its warps (pack_a), m a tile's 16 rows through tile_desc_mn.
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&acc)[D / 8][4], const uint32_t (&a)[4],
+                                         uint64_t m) {
+  if constexpr (D == 128) {
+    wgmma_rs_m64n128(acc, a, m, 1);
+  } else if constexpr (D == 64) {
+    wgmma_rs_m64n64(acc, a, m, 1);
+  } else {
+    wgmma_rs_m64n32(acc, a, m, 1);
+  }
+}
+
+// Rows r0 + g + 8r (< n) of a [n][D] bf16 output from a warp's accumulator.
+template <int D>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* dst, int r0, int n,
+                                          const float (&acc)[D / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(dst + size_t(row) * D + 8 * c + 2 * t) =
+          __floats2bfloat162_rn(acc[c][2 * r], acc[c][2 * r + 1]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+}
+
+constexpr int NTKV = 256;  // threads of a bf16 dK/dV block: two warp groups of 4 warps
+
+template <int D>
+struct DkvBf16Smem {
+  using T = Bf16Tile<D>;
+  // K and V, then per warp group two stages of (Q, dO): ten tiles; then per
+  // group and stage the q rows' lse, di and dlse; 1 KB to align.
+  static constexpr int TILES = 2 + 2 * 2 * 2;
+  static constexpr int STATS_OFF = TILES * T::TILE * 2;
+  static constexpr int BYTES = STATS_OFF + 2 * 2 * 3 * BR * 4 + 1024;
+  // After the walk, group 1's dK and dV accumulators (f32) over the stages.
+  static_assert(2 * (D / 8) * 4 * 128 * 4 <= 8 * T::TILE * 2, "reduction fits the stages");
+};
+
+// dK/dV: one block per (batch, kv head, 64-key tile), two warp groups that
+// take turns over the (q head, q tile) steps of the GQA group, each with
+// its own double-buffered Q/dO stages; warp w of either group owns keys
+// 16w..16w+15. At the end group 1 hands its sums to group 0 through shared
+// memory, which adds them in a fixed order and writes dK and dV.
+template <int D>
+__global__ void __launch_bounds__(NTKV, 1) flash_bwd_dkv_bf16_kernel(const Params p) {
+  using T = Bf16Tile<D>;
+  using S = DkvBf16Smem<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align_1k(smem_raw);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vs = ks + T::TILE;
+
+  const int tid = threadIdx.x, grp = tid >> 7, gtid = tid & 127;
+  const int warp = gtid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // This group's stages: Q of stage s at qstage + 2s·TILE, dO one tile on.
+  __nv_bfloat16* qstage = vs + T::TILE + grp * 4 * T::TILE;
+  float* stats = reinterpret_cast<float*>(smem + S::STATS_OFF) + grp * 2 * 3 * BR;
+  // Heaviest first: under a causal mask key tile 0 sees every q row, so the
+  // key tile is the grid's slow dimension.
+  const int k0 = blockIdx.y * BR;
+  const int kvh = blockIdx.x % p.Hkv, b = blockIdx.x / p.Hkv;
+  const int group = p.H / p.Hkv;
+  const int q_off = p.offs[2 * b], kv_off = p.offs[2 * b + 1];
+  const size_t kvbase = (size_t(b) * p.Hkv + kvh) * p.Skv * D;
+  const size_t bh0 = size_t(b) * p.H + size_t(kvh) * group;  // the GQA group's first q head
+  const __nv_bfloat16* qg = reinterpret_cast<const __nv_bfloat16*>(p.q) + bh0 * p.Sq * D;
+  const __nv_bfloat16* dog = reinterpret_cast<const __nv_bfloat16*>(p.dout) + bh0 * p.Sq * D;
+
+  // Stage buf of this group for (q head hd of the GQA group, q tile q0): Q
+  // and dO rows, and each row's lse, di and dlse (0 without dlse, past Sq).
+  auto issue = [&](int hd, int q0, int buf) {
+    const size_t off = size_t(hd) * p.Sq * D;
+    issue_rows<D, 128>(qstage + 2 * buf * T::TILE, qg + off, q0, p.Sq, gtid);
+    issue_rows<D, 128>(qstage + (2 * buf + 1) * T::TILE, dog + off, q0, p.Sq, gtid);
+    if (gtid < BR) {
+      float* st = stats + buf * 3 * BR;
+      const bool ok = q0 + gtid < p.Sq;
+      const size_t at = (bh0 + hd) * p.Sq + (ok ? q0 + gtid : 0);
+      cp_async4(st + gtid, p.lse + at, ok);
+      cp_async4(st + BR + gtid, p.di + at, ok);
+      cp_async4(st + 2 * BR + gtid, p.dlse != nullptr ? p.dlse + at : p.lse + at,
+                ok && p.dlse != nullptr);
+    }
+    cp_async_commit();
+  };
+  const int first_kv = kv_off + k0, last_kv = kv_off + min(k0 + BR, p.Skv) - 1;
+  auto next_q = [&](int q0) {
+    while (q0 < p.Sq &&
+           !range_should_run(p, q_off + q0, q_off + min(q0 + BR, p.Sq) - 1, first_kv, last_kv))
+      q0 += BR;
+    return q0;
+  };
+  // The steps run q tiles within heads: the one after (hd, q0).
+  const int q_first = next_q(0);
+  auto advance = [&](int& hd, int& q0) {
+    q0 = next_q(q0 + BR);
+    if (q0 >= p.Sq) {
+      ++hd;
+      q0 = q_first;
+    }
+  };
+
+  issue_rows<D, NTKV>(ks, reinterpret_cast<const __nv_bfloat16*>(p.k) + kvbase, k0, p.Skv, tid);
+  issue_rows<D, NTKV>(vs, reinterpret_cast<const __nv_bfloat16*>(p.v) + kvbase, k0, p.Skv, tid);
+  // Group 0 takes steps 0, 2, 4, ..., group 1 steps 1, 3, 5, ...
+  int hd = q_first < p.Sq ? 0 : group, q0 = q_first;
+  if (grp == 1 && hd < group) advance(hd, q0);
+  if (hd < group) {
+    issue(hd, q0, 0);
+  } else {
+    cp_async_commit();
+  }
+  stage_landed();
+  __syncthreads();  // K and V, copied by every thread, are in shared memory
+
+  float acc_k[T::ND][4], acc_v[T::ND][4];
+  zero(acc_k);
+  zero(acc_v);
+
+  // This warp's 16 keys.
+  const int wk_lo = k0 + 16 * warp, wk_hi = min(wk_lo + 16, p.Skv) - 1;
+  const int key_r[2] = {wk_lo + g, wk_lo + g + 8};
+
+  // Sᵀ and dPᵀ of this warp's keys and q rows 32h..32h+31 of the tile
+  // become Pᵀ and dSᵀ in place: st[n][e] pairs key g + 8(e >> 1) of the
+  // warp with q row 32h + 8n + 2t + (e & 1).
+  auto grads = [&](auto unmasked_tag, auto cap_tag, int h, float (&st)[4][4], float (&dpt)[4][4],
+                   int q0, const float* st_s) {
+    constexpr bool UNMASKED = decltype(unmasked_tag)::value;
+    constexpr int CAP = decltype(cap_tag)::value ? 1 : 0;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 32 * h + 8 * n + 2 * t + (e & 1);
+        const float dr = st_s[BR + r] - st_s[2 * BR + r];
+        const bool valid = UNMASKED || pair_valid(p, q0 + r, key_r[e >> 1], q_off, kv_off);
+        const float2 pd = score_grad<CAP>(p, valid, st[n][e], dpt[n][e], st_s[r], dr);
+        st[n][e] = pd.x;
+        dpt[n][e] = pd.y;
+      }
+  };
+
+  int buf = 0;
+  while (hd < group) {
+    stage_landed();
+    group_sync(grp);  // this stage is in shared memory; the group is done with the other
+    int hd_next = hd, q_next = q0;
+    advance(hd_next, q_next);
+    if (hd_next < group) advance(hd_next, q_next);
+    const bool more = hd_next < group;
+    if (more) issue(hd_next, q_next, buf ^ 1);
+    const __nv_bfloat16* qt = qstage + 2 * buf * T::TILE;
+    const __nv_bfloat16* dot = qt + T::TILE;
+    const float* st_s = stats + buf * 3 * BR;
+    const int q_hi = min(q0 + BR, p.Sq) - 1;
+    const bool warp_runs =
+        wk_lo < p.Skv &&
+        range_should_run(p, q_off + q0, q_off + q_hi, kv_off + wk_lo, kv_off + wk_hi);
+    const bool unmasked = range_unmasked(p, q0, q0 + BR - 1, wk_lo, wk_lo + 15, q_off, kv_off);
+    // 32 q rows at a time, so that Sᵀ and dPᵀ take 32 registers, not 64.
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      float st[4][4], dpt[4][4];
+      zero(st);
+      zero(dpt);
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ for the group's 64 keys (wgmma).
+      wgmma_fence();
+      fence_operands(st);
+      fence_operands(dpt);
+#pragma unroll
+      for (int kc = 0; kc < T::KC; ++kc)
+        wgmma_m64n32(st, tile_desc(ks, 0, kc), tile_desc(qt, 32 * h, kc), kc);
+#pragma unroll
+      for (int kc = 0; kc < T::KC; ++kc)
+        wgmma_m64n32(dpt, tile_desc(vs, 0, kc), tile_desc(dot, 32 * h, kc), kc);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_operands(st);
+      fence_operands(dpt);
+      if (warp_runs) {
+        with_tags(unmasked, p.has_softcap, [&](auto unmasked_tag, auto cap_tag) {
+          grads(unmasked_tag, cap_tag, h, st, dpt, q0, st_s);
+        });
+      } else {
+        zero(st);
+        zero(dpt);
+      }
+      // dV += Pᵀ·dO and dK += dSᵀ·Q over these 32 q rows: P and dS in bf16.
+      {
+        uint32_t ap[2][4], ad[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          pack_a(st, kk, ap[kk]);
+          pack_a(dpt, kk, ad[kk]);
+        }
+        wgmma_fence();
+        fence_operands(acc_v);
+        fence_operands(acc_k);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          wgmma_rs<D>(acc_v, ap[kk], tile_desc_mn(dot, 32 * h + 16 * kk));
+          wgmma_rs<D>(acc_k, ad[kk], tile_desc_mn(qt, 32 * h + 16 * kk));
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        fence_operands(acc_v);
+        fence_operands(acc_k);
+      }
+    }
+    buf ^= 1;
+    hd = hd_next;
+    q0 = q_next;
+  }
+  cp_async_wait_all();
+  __syncthreads();  // both groups are done with their stages
+
+  // Group 1's sums through shared memory (over the stages), added to group
+  // 0's in that order: the same bits every launch.
+  float* red = reinterpret_cast<float*>(vs + T::TILE);
+  if (grp == 1) {
+#pragma unroll
+    for (int n = 0; n < T::ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        red[(n * 4 + e) * 128 + gtid] = acc_k[n][e];
+        red[((T::ND + n) * 4 + e) * 128 + gtid] = acc_v[n][e];
+      }
+  }
+  __syncthreads();
+  if (grp == 0) {
+#pragma unroll
+    for (int n = 0; n < T::ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc_k[n][e] += red[(n * 4 + e) * 128 + gtid];
+        acc_v[n][e] += red[((T::ND + n) * 4 + e) * 128 + gtid];
+      }
+    __nv_bfloat16* dkg = reinterpret_cast<__nv_bfloat16*>(p.dk) + kvbase;
+    __nv_bfloat16* dvg = reinterpret_cast<__nv_bfloat16*>(p.dv) + kvbase;
+    store_acc<D>(dkg, wk_lo, p.Skv, acc_k);
+    store_acc<D>(dvg, wk_lo, p.Skv, acc_v);
+  }
+}
+
+template <int D>
+constexpr int dq_bf16_smem() {
+  return 6 * Bf16Tile<D>::TILE * 2 + 1024;  // Q, dO, two stages of K and V; 1 KB to align
+}
+
+// dQ: one block per (batch, q head, 64-row q tile), one warp group whose
+// warp w owns q rows 16w..16w+15.
+template <int D>
+__global__ void __launch_bounds__(NTB, 2) flash_bwd_dq_bf16_kernel(const Params p) {
+  using T = Bf16Tile<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(align_1k(smem_raw));
+  __nv_bfloat16* dos = qs + T::TILE;
+  __nv_bfloat16* kbuf = dos + T::TILE;
+  __nv_bfloat16* vbuf = kbuf + 2 * T::TILE;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // Heaviest first: under a causal mask the last q tile sees every key.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
+  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
+  const int kvh = h / (p.H / p.Hkv);
+  const int q_off = p.offs[2 * b], kv_off = p.offs[2 * b + 1];
+  const size_t bh = size_t(b) * p.H + h;
+  const size_t kvbase = (size_t(b) * p.Hkv + kvh) * p.Skv * D;
+  const __nv_bfloat16* kg = reinterpret_cast<const __nv_bfloat16*>(p.k) + kvbase;
+  const __nv_bfloat16* vg = reinterpret_cast<const __nv_bfloat16*>(p.v) + kvbase;
+
+  auto issue = [&](int t0, int buf) {
+    issue_rows<D, NTB>(kbuf + buf * T::TILE, kg, t0, p.Skv, tid);
+    issue_rows<D, NTB>(vbuf + buf * T::TILE, vg, t0, p.Skv, tid);
+    cp_async_commit();
+  };
+  const int first_q = q_off + q0, last_q = q_off + min(q0 + BR, p.Sq) - 1;
+  auto next_run = [&](int t0) {
+    while (t0 < p.Skv &&
+           !range_should_run(p, first_q, last_q, kv_off + t0, kv_off + min(t0 + BR, p.Skv) - 1))
+      t0 += BR;
+    return t0;
+  };
+
+  issue_rows<D, NTB>(qs, reinterpret_cast<const __nv_bfloat16*>(p.q) + bh * p.Sq * D, q0, p.Sq,
+                     tid);
+  issue_rows<D, NTB>(dos, reinterpret_cast<const __nv_bfloat16*>(p.dout) + bh * p.Sq * D, q0,
+                     p.Sq, tid);
+  int t0 = next_run(0);
+  if (t0 < p.Skv) {
+    issue(t0, 0);
+  } else {
+    cp_async_commit();
+  }
+
+  // This warp's 16 q rows: rows g and g + 8 are this thread's.
+  const int wq_lo = q0 + 16 * warp, wq_hi = min(wq_lo + 16, p.Sq) - 1;
+  const int qrow[2] = {wq_lo + g, wq_lo + g + 8};
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t at = bh * p.Sq + qrow[r];
+    lse_r[r] = qrow[r] < p.Sq ? p.lse[at] : 0.f;
+    di_r[r] = qrow[r] < p.Sq ? row_di(p, at) : 0.f;
+  }
+
+  float acc[T::ND][4];
+  zero(acc);
+
+  // S of this warp's q rows becomes dS in place (from dP): s[n][e] pairs q
+  // row g + 8(e >> 1) of the warp with key t0 + 8n + 2t + (e & 1).
+  auto grads = [&](auto unmasked_tag, auto cap_tag, float (&s)[8][4], float (&dp)[8][4],
+                   int t0) {
+    constexpr bool UNMASKED = decltype(unmasked_tag)::value;
+    constexpr int CAP = decltype(cap_tag)::value ? 1 : 0;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kloc = t0 + 8 * n + 2 * t + (e & 1);
+        const bool valid = UNMASKED || pair_valid(p, qrow[r], kloc, q_off, kv_off);
+        s[n][e] = score_grad<CAP>(p, valid, s[n][e], dp[n][e], lse_r[r], di_r[r]).y;
+      }
+  };
+
+  int buf = 0;
+  while (t0 < p.Skv) {
+    stage_landed();
+    __syncthreads();  // this tile is in shared memory; every warp is done with the other
+    const int tn = next_run(t0 + BR);
+    if (tn < p.Skv) issue(tn, buf ^ 1);
+    const __nv_bfloat16* kt = kbuf + buf * T::TILE;
+    const __nv_bfloat16* vt = vbuf + buf * T::TILE;
+    // S = Q·Kᵀ and dP = dO·Vᵀ for the block's 64 q rows (wgmma).
+    float s[8][4], dp[8][4];
+    zero(s);
+    zero(dp);
+    wgmma_fence();
+    fence_operands(s);
+    fence_operands(dp);
+#pragma unroll
+    for (int kc = 0; kc < T::KC; ++kc)
+      wgmma_m64n64(s, tile_desc(qs, 0, kc), tile_desc(kt, 0, kc), kc);
+#pragma unroll
+    for (int kc = 0; kc < T::KC; ++kc)
+      wgmma_m64n64(dp, tile_desc(dos, 0, kc), tile_desc(vt, 0, kc), kc);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_operands(s);
+    fence_operands(dp);
+    const int k_hi = min(t0 + BR, p.Skv) - 1;
+    const bool warp_runs =
+        wq_lo < p.Sq &&
+        range_should_run(p, q_off + wq_lo, q_off + wq_hi, kv_off + t0, kv_off + k_hi);
+    if (warp_runs) {
+      with_tags(range_unmasked(p, wq_lo, wq_lo + 15, t0, t0 + BR - 1, q_off, kv_off),
+                p.has_softcap, [&](auto unmasked_tag, auto cap_tag) {
+                  grads(unmasked_tag, cap_tag, s, dp, t0);
+                });
+    } else {
+      zero(s);
+    }
+    // dQ += dS·K: dS in bf16.
+    {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a(s, kk, a[kk]);
+      wgmma_fence();
+      fence_operands(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, a[kk], tile_desc_mn(kt, 16 * kk));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_operands(acc);
+    }
+    buf ^= 1;
+    t0 = tn;
+  }
+  cp_async_wait_all();
+  store_acc<D>(reinterpret_cast<__nv_bfloat16*>(p.dq) + bh * p.Sq * D, wq_lo, p.Sq, acc);
+}
+
+// ---------------------------------------------------------------------------
+
+template <int D>
+cudaError_t launch_f32(const Params& p, bool dkv, cudaStream_t stream) {
   cudaError_t err;
   if (dkv) {
     constexpr int smem = DkvSmem<D>::FLOATS * 4;
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<TIn, D>,
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((p.Skv + BR - 1) / BR, p.Hkv, p.B);
-    flash_bwd_dkv_kernel<TIn, D><<<grid, NT, smem, stream>>>(p);
+    flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(p);
   } else {
     constexpr int smem = DqSmem<D>::FLOATS * 4;
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<TIn, D>,
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((p.Sq + BR - 1) / BR, p.H, p.B);
-    flash_bwd_dq_kernel<TIn, D><<<grid, NT, smem, stream>>>(p);
+    flash_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(p);
   }
   return cudaGetLastError();
 }
 
-template <typename TIn>
-cudaError_t launch_d(const Params& p, int D, bool dkv, cudaStream_t s) {
+template <int D>
+cudaError_t launch_bf16(const Params& p, bool dkv, cudaStream_t stream) {
+  cudaError_t err;
+  if (dkv) {
+    constexpr int smem = DkvBf16Smem<D>::BYTES;
+    err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(p.Hkv * p.B, (p.Skv + BR - 1) / BR);
+    flash_bwd_dkv_bf16_kernel<D><<<grid, NTKV, smem, stream>>>(p);
+  } else {
+    constexpr int smem = dq_bf16_smem<D>();
+    err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(p.H * p.B, (p.Sq + BR - 1) / BR);
+    flash_bwd_dq_bf16_kernel<D><<<grid, NTB, smem, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_d(const Params& p, int D, bool bf16, bool dkv, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<TIn, 32>(p, dkv, s);
-    case 64: return launch<TIn, 64>(p, dkv, s);
-    case 128: return launch<TIn, 128>(p, dkv, s);
+    case 32: return bf16 ? launch_bf16<32>(p, dkv, s) : launch_f32<32>(p, dkv, s);
+    case 64: return bf16 ? launch_bf16<64>(p, dkv, s) : launch_f32<64>(p, dkv, s);
+    case 128: return bf16 ? launch_bf16<128>(p, dkv, s) : launch_f32<128>(p, dkv, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -462,8 +1022,7 @@ int run(const void* q, const void* k, const void* v, const void* dout, const voi
   p.window = window;
   p.sinks = sinks;
   if (B == 0 || H == 0 || (dkv ? Skv : Sq) == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16 ? launch_d<__nv_bfloat16>(p, D, dkv, s) : launch_d<float>(p, D, dkv, s);
+  const cudaError_t err = launch_d(p, D, bf16 != 0, dkv, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

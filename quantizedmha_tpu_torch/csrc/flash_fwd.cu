@@ -48,6 +48,7 @@
 #include <type_traits>
 
 #include "f32_tile.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -66,23 +67,6 @@ struct Params {
   float sm_scale, softcap, mask_value, mask_half;
   int has_softcap, causal, window, sinks;  // window < 0: none
 };
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices, transposed: the B fragments of two m16n8k16
-// n-tiles from a row-major [k][n] tile.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* ptr) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
 
 // Block-level skip at global positions: false when every pair of the two
 // ranges is above the causal diagonal or behind the window.

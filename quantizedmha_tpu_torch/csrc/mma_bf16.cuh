@@ -1,0 +1,197 @@
+// The bf16 tensor-core PTX of the port's kernels (flash_fwd.cu,
+// flash_bwd.cu, flash_int8_fwd.cu): mma.sync m16n8k16 with f32
+// accumulation and the ldmatrix loads of its operands from shared memory,
+// and the warpgroup wgmma of Hopper (flash_bwd.cu).
+//
+// Fragments of m16n8k16 (lane = 4g + t, g = lane / 4, t = lane % 4; two
+// bf16 a register, the lower column or k in the low half):
+//   A [16][16] row-major: a0 (row g, k 2t..2t+1), a1 (row g+8, k 2t..),
+//     a2 (row g, k 2t+8..), a3 (row g+8, k 2t+8..).
+//   B [16][8] (k x n), "col": b0 (k 2t..2t+1, col g), b1 (k 2t+8.., col g).
+//   C [16][8] f32: c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8, the same).
+// So the C fragments of two neighbouring n-tiles, rounded to bf16 in pairs,
+// are the A fragment of one k16 step of the next product.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices, transposed: the B fragments of two m16n8k16
+// n-tiles from a row-major [k][n] tile.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* ptr) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// wgmma (sm_90a): a warpgroup (4 warps, 128 threads) computes D[64 x N]
+// (+)= A[64 x 16] · B[16 x N] with A and B in shared memory, both K-major
+// (rows of A and of Bᵀ contiguous along k), each named by a descriptor. The
+// accumulator of warp w of the group is the m16n8 C fragment of rows
+// 16w..16w+15 for each n8 tile j: d[j][0..3] as c0..c3 above, so it feeds
+// pack-to-A like an mma.sync accumulator. The ops run asynchronously:
+// wgmma_fence before the first, commit, wait, then fence_operands on the
+// accumulators before reading them.
+
+// Descriptor of a K-major operand in 128-byte-swizzled shared memory: rows
+// of 64 bf16 (128 bytes), 8-row atoms of 1024 bytes (1024-byte aligned,
+// stride 1024), 16-byte chunk c of row r stored at chunk c ^ (r % 8).
+// `at` is the operand's first row at its k16 step (a 32-byte step within
+// the row).
+__device__ __forceinline__ uint64_t sw128_desc(const void* at) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(at));
+  return uint64_t((a & 0x3FFFF) >> 4) | (uint64_t(16 >> 4) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Shared-memory writes of this thread (st.shared, cp.async) made visible
+// to the async proxy that wgmma reads through; then a barrier.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Pins accumulator registers at this point of the program (after a wait,
+// before the first wgmma), so that no read or write moves across it.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+// D[64 x 32] (+)= A·B: accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[4][4], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A·B: accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[8][4], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// Descriptor of an MN-major operand (B of a product whose k index runs
+// over the rows of a tile, its n index along them) in the same swizzled
+// layout: 8-row atoms 1024 bytes apart along k, 64-column blocks
+// `block_bytes` apart along n. `at` is the operand's first k row (a
+// multiple of 8).
+__device__ __forceinline__ uint64_t sw128_desc_mn(const void* at, uint32_t block_bytes) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(at));
+  return uint64_t((a & 0x3FFFF) >> 4) | (uint64_t(block_bytes >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// D[64 x 32] (+)= A·B with A from registers (each warp's m16n8k16 A
+// fragment of its 16 rows) and B MN-major in shared memory (transposed).
+__device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[4][4], const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A·B with A from registers (each warp's m16n8k16 A
+// fragment of its 16 rows) and B MN-major in shared memory (transposed).
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A·B with A from registers (each warp's m16n8k16 A
+// fragment of its 16 rows) and B MN-major in shared memory (transposed).
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[16][4], const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+}  // namespace

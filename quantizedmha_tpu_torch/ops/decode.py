@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from quantizedmha_tpu_torch.ops import cuda_lib
+from quantizedmha_tpu_torch.ops._autograd import refuse_grad
 from quantizedmha_tpu_torch.ops.flash_attention import (
     DEFAULT_MASK_VALUE,
     validate_masking,
@@ -40,6 +41,10 @@ PAGED_DECODE_INT4 = cuda_lib.CudaKernel(
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
        ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _HEAD_DIMS = (32, 64, 128)
+# The paged decode kernels have no backward, in the JAX package as here:
+# jax.grad through its paged_decode_attention(_int4) raises.
+_NO_GRAD = ("paged decode attention is not differentiable (jax.grad through the "
+            "JAX package's paged_decode_attention fails too)")
 
 
 def _decode_walk(q, num_kv_heads, lengths, block_tables, page_size, load_page, *, sm_scale,
@@ -233,8 +238,10 @@ def paged_decode_attention(
     block_tables: [batch, max_pages] int — physical page ids
     Returns [batch, num_q_heads, head_dim] in q's dtype; with
     save_residuals, (out, lse [batch, num_q_heads] f32), lse = m + log l
-    over the scaled logits (-inf for an empty row).
+    over the scaled logits (-inf for an empty row). Not differentiable:
+    raises NotImplementedError when q requires grad.
     """
+    refuse_grad(_NO_GRAD, q)
     if k_pages.ndim == 5:
         if layer is None:
             raise ValueError("layer-stacked pools (ndim 5) need the `layer` index")
@@ -280,6 +287,7 @@ def paged_decode_attention_int4(
     t // (page_size / subs)). Everything else, save_residuals included,
     matches paged_decode_attention; a row with length 0 gives o = 0 and
     lse = -inf."""
+    refuse_grad(_NO_GRAD, q)
     batch, num_q_heads, head_dim = q.shape
     num_kv_heads = k_pages.shape[0]
     k_scales, v_scales = int4_scales(head_dim, k_pages, k_scales, v_scales)

@@ -10,7 +10,10 @@ windowed kv dimension and its ones-column l sum (`summode="mxu"`) are TPU
 devices with no counterpart: the only sum mode is "vpu" (l sums the f32
 P). Under autograd the call is a `torch.autograd.Function` whose backward
 is `csrc/flash_bwd.cu`'s dK/dV and dQ kernels (TPU `_bwd_dkv_kernel`,
-`_bwd_dq_kernel`) on a CUDA tensor and `_flash_bwd_plain` on a CPU one.
+`_bwd_dq_kernel`) on a CUDA tensor and `_flash_bwd_plain` on a CPU one. In
+bf16 the backward runs on the tensor cores with P and dS rounded to bf16
+as the operands of dV, dK and dQ (the TPU's Precision.DEFAULT); in f32 it
+runs every product in f32 (Precision.HIGHEST).
 """
 
 from __future__ import annotations
@@ -224,12 +227,15 @@ def _bwd_di(o, do, dlse):
 
 
 def _bwd_pairs(qh, kh, vh, doh, lse, di, q_pos, k_pos, *, sm_scale, causal, window,
-               softcap, sinks):
+               softcap, sinks, operand_dtype=None):
     """(p, dp, ds) of one kv head's group, f32 [B, G, Sq, Skv], from q and
     dO rows [B, G, Sq, D], K and V rows [B, Skv, D], lse and di [B, G, Sq]
     and global positions q_pos [B, Sq], k_pos [B, Skv]: the masks of
     `_mk_mask`, p exactly 0 where masked (never exp(+inf)·0 on a row whose
-    lse is -inf), softcap's 1 − tanh² chain factor on ds."""
+    lse is -inf), softcap's 1 − tanh² chain factor on ds, computed from the
+    f32 p. With operand_dtype (bf16) p and ds come back rounded to it and
+    widened to f32 again, as they enter the second products dV = PᵀdO,
+    dK = dSᵀQ and dQ = dS·K (the TPU's Precision.DEFAULT: one bf16 pass)."""
     s = qh.float() @ kh.float()[:, None].transpose(-1, -2) * sm_scale
     th = None
     if softcap is not None:
@@ -249,6 +255,8 @@ def _bwd_pairs(qh, kh, vh, doh, lse, di, q_pos, k_pos, *, sm_scale, causal, wind
     ds = p * (dp - di[..., None]) * sm_scale
     if th is not None:
         ds = ds * (1.0 - th * th)
+    if operand_dtype is not None:
+        p, ds = p.to(operand_dtype).float(), ds.to(operand_dtype).float()
     return p, dp, ds
 
 
@@ -260,29 +268,39 @@ def _bwd_positions(offsets, sq, skv):
     return q_pos, k_pos
 
 
-def _flash_bwd_plain(q, k, v, o, lse, do, offsets, dlse=None, *, sm_scale, causal,
-                     window, softcap, sinks):
+def _bwd_sums(q, k, v, o, lse, do, offsets, dlse=None, *, sm_scale, causal, window,
+              softcap, sinks):
     """The two backward kernels' algorithm over whole tensors, one kv head's
-    GQA group at a time: f32 throughout (TF32 off), dK and dV summed over
-    the group, results cast to the inputs' dtypes."""
+    GQA group at a time: (dq, dk, dv) as f32 sums, dK and dV summed over
+    the group. f32 inputs: f32 throughout (TF32 off). bf16 inputs: S, dP, p
+    and ds in f32, then p and ds rounded to bf16 as the operands of the
+    three second products, which run in f32 on the widened values (TF32
+    off; never a bf16 GEMM, whose reduction may drop below f32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     G = H // Hkv
+    operand_dtype = torch.bfloat16 if q.dtype == torch.bfloat16 else None
     di = _bwd_di(o, do, dlse)
     q_pos, k_pos = _bwd_positions(offsets, Sq, Skv)
-    dq = torch.empty_like(q)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dq = torch.empty(q.shape, device=q.device)
+    dk, dv = torch.empty(k.shape, device=k.device), torch.empty(v.shape, device=v.device)
     for h in range(Hkv):
         grp = slice(h * G, (h + 1) * G)
         qh, doh = q[:, grp], do[:, grp]
         p, _, ds = _bwd_pairs(qh, k[:, h], v[:, h], doh, lse[:, grp], di[:, grp], q_pos, k_pos,
                               sm_scale=sm_scale, causal=causal, window=window,
-                              softcap=softcap, sinks=sinks)
-        dv[:, h] = torch.einsum("bgqk,bgqd->bkd", p, doh.float()).to(v.dtype)
-        dk[:, h] = torch.einsum("bgqk,bgqd->bkd", ds, qh.float()).to(k.dtype)
-        dq[:, grp] = (ds @ k[:, h].float()[:, None]).to(q.dtype)
+                              softcap=softcap, sinks=sinks, operand_dtype=operand_dtype)
+        dv[:, h] = torch.einsum("bgqk,bgqd->bkd", p, doh.float())
+        dk[:, h] = torch.einsum("bgqk,bgqd->bkd", ds, qh.float())
+        dq[:, grp] = ds @ k[:, h].float()[:, None]
     return dq, dk, dv
+
+
+def _flash_bwd_plain(q, k, v, o, lse, do, offsets, dlse=None, **kw):
+    """`_bwd_sums` cast once to the inputs' dtypes, as the kernels store."""
+    dq, dk, dv = _bwd_sums(q, k, v, o, lse, do, offsets, dlse, **kw)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # q, k, v, dO, lse, di, dlse, offsets, then dk, dv (flash_bwd_dq: dq alone).

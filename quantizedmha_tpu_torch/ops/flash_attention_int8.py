@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from quantizedmha_tpu_torch.ops import cuda_lib
+from quantizedmha_tpu_torch.ops._autograd import refuse_grad
 from quantizedmha_tpu_torch.ops.flash_attention import (
     DEFAULT_MASK_VALUE,
     _offsets,
@@ -176,15 +177,10 @@ def _flash_int8_cuda(*operands, save_residuals, **kw):
     return (o, lse) if save_residuals else o
 
 
-def refuse_grad(*tensors) -> None:
-    """The INT8 attention has no backward, in the JAX package as here:
-    `jax.grad` through its flash_attention_int8 fails (an AssertionError in
-    its Pallas lowering). On the card the kernel's output would carry no
-    autograd history and silently drop the gradient of q, k and v, so every
-    INT8 entry point raises when grad is enabled and an input requires it."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the INT8 flash attention is not differentiable (jax.grad through "
+# The INT8 attention has no backward, in the JAX package as here: jax.grad
+# through its flash_attention_int8 fails (an AssertionError in its Pallas
+# lowering), so every INT8 entry point refuses an input that requires grad.
+_NO_GRAD = ("the INT8 flash attention is not differentiable (jax.grad through "
             "the JAX package's flash_attention_int8 fails too): use "
             "attention_impl='flash' or 'reference' to train")
 
@@ -193,7 +189,7 @@ def _prequant(q, k_i8, k_scales, v_i8, v_scales, *, kv_len, sm_scale, causal,
               block_kv, scale_clamp, p_static_scale, q_offset, kv_offset,
               save_residuals, window, logit_softcap, attention_sinks,
               pv_dtype, summode):
-    refuse_grad(q, k_scales, v_scales)
+    refuse_grad(_NO_GRAD, q, k_scales, v_scales)
     validate_masking(causal, window, attention_sinks)
     if (pv_dtype, summode) == ("bf16", "vpu"):
         raise NotImplementedError(
@@ -370,7 +366,7 @@ def flash_attention_int8_t(
     transposed route's numerics (bf16 P by default)."""
     if q.ndim != 4:
         raise ValueError(f"expected [batch, heads, seq, head_dim], got {tuple(q.shape)}")
-    refuse_grad(q, k, v)
+    refuse_grad(_NO_GRAD, q, k, v)
     validate_masking(causal, window, attention_sinks)
     q_len, kv_len = q.shape[2], k.shape[2]
     if causal and q_len > kv_len:
@@ -416,7 +412,7 @@ def flash_attention_int8(
     """
     if q.ndim != 4:
         raise ValueError(f"expected [batch, heads, seq, head_dim], got {tuple(q.shape)}")
-    refuse_grad(q, k, v)
+    refuse_grad(_NO_GRAD, q, k, v)
     validate_masking(causal, window, attention_sinks)
     q_len, kv_len, head_dim = q.shape[2], k.shape[2], q.shape[-1]
     if transposed is None:

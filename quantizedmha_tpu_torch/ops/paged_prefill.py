@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from quantizedmha_tpu_torch.ops import cuda_lib
+from quantizedmha_tpu_torch.ops._autograd import refuse_grad
 from quantizedmha_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE, validate_masking
 from quantizedmha_tpu_torch.ops.decode import _int4_page, int4_scales
 from quantizedmha_tpu_torch.ops.quantize import true_div
@@ -40,6 +41,10 @@ PAGED_PREFILL_INT4 = cuda_lib.CudaKernel(
        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GROUP = 64  # the kernel holds a whole GQA group in its 64 q rows
+# The paged prefill kernels have no backward, in the JAX package as here:
+# jax.grad through its paged_prefill_attention(_int4) raises.
+_NO_GRAD = ("paged prefill attention is not differentiable (jax.grad through the "
+            "JAX package's paged_prefill_attention fails too)")
 
 
 def _prefill_walk(q, num_kv_heads, lengths, q_starts, block_tables, page_size, load_page,
@@ -217,7 +222,9 @@ def paged_prefill_attention(
     save_residuals, also lse [batch, num_q_heads, q_len] f32 (m + log l
     over the scaled logits, -inf for a row with no visible position).
     block_q is accepted for signature parity; it has no numerical effect.
+    Not differentiable: raises NotImplementedError when q requires grad.
     """
+    refuse_grad(_NO_GRAD, q)
     del block_q
     validate_masking(True, window, attention_sinks)
     num_q_heads, head_dim = q.shape[1], q.shape[3]
@@ -255,6 +262,7 @@ def paged_prefill_attention_int4(
     [num_kv_heads, num_pages] or [num_kv_heads, num_pages, subs]. q_starts
     may be negative: rows at negative positions see nothing and give o = 0,
     lse = -inf. Everything else matches paged_prefill_attention."""
+    refuse_grad(_NO_GRAD, q)
     del block_q
     validate_masking(True, window, attention_sinks)
     num_q_heads, head_dim = q.shape[1], q.shape[3]

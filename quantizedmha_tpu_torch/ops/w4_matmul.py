@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from quantizedmha_tpu_torch.ops import cuda_lib
+from quantizedmha_tpu_torch.ops._autograd import refuse_grad
 
 W4_MATMUL = cuda_lib.CudaKernel(
     "w4_matmul", "w4_matmul", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
@@ -45,6 +46,11 @@ _TILE_N = 256
 _ROW_TILE = 8
 _CHUNK_ALIGN = 16
 _TARGET_BLOCKS = 2 * 132
+# The fused kernel has no backward, in the JAX package as here: jax.grad
+# through its w4_matmul fails (an AssertionError in its Pallas lowering).
+# qdense's prefill route (dequantize, then matmul) stays differentiable.
+_NO_GRAD = ("w4_matmul is not differentiable (jax.grad through the JAX package's "
+            "w4_matmul fails too)")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -162,7 +168,9 @@ def w4_matmul(
 
     Layer-stacked form: packed [L, in/2, out] and scale [L, in/group, out]
     with `layer` choosing one; the kernel reads that layer's view in place.
-    Returns [R, out] in x's dtype."""
+    Returns [R, out] in x's dtype. Not differentiable: raises
+    NotImplementedError when x requires grad."""
+    refuse_grad(_NO_GRAD, x)
     stacked = packed.ndim == 3
     if stacked and layer is None:
         raise ValueError("layer-stacked packed weights need `layer`")

@@ -234,3 +234,122 @@ def test_no_grad_takes_the_direct_path():
         o = tfa.flash_attention(*r, causal=True)
     assert o.grad_fn is None and not o.requires_grad
     torch.testing.assert_close(o, tfa.flash_attention(*t, causal=True), atol=0, rtol=0)
+
+
+def _rounding_case(dtype):
+    """Residuals (o, lse from the port's forward) of a GQA causal case at
+    explicit offsets with softcap and a dlse, and the plain backward's f32
+    sums (`_bwd_sums`, before the cast) on them."""
+    q, k, v, do = _inputs(1, 4, 2, 40, 56, 32, seed=21)
+    dlse = torch.from_numpy(np.random.default_rng(22).normal(0, 1, (1, 4, 40)).astype(np.float32))
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(dtype) for x in (q, k, v, do))
+    offsets = tfa._offsets(16, 0, 1, "cpu")
+    kw = dict(sm_scale=32 ** -0.5, causal=True, window=None, softcap=6.0, sinks=0)
+    o, lse = tfa._flash_fwd_plain(tq, tk, tv, offsets, block_kv=56, save_residuals=True, **kw)
+    sums = tfa._bwd_sums(tq, tk, tv, o, lse, tdo, offsets, dlse, **kw)
+    q_pos, k_pos = tfa._bwd_positions(offsets, 40, 56)
+    di = tfa._bwd_di(o, tdo, dlse)
+    pairs = [tfa._bwd_pairs(tq[:, 2 * h:2 * h + 2], tk[:, h], tv[:, h], tdo[:, 2 * h:2 * h + 2],
+                            lse[:, 2 * h:2 * h + 2], di[:, 2 * h:2 * h + 2], q_pos, k_pos, **{
+                                n: kw[n] for n in ("sm_scale", "causal", "window", "softcap",
+                                                   "sinks")})
+             for h in range(2)]
+    return (tq, tk, tdo), pairs, sums
+
+
+def _np_second_products(tq, tk, tdo, pairs, round_bf16):
+    """dQ, dK, dV in f64 numpy from the f32 p and ds of each kv head's group,
+    rounded to bf16 by ml_dtypes (jnp.bfloat16) first when round_bf16."""
+    q, k, do = (x.float().numpy().astype(np.float64) for x in (tq, tk, tdo))
+    dq, dk, dv = np.zeros(q.shape), np.zeros(k.shape), np.zeros(k.shape)
+    for h, (p, _, ds) in enumerate(pairs):
+        p, ds = p.numpy(), ds.numpy()
+        if round_bf16:
+            p, ds = (x.astype(jnp.bfloat16).astype(np.float32) for x in (p, ds))
+        p, ds = p.astype(np.float64), ds.astype(np.float64)
+        grp = slice(2 * h, 2 * h + 2)
+        dv[:, h] = np.einsum("bgqk,bgqd->bkd", p, do[:, grp])
+        dk[:, h] = np.einsum("bgqk,bgqd->bkd", ds, q[:, grp])
+        dq[:, grp] = ds @ k[:, h][:, None]
+    return dq, dk, dv
+
+
+def _within_f32(got, want):
+    err = np.abs(got.numpy() - want)
+    return float((err / (F32_TOL * (1.0 + np.abs(want).max()))).max())
+
+
+def test_bwd_plain_bf16_rounds_p_and_ds():
+    """bf16 inputs: the plain backward's f32 sums equal an f64 numpy
+    computation that rounds P and dS to bf16 (ml_dtypes) before dV = PᵀdO,
+    dK = dSᵀQ and dQ = dS·K, at the f32 tolerance; without that rounding
+    they differ by more (the rounding is what the kernel and the TPU's
+    Precision.DEFAULT do)."""
+    ops, pairs, sums = _rounding_case(torch.bfloat16)
+    rounded = _np_second_products(*ops, pairs, round_bf16=True)
+    exact = _np_second_products(*ops, pairs, round_bf16=False)
+    for g, want, n in zip(sums, rounded, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32
+        assert _within_f32(g, want) <= 1.0, n
+    assert max(_within_f32(g, w) for g, w in zip(sums, exact)) > 1.0
+
+
+def test_bwd_plain_f32_does_not_round():
+    """f32 inputs (Precision.HIGHEST on the TPU): no bf16 rounding of P or
+    dS. The plain backward equals the unrounded f64 computation at the f32
+    tolerance and differs from the rounded one, and equals JAX's
+    _bwd_pallas at 2e-5."""
+    ops, pairs, sums = _rounding_case(torch.float32)
+    exact = _np_second_products(*ops, pairs, round_bf16=False)
+    rounded = _np_second_products(*ops, pairs, round_bf16=True)
+    for g, want, n in zip(sums, exact, ("dq", "dk", "dv")):
+        assert _within_f32(g, want) <= 1.0, n
+    assert max(_within_f32(g, w) for g, w in zip(sums, rounded)) > 1.0
+    q, k, v, do = _inputs(1, 4, 2, 40, 56, 32, seed=21)
+    dlse = np.random.default_rng(22).normal(0, 1, (1, 4, 40)).astype(np.float32)
+    sm = 32 ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    o, lse = jfa._fwd(jq, jk, jv, sm_scale=sm, causal=True, block_q=None, block_kv=None,
+                      save_residuals=True, q_offset=16, kv_offset=0, window=None, softcap=6.0,
+                      sinks=0)
+    want = jfa._bwd_pallas(sm, True, jq, jk, jv, o, lse, jdo, dlse=jnp.asarray(dlse),
+                           q_offset=16, kv_offset=0, window=None, softcap=6.0, sinks=0)
+    got = tfa._flash_bwd_plain(
+        *(torch.from_numpy(np.array(x)) for x in (q, k, v, o, lse, do)),
+        tfa._offsets(16, 0, 1, "cpu"), torch.from_numpy(dlse), sm_scale=sm, causal=True,
+        window=None, softcap=6.0, sinks=0)
+    for g, gw, n in zip(got, want, "qkv"):
+        _close(g, gw, torch.float32, f"d{n}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_chip_smoke_flash_bwd_check_holds_jax_and_catches_faults(dtype):
+    """chip_smoke.py holds the two backward kernels to _flash_bwd_plain with
+    per-element bounds (flash_bwd_tolerances). JAX's _bwd_pallas on the same
+    residuals (another summation order; on the CPU in f32, P and dS never
+    rounded to bf16) stands in for the kernels and must pass; the plain
+    version with a planted fault (the group's last q head left out of dV;
+    the causal diagonal shifted by one) must fail."""
+    import chip_smoke
+
+    b, h, hkv, s, d = 1, 4, 2, 128, 64
+    q, k, v, do = _inputs(b, h, hkv, s, s, d, seed=31)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(dtype) for x in (q, k, v, do))
+    offs = tfa._offsets(0, 0, b, "cpu")
+    kw = dict(sm_scale=d**-0.5, causal=True, window=None, softcap=None, sinks=0)
+    o, lse = tfa._flash_fwd_plain(tq, tk, tv, offs, block_kv=s, save_residuals=True, **kw)
+    plain = tfa._flash_bwd_plain(tq, tk, tv, o, lse, tdo, offs, **kw)
+    tols = chip_smoke.flash_bwd_tolerances(tq, tk, tv, o, lse, tdo, None, offs, plain, **kw)
+    jdt = _jdt(dtype)
+    j = [jnp.asarray(x.float().numpy(), jdt) for x in (tq, tk, tv, o, tdo)]
+    want = jfa._bwd_pallas(kw["sm_scale"], True, j[0], j[1], j[2], j[3],
+                           jnp.asarray(lse.numpy()), j[4])
+    for g, p, t, n in zip(want, plain, tols, "qkv"):
+        got = torch.from_numpy(np.array(g, np.float32)).to(dtype)
+        assert chip_smoke.err_over_tol(got, p, t) <= 1.0, f"d{n}"
+    no_head = tdo.clone()
+    no_head[:, 1::2] = 0  # the last q head of each kv head's group
+    dv_fault = tfa._flash_bwd_plain(tq, tk, tv, o, lse, no_head, offs, **kw)[2]
+    assert chip_smoke.err_over_tol(dv_fault, plain[2], tols[2]) > 5.0
+    shifted = tfa._flash_bwd_plain(tq, tk, tv, o, lse, tdo, tfa._offsets(1, 0, b, "cpu"), **kw)
+    assert max(chip_smoke.err_over_tol(g, p, t) for g, p, t in zip(shifted, plain, tols)) > 5.0
