@@ -16,7 +16,8 @@ result line:
            partials merged by lse) against their plain compositions; the
            backward's two kernels at the training step's attention shape
            and on 11 small cases, each pair launched twice (the same bits
-           both times, or the check fails);
+           both times, or the check fails), and so is every bf16 paged
+           prefill launch (INT8 and INT4, tensor cores);
            kernel / plain / library times (CUDA events) and the least time
            the card could take (bound).
   solve    the reference ABI at N=8192, d_model=1024, h=32 in float32:
@@ -274,14 +275,19 @@ def flash_fwd_tolerances(q, k, v, o_plain, lse_plain, w_abs, *, sm_scale, softca
     return tol_o, tol_lse
 
 
-def attention_tolerances(q, kn, vmax, o_plain, lse_plain, *, sm_scale, softcap):
+def attention_tolerances(q, kn, vmax, o_plain, lse_plain, *, sm_scale, softcap, w_abs=None):
     """Per-element tolerances of a paged kernel (decode, q [B, Hq, D], or
-    prefill, q [B, Hq, C, D]) against its plain version: both compute in
-    f32 from the same pages, so only the summation orders differ. Scores by
-    at most ds per row (score_err over |q·sm_scale| and kn, the kv head's
+    prefill, q [B, Hq, C, D]) against its plain version on the same pages.
+    Scores: both sum q·k exactly-rounded products in f32 in other orders,
+    by at most ds per row (score_err over |q·sm_scale| and kn, the kv head's
     largest dequantized |k|), moving the output by at most 4 ds max|v|; P·V
-    and l by 1e-5 of vmax (the kv head's largest dequantized |v|); a bf16
-    output adds one ulp. lse: ds + 1e-5 + f32 rounding of m + log l."""
+    and l by 1e-5 of vmax (the kv head's largest dequantized |v|). The bf16
+    paged prefill (w_abs given) also rounds each p · v_scale[key] to bf16
+    once before P·V, a relative error of at most 2^-8 (round to nearest
+    even, 8 significant bits), which moves an output element by at most
+    2^-8 of sum_j p_j |v_j| v_scale_j / l: w_abs, the plain walk's output
+    on |V| (prefill_w_abs); l sums the unrounded p, so lse keeps its bound.
+    A bf16 output adds one ulp. lse: ds + 1e-5 + f32 rounding of m + log l."""
     import torch
     D = q.shape[-1]
     group = q.shape[1] // kn.shape[0]
@@ -292,6 +298,8 @@ def attention_tolerances(q, kn, vmax, o_plain, lse_plain, *, sm_scale, softcap):
     if softcap is not None:
         ds = ds + 2.0**-22 * softcap
     tol_o = ((4.0 * ds + 1e-5) * vmax)[..., None]
+    if w_abs is not None:
+        tol_o = tol_o + 2.0**-8 * w_abs.double()
     if o_plain.dtype == torch.bfloat16:
         tol_o = tol_o + 2.0**-7 * (o_plain.double().abs() + tol_o)
     tol_lse = ds + 1e-5 + 1e-6 * torch.nan_to_num(lse_plain.double().abs(), posinf=0.0)
@@ -299,16 +307,16 @@ def attention_tolerances(q, kn, vmax, o_plain, lse_plain, *, sm_scale, softcap):
 
 
 def paged_prefill_tolerances(q, k_pages, v_pages, k_scales, v_scales, o_plain, lse_plain,
-                             *, sm_scale, softcap):
+                             *, sm_scale, softcap, w_abs=None):
     """attention_tolerances over int8 pages with one scale per (head, page)."""
     kn = (k_pages.double().norm(dim=-1) * k_scales.double()[..., None]).flatten(1).amax(dim=1)
     vmax = (v_pages.double().abs().amax(dim=-1) * v_scales.double()[..., None]).flatten(1).amax(dim=1)
     return attention_tolerances(q, kn, vmax, o_plain, lse_plain, sm_scale=sm_scale,
-                                softcap=softcap)
+                                softcap=softcap, w_abs=w_abs)
 
 
 def int4_tolerances(q, k_pages, v_pages, k_scales, v_scales, o_plain, lse_plain,
-                    *, sm_scale, softcap):
+                    *, sm_scale, softcap, w_abs=None):
     """attention_tolerances over nibble-packed pages with per-sub-tile
     scales [Hkv, num_pages, subs]."""
     from quantizedmha_tpu_torch.ops.quantize import unpack_int4_halves
@@ -322,7 +330,36 @@ def int4_tolerances(q, k_pages, v_pages, k_scales, v_scales, o_plain, lse_plain,
     kn = torch.stack([r.norm(dim=-1).max() for r in rows(k_pages, k_scales)])
     vmax = torch.stack([r.abs().max() for r in rows(v_pages, v_scales)])
     return attention_tolerances(q, kn, vmax, o_plain, lse_plain, sm_scale=sm_scale,
-                                softcap=softcap)
+                                softcap=softcap, w_abs=w_abs)
+
+
+def prefill_w_abs(q, cache, lengths, q_starts, tables, *, int4=False, sm_scale, window,
+                  softcap, sinks, **_):
+    """w_abs of the bf16-P term (attention_tolerances): the plain page walk
+    (ops/paged_prefill._prefill_walk, q in f32) with |v · v_scale| in place
+    of V, taken after unpacking for INT4 pages; None for f32 q, whose kernel
+    keeps P in f32."""
+    import torch
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    from quantizedmha_tpu_torch.ops.decode import _int4_page
+    if q.dtype != torch.bfloat16:
+        return None
+    k_pages, v_pages, k_scales, v_scales = cache
+    heads = torch.arange(k_pages.shape[0], device=q.device)
+
+    def load(page):
+        if int4:
+            kp, ks = _int4_page(k_pages, k_scales, heads, page)
+            vp, vs = _int4_page(v_pages, v_scales, heads, page)
+            return kp, ks, lambda p: (p * vs.abs()) @ vp.abs()
+        kp = k_pages[:, page].float().transpose(0, 1)                 # [B, Hkv, P, D]
+        vp = v_pages[:, page].float().abs().transpose(0, 1)
+        ks = k_scales[heads[None, :], page[:, None]][..., None, None]  # [B, Hkv, 1, 1]
+        vs = v_scales[heads[None, :], page[:, None]][..., None, None].abs()
+        return kp, ks, lambda p: (p @ vp) * vs
+    return pp._prefill_walk(q.float(), k_pages.shape[0], lengths, q_starts, tables,
+                            k_pages.shape[2], load, sm_scale=sm_scale, window=window,
+                            softcap=softcap, sinks=sinks, save_residuals=False)
 
 
 def merge_tolerance(o, lse_parts, o_parts, tols, lse_tols):
@@ -620,11 +657,22 @@ def _paged_cache(g, Hkv, num_pages, P, D):
     return k_pages, v_pages, k_scales, v_scales
 
 
+def _same_bits_again(launch, outs):
+    """Run launch() once more on the same inputs: whether every output
+    tensor it writes comes out with the same bits."""
+    import torch
+    first = [x.clone() for x in outs]
+    launch()
+    torch.cuda.synchronize()
+    return all(torch.equal(a.view(torch.uint8), b.view(torch.uint8)) for a, b in zip(first, outs))
+
+
 def _paged_prefill_check(q, cache, lengths, q_starts, tables, *, window=None, sinks=0,
                          softcap=None):
     """One paged prefill launch (with lse) against its plain version:
     (kernel output, plain output, [output, lse] err_over_tol, tolerance,
-    launch, plain call)."""
+    launch, plain call). A bf16 launch runs twice: a second launch whose
+    bits differ adds an infinite ratio."""
     import torch
     from quantizedmha_tpu_torch.ops import paged_prefill as pp
     sm = q.shape[-1] ** -0.5
@@ -633,10 +681,14 @@ def _paged_prefill_check(q, cache, lengths, q_starts, tables, *, window=None, si
     kernel, args, (out, lse), _operands = pp._paged_prefill_launch(*operands, **kw)
     kernel(*args)
     torch.cuda.synchronize()
+    same = q.dtype != torch.bfloat16 or _same_bits_again(lambda: kernel(*args), (out, lse))
     p_out, p_lse = pp._paged_prefill_plain(*operands, **kw)
+    w_abs = prefill_w_abs(q, cache, lengths, q_starts, tables, **kw)
     tol, lse_tol = paged_prefill_tolerances(q, *cache, p_out, p_lse, sm_scale=sm,
-                                            softcap=softcap)
+                                            softcap=softcap, w_abs=w_abs)
     ratios = [err_over_tol(out, p_out, tol), err_over_tol(lse, p_lse, lse_tol)]
+    if not same:
+        ratios.append(float("inf"))
     return (out, p_out, ratios, tol, lambda: kernel(*args),
             lambda: pp._paged_prefill_plain(*operands, **kw))
 
@@ -666,7 +718,7 @@ def _paged_prefill_case(g, *, replaces):
     q, cache, lengths, q_starts, tables = _paged_main_inputs(g)
     out, p_out, ratios, tol, launch, plain = _paged_prefill_check(q, cache, lengths, q_starts,
                                                                   tables)
-    ms = cuda_ms(launch, iters=5)
+    ms = cuda_ms(launch, iters=20)
     plain_ms = cuda_ms(plain, iters=2, warmup=1)
     # SDPA on the same K/V dequantized to bf16 and expanded to the q heads
     # beforehand (untimed), with the chunk's causal mask made explicit.
@@ -685,7 +737,7 @@ def _paged_prefill_case(g, *, replaces):
     pairs = Hq * (C * q0 + C * (C + 1) // 2)
     nbytes = (2 * q.numel() * 2 + 2 * ctx * Hkv * D + 2 * Hkv * n_pages * 4
               + tables.numel() * 4 + Hq * C * 4)
-    bms, by = bound(nbytes, {"fp32": 4 * pairs * D, "exp": pairs})
+    bms, by = bound(nbytes, {"bf16": 4 * pairs * D, "exp": pairs})
     return {"name": "paged_prefill", "route": "cuda",
             "source": "quantizedmha_tpu_torch/csrc/paged_prefill.cu",
             "replaces": replaces, "launches": None,
@@ -734,12 +786,21 @@ FLASH_FWD_COVERAGE = (
     (2, 4, 4, 64, 64, 128, False, None, 0, None, False, None),
 )
 #   (Hq, Hkv, D, page, C, lengths, q_starts, window, sinks, softcap, bf16 q)
+# The bf16 cases (tensor cores) also cover d=32, pages of 16 and 32 keys
+# (shorter than the kernel's 64-key tile), a window with sink tiles and
+# skipped tiles between, GQA groups of 3, 8 and 64 (one q position a tile).
 PAGED_PREFILL_COVERAGE = (
     (8, 2, 32, 16, 40, (40, 90), (0, 50), None, 0, None, False),
     (4, 4, 64, 32, 33, (100,), (67,), 30, 3, None, True),
     (8, 1, 128, 128, 70, (200, 70, 0), (130, 0, 0), None, 0, 10.0, True),
     (6, 2, 64, 64, 20, (300,), (280,), 64, 0, None, False),
     (32, 8, 128, 128, 130, (900,), (770,), None, 0, None, True),
+    (8, 2, 32, 16, 40, (40, 90), (0, 50), None, 0, None, True),
+    (4, 2, 64, 32, 100, (300, 100), (200, 0), None, 0, None, True),
+    (8, 2, 128, 64, 150, (500,), (350,), 100, 5, None, True),
+    (8, 1, 64, 16, 70, (200, 70), (130, 0), None, 0, 20.0, True),
+    (6, 2, 64, 16, 50, (120,), (70,), None, 0, None, True),
+    (64, 1, 32, 16, 5, (37,), (32,), None, 0, None, True),
 )
 
 
@@ -761,19 +822,9 @@ def _coverage_float(g):
         ratios[f"flash_fwd{i}"] = r
         if max(r) > 1.0:
             failed.append(f"flash_fwd{i}")
-    for i, (Hq, Hkv, D, P, C, lengths, q_starts, window, sinks, cap,
-            bf16) in enumerate(PAGED_PREFILL_COVERAGE):
-        B = len(lengths)
-        max_pages = max(-(-n // P) for n in lengths) + 1
-        cache = _paged_cache(g, Hkv, B * max_pages + 1, P, D)
-        tables = (torch.randperm(B * max_pages, generator=g, device="cuda") + 1).reshape(
-            B, max_pages).to(torch.int32)
-        q = torch.randn((B, Hq, C, D), generator=g, device="cuda")
-        q = q.to(torch.bfloat16) if bf16 else q
-        _, _, r, *_ = _paged_prefill_check(
-            q, cache, torch.tensor(lengths, dtype=torch.int32, device="cuda"),
-            torch.tensor(q_starts, dtype=torch.int32, device="cuda"), tables,
-            window=window, sinks=sinks, softcap=cap)
+    for i, case in enumerate(PAGED_PREFILL_COVERAGE):
+        *inputs, masks = paged_prefill_coverage_inputs(g, case)
+        _, _, r, *_ = _paged_prefill_check(*inputs, **masks)
         ratios[f"paged_prefill{i}"] = r
         if max(r) > 1.0:
             failed.append(f"paged_prefill{i}")
@@ -865,24 +916,31 @@ def _int4_check(q, cache, lengths, tables, q_starts=None, *, window=None, sinks=
     """One INT4 launch with lse, decode (q [B, Hq, D]) or prefill (q [B,
     Hq, C, D], q_starts), against its plain version: (kernel output, plain
     output, [output, lse] err_over_tol, output tolerance, launch, plain
-    call, plain lse, lse tolerance)."""
+    call, plain lse, lse tolerance). A bf16 prefill launch runs twice, as in
+    _paged_prefill_check."""
     import torch
     from quantizedmha_tpu_torch.ops import decode as dec
     from quantizedmha_tpu_torch.ops import paged_prefill as pp
     sm = q.shape[-1] ** -0.5
     kw = dict(sm_scale=sm, window=window, softcap=softcap, sinks=sinks, save_residuals=True)
+    w_abs = None
     if q_starts is None:
         operands = (q, *cache, lengths, tables)
         launch_fn, plain_fn = dec._paged_decode_launch, dec._paged_decode_int4_plain
     else:
         operands = (q, *cache, lengths, q_starts, tables)
         launch_fn, plain_fn = pp._paged_prefill_launch, pp._paged_prefill_int4_plain
+        w_abs = prefill_w_abs(q, cache, lengths, q_starts, tables, int4=True, **kw)
     kernel, args, (out, lse), _operands = launch_fn(*operands, int4=True, **kw)
     kernel(*args)
     torch.cuda.synchronize()
+    same = w_abs is None or _same_bits_again(lambda: kernel(*args), (out, lse))
     p_out, p_lse = plain_fn(*operands, **kw)
-    tol, lse_tol = int4_tolerances(q, *cache, p_out, p_lse, sm_scale=sm, softcap=softcap)
+    tol, lse_tol = int4_tolerances(q, *cache, p_out, p_lse, sm_scale=sm, softcap=softcap,
+                                   w_abs=w_abs)
     ratios = [err_over_tol(out, p_out, tol), err_over_tol(lse, p_lse, lse_tol)]
+    if not same:
+        ratios.append(float("inf"))
     return (out, p_out, ratios, tol, lambda: kernel(*args), lambda: plain_fn(*operands, **kw),
             p_lse, lse_tol)
 
@@ -945,12 +1003,13 @@ def _int4_decode_case(g):
 def _int4_prefill_case(g):
     """Row 11 at serve_mixed's heaviest chunk: check, kernel / plain / SDPA
     times (SDPA on the same K/V dequantized to bf16, causal mask explicit),
-    the bound (f32 operations of the visible pairs)."""
+    the bound (bf16 operations of the visible pairs: both products on the
+    tensor cores)."""
     import torch
     m = MIXED_MAIN
     q, cache, lengths, tables, q_starts = _int4_prefill_main_inputs(g)
     out, p_out, ratios, tol, launch, plain, *_ = _int4_check(q, cache, lengths, tables, q_starts)
-    ms = cuda_ms(launch, iters=5)
+    ms = cuda_ms(launch, iters=20)
     plain_ms = cuda_ms(plain, iters=2, warmup=1)
     B, Hq, C, D = q.shape
     q0, ctx = int(q_starts[0]), int(lengths[0])
@@ -964,7 +1023,7 @@ def _int4_prefill_case(g):
     n_pages = tables.shape[1]
     nbytes = (2 * q.numel() * 2 + 2 * ctx * m["Hkv"] * D // 2
               + 2 * m["Hkv"] * n_pages * m["subs"] * 4 + tables.numel() * 4 + Hq * C * 4)
-    bms, by = bound(nbytes, {"fp32": 4 * pairs * D, "exp": pairs})
+    bms, by = bound(nbytes, {"bf16": 4 * pairs * D, "exp": pairs})
     return {"name": "paged_prefill_int4", "route": "cuda",
             "source": "quantizedmha_tpu_torch/csrc/paged_prefill.cu",
             "replaces": "quantizedmha_tpu/ops/paged_prefill.py:323", "launches": None,
@@ -990,12 +1049,17 @@ DECODE_INT4_COVERAGE = (
     (4, 8, 1, 128, 64, 2, None, 0, 30.0, True),
 )
 #   (Hq, Hkv, D, page, subs, C, lengths, q_starts, window, sinks, softcap, bf16 q)
+# The last three (bf16, tensor cores): d=32 on 16-key pages; GQA 8 (Hkv 1)
+# on 32-key pages of 4 sub-tiles with negative q_starts; window + sinks.
 PREFILL_INT4_COVERAGE = (
     (8, 2, 32, 16, 1, 40, (40, 90), (0, 50), None, 0, None, False),
     (4, 1, 64, 32, 4, 33, (100, 20), (67, -13), 30, 3, None, True),
     (8, 2, 128, 128, 4, 70, (200, 0, 50), (130, -70, -20), None, 0, 10.0, True),
     (6, 2, 64, 64, 2, 20, (300,), (280,), 64, 0, None, False),
     (32, 8, 128, 128, 4, 130, (900, 60), (770, -70), None, 0, None, True),
+    (8, 2, 32, 16, 2, 40, (40, 90), (0, 50), None, 0, None, True),
+    (8, 1, 64, 32, 4, 60, (100, 30, 0), (40, -30, -60), None, 0, None, True),
+    (4, 2, 128, 64, 2, 120, (400,), (280,), 90, 4, 15.0, True),
 )
 
 
@@ -1015,19 +1079,38 @@ def _coverage_int4(g):
         q = q.to(torch.bfloat16) if bf16 else q
         ratios[f"paged_decode_int4_{i}"] = _int4_check(
             q, cache, lengths, tables, window=window, sinks=sinks, softcap=cap)[2]
-    for i, (Hq, Hkv, D, P, subs, C, lengths, q_starts, window, sinks, cap,
-            bf16) in enumerate(PREFILL_INT4_COVERAGE):
-        B = len(lengths)
-        max_pages = max(-(-n // P) for n in lengths) + 1
+    for i, case in enumerate(PREFILL_INT4_COVERAGE):
+        q, cache, lengths, q_starts, tables, masks = paged_prefill_coverage_inputs(
+            g, case, int4=True)
+        ratios[f"paged_prefill_int4_{i}"] = _int4_check(q, cache, lengths, tables, q_starts,
+                                                        **masks)[2]
+    return ratios
+
+
+def paged_prefill_coverage_inputs(g, case, *, int4=False, q_dtype=None):
+    """(q, cache, lengths, q_starts, tables, masks) of one
+    PAGED_PREFILL_COVERAGE case (INT8 pages) or, with int4,
+    PREFILL_INT4_COVERAGE case on the card; q in q_dtype when given, else
+    as the case says."""
+    import torch
+    if int4:
+        Hq, Hkv, D, P, subs, C, lengths, q_starts, window, sinks, cap, bf16 = case
+    else:
+        Hq, Hkv, D, P, C, lengths, q_starts, window, sinks, cap, bf16 = case
+    B = len(lengths)
+    max_pages = max(-(-n // P) for n in lengths) + 1
+    if int4:
         cache = _int4_cache(g, Hkv, B * max_pages + 1, P, D, subs)
         tables = _tables_for(g, B, max_pages, B * max_pages + 1)
-        q = torch.randn((B, Hq, C, D), generator=g, device="cuda")
-        q = q.to(torch.bfloat16) if bf16 else q
-        ratios[f"paged_prefill_int4_{i}"] = _int4_check(
-            q, cache, torch.tensor(lengths, dtype=torch.int32, device="cuda"), tables,
-            torch.tensor(q_starts, dtype=torch.int32, device="cuda"), window=window,
-            sinks=sinks, softcap=cap)[2]
-    return ratios
+    else:
+        cache = _paged_cache(g, Hkv, B * max_pages + 1, P, D)
+        tables = (torch.randperm(B * max_pages, generator=g, device="cuda") + 1).reshape(
+            B, max_pages).to(torch.int32)
+    q = torch.randn((B, Hq, C, D), generator=g, device="cuda")
+    q = q.to(q_dtype or (torch.bfloat16 if bf16 else torch.float32))
+    return (q, cache, torch.tensor(lengths, dtype=torch.int32, device="cuda"),
+            torch.tensor(q_starts, dtype=torch.int32, device="cuda"), tables,
+            dict(window=window, sinks=sinks, softcap=cap))
 
 
 def _mixed_composites(g):
@@ -1105,8 +1188,10 @@ def _mixed_composites(g):
     len8, len4 = lengths.clamp(max=bnd), (lengths - bnd).clamp(min=0)
     p8 = pp._paged_prefill_plain(q, *c8, len8, starts, t8[:2], **kw)
     p4 = pp._paged_prefill_int4_plain(q, *c4, len4, starts - bnd, t4[:2], **kw)
-    tols8 = paged_prefill_tolerances(q, *c8, *p8, sm_scale=sm, softcap=None)
-    tols4 = int4_tolerances(q, *c4, *p4, sm_scale=sm, softcap=None)
+    w8 = prefill_w_abs(q, c8, len8, starts, t8[:2], **kw)
+    w4 = prefill_w_abs(q, c4, len4, starts - bnd, t4[:2], int4=True, **kw)
+    tols8 = paged_prefill_tolerances(q, *c8, *p8, sm_scale=sm, softcap=None, w_abs=w8)
+    tols4 = int4_tolerances(q, *c4, *p4, sm_scale=sm, softcap=None, w_abs=w4)
     held("mixed_prefill", got, (p8, p4), (tols8, tols4))
     return out
 
@@ -1337,12 +1422,7 @@ def _flash_bwd_check(q, k, v, offsets, do, dlse=None, *, causal, window=None, si
     for kernel, args in launches:
         kernel(*args)
     torch.cuda.synchronize()
-    first = [x.clone() for x in grads]
-    for kernel, args in launches:
-        kernel(*args)
-    torch.cuda.synchronize()
-    same_bits = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-                    for a, b in zip(first, grads))
+    same_bits = _same_bits_again(lambda: [kernel(*args) for kernel, args in launches], grads)
     # Each launch closure holds the operands (the di prepass among them),
     # whose memory its raw pointers name.
     launches = [lambda kernel=kernel, args=args, keep=operands: kernel(*args)
@@ -1571,19 +1651,30 @@ PLANTED_FAULTS = (
      "mma_bf16(acc[n + 1], a, bfr[2], bfr[3]);", "mma_bf16(acc[n + 1], a, bfr[0], bfr[1]);"),
     ("f32_tile.cuh", "f32 tile: each thread's own tile max, not the row's",
      "const float m_next = fmaxf(m[i], row_max16(mt));", "const float m_next = fmaxf(m[i], mt);"),
-    ("paged_prefill.cu", "diagonal masked (kpos < qpos)",
-     "bool valid = kpos <= qpos[i] && kpos < kend;", "bool valid = kpos < qpos[i] && kpos < kend;"),
-    ("paged_prefill.cu", "V scale of the next physical page",
-     "vss[tid] = ok ? p.vs[sidx] : 0.f;", "vss[tid] = ok ? p.vs[sidx + 1] : 0.f;"),
-    ("paged_prefill.cu", "window one key wider (kpos >= qpos - window)",
-     "valid &= kpos > qpos[i] - p.window || kpos < p.sinks;",
-     "valid &= kpos >= qpos[i] - p.window || kpos < p.sinks;"),
+    ("paged_prefill.cu", "diagonal masked (kpos < qpos; both routes)",
+     "bool valid = kpos <= qpos && kpos < kend;", "bool valid = kpos < qpos && kpos < kend;"),
+    ("paged_prefill.cu", "bf16: V scale of the next physical page",
+     "cp_async4(sk + BK + gtid, p.vs + sidx, ok);", "cp_async4(sk + BK + gtid, p.vs + sidx + 1, ok);"),
+    ("paged_prefill.cu", "window one key wider (kpos >= qpos - window; both routes)",
+     "if (p.window >= 0) valid &= kpos > qpos - p.window || kpos < p.sinks;",
+     "if (p.window >= 0) valid &= kpos >= qpos - p.window || kpos < p.sinks;"),
+    ("paged_prefill.cu", "bf16: P's two keys swapped when packed to the A fragment",
+     "__floats2bfloat162_rn(sc[n][2 * r] * vc[n][0], sc[n][2 * r + 1] * vc[n][1]));",
+     "__floats2bfloat162_rn(sc[n][2 * r + 1] * vc[n][1], sc[n][2 * r] * vc[n][0]));"),
+    ("paged_prefill.cu", "bf16: next key tile copied into the stage being converted",
+     "if (tn < rows.kend) issue(tn, buf ^ 1);", "if (tn < rows.kend) issue(tn, buf);"),
+    ("paged_prefill.cu", "bf16: K scales of the key pair two columns on",
+     "const float2 k2 = *reinterpret_cast<const float2*>(sk + 8 * n + 2 * t);",
+     "const float2 k2 = *reinterpret_cast<const float2*>(sk + ((8 * n + 2 * t + 2) & (BK - 1)));"),
+    ("paged_prefill.cu", "bf16: a tile taken as wholly visible when the warp's last row sees it",
+     "const bool unmasked = t0 + BK <= rows.kend && t0 + BK - 1 <= wq_lo &&",
+     "const bool unmasked = t0 + BK <= rows.kend && t0 + BK - 1 <= wq_hi &&"),
     ("int4.cuh", "high nibble shifted as unsigned (0..15, not -8..7)",
      "__device__ __forceinline__ int int4_hi(int b) { return b >> 4; }",
      "__device__ __forceinline__ int int4_hi(int b) { return (b & 0xff) >> 4; }"),
     ("paged_decode.cu", "INT4 sub-tile scale index off by one",
      "const int sub = t / sub_w;", "const int sub = (t / sub_w + 1) % p.subs;"),
-    ("paged_prefill.cu", "negative q_start clamped to 0",
+    ("paged_prefill.cu", "negative q_start clamped to 0 (both routes)",
      "const int qstart = p.qstarts[b];", "const int qstart = max(p.qstarts[b], 0);"),
     ("paged_decode.cu", "empty row's lse 0, not -inf",
      "l == 0.f ? -INFINITY : mrow[g] + logf(fmaxf(l, 1e-38f));",

@@ -166,22 +166,6 @@ __device__ __forceinline__ float2 score_grad(const Params& p, bool valid, float 
   return make_float2(pe, ds);
 }
 
-// f(unmasked tag, softcap tag): the two per-pair choices made compile-time.
-template <typename F>
-__device__ __forceinline__ void with_tags(bool unmasked, bool capped, F&& f) {
-  if (unmasked) {
-    if (capped) {
-      f(std::true_type{}, std::true_type{});
-    } else {
-      f(std::true_type{}, std::false_type{});
-    }
-  } else if (capped) {
-    f(std::false_type{}, std::true_type{});
-  } else {
-    f(std::false_type{}, std::false_type{});
-  }
-}
-
 // di − dlse of q row `at` (the lse cotangent folds into di).
 __device__ __forceinline__ float row_di(const Params& p, size_t at) {
   float d = p.di[at];
@@ -463,40 +447,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores.
-//
-// Shared-memory tiles: [64 rows][D] bf16 in wgmma's K-major layout with the
-// 128-byte swizzle: D in blocks of 64 columns ([block][64][64], 8 KB each,
-// 1024-byte aligned; d=32 fills half of one block), 16-byte chunk c of row
-// r stored at chunk c ^ (r % 8) of its 128-byte row. wgmma reads the tiles
-// through descriptors, K-major (tile_desc) or MN-major (tile_desc_mn).
-
-template <int D>
-struct Bf16Tile {
-  static constexpr int BLOCKS = D < 64 ? 1 : D / 64;  // 64-column blocks
-  static constexpr int TILE = BLOCKS * BR * 64;      // bf16 per tile
-  static constexpr int CPR = D / 8;                  // 16-byte chunks a row
-  static constexpr int KC = D / 16;                  // k16 steps over D
-  static constexpr int ND = D / 8;                   // n8 tiles of a D-wide accumulator
-};
-
-// Element offset of 16-byte chunk c of row r in a tile.
-__device__ __forceinline__ int sw(int r, int c) {
-  return (c >> 3) * (BR * 64) + r * 64 + (((c & 7) ^ (r & 7)) << 3);
-}
-
-// Descriptor of the K-major wgmma operand made of rows r0.. (r0 a multiple
-// of 8) of a tile, at k16 step kc.
-__device__ __forceinline__ uint64_t tile_desc(const __nv_bfloat16* tile, int r0, int kc) {
-  return sw128_desc(tile + (kc >> 2) * (BR * 64) + r0 * 64 + (kc & 3) * 16);
-}
-
-// The dynamic shared memory from its first 1024-byte boundary (the swizzle
-// atoms must be aligned; the launch asks for 1 KB more).
-__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return p + ((1024u - (a & 1023u)) & 1023u);
-}
+// bf16: tensor cores, on mma_bf16.cuh's swizzled shared-memory tiles.
 
 // cp.async of rows r0.. of a row-major [n][D] bf16 matrix into a tile by
 // THREADS threads (this one is `tid`); rows past n are zero-filled.
@@ -509,12 +460,6 @@ __device__ __forceinline__ void issue_rows(__nv_bfloat16* dst, const __nv_bfloat
     const bool ok = r0 + r < n;
     cp_async16(dst + sw(r, c), src + size_t(ok ? r0 + r : 0) * D + 8 * c, ok);
   }
-}
-
-// Every copy of this thread landed and is visible to wgmma's reads.
-__device__ __forceinline__ void stage_landed() {
-  cp_async_wait_all();
-  fence_async_shared();
 }
 
 // Barrier of one 128-thread warp group (named barrier 1 + group).
@@ -536,26 +481,6 @@ __device__ __forceinline__ void pack_a(const float (&x)[NN][4], int kk, uint32_t
     }
 }
 
-// Descriptor of the MN-major wgmma B operand made of tile rows r0..r0+15
-// (its k) by all D columns (its n).
-__device__ __forceinline__ uint64_t tile_desc_mn(const __nv_bfloat16* tile, int r0) {
-  return sw128_desc_mn(tile + r0 * 64, BR * 64 * 2);
-}
-
-// The warpgroup's acc[64 x D] += x · m over one k16 step: x the A
-// fragments of its warps (pack_a), m a tile's 16 rows through tile_desc_mn.
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&acc)[D / 8][4], const uint32_t (&a)[4],
-                                         uint64_t m) {
-  if constexpr (D == 128) {
-    wgmma_rs_m64n128(acc, a, m, 1);
-  } else if constexpr (D == 64) {
-    wgmma_rs_m64n64(acc, a, m, 1);
-  } else {
-    wgmma_rs_m64n32(acc, a, m, 1);
-  }
-}
-
 // Rows r0 + g + 8r (< n) of a [n][D] bf16 output from a warp's accumulator.
 template <int D>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* dst, int r0, int n,
@@ -570,14 +495,6 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* dst, int r0, int n,
       *reinterpret_cast<__nv_bfloat162*>(dst + size_t(row) * D + 8 * c + 2 * t) =
           __floats2bfloat162_rn(acc[c][2 * r], acc[c][2 * r + 1]);
   }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N][4]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
 }
 
 constexpr int NTKV = 256;  // threads of a bf16 dK/dV block: two warp groups of 4 warps

@@ -1,7 +1,8 @@
 // The bf16 tensor-core PTX of the port's kernels (flash_fwd.cu,
-// flash_bwd.cu, flash_int8_fwd.cu): mma.sync m16n8k16 with f32
-// accumulation and the ldmatrix loads of its operands from shared memory,
-// and the warpgroup wgmma of Hopper (flash_bwd.cu).
+// flash_bwd.cu, flash_int8_fwd.cu, paged_prefill.cu): mma.sync m16n8k16
+// with f32 accumulation and the ldmatrix loads of its operands from shared
+// memory, and the warpgroup wgmma of Hopper with the swizzled shared-memory
+// tiles it reads (flash_bwd.cu, paged_prefill.cu).
 //
 // Fragments of m16n8k16 (lane = 4g + t, g = lane / 4, t = lane % 4; two
 // bf16 a register, the lower column or k in the low half):
@@ -17,6 +18,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -192,6 +197,94 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[16][4], const uint32
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// Shared-memory tiles of wgmma operands: [64 rows][D] bf16 in the K-major
+// layout with the 128-byte swizzle: D in blocks of 64 columns
+// ([block][64][64], 8 KB each, 1024-byte aligned; d=32 fills half of one
+// block), 16-byte chunk c of row r stored at chunk c ^ (r % 8) of its
+// 128-byte row. wgmma reads the tiles through descriptors, K-major
+// (tile_desc) or MN-major (tile_desc_mn).
+constexpr int SW_ROWS = 64;  // rows of a tile
+
+template <int D>
+struct Bf16Tile {
+  static constexpr int BLOCKS = D < 64 ? 1 : D / 64;  // 64-column blocks
+  static constexpr int TILE = BLOCKS * SW_ROWS * 64; // bf16 per tile
+  static constexpr int CPR = D / 8;                  // 16-byte chunks a row
+  static constexpr int KC = D / 16;                  // k16 steps over D
+  static constexpr int ND = D / 8;                   // n8 tiles of a D-wide accumulator
+};
+
+// Element offset of 16-byte chunk c of row r in a tile.
+__device__ __forceinline__ int sw(int r, int c) {
+  return (c >> 3) * (SW_ROWS * 64) + r * 64 + (((c & 7) ^ (r & 7)) << 3);
+}
+
+// Descriptor of the K-major wgmma operand made of rows r0.. (r0 a multiple
+// of 8) of a tile, at k16 step kc.
+__device__ __forceinline__ uint64_t tile_desc(const __nv_bfloat16* tile, int r0, int kc) {
+  return sw128_desc(tile + (kc >> 2) * (SW_ROWS * 64) + r0 * 64 + (kc & 3) * 16);
+}
+
+// Descriptor of the MN-major wgmma B operand made of tile rows r0..r0+15
+// (its k) by all D columns (its n).
+__device__ __forceinline__ uint64_t tile_desc_mn(const __nv_bfloat16* tile, int r0) {
+  return sw128_desc_mn(tile + r0 * 64, SW_ROWS * 64 * 2);
+}
+
+// The dynamic shared memory from its first 1024-byte boundary (the swizzle
+// atoms must be aligned; the launch asks for 1 KB more).
+__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return p + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// Every copy of this thread landed and is visible to wgmma's reads.
+__device__ __forceinline__ void stage_landed() {
+  cp_async_wait_all();
+  fence_async_shared();
+}
+
+// The warpgroup's acc[64 x D] += x · m over one k16 step: x the A
+// fragments of its warps (m16n8k16 A fragments of their 16 rows), m a
+// tile's 16 rows through tile_desc_mn.
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&acc)[D / 8][4], const uint32_t (&a)[4],
+                                         uint64_t m) {
+  if constexpr (D == 128) {
+    wgmma_rs_m64n128(acc, a, m, 1);
+  } else if constexpr (D == 64) {
+    wgmma_rs_m64n64(acc, a, m, 1);
+  } else {
+    wgmma_rs_m64n32(acc, a, m, 1);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+}
+
+// f(unmasked tag, softcap tag): two per-element choices made compile-time
+// (a runtime branch inside a fully unrolled per-element loop is
+// if-converted: both sides run for every element).
+template <typename F>
+__device__ __forceinline__ void with_tags(bool unmasked, bool capped, F&& f) {
+  if (unmasked) {
+    if (capped) {
+      f(std::true_type{}, std::true_type{});
+    } else {
+      f(std::true_type{}, std::false_type{});
+    }
+  } else if (capped) {
+    f(std::false_type{}, std::true_type{});
+  } else {
+    f(std::false_type{}, std::false_type{});
+  }
 }
 
 }  // namespace

@@ -10,7 +10,10 @@ Tolerances: quantized payloads and scales bit for bit. Attention outputs
 and lse rtol = atol = 1e-5: both sides compute in f32 from the same pages
 and scales and differ in summation order only (JAX sums the two unpacked
 halves' dots, the port one dot over the concatenated halves). The merge:
-1e-6, f32 rounding of the same formula."""
+1e-6, f32 rounding of the same formula. The bf16-q INT4 prefill tests hold
+chip_smoke.py's per-element bound of the tensor-core kernel (P rounded to
+bf16 with the sub-tile V scale folded in) to an emulation of that rounding
+and to JAX."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -390,6 +393,63 @@ def test_chip_smoke_int4_checks_hold_jax_and_catch_faults(monkeypatch):
         assert ratio > 5.0, name
     empty_lse0 = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
     assert chip_smoke.err_over_tol(empty_lse0, lse, lse_tol) > 5.0
+
+
+def _kernel_rounding_int4(q, kp, vp, ks, vs, lengths, starts, tables, **kw):
+    """The plain INT4 page walk with the bf16 kernel's one extra rounding:
+    each p · v_scale (its key's sub-tile scale) rounded to bf16 (round to
+    nearest even) before P·V."""
+    from quantizedmha_tpu_torch.ops.decode import _int4_page
+    from quantizedmha_tpu_torch.ops.paged_prefill import _prefill_walk
+    heads = torch.arange(kp.shape[0])
+
+    def load(page):
+        k, k_sc = _int4_page(kp, ks, heads, page)
+        v, v_sc = _int4_page(vp, vs, heads, page)
+        return k, k_sc, lambda p: (p * v_sc).to(torch.bfloat16).float() @ v
+    return _prefill_walk(q, kp.shape[0], lengths, starts, tables, kp.shape[2], load, **kw)
+
+
+@pytest.mark.parametrize("case", ["subs4", "window_sinks", "softcap_mqa"])
+def test_chip_smoke_int4_bf16_tolerance_holds_kernel_rounding_and_jax(case):
+    """int4_tolerances with the bf16-P term (w_abs from prefill_w_abs,
+    |v| taken after unpacking) admits the kernel's rounding emulated on the
+    CPU and the JAX kernel on bf16 q, a negative q_start included; the
+    planted faults' analogues (V scales rolled to the next sub-tile; the
+    causal diagonal shifted by one) still fail by over 5x."""
+    import chip_smoke
+    from quantizedmha_tpu_torch.ops.paged_prefill import _paged_prefill_int4_plain
+
+    hq, hkv, d, subs, masks = INT4_CASES[case]
+    rng = np.random.default_rng(60 + d)
+    cache = _int4_cache(hkv, d, 32, subs or 1, 9, rng)
+    tables = _tables(2, 4, 9, rng)
+    q = rng.normal(0, 1, (2, hq, 20, d)).astype(np.float32)
+    lengths, starts = np.asarray([50, 12], np.int32), np.asarray([30, -8], np.int32)
+    args = _t(q, *cache, lengths, starts, tables)
+    args[0] = args[0].to(torch.bfloat16)
+    sm = masks.get("sm_scale", d**-0.5)
+    kw = dict(sm_scale=sm, window=masks.get("window"), softcap=masks.get("logit_softcap"),
+              sinks=masks.get("attention_sinks", 0), save_residuals=True)
+    o, lse = _paged_prefill_int4_plain(*args, **kw)
+    w_abs = chip_smoke.prefill_w_abs(args[0], args[1:5], *args[5:], int4=True, **kw)
+    tol, lse_tol = chip_smoke.int4_tolerances(args[0], *args[1:5], o, lse, sm_scale=sm,
+                                              softcap=kw["softcap"], w_abs=w_abs)
+    eo, e_lse = _kernel_rounding_int4(*args, **kw)
+    assert eo.dtype == torch.bfloat16 and not torch.equal(eo, o)
+    assert chip_smoke.err_over_tol(eo, o, tol) <= 1.0
+    assert chip_smoke.err_over_tol(e_lse, lse, lse_tol) <= 1.0
+    jargs = _j(q, *cache, lengths, starts, tables)
+    jargs[0] = jargs[0].astype(jnp.bfloat16)
+    jo, jlse = jprefill4(*jargs, save_residuals=True, **masks)
+    jo = torch.from_numpy(np.asarray(jo).astype(np.float32))
+    assert chip_smoke.err_over_tol(jo, o, tol) <= 1.0
+    assert chip_smoke.err_over_tol(torch.tensor(np.asarray(jlse)), lse, lse_tol) <= 1.0
+    rolled = _paged_prefill_int4_plain(*args[:4], torch.roll(args[4], 1, dims=-1), *args[5:],
+                                       **kw)[0]
+    shifted = _paged_prefill_int4_plain(*args[:6], args[6] + 1, args[7], **kw)[0]
+    assert chip_smoke.err_over_tol(rolled, o, tol) > 5.0
+    assert chip_smoke.err_over_tol(shifted, o, tol) > 5.0
 
 
 def test_chip_smoke_merge_tolerance_holds_jax_merge():

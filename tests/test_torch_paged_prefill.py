@@ -6,7 +6,9 @@ walk.
 Tolerance: both sides compute in f32 from the same int8 pages and scales
 (scores q·sm_scale·k·k_scale, P·V then ·v_scale, l summing the f32 P) and
 differ only in summation order and exp/tanh ulps: rtol = atol = 1e-5, and
-1e-5 on lse."""
+1e-5 on lse. The bf16-q tests hold chip_smoke.py's per-element bound of the
+tensor-core kernel (P rounded to bf16 with the V scale folded in, the term
+2^-8 of the walk on |V|) to an emulation of that rounding and to JAX."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -133,6 +135,69 @@ def test_chip_smoke_paged_prefill_check_holds_jax_and_catches_faults():
                                                        sm_scale=sm, softcap=None)
     jo, jlse = jprefill(*(jnp.asarray(a) for a in args), save_residuals=True)
     assert chip_smoke.err_over_tol(torch.tensor(np.asarray(jo)), o, tol) <= 1.0
+    assert chip_smoke.err_over_tol(torch.tensor(np.asarray(jlse)), lse, lse_tol) <= 1.0
+    rolled = _paged_prefill_plain(q, kp, vp, ks, torch.roll(vs, 1, dims=-1), lengths,
+                                  starts, tables, **kw)[0]
+    shifted = _paged_prefill_plain(q, kp, vp, ks, vs, lengths, starts + 1, tables, **kw)[0]
+    assert chip_smoke.err_over_tol(rolled, o, tol) > 5.0
+    assert chip_smoke.err_over_tol(shifted, o, tol) > 5.0
+
+
+def _kernel_rounding_int8(q, kp, vp, ks, vs, lengths, starts, tables, **kw):
+    """The plain page walk with the bf16 kernel's one extra rounding: each
+    p · v_scale rounded to bf16 (round to nearest even) before P·V."""
+    from quantizedmha_tpu_torch.ops.paged_prefill import _prefill_walk
+    heads = torch.arange(kp.shape[0])
+
+    def load(page):
+        k = kp[:, page].float().transpose(0, 1)
+        v = vp[:, page].float().transpose(0, 1)
+        k_sc = ks[heads[None, :], page[:, None]][..., None, None]
+        v_sc = vs[heads[None, :], page[:, None]][..., None, None]
+        return k, k_sc, lambda p: (p * v_sc).to(torch.bfloat16).float() @ v
+    return _prefill_walk(q, kp.shape[0], lengths, starts, tables, kp.shape[2], load, **kw)
+
+
+# (hq, hkv, d, page, masking kwargs of the walk)
+BF16_CASES = {
+    "gqa4_d64": (8, 2, 64, 16, {}),
+    "window_sinks_d32": (4, 2, 32, 16, dict(window=20, sinks=3)),
+    "softcap_mqa_d128": (4, 1, 128, 32, dict(softcap=2.0)),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_CASES))
+def test_chip_smoke_bf16_tolerance_holds_kernel_rounding_and_jax(case):
+    """paged_prefill_tolerances with the bf16-P term (w_abs from
+    prefill_w_abs) admits the kernel's rounding emulated on the CPU and the
+    JAX kernel on bf16 q; the planted faults' analogues (one page's V scale
+    taken from the next page; the causal diagonal shifted by one) still
+    fail by over 5x."""
+    import chip_smoke
+    from quantizedmha_tpu_torch.ops.paged_prefill import _paged_prefill_plain
+
+    hq, hkv, d, page, masks = BF16_CASES[case]
+    args = _case(hq, hkv, d, q_len=40, lengths=[70, 40], q_starts=[30, 0], page=page,
+                 max_pages=5, seed=20 + d)
+    q, kp, vp, ks, vs, lengths, starts, tables = (torch.from_numpy(a) for a in args)
+    q = q.to(torch.bfloat16)
+    sm = d**-0.5
+    kw = dict(sm_scale=sm, window=masks.get("window"), softcap=masks.get("softcap"),
+              sinks=masks.get("sinks", 0), save_residuals=True)
+    o, lse = _paged_prefill_plain(q, kp, vp, ks, vs, lengths, starts, tables, **kw)
+    w_abs = chip_smoke.prefill_w_abs(q, (kp, vp, ks, vs), lengths, starts, tables, **kw)
+    tol, lse_tol = chip_smoke.paged_prefill_tolerances(q, kp, vp, ks, vs, o, lse, sm_scale=sm,
+                                                       softcap=kw["softcap"], w_abs=w_abs)
+    eo, e_lse = _kernel_rounding_int8(q, kp, vp, ks, vs, lengths, starts, tables, **kw)
+    assert eo.dtype == torch.bfloat16 and not torch.equal(eo, o)
+    assert chip_smoke.err_over_tol(eo, o, tol) <= 1.0
+    assert chip_smoke.err_over_tol(e_lse, lse, lse_tol) <= 1.0
+    jargs = [jnp.asarray(a) for a in args]
+    jargs[0] = jargs[0].astype(jnp.bfloat16)
+    jo, jlse = jprefill(*jargs, save_residuals=True, sm_scale=sm, window=kw["window"],
+                        logit_softcap=kw["softcap"], attention_sinks=kw["sinks"])
+    jo = torch.from_numpy(np.asarray(jo).astype(np.float32))
+    assert chip_smoke.err_over_tol(jo, o, tol) <= 1.0
     assert chip_smoke.err_over_tol(torch.tensor(np.asarray(jlse)), lse, lse_tol) <= 1.0
     rolled = _paged_prefill_plain(q, kp, vp, ks, torch.roll(vs, 1, dims=-1), lengths,
                                   starts, tables, **kw)[0]
