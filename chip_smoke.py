@@ -17,7 +17,10 @@ result line:
            backward's two kernels at the training step's attention shape
            and on 11 small cases, each pair launched twice (the same bits
            both times, or the check fails), and so is every bf16 paged
-           prefill launch (INT8 and INT4, tensor cores);
+           prefill launch (INT8 and INT4, tensor cores) and every paged
+           decode launch (INT8 and INT4: split page walks merged by lse),
+           the decode at serve's, serve_flash's and serve_mixed's shapes
+           and for MQA, each reporting its splits;
            kernel / plain / library times (CUDA events) and the least time
            the card could take (bound).
   solve    the reference ABI at N=8192, d_model=1024, h=32 in float32:
@@ -531,12 +534,20 @@ def _sdpa_decode(q, k_pages, v_pages, k_scales, v_scales, lengths, tables):
     return out
 
 
-def _decode_case(name, Hkv, *, replaces, seed, lengths=(257, 300), max_pages=4):
-    """The decode kernel against its plain version at batch 8, Llama-3-8B
-    heads, page 128: context lengths drawn from the closed range `lengths`,
-    block tables of max_pages slots."""
+# The INT8 decode's main shapes at batch 8: (kv heads, seed, lengths, table
+# slots). serve's decode (8 kv heads, 257-300 tokens of context), the same
+# kernel for MQA (rows 3 and 4 are one kernel; no 8B path has one kv head),
+# and serve_flash's decode at up to 8192 tokens of context (64 slots).
+DECODE_MAIN = {"serve decode": (8, 2, (257, 300), 4), "mqa decode": (1, 3, (257, 300), 4),
+               "serve_flash decode": (8, 6, (2048, 8192), 64)}
+
+
+def _decode_main_inputs(Hkv, *, seed, lengths=(257, 300), max_pages=4):
+    """A decode step at batch 8, Llama-3-8B heads, page 128, bf16 q:
+    context lengths drawn from the closed range `lengths`, block tables of
+    max_pages slots, random int8 pages. Returns the operands of
+    ops/decode._paged_decode_launch."""
     import torch
-    from quantizedmha_tpu_torch.ops import decode as dec
     g = torch.Generator(device="cuda").manual_seed(seed)
     B, Hq, D, P = 8, 32, 128, 128
     lengths = torch.randint(lengths[0], lengths[1] + 1, (B,), generator=g, device="cuda",
@@ -551,30 +562,65 @@ def _decode_case(name, Hkv, *, replaces, seed, lengths=(257, 300), max_pages=4):
     k_scales = torch.rand((Hkv, num_pages), generator=g, device="cuda") * 0.02 + 0.005
     v_scales = torch.rand((Hkv, num_pages), generator=g, device="cuda") * 0.02 + 0.005
     q = torch.randn((B, Hq, D), generator=g, device="cuda").to(torch.bfloat16)
-    kw = dict(sm_scale=D**-0.5, window=None, softcap=None, sinks=0, save_residuals=False)
-    operands = (q, k_pages, v_pages, k_scales, v_scales, lengths, tables)
+    return q, k_pages, v_pages, k_scales, v_scales, lengths, tables
+
+
+def _decode_check(operands, kw):
+    """One INT8 decode launch against its plain version, launched twice:
+    (output, plain output, err_over_tol (inf when the second launch's
+    bits differ), tolerance, launch, same bits)."""
+    import torch
+    from quantizedmha_tpu_torch.ops import decode as dec
     kernel, args, (out, _), _operands = dec._paged_decode_launch(*operands, **kw)
     kernel(*args)
     torch.cuda.synchronize()
+    same = _same_bits_again(lambda: kernel(*args), (out,))
     plain = dec._paged_decode_plain(*operands, **kw)
-    tol = decode_tolerance(plain, v_pages, v_scales)
-    ratio = err_over_tol(out, plain, tol)
-    ms = cuda_ms(lambda: kernel(*args), iters=50)
+    tol = decode_tolerance(plain, operands[2], operands[4])
+    ratio = err_over_tol(out, plain, tol) if same else float("inf")
+    return out, plain, ratio, tol, lambda: kernel(*args), same
+
+
+def _decode_case(name, Hkv, *, replaces, seed, lengths=(257, 300), max_pages=4):
+    """The decode kernel against its plain version at batch 8, Llama-3-8B
+    heads, page 128 (_decode_main_inputs); launched twice, and a second
+    launch whose bits differ fails the check."""
+    import torch
+    from quantizedmha_tpu_torch.ops import decode as dec
+    operands = _decode_main_inputs(Hkv, seed=seed, lengths=lengths, max_pages=max_pages)
+    q, k_pages, v_pages, k_scales, v_scales, lengths, tables = operands
+    B, Hq, D = q.shape
+    P = k_pages.shape[2]
+    kw = dict(sm_scale=D**-0.5, window=None, softcap=None, sinks=0, save_residuals=False)
+    out, plain, ratio, tol, launch, same = _decode_check(operands, kw)
+    ms = cuda_ms(launch, iters=50)
+    # The whole entry point (checks, scratch, ctypes call) on the host
+    # clock, 50 calls and one sync: the decode step's host loop pays it
+    # twice a layer in serve_mixed.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        dec.paged_decode_attention(*operands)
+    torch.cuda.synchronize()
+    wrapper_ms = (time.perf_counter() - t0) * 1e3 / 50
     plain_ms = cuda_ms(lambda: dec._paged_decode_plain(*operands, **kw), iters=3, warmup=1)
     lib_ms, backend = _sdpa_decode(q, k_pages, v_pages, k_scales, v_scales, lengths, tables)
     ctx = int(lengths.sum().item())
     nbytes = (q.numel() * 2 * 2 + 2 * ctx * Hkv * D
               + 2 * B * Hkv * max_pages * 4 + B * 4 + tables.numel() * 4)
     bms, by = bound(nbytes, {"fp32": 2 * 2 * ctx * Hq * D, "exp": ctx * Hq})
+    splits = dec.decode_splits(B, Hkv, max_pages, P)
     return {"name": name, "route": "cuda",
             "source": "quantizedmha_tpu_torch/csrc/paged_decode.cu",
             "replaces": replaces, "launches": None,
             "max_abs_err": (out.float() - plain.float()).abs().max().item(),
             "err_over_tol": ratio, "tol_range": [tol.min().item(), tol.max().item()],
-            "ok": ratio <= 1.0,
+            "ok": ratio <= 1.0, "same_bits_twice": same,
             "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "page": P,
-                      "max_pages": max_pages, "lengths": lengths.tolist()},
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                      "max_pages": max_pages, "splits": list(splits),
+                      "lengths": lengths.tolist()},
+            "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by,
             "library_ms": lib_ms, "library_backend": backend}
 
 
@@ -767,11 +813,25 @@ FLASH_COVERAGE = (
     (2, 4, 2, 64, 128, 128, 64, 64, True, None, 0, None, 0, False, (10, 50)),
     (1, 4, 2, 80, 160, 160, 32, 32, True, 24, 2, 20.0, 1, False, None),
 )
-#   (B, Hq, Hkv, D, page, window, sinks, softcap, bf16 q)
+#   (B, Hq, Hkv, D, page, window, sinks, softcap, bf16 q, table slots,
+#    lengths (None: drawn from 1 to a full table), scores far below zero)
+# The first three hold tables of 6 slots (one split); the rest hold 20-40
+# slots, several splits (ops/decode.decode_splits): window + sinks with
+# whole splits behind the window, lengths of 1 and below one split, MQA
+# at 20 pages (32 and 64 query heads, the latter two blocks), and scores
+# below -200 (q against all-positive keys), where a merge that took an
+# empty split's m as 0 would underflow every weight.
 DECODE_COVERAGE = (
-    (3, 8, 2, 32, 16, None, 0, None, False),
-    (3, 4, 4, 64, 32, 20, 3, 50.0, True),
-    (2, 8, 1, 128, 16, 7, 0, None, False),
+    (3, 8, 2, 32, 16, None, 0, None, False, 6, None, False),
+    (3, 4, 4, 64, 32, 20, 3, 50.0, True, 6, None, False),
+    (2, 8, 1, 128, 16, 7, 0, None, False, 6, None, False),
+    (3, 8, 2, 64, 16, 100, 5, None, True, 40, (640, 500, 300), False),
+    (2, 8, 2, 128, 32, 200, 3, 30.0, False, 24, (768, 700), False),
+    (4, 8, 2, 32, 16, None, 0, None, False, 32, (1, 5, 40, 512), False),
+    (4, 8, 2, 64, 16, None, 0, None, True, 32, (1, 63, 64, 300), False),
+    (2, 32, 1, 128, 128, None, 0, None, True, 20, (2560, 1800), False),
+    (2, 64, 1, 64, 64, None, 0, None, False, 20, (1280, 900), False),
+    (3, 8, 2, 64, 16, None, 0, None, False, 24, (384, 100, 30), True),
 )
 
 
@@ -916,8 +976,8 @@ def _int4_check(q, cache, lengths, tables, q_starts=None, *, window=None, sinks=
     """One INT4 launch with lse, decode (q [B, Hq, D]) or prefill (q [B,
     Hq, C, D], q_starts), against its plain version: (kernel output, plain
     output, [output, lse] err_over_tol, output tolerance, launch, plain
-    call, plain lse, lse tolerance). A bf16 prefill launch runs twice, as in
-    _paged_prefill_check."""
+    call, plain lse, lse tolerance). A decode launch and a bf16 prefill
+    launch run twice, as in _paged_prefill_check."""
     import torch
     from quantizedmha_tpu_torch.ops import decode as dec
     from quantizedmha_tpu_torch.ops import paged_prefill as pp
@@ -934,7 +994,8 @@ def _int4_check(q, cache, lengths, tables, q_starts=None, *, window=None, sinks=
     kernel, args, (out, lse), _operands = launch_fn(*operands, int4=True, **kw)
     kernel(*args)
     torch.cuda.synchronize()
-    same = w_abs is None or _same_bits_again(lambda: kernel(*args), (out, lse))
+    same = ((q_starts is not None and w_abs is None)
+            or _same_bits_again(lambda: kernel(*args), (out, lse)))
     p_out, p_lse = plain_fn(*operands, **kw)
     tol, lse_tol = int4_tolerances(q, *cache, p_out, p_lse, sm_scale=sm, softcap=softcap,
                                    w_abs=w_abs)
@@ -975,6 +1036,7 @@ def _int4_prefill_main_inputs(g):
 def _int4_decode_case(g):
     """Row 12 at serve_mixed's decode shape: check, kernel / plain / SDPA
     times, the bound (the INT4 bytes of the context once, q, o, lse)."""
+    from quantizedmha_tpu_torch.ops.decode import decode_splits
     m = MIXED_MAIN
     q, cache, lengths, tables = _int4_decode_main_inputs(g)
     out, p_out, ratios, tol, launch, plain, *_ = _int4_check(q, cache, lengths, tables)
@@ -987,14 +1049,15 @@ def _int4_decode_case(g):
     nbytes = (q.numel() * 2 * 2 + B * Hq * 4 + 2 * ctx * m["Hkv"] * D // 2
               + 2 * pages * m["Hkv"] * m["subs"] * 4 + B * 4 + tables.numel() * 4)
     bms, by = bound(nbytes, {"fp32": 2 * 2 * ctx * Hq * D, "exp": ctx * Hq})
+    splits = decode_splits(B, m["Hkv"], m["max_pages4"], m["P"])
     return {"name": "paged_decode_int4", "route": "cuda",
             "source": "quantizedmha_tpu_torch/csrc/paged_decode.cu",
             "replaces": "quantizedmha_tpu/ops/decode.py:897", "launches": None,
             "max_abs_err": (out.float() - p_out.float()).abs().max().item(),
             "err_over_tol": max(ratios), "tol_range": [tol.min().item(), tol.max().item()],
-            "ok": max(ratios) <= 1.0,
+            "ok": max(ratios) <= 1.0, "same_bits_twice": len(ratios) == 2,
             "shape": {"B": B, "Hq": Hq, "Hkv": m["Hkv"], "D": D, "page": m["P"],
-                      "subs": m["subs"], "max_pages": m["max_pages4"],
+                      "subs": m["subs"], "max_pages": m["max_pages4"], "splits": list(splits),
                       "lengths": lengths.tolist(), "save_residuals": True, "q": "bfloat16"},
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms, "library_backend": backend}
@@ -1041,12 +1104,18 @@ def _int4_prefill_case(g):
 # softcap, Hkv 1 and 2, GQA groups 4, 3 and 8, every head dim, both q dtypes,
 # an empty sequence (length 0) in every decode case, and prefill chunks whose
 # q_start is negative and straddles 0 inside a q tile.
-#   (B, Hq, Hkv, D, page, subs, window, sinks, softcap, bf16 q)
+#   (B, Hq, Hkv, D, page, subs, window, sinks, softcap, bf16 q, table slots,
+#    lengths (None: drawn from 1 to a full table; the first is set to 0))
+# The last four hold 20-40 slots, several splits, as DECODE_COVERAGE's.
 DECODE_INT4_COVERAGE = (
-    (3, 8, 2, 32, 16, 1, None, 0, None, False),
-    (3, 4, 1, 64, 32, 4, 20, 3, 50.0, True),
-    (2, 8, 2, 128, 16, 4, 7, 0, None, False),
-    (4, 8, 1, 128, 64, 2, None, 0, 30.0, True),
+    (3, 8, 2, 32, 16, 1, None, 0, None, False, 6, None),
+    (3, 4, 1, 64, 32, 4, 20, 3, 50.0, True, 6, None),
+    (2, 8, 2, 128, 16, 4, 7, 0, None, False, 6, None),
+    (4, 8, 1, 128, 64, 2, None, 0, 30.0, True, 6, None),
+    (3, 8, 2, 64, 16, 4, 100, 5, None, True, 40, (0, 640, 300)),
+    (3, 4, 1, 128, 32, 2, None, 0, 20.0, False, 24, (0, 1, 700)),
+    (2, 32, 1, 128, 128, 4, None, 0, None, True, 24, (0, 2900)),
+    (4, 8, 2, 32, 16, 1, None, 0, None, False, 32, (0, 5, 40, 512)),
 )
 #   (Hq, Hkv, D, page, subs, C, lengths, q_starts, window, sinks, softcap, bf16 q)
 # The last three (bf16, tensor cores): d=32 on 16-key pages; GQA 8 (Hkv 1)
@@ -1068,12 +1137,14 @@ def _coverage_int4(g):
     on the card, {case: [output, lse] err_over_tol}."""
     import torch
     ratios = {}
-    for i, (B, Hq, Hkv, D, P, subs, window, sinks, cap, bf16) in enumerate(DECODE_INT4_COVERAGE):
-        max_pages = 6
+    for i, (B, Hq, Hkv, D, P, subs, window, sinks, cap, bf16, max_pages,
+            lens) in enumerate(DECODE_INT4_COVERAGE):
         cache = _int4_cache(g, Hkv, B * max_pages + 1, P, D, subs)
         tables = _tables_for(g, B, max_pages, B * max_pages + 1)
         lengths = torch.randint(1, P * max_pages + 1, (B,), generator=g, device="cuda",
                                 dtype=torch.int32)
+        if lens is not None:
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         lengths[0] = 0
         q = torch.randn((B, Hq, D), generator=g, device="cuda")
         q = q.to(torch.bfloat16) if bf16 else q
@@ -1583,20 +1654,18 @@ def phase_kernels(st):
         _flash_case("flash_int8_fwd[bf16_p]", 1, qs, ks, vs, 512, False,
                     replaces="quantizedmha_tpu/ops/flash_attention_int8.py:437",
                     library=True),
-        _decode_case("paged_decode", 8, seed=2,
-                     replaces="quantizedmha_tpu/ops/decode.py:527"),
     ]
-    # The same CUDA kernel stands for the per-kv-head grid form used for
-    # MQA; the serve path (8 kv heads) never gives it Hkv=1, so that shape
-    # is checked and timed here and reported inside the paged_decode entry.
-    mqa = _decode_case("paged_decode", 1, seed=3,
-                       replaces="quantizedmha_tpu/ops/decode.py:53")
-    # serve_flash decodes at up to 8192 tokens of context (64 table slots):
-    # the same kernel at lengths over 2048-8192, reported beside the entry.
-    deep = _decode_case("paged_decode", 8, seed=6, lengths=(2048, 8192), max_pages=64,
-                        replaces="quantizedmha_tpu/ops/decode.py:527")
-    keys = ("replaces", "max_abs_err", "err_over_tol", "ok", "shape", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "library_backend")
+    # DECODE_MAIN: serve's shape is the entry; the same CUDA kernel stands
+    # for the per-kv-head grid form used for MQA (no 8B path gives it
+    # Hkv=1) and runs serve_flash's deep decode: both checked and timed
+    # here and reported inside the paged_decode entry.
+    serve, mqa, deep = (
+        _decode_case("paged_decode", hkv, seed=seed, lengths=lens, max_pages=slots,
+                     replaces="quantizedmha_tpu/ops/decode.py:" + ("53" if hkv == 1 else "527"))
+        for hkv, seed, lens, slots in DECODE_MAIN.values())
+    cases.append(serve)
+    keys = ("replaces", "max_abs_err", "err_over_tol", "ok", "same_bits_twice", "shape", "ms",
+            "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_backend")
     cases[-1]["also_replaces"] = mqa["replaces"]
     cases[-1]["mqa"] = {k: mqa[k] for k in keys}
     cases[-1]["serve_flash"] = {k: deep[k] for k in keys}
@@ -1677,8 +1746,27 @@ PLANTED_FAULTS = (
     ("paged_prefill.cu", "negative q_start clamped to 0 (both routes)",
      "const int qstart = p.qstarts[b];", "const int qstart = max(p.qstarts[b], 0);"),
     ("paged_decode.cu", "empty row's lse 0, not -inf",
-     "l == 0.f ? -INFINITY : mrow[g] + logf(fmaxf(l, 1e-38f));",
-     "l == 0.f ? 0.f : mrow[g] + logf(fmaxf(l, 1e-38f));"),
+     "return l == 0.f ? -INFINITY : m + logf(fmaxf(l, 1e-38f));",
+     "return l == 0.f ? 0.f : m + logf(fmaxf(l, 1e-38f));"),
+    ("paged_decode.cu", "a split's page range one page too long (pages counted twice)",
+     "const int p_end = min(p_begin + p.pages_per_split, n_pages);",
+     "const int p_end = min(p_begin + p.pages_per_split + 1, n_pages);"),
+    ("paged_decode.cu", "merge without a split's rescale",
+     "const float w = expf(ms - mx);", "const float w = 1.f;"),
+    ("paged_decode.cu", "an empty split's m taken as 0",
+     "p.ml[mslot + g] = -INFINITY;", "p.ml[mslot + g] = 0.f;"),
+    ("paged_decode.cu", "a split's sums written to the neighbouring split's slot",
+     "p.part[((size_t(s) * p.B + b) * p.Hq + hq0) * D + e] = sum;",
+     "p.part[((size_t((s + 1) % p.splits) * p.B + b) * p.Hq + hq0) * D + e] = sum;"),
+    ("paged_decode.cu", "next page copied into the stage being read",
+     "if (nxt < p_end) issue(nxt, buf ^ 1);", "if (nxt < p_end) issue(nxt, buf);"),
+    ("paged_decode.cu", "scores' reduce-scatter: the two head pairs swapped",
+     "hoff = up ? 2 : 0;", "hoff = up ? 0 : 2;"),
+    ("paged_decode.cu", "INT4 high nibbles not re-biased (read as n + 8)",
+     "hi[c] = __uint_as_float(__byte_perm(hb, 0x4B000000u, 0x7540 + c)) - 8388616.f;",
+     "hi[c] = __uint_as_float(__byte_perm(hb, 0x4B000000u, 0x7540 + c)) - 8388608.f;"),
+    ("paged_decode.cu", "window's first page skipped one page too far",
+     "w0 = max(length - p.window, 0) / P;", "w0 = max(length - p.window, 0) / P + 1;"),
     ("flash_bwd.cu", "bf16 dK/dV: the group's last q head left out of the sum",
      "const bool more = hd_next < group;", "const bool more = hd_next < group - 1;"),
     ("flash_bwd.cu", "softcap's 1 - tanh² chain factor dropped",
@@ -1707,34 +1795,48 @@ FAULT_SOURCES = {"flash_fwd": ("flash_fwd",), "paged_prefill": ("paged_prefill",
 
 def _decode_coverage_ratios(g):
     """DECODE_COVERAGE: the INT8 decode kernel against plain on the card,
-    {case: [output, lse] err_over_tol}."""
+    each case launched twice, {case: [output, lse] err_over_tol} (a third
+    entry, inf, when the second launch's bits differ)."""
     import torch
     from quantizedmha_tpu_torch.ops import decode as dec
     ratios = {}
-    for i, (B, Hq, Hkv, D, P, window, sinks, cap, qbf16) in enumerate(DECODE_COVERAGE):
-        max_pages = 6
+    for i, (B, Hq, Hkv, D, P, window, sinks, cap, qbf16, max_pages, lens,
+            neg) in enumerate(DECODE_COVERAGE):
         num_pages = B * max_pages + 1
         lengths = torch.randint(1, P * max_pages + 1, (B,), generator=g, device="cuda",
                                 dtype=torch.int32)
+        if lens is not None:
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         tables = (torch.randperm(num_pages - 1, generator=g, device="cuda")[:B * max_pages]
                   + 1).reshape(B, max_pages).to(torch.int32)
         k_pages, v_pages = torch.randint(-127, 128, (2, Hkv, num_pages, P, D), generator=g,
                                          device="cuda", dtype=torch.int8)
         k_scales, v_scales = torch.rand((2, Hkv, num_pages), generator=g, device="cuda") * 0.05
         dt = torch.bfloat16 if qbf16 else torch.float32
-        q = torch.randn((B, Hq, D), generator=g, device="cuda").to(dt)
+        q = torch.randn((B, Hq, D), generator=g, device="cuda")
+        if neg:
+            q, k_pages = -(q.abs() + 1.0) * 400.0, k_pages.abs() + 1
+        q = q.to(dt)
         kw = dict(sm_scale=D**-0.5, window=window, softcap=cap, sinks=sinks,
                   save_residuals=True)
         operands = (q, k_pages, v_pages, k_scales, v_scales, lengths, tables)
         kernel, args, (out, lse), _operands = dec._paged_decode_launch(*operands, **kw)
         kernel(*args)
         torch.cuda.synchronize()
+        same = _same_bits_again(lambda: kernel(*args), (out, lse))
         p_out, p_lse = dec._paged_decode_plain(*operands, **kw)
-        # lse: f32 on both sides, summation order only.
-        lse_tol = 1e-5 + 1e-6 * torch.nan_to_num(p_lse.double().abs(), posinf=0.0)
-        ratios[f"decode{i}"] = [
-            err_over_tol(out, p_out, decode_tolerance(p_out, v_pages, v_scales)),
-            err_over_tol(lse, p_lse, lse_tol)]
+        if neg:
+            # Scores of hundreds: their summation-order error counts (score_err).
+            tol, lse_tol = paged_prefill_tolerances(q, k_pages, v_pages, k_scales, v_scales,
+                                                    p_out, p_lse, sm_scale=D**-0.5,
+                                                    softcap=cap)
+        else:
+            tol = decode_tolerance(p_out, v_pages, v_scales)
+            # lse: f32 on both sides, summation order only.
+            lse_tol = 1e-5 + 1e-6 * torch.nan_to_num(p_lse.double().abs(), posinf=0.0)
+        ratios[f"decode{i}"] = [err_over_tol(out, p_out, tol), err_over_tol(lse, p_lse, lse_tol)]
+        if not same:
+            ratios[f"decode{i}"].append(float("inf"))
     return ratios
 
 
@@ -1770,8 +1872,10 @@ def _fault_checks(src):
         main["serve_mixed chunk"] = _int4_check(q, cache, lengths, tables, q_starts)[2]
         ratios = {**_coverage_float(g5)[0], **_coverage_int4(g5)}
     else:
-        case = _decode_case("paged_decode", 8, seed=2, replaces="")
-        main["serve decode"] = [case["err_over_tol"]]
+        kw = dict(sm_scale=128**-0.5, window=None, softcap=None, sinks=0, save_residuals=False)
+        for label, (hkv, seed, lens, slots) in DECODE_MAIN.items():
+            operands = _decode_main_inputs(hkv, seed=seed, lengths=lens, max_pages=slots)
+            main[label] = [_decode_check(operands, kw)[2]]
         main["serve_mixed decode"] = _int4_check(*_int4_decode_main_inputs(g))[2]
         ratios = {**_decode_coverage_ratios(g5), **_coverage_int4(g5)}
     return main, {k: max(r) for k, r in ratios.items() if k.startswith(FAULT_SOURCES[src])}
@@ -2400,6 +2504,12 @@ def phase_serve_mixed(st):
                and eng.alloc.a4.free_pages == mk["int4_pages"] - 1)
     counts_ok = (launches == want and delta["prefill_chunks_interleaved"] == n_chunks
                  and len(decode_wall) >= 4)
+    if st["profile"]:
+        # After the launch counts are read: the traced chunks launch too.
+        profile_prompts = [rng.integers(1, vocab, sm_["bucketed"][-1]).tolist()
+                           for _ in range(8)]
+        emit({"phase": "serve_mixed_profile",
+              **_profile_decode_chunk(eng, profile_prompts, 4 * sm_["chunk"])})
 
     # The 5000-token prompt's last logits, chunk-prefilled through a fresh
     # mixed cache (and, beside it, a plain INT8 cache), against the float
@@ -2779,6 +2889,7 @@ KERNEL_GROUPS = (("w4_matmul", ("w4_matmul_kernel", "w4_reduce_kernel")),
                  ("flash_int8_fwd", "flash_int8"), ("flash_fwd", "flash_fwd"),
                  ("flash_bwd", "flash_bwd"),
                  ("paged_prefill", "paged_prefill"), ("paged_decode", "paged_decode"),
+                 ("paged_decode merge", "decode_merge"),
                  ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
                  ("direct_copy (dtype casts)", "direct_copy"))
 
@@ -2876,9 +2987,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one full-batch decode chunk of the serve "
-                         "and serve_w4 phases, and serve_flash's bucketed and "
-                         "chunked prefills and one train step, with torch.profiler")
+                    help="also trace one full-batch decode chunk of the serve, "
+                         "serve_w4 and serve_mixed phases, and serve_flash's bucketed "
+                         "and chunked prefills and one train step, with torch.profiler")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     bad = [p for p in phases if p not in PHASES]

@@ -10,15 +10,18 @@ map each sequence's logical pages to physical ones. On a CUDA tensor the
 call launches `csrc/paged_decode.cu` (one kernel template for both page
 formats; the INT8 one stands for both `_decode_kernel_hfold` and
 `_decode_kernel`, any num_kv_heads >= 1); on a CPU tensor it runs the
-plain version, the same page walk step by step. The JAX package's TPU
-grid knobs (fold_kv_heads, pages_per_step, seqs_per_step, scales_prerowed)
-have no counterpart.
+plain version, the same algorithm step by step: each sequence's page walk
+cut into the splits of `decode_splits`, each split walked from zero state,
+the splits merged by lse in order. The JAX package's TPU grid knobs
+(fold_kv_heads, pages_per_step, seqs_per_step, scales_prerowed) have no
+counterpart.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,12 +35,12 @@ from quantizedmha_tpu_torch.ops.quantize import true_div, unpack_int4_halves
 
 PAGED_DECODE = cuda_lib.CudaKernel(
     "paged_decode", "paged_decode",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
        ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 PAGED_DECODE_INT4 = cuda_lib.CudaKernel(
     "paged_decode", "paged_decode_int4",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
        ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _HEAD_DIMS = (32, 64, 128)
@@ -45,63 +48,109 @@ _HEAD_DIMS = (32, 64, 128)
 # jax.grad through its paged_decode_attention(_int4) raises.
 _NO_GRAD = ("paged decode attention is not differentiable (jax.grad through the "
             "JAX package's paged_decode_attention fails too)")
+# decode_splits aims at four blocks for each of the H100's 132 SMs, and
+# gives a split at least 64 keys, over which its fixed cost (q, its
+# partial, its share of the merge) is spread.
+_TARGET_BLOCKS = 4 * 132
+_MIN_SPLIT_KEYS = 64
+
+
+@functools.lru_cache(maxsize=None)
+def decode_splits(batch: int, num_kv_heads: int, max_pages: int,
+                  page_size: int) -> Tuple[int, int]:
+    """(S, pages_per_split) of the flash-decoding split: split s walks the
+    logical pages [s * pages_per_split, (s + 1) * pages_per_split) of each
+    sequence's block table (max_pages slots wide). A pure function of the
+    shapes: no device query and no look at the lengths, so the kernel's
+    launch and the plain version cut the same splits. Every split holds at
+    least one page; S = 1 for a one-page table."""
+    want = -(-_TARGET_BLOCKS // max(batch * num_kv_heads, 1))
+    per = max(-(-max_pages // want), -(-_MIN_SPLIT_KEYS // page_size))
+    per = max(min(per, max_pages), 1)
+    return max(-(-max_pages // per), 1), per
+
+
+def _merge_splits(states, q_dtype, shape, save_residuals):
+    """The kernel's merge of one row's splits, in split order: M the
+    largest m; a split that ran weighs w = exp(m - M) (a split with m =
+    -inf held no visible page: it is skipped, its sums never read);
+    o = sum w acc / sum w l (an l of 0 gives o = 0) and lse = M +
+    log(sum w l) (-inf when 0)."""
+    inf = float("-inf")
+    mx = torch.stack([m for m, _, _ in states]).amax(dim=0)
+    l_sum = torch.zeros_like(mx)
+    acc = torch.zeros_like(states[0][2])
+    for m, l, a in states:
+        ran = m != inf
+        w = torch.exp(m - mx)
+        l_sum = torch.where(ran, l_sum + w * l, l_sum)
+        acc = torch.where(ran, acc + w * a, acc)
+    l_inv = torch.where(l_sum == 0.0, torch.ones_like(l_sum), 1.0 / l_sum)
+    o = (acc * l_inv).reshape(shape).to(q_dtype)
+    if not save_residuals:
+        return o
+    lse = torch.where(l_sum == 0.0, torch.full_like(l_sum, inf),
+                      mx + torch.log(torch.clamp(l_sum, min=1e-38)))
+    return o, lse.reshape(shape[:2])
 
 
 def _decode_walk(q, num_kv_heads, lengths, block_tables, page_size, load_page, *, sm_scale,
-                 window, softcap, sinks, save_residuals):
-    """The kernel's page walk in PyTorch, vectorized over sequences and
-    heads: per logical page i, f32 scores (q*sm_scale)·k * k_scale, masks,
-    online softmax, acc = acc*alpha + P·V with the V scales. Pages holding
-    no visible position leave a sequence's state untouched, as the kernel
-    skips them. load_page(page ids [B]) -> (k [B, Hkv, P, D] f32, k scales
-    broadcasting to [B, Hkv, 1, P], pv(p) -> [B, Hkv, G, D])."""
+                 window, softcap, sinks, save_residuals, splits=None):
+    """The kernel's algorithm in PyTorch, vectorized over sequences and
+    heads. Each split of `splits` (default decode_splits of the shapes)
+    walks its logical pages from zero state: per page f32 scores
+    (q*sm_scale)·k * k_scale, softcap, masks, online softmax, acc =
+    acc*alpha + P·V with the V scales; pages holding no visible position
+    leave a sequence's state untouched, as the kernel skips them. Then the
+    splits are merged (_merge_splits). load_page(page ids [B]) -> (k [B,
+    Hkv, P, D] f32, k scales broadcasting to [B, Hkv, 1, P], pv(p) -> [B,
+    Hkv, G, D])."""
     torch.backends.cuda.matmul.allow_tf32 = False
     B, Hq, D = q.shape
     Hkv, P = num_kv_heads, page_size
     dev = q.device
     lengths = lengths.long()
+    max_pages = block_tables.shape[1]
+    n_splits, per = splits or decode_splits(B, Hkv, max_pages, P)
     qg = q.float().reshape(B, Hkv, Hq // Hkv, D) * sm_scale
-    m = torch.full((B, Hkv, Hq // Hkv, 1), float("-inf"), device=dev)
-    l = torch.zeros_like(m)
-    acc = torch.zeros_like(qg)
-    n_pages = min(int(((lengths.max() + P - 1) // P).item()), block_tables.shape[1])
-    for i in range(n_pages):
-        base = i * P
-        run = base < lengths                                     # [B]
-        if window is not None:
-            in_win = base + P > lengths - window
-            if sinks:
-                in_win = in_win | (base < sinks)
-            run = run & in_win
-        k, ks, pv = load_page(block_tables[:, i].long())
-        s = (qg @ k.transpose(-1, -2)) * ks                      # [B, Hkv, G, P]
-        if softcap is not None:
-            s = softcap * torch.tanh(true_div(s, softcap))
-        pos = base + torch.arange(P, device=dev)
-        valid = pos[None, :] < lengths[:, None]                  # [B, P]
-        if window is not None:
-            vis = pos[None, :] >= (lengths - window)[:, None]
-            if sinks:
-                vis = vis | (pos[None, :] < sinks)
-            valid = valid & vis
-        s = torch.where(valid[:, None, None, :], s,
-                        torch.full_like(s, DEFAULT_MASK_VALUE))
-        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.exp(s - m_next)
-        alpha = torch.exp(m - m_next)
-        l_new = alpha * l + p.sum(dim=-1, keepdim=True)
-        acc_new = acc * alpha + pv(p)
-        sel = run[:, None, None, None]
-        m = torch.where(sel, m_next, m)
-        l = torch.where(sel, l_new, l)
-        acc = torch.where(sel, acc_new, acc)
-    l_inv = torch.where(l == 0.0, torch.ones_like(l), 1.0 / l)
-    o = (acc * l_inv).reshape(B, Hq, D).to(q.dtype)
-    if not save_residuals:
-        return o
-    lse = torch.where(l == 0.0, torch.full_like(l, float("-inf")),
-                      m + torch.log(torch.clamp(l, min=1e-38)))
-    return o, lse.reshape(B, Hq)
+    n_pages = min(int(((lengths.max() + P - 1) // P).item()), max_pages)
+    states = []
+    for s in range(n_splits):
+        m = torch.full((B, Hkv, Hq // Hkv, 1), float("-inf"), device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qg)
+        for i in range(s * per, min((s + 1) * per, n_pages)):
+            base = i * P
+            run = base < lengths                                     # [B]
+            if window is not None:
+                in_win = base + P > lengths - window
+                if sinks:
+                    in_win = in_win | (base < sinks)
+                run = run & in_win
+            k, ks, pv = load_page(block_tables[:, i].long())
+            sc = (qg @ k.transpose(-1, -2)) * ks                     # [B, Hkv, G, P]
+            if softcap is not None:
+                sc = softcap * torch.tanh(true_div(sc, softcap))
+            pos = base + torch.arange(P, device=dev)
+            valid = pos[None, :] < lengths[:, None]                  # [B, P]
+            if window is not None:
+                vis = pos[None, :] >= (lengths - window)[:, None]
+                if sinks:
+                    vis = vis | (pos[None, :] < sinks)
+                valid = valid & vis
+            sc = torch.where(valid[:, None, None, :], sc,
+                             torch.full_like(sc, DEFAULT_MASK_VALUE))
+            m_next = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+            p = torch.exp(sc - m_next)
+            alpha = torch.exp(m - m_next)
+            l_new = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc_new = acc * alpha + pv(p)
+            sel = run[:, None, None, None]
+            m = torch.where(sel, m_next, m)
+            l = torch.where(sel, l_new, l)
+            acc = torch.where(sel, acc_new, acc)
+        states.append((m, l, acc))
+    return _merge_splits(states, q.dtype, (B, Hq, D), save_residuals)
 
 
 def _paged_decode_plain(q, k_pages, v_pages, k_scales, v_scales, lengths,
@@ -168,7 +217,7 @@ def _paged_decode_launch(q, k_pages, v_pages, k_scales, v_scales, lengths,
                          block_tables, *, sm_scale, window, softcap, sinks,
                          save_residuals, int4=False):
     """Checked operands of one kernel launch: (kernel, ctypes args,
-    outputs, operands). int4: nibble-packed pages [Hkv, num_pages, P, D/2]
+    outputs, operands and scratch). int4: nibble-packed pages [Hkv, num_pages, P, D/2]
     with scales [Hkv, num_pages, subs]."""
     B, Hq, D = q.shape
     Hkv, num_pages, P, _ = k_pages.shape
@@ -189,18 +238,27 @@ def _paged_decode_launch(q, k_pages, v_pages, k_scales, v_scales, lengths,
     o = torch.empty_like(q)
     lse = (torch.empty((B, Hq), dtype=torch.float32, device=q.device)
            if save_residuals else None)
+    # The splits' f32 scratch, one allocation: unnormalised sums [S, B, Hq,
+    # D], then m and l [2, S, B, Hq].
+    n_splits, per = decode_splits(B, Hkv, block_tables.shape[1], P)
     ptr = cuda_lib.ptr
+    scratch = part = ml = None
+    if n_splits > 1:
+        scratch = torch.empty(n_splits * B * Hq * (D + 2), dtype=torch.float32, device=q.device)
+        part = ptr(scratch)
+        ml = part + n_splits * B * Hq * D * 4
     dims = (B, Hq, Hkv, num_pages, P, block_tables.shape[1], D)
     if int4:
         dims += (k_scales.shape[-1],)
     args = (ptr(q), ptr(k_pages, 16), ptr(v_pages, 16), ptr(k_scales), ptr(v_scales),
-            ptr(lengths), ptr(block_tables), ptr(o), ptr(lse), *dims,
-            sm_scale, int(softcap is not None), float(softcap or 0.0),
+            ptr(lengths), ptr(block_tables), ptr(o), ptr(lse), part, ml, *dims,
+            n_splits, per, sm_scale, int(softcap is not None), float(softcap or 0.0),
             -1 if window is None else int(window), int(sinks),
             DEFAULT_MASK_VALUE, int(q.dtype == torch.bfloat16),
             cuda_lib.stream_of(q))
-    # The operand tensors ride along so they outlive every launch of args.
-    keep = (q, k_pages, v_pages, k_scales, v_scales, lengths, block_tables)
+    # The operand and scratch tensors ride along so they outlive every
+    # launch of args.
+    keep = (q, k_pages, v_pages, k_scales, v_scales, lengths, block_tables, scratch)
     return PAGED_DECODE_INT4 if int4 else PAGED_DECODE, args, (o, lse), keep
 
 
