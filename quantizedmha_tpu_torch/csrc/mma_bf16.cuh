@@ -2,7 +2,7 @@
 // flash_bwd.cu, flash_int8_fwd.cu, paged_prefill.cu): mma.sync m16n8k16
 // with f32 accumulation and the ldmatrix loads of its operands from shared
 // memory, and the warpgroup wgmma of Hopper with the swizzled shared-memory
-// tiles it reads (flash_bwd.cu, paged_prefill.cu).
+// tiles it reads (flash_bwd.cu, paged_prefill.cu, flash_fwd.cu).
 //
 // Fragments of m16n8k16 (lane = 4g + t, g = lane / 4, t = lane % 4; two
 // bf16 a register, the lower column or k in the low half):
@@ -71,6 +71,12 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until at most N of the warpgroup's committed wgmma groups are in
+// flight (groups complete in the order committed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // Shared-memory writes of this thread (st.shared, cp.async) made visible
 // to the async proxy that wgmma reads through; then a barrier.
 __device__ __forceinline__ void fence_async_shared() {
@@ -84,6 +90,14 @@ __device__ __forceinline__ void fence_operands(float (&d)[N][4]) {
   for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+// The same for register A fragments (before they are written anew).
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
 }
 
 // D[64 x 32] (+)= A·B: accumulate = 0 overwrites d.
@@ -259,6 +273,30 @@ __device__ __forceinline__ void wgmma_rs(float (&acc)[D / 8][4], const uint32_t 
   } else {
     wgmma_rs_m64n32(acc, a, m, 1);
   }
+}
+
+// Warp specialisation (flash_fwd.cu, paged_prefill.cu): named barriers
+// (0 is __syncthreads) between producer and consumer warpgroups, and the
+// register budget a warpgroup gives up or takes.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// 2^x on the SFU (flushes results below 2^-126 to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <int N>

@@ -341,27 +341,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int FULL = 1, EMPTY = FULL + PRODUCERS, PRODUCER = EMPTY + PRODUCERS,
               QREADY = PRODUCER + PRODUCERS;
 
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-// 2^x on the SFU (flushes results below 2^-126 to 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int D, bool INT4>
 struct Bf16Smem {
   using T = Bf16Tile<D>;

@@ -5,7 +5,15 @@ quantizedmha_tpu/ops/flash_attention.py).
 On a CUDA tensor `flash_attention` launches the hand-written kernel in
 `csrc/flash_fwd.cu` (TPU kernel `_fwd_kernel`); on a CPU tensor it runs
 `_flash_fwd_plain`, the same online softmax step by step in PyTorch at the
-JAX package's kv step (block_kv, default 1024). The TPU grid's shrunk
+JAX package's kv step (block_kv, default 1024). In bf16 the kernel runs on
+Hopper's wgmma: a block holds 192 rows (128 at head_dim 32), all q heads
+of a kv head's group times rows / group positions, so each K/V tile is
+read once for the whole group; a producer warpgroup copies the K/V tiles
+into a ring of shared-memory stages and the consumer warpgroups, 64 rows
+each, run both products and the online softmax, 64 keys a step. The numerics are the plain version's
+(Q scaled in bf16, f32 scores, P rounded to bf16 for P·V, l the f32 sum)
+up to summation order, the step at which each P is rounded, and the SFU's
+2^x; in f32 it runs on the CUDA cores. The TPU grid's shrunk
 windowed kv dimension and its ones-column l sum (`summode="mxu"`) are TPU
 devices with no counterpart: the only sum mode is "vpu" (l sums the f32
 P). Under autograd the call is a `torch.autograd.Function` whose backward
@@ -32,7 +40,7 @@ _ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
          + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 3
          + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 # One launch counter per input dtype: bf16 runs on the tensor cores
-# (mma.sync), f32 on the CUDA cores; both stand for `_fwd_kernel`.
+# (wgmma), f32 on the CUDA cores; both stand for `_fwd_kernel`.
 FLASH_FWD_BF16 = cuda_lib.CudaKernel("flash_fwd", "flash_fwd", _ARGS)
 FLASH_FWD_F32 = cuda_lib.CudaKernel("flash_fwd", "flash_fwd", _ARGS)
 _HEAD_DIMS = (32, 64, 128)
