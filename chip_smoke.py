@@ -18,8 +18,9 @@ result line:
            and on 11 small cases, each pair launched twice (the same bits
            both times, or the check fails), and so is every bf16 float
            flash launch, every bf16 paged prefill launch (INT8 and INT4,
-           tensor cores) and every paged decode launch (INT8 and INT4:
-           split page walks merged by lse),
+           tensor cores), every paged decode launch (INT8 and INT4:
+           split page walks merged by lse) and every w4_matmul launch
+           (the four fused 8B matmuls at R = 8, 1, 32 and 64),
            the decode at serve's, serve_flash's and serve_mixed's shapes
            and for MQA, each reporting its splits;
            kernel / plain / library times (CUDA events) and the least time
@@ -42,6 +43,8 @@ result line:
            (exactly 4 launches a layer a decode step; 512-row prefills
            take the dequantize-then-matmul lowering). A 64-token prefill
            is held against the dequantized weights as plain bf16 tensors.
+           With --profile, full-batch decode chunks at batch 8 and 32 run
+           under torch.profiler.
   serve_flash  Llama-3-8B as configured (attention_impl="flash", random
            bf16 weights, 32 layers) through the engine with the default
            buckets (128-2048), page 128, prefix caching and interleaved
@@ -82,10 +85,10 @@ result line:
            ms a step, tokens/s, the share of weights changed, peak memory.
   faults   each line of PLANTED_FAULTS planted in a copy of csrc/, the
            kernel sources that the changed file is part of (flash_fwd.cu,
-           paged_prefill.cu, paged_decode.cu, flash_bwd.cu, their shared
-           f32_tile.cuh and int4.cuh) built in parallel and bound in turn in
-           place of the committed kernels, their checks rerun: every fault
-           must fail them.
+           paged_prefill.cu, paged_decode.cu, flash_bwd.cu, w4_matmul.cu,
+           their shared f32_tile.cuh and int4.cuh) built in parallel and
+           bound in turn in place of the committed kernels, their checks
+           rerun: every fault must fail them.
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 zeroed just before each main path (each solve rung, serve, each serve_w4
@@ -1306,10 +1309,12 @@ def _mixed_composites(g):
 # (name, in, out), group 128, halves packing, bf16 x at the serve_w4 batches.
 W4_MAIN = (("wqkv", 4096, 6144), ("wo", 4096, 4096), ("w_gateup", 4096, 28672),
            ("w_down", 14336, 4096))
-W4_BATCHES = (8, 1, 32)  # the first is the entry's headline
+W4_BATCHES = (8, 1, 32, 64)  # the first is the entry's headline; 64: serve_w4's prefill
 # Off the main path: pairs packing, f32 x, groups 32/64, R = 5, 17 and 64,
-# out widths with a tail (and not a multiple of 8: byte-wise loads), a
-# layer > 0 of a 3-layer stack.
+# out widths with a tail (and not a multiple of 8 or 16: byte-wise loads),
+# a layer > 0 of a 3-layer stack; bf16 x past 64 rows (two row tiles),
+# scale groups of one k16 step (four a stage) and of fewer packed rows than
+# a k16 step (the CUDA-core kernel takes bf16 x there).
 #   (R, in, out, group, packing, f32 x, stacked layer or None)
 W4_COVERAGE = (
     (5, 1024, 1000, 64, "pairs", False, None),
@@ -1318,6 +1323,9 @@ W4_COVERAGE = (
     (2, 768, 520, 64, "halves", True, 2),
     (1, 14336, 264, 128, "pairs", False, 1),
     (17, 256, 96, 32, "halves", False, None),
+    (100, 1024, 776, 128, "pairs", False, None),
+    (9, 768, 272, 32, "pairs", False, None),
+    (4, 512, 200, 8, "halves", False, None),
 )
 
 
@@ -1365,7 +1373,8 @@ def _w4_case(x, w, layer=None, *, timed):
     bitwise = bool(torch.equal(out, again))
     e = {"rows": R, "in": in_dim, "out": n, "group": w.group, "packing": w.packing,
          "x": str(x.dtype), "layer": layer,
-         "splits": w4.split_k(R, in_dim // 2, n)[1],
+         "splits": w4.split_k(R, in_dim // 2, n,
+                              w4.tensor_core_route(x, w.group, w.packing))[1],
          "max_abs_err": (out.float() - plain.float()).abs().max().item(),
          "err_over_tol": ratio, "golden_err_over_tol": golden_ratio,
          "bitwise_repeat": bitwise, "ok": ratio <= 1.0 and golden_ratio <= 1.0 and bitwise}
@@ -1835,11 +1844,34 @@ PLANTED_FAULTS = (
      "const int r = 32 * h + 8 * n + 2 * t + (e >> 1);"),
     ("flash_bwd.cu", "bf16 dK/dV: next Q/dO tile copied into the stage being read (stale reads)",
      "if (more) issue(hd_next, q_next, buf ^ 1);", "if (more) issue(hd_next, q_next, buf);"),
+    ("w4_matmul.cu", "bf16: the high plane's scales from the next group (the last one's own)",
+     "const size_t src = ok ? size_t(g0 + slot + plane * hi_goff) * p.n + col : 0;",
+     "const size_t src = ok ? size_t(min(g0 + slot + plane * (hi_goff + 1), "
+     "in_dim / p.group - 1)) * p.n + col : 0;"),
+    ("w4_matmul.cu", "bf16: the low plane's +8 storage bias left in",
+     "return __uint_as_float(bits) - float((1 << (23 - O)) + 8);",
+     "return __uint_as_float(bits) - float((1 << (23 - O)) + (HI ? 8 : 0));"),
+    ("w4_matmul.cu", "split-K: the second split's partial sums dropped (both routes)",
+     "for (int s = 1; s < splits; ++s) v += ws[size_t(s) * total + e];",
+     "for (int s = 1; s < splits; ++s) v += s == 1 ? 0.f : ws[size_t(s) * total + e];"),
+    ("w4_matmul.cu", "bf16: A fragment's k pair swapped (packed rows 2t and 2t+1)",
+     "a[0][0] = weight_pair<HI, 0>(w0, v0, w1, v1, s.x, mk);",
+     "a[0][0] = weight_pair<HI, 0>(w1, v1, w0, v0, s.x, mk);"),
+    ("w4_matmul.cu", "bf16: the low plane's nibbles read as two's complement",
+     "constexpr uint32_t MAGIC = (uint32_t(150 - O) << 23) | (HI ? 8u << O : 0u);",
+     "constexpr uint32_t MAGIC = (uint32_t(150 - O) << 23) | (8u << O);"),
+    ("w4_matmul.cu", "bf16: the next stage's packed tile read (not yet landed)",
+     "const unsigned char* pt = packed_tile(s) + 2 * t * PROW + colw;",
+     "const unsigned char* pt = packed_tile((n + 1) % R::STAGES) + 2 * t * PROW + colw;"),
+    ("w4_matmul.cu", "bf16: output columns permuted (tile 0's row g + 8 and tile 1's row g swapped)",
+     "const float v[4] = {acc[0][i][u], acc[0][i][2 + u], acc[1][i][u], acc[1][i][2 + u]};",
+     "const float v[4] = {acc[0][i][u], acc[1][i][u], acc[0][i][2 + u], acc[1][i][2 + u]};"),
 )
 # The kernel sources the faults are held to, and the prefixes of their
 # coverage cases.
 FAULT_SOURCES = {"flash_fwd": ("flash_fwd",), "paged_prefill": ("paged_prefill",),
-                 "paged_decode": ("decode", "paged_decode"), "flash_bwd": ("flash_bwd",)}
+                 "paged_decode": ("decode", "paged_decode"), "flash_bwd": ("flash_bwd",),
+                 "w4_matmul": ("w4",)}
 
 
 def _decode_coverage_ratios(g):
@@ -1889,6 +1921,34 @@ def _decode_coverage_ratios(g):
     return ratios
 
 
+def _w4_fault_ratios(g, g5):
+    """w4_matmul's checks with whatever library is bound: ({W4_MAIN matmul
+    at R = 8 and 32: [err_over_tol vs plain, vs golden]}, {W4_COVERAGE
+    case: [the same]}); a second launch with other bits adds inf."""
+    import torch
+    from quantizedmha_tpu_torch.quant.weights import quantize_weight4
+
+    def ratios(x, w, layer=None):
+        e = _w4_case(x, w, layer, timed=False)
+        return [e["err_over_tol"], e["golden_err_over_tol"]] + (
+            [] if e["bitwise_repeat"] else [float("inf")])
+    main = {}
+    for name, in_dim, n in W4_MAIN:
+        w = quantize_weight4(torch.randn((in_dim, n), generator=g, device="cuda") * in_dim**-0.5,
+                             group=128, packing="halves")
+        for R in (8, 32):
+            x = torch.randn((R, in_dim), generator=g, device="cuda").to(torch.bfloat16)
+            main[f"{name} R={R}"] = ratios(x, w)
+    cov = {}
+    for i, (R, in_dim, n, group, packing, f32, layer) in enumerate(W4_COVERAGE):
+        shape = (in_dim, n) if layer is None else (3, in_dim, n)
+        w = quantize_weight4(torch.randn(shape, generator=g5, device="cuda"), group=group,
+                             packing=packing)
+        x = torch.randn((R, in_dim), generator=g5, device="cuda")
+        cov[f"w4_{i}"] = ratios(x if f32 else x.to(torch.bfloat16), w, layer)
+    return main, cov
+
+
 def _fault_checks(src):
     """The kernel checks of one source with whatever library is bound:
     ({main shape: [err_over_tol]}, {coverage case: err_over_tol})."""
@@ -1915,6 +1975,8 @@ def _fault_checks(src):
         main["train step"] = _flash_bwd_check(q, k, v, _offsets(0, 0, B, q.device), do,
                                               causal=True)[2]
         ratios = _coverage_bwd(g5)
+    elif src == "w4_matmul":
+        main, ratios = _w4_fault_ratios(g, g5)
     elif src == "paged_prefill":
         main["serve_flash chunk"] = _paged_prefill_check(*_paged_main_inputs(g))[2]
         q, cache, lengths, tables, q_starts = _int4_prefill_main_inputs(g)
@@ -1942,6 +2004,7 @@ def phase_faults(st):
     from quantizedmha_tpu_torch.ops import decode as dec
     from quantizedmha_tpu_torch.ops import flash_attention as fa
     from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    from quantizedmha_tpu_torch.ops import w4_matmul as w4
     out_dir = cuda_lib.BUILD_DIR / "faults"
     shutil.rmtree(out_dir, ignore_errors=True)
     builds = []
@@ -1967,7 +2030,8 @@ def phase_faults(st):
     kernels = {"flash_fwd": (fa.FLASH_FWD_BF16, fa.FLASH_FWD_F32),
                "paged_prefill": (pp.PAGED_PREFILL, pp.PAGED_PREFILL_INT4),
                "paged_decode": (dec.PAGED_DECODE, dec.PAGED_DECODE_INT4),
-               "flash_bwd": (fa.FLASH_BWD_DKV, fa.FLASH_BWD_DQ)}
+               "flash_bwd": (fa.FLASH_BWD_DKV, fa.FLASH_BWD_DQ),
+               "w4_matmul": (w4.W4_MATMUL,)}
     rows = []
     try:
         for what, src, _, lib in builds:
@@ -2874,7 +2938,9 @@ def phase_serve_w4(st):
         for name, n in launches.items():
             st["launches"][name] = st["launches"].get(name, 0) + n
     if st.get("profile"):
-        emit({"phase": "serve_w4_profile", **_profile_w4(cfg, params)})
+        for batch in (8, 32):
+            emit({"phase": "serve_w4_profile", "batch": batch,
+                  **_profile_w4(cfg, params, batch)})
     emit({"phase": "serve_w4", "ok": ok, "model": "llama3-8b-shape-int4-lmh8",
           "layers": L, "weights_gb": wbytes / 1e9, "init_s": init_s,
           "prefill64_w4_launches": prefill_launches,
@@ -2884,11 +2950,11 @@ def phase_serve_w4(st):
         raise AssertionError("serve_w4 phase failed its checks")
 
 
-def _profile_w4(cfg, params):
-    """Profiled full-batch decode chunks of the w4 model at batch 8."""
+def _profile_w4(cfg, params, batch):
+    """Profiled full-batch decode chunks of the w4 model at `batch`."""
     import numpy as np
     from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
-    batch, page, new = 8, 128, 4 * W4_SERVE["chunk"]
+    page, new = 128, 4 * W4_SERVE["chunk"]
     mpps = -(-(W4_SERVE["prompt_len"] + new + W4_SERVE["chunk"] + 1) // page)
     ecfg = EngineConfig(num_pages=batch * mpps + 2, page_size=page, max_batch=batch,
                         max_pages_per_seq=mpps, prefill_buckets=(W4_SERVE["prompt_len"],),
@@ -2934,7 +3000,8 @@ def _host_profile(eng, steps):
             "port": [row(f, v, v[3]) for f, v in port]}
 
 
-KERNEL_GROUPS = (("w4_matmul", ("w4_matmul_kernel", "w4_reduce_kernel")),
+KERNEL_GROUPS = (("w4_matmul", ("w4_matmul_kernel", "w4_matmul_wgmma_kernel",
+                                 "w4_reduce_kernel")),
                  ("flash_int8_fwd", "flash_int8"), ("flash_fwd", "flash_fwd"),
                  ("flash_bwd", "flash_bwd"),
                  ("paged_prefill", "paged_prefill"), ("paged_decode", "paged_decode"),

@@ -145,24 +145,54 @@ __device__ __forceinline__ uint64_t sw128_desc_mn(const void* at, uint32_t block
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
+// D[64 x 8] (+)= A·B with A from registers (each warp's m16n8k16 A
+// fragment of its 16 rows) and B in shared memory: K-major (TB = 0, rows of
+// Bᵀ contiguous along k, as tile_desc names them) or MN-major (TB = 1,
+// transposed, as tile_desc_mn names them). The n16..n128 forms below take
+// the same TB.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_m64n8(float (&d)[1][4], const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_m64n16(float (&d)[2][4], const uint32_t (&a)[4],
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TB));
+}
+
 // D[64 x 32] (+)= A·B with A from registers (each warp's m16n8k16 A
-// fragment of its 16 rows) and B MN-major in shared memory (transposed).
+// fragment of its 16 rows) and B in shared memory (MN-major by default).
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[4][4], const uint32_t (&a)[4],
                                                uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TB));
 }
 
 // D[64 x 64] (+)= A·B with A from registers (each warp's m16n8k16 A
-// fragment of its 16 rows) and B MN-major in shared memory (transposed).
+// fragment of its 16 rows) and B in shared memory (MN-major by default).
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[8][4], const uint32_t (&a)[4],
                                                uint64_t b, int accumulate) {
   asm volatile(
@@ -170,7 +200,7 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[8][4], const uint32_t
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -179,7 +209,7 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[8][4], const uint32_t
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TB));
 }
 
 // D[64 x 128] (+)= A·B with A from registers (each warp's m16n8k16 A

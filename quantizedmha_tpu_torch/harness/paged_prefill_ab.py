@@ -1,13 +1,15 @@
-"""A/B of an attention kernel source on one card: another tree's source,
-such as a parent commit unpacked beside this one (`git archive <commit> |
-tar -x -C build/parent`), against this tree's, in one process.
+"""A/B of a kernel source on one card: another tree's source, such as a
+parent commit unpacked beside this one (`git archive <commit> | tar -x -C
+build/parent`), against this tree's, in one process.
 
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --parent build/parent \\
-        [--source paged_prefill|paged_decode|flash_fwd] [--out ab.json]
+        [--source paged_prefill|paged_decode|flash_fwd|w4_matmul] [--out ab.json]
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source paged_decode \\
         --variants quantizedmha_tpu_torch/harness/decode_ablations.json
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source flash_fwd \\
         --parent build/parent --variants quantizedmha_tpu_torch/harness/flash_fwd_variants.json
+    python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source w4_matmul \\
+        --parent build/parent --variants quantizedmha_tpu_torch/harness/w4_matmul_variants.json
 
 Each library is launched through its own tree's wrapper (`ops/<op>.py`'s
 `_*_launch`, loaded from that tree), so a change of the C signature is
@@ -48,6 +50,21 @@ err_over_tol is reported, not gated).
   bits (output and lse).
 - ptxas registers and spill bytes of each library's kernels.
 
+--source w4_matmul (csrc/w4_matmul.cu, rows 8-9):
+- bf16 x at the four fused matmuls of a Llama-3-8B layer (chip_smoke.py's
+  W4_MAIN: group 128, halves) at R = 1, 8, 32 and 64: ms in turns (50
+  launches, the weight read from L2 where it fits, as chip_smoke.py times
+  it; graph_ms: 20 launches captured in a CUDA graph and replayed, the
+  card's time without the host's), err_over_tol against this tree's plain version under chip_smoke.py's
+  w4_tolerance, whether each library gives the same bits twice,
+  `torch._weight_int4pack_mm`'s ms on the same weights and the bound; each
+  R's sum over the four ("layer").
+- bf16 x at every bf16 W4_COVERAGE case: err_over_tol and the same bits
+  twice, for this tree's library.
+- f32 x at the four matmuls (R = 8) and at every W4_COVERAGE case, x taken
+  in f32: whether the libraries give the same bits.
+- ptxas registers and spill bytes of each library's kernels.
+
 Prints one JSON object (and writes it to --out); exits 1 when a library
 fails its check, or the f32 route's bits differ.
 """
@@ -67,7 +84,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[2]
 OPS = {"paged_prefill": "paged_prefill", "paged_decode": "decode",
-       "flash_fwd": "flash_attention"}
+       "flash_fwd": "flash_attention", "w4_matmul": "w4_matmul"}
 
 
 def _ops_module(tree: Path, source: str, name: str):
@@ -137,9 +154,9 @@ def _trees(source: str, parent=None, variants=None):
     """{"parent" | variant name | "this": (ops module, bound functions,
     library)}; every library built at once."""
     from quantizedmha_tpu_torch.ops import cuda_lib
-    from quantizedmha_tpu_torch.ops import decode, flash_attention, paged_prefill
+    from quantizedmha_tpu_torch.ops import decode, flash_attention, paged_prefill, w4_matmul
     this = {"paged_prefill": paged_prefill, "paged_decode": decode,
-            "flash_fwd": flash_attention}[source]
+            "flash_fwd": flash_attention, "w4_matmul": w4_matmul}[source]
     libs = []
     if parent is not None:
         libs.append(("parent", _ops_module(parent, source, f"_ab_parent_{source}"),
@@ -349,6 +366,113 @@ def _flash_fwd_ab(trees, g, result):
     return ok and all(result["f32_same_bits"].values())
 
 
+W4_ROWS = (1, 8, 32, 64)
+
+
+def _graph_ms(module, fns, source, operands, kw, calls=20, replays=5):
+    """ms a call on the card alone: `calls` launches through a tree's
+    wrapper captured in one CUDA graph and replayed (back-to-back launches
+    from Python can be held back by the host)."""
+    make = getattr(module, f"_{source}_launch")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # first launches (one-time set-up) outside the capture
+        kernel, args, _, _keep = make(*operands, **kw)
+        fns[kernel.symbol](*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph, kept = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            kernel, args, outs, keep = make(*operands, **kw)
+            fns[kernel.symbol](*args)
+            kept.append((outs, keep))
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def _w4_ab(trees, g, result):
+    import chip_smoke as cs
+    from quantizedmha_tpu_torch.ops import w4_matmul as w4
+    from quantizedmha_tpu_torch.quant.weights import dequantize_weight4, quantize_weight4
+    launchers = {w: _launcher(m, f, "w4_matmul") for w, (m, f, _) in trees.items()}
+    trees_f32 = [launchers[w] for w in ("parent", "this") if w in launchers]
+    result["ptxas"] = {w: cs._ptxas_kernels(lib.with_suffix(".log").read_text())
+                       for w, (_, _, lib) in trees.items()}
+    ok = True
+    layer = {R: {} for R in W4_ROWS}
+    result["f32_same_bits"] = {}
+    for name, in_dim, n in cs.W4_MAIN:
+        w = quantize_weight4(torch.randn((in_dim, n), generator=g, device="cuda") * in_dim**-0.5,
+                             group=128, packing="halves")
+        kw = dict(group=w.group, packing=w.packing)
+        for R in W4_ROWS:
+            x = torch.randn((R, in_dim), generator=g, device="cuda").to(torch.bfloat16)
+            plain = w4._w4_matmul_plain(x, w.packed, w.scale, **kw)
+            golden = x.float() @ dequantize_weight4(w)
+            tol = cs.w4_tolerance(x, w, plain)
+            gtol = cs.w4_tolerance(x, w, golden, golden=True)
+            row, calls = {"splits": w4.split_k(R, in_dim // 2, n)[1]}, {}
+            for which, launch in launchers.items():
+                out, call, keep = launch((x, w.packed, w.scale), **kw)
+                calls[which] = (call, (out, keep))
+                same = cs._same_bits_again(lambda: call[0](*call[1]), [out])
+                row[which] = {"err_over_tol": cs.err_over_tol(out, plain, tol),
+                              "golden_err_over_tol": cs.err_over_tol(out, golden, gtol),
+                              "same_bits_twice": same}
+                if which in ("this", "parent"):
+                    ok &= row[which]["err_over_tol"] <= 1.0 and same
+                    ok &= row[which]["golden_err_over_tol"] <= 1.0
+            _timed_turns(calls, row, iters=50)
+            for which, (module, fns, _) in trees.items():
+                row[which]["graph_ms"] = _graph_ms(module, fns, "w4_matmul",
+                                                   (x, w.packed, w.scale), kw)
+            row["library_ms"], _, row["library_note"] = cs._int4pack_library(x, w, golden)
+            nbytes = w.packed.numel() + w.scale.numel() * 4 + (R * in_dim + R * n) * 2
+            row["bound_ms"], row["bound_by"] = cs.bound(nbytes, {"bf16": 2 * R * in_dim * n})
+            result["main"][f"{name} R={R}"] = row
+            for which in calls:
+                tot = layer[R].setdefault(which, [0.0] * len(row[which]["ms"]))
+                layer[R][which] = [a + b for a, b in zip(tot, row[which]["ms"])]
+                key = f"{which} graph_ms"
+                layer[R][key] = layer[R].get(key, 0.0) + row[which]["graph_ms"]
+            for key in ("library_ms", "bound_ms"):
+                if row[key] is not None:
+                    layer[R][key] = layer[R].get(key, 0.0) + row[key]
+            del calls
+        # The f32 route at R = 8: the same bits from the parent's library and this one.
+        x = torch.randn((8, in_dim), generator=g, device="cuda")
+        outs = [launch((x, w.packed, w.scale), **kw)[0] for launch in trees_f32]
+        result["f32_same_bits"][name] = all(torch.equal(outs[0], o) for o in outs[1:])
+        del w
+    result["layer"] = {f"R={R}": v for R, v in layer.items()}
+    result["coverage"] = {}
+    for i, (R, in_dim, n, group, packing, _, lay) in enumerate(cs.W4_COVERAGE):
+        shape = (in_dim, n) if lay is None else (3, in_dim, n)
+        w = quantize_weight4(torch.randn(shape, generator=g, device="cuda"), group=group,
+                             packing=packing)
+        view = w if lay is None else w.layer(lay)
+        kw = dict(group=group, packing=packing)
+        x = torch.randn((R, in_dim), generator=g, device="cuda")
+        outs = [launch((x, view.packed, view.scale), **kw)[0] for launch in trees_f32]
+        result["f32_same_bits"][f"w4_{i}"] = all(torch.equal(outs[0], o) for o in outs[1:])
+        xb = x.to(torch.bfloat16)
+        plain = w4._w4_matmul_plain(xb, view.packed, view.scale, **kw)
+        out, call, _ = launchers["this"]((xb, view.packed, view.scale), **kw)
+        same = cs._same_bits_again(lambda: call[0](*call[1]), [out])
+        ratio = cs.err_over_tol(out, plain, cs.w4_tolerance(xb, view, plain))
+        result["coverage"][f"w4_{i}"] = {"err_over_tol": ratio, "same_bits_twice": same}
+        ok &= ratio <= 1.0 and same
+    return ok and all(result["f32_same_bits"].values())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path,
@@ -356,7 +480,7 @@ def main(argv=None) -> int:
     ap.add_argument("--source", choices=sorted(OPS), default="paged_prefill")
     ap.add_argument("--variants", type=Path,
                     help="JSON {name: [[line, replacement], ...]} of this tree's source "
-                         "(paged_decode, flash_fwd)")
+                         "(paged_decode, flash_fwd, w4_matmul)")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if args.parent is None and args.variants is None:
@@ -376,7 +500,7 @@ def main(argv=None) -> int:
     result = {"gpu": cs.gpu_line(), "parent": args.parent and str(args.parent),
               "variants": variants, "source": args.source, "main": {}}
     ab = {"paged_prefill": _prefill_ab, "paged_decode": _decode_ab,
-          "flash_fwd": _flash_fwd_ab}[args.source]
+          "flash_fwd": _flash_fwd_ab, "w4_matmul": _w4_ab}[args.source]
     result["ok"] = bool(ab(trees, g, result))
     text = json.dumps(result)
     if args.out is not None:

@@ -20,8 +20,12 @@ weight draw pack, unpack and split planes through its public helpers.
 On a CUDA tensor the call launches `csrc/w4_matmul.cu` (one kernel for the
 per-layer `_w4_kernel` and the layer-stacked `_w4_kernel_stacked`: a stacked
 weight is passed as the view `packed[layer]`, no copy); on a CPU tensor it
-runs `_w4_matmul_plain`. The JAX package's TPU tile rules (`pick_w4_blocks`,
-`block_k2`, `block_n`) have no counterpart: the kernel picks its own split.
+runs `_w4_matmul_plain`. bf16 x goes to the tensor cores (wgmma; the f32
+sum then runs in the tensor cores' order, one k16 step of a plane at a
+time) unless its scale groups are shorter than 16 packed rows; f32 x, and
+those, take the CUDA-core kernel. The JAX package's TPU tile rules
+(`pick_w4_blocks`, `block_k2`, `block_n`) have no counterpart: `split_k`
+picks the kernel's split of the contraction.
 """
 
 from __future__ import annotations
@@ -39,13 +43,19 @@ W4_MATMUL = cuda_lib.CudaKernel(
     "w4_matmul", "w4_matmul", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 PACKINGS = ("pairs", "halves")
-# The kernel's tiles: 256 output columns and up to 8 rows of x per block;
-# the contraction is split into chunks of a multiple of 16 packed rows
-# until about two blocks per SM of the H100 (132 SMs) are in the grid.
+# The kernels' tiles, 256 output columns a block. Tensor cores: up to 64
+# rows of x a block (so R <= 64 reads the weight once), a chunk of the
+# contraction a whole number of 64-row stages, as many blocks as the
+# H100's 132 SMs hold at once (two an SM up to 32 rows, one above) and no
+# more. CUDA cores: up to 8 rows a block, chunks of a multiple of 16 packed
+# rows until about two blocks an SM are in the grid.
 _TILE_N = 256
+_SMS = 132
+_TC_ROWS = 64
+_TC_STAGE = 64
 _ROW_TILE = 8
 _CHUNK_ALIGN = 16
-_TARGET_BLOCKS = 2 * 132
+_TARGET_BLOCKS = 2 * _SMS
 # The fused kernel has no backward, in the JAX package as here: jax.grad
 # through its w4_matmul fails (an AssertionError in its Pallas lowering).
 # qdense's prefill route (dequantize, then matmul) stays differentiable.
@@ -109,14 +119,30 @@ def _w4_matmul_plain(x, packed, scale, *, group, packing):
     return out.to(x.dtype)
 
 
+def tensor_core_route(x: torch.Tensor, group: int, packing: str) -> bool:
+    """Whether the kernel runs x on the tensor cores: bf16 x whose scale
+    groups hold whole k16 steps of packed rows, 16-byte aligned (the C
+    entry routes by the same rule)."""
+    rows_per_group = group if packing == "halves" else group // 2
+    return (x.dtype == torch.bfloat16 and rows_per_group % 16 == 0
+            and x.data_ptr() % 16 == 0)
+
+
 @functools.lru_cache(maxsize=None)
-def split_k(rows: int, k2: int, n: int) -> Tuple[int, int]:
+def split_k(rows: int, k2: int, n: int, tensor_cores: bool = True) -> Tuple[int, int]:
     """(chunk, splits): the kernel's contraction chunk in packed rows and
     the number of chunks, enough blocks to fill the card; worked out once
-    per (rows, weight shape)."""
-    tiles = _cdiv(n, _TILE_N) * _cdiv(rows, _ROW_TILE)
-    splits = min(_cdiv(k2, _CHUNK_ALIGN), max(1, _cdiv(_TARGET_BLOCKS, tiles)))
-    chunk = _cdiv(_cdiv(k2, splits), _CHUNK_ALIGN) * _CHUNK_ALIGN
+    per (rows, weight shape, route)."""
+    if tensor_cores:
+        tiles = _cdiv(n, _TILE_N) * _cdiv(rows, _TC_ROWS)
+        resident = _SMS * (1 if rows > 32 else 2)
+        splits = min(_cdiv(k2, _TC_STAGE), max(1, resident // tiles))
+        align = _TC_STAGE
+    else:
+        tiles = _cdiv(n, _TILE_N) * _cdiv(rows, _ROW_TILE)
+        splits = min(_cdiv(k2, _CHUNK_ALIGN), max(1, _cdiv(_TARGET_BLOCKS, tiles)))
+        align = _CHUNK_ALIGN
+    chunk = _cdiv(_cdiv(k2, splits), align) * align
     return chunk, _cdiv(k2, chunk)
 
 
@@ -137,7 +163,7 @@ def _w4_matmul_launch(x, packed, scale, *, group, packing):
     rows = x.shape[0]
     k2, n = packed.shape
     x = x.contiguous()
-    chunk, splits = split_k(rows, k2, n)
+    chunk, splits = split_k(rows, k2, n, tensor_core_route(x, group, packing))
     device = x.device
     out = torch.empty((rows, n), dtype=x.dtype, device=device)
     ws = (torch.empty((splits, rows, n), dtype=torch.float32, device=device)
