@@ -8,7 +8,9 @@ Phases, each printing one JSON line; any failure exits non-zero with no
 result line:
 
   build    compile every CUDA source under quantizedmha_tpu_torch/csrc/
-           (one nvcc each, in parallel) and report the card.
+           (one nvcc each, in parallel) and report the card, each kernel's
+           registers and spills and each source's serialized wgmma
+           (flash_int8_bf16p: the INT8 flash bf16-P kernel's).
   kernels  hold each kernel against its plain PyTorch version on the card
            at the main paths' shapes, every element within its stated
            tolerance (err_over_tol <= 1), then on small cases off the main
@@ -16,7 +18,9 @@ result line:
            partials merged by lse) against their plain compositions; the
            backward's two kernels at the training step's attention shape
            and on 11 small cases, each pair launched twice (the same bits
-           both times, or the check fails), and so is every bf16 float
+           both times, or the check fails), and so is every INT8 flash
+           launch (both numerics modes at their main shapes and every
+           FLASH_COVERAGE case), every bf16 float
            flash launch, every bf16 paged prefill launch (INT8 and INT4,
            tensor cores), every paged decode launch (INT8 and INT4:
            split page walks merged by lse) and every w4_matmul launch
@@ -86,7 +90,8 @@ result line:
   faults   each line of PLANTED_FAULTS planted in a copy of csrc/, the
            kernel sources that the changed file is part of (flash_fwd.cu,
            paged_prefill.cu, paged_decode.cu, flash_bwd.cu, w4_matmul.cu,
-           their shared f32_tile.cuh and int4.cuh) built in parallel and
+           flash_int8_fwd.cu, their shared f32_tile.cuh, int4.cuh and
+           wgmma_s8.cuh) built in parallel and
            bound in turn in place of the committed kernels, their checks
            rerun: every fault must fail them.
 
@@ -454,12 +459,20 @@ def phase_build(st):
                       # ptxas C7514: wgmma serialized (a register hazard in the pipeline)
                       "wgmma_serialized": len(re.findall(r"C7514", log))}
     st["gpu"] = gpu_line()
+    # MODE_BF16_P's wgmma kernel at each head dim and q dtype: [registers,
+    # spill store bytes], and the serialized wgmma of its source.
+    fa8 = regs.get("flash_int8_fwd", {})
+    bf16p = {"kernels": {k: x for k, x in fa8.get("kernels", {}).items()
+                         if k.startswith("flash_int8_bf16p_kernel")},
+             "wgmma_serialized": fa8.get("wgmma_serialized")}
     emit({"phase": "build", "ok": True, "seconds": round(secs, 2),
-          "ptxas": regs, "gpu": st["gpu"]})
+          "flash_int8_bf16p": bf16p, "ptxas": regs, "gpu": st["gpu"]})
 
 
-def _flash_case(name, route_mode, q, k, v, block_kv, causal, *, replaces, library):
-    """Kernel vs plain at one shape; returns the kernels-line entry."""
+def _flash_case(name, route_mode, q, k, v, block_kv, causal, *, replaces, library, timed=True):
+    """Kernel vs plain at one shape, the kernel launched twice (the same
+    bits both times, or the case fails); returns the kernels-line entry
+    (without times unless `timed`)."""
     import torch
     from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
     from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
@@ -475,12 +488,17 @@ def _flash_case(name, route_mode, q, k, v, block_kv, causal, *, replaces, librar
         q, k_i8, ks, v_i8, vs, offsets, **kw)
     kernel(*args)
     torch.cuda.synchronize()
+    same = _same_bits_again(lambda: kernel(*args), [out])
     plain = fa8._flash_int8_plain(q, k_i8, ks, v_i8, vs, offsets, **kw)
     _, _, l = fa8._flash_int8_plain_state(
         q, k_i8, ks, v_i8, vs, offsets,
         **{k: x for k, x in kw.items() if k != "save_residuals"})
     tol, _ = flash_tolerances(plain, None, l, v_i8, vs, block_kv, route_mode)
     ratio = err_over_tol(out, plain, tol)
+    entry = {"name": name, "err_over_tol": ratio, "same_bits_twice": same,
+             "ok": ratio <= 1.0 and same}
+    if not timed:
+        return entry
     ms = cuda_ms(lambda: kernel(*args), iters=20)
     plain_ms = cuda_ms(lambda: fa8._flash_int8_plain(q, k_i8, ks, v_i8, vs, offsets, **kw),
                        iters=2, warmup=1)
@@ -498,12 +516,11 @@ def _flash_case(name, route_mode, q, k, v, block_kv, causal, *, replaces, librar
     ops = {"int8": matmul * (2 if route_mode == 0 else 1),
            "bf16": 0 if route_mode == 0 else matmul, "exp": B * H * pairs}
     bms, by = bound(nbytes, ops)
-    return {"name": name, "route": "cuda",
+    return {**entry, "route": "cuda",
             "source": "quantizedmha_tpu_torch/csrc/flash_int8_fwd.cu",
             "replaces": replaces, "launches": None,
             "max_abs_err": (out.float() - plain.float()).abs().max().item(),
-            "err_over_tol": ratio, "tol_range": [tol.min().item(), tol.max().item()],
-            "ok": ratio <= 1.0,
+            "tol_range": [tol.min().item(), tol.max().item()],
             "shape": {"B": B, "Hq": H, "Hkv": Hkv, "S": S, "D": D,
                       "causal": causal, "block_kv": block_kv, "q": str(q.dtype)},
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -818,7 +835,16 @@ def _paged_prefill_case(g, *, replaces):
 # mask), per-sequence offsets, GQA/MQA, window + sinks, softcap, both
 # numerics modes at every head dim, both q dtypes and lse.
 #   (B, H, Hkv, Sq, Skv, kv_len, D, block_kv, causal, window, sinks,
-#    softcap, mode, bf16 q, q_offset or None for end-aligned)
+#    softcap, mode, bf16 q, offsets: None for end-aligned, a q offset per
+#    sequence, or a (q offset, kv offset) pair per sequence)
+# The cases from the tenth on hold MODE_BF16_P's wgmma kernel (128 q rows a
+# block; 64-key tiles walked per quant block, twice) at its edges: q rows
+# not a multiple of 128, block_kv of 64, 96, 320 and 512 (tiles clipped at
+# a block's end, several tiles a sweep), Skv under one tile, a quant block
+# wholly masked for some rows of a tile (causal with q offsets; rows of the
+# last case's second sequence see no key), window + sinks with skipped
+# tiles, softcap on mask-free tiles, d = 32, 64 and 128 (128 not causal),
+# f32 and bf16 q, GQA with offsets per sequence.
 FLASH_COVERAGE = (
     (2, 4, 2, 100, 192, 192, 32, 64, False, None, 0, None, 1, False, None),
     (2, 4, 2, 100, 192, 192, 64, 96, True, None, 0, None, 0, True, None),
@@ -829,6 +855,14 @@ FLASH_COVERAGE = (
     (1, 2, 2, 200, 384, 384, 128, 384, False, None, 0, None, 1, False, None),
     (2, 4, 2, 64, 128, 128, 64, 64, True, None, 0, None, 0, False, (10, 50)),
     (1, 4, 2, 80, 160, 160, 32, 32, True, 24, 2, 20.0, 1, False, None),
+    (1, 2, 2, 150, 256, 256, 32, 64, True, None, 0, None, 1, False, None),
+    (1, 2, 1, 200, 384, 384, 64, 96, False, None, 0, None, 1, True, None),
+    (2, 4, 2, 130, 640, 600, 32, 320, True, None, 0, None, 1, False, (0, 200)),
+    (1, 4, 4, 64, 48, 48, 128, 48, False, None, 0, None, 1, True, None),
+    (1, 2, 1, 300, 512, 512, 64, 256, True, 64, 4, None, 1, False, None),
+    (1, 4, 2, 96, 256, 256, 64, 128, False, None, 0, 25.0, 1, True, None),
+    (1, 2, 2, 70, 512, 512, 128, 512, False, None, 0, None, 1, False, None),
+    (2, 8, 2, 96, 192, 192, 32, 64, True, None, 0, None, 1, True, ((70, 10), (0, 40))),
 )
 #   (B, Hq, Hkv, D, page, window, sinks, softcap, bf16 q, table slots,
 #    lengths (None: drawn from 1 to a full table), scores far below zero)
@@ -929,39 +963,64 @@ def _coverage_float(g):
     return ratios, failed
 
 
+def flash_coverage_inputs(g, case, device="cuda"):
+    """(q, k_i8, k_scales, v_i8, v_scales, offsets, kw) of a FLASH_COVERAGE
+    case, drawn from the generator g; kw holds the plain version's keywords
+    (save_residuals=True)."""
+    import torch
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
+    (B, H, Hkv, Sq, Skv, kv_len, D, bkv, causal, window, sinks, cap, mode, qbf16,
+     offs) = case
+    dt = torch.bfloat16 if qbf16 else torch.float32
+    q = (torch.randn((B, H, Sq, D), generator=g, device=device) * 2).to(dt)
+    kv = torch.randn((2, B, Hkv, Skv, D), generator=g, device=device).to(dt)
+    k_i8, ks = quantize_kv_blocks(kv[0], bkv)
+    v_i8, vs = quantize_kv_blocks(kv[1], bkv)
+    if offs is None:
+        qo, kvo = kv_len - Sq, 0
+    elif isinstance(offs[0], tuple):
+        qo, kvo = (torch.tensor(x, device=device) for x in zip(*offs))
+    else:
+        qo, kvo = torch.tensor(offs, device=device), 0
+    kw = dict(sm_scale=D**-0.5, causal=causal, kv_len=kv_len, block_kv=bkv,
+              scale_clamp=1e-8, p_scale=127.0, window=window, softcap=cap,
+              sinks=sinks, mode=mode, save_residuals=True)
+    return q, k_i8, ks, v_i8, vs, fa8._offsets(qo, kvo, B, q.device), kw
+
+
+def _flash_coverage_ratios(g):
+    """FLASH_COVERAGE: the INT8 flash kernel against plain on the card,
+    each case launched twice, {case: [output, lse] err_over_tol} (a third
+    entry, inf, when the second launch's bits differ)."""
+    import torch
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    ratios = {}
+    for i, case in enumerate(FLASH_COVERAGE):
+        *operands, kw = flash_coverage_inputs(g, case)
+        kernel, args, (out, lse), _operands = fa8._flash_int8_launch(*operands, **kw)
+        kernel(*args)
+        torch.cuda.synchronize()
+        same = _same_bits_again(lambda: kernel(*args), (out, lse))
+        p_out, p_lse = fa8._flash_int8_plain(*operands, **kw)
+        _, _, l = fa8._flash_int8_plain_state(
+            *operands, **{k: x for k, x in kw.items() if k != "save_residuals"})
+        tol, lse_tol = flash_tolerances(p_out, p_lse, l, operands[3], operands[4],
+                                        kw["block_kv"], kw["mode"])
+        ratios[f"fa8_{i}"] = [err_over_tol(out, p_out, tol), err_over_tol(lse, p_lse, lse_tol)]
+        if not same:
+            ratios[f"fa8_{i}"].append(float("inf"))
+    return ratios
+
+
 def _coverage():
     """Every FLASH_COVERAGE / DECODE_COVERAGE case, kernel against plain on
     the card with output and lse checked; returns the summary entry, with
     each case's [output, lse] error over its tolerance."""
     import torch
-    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
-    from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
     g = torch.Generator(device="cuda").manual_seed(5)
-    ratios, failed = {}, []
-    for i, (B, H, Hkv, Sq, Skv, kv_len, D, bkv, causal, window, sinks, cap, mode,
-            qbf16, q_off) in enumerate(FLASH_COVERAGE):
-        dt = torch.bfloat16 if qbf16 else torch.float32
-        q = (torch.randn((B, H, Sq, D), generator=g, device="cuda") * 2).to(dt)
-        kv = torch.randn((2, B, Hkv, Skv, D), generator=g, device="cuda").to(dt)
-        k_i8, ks = quantize_kv_blocks(kv[0], bkv)
-        v_i8, vs = quantize_kv_blocks(kv[1], bkv)
-        qo = kv_len - Sq if q_off is None else torch.tensor(q_off, device="cuda")
-        offsets = fa8._offsets(qo, 0, B, q.device)
-        kw = dict(sm_scale=D**-0.5, causal=causal, kv_len=kv_len, block_kv=bkv,
-                  scale_clamp=1e-8, p_scale=127.0, window=window, softcap=cap,
-                  sinks=sinks, mode=mode, save_residuals=True)
-        kernel, args, (out, lse), _operands = fa8._flash_int8_launch(
-            q, k_i8, ks, v_i8, vs, offsets, **kw)
-        kernel(*args)
-        torch.cuda.synchronize()
-        p_out, p_lse = fa8._flash_int8_plain(q, k_i8, ks, v_i8, vs, offsets, **kw)
-        _, _, l = fa8._flash_int8_plain_state(
-            q, k_i8, ks, v_i8, vs, offsets,
-            **{k: x for k, x in kw.items() if k != "save_residuals"})
-        tol, lse_tol = flash_tolerances(p_out, p_lse, l, v_i8, vs, bkv, mode)
-        ratios[f"flash{i}"] = [err_over_tol(out, p_out, tol), err_over_tol(lse, p_lse, lse_tol)]
-        if max(ratios[f"flash{i}"]) > 1.0:
-            failed.append(f"flash{i}")
+    ratios = _flash_coverage_ratios(g)
+    failed = [k for k, x in ratios.items() if max(x) > 1.0]
     r = _decode_coverage_ratios(g)
     ratios.update(r)
     failed += [k for k, x in r.items() if max(x) > 1.0]
@@ -1866,12 +1925,40 @@ PLANTED_FAULTS = (
     ("w4_matmul.cu", "bf16: output columns permuted (tile 0's row g + 8 and tile 1's row g swapped)",
      "const float v[4] = {acc[0][i][u], acc[0][i][2 + u], acc[1][i][u], acc[1][i][2 + u]};",
      "const float v[4] = {acc[0][i][u], acc[1][i][u], acc[0][i][2 + u], acc[1][i][2 + u]};"),
+    ("wgmma_s8.cuh", "bf16 P: s8 operands' k32 step advanced 16 bytes, not 32 (d >= 64)",
+     "  return sw128_desc(tile + 32 * kc);", "  return sw128_desc(tile + 16 * kc);"),
+    ("flash_int8_fwd.cu", "bf16 P: scores converted as unsigned (negative ones near 2^32)",
+     "__device__ __forceinline__ float s32_to_f32(int s) { return static_cast<float>(s); }",
+     "__device__ __forceinline__ float s32_to_f32(int s) { return static_cast<float>(unsigned(s)); }"),
+    ("flash_int8_fwd.cu", "bf16 P: V converted as unsigned (biased by 128)",
+     "  const uint32_t u = w ^ 0x80808080u;", "  const uint32_t u = w;"),
+    ("flash_int8_fwd.cu", "bf16 P: the ones column zero (l dropped)",
+     "          make_uint4(BF16_ONES, BF16_ONES, BF16_ONES, BF16_ONES);",
+     "          make_uint4(0u, 0u, 0u, 0u);"),
+    ("flash_int8_fwd.cu", "bf16 P: an item's K and V copied into the next stage (stale reads)",
+     "          issue(t0, kb1, sweep == 1, s);",
+     "          issue(t0, kb1, sweep == 1, (n + 1) % R::STAGES);"),
+    ("flash_int8_fwd.cu", "bf16 P: V scale of the next quant block",
+     "    const float v_scale = p.vs[sidx];",
+     "    const float v_scale = p.vs[qb + 1 < p.nkv ? sidx + 1 : sidx];"),
+    ("flash_int8_fwd.cu", "bf16 P: keys past a clipped tile's quant block kept",
+     "const bool keep = kloc < tend && pair_valid(p, qpos_r[r], kv_off + kloc, kloc);",
+     "const bool keep = pair_valid(p, qpos_r[r], kv_off + kloc, kloc);"),
+    ("flash_int8_fwd.cu", "bf16 P: a warp's tile taken as mask-free when its last row sees it whole",
+     "range_unmasked(p, wq_first, wq_last, kv_off + t0, kv_off + tend - 1, tend - 1);",
+     "range_unmasked(p, wq_last, wq_last, kv_off + t0, kv_off + tend - 1, tend - 1);"),
+    ("flash_int8_fwd.cu", "bf16 P: each k16 step of P against the V rows of the neighbouring step",
+     "for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(pv, a[kk], tile_desc_mn(vt, 16 * kk));",
+     "for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(pv, a[kk], tile_desc_mn(vt, 16 * (kk ^ 1)));"),
+    ("flash_int8_fwd.cu", "bf16 P: acc not rescaled by alpha (rows g)",
+     "make_float4(x.x * alpha[0] + pv[c][0] * v_scale, x.y * alpha[0] + pv[c][1] * v_scale,",
+     "make_float4(x.x + pv[c][0] * v_scale, x.y + pv[c][1] * v_scale,"),
 )
 # The kernel sources the faults are held to, and the prefixes of their
 # coverage cases.
 FAULT_SOURCES = {"flash_fwd": ("flash_fwd",), "paged_prefill": ("paged_prefill",),
                  "paged_decode": ("decode", "paged_decode"), "flash_bwd": ("flash_bwd",),
-                 "w4_matmul": ("w4",)}
+                 "w4_matmul": ("w4",), "flash_int8_fwd": ("fa8_",)}
 
 
 def _decode_coverage_ratios(g):
@@ -1977,6 +2064,18 @@ def _fault_checks(src):
         ratios = _coverage_bwd(g5)
     elif src == "w4_matmul":
         main, ratios = _w4_fault_ratios(g, g5)
+    elif src == "flash_int8_fwd":
+        # solve's shape (MODE_BF16_P) and the serve prefill's (MODE_INT8_P),
+        # as the kernels phase draws them; then FLASH_COVERAGE.
+        for name, mode, shape, hkv, dt, bkv, causal in (
+                ("solve fa_int8", 1, (1, 32, 8192, 32), 32, torch.float32, 512, False),
+                ("serve prefill", 0, (1, 32, 256, 128), 8, torch.bfloat16, 256, True)):
+            q = torch.randn(shape, generator=g, device="cuda").to(dt)
+            k, v = torch.randn((2, 1, hkv) + shape[2:], generator=g, device="cuda").to(dt)
+            e = _flash_case(name, mode, q, k, v, bkv, causal, replaces=None, library=False,
+                            timed=False)
+            main[name] = [e["err_over_tol"]] + ([] if e["same_bits_twice"] else [float("inf")])
+        ratios = _flash_coverage_ratios(g5)
     elif src == "paged_prefill":
         main["serve_flash chunk"] = _paged_prefill_check(*_paged_main_inputs(g))[2]
         q, cache, lengths, tables, q_starts = _int4_prefill_main_inputs(g)
@@ -2003,6 +2102,7 @@ def phase_faults(st):
     from quantizedmha_tpu_torch.ops import cuda_lib
     from quantizedmha_tpu_torch.ops import decode as dec
     from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
     from quantizedmha_tpu_torch.ops import paged_prefill as pp
     from quantizedmha_tpu_torch.ops import w4_matmul as w4
     out_dir = cuda_lib.BUILD_DIR / "faults"
@@ -2031,7 +2131,8 @@ def phase_faults(st):
                "paged_prefill": (pp.PAGED_PREFILL, pp.PAGED_PREFILL_INT4),
                "paged_decode": (dec.PAGED_DECODE, dec.PAGED_DECODE_INT4),
                "flash_bwd": (fa.FLASH_BWD_DKV, fa.FLASH_BWD_DQ),
-               "w4_matmul": (w4.W4_MATMUL,)}
+               "w4_matmul": (w4.W4_MATMUL,),
+               "flash_int8_fwd": (fa8.FLASH_INT8_P, fa8.FLASH_BF16_P)}
     rows = []
     try:
         for what, src, _, lib in builds:

@@ -3,13 +3,15 @@ parent commit unpacked beside this one (`git archive <commit> | tar -x -C
 build/parent`), against this tree's, in one process.
 
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --parent build/parent \\
-        [--source paged_prefill|paged_decode|flash_fwd|w4_matmul] [--out ab.json]
+        [--source paged_prefill|paged_decode|flash_fwd|w4_matmul|flash_int8_fwd] [--out ab.json]
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source paged_decode \\
         --variants quantizedmha_tpu_torch/harness/decode_ablations.json
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source flash_fwd \\
         --parent build/parent --variants quantizedmha_tpu_torch/harness/flash_fwd_variants.json
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source w4_matmul \\
         --parent build/parent --variants quantizedmha_tpu_torch/harness/w4_matmul_variants.json
+    python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source flash_int8_fwd \\
+        --parent build/parent --variants quantizedmha_tpu_torch/harness/flash_int8_fwd_variants.json
 
 Each library is launched through its own tree's wrapper (`ops/<op>.py`'s
 `_*_launch`, loaded from that tree), so a change of the C signature is
@@ -65,6 +67,19 @@ err_over_tol is reported, not gated).
   in f32: whether the libraries give the same bits.
 - ptxas registers and spill bytes of each library's kernels.
 
+--source flash_int8_fwd (csrc/flash_int8_fwd.cu, rows 1-2):
+- MODE_BF16_P (row 2) at solve's fa_int8 shape (1 x 32 x 8192 x 32, f32 q,
+  block_kv 512, not causal): ms in turns (20 launches; graph_ms: 20
+  launches in one CUDA graph, replayed), err_over_tol against this tree's
+  plain version under chip_smoke.py's flash_tolerances, whether each
+  library gives the same bits twice, SDPA's ms (bf16, the first backend
+  that takes the inputs) and the bound.
+- MODE_INT8_P (row 1) at the serve prefill's shape (1 x 32 x 256 x 128,
+  8 kv heads, bf16 q, block_kv 256, causal), timed the same way, and at
+  every MODE_INT8_P case of chip_smoke.py's FLASH_COVERAGE: whether every
+  library gives the same bits (output and lse).
+- ptxas registers and spill bytes of each library's kernels.
+
 Prints one JSON object (and writes it to --out); exits 1 when a library
 fails its check, or the f32 route's bits differ.
 """
@@ -84,7 +99,10 @@ import torch
 
 REPO = Path(__file__).resolve().parents[2]
 OPS = {"paged_prefill": "paged_prefill", "paged_decode": "decode",
-       "flash_fwd": "flash_attention", "w4_matmul": "w4_matmul"}
+       "flash_fwd": "flash_attention", "w4_matmul": "w4_matmul",
+       "flash_int8_fwd": "flash_attention_int8"}
+# The wrapper's launch function, where it is not _<source>_launch.
+LAUNCH = {"flash_int8_fwd": "_flash_int8_launch"}
 
 
 def _ops_module(tree: Path, source: str, name: str):
@@ -154,9 +172,11 @@ def _trees(source: str, parent=None, variants=None):
     """{"parent" | variant name | "this": (ops module, bound functions,
     library)}; every library built at once."""
     from quantizedmha_tpu_torch.ops import cuda_lib
-    from quantizedmha_tpu_torch.ops import decode, flash_attention, paged_prefill, w4_matmul
+    from quantizedmha_tpu_torch.ops import (decode, flash_attention, flash_attention_int8,
+                                            paged_prefill, w4_matmul)
     this = {"paged_prefill": paged_prefill, "paged_decode": decode,
-            "flash_fwd": flash_attention, "w4_matmul": w4_matmul}[source]
+            "flash_fwd": flash_attention, "w4_matmul": w4_matmul,
+            "flash_int8_fwd": flash_attention_int8}[source]
     libs = []
     if parent is not None:
         libs.append(("parent", _ops_module(parent, source, f"_ab_parent_{source}"),
@@ -177,7 +197,7 @@ def _trees(source: str, parent=None, variants=None):
 def _launcher(module, fns, source):
     """launch(operands, **kw) -> (outputs, (function, ctypes args), kept
     operands) through a tree's wrapper and library."""
-    make = getattr(module, f"_{source}_launch")
+    make = getattr(module, LAUNCH.get(source, f"_{source}_launch"))
 
     def launch(operands, **kw):
         kernel, args, outs, keep = make(*operands, **kw)
@@ -373,7 +393,7 @@ def _graph_ms(module, fns, source, operands, kw, calls=20, replays=5):
     """ms a call on the card alone: `calls` launches through a tree's
     wrapper captured in one CUDA graph and replayed (back-to-back launches
     from Python can be held back by the host)."""
-    make = getattr(module, f"_{source}_launch")
+    make = getattr(module, LAUNCH.get(source, f"_{source}_launch"))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # first launches (one-time set-up) outside the capture
@@ -473,6 +493,68 @@ def _w4_ab(trees, g, result):
     return ok and all(result["f32_same_bits"].values())
 
 
+def _flash_int8_ab(trees, g, result):
+    import chip_smoke as cs
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
+    launchers = {w: _launcher(m, f, "flash_int8_fwd") for w, (m, f, _) in trees.items()}
+    result["ptxas"] = {w: cs._ptxas_kernels(lib.with_suffix(".log").read_text())
+                       for w, (_, _, lib) in trees.items()}
+    ok = True
+    # (mode, q shape, kv heads, q dtype, block_kv, causal)
+    mains = {"solve fa_int8 (bf16_p)": (1, (1, 32, 8192, 32), 32, torch.float32, 512, False),
+             "serve prefill (int8_p)": (0, (1, 32, 256, 128), 8, torch.bfloat16, 256, True)}
+    for name, (mode, shape, hkv, dt, bkv, causal) in mains.items():
+        B, H, S, D = shape
+        q = torch.randn(shape, generator=g, device="cuda").to(dt)
+        k, v = torch.randn((2, B, hkv, S, D), generator=g, device="cuda").to(dt)
+        k_i8, ks = quantize_kv_blocks(k, bkv)
+        v_i8, vs = quantize_kv_blocks(v, bkv)
+        operands = (q, k_i8, ks, v_i8, vs, fa8._offsets(0, 0, B, q.device))
+        kw = dict(sm_scale=D**-0.5, causal=causal, kv_len=S, block_kv=bkv, scale_clamp=1e-8,
+                  p_scale=127.0, window=None, softcap=None, sinks=0, mode=mode)
+        p_out = fa8._flash_int8_plain(*operands, save_residuals=False, **kw)
+        _, _, l = fa8._flash_int8_plain_state(*operands, **kw)
+        tol, _ = cs.flash_tolerances(p_out, None, l, v_i8, vs, bkv, mode)
+        row, calls, outs = {}, {}, {}
+        for which, launch in launchers.items():
+            (o, _), call, keep = launch(operands, save_residuals=False, **kw)
+            calls[which] = (call, (o, keep))
+            outs[which] = o
+            same = cs._same_bits_again(lambda: call[0](*call[1]), [o])
+            row[which] = {"err_over_tol": cs.err_over_tol(o, p_out, tol), "same_bits_twice": same}
+            if which in ("this", "parent"):
+                ok &= row[which]["err_over_tol"] <= 1.0 and same
+        if mode == 0:
+            row["same_bits_as_this"] = {w: torch.equal(o, outs["this"]) for w, o in outs.items()}
+            ok &= row["same_bits_as_this"].get("parent", True)
+        _timed_turns(calls, row, iters=20)
+        for which, (module, fns, _) in trees.items():
+            row[which]["graph_ms"] = _graph_ms(module, fns, "flash_int8_fwd", operands,
+                                               dict(save_residuals=False, **kw))
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        row["sdpa_ms"], row["sdpa_backend"] = cs._sdpa(qb, kb, vb, is_causal=causal,
+                                                       enable_gqa=hkv != H)
+        pairs = B * H * cs._visible_pairs(S, S, causal)
+        nbytes = q.numel() * q.element_size() * 2 + 2 * k_i8.numel() + 2 * ks.numel() * 4
+        ops = {"int8": 2 * pairs * D * (2 if mode == 0 else 1),
+               "bf16": 0 if mode == 0 else 2 * pairs * D, "exp": pairs}
+        row["bound_ms"], row["bound_by"] = cs.bound(nbytes, ops)
+        result["main"][name] = row
+        del q, k, v, qb, kb, vb, calls, outs
+    # MODE_INT8_P at every coverage case: the same bits from every library
+    # (the variants change MODE_BF16_P's kernel alone).
+    result["int8_p_same_bits"] = {}
+    for i, case in enumerate(cs.FLASH_COVERAGE):
+        if case[12] != 0:
+            continue
+        *operands, kw = cs.flash_coverage_inputs(g, case)
+        outs = [launch(operands, **kw)[0] for launch in launchers.values()]
+        result["int8_p_same_bits"][f"fa8_{i}"] = all(
+            torch.equal(a, b) for other in outs[1:] for a, b in zip(outs[0], other))
+    return ok and all(result["int8_p_same_bits"].values())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path,
@@ -480,13 +562,14 @@ def main(argv=None) -> int:
     ap.add_argument("--source", choices=sorted(OPS), default="paged_prefill")
     ap.add_argument("--variants", type=Path,
                     help="JSON {name: [[line, replacement], ...]} of this tree's source "
-                         "(paged_decode, flash_fwd, w4_matmul)")
+                         "(paged_decode, flash_fwd, w4_matmul, flash_int8_fwd)")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if args.parent is None and args.variants is None:
         ap.error("give --parent, --variants or both")
     if args.variants is not None and args.source == "paged_prefill":
-        ap.error("--variants takes --source paged_decode or flash_fwd")
+        ap.error("--variants takes --source paged_decode, flash_fwd, w4_matmul or "
+                 "flash_int8_fwd")
     if not torch.cuda.is_available():
         print("paged_prefill_ab: no CUDA device is available", file=sys.stderr)
         return 2
@@ -500,7 +583,8 @@ def main(argv=None) -> int:
     result = {"gpu": cs.gpu_line(), "parent": args.parent and str(args.parent),
               "variants": variants, "source": args.source, "main": {}}
     ab = {"paged_prefill": _prefill_ab, "paged_decode": _decode_ab,
-          "flash_fwd": _flash_fwd_ab, "w4_matmul": _w4_ab}[args.source]
+          "flash_fwd": _flash_fwd_ab, "w4_matmul": _w4_ab,
+          "flash_int8_fwd": _flash_int8_ab}[args.source]
     result["ok"] = bool(ab(trees, g, result))
     text = json.dumps(result)
     if args.out is not None:
