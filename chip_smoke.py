@@ -10,7 +10,8 @@ result line:
   build    compile every CUDA source under quantizedmha_tpu_torch/csrc/
            (one nvcc each, in parallel) and report the card, each kernel's
            registers and spills and each source's serialized wgmma
-           (flash_int8_bf16p: the INT8 flash bf16-P kernel's).
+           (flash_int8_bf16p, flash_int8_int8p: the INT8 flash bf16-P and
+           int8-P kernels').
   kernels  hold each kernel against its plain PyTorch version on the card
            at the main paths' shapes, every element within its stated
            tolerance (err_over_tol <= 1), then on small cases off the main
@@ -19,8 +20,9 @@ result line:
            backward's two kernels at the training step's attention shape
            and on 11 small cases, each pair launched twice (the same bits
            both times, or the check fails), and so is every INT8 flash
-           launch (both numerics modes at their main shapes and every
-           FLASH_COVERAGE case), every bf16 float
+           launch (both numerics modes at their main shapes, the int8-P
+           one at serve's 256-token and serve_w4's 512-token prefill, and
+           every FLASH_COVERAGE case), every bf16 float
            flash launch, every bf16 paged prefill launch (INT8 and INT4,
            tensor cores), every paged decode launch (INT8 and INT4:
            split page walks merged by lse) and every w4_matmul launch
@@ -459,14 +461,16 @@ def phase_build(st):
                       # ptxas C7514: wgmma serialized (a register hazard in the pipeline)
                       "wgmma_serialized": len(re.findall(r"C7514", log))}
     st["gpu"] = gpu_line()
-    # MODE_BF16_P's wgmma kernel at each head dim and q dtype: [registers,
-    # spill store bytes], and the serialized wgmma of its source.
+    # The INT8 flash kernels (bf16 P, int8 P) at each head dim and q dtype:
+    # [registers, spill store bytes], and the serialized wgmma of their source.
     fa8 = regs.get("flash_int8_fwd", {})
-    bf16p = {"kernels": {k: x for k, x in fa8.get("kernels", {}).items()
-                         if k.startswith("flash_int8_bf16p_kernel")},
-             "wgmma_serialized": fa8.get("wgmma_serialized")}
+    bf16p, int8p = ({"kernels": {k: x for k, x in fa8.get("kernels", {}).items()
+                                 if k.startswith(name)},
+                     "wgmma_serialized": fa8.get("wgmma_serialized")}
+                    for name in ("flash_int8_bf16p_kernel", "flash_int8_int8p_kernel"))
     emit({"phase": "build", "ok": True, "seconds": round(secs, 2),
-          "flash_int8_bf16p": bf16p, "ptxas": regs, "gpu": st["gpu"]})
+          "flash_int8_bf16p": bf16p, "flash_int8_int8p": int8p, "ptxas": regs,
+          "gpu": st["gpu"]})
 
 
 def _flash_case(name, route_mode, q, k, v, block_kv, causal, *, replaces, library, timed=True):
@@ -844,7 +848,15 @@ def _paged_prefill_case(g, *, replaces):
 # wholly masked for some rows of a tile (causal with q offsets; rows of the
 # last case's second sequence see no key), window + sinks with skipped
 # tiles, softcap on mask-free tiles, d = 32, 64 and 128 (128 not causal),
-# f32 and bf16 q, GQA with offsets per sequence.
+# f32 and bf16 q, GQA with offsets per sequence. The cases from the
+# eighteenth on hold MODE_INT8_P's wgmma kernel (64 q rows a block, one q
+# head) at its edges: serve_w4's 512 keys in one quant block of 512, a
+# quant block of 1024 over keys padded past kv_len, q rows not a multiple
+# of 64, GQA groups of 1, 4 and 8, block_kv of 64, 96, 320 and 40 (Skv
+# under one tile), a quant block wholly masked for some rows (offsets per
+# sequence), window + sinks with skipped tiles, softcap on mask-free tiles,
+# d = 32, 64 and 128, f32 and bf16 q; each draws from its own generator
+# (FIRST_INT8P_CASE), so that the cases after FLASH_COVERAGE keep theirs.
 FLASH_COVERAGE = (
     (2, 4, 2, 100, 192, 192, 32, 64, False, None, 0, None, 1, False, None),
     (2, 4, 2, 100, 192, 192, 64, 96, True, None, 0, None, 0, True, None),
@@ -863,7 +875,16 @@ FLASH_COVERAGE = (
     (1, 4, 2, 96, 256, 256, 64, 128, False, None, 0, 25.0, 1, True, None),
     (1, 2, 2, 70, 512, 512, 128, 512, False, None, 0, None, 1, False, None),
     (2, 8, 2, 96, 192, 192, 32, 64, True, None, 0, None, 1, True, ((70, 10), (0, 40))),
+    (1, 8, 2, 512, 512, 512, 128, 512, True, None, 0, None, 0, True, None),
+    (1, 4, 1, 300, 1024, 600, 128, 1024, True, None, 0, None, 0, False, None),
+    (1, 2, 2, 100, 320, 320, 64, 320, True, None, 0, None, 0, True, None),
+    (1, 8, 1, 70, 40, 40, 32, 40, False, None, 0, None, 0, False, None),
+    (2, 4, 2, 96, 192, 192, 64, 96, True, None, 0, None, 0, True, ((70, 10), (0, 40))),
+    (1, 4, 2, 400, 512, 400, 128, 128, True, 64, 4, None, 0, True, None),
+    (1, 4, 2, 128, 256, 256, 64, 256, False, None, 0, 25.0, 0, False, None),
+    (2, 2, 2, 150, 256, 256, 32, 64, True, None, 0, None, 0, True, (10, 50)),
 )
+FIRST_INT8P_CASE = 17
 #   (B, Hq, Hkv, D, page, window, sinks, softcap, bf16 q, table slots,
 #    lengths (None: drawn from 1 to a full table), scores far below zero)
 # The first three hold tables of 6 slots (one split); the rest hold 20-40
@@ -997,7 +1018,8 @@ def _flash_coverage_ratios(g):
     from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
     ratios = {}
     for i, case in enumerate(FLASH_COVERAGE):
-        *operands, kw = flash_coverage_inputs(g, case)
+        gi = g if i < FIRST_INT8P_CASE else torch.Generator(device="cuda").manual_seed(i)
+        *operands, kw = flash_coverage_inputs(gi, case)
         kernel, args, (out, lse), _operands = fa8._flash_int8_launch(*operands, **kw)
         kernel(*args)
         torch.cuda.synchronize()
@@ -1750,10 +1772,25 @@ def phase_kernels(st):
     qs = torch.randn((1, 32, 8192, 32), generator=g, device="cuda")
     ks = torch.randn((1, 32, 8192, 32), generator=g, device="cuda")
     vs = torch.randn((1, 32, 8192, 32), generator=g, device="cuda")
+    int8_p = _flash_case("flash_int8_fwd[int8_p]", 0, qp, kp, vp, 256, True,
+                         replaces="quantizedmha_tpu/ops/flash_attention_int8.py:80",
+                         library=True)
+    # serve_w4's prefill (most of the kernel's launches): 512-token prompts,
+    # one a launch, block_kv = min(1024, 512); drawn from its own generator,
+    # so that every other kernel keeps its inputs.
+    g4 = torch.Generator(device="cuda").manual_seed(13)
+    q4 = torch.randn((1, 32, 512, 128), generator=g4, device="cuda").to(torch.bfloat16)
+    k4, v4 = torch.randn((2, 1, 8, 512, 128), generator=g4, device="cuda").to(torch.bfloat16)
+    w4_prefill = _flash_case("flash_int8_fwd[int8_p]", 0, q4, k4, v4, 512, True,
+                             replaces="quantizedmha_tpu/ops/flash_attention_int8.py:80",
+                             library=True)
+    del q4, k4, v4
+    int8_p["serve_w4"] = {k: w4_prefill[k] for k in (
+        "max_abs_err", "err_over_tol", "same_bits_twice", "ok", "shape", "ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms")}
+    int8_p["ok"] = int8_p["ok"] and w4_prefill["ok"]
     cases = [
-        _flash_case("flash_int8_fwd[int8_p]", 0, qp, kp, vp, 256, True,
-                    replaces="quantizedmha_tpu/ops/flash_attention_int8.py:80",
-                    library=True),
+        int8_p,
         _flash_case("flash_int8_fwd[bf16_p]", 1, qs, ks, vs, 512, False,
                     replaces="quantizedmha_tpu/ops/flash_attention_int8.py:437",
                     library=True),
@@ -1953,6 +1990,30 @@ PLANTED_FAULTS = (
     ("flash_int8_fwd.cu", "bf16 P: acc not rescaled by alpha (rows g)",
      "make_float4(x.x * alpha[0] + pv[c][0] * v_scale, x.y * alpha[0] + pv[c][1] * v_scale,",
      "make_float4(x.x + pv[c][0] * v_scale, x.y + pv[c][1] * v_scale,"),
+    ("flash_int8_fwd.cu", "int8 P: Vᵀ's keys one step off (lane t's P against lane t + 1's keys)",
+     "*reinterpret_cast<uint32_t*>(vt_of(s) + sw8(d, x.q) + 4 * x.ut) = col[k];",
+     "*reinterpret_cast<uint32_t*>(vt_of(s) + sw8(d, x.q) + 4 * ((x.ut + 1) & 3)) = col[k];"),
+    ("flash_int8_fwd.cu", "int8 P: P truncated, not rounded to nearest even",
+     "x[u] = __float_as_uint(__fadd_rn(pe[u], 12582912.f));",
+     "x[u] = __float_as_uint(__fadd_rz(pe[u], 12582912.f));"),
+    ("flash_int8_fwd.cu", "int8 P: l sums the rounded P, not the f32 P'",
+     "lsum[r] += (pe[0] + pe[1]) + (pe[2] + pe[3]);",
+     "lsum[r] += (rintf(pe[0]) + rintf(pe[1])) + (rintf(pe[2]) + rintf(pe[3]));"),
+    ("flash_int8_fwd.cu", "int8 P: V scale of the next quant block",
+     "    const float vsc = p.vs[sidx];",
+     "    const float vsc = p.vs[qb + 1 < p.nkv ? sidx + 1 : sidx];"),
+    ("flash_int8_fwd.cu", "int8 P: acc not rescaled by alpha",
+     "acc[j][e] = fmaf(acc[j][e], alpha[e >> 1], static_cast<float>(pvi[j][e]) * vsc);",
+     "acc[j][e] = acc[j][e] + static_cast<float>(pvi[j][e]) * vsc;"),
+    ("flash_int8_fwd.cu", "int8 P: keys past a clipped tile's quant block kept",
+     "const bool keep = kloc < tend && pair_valid(p, qp[r], kv_off + kloc, kloc);",
+     "const bool keep = pair_valid(p, qp[r], kv_off + kloc, kloc);"),
+    ("flash_int8_fwd.cu", "int8 P: a warp's tile taken as mask-free when its last row sees it whole",
+     "tend - t0 == TK && range_unmasked(p, wlo, whi, kv_off + t0, kv_off + tend - 1, tend - 1);",
+     "tend - t0 == TK && range_unmasked(p, whi, whi, kv_off + t0, kv_off + tend - 1, tend - 1);"),
+    ("flash_int8_fwd.cu", "int8 P: an item's K and V copied into the next stage (stale reads)",
+     "          copy_item(t0, kb1, sw == 1, s);",
+     "          copy_item(t0, kb1, sw == 1, (n + 1) % R::STAGES);"),
 )
 # The kernel sources the faults are held to, and the prefixes of their
 # coverage cases.
@@ -2065,11 +2126,12 @@ def _fault_checks(src):
     elif src == "w4_matmul":
         main, ratios = _w4_fault_ratios(g, g5)
     elif src == "flash_int8_fwd":
-        # solve's shape (MODE_BF16_P) and the serve prefill's (MODE_INT8_P),
-        # as the kernels phase draws them; then FLASH_COVERAGE.
+        # solve's shape (MODE_BF16_P) and the serve and serve_w4 prefills'
+        # (MODE_INT8_P); then FLASH_COVERAGE.
         for name, mode, shape, hkv, dt, bkv, causal in (
                 ("solve fa_int8", 1, (1, 32, 8192, 32), 32, torch.float32, 512, False),
-                ("serve prefill", 0, (1, 32, 256, 128), 8, torch.bfloat16, 256, True)):
+                ("serve prefill", 0, (1, 32, 256, 128), 8, torch.bfloat16, 256, True),
+                ("serve_w4 prefill", 0, (1, 32, 512, 128), 8, torch.bfloat16, 512, True)):
             q = torch.randn(shape, generator=g, device="cuda").to(dt)
             k, v = torch.randn((2, 1, hkv) + shape[2:], generator=g, device="cuda").to(dt)
             e = _flash_case(name, mode, q, k, v, bkv, causal, replaces=None, library=False,

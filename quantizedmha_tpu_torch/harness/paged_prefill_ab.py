@@ -11,7 +11,8 @@ build/parent`), against this tree's, in one process.
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source w4_matmul \\
         --parent build/parent --variants quantizedmha_tpu_torch/harness/w4_matmul_variants.json
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source flash_int8_fwd \\
-        --parent build/parent --variants quantizedmha_tpu_torch/harness/flash_int8_fwd_variants.json
+        --parent build/parent --variants quantizedmha_tpu_torch/harness/flash_int8_fwd_variants.json \\
+        [--only int8p_one_consumer int8p_knockout_no_exp ...]
 
 Each library is launched through its own tree's wrapper (`ops/<op>.py`'s
 `_*_launch`, loaded from that tree), so a change of the C signature is
@@ -20,7 +21,8 @@ A/B'd as well; both are built with this tree's cuda_lib.NVCC_FLAGS. With
 ...]}), each named variant of this tree's source, its lines replaced, is
 timed in turns against this tree's, beside the parent when one is given
 (a variant that knocks a phase out fails its check by design: its
-err_over_tol is reported, not gated).
+err_over_tol is reported, not gated); --only keeps the named variants of
+the file.
 
 --source paged_prefill (csrc/paged_prefill.cu):
 - Rows 10 (`paged_prefill`) and 11 (`paged_prefill_int4`) at chip_smoke.py's
@@ -73,11 +75,15 @@ err_over_tol is reported, not gated).
   launches in one CUDA graph, replayed), err_over_tol against this tree's
   plain version under chip_smoke.py's flash_tolerances, whether each
   library gives the same bits twice, SDPA's ms (bf16, the first backend
-  that takes the inputs) and the bound.
+  that takes the inputs) and the bound; whether the parent's library gives
+  this one's bits.
 - MODE_INT8_P (row 1) at the serve prefill's shape (1 x 32 x 256 x 128,
-  8 kv heads, bf16 q, block_kv 256, causal), timed the same way, and at
-  every MODE_INT8_P case of chip_smoke.py's FLASH_COVERAGE: whether every
-  library gives the same bits (output and lse).
+  8 kv heads, bf16 q, block_kv 256, causal) and serve_w4's (the same at
+  512 tokens, block_kv 512), timed the same way.
+- Every MODE_INT8_P case of chip_smoke.py's FLASH_COVERAGE: each
+  library's err_over_tol (output, lse) and whether it gives the same bits
+  twice; every MODE_BF16_P case: whether the parent's library gives this
+  one's bits (output and lse).
 - ptxas registers and spill bytes of each library's kernels.
 
 Prints one JSON object (and writes it to --out); exits 1 when a library
@@ -503,7 +509,8 @@ def _flash_int8_ab(trees, g, result):
     ok = True
     # (mode, q shape, kv heads, q dtype, block_kv, causal)
     mains = {"solve fa_int8 (bf16_p)": (1, (1, 32, 8192, 32), 32, torch.float32, 512, False),
-             "serve prefill (int8_p)": (0, (1, 32, 256, 128), 8, torch.bfloat16, 256, True)}
+             "serve prefill (int8_p)": (0, (1, 32, 256, 128), 8, torch.bfloat16, 256, True),
+             "serve_w4 prefill (int8_p)": (0, (1, 32, 512, 128), 8, torch.bfloat16, 512, True)}
     for name, (mode, shape, hkv, dt, bkv, causal) in mains.items():
         B, H, S, D = shape
         q = torch.randn(shape, generator=g, device="cuda").to(dt)
@@ -525,8 +532,8 @@ def _flash_int8_ab(trees, g, result):
             row[which] = {"err_over_tol": cs.err_over_tol(o, p_out, tol), "same_bits_twice": same}
             if which in ("this", "parent"):
                 ok &= row[which]["err_over_tol"] <= 1.0 and same
-        if mode == 0:
-            row["same_bits_as_this"] = {w: torch.equal(o, outs["this"]) for w, o in outs.items()}
+        row["same_bits_as_this"] = {w: torch.equal(o, outs["this"]) for w, o in outs.items()}
+        if mode == 1:  # (row 2 keeps the parent's kernel)
             ok &= row["same_bits_as_this"].get("parent", True)
         _timed_turns(calls, row, iters=20)
         for which, (module, fns, _) in trees.items():
@@ -542,17 +549,30 @@ def _flash_int8_ab(trees, g, result):
         row["bound_ms"], row["bound_by"] = cs.bound(nbytes, ops)
         result["main"][name] = row
         del q, k, v, qb, kb, vb, calls, outs
-    # MODE_INT8_P at every coverage case: the same bits from every library
-    # (the variants change MODE_BF16_P's kernel alone).
-    result["int8_p_same_bits"] = {}
+    # The coverage cases: MODE_INT8_P's held to the plain version (the same
+    # bits twice), MODE_BF16_P's to the parent's bits.
+    result["int8_p_coverage"], result["bf16_p_same_bits"] = {}, {}
     for i, case in enumerate(cs.FLASH_COVERAGE):
-        if case[12] != 0:
-            continue
         *operands, kw = cs.flash_coverage_inputs(g, case)
-        outs = [launch(operands, **kw)[0] for launch in launchers.values()]
-        result["int8_p_same_bits"][f"fa8_{i}"] = all(
-            torch.equal(a, b) for other in outs[1:] for a, b in zip(outs[0], other))
-    return ok and all(result["int8_p_same_bits"].values())
+        if case[12] == 1:
+            outs = [launchers[w](operands, **kw)[0] for w in ("parent", "this") if w in launchers]
+            result["bf16_p_same_bits"][f"fa8_{i}"] = all(
+                torch.equal(a, b) for other in outs[1:] for a, b in zip(outs[0], other))
+            continue
+        p_out, p_lse = fa8._flash_int8_plain(*operands, **kw)
+        _, _, l = fa8._flash_int8_plain_state(
+            *operands, **{k: x for k, x in kw.items() if k != "save_residuals"})
+        tol, lse_tol = cs.flash_tolerances(p_out, p_lse, l, operands[3], operands[4],
+                                           kw["block_kv"], 0)
+        row = result["int8_p_coverage"][f"fa8_{i}"] = {}
+        for which, launch in launchers.items():
+            (o, lse), call, _keep = launch(operands, **kw)
+            same = cs._same_bits_again(lambda: call[0](*call[1]), [o, lse])
+            row[which] = [cs.err_over_tol(o, p_out, tol), cs.err_over_tol(lse, p_lse, lse_tol),
+                          same]
+            if which in ("this", "parent"):
+                ok &= max(row[which][:2]) <= 1.0 and same
+    return ok and all(result["bf16_p_same_bits"].values())
 
 
 def main(argv=None) -> int:
@@ -563,6 +583,7 @@ def main(argv=None) -> int:
     ap.add_argument("--variants", type=Path,
                     help="JSON {name: [[line, replacement], ...]} of this tree's source "
                          "(paged_decode, flash_fwd, w4_matmul, flash_int8_fwd)")
+    ap.add_argument("--only", nargs="+", help="the variants of --variants to build")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if args.parent is None and args.variants is None:
@@ -578,6 +599,8 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     variants = json.loads(args.variants.read_text()) if args.variants else None
+    if variants is not None and args.only:
+        variants = {name: variants[name] for name in args.only}
     trees = _trees(args.source, args.parent and args.parent.resolve(), variants)
     g = torch.Generator(device="cuda").manual_seed(1)
     result = {"gpu": cs.gpu_line(), "parent": args.parent and str(args.parent),
