@@ -22,8 +22,11 @@ result line:
            both times, or the check fails), and so is every INT8 flash
            launch (both numerics modes at their main shapes, the int8-P
            one at serve's 256-token and serve_w4's 512-token prefill, and
-           every FLASH_COVERAGE case), every bf16 float
-           flash launch, every bf16 paged prefill launch (INT8 and INT4,
+           every FLASH_COVERAGE case), every float flash launch (the
+           f32 route's split planes filled with NaN before its first,
+           so that a plane element left unwritten shows; its own
+           coverage cases and FLASH_FWD_PIECES, built so that a dropped
+           third bf16 piece shows), every bf16 paged prefill launch (INT8 and INT4,
            tensor cores), every paged decode launch (INT8 and INT4:
            split page walks merged by lse) and every w4_matmul launch
            (the four fused 8B matmuls at R = 8, 1, 32 and 64),
@@ -255,41 +258,67 @@ def score_err(q_norm, k_norm, D):
 
 def flash_fwd_tolerances(q, k, v, o_plain, lse_plain, w_abs, *, sm_scale, softcap):
     """Per-element tolerances of the float flash kernel's output and lse
-    (None when not saved) against its plain version on the same inputs.
+    against its plain version on the same inputs (lse_plain: the plain
+    version's lse, which the f32 terms read).
 
-    Scores: the two sum Q·K in other orders (the kernel's tensor-core or
-    FMA order, the plain version's matmul), by at most ds per row
-    (score_err over the row's scaled |q| and its kv head's largest |k|;
-    softcap's tanh adds ulps of the cap). A score moved by ds moves the
-    row's output by at most 4 ds max|v|. P·V and l: f32 summation order,
-    1e-5 of max|v|. bf16 P: the kernel rounds P to bf16 against its running
-    max after each 64-key tile, the plain version after each block_kv keys.
-    Each rounding is off by at most half an ulp, 2^-8 |p|, so the two
-    rounded P of one key differ by at most 2^-7 |p|, and the outputs by at
-    most 2^-7 of sum_j p_j |v_j| / l, w_abs (the plain version's output on
-    |v|). A bf16 output adds one bf16 ulp (2^-7 |o|). lse: ds + 1e-5 (l's
-    order) + f32 rounding of m + log l. The bf16 kernel (wgmma) takes each
-    p as 2^(x·log2 e − m·log2 e) on the SFU: ex2.approx is within ~2^-22
-    relative, and the argument's rounding moves p by at most |m|·2^-24·
-    log2 e relative: under the 1e-5 terms of P·V and l while |m| < 100,
-    and under the 1e-6·|lse| term of lse beyond (lse is within log Skv of
-    m). No term changes for it."""
+    bf16. Scores: the two sum Q·K in other orders (the kernel's tensor-core
+    order, the plain version's matmul), by at most ds per row (score_err
+    over the row's scaled |q| and its kv head's largest |k|; softcap's tanh
+    adds ulps of the cap). A score moved by ds moves the row's output by at
+    most 4 ds max|v|. P·V and l: f32 summation order, 1e-5 of max|v|. The
+    kernel rounds P to bf16 against its running max after each 64-key
+    tile, the plain version after each block_kv keys. Each rounding is off
+    by at most half an ulp, 2^-8 |p|, so the two rounded P of one key
+    differ by at most 2^-7 |p|, and the outputs by at most 2^-7 of sum_j
+    p_j |v_j| / l, w_abs (the plain version's output on |v|). A bf16 output
+    adds one bf16 ulp (2^-7 |o|). lse: ds + 1e-5 (l's order) + f32 rounding
+    of m + log l. The kernel takes each p as 2^(x·log2 e − m·log2 e) on the
+    SFU: ex2.approx is within ~2^-22 relative, and the argument's rounding
+    moves p by at most |m|·2^-24 relative: under the 1e-5 terms of P·V and
+    l while |m| < 100, and under the 1e-6·|lse| term of lse beyond (lse is
+    within log Skv of m).
+
+    f32 (six bf16 products a product, u = 2^-24). Scores: the plain
+    version's f32 sum over D moves a score by at most D·u of sum_i |q_i
+    k_i|; the kernel's products leave out a1b2 + a2b1 + a2b2, at most
+    1.02·u·|q_i||k_i| each, and its tensor cores round each k16 step of the
+    large product by at most 2 ulps of the sum (D/16 steps: D/8·u; the five
+    small products' steps are 2^-7 of that): ds = (9D/8 + 2)·u·|q|·max|k|
+    (Cauchy-Schwarz). Scores moved by at most ds move each weight p_j / l by
+    a factor within exp(±2 ds), so the output by at most expm1(2 ds)·w_abs.
+    P·V and l, as a share c of w_abs: the f32 order of acc and l, 2^-20
+    (the kernel adds each tile's P·V, summed from zero on the tensor cores,
+    to acc on the CUDA cores); ex2.approx against exp, 2^-22; the argument
+    m·log2 e rounded, |m|·2^-24·log2 e, with |m| <= |lse| + log Skv; the
+    P·V products left out and o's rounding, 2^-23. lse: ds + c + 2^-22 of
+    |lse| + log Skv (m + log l rounded, log's ulps). A P or V whose third
+    piece is dropped (up to 2^-17 of each p or v) misses c on rows of few
+    keys and small scores; a Q or K whose third piece is dropped moves
+    large aligned scores by up to 2^-17 of |q||k|, past ds + 2^-22|lse|
+    in lse (FLASH_FWD_PIECES)."""
     import torch
     from quantizedmha_tpu_torch.ops.flash_attention import scaled_q
     D = q.shape[-1]
     group = q.shape[1] // k.shape[1]
     qn = scaled_q(q, sm_scale).double().norm(dim=-1)                        # [B, H, Sq]
     kn = k.double().norm(dim=-1).amax(dim=-1).repeat_interleave(group, dim=1)  # [B, H]
+    if q.dtype == torch.float32:
+        u = 2.0**-24
+        ds = (9 * D / 8 + 2) * u * qn * kn[..., None]
+        if softcap is not None:
+            ds = ds + 2.0**-22 * softcap
+        log_skv = math.log(max(k.shape[2], 1))
+        lse_abs = torch.nan_to_num(lse_plain.double().abs(), posinf=0.0)
+        c = 2.0**-20 + 2.0**-22 + u * 1.4426950408889634 * (lse_abs + log_skv) + 2.0**-23
+        tol_o = (torch.expm1(2.0 * ds) + c)[..., None] * w_abs.double()
+        return tol_o, ds + c + 2.0**-22 * (lse_abs + log_skv)
     vmax = v.double().abs().amax(dim=(-2, -1)).repeat_interleave(group, dim=1)
     ds = score_err(qn, kn[..., None], D)
     if softcap is not None:
         ds = ds + 2.0**-22 * softcap
     tol_o = (4.0 * ds + 1e-5)[..., None] * vmax[:, :, None, None]
-    if q.dtype == torch.bfloat16:
-        tol_o = tol_o + 2.0**-7 * w_abs.double()
-        tol_o = tol_o + 2.0**-7 * (o_plain.double().abs() + tol_o)
-    if lse_plain is None:
-        return tol_o, None
+    tol_o = tol_o + 2.0**-7 * w_abs.double()
+    tol_o = tol_o + 2.0**-7 * (o_plain.double().abs() + tol_o)
     tol_lse = ds + 1e-5 + 1e-6 * torch.nan_to_num(lse_plain.double().abs(), posinf=0.0)
     return tol_o, tol_lse
 
@@ -660,22 +689,26 @@ def _flash_fwd_check(q, k, v, offsets, *, causal, window=None, sinks=0, softcap=
                      save_residuals=True):
     """One float flash launch against its plain version on the card:
     (kernel output, plain output, [output, lse] err_over_tol, tolerance,
-    launch, plain call). A bf16 launch runs twice: a second launch whose
-    bits differ adds an infinite ratio."""
+    launch, plain call). The kernel runs twice: a second launch whose bits
+    differ adds an infinite ratio. The f32 route's planes (scratch the
+    split pass fills) hold NaN before the first launch, so that a plane
+    element the split pass leaves unwritten and the kernel reads shows."""
     import torch
     from quantizedmha_tpu_torch.ops import flash_attention as fa
     sm = q.shape[-1] ** -0.5
     kw = dict(sm_scale=sm, causal=causal, block_kv=min(1024, k.shape[2]), window=window,
               softcap=softcap, sinks=sinks, save_residuals=save_residuals)
-    kernel, args, (out, lse), _operands = fa._flash_fwd_launch(q, k, v, offsets, **kw)
+    kernel, args, (out, lse), operands = fa._flash_fwd_launch(q, k, v, offsets, **kw)
+    planes = operands[-1]
+    if planes is not None:
+        planes.fill_(float("nan"))
     kernel(*args)
     torch.cuda.synchronize()
-    same = q.dtype != torch.bfloat16 or _same_bits_again(
-        lambda: kernel(*args), [x for x in (out, lse) if x is not None])
+    same = _same_bits_again(lambda: kernel(*args), [x for x in (out, lse) if x is not None])
     p_out, p_lse = fa._flash_fwd_plain(q, k, v, offsets, **dict(kw, save_residuals=True))
     w_abs = fa._flash_fwd_plain(q, k, v.abs(), offsets, **dict(kw, save_residuals=False))
-    tol, lse_tol = flash_fwd_tolerances(q, k, v, p_out, p_lse if save_residuals else None,
-                                        w_abs, sm_scale=sm, softcap=softcap)
+    tol, lse_tol = flash_fwd_tolerances(q, k, v, p_out, p_lse, w_abs, sm_scale=sm,
+                                        softcap=softcap)
     ratios = [err_over_tol(out, p_out, tol)]
     if save_residuals:
         ratios.append(err_over_tol(lse, p_lse, lse_tol))
@@ -694,10 +727,12 @@ def _visible_pairs(sq, skv, causal):
 
 def _flash_fwd_case(name, q, k, v, causal, *, replaces, label):
     """The float flash kernel at one main-path shape (end-aligned, no
-    window): check, kernel / plain / SDPA times, the bound. SDPA runs in
-    bf16 (the library's fast path); for f32 inputs it also runs in f32
-    (the first backend that takes it, memory-efficient attention, with
-    TF32 off), the same function as the f32 route."""
+    window): check (the same bits twice), kernel / plain / SDPA times, the
+    bound. SDPA runs on the same inputs: for f32 inputs in f32 (the first
+    backend that takes them, memory-efficient attention, with TF32 off), the
+    same function as the f32 route, and beside it in bf16 (the library's
+    fast path, `library_bf16`). The f32 route's bound counts its six bf16
+    passes a product on the tensor cores."""
     import torch
     from quantizedmha_tpu_torch.ops.flash_attention import _offsets
     B, H, S, D = q.shape
@@ -709,27 +744,26 @@ def _flash_fwd_case(name, q, k, v, causal, *, replaces, label):
     plain_ms = cuda_ms(plain, iters=2, warmup=1)
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
     lib_ms, backend = _sdpa(qb, kb, vb, is_causal=causal, enable_gqa=kb.shape[1] != qb.shape[1])
-    library_f32 = None
+    library_bf16 = None
     if q.dtype == torch.float32:
+        library_bf16 = {"ms": lib_ms, "backend": backend}
         torch.backends.cuda.matmul.allow_tf32 = False
-        f32_ms, f32_backend = _sdpa(q, k, v, is_causal=causal,
-                                    enable_gqa=k.shape[1] != q.shape[1])
-        library_f32 = {"ms": f32_ms, "backend": f32_backend, "allow_tf32": False}
+        lib_ms, backend = _sdpa(q, k, v, is_causal=causal, enable_gqa=k.shape[1] != q.shape[1])
     pairs = B * H * _visible_pairs(S, Skv, causal)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    unit = "bf16" if q.dtype == torch.bfloat16 else "fp32"
-    bms, by = bound(nbytes, {unit: 4 * pairs * D, "exp": pairs})
+    passes = 1 if q.dtype == torch.bfloat16 else 6
+    bms, by = bound(nbytes, {"bf16": passes * 4 * pairs * D, "exp": pairs})
     return {"name": name, "route": "cuda", "source": "quantizedmha_tpu_torch/csrc/flash_fwd.cu",
             "replaces": replaces, "launches": None, "label": label,
             "max_abs_err": (out.float() - p_out.float()).abs().max().item(),
             "err_over_tol": ratios[0], "tol_range": [tol.min().item(), tol.max().item()],
-            "same_bits_twice": len(ratios) == 1 if q.dtype == torch.bfloat16 else None,
+            "same_bits_twice": len(ratios) == 1,
             "ok": max(ratios) <= 1.0,
             "shape": {"B": B, "Hq": H, "Hkv": k.shape[1], "Sq": S, "Skv": Skv, "D": D,
                       "causal": causal, "dtype": str(q.dtype)},
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms, "library_backend": backend,
-            **({"library_f32": library_f32} if library_f32 else {})}
+            **({"library_bf16": library_bf16, "allow_tf32": False} if library_bf16 else {})}
 
 
 def _paged_cache(g, Hkv, num_pages, P, D):
@@ -917,7 +951,14 @@ DECODE_COVERAGE = (
 # than a block's rows (130 at d=32, 200 at d=64: two head chunks),
 # sequences with their own offsets (rows of the second see no key), a
 # window with sink tiles and skipped tiles between, softcap on tiles with
-# no masked pair, d = 32, 64 and 128.
+# no masked pair, d = 32, 64 and 128. The cases from FIRST_F32_CASE on hold
+# the f32 route's six-pass kernel (192 rows at d=32, 128 at d=64, 64 rows
+# and 32-key tiles at d=128) at its edges, each drawing from its own
+# generator: d=64 causal GQA 4 with a ragged q tile over five key tiles, a
+# fold of 130 q heads over one kv head at Sq=5 over a ragged key tile,
+# d=128 with offsets per sequence and softcap over seven 32-key tiles, a
+# window with sinks at d=32 over seven 64-key tiles, d=128 GQA 2 not
+# causal over three tiles.
 FLASH_FWD_COVERAGE = (
     (2, 4, 2, 100, 190, 32, False, None, 0, None, False, None),
     (2, 4, 2, 100, 190, 64, True, None, 0, None, True, None),
@@ -937,7 +978,60 @@ FLASH_FWD_COVERAGE = (
     (1, 4, 2, 128, 256, 64, False, None, 0, 30.0, True, None),
     (1, 10, 2, 60, 90, 128, True, None, 0, None, True, None),
     (1, 200, 1, 3, 40, 64, True, None, 0, None, True, None),
+    (1, 8, 2, 100, 260, 64, True, None, 0, None, False, None),
+    (1, 130, 1, 5, 70, 32, True, None, 0, None, False, None),
+    (2, 4, 2, 150, 200, 128, True, None, 0, 20.0, False, ((60, 10), (0, 50))),
+    (1, 4, 1, 200, 400, 32, True, 64, 4, None, False, None),
+    (1, 6, 3, 70, 96, 128, False, None, 0, None, False, None),
 )
+FIRST_F32_CASE = 18
+# f32 cases built so that a dropped third bf16 piece shows, each
+#   (B, H, Hkv, S, kind); causal, end-aligned, d=32:
+# "pv": scores in [-0.02, 0] with key 0 at 0 (every row's max, p = 1 and
+#   v = 0), V positive with its third piece near its largest (2^-17 of v):
+#   rows of few keys lose up to 2^-17 of w_abs with P's third piece, all
+#   rows 2^-17 with V's.
+# "qk": Q (scaled) and K constant, each with its third piece near its
+#   largest: every score ~1030, the sum of 32 aligned products, which Q's
+#   or K's third piece moves by 2^-17 in every row's lse.
+FLASH_FWD_PIECES = ((4, 32, 4, 80, "pv"), (1, 4, 1, 70, "qk"))
+# 1 + 1.5·2^-9 + (2^-17 - 2^-23): bf16 pieces 1, 1.5·2^-9, 2^-17 - 2^-23.
+PIECES_VALUE = 1 + 1.5 * 2**-9 + 2**-17 - 2**-23
+
+
+def _f32_preimage(target, scale):
+    """An f32 x with x·scale rounded to f32 equal to the f32 target."""
+    import torch
+    t, s = (torch.tensor(x, dtype=torch.float32) for x in (target, scale))
+    x = (t.double() / s.double()).float()
+    for _ in range(8):
+        y = x * s
+        if y == t:
+            return float(x)
+        x = torch.nextafter(x, torch.tensor(math.inf if y < t else -math.inf))
+    raise AssertionError(f"no f32 preimage of {target} under {scale}")
+
+
+def flash_fwd_pieces_inputs(g, case, device="cuda"):
+    """(q, k, v) of a FLASH_FWD_PIECES case, f32, from the generator g."""
+    import torch
+    B, H, Hkv, S, kind = case
+    D = 32
+    if kind == "pv":
+        q = torch.rand((B, H, S, D), generator=g, device=device) * 0.02
+        k = -torch.rand((B, Hkv, S, D), generator=g, device=device)
+        e = torch.randint(-1, 2, (B, Hkv, S, D), generator=g, device=device)
+        v = torch.ldexp(torch.full((B, Hkv, S, D), PIECES_VALUE, device=device), e.float())
+        k[:, :, 0] = 0.0
+        v[:, :, 0] = 0.0
+        return q, k, v
+    qv = _f32_preimage(4 * PIECES_VALUE, D**-0.5)
+    q = torch.full((B, H, S, D), qv, device=device)
+    k = torch.full((B, Hkv, S, D), 8 * PIECES_VALUE, device=device)
+    v = torch.randn((B, Hkv, S, D), generator=g, device=device)
+    return q, k, v
+
+
 #   (Hq, Hkv, D, page, C, lengths, q_starts, window, sinks, softcap, bf16 q)
 # The bf16 cases (tensor cores) also cover d=32, pages of 16 and 32 keys
 # (shorter than the kernel's 64-key tile), a window with sink tiles and
@@ -963,18 +1057,20 @@ def _coverage_float(g):
     import torch
     from quantizedmha_tpu_torch.ops.flash_attention import _offsets
     ratios, failed = {}, []
-    for i, (B, H, Hkv, Sq, Skv, D, causal, window, sinks, cap, bf16,
-            offs) in enumerate(FLASH_FWD_COVERAGE):
-        dt = torch.bfloat16 if bf16 else torch.float32
-        q = (torch.randn((B, H, Sq, D), generator=g, device="cuda") * 1.5).to(dt)
-        k, v = torch.randn((2, B, Hkv, Skv, D), generator=g, device="cuda").to(dt)
-        q_off, kv_off = offs if offs is not None else (Skv - Sq, 0)
-        _, _, r, *_ = _flash_fwd_check(q, k, v, _offsets(q_off, kv_off, B, q.device),
-                                       causal=causal, window=window, sinks=sinks,
-                                       softcap=cap)
+    for i, case in enumerate(FLASH_FWD_COVERAGE):
+        gi = g if i < FIRST_F32_CASE else torch.Generator(device="cuda").manual_seed(100 + i)
+        q, k, v, offsets, masks = flash_fwd_coverage_inputs(gi, case)
+        _, _, r, *_ = _flash_fwd_check(q, k, v, offsets, **masks)
         ratios[f"flash_fwd{i}"] = r
         if max(r) > 1.0:
             failed.append(f"flash_fwd{i}")
+    for i, case in enumerate(FLASH_FWD_PIECES):
+        gi = torch.Generator(device="cuda").manual_seed(200 + i)
+        q, k, v = flash_fwd_pieces_inputs(gi, case)
+        _, _, r, *_ = _flash_fwd_check(q, k, v, _offsets(0, 0, case[0], q.device), causal=True)
+        ratios[f"flash_fwd_pieces{i}"] = r
+        if max(r) > 1.0:
+            failed.append(f"flash_fwd_pieces{i}")
     for i, case in enumerate(PAGED_PREFILL_COVERAGE):
         *inputs, masks = paged_prefill_coverage_inputs(g, case)
         _, _, r, *_ = _paged_prefill_check(*inputs, **masks)
@@ -982,6 +1078,20 @@ def _coverage_float(g):
         if max(r) > 1.0:
             failed.append(f"paged_prefill{i}")
     return ratios, failed
+
+
+def flash_fwd_coverage_inputs(g, case, device="cuda"):
+    """(q, k, v, offsets, masks) of a FLASH_FWD_COVERAGE case, drawn from
+    the generator g; masks holds causal, window, sinks and softcap."""
+    import torch
+    from quantizedmha_tpu_torch.ops.flash_attention import _offsets
+    B, H, Hkv, Sq, Skv, D, causal, window, sinks, cap, bf16, offs = case
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q = (torch.randn((B, H, Sq, D), generator=g, device=device) * 1.5).to(dt)
+    k, v = torch.randn((2, B, Hkv, Skv, D), generator=g, device=device).to(dt)
+    q_off, kv_off = offs if offs is not None else (Skv - Sq, 0)
+    return (q, k, v, _offsets(q_off, kv_off, B, q.device),
+            dict(causal=causal, window=window, sinks=sinks, softcap=cap))
 
 
 def flash_coverage_inputs(g, case, device="cuda"):
@@ -1872,6 +1982,35 @@ PLANTED_FAULTS = (
     ("flash_fwd.cu", "bf16: a tile taken as wholly visible when the warp's last row sees it",
      "range_unmasked(p, wspan.x, wspan.y, k_first, kv_off + t0 + BKV - 1, t0 + BKV - 1);",
      "range_unmasked(p, wspan.y, wspan.y, k_first, kv_off + t0 + BKV - 1, t0 + BKV - 1);"),
+    ("flash_fwd.cu", "f32: Q's third piece dropped (S without q2·k0)",
+     "qk(2, 0);  // q2·k0: Q's third piece", ";"),
+    ("flash_fwd.cu", "f32: K's third piece dropped (S without q0·k2)",
+     "qk(0, 2);  // q0·k2: K's third piece", ";"),
+    ("flash_fwd.cu", "f32: P's third piece dropped (P·V without p2·v0)",
+     "pvp(2, 0);  // p2·v0: P's third piece", ";"),
+    ("flash_fwd.cu", "f32: V's third piece dropped (P·V without p0·v2)",
+     "pvp(0, 2);  // p0·v2: V's third piece", ";"),
+    ("flash_fwd.cu", "f32: a1 taken as bf16(a) − a0, not the exact residual a − a0",
+     "const float2 r1 = make_float2(x - __low2float(h0), y - __high2float(h0));",
+     "const float2 r1 = make_float2(__low2float(h0) - __low2float(h0), "
+     "__high2float(h0) - __high2float(h0));"),
+    ("flash_fwd.cu", "f32: V's planes copied from K's",
+     "cp_async16(st + R::plane(3 + j) + sw(r, c), vg + j * kv_plane + src, ok);",
+     "cp_async16(st + R::plane(3 + j) + sw(r, c), kg + j * kv_plane + src, ok);"),
+    ("flash_fwd.cu", "f32: next key tile copied into the stage being read",
+     "copy_tile(t0, s);", "copy_tile(t0, (n + 1) % R::STAGES);"),
+    ("flash_fwd.cu", "f32: acc not rescaled when a row's max moved",
+     "if (__any_sync(0xffffffffu, (alpha[0] != 1.f) | (alpha[1] != 1.f))) {", "if (false) {"),
+    ("flash_fwd.cu", "f32: a folded row's Q taken from the group's next q head",
+     "const int head = hc * p.GB + br / p.NQ;  // the row's q head in the group",
+     "const int head = min(hc * p.GB + br / p.NQ + 1, p.G - 1);"),
+    ("flash_fwd.cu", "f32: a tile taken as wholly visible when the warp's last row sees it",
+     "const bool unmasked = range_unmasked(p, span.x, span.y, k_first,",
+     "const bool unmasked = range_unmasked(p, span.y, span.y, k_first,"),
+    ("flash_fwd.cu", "f32: a tile's P·V never added to acc",
+     "for (int e = 0; e < 4; ++e) acc[c][e] += pacc[c][e];", "for (int e = 0; e < 4; ++e) ;"),
+    ("flash_fwd.cu", "f32 split pass: V's last 32 values (its last row at d=32) left unwritten",
+     "const size_t chunks = (nq + 2 * nkv) / 8;", "const size_t chunks = (nq + 2 * nkv) / 8 - 4;"),
     ("f32_tile.cuh", "f32 tile: each thread's own tile max, not the row's",
      "const float m_next = fmaxf(m[i], row_max16(mt));", "const float m_next = fmaxf(m[i], mt);"),
     ("paged_prefill.cu", "diagonal masked (kpos < qpos; both routes)",

@@ -42,16 +42,20 @@ the file.
   the sync), and SDPA's ms on the same K/V dequantized beforehand.
 
 --source flash_fwd (csrc/flash_fwd.cu, row 5):
-- The bf16 route at chip_smoke.py's main shapes: serve_flash's bucketed
+- Both routes at chip_smoke.py's main shapes: serve_flash's bucketed
   prefill (1 x 32 x 2048 x 128, 8 kv heads, causal), the train step's
   forward (the same shape with lse) and solve's fa_bf16 rung (1 x 32 x
-  8192 x 32, not causal): ms in turns (20 launches), err_over_tol against
-  this tree's plain version, whether each library gives the same bits
-  twice, SDPA's ms (bf16, the first backend that takes the inputs) and
-  the bound.
-- The f32 route at solve's fa shape and at every FLASH_FWD_COVERAGE case
-  of chip_smoke.py, q, k, v in f32: whether the libraries give the same
-  bits (output and lse).
+  8192 x 32, not causal) in bf16, solve's fa rung (the same shape) in f32:
+  ms in turns (20 launches; graph_ms: 20 launches in one CUDA graph,
+  replayed), err_over_tol against this tree's plain version under
+  chip_smoke.py's tolerance, whether each library gives the same bits
+  twice, SDPA's ms on the same inputs (f32: TF32 off, and in bf16 beside
+  it) and the bound (f32: six bf16 passes a product); in bf16, whether the
+  parent's library gives this one's bits.
+- Every bf16 FLASH_FWD_COVERAGE case: whether the parent's library gives
+  this one's bits (output and lse); every f32 case and FLASH_FWD_PIECES
+  case: each library's err_over_tol (output, lse) under this tree's
+  tolerance and whether it gives the same bits twice.
 - ptxas registers and spill bytes of each library's kernels.
 
 --source w4_matmul (csrc/w4_matmul.cu, rows 8-9):
@@ -87,7 +91,8 @@ the file.
 - ptxas registers and spill bytes of each library's kernels.
 
 Prints one JSON object (and writes it to --out); exits 1 when a library
-fails its check, or the f32 route's bits differ.
+fails its check, or where a route is to keep the parent's bits and does
+not.
 """
 
 from __future__ import annotations
@@ -330,10 +335,37 @@ def _decode_ab(trees, g, result):
     return ok
 
 
-# Row 5's main shapes: (q shape, kv heads, causal, lse); bf16.
-FLASH_FWD_MAIN = {"serve_flash prefill": ((1, 32, 2048, 128), 8, True, False),
-                  "train forward (lse)": ((1, 32, 2048, 128), 8, True, True),
-                  "solve fa_bf16": ((1, 32, 8192, 32), 32, False, False)}
+# Row 5's main shapes: (q shape, kv heads, causal, lse, dtype).
+FLASH_FWD_MAIN = {"serve_flash prefill": ((1, 32, 2048, 128), 8, True, False, torch.bfloat16),
+                  "train forward (lse)": ((1, 32, 2048, 128), 8, True, True, torch.bfloat16),
+                  "solve fa_bf16": ((1, 32, 8192, 32), 32, False, False, torch.bfloat16),
+                  "solve fa (f32)": ((1, 32, 8192, 32), 32, False, False, torch.float32)}
+
+
+def _flash_fwd_plain_tols(q, k, v, offsets, kw):
+    """The plain version's (o, lse) and chip_smoke's tolerances on them."""
+    import chip_smoke as cs
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    p_out, p_lse = fa._flash_fwd_plain(q, k, v, offsets, save_residuals=True, **kw)
+    w_abs = fa._flash_fwd_plain(q, k, v.abs(), offsets, save_residuals=False, **kw)
+    tol, lse_tol = cs.flash_fwd_tolerances(q, k, v, p_out, p_lse, w_abs, sm_scale=kw["sm_scale"],
+                                           softcap=kw["softcap"])
+    return p_out, p_lse, tol, lse_tol
+
+
+def _flash_fwd_ratios(launch, operands, kw, plain, save_residuals=True):
+    """One launch through a tree against the plain version (o, lse, tol,
+    lse_tol): ([output, lse] err_over_tol, the same bits twice, outputs,
+    (function, ctypes args), kept operands)."""
+    import chip_smoke as cs
+    p_out, p_lse, tol, lse_tol = plain
+    (o, l), call, keep = launch(operands, save_residuals=save_residuals, **kw)
+    ratios = [cs.err_over_tol(o, p_out, tol)]
+    if save_residuals:
+        ratios.append(cs.err_over_tol(l, p_lse, lse_tol))
+    outs = [x for x in (o, l) if x is not None]
+    same = cs._same_bits_again(lambda: call[0](*call[1]), outs)
+    return ratios, same, outs, call, keep
 
 
 def _flash_fwd_ab(trees, g, result):
@@ -343,53 +375,72 @@ def _flash_fwd_ab(trees, g, result):
     result["ptxas"] = {w: cs._ptxas_kernels(lib.with_suffix(".log").read_text())
                        for w, (_, _, lib) in trees.items()}
     ok = True
-    for name, (shape, hkv, causal, lse) in FLASH_FWD_MAIN.items():
+    for name, (shape, hkv, causal, lse, dt) in FLASH_FWD_MAIN.items():
         B, H, S, D = shape
-        q = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
-        k, v = torch.randn((2, B, hkv, S, D), generator=g, device="cuda").to(torch.bfloat16)
+        q = torch.randn(shape, generator=g, device="cuda").to(dt)
+        k, v = torch.randn((2, B, hkv, S, D), generator=g, device="cuda").to(dt)
         offsets = fa._offsets(0, 0, B, q.device)
         kw = dict(sm_scale=D**-0.5, causal=causal, block_kv=min(1024, S), window=None,
                   softcap=None, sinks=0)
-        p_out, p_lse = fa._flash_fwd_plain(q, k, v, offsets, save_residuals=True, **kw)
-        w_abs = fa._flash_fwd_plain(q, k, v.abs(), offsets, save_residuals=False, **kw)
-        tol, lse_tol = cs.flash_fwd_tolerances(q, k, v, p_out, p_lse, w_abs,
-                                               sm_scale=kw["sm_scale"], softcap=None)
-        row, calls = {}, {}
+        plain = _flash_fwd_plain_tols(q, k, v, offsets, kw)
+        row, calls, outs = {}, {}, {}
         for which, launch in launchers.items():
-            (o, l), call, keep = launch((q, k, v, offsets), save_residuals=lse, **kw)
-            calls[which] = (call, (o, l, keep))
-            ratios = [cs.err_over_tol(o, p_out, tol)]
-            if lse:
-                ratios.append(cs.err_over_tol(l, p_lse, lse_tol))
-            same = cs._same_bits_again(lambda: call[0](*call[1]),
-                                       [x for x in (o, l) if x is not None])
+            ratios, same, outs[which], call, keep = _flash_fwd_ratios(
+                launch, (q, k, v, offsets), kw, plain, save_residuals=lse)
+            calls[which] = (call, (outs[which], keep))
             row[which] = {"err_over_tol": ratios, "same_bits_twice": same}
             if which in ("this", "parent"):
                 ok &= max(ratios) <= 1.0 and same
+        if dt == torch.bfloat16 and "parent" in outs:
+            row["same_bits_as_parent"] = all(
+                torch.equal(a, b) for a, b in zip(outs["this"], outs["parent"]))
+            ok &= row["same_bits_as_parent"]
         _timed_turns(calls, row, iters=20)
+        for which, (module, fns, _) in trees.items():
+            row[which]["graph_ms"] = _graph_ms(module, fns, "flash_fwd", (q, k, v, offsets),
+                                               dict(save_residuals=lse, **kw))
         row["sdpa_ms"], row["sdpa_backend"] = cs._sdpa(q, k, v, is_causal=causal,
                                                        enable_gqa=hkv != H)
+        if dt == torch.float32:  # beside SDPA in f32 (TF32 off), SDPA in bf16
+            row["sdpa_bf16_ms"], row["sdpa_bf16_backend"] = cs._sdpa(
+                *(x.to(torch.bfloat16) for x in (q, k, v)), is_causal=causal,
+                enable_gqa=hkv != H)
         pairs = B * H * cs._visible_pairs(S, S, causal)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + (B * H * S * 4 if lse else 0)
-        row["bound_ms"], row["bound_by"] = cs.bound(nbytes, {"bf16": 4 * pairs * D, "exp": pairs})
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + (
+            B * H * S * 4 if lse else 0)
+        passes = 1 if dt == torch.bfloat16 else 6
+        row["bound_ms"], row["bound_by"] = cs.bound(
+            nbytes, {"bf16": passes * 4 * pairs * D, "exp": pairs})
         result["main"][name] = row
-        del q, k, v, calls
-    # The f32 route: the same bits from every library.
-    result["f32_same_bits"] = {}
-    f32_cases = [("solve fa", (1, 32, 32, 8192, 8192, 32, False, None, 0, None, False, None))]
-    f32_cases += [(f"flash_fwd{i}", c) for i, c in enumerate(cs.FLASH_FWD_COVERAGE)]
-    for name, case in f32_cases:
-        B, H, Hkv, Sq, Skv, D, causal, window, sinks, cap, _, offs = case
-        q = torch.randn((B, H, Sq, D), generator=g, device="cuda")
-        k, v = torch.randn((2, B, Hkv, Skv, D), generator=g, device="cuda")
-        q_off, kv_off = offs if offs is not None else (Skv - Sq, 0)
-        offsets = fa._offsets(q_off, kv_off, B, q.device)
-        kw = dict(sm_scale=D**-0.5, causal=causal, block_kv=min(1024, Skv), window=window,
-                  softcap=cap, sinks=sinks, save_residuals=True)
-        outs = [launch((q, k, v, offsets), **kw)[0] for launch in launchers.values()]
-        result["f32_same_bits"][name] = all(torch.equal(a, b) for other in outs[1:]
-                                            for a, b in zip(outs[0], other))
-    return ok and all(result["f32_same_bits"].values())
+        del q, k, v, calls, outs
+    # The coverage cases: the bf16 route's bits against the parent's; the
+    # f32 route (and FLASH_FWD_PIECES) held to this tree's tolerance, each
+    # library, the same bits twice.
+    result["bf16_same_bits"], result["f32_coverage"] = {}, {}
+    cases = [(f"flash_fwd{i}", c) for i, c in enumerate(cs.FLASH_FWD_COVERAGE)]
+    cases += [(f"flash_fwd_pieces{i}", c) for i, c in enumerate(cs.FLASH_FWD_PIECES)]
+    for name, case in cases:
+        if name.startswith("flash_fwd_pieces"):
+            q, k, v = cs.flash_fwd_pieces_inputs(g, case)
+            offsets = fa._offsets(0, 0, case[0], q.device)
+            masks = dict(causal=True, window=None, sinks=0, softcap=None)
+        else:
+            q, k, v, offsets, masks = cs.flash_fwd_coverage_inputs(g, case)
+        kw = dict(sm_scale=q.shape[-1] ** -0.5, block_kv=min(1024, k.shape[2]), **masks)
+        if q.dtype == torch.bfloat16:
+            outs = [launchers[w]((q, k, v, offsets), save_residuals=True, **kw)[0]
+                    for w in ("parent", "this") if w in launchers]
+            result["bf16_same_bits"][name] = all(
+                torch.equal(a, b) for other in outs[1:] for a, b in zip(outs[0], other))
+            continue
+        plain = _flash_fwd_plain_tols(q, k, v, offsets, kw)
+        row = result["f32_coverage"][name] = {}
+        for which, launch in launchers.items():
+            ratios, same, *_ = _flash_fwd_ratios(launch, (q, k, v, offsets), kw, plain)
+            row[which] = ratios + [same]
+            if which in ("this", "parent"):
+                ok &= max(ratios) <= 1.0 and same
+    return ok and all(result["bf16_same_bits"].values())
 
 
 W4_ROWS = (1, 8, 32, 64)

@@ -10,11 +10,16 @@ Hopper's wgmma: a block holds 192 rows (128 at head_dim 32), all q heads
 of a kv head's group times rows / group positions, so each K/V tile is
 read once for the whole group; a producer warpgroup copies the K/V tiles
 into a ring of shared-memory stages and the consumer warpgroups, 64 rows
-each, run both products and the online softmax, 64 keys a step. The numerics are the plain version's
-(Q scaled in bf16, f32 scores, P rounded to bf16 for P·V, l the f32 sum)
-up to summation order, the step at which each P is rounded, and the SFU's
-2^x; in f32 it runs on the CUDA cores. The TPU grid's shrunk
-windowed kv dimension and its ones-column l sum (`summode="mxu"`) are TPU
+each, run both products and the online softmax, 64 keys a step. The
+numerics are the plain version's (Q scaled in bf16, f32 scores, P rounded
+to bf16 for P·V, l the f32 sum) up to summation order, the step at which
+each P is rounded, and the SFU's 2^x. In f32 the kernel runs on the tensor
+cores too, as the TPU's Precision.HIGHEST runs on its matrix unit: a split
+pass writes Q (scaled in f32), K and V as three bf16 planes each (a = a0 +
+a1 + a2 exactly), each product is the sum of six bf16 products (a0b0,
+a0b1, a1b0, a0b2, a1b1, a2b0), and P is split the same way for P·V; the
+terms left out are at most 2^-24·|a||b|. The TPU grid's shrunk windowed kv
+dimension and its ones-column l sum (`summode="mxu"`) are TPU
 devices with no counterpart: the only sum mode is "vpu" (l sums the f32
 P). Under autograd the call is a `torch.autograd.Function` whose backward
 is `csrc/flash_bwd.cu`'s dK/dV and dQ kernels (TPU `_bwd_dkv_kernel`,
@@ -36,11 +41,13 @@ from quantizedmha_tpu_torch.ops.quantize import true_div
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+# q, k, v, offsets, o, lse, the f32 route's planes, then the sizes and masks.
+_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
          + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 3
          + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
-# One launch counter per input dtype: bf16 runs on the tensor cores
-# (wgmma), f32 on the CUDA cores; both stand for `_fwd_kernel`.
+# One launch counter per input dtype, both on the tensor cores (wgmma): bf16
+# in one pass, f32 in six bf16 passes after its split pass (one launch of
+# the C entry, counted once); both stand for `_fwd_kernel`.
 FLASH_FWD_BF16 = cuda_lib.CudaKernel("flash_fwd", "flash_fwd", _ARGS)
 FLASH_FWD_F32 = cuda_lib.CudaKernel("flash_fwd", "flash_fwd", _ARGS)
 _HEAD_DIMS = (32, 64, 128)
@@ -167,7 +174,8 @@ def _flash_fwd_launch(q, k, v, offsets, *, sm_scale, causal, block_kv, window,
                       softcap, sinks, save_residuals):
     """Checked operands of one kernel launch: (kernel, ctypes args,
     outputs, operands). block_kv is the plain version's step; the kernel
-    picks its own tiles."""
+    picks its own tiles. The f32 route's scratch, Q's, K's and V's three
+    bf16 planes each, is the last operand."""
     del block_kv
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -184,14 +192,17 @@ def _flash_fwd_launch(q, k, v, offsets, *, sm_scale, causal, block_kv, window,
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if save_residuals else None)
+    planes = (None if bf16 else
+              torch.empty(3 * (q.numel() + k.numel() + v.numel()), dtype=torch.bfloat16,
+                          device=q.device))
     ptr = cuda_lib.ptr
     args = (ptr(q, 16), ptr(k, 16), ptr(v, 16), ptr(offsets), ptr(o, 16), ptr(lse),
-            B, H, Hkv, Sq, Skv, D, scale, int(softcap is not None), float(softcap or 0.0),
+            ptr(planes, 16), B, H, Hkv, Sq, Skv, D, scale, int(softcap is not None), float(softcap or 0.0),
             int(causal), -1 if window is None else int(window), int(sinks),
             DEFAULT_MASK_VALUE, DEFAULT_MASK_VALUE * 0.5, int(bf16),
             cuda_lib.stream_of(q))
     kernel = FLASH_FWD_BF16 if bf16 else FLASH_FWD_F32
-    return kernel, args, (o, lse), (q, k, v, offsets)
+    return kernel, args, (o, lse), (q, k, v, offsets, planes)
 
 
 def _flash_fwd_cuda(*operands, save_residuals, **kw):

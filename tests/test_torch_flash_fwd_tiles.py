@@ -8,8 +8,9 @@ d=32, two consumers of 64, and 192 above, three), and the block walks the
 64-key tiles that some row can see, skipping per warp of 16 rows the tiles
 it cannot see and the masks of tiles it sees whole. Here:
 
-- chip_smoke.py's new FLASH_FWD_COVERAGE cases (those from the eighth on:
-  ragged q tiles, Skv under one tile, groups of 1, 3, 5, 8, 130 and 200,
+- chip_smoke.py's FLASH_FWD_COVERAGE cases from the eighth up to
+  FIRST_F32_CASE, whose f32 cases tests/test_torch_flash_fwd_f32_tiles.py
+  holds (these: ragged q tiles, Skv under one tile, groups of 1, 3, 5, 8, 130 and 200,
   offsets per sequence, window + sinks with skipped tiles, softcap on
   mask-free tiles, d = 32, 64, 128): the port's plain version against JAX's
   flash_attention (Pallas in interpret mode, its online softmax stepping
@@ -18,7 +19,8 @@ it cannot see and the masks of tiles it sees whole. Here:
   sequence runs JAX one sequence at a time.
 - `_walk`, the kernel's algorithm in PyTorch (rows folded and regrouped by
   (q head, position), tile by tile, the same skips and mask-free tiles,
-  p = 2^(x·log2 e − m·log2 e), P rounded to bf16 once), equal to the plain
+  p = 2^(x·log2 e − m·log2 e), P rounded to bf16 once; f32 inputs carry
+  P whole, as the f32 route's six passes do), equal to the plain
   version within the same tolerance on every new case.
 - Each planted fault of the bf16 kernel in chip_smoke.PLANTED_FAULTS as a
   switch of `_walk`: each must miss the tolerance by more than 5x.
@@ -44,7 +46,8 @@ def _rows(d):
     """The kernel's block rows at head dim d: 64 a consumer."""
     return 128 if d == 32 else 192
 LOG2E = 1.4426950408889634
-NEW_CASES = {i: c for i, c in enumerate(chip_smoke.FLASH_FWD_COVERAGE) if i >= 7}
+NEW_CASES = {i: c for i, c in enumerate(chip_smoke.FLASH_FWD_COVERAGE)
+             if 7 <= i < chip_smoke.FIRST_F32_CASE}
 
 
 def _inputs(case, seed):
@@ -176,7 +179,8 @@ def _walk(q, k, v, offsets, masks, fault=None):
                                 l[rows] = alpha * l[rows] + p.sum(dim=-1)
                                 if fault != "no_rescale":
                                     acc[rows] *= alpha[:, None]
-                                pb = p.to(torch.bfloat16).float()
+                                # bf16 rounds P once; f32's six passes carry it whole
+                                pb = p.to(torch.bfloat16).float() if q.dtype == torch.bfloat16 else p
                                 if fault == "keys_swapped":
                                     pb = pb.reshape(16, BK // 2, 2).flip(-1).reshape(16, BK)
                                 acc[rows] += pb @ vt
