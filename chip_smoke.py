@@ -21,7 +21,8 @@ result line:
            and on 11 small cases, each pair launched twice (the same bits
            both times, or the check fails), and so is every INT8 flash
            launch (both numerics modes at their main shapes, the int8-P
-           one at serve's 256-token and serve_w4's 512-token prefill, and
+           one at serve's 256-token, serve_w4's 512-token and the prefill
+           bench's 2048-token prefill, and
            every FLASH_COVERAGE case), every float flash launch (the
            f32 route's split planes filled with NaN before its first,
            so that a plane element left unwritten shows; its own
@@ -39,10 +40,22 @@ result line:
            and "unfused": time, relative RMS error against the float
            golden with each rung's limit, and the constant-input gate
            (all-ones -> exactly 1.0).
+  harness  the reference driver, `harness.cli.run(["--kernel", "all",
+           ...])` at the same workload with a temporary cache and JSON
+           report: every rung checked against the float golden, then
+           timed by CUDA events. Gates: rc 0, no rung error, every check
+           passing, every timed rung's ms > 0, the exact launches of each
+           rung's kernel, every share of the speed of light <= 100%, and
+           each rung's ms within 0.8-1.25x of the solve phase's (two timers
+           of the same work). Runs after solve (--phases adds it).
   serve    Llama-3-8B width and depth (32 layers), random INT8 (w8a16)
            weights with a bf16 lm_head, flash_int8 prefill and paged INT8
            decode through the continuous-batching engine: 8 requests of
-           256-token prompts, 32 new tokens each, greedy.
+           256-token prompts, 32 new tokens each, greedy. Then the serving
+           benchmark's prefill (harness/serving_bench.run_prefill_bench):
+           2048 random tokens through prefill_at, its ms, TFLOP/s and share
+           of the tensor cores' bf16 speed of light (<= 100%), every layer's
+           attention through the int8-P kernel (exact launches).
   serve_w4 "llama3-8b-shape-int4-lmh8": the same model's random weights
            quantized to INT4 (group 128, halves packing, wq|wk|wv and
            w_gate|w_up fused) with an int8 lm_head, served by the serving
@@ -101,8 +114,9 @@ result line:
            rerun: every fault must fail them.
 
 Launch counts: every kernel wrapper counts its launches; the counts are
-zeroed just before each main path (each solve rung, serve, each serve_w4
-batch, serve_flash, serve_mixed, train's steps) runs and read just after,
+zeroed just before each main path (each solve rung, the harness run,
+serve, serve's prefill bench, each serve_w4 batch, serve_flash,
+serve_mixed, train's steps) runs and read just after,
 and a kernel of that path that never launched fails the run. The last
 lines are the kernels summary, the card's name and power limit, and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -122,19 +136,12 @@ import sys
 import time
 import traceback
 
-# Peaks of one H100 SXM (NVIDIA data sheet, dense): bytes/s, int8 op/s,
-# bf16 flop/s, fp32 (non-tensor) flop/s, and exponentials/s on the SFUs
-# (132 SMs x 16 per clock x 1.98 GHz boost).
-HBM_BPS = 3.35e12
-INT8_OPS = 1979e12
-BF16_FLOPS = 989e12
-FP32_FLOPS = 67e12
-EXP_PER_S = 132 * 16 * 1.98e9
 REFERENCE_L4_MS = 7.70  # the reference study's fa_tc_int8_b on an NVIDIA L4
 SOLVE_REL_RMS_TOL = 0.03  # int8 solve vs the float golden (phase_solve)
+PREFILL_BENCH_LEN = 2048  # serving_bench --prefill's prompt (phase_serve)
 
-PHASES = ("build", "kernels", "solve", "serve", "serve_w4", "serve_flash", "serve_mixed",
-          "train", "faults")
+PHASES = ("build", "kernels", "solve", "harness", "serve", "serve_w4", "serve_flash",
+          "serve_mixed", "train", "faults")
 
 
 def emit(obj) -> None:
@@ -142,10 +149,12 @@ def emit(obj) -> None:
 
 
 def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=30)
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit as nvidia-smi prints them."""
+    from quantizedmha_tpu_torch.profiling.device_info import power_limit
+    line = power_limit(0)
+    if line is None:
+        raise RuntimeError("nvidia-smi reported no name and power limit")
+    return line
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -165,10 +174,16 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def bound(nbytes: float, ops: dict):
     """(bound_ms, bound_by): the larger of the bytes time and the busiest
-    unit's operations time (int8 and bf16 products share the tensor cores)."""
-    t_bytes = nbytes / HBM_BPS
-    t_ops = max(ops.get("int8", 0) / INT8_OPS + ops.get("bf16", 0) / BF16_FLOPS,
-                ops.get("fp32", 0) / FP32_FLOPS, ops.get("exp", 0) / EXP_PER_S)
+    unit's operations time (int8 and bf16 products share the tensor cores;
+    fp32 is the CUDA cores' float32; exp the SFUs'), at the card's peaks in
+    profiling/roofline.py's CHIP_SPECS (an unknown card raises)."""
+    from quantizedmha_tpu_torch.profiling.roofline import detect_chip
+    spec = detect_chip()
+    t_bytes = nbytes / (spec.hbm_gbps * 1e9)
+    t_ops = max(ops.get("int8", 0) / (spec.int8_tops * 1e12)
+                + ops.get("bf16", 0) / (spec.bf16_tflops * 1e12),
+                ops.get("fp32", 0) / (spec.cuda_core_tflops * 1e12),
+                ops.get("exp", 0) / spec.exp_per_s)
     if t_ops > t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
@@ -1871,6 +1886,7 @@ def _coverage_bwd(g):
 
 def phase_kernels(st):
     import torch
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(1)
     # Prefill attention of the serve path: Llama-3-8B heads, a 256 bucket,
@@ -1895,10 +1911,23 @@ def phase_kernels(st):
                              replaces="quantizedmha_tpu/ops/flash_attention_int8.py:80",
                              library=True)
     del q4, k4, v4
-    int8_p["serve_w4"] = {k: w4_prefill[k] for k in (
-        "max_abs_err", "err_over_tol", "same_bits_twice", "ok", "shape", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms")}
-    int8_p["ok"] = int8_p["ok"] and w4_prefill["ok"]
+    # The prefill bench's attention: 2048 tokens, block_kv as prefill_at
+    # picks it (pick_blocks: min(1024, 2048)); its own generator too.
+    g2 = torch.Generator(device="cuda").manual_seed(15)
+    q2 = torch.randn((1, 32, PREFILL_BENCH_LEN, 128), generator=g2,
+                     device="cuda").to(torch.bfloat16)
+    k2, v2 = torch.randn((2, 1, 8, PREFILL_BENCH_LEN, 128), generator=g2,
+                         device="cuda").to(torch.bfloat16)
+    bench_prefill = _flash_case("flash_int8_fwd[int8_p]", 0, q2, k2, v2,
+                                fa.pick_blocks(PREFILL_BENCH_LEN, PREFILL_BENCH_LEN, 128)[1],
+                                True, replaces="quantizedmha_tpu/ops/flash_attention_int8.py:80",
+                                library=True)
+    del q2, k2, v2
+    sub_keys = ("max_abs_err", "err_over_tol", "same_bits_twice", "ok", "shape", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")
+    int8_p["serve_w4"] = {k: w4_prefill[k] for k in sub_keys}
+    int8_p["prefill_bench"] = {k: bench_prefill[k] for k in sub_keys}
+    int8_p["ok"] = int8_p["ok"] and w4_prefill["ok"] and bench_prefill["ok"]
     cases = [
         int8_p,
         _flash_case("flash_int8_fwd[bf16_p]", 1, qs, ks, vs, 512, False,
@@ -2391,6 +2420,7 @@ def phase_solve(st):
           and tuple(out.shape) == (N, d_model) and const_dev <= 1e-6)
     rungs = {name: _solve_rung(name, q, k, v, ref, ones, st) for name in SOLVE_RUNG_TOL}
     ok = ok and all(r["ok"] for r in rungs.values())
+    st["solve_ms"] = {"fa_int8": ms, **{name: r["ms"] for name, r in rungs.items()}}
     emit({"phase": "solve", "ok": ok, "ms": ms, "launches": launches,
           "rel_rms_err_vs_reference": rel_rms, "rel_rms_tol": SOLVE_REL_RMS_TOL,
           "max_abs_err_vs_reference": max_abs, "ref_rms": (ref.norm() / N**0.5 / d_model**0.5).item(),
@@ -2438,9 +2468,76 @@ def _solve_rung(kernel, q, k, v, ref, ones, st):
             "rel_rms_tol": tol, "ones_max_dev": const_dev, "ones_tol": 1e-6}
 
 
+# The harness phase: the kernel counter each rung of the reference driver
+# launches (none for unfused and reference), and the band its CLI time must
+# lie in around the solve phase's time of the same rung.
+HARNESS_RUNG_KERNELS = {"fa_int8": "flash_int8_fwd[bf16_p]", "fa": "flash_fwd[f32]",
+                        "fa_bf16": "flash_fwd[bf16]"}
+HARNESS_MS_BAND = (0.8, 1.25)
+HARNESS_ARGS = dict(warmup=3, runs=16, repeats=3)
+
+
+def phase_harness(st):
+    """The reference driver (harness/cli.py) at solve's workload, all rungs,
+    through the CLI's own entry with a temporary cache and JSON report."""
+    import tempfile
+    import torch
+    from quantizedmha_tpu_torch.harness import cli
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.profiling.device_info import device_info
+    counters = {"flash_int8_fwd[bf16_p]": fa8.FLASH_BF16_P,
+                "flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P,
+                "flash_fwd[f32]": fa.FLASH_FWD_F32, "flash_fwd[bf16]": fa.FLASH_FWD_BF16}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        report = os.path.join(tmp, "run.json")
+        argv = ["--kernel", "all", "--n", "8192", "--d-model", "1024", "--heads", "32",
+                "--cache-dir", os.path.join(tmp, "cache"), "--json", report]
+        for key, val in HARNESS_ARGS.items():
+            argv += [f"--{key}", str(val)]
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        rc = cli.run(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+        with open(report) as f:
+            payload = json.load(f)
+    torch.cuda.empty_cache()
+    results = payload["results"]
+    # Every checked and timed rung calls solve 1 + warmup + runs * repeats times.
+    calls = 1 + HARNESS_ARGS["warmup"] + HARNESS_ARGS["runs"] * HARNESS_ARGS["repeats"]
+    want = {n: 0 for n in counters}
+    want.update({n: calls for n in HARNESS_RUNG_KERNELS.values()})
+    for n in HARNESS_RUNG_KERNELS.values():
+        st["launches"][n] = st["launches"].get(n, 0) + launches[n]
+    ratios = {r["kernel"]: r["ms"] / st["solve_ms"][r["kernel"]] for r in results
+              if r["kernel"] in st["solve_ms"] and r["ms"]}
+    lo, hi = HARNESS_MS_BAND
+    ok = (rc == 0 and launches == want
+          and [r["kernel"] for r in results] == ["unfused", "fa", "fa_bf16", "fa_int8",
+                                                 "reference"]
+          and all(r["error"] is None and r["skipped"] is None and r["check"]
+                  and r["check"]["n_mismatch"] == 0 and r["check"]["n_nonfinite"] == 0
+                  and r["ms"] and r["ms"] > 0
+                  and 0 <= r["pct_mxu_sol"] <= 100 and 0 <= r["pct_hbm_sol"] <= 100
+                  for r in results)
+          and len(ratios) == 4 and all(lo <= x <= hi for x in ratios.values()))
+    emit({"phase": "harness", "ok": ok, "rc": rc, "seconds": secs, "argv": argv,
+          "device": payload["device"], "workload": payload["workload"],
+          "results": results, "launches": launches, "launches_expected": want,
+          "ms_over_solve_ms": ratios, "ms_band": HARNESS_MS_BAND,
+          "device_info": device_info()})
+    if not ok:
+        raise AssertionError("the reference driver failed its checks")
+
+
 def phase_serve(st):
     import numpy as np
     import torch
+    from quantizedmha_tpu_torch.harness import serving_bench
     from quantizedmha_tpu_torch.models import llama
     from quantizedmha_tpu_torch.ops import decode as dec
     from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
@@ -2526,6 +2623,30 @@ def phase_serve(st):
           and rel <= 0.25)
     if st.get("profile"):
         emit({"phase": "serve_profile", **_profile_decode_chunk(eng, prompts, max_new)})
+    # The serving benchmark's prefill on the same params: every layer's
+    # attention through the int8-P kernel in each of its timed calls.
+    torch.cuda.empty_cache()
+    fa8.FLASH_INT8_P.reset()
+    fa8.FLASH_BF16_P.reset()
+    prefill = serving_bench.run_prefill_bench(cfg, params, prompt_len=PREFILL_BENCH_LEN)
+    torch.cuda.synchronize()
+    prefill_launches = {"flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P.launches,
+                        "flash_int8_fwd[bf16_p]": fa8.FLASH_BF16_P.launches}
+    timing = serving_bench.PREFILL_TIMING
+    prefill_want = {"flash_int8_fwd[int8_p]": cfg.num_layers * (
+                        timing["warmup"] + timing["runs"] * timing["repeats"]),
+                    "flash_int8_fwd[bf16_p]": 0}
+    st["launches"]["flash_int8_fwd[int8_p]"] += prefill_launches["flash_int8_fwd[int8_p]"]
+    prefill_ok = (prefill_launches == prefill_want and prefill["prefill_ms"] > 0
+                  and 0 < prefill["prefill_pct_mxu_sol"] <= 100)
+    ok = ok and prefill_ok
+    if st.get("profile"):
+        bench_toks = torch.as_tensor(
+            np.random.default_rng(0).integers(1, cfg.vocab_size, (1, PREFILL_BENCH_LEN)),
+            dtype=torch.int32, device="cuda")
+        emit({"phase": "serve_prefill_profile", "prefill_len": PREFILL_BENCH_LEN,
+              **_profile_prefill(lambda: llama_adapter.prefill_at(
+                  cfg, params, bench_toks, PREFILL_BENCH_LEN - 1))})
     emit({"phase": "serve", "ok": ok, "model": "llama3_8b", "layers": cfg.num_layers,
           "weights_gb": wbytes / 1e9, "init_s": init_s,
           "requests": batch, "prompt_len": prompt_len, "max_new": max_new,
@@ -2534,7 +2655,9 @@ def phase_serve(st):
           "first_step_s": first_step_s, "ttft_warm_s": ttft,
           "decode_tok_s": toks / dt, "decode_ms_per_step": dt * 1e3 / max(steps, 1),
           "measured_tokens": toks, "prefill_logits_rel_err_vs_reference": rel,
-          "rel_err_tol": 0.25, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "rel_err_tol": 0.25, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "prefill_bench": {**prefill, "ok": prefill_ok, "launches": prefill_launches,
+                            "launches_expected": prefill_want}})
     if not ok:
         raise AssertionError("serve phase failed its checks")
 
@@ -3302,40 +3425,21 @@ def _host_profile(eng, steps):
             "port": [row(f, v, v[3]) for f, v in port]}
 
 
-KERNEL_GROUPS = (("w4_matmul", ("w4_matmul_kernel", "w4_matmul_wgmma_kernel",
-                                 "w4_reduce_kernel")),
-                 ("flash_int8_fwd", "flash_int8"), ("flash_fwd", "flash_fwd"),
-                 ("flash_bwd", "flash_bwd"),
-                 ("paged_prefill", "paged_prefill"), ("paged_decode", "paged_decode"),
-                 ("paged_decode merge", "decode_merge"),
-                 ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
-                 ("direct_copy (dtype casts)", "direct_copy"))
-
-
 def _kernel_groups(prof):
     """Device kernels of a torch.profiler window: ({name: (us, launches)},
-    {KERNEL_GROUPS group or "other": (us, launches)}, busy seconds)."""
+    {KERNEL_GROUPS group or "other": (us, launches)}, busy seconds), by
+    profiling/trace_summary.py's grouping."""
     from torch.autograd import DeviceType
-    by_name, by_group = {}, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + us, n + 1)
-        group = next((g for g, keys in KERNEL_GROUPS
-                      if any(k in e.name for k in ((keys,) if isinstance(keys, str) else keys))),
-                     "other")
-        t, n = by_group.get(group, (0.0, 0))
-        by_group[group] = (t + us, n + 1)
-    return by_name, by_group, sum(t for t, _ in by_name.values()) / 1e6
+    from quantizedmha_tpu_torch.profiling.trace_summary import group_kernels
+    return group_kernels((e.name, e.time_range.elapsed_us()) for e in prof.events()
+                         if e.device_type == DeviceType.CUDA)
 
 
 def _profile_prefill(fn):
     """Where one prefill's device time goes: fn() under torch.profiler
-    between two synchronizes; kernels grouped by KERNEL_GROUPS, wall and
-    busy ms, and the idle share 1 - busy / wall (tracing slows the host,
-    so an upper bound)."""
+    between two synchronizes; kernels grouped by KERNEL_GROUPS, the eight
+    longest by name, wall and busy ms, and the idle share 1 - busy / wall
+    (tracing slows the host, so an upper bound)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3344,11 +3448,14 @@ def _profile_prefill(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _, by_group, busy_s = _kernel_groups(prof)
+    by_name, by_group, busy_s = _kernel_groups(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"traced_wall_ms": wall * 1e3, "device_busy_ms": busy_s * 1e3,
             "device_idle_share_traced": 1.0 - busy_s / wall,
             "groups": {g: {"ms": t / 1e3, "launches": n}
-                       for g, (t, n) in sorted(by_group.items(), key=lambda kv: -kv[1][0])}}
+                       for g, (t, n) in sorted(by_group.items(), key=lambda kv: -kv[1][0])},
+            "top_kernels": [{"kernel": k[:80], "ms": t / 1e3, "launches": n}
+                            for k, (t, n) in top]}
 
 
 def _profile_decode_chunk(eng, prompts, max_new):
@@ -3406,8 +3513,9 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
                     help="also trace one full-batch decode chunk of the serve, "
-                         "serve_w4 and serve_mixed phases, and serve_flash's bucketed "
-                         "and chunked prefills and one train step, with torch.profiler")
+                         "serve_w4 and serve_mixed phases, serve's 2048-token prefill "
+                         "bench, serve_flash's bucketed and chunked prefills and one "
+                         "train step, with torch.profiler")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     bad = [p for p in phases if p not in PHASES]
@@ -3431,6 +3539,8 @@ def main(argv=None) -> int:
     import quantizedmha_tpu_torch  # noqa: F401
     if "build" not in phases:
         phases.insert(0, "build")
+    if "harness" in phases and "solve" not in phases:
+        phases.append("solve")  # the harness phase holds its times to solve's
     st = {"launches": {}, "profile": args.profile}
     for name in PHASES:
         if name not in phases:
@@ -3447,7 +3557,8 @@ def main(argv=None) -> int:
             e = {k: c[k] for k in ("name", "route", "source", "replaces", "max_abs_err",
                                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             e.update({k: c[k] for k in ("also_replaces", "mqa", "serve_flash", "library_note",
-                                        "library_backend", "library_f32", "solve") if k in c})
+                                        "library_backend", "library_f32", "solve", "serve_w4",
+                                        "prefill_bench") if k in c})
             if "shapes" in c:
                 e["shapes"] = [{k: s[k] for k in ("matmul", "rows", "ms", "wrapper_ms", "plain_ms",
                                                   "bound_ms", "library_ms")} for s in c["shapes"]]

@@ -9,8 +9,6 @@ package imports nothing of JAX. Entry points run on the GPU unless the
 caller passes device="cpu", where each kernel's plain PyTorch version runs.
 """
 
-__version__ = "0.1.0"
-
 from quantizedmha_tpu_torch.api import solve
 from quantizedmha_tpu_torch.configs import (
     AttentionConfig,
@@ -23,6 +21,7 @@ from quantizedmha_tpu_torch.ops.flash_attention import flash_attention
 from quantizedmha_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
 from quantizedmha_tpu_torch.ops.paged_prefill import paged_prefill_attention
 from quantizedmha_tpu_torch.ops.unfused import unfused_mha
+from quantizedmha_tpu_torch.version import __version__
 
 __all__ = [
     "__version__",

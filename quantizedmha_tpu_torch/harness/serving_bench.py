@@ -16,11 +16,11 @@ the score beside tokens/s is the share of the memory speed of light:
 Weights are Llama-3-8B-shape and random, drawn on the card from a seeded
 torch.Generator (its numbers differ from the JAX package's jax.random
 draws; decode throughput depends on the byte layout, not on the values).
-The bandwidth comes from `hbm_gbps` or from HBM_GBPS by the card's name;
-an unknown card raises. Not ported: `--prefill` (run_prefill_bench needs
-harness/timing.py and profiling/roofline.py, ROADMAP.md queue 1 items 3
-and 9) and `--async-dispatch` (a TPU host-overlap trick the engine
-refuses).
+The bandwidth comes from `hbm_gbps` or from profiling/roofline.py's
+CHIP_SPECS by the card's name; an unknown card raises. `--prefill` also
+times one 2048-token prefill (`run_prefill_bench`) against the tensor
+cores' bf16 speed of light. Not ported: `--async-dispatch` (a TPU
+host-overlap trick the engine refuses).
 """
 
 from __future__ import annotations
@@ -35,31 +35,27 @@ import numpy as np
 import torch
 
 from quantizedmha_tpu_torch.device import resolve_device
+from quantizedmha_tpu_torch.harness.timing import benchmark
 from quantizedmha_tpu_torch.models.llama import LlamaConfig
 from quantizedmha_tpu_torch.ops.w4_matmul import check_w4_layout, pack_nibbles
+from quantizedmha_tpu_torch.profiling.roofline import (
+    ChipSpec,
+    attention_flops,
+    detect_chip,
+    roofline,
+)
 from quantizedmha_tpu_torch.quant.weights import (
     QuantizedWeight,
     QuantizedWeight4,
     fuse_w4_projections,
     weight_bytes,
 )
+from quantizedmha_tpu_torch.serving import llama_adapter
 from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
 
 _W4_GROUP = 128
-# Device-memory bandwidth in GB/s by torch.cuda.get_device_name() (NVIDIA
-# data sheet, SXM part).
-HBM_GBPS = {"NVIDIA H100 80GB HBM3": 3350.0}
-_PREFILL_TODO = ("run_prefill_bench needs harness/timing.py and "
-                 "profiling/roofline.py, not ported yet (ROADMAP.md queue 1 "
-                 "items 3 and 9)")
-
-
-def hbm_gbps_of(device) -> float:
-    """The HBM bandwidth of a CUDA device, from HBM_GBPS by its name."""
-    name = torch.cuda.get_device_name(device)
-    if name not in HBM_GBPS:
-        raise ValueError(f"no HBM bandwidth known for {name!r}: pass hbm_gbps")
-    return HBM_GBPS[name]
+# run_prefill_bench's harness.timing.benchmark arguments.
+PREFILL_TIMING = dict(warmup=2, runs=8, repeats=3)
 
 
 def device_init_quant_params(cfg: LlamaConfig, seed: int = 0, bits: int = 8,
@@ -175,7 +171,7 @@ def run_decode_bench(cfg: LlamaConfig, params: Dict[str, Any], *,
     if hbm_gbps is None:
         if dev.type != "cuda":
             raise ValueError("hbm_gbps is required off the GPU")
-        hbm_gbps = hbm_gbps_of(dev)
+        hbm_gbps = detect_chip(dev).hbm_gbps
     mpps = -(-(prompt_len + max_new + chunk + 1) // page_size)
     if num_pages is None:
         num_pages = batch * mpps + 2  # + scrap page + slack
@@ -236,9 +232,44 @@ def run_decode_bench(cfg: LlamaConfig, params: Dict[str, Any], *,
     }
 
 
+def prefill_flops(cfg: LlamaConfig, prompt_len: int) -> float:
+    """FLOPs of one prefill: every token through the per-token matmuls,
+    and every layer's causal attention, two products over the visible
+    pairs (the JAX package's run_prefill_bench adds one layer's)."""
+    return (2.0 * model_matmul_params(cfg) * prompt_len
+            + cfg.num_layers * attention_flops(1, cfg.num_heads, prompt_len, prompt_len,
+                                               cfg.hd, causal=True))
+
+
 def run_prefill_bench(cfg: LlamaConfig, params: Dict[str, Any], *,
-                      prompt_len: int = 2048) -> Dict[str, Any]:
-    raise NotImplementedError(_PREFILL_TODO)
+                      prompt_len: int = 2048, chip: Optional[ChipSpec] = None,
+                      device="cuda") -> Dict[str, Any]:
+    """Prefill TFLOP/s against the tensor cores' bf16 speed of light
+    (w8a16 matmuls run in bf16): `prefill_at` over `prompt_len` random
+    tokens (numpy seed 0), timed by harness.timing.benchmark
+    (PREFILL_TIMING). `chip` gives the peaks off the card. Beside
+    the JAX package's keys (unrounded here) the row carries the device
+    and the FLOPs counted."""
+    dev = resolve_device(device)
+    if chip is None:
+        if dev.type != "cuda":
+            raise ValueError("chip (a ChipSpec) is required off the GPU")
+        chip = detect_chip(dev)
+    toks = torch.as_tensor(
+        np.random.default_rng(0).integers(1, cfg.vocab_size, (1, prompt_len)),
+        dtype=torch.int32, device=dev)
+    t = benchmark(lambda: llama_adapter.prefill_at(cfg, params, toks, prompt_len - 1),
+                  **PREFILL_TIMING)
+    flops = prefill_flops(cfg, prompt_len)
+    rl = roofline(t.median_s, flops, 0, dtype="bf16", chip=chip)
+    return {
+        "prefill_len": prompt_len,
+        "prefill_ms": t.median_ms,
+        "prefill_tflops": rl.tflops_achieved,
+        "prefill_pct_mxu_sol": rl.pct_of_compute_sol,
+        "prefill_flops": flops,
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    }
 
 
 def model_name(weight_bits: int, lm_head_bits: Optional[int]) -> str:
@@ -254,7 +285,7 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new", type=int, default=64)
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--prefill", action="store_true",
-                    help="prefill TFLOP/s at 2048 tokens (not ported yet)")
+                    help="also measure prefill TFLOP/s at 2048 tokens")
     ap.add_argument("--layers", type=int, default=None,
                     help="override num_layers (scaled-down debugging)")
     ap.add_argument("--weight-bits", type=int, choices=(4, 8), default=8,
@@ -266,10 +297,8 @@ def main(argv=None) -> None:
     ap.add_argument("--no-fuse-proj", action="store_true",
                     help="keep wq/wk/wv and w_gate/w_up as separate matmuls")
     ap.add_argument("--hbm-gbps", type=float, default=None,
-                    help="device-memory bandwidth (default: HBM_GBPS by card name)")
+                    help="device-memory bandwidth (default: CHIP_SPECS by card name)")
     args = ap.parse_args(argv)
-    if args.prefill:
-        raise NotImplementedError(_PREFILL_TODO)
 
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), attention_impl="flash_int8")
     if args.layers:
@@ -291,6 +320,10 @@ def main(argv=None) -> None:
         out["sweep"].append(row)
         if not args.json:
             print(json.dumps(row), flush=True)
+    if args.prefill:
+        out["prefill"] = run_prefill_bench(cfg, params)
+        if not args.json:
+            print(json.dumps(out["prefill"]), flush=True)
     if args.json:
         print(json.dumps(out), flush=True)
 

@@ -1,12 +1,16 @@
 """PyTorch port vs JAX package: the serving benchmark's accounting
 (decode_step_bytes, model_matmul_params), the layout of its device-drawn
-parameters, and its decode loop on a tiny w4 model on the CPU.
+parameters, its decode loop on a tiny w4 model on the CPU, and the
+prefill bench's keys and FLOP count on a tiny w8a16 model.
 
 Tolerances: byte and parameter counts are integers and must be equal; the
 benchmark's row must carry every key the JAX package's row carries, and
-its speed-of-light fields must agree with the standalone accounting.
+its speed-of-light fields must agree with the standalone accounting (to
+pytest.approx's default 1e-6 relative).
 The drawn values differ (torch.Generator vs jax.random) and are not
 compared."""
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +24,7 @@ from quantizedmha_tpu.quant import weights as jw
 from quantizedmha_tpu_torch.harness import serving_bench as tsb
 from quantizedmha_tpu_torch.models import llama as tl
 from quantizedmha_tpu_torch.ops import w4_matmul as tm
+from quantizedmha_tpu_torch.profiling.roofline import ChipSpec
 from quantizedmha_tpu_torch.quant import weights as tw
 
 TINY = dict(num_layers=2, num_heads=4, num_kv_heads=2, attention_impl="flash_int8")
@@ -100,8 +105,31 @@ def test_run_decode_bench_needs_a_bandwidth_off_the_gpu():
     with pytest.raises(ValueError, match="hbm_gbps"):
         tsb.run_decode_bench(tc, tp, batch=1, prompt_len=32, max_new=4, chunk=2,
                              page_size=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsb.run_prefill_bench(tc, tp)
+    # The prefill bench likewise needs the card's peaks off the GPU.
+    with pytest.raises(ValueError, match="chip"):
+        tsb.run_prefill_bench(tc, tp, prompt_len=16, device="cpu")
+
+
+def test_run_prefill_bench_tiny_model_has_jax_keys_and_flops():
+    """The prefill row on a tiny w8a16 model: the JAX package's keys, and
+    FLOPs from the JAX package's own counts (model_matmul_params, and
+    attention_flops for every layer: the JAX bench adds one layer's)."""
+    # (the package exports a `roofline` function under the module's name)
+    jroof = importlib.import_module("quantizedmha_tpu.profiling.roofline")
+    jc = jl.LlamaConfig.tiny(**TINY)
+    tc = tl.LlamaConfig.tiny(**TINY)
+    L = 16
+    want = jsb.run_prefill_bench(jc, jsb.device_init_quant_params(jc, bits=8), prompt_len=L)
+    tp = tsb.device_init_quant_params(tc, bits=8, device="cpu")
+    row = tsb.run_prefill_bench(tc, tp, prompt_len=L, chip=ChipSpec("test", 100.0, 200.0, 1e3),
+                                device="cpu")
+    assert set(want) <= set(row) and row["prefill_len"] == want["prefill_len"] == L
+    attn = jroof.attention_flops(1, jc.num_heads, L, L, jc.hd, causal=True)
+    flops = 2.0 * jsb.model_matmul_params(jc) * L + jc.num_layers * attn
+    assert row["prefill_flops"] == tsb.prefill_flops(tc, L) == flops
+    assert row["prefill_ms"] > 0 and row["device"] == "cpu"
+    assert row["prefill_tflops"] == pytest.approx(flops / (row["prefill_ms"] * 1e-3) / 1e12)
+    assert row["prefill_pct_mxu_sol"] == pytest.approx(100.0 * row["prefill_tflops"] / 100.0)
 
 
 def test_w4_params_serve_through_the_kernel_wrapper(monkeypatch):
