@@ -34,7 +34,11 @@ result line:
            the decode at serve's, serve_flash's and serve_mixed's shapes
            and for MQA, each reporting its splits;
            kernel / plain / library times (CUDA events) and the least time
-           the card could take (bound).
+           the card could take (bound). Rows 3, 5 and 10 also at head_dim
+           256, serve_hybrid's Gemma-2 shapes (each entry's "gemma2"), and
+           the d=256 coverage cases (D256_*: rows 3, 5, 10, 11 and 12,
+           some with the slots behind the window on a scrap page of 0x7f
+           bytes and scale 1e30).
   solve    the reference ABI at N=8192, d_model=1024, h=32 in float32:
            solve(kernel="fa_int8"), then the float rungs "fa", "fa_bf16"
            and "unfused": time, relative RMS error against the float
@@ -94,6 +98,23 @@ result line:
            golden whose float attention reads K/V through the same INT8 /
            INT4 quantization; their distance from the float golden, and the
            plain INT8 cache's, printed beside it.
+  serve_hybrid  LlamaConfig.gemma2_9b() as configured (42 layers, head_dim
+           256, a 4096-token window on even layers, softcaps 50 and 30,
+           attention_impl="flash", random bf16 weights) through the engine
+           with hybrid_kv (a page pool for the full layers, one for the
+           sliding layers: SERVE_HYBRID's sizes), prefix caching and
+           interleaved prefill: prompts of 300 and 1800 tokens (bucketed,
+           row 5), 6000 (three chunks, row 10; its decode starts past the
+           window), 64 new tokens each, then a prompt sharing the long
+           one's first 46 pages (a prefix hit, one chunk of its suffix).
+           Gates: the three non-hit streams equal a shared-pool engine's
+           (hybrid_kv=False) on the card and the hit's has its length,
+           exact launches of rows 3, 5 and 10, pages trimmed, each
+           sequence's live sliding pages <= 34 while the full pool holds
+           all of the long prompt's, every pool drained, the long prompt's
+           last logits (chunked through fresh hybrid pools) within 0.25 std
+           of the float golden. Prints TTFT, decode ms a step, peak memory
+           and the long sequence's KV bytes against one shared pool's.
   train    sgd_train_step of LlamaConfig.llama3_8b() as configured (bf16,
            attention_impl="flash", 32 layers, random weights from seed 0)
            on one batch of 2048 random tokens, 4 steps at lr 0.5: every
@@ -108,15 +129,17 @@ result line:
   faults   each line of PLANTED_FAULTS planted in a copy of csrc/, the
            kernel sources that the changed file is part of (flash_fwd.cu,
            paged_prefill.cu, paged_decode.cu, flash_bwd.cu, w4_matmul.cu,
-           flash_int8_fwd.cu, their shared f32_tile.cuh, int4.cuh and
-           wgmma_s8.cuh) built in parallel and
+           flash_int8_fwd.cu, their shared f32_tile.cuh, int4.cuh,
+           wgmma_s8.cuh and mma_bf16.cuh; a line that only the d=256
+           instances compile, in the sources named beside it) built in
+           parallel and
            bound in turn in place of the committed kernels, their checks
            rerun: every fault must fail them.
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 zeroed just before each main path (each solve rung, the harness run,
 serve, serve's prefill bench, each serve_w4 batch, serve_flash,
-serve_mixed, train's steps) runs and read just after,
+serve_mixed, serve_hybrid, train's steps) runs and read just after,
 and a kernel of that path that never launched fails the run. The last
 lines are the kernels summary, the card's name and power limit, and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -141,7 +164,7 @@ SOLVE_REL_RMS_TOL = 0.03  # int8 solve vs the float golden (phase_solve)
 PREFILL_BENCH_LEN = 2048  # serving_bench --prefill's prompt (phase_serve)
 
 PHASES = ("build", "kernels", "solve", "harness", "serve", "serve_w4", "serve_flash",
-          "serve_mixed", "train", "faults")
+          "serve_mixed", "serve_hybrid", "train", "faults")
 
 
 def emit(obj) -> None:
@@ -596,15 +619,19 @@ def _dense_kv(pages, scales, tables, Hq, dtype=None):
     return x.repeat_interleave(Hq // Hkv, dim=1)
 
 
-def _sdpa_decode(q, k_pages, v_pages, k_scales, v_scales, lengths, tables):
+def _sdpa_decode(q, k_pages, v_pages, k_scales, v_scales, lengths, tables, window=None):
     """(ms, backend) of SDPA in bf16 for one decode step on the same K/V
-    dequantized beforehand (untimed), each sequence's length as a mask:
-    the yardstick of the paged decode kernels."""
+    dequantized beforehand (untimed), each sequence's length (and, given a
+    window, its last `window` keys) as a mask: the yardstick of the paged
+    decode kernels."""
     import torch
     Hq = q.shape[1]
     kd = _dense_kv(k_pages, k_scales, tables, Hq)
     vd = _dense_kv(v_pages, v_scales, tables, Hq)
-    mask = (torch.arange(kd.shape[2], device=q.device)[None, :] < lengths[:, None].long())
+    kpos = torch.arange(kd.shape[2], device=q.device)[None, :]
+    mask = kpos < lengths[:, None].long()
+    if window is not None:
+        mask &= kpos >= lengths[:, None].long() - window
     out = _sdpa(q[:, :, None].to(torch.bfloat16), kd, vd, attn_mask=mask[:, None, None])
     del kd, vd
     return out
@@ -1160,6 +1187,272 @@ def _flash_coverage_ratios(g):
     return ratios
 
 
+# --- head_dim 256 (Gemma-2): rows 3, 5 (bf16), 10 (bf16 q), 11 and 12 --------
+
+# Gemma-2-9B's attention (LlamaConfig.gemma2_9b): 16 q heads over 8 kv
+# heads of 256, sm_scale 256^-0.5 (query_pre_attn_scalar), softcap 50, a
+# 4096-key window on even layers, page 128.
+GEMMA2_ATTN = dict(Hq=16, Hkv=8, D=256, P=128, softcap=50.0, window=4096)
+#   (B, Hq, Hkv, page, window, softcap, table slots, lengths, bf16 q, int4,
+#    scrap)
+# A Gemma-2 sliding layer at serve_hybrid's depth (several splits, the
+# slots behind the window on the scrap page), its full layer, GQA 2 on
+# 16-key pages, GQA 8 with f32 q and a length of 1, and INT4 pages (row 12)
+# of 4 sub-tiles with an empty sequence.
+D256_DECODE = (
+    (3, 16, 8, 128, 4096, 50.0, 64, (6064, 4200, 300), True, False, True),
+    (3, 16, 8, 128, None, 50.0, 64, (6064, 1864, 364), True, False, False),
+    (2, 4, 2, 16, 40, None, 24, (300, 41), True, False, True),
+    (2, 8, 1, 32, None, 30.0, 20, (600, 1), False, False, False),
+    (3, 16, 8, 128, 4096, 50.0, 48, (6000, 4200, 0), True, True, True),
+)
+#   (Hq, Hkv, page, C, lengths, q_starts, window, sinks, softcap, int4, scrap)
+# bf16 q: a Gemma-2 sliding layer's chunk past the window (scrap slots),
+# its full layer over two sequences, GQA 4 on 32-key pages with sinks
+# (scrap slots between the sinks and the window), INT4 pages (row 11) of 4
+# sub-tiles past the window, and INT4 with a negative q_start.
+D256_PREFILL = (
+    (16, 8, 128, 300, (6000,), (5700,), 4096, 0, 50.0, False, True),
+    (16, 8, 128, 200, (2000, 150), (1800, 0), None, 0, 50.0, False, False),
+    (8, 2, 32, 130, (500, 300), (370, 170), 100, 3, None, False, True),
+    (16, 8, 128, 300, (6000,), (5700,), 4096, 0, 50.0, True, True),
+    (4, 2, 64, 100, (200, 30), (100, -40), None, 0, 20.0, True, False),
+)
+#   FLASH_FWD_COVERAGE's tuples at d=256, bf16: Gemma-2's GQA 2 with
+# softcap, a window that skips tiles (4096 scaled to the case), a ragged
+# non-causal case, offsets per sequence, window + sinks.
+D256_FLASH = (
+    (1, 16, 8, 600, 600, 256, True, None, 0, 50.0, True, None),
+    (1, 4, 2, 700, 700, 256, True, 256, 0, 50.0, True, None),
+    (2, 4, 2, 100, 190, 256, False, None, 0, None, True, None),
+    (2, 4, 2, 96, 160, 256, True, None, 0, None, True, ((70, 10), (0, 40))),
+    (1, 8, 4, 400, 400, 256, True, 64, 4, 30.0, True, None),
+)
+D256_SUBS = 4  # scale sub-tiles a page of the INT4 cases
+
+
+def _scrap_behind(cache, tables, first_visible, sinks, P):
+    """Point every table slot wholly behind the window (no key at or past
+    first_visible[b], and no sink key) at scrap page 0, filled with 0x7f
+    bytes and scale 1e30 as a trimmed page may hold anything: a kernel
+    that reads such a page shows it. Returns (cache, the cache with the
+    scrap page zeroed, for the tolerances, tables)."""
+    import torch
+    k_pages, v_pages, k_scales, v_scales = (x.clone() for x in cache)
+    clean = [x.clone() for x in (k_pages, v_pages, k_scales, v_scales)]
+    for x in (k_pages, v_pages):
+        x[:, 0] = 0x7f
+    for x in (k_scales, v_scales):
+        x[:, 0] = 1e30
+    for x in clean:
+        x[:, 0] = 0
+    tables = tables.clone()
+    slot_end = (torch.arange(tables.shape[1], device=tables.device) + 1) * P
+    behind = ((slot_end[None, :] <= first_visible.long()[:, None])
+              & (slot_end[None, :] - P >= sinks))
+    tables[behind] = 0
+    return (k_pages, v_pages, k_scales, v_scales), tuple(clean), tables
+
+
+def _d256_check(q, cache, lengths, tables, q_starts=None, *, int4, clean, window, sinks,
+                softcap):
+    """One paged launch at d=256 with lse, decode (q [B, Hq, D]) or prefill
+    (q [B, Hq, C, D], q_starts), INT8 or INT4 pages, against its plain
+    version; the tolerances read `clean` (the cache without its scrap
+    page). Launched twice: (kernel output, plain output, [output, lse]
+    err_over_tol (a third, inf, when the bits differ), launch, plain)."""
+    import torch
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    sm = q.shape[-1] ** -0.5
+    kw = dict(sm_scale=sm, window=window, softcap=softcap, sinks=sinks, save_residuals=True)
+    if q_starts is None:
+        operands = (q, *cache, lengths, tables)
+        launch_fn = dec._paged_decode_launch
+        plain_fn = dec._paged_decode_int4_plain if int4 else dec._paged_decode_plain
+        w_abs = None
+    else:
+        operands = (q, *cache, lengths, q_starts, tables)
+        launch_fn = pp._paged_prefill_launch
+        plain_fn = pp._paged_prefill_int4_plain if int4 else pp._paged_prefill_plain
+        w_abs = prefill_w_abs(q, clean, lengths, q_starts, tables, int4=int4, **kw)
+    kernel, args, (out, lse), _operands = launch_fn(*operands, int4=int4, **kw)
+    kernel(*args)
+    torch.cuda.synchronize()
+    same = _same_bits_again(lambda: kernel(*args), (out, lse))
+    p_out, p_lse = plain_fn(*operands, **kw)
+    tols = (int4_tolerances if int4 else paged_prefill_tolerances)(
+        q, *clean, p_out, p_lse, sm_scale=sm, softcap=softcap, w_abs=w_abs)
+    ratios = [err_over_tol(out, p_out, tols[0]), err_over_tol(lse, p_lse, tols[1])]
+    if not same:
+        ratios.append(float("inf"))
+    return out, p_out, ratios, lambda: kernel(*args), lambda: plain_fn(*operands, **kw)
+
+
+def _d256_decode_inputs(g, case):
+    """(q, cache, lengths, tables, clean, masks) of a D256_DECODE case."""
+    import torch
+    B, Hq, Hkv, P, window, cap, slots, lens, bf16, int4, scrap = case
+    n = B * slots + 1
+    cache = (_int4_cache(g, Hkv, n, P, 256, D256_SUBS) if int4
+             else _paged_cache(g, Hkv, n, P, 256))
+    tables = _tables_for(g, B, slots, n)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, Hq, 256), generator=g, device="cuda")
+    q = q.to(torch.bfloat16) if bf16 else q
+    clean = cache
+    if scrap:
+        cache, clean, tables = _scrap_behind(cache, tables, lengths - window, 0, P)
+    return q, cache, lengths, tables, clean, dict(window=window, sinks=0, softcap=cap)
+
+
+def _d256_prefill_inputs(g, case):
+    """(q, cache, lengths, q_starts, tables, clean, masks) of a D256_PREFILL
+    case, bf16 q."""
+    import torch
+    Hq, Hkv, P, C, lens, starts, window, sinks, cap, int4, scrap = case
+    B = len(lens)
+    slots = max(-(-n // P) for n in lens) + 1
+    n = B * slots + 1
+    cache = (_int4_cache(g, Hkv, n, P, 256, D256_SUBS) if int4
+             else _paged_cache(g, Hkv, n, P, 256))
+    tables = _tables_for(g, B, slots, n)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q_starts = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, Hq, C, 256), generator=g, device="cuda").to(torch.bfloat16)
+    clean = cache
+    if scrap:
+        cache, clean, tables = _scrap_behind(cache, tables, q_starts - window + 1, sinks, P)
+    return q, cache, lengths, q_starts, tables, clean, dict(window=window, sinks=sinks,
+                                                            softcap=cap)
+
+
+def _coverage_d256(kinds=("decode", "prefill", "flash"), small=False):
+    """D256_DECODE, D256_PREFILL and D256_FLASH: each kernel at d=256
+    against its plain version on the card, each case from its own
+    generator and launched twice: {case: [output, lse] err_over_tol}.
+    small: the cases on pages of fewer than 128 keys only (the faults
+    phase's: the Gemma-2-sized ones spend seconds in their plain walks)."""
+    import torch
+    ratios = {}
+    if "decode" in kinds:
+        for i, case in enumerate(D256_DECODE):
+            if small and case[3] >= 128:
+                continue
+            g = torch.Generator(device="cuda").manual_seed(300 + i)
+            q, cache, lengths, tables, clean, masks = _d256_decode_inputs(g, case)
+            name = f"paged_decode_int4_256_{i}" if case[9] else f"decode256_{i}"
+            ratios[name] = _d256_check(q, cache, lengths, tables, int4=case[9], clean=clean,
+                                       **masks)[2]
+    if "prefill" in kinds:
+        for i, case in enumerate(D256_PREFILL):
+            if small and case[2] >= 128:
+                continue
+            g = torch.Generator(device="cuda").manual_seed(320 + i)
+            q, cache, lengths, q_starts, tables, clean, masks = _d256_prefill_inputs(g, case)
+            name = f"paged_prefill_int4_256_{i}" if case[9] else f"paged_prefill256_{i}"
+            ratios[name] = _d256_check(q, cache, lengths, tables, q_starts, int4=case[9],
+                                       clean=clean, **masks)[2]
+    if "flash" in kinds:
+        for i, case in enumerate(D256_FLASH):
+            g = torch.Generator(device="cuda").manual_seed(340 + i)
+            q, k, v, offsets, masks = flash_fwd_coverage_inputs(g, case)
+            ratios[f"flash_fwd256_{i}"] = _flash_fwd_check(q, k, v, offsets, **masks)[2]
+    return ratios
+
+
+def _gemma2_sub(out, p_out, ratios, launch, plain, *, shape, nbytes, ops, library):
+    """A d=256 sub-entry of a kernel: check, kernel / plain / library times
+    (CUDA events), the bound."""
+    bms, by = bound(nbytes, ops)
+    lib_ms, backend = library()
+    return {"max_abs_err": (out.float() - p_out.float()).abs().max().item(),
+            "err_over_tol": max(ratios), "same_bits_twice": float("inf") not in ratios,
+            "ok": max(ratios) <= 1.0, "shape": shape,
+            "ms": cuda_ms(launch, iters=20), "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, "library_backend": backend}
+
+
+def _gemma2_kernels():
+    """Rows 3, 5 (bf16) and 10 (bf16 q) at serve_hybrid's shapes
+    (GEMMA2_ATTN), each layer kind: {kernel name: {"full": sub-entry,
+    "sliding": sub-entry}}. Row 5: a 2048-token bucket, causal, softcap
+    (the window of 4096 masks nothing there). Row 10: a 2048-row chunk at
+    4096 of context. Row 3: serve_hybrid's decode batch of three (lengths
+    364, 1864 and 6064), 64 table slots; the sliding layer's slots behind
+    the window on the scrap page. SDPA (bf16, no softcap: it has none) on
+    the same K/V, dequantized beforehand for the paged kernels (the scrap
+    page zeroed), each layer kind's window in its mask."""
+    import torch
+    from quantizedmha_tpu_torch.ops.flash_attention import _offsets
+    ga = GEMMA2_ATTN
+    Hq, Hkv, D, P, cap, win = (ga[x] for x in ("Hq", "Hkv", "D", "P", "softcap", "window"))
+    g = torch.Generator(device="cuda").manual_seed(360)
+    out = {"flash_fwd[bf16]": {}, "paged_prefill": {}, "paged_decode": {}}
+    S = 2048
+    q = torch.randn((1, Hq, S, D), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = torch.randn((2, 1, Hkv, S, D), generator=g, device="cuda").to(torch.bfloat16)
+    pairs = Hq * _visible_pairs(S, S, True)
+    o, p_o, r, _tol, launch, plain = _flash_fwd_check(q, k, v, _offsets(0, 0, 1, q.device),
+                                                      causal=True, softcap=cap,
+                                                      save_residuals=False)
+    out["flash_fwd[bf16]"]["full"] = _gemma2_sub(
+        o, p_o, r, launch, plain,
+        shape={"B": 1, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D, "causal": True, "softcap": cap},
+        nbytes=(2 * q.numel() + k.numel() + v.numel()) * 2,
+        ops={"bf16": 4 * pairs * D, "exp": pairs},
+        library=lambda: _sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    del q, k, v
+    C, q0 = 2048, 4096
+    ctx = q0 + C
+    n_pages = ctx // P
+    for kind, window in (("full", None), ("sliding", win)):
+        cache = _paged_cache(g, Hkv, n_pages + 1, P, D)
+        tables = (torch.randperm(n_pages, generator=g, device="cuda") + 1)[None].to(torch.int32)
+        qc = torch.randn((1, Hq, C, D), generator=g, device="cuda").to(torch.bfloat16)
+        lengths = torch.tensor([ctx], dtype=torch.int32, device="cuda")
+        q_starts = torch.tensor([q0], dtype=torch.int32, device="cuda")
+        clean = cache
+        if window is not None:
+            cache, clean, tables = _scrap_behind(cache, tables, q_starts - window + 1, 0, P)
+        o, p_o, r, launch, plain = _d256_check(qc, cache, lengths, tables, q_starts, int4=False,
+                                               clean=clean, window=window, sinks=0, softcap=cap)
+        qpos = q0 + torch.arange(C, device="cuda")
+        kpos = torch.arange(ctx, device="cuda")
+        mask = kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        pairs = Hq * int(mask.sum())
+        kd = _dense_kv(clean[0], clean[2], tables, Hq)
+        vd = _dense_kv(clean[1], clean[3], tables, Hq)
+        out["paged_prefill"][kind] = _gemma2_sub(
+            o, p_o, r, launch, plain,
+            shape={"Hq": Hq, "Hkv": Hkv, "D": D, "P": P, "C": C, "q_start": q0, "lengths": ctx,
+                   "window": window, "softcap": cap, "q": "bfloat16", "save_residuals": True},
+            nbytes=(2 * qc.numel() * 2 + 2 * int(mask.any(0).sum()) * Hkv * D
+                    + 2 * Hkv * n_pages * 4 + Hq * C * 4),
+            ops={"bf16": 4 * pairs * D, "exp": pairs},
+            library=lambda: _sdpa(qc, kd, vd, attn_mask=mask))
+        del kd, vd, cache, clean
+    for kind, window in (("full", None), ("sliding", win)):
+        case = (3, Hq, Hkv, P, window, cap, 64, (364, 1864, 6064), True, False,
+                window is not None)
+        q, cache, lengths, tables, clean, masks = _d256_decode_inputs(g, case)
+        o, p_o, r, launch, plain = _d256_check(q, cache, lengths, tables, int4=False,
+                                               clean=clean, **masks)
+        lens = lengths.long()
+        seen = (lens if window is None else torch.clamp(lens, max=window)).sum().item()
+        out["paged_decode"][kind] = _gemma2_sub(
+            o, p_o, r, launch, plain,
+            shape={"B": 3, "Hq": Hq, "Hkv": Hkv, "D": D, "page": P, "max_pages": 64,
+                   "lengths": lengths.tolist(), "window": window, "softcap": cap,
+                   "q": "bfloat16"},
+            nbytes=q.numel() * 2 * 2 + 2 * seen * Hkv * D + 3 * Hq * 4,
+            ops={"fp32": 2 * 2 * seen * Hq * D, "exp": seen * Hq},
+            library=lambda: _sdpa_decode(q, *clean, lengths, tables, window=window))
+    return out
+
+
 def _coverage():
     """Every FLASH_COVERAGE / DECODE_COVERAGE case, kernel against plain on
     the card with output and lse checked; returns the summary entry, with
@@ -1182,7 +1475,11 @@ def _coverage():
     r = _coverage_bwd(g)
     ratios.update(r)
     failed += [k for k, x in r.items() if max(x) > 1.0]
+    r = _coverage_d256()
+    ratios.update(r)
+    failed += [k for k, x in r.items() if max(x) > 1.0]
     return {"flash_cases": len(FLASH_COVERAGE), "decode_cases": len(DECODE_COVERAGE),
+            "d256_cases": len(D256_DECODE) + len(D256_PREFILL) + len(D256_FLASH),
             "flash_fwd_cases": len(FLASH_FWD_COVERAGE),
             "flash_bwd_cases": len(FLASH_BWD_COVERAGE),
             "paged_prefill_cases": len(PAGED_PREFILL_COVERAGE),
@@ -1379,27 +1676,33 @@ PREFILL_INT4_COVERAGE = (
 def _coverage_int4(g):
     """DECODE_INT4_COVERAGE and PREFILL_INT4_COVERAGE: kernel against plain
     on the card, {case: [output, lse] err_over_tol}."""
-    import torch
     ratios = {}
-    for i, (B, Hq, Hkv, D, P, subs, window, sinks, cap, bf16, max_pages,
-            lens) in enumerate(DECODE_INT4_COVERAGE):
-        cache = _int4_cache(g, Hkv, B * max_pages + 1, P, D, subs)
-        tables = _tables_for(g, B, max_pages, B * max_pages + 1)
-        lengths = torch.randint(1, P * max_pages + 1, (B,), generator=g, device="cuda",
-                                dtype=torch.int32)
-        if lens is not None:
-            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        lengths[0] = 0
-        q = torch.randn((B, Hq, D), generator=g, device="cuda")
-        q = q.to(torch.bfloat16) if bf16 else q
-        ratios[f"paged_decode_int4_{i}"] = _int4_check(
-            q, cache, lengths, tables, window=window, sinks=sinks, softcap=cap)[2]
+    for i, case in enumerate(DECODE_INT4_COVERAGE):
+        q, cache, lengths, tables, masks = decode_int4_coverage_inputs(g, case)
+        ratios[f"paged_decode_int4_{i}"] = _int4_check(q, cache, lengths, tables, **masks)[2]
     for i, case in enumerate(PREFILL_INT4_COVERAGE):
         q, cache, lengths, q_starts, tables, masks = paged_prefill_coverage_inputs(
             g, case, int4=True)
         ratios[f"paged_prefill_int4_{i}"] = _int4_check(q, cache, lengths, tables, q_starts,
                                                         **masks)[2]
     return ratios
+
+
+def decode_int4_coverage_inputs(g, case):
+    """(q, cache, lengths, tables, masks) of one DECODE_INT4_COVERAGE case
+    on the card (the first sequence empty)."""
+    import torch
+    B, Hq, Hkv, D, P, subs, window, sinks, cap, bf16, max_pages, lens = case
+    cache = _int4_cache(g, Hkv, B * max_pages + 1, P, D, subs)
+    tables = _tables_for(g, B, max_pages, B * max_pages + 1)
+    lengths = torch.randint(1, P * max_pages + 1, (B,), generator=g, device="cuda",
+                            dtype=torch.int32)
+    if lens is not None:
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    lengths[0] = 0
+    q = torch.randn((B, Hq, D), generator=g, device="cuda")
+    q = q.to(torch.bfloat16) if bf16 else q
+    return q, cache, lengths, tables, dict(window=window, sinks=sinks, softcap=cap)
 
 
 def paged_prefill_coverage_inputs(g, case, *, int4=False, q_dtype=None):
@@ -1975,7 +2278,12 @@ def phase_kernels(st):
     cases.append(_int4_decode_case(g))
     # The training step's backward: rows 6 (dK/dV) and 7 (dQ).
     cases += _flash_bwd_cases(g)
-    st["kernels"] = {c["name"]: c for c in cases}
+    # Rows 3, 5 and 10 at head_dim 256, serve_hybrid's Gemma-2 shapes.
+    by_name = {c["name"]: c for c in cases}
+    for name, subs in _gemma2_kernels().items():
+        by_name[name]["gemma2"] = subs
+        by_name[name]["ok"] = by_name[name]["ok"] and all(x["ok"] for x in subs.values())
+    st["kernels"] = by_name
     ok = all(c["ok"] for c in cases)
     emit({"phase": "kernels", "ok": ok, "kernels": cases})
     # Off the main paths second, so that a failing kernel reports its
@@ -1989,9 +2297,11 @@ def phase_kernels(st):
 
 
 # One line of a kernel source changed: (file under csrc/, what the fault
-# does, the line as committed, the line planted). Each must fail the kernels
-# phase's checks (main shapes and coverage cases, err_over_tol > 1) of every
-# float kernel built from that file.
+# does, the line as committed, the line planted[, the sources built]). Each
+# must fail the kernels phase's checks (main shapes and coverage cases,
+# err_over_tol > 1) of every float kernel built from that file, or of the
+# sources named where a header's line is compiled only into some of the
+# sources that include it (mma_bf16.cuh's d=256 product: the d=256 kernels).
 PLANTED_FAULTS = (
     ("flash_fwd.cu", "kv edge unmasked (keys past Skv kept)",
      "bool valid = kloc < p.Skv;", "bool valid = true;"),
@@ -2011,6 +2321,10 @@ PLANTED_FAULTS = (
     ("flash_fwd.cu", "bf16: a tile taken as wholly visible when the warp's last row sees it",
      "range_unmasked(p, wspan.x, wspan.y, k_first, kv_off + t0 + BKV - 1, t0 + BKV - 1);",
      "range_unmasked(p, wspan.y, wspan.y, k_first, kv_off + t0 + BKV - 1, t0 + BKV - 1);"),
+    ("mma_bf16.cuh", "d=256: P·V's second column half against V's first (O's columns 128-255)",
+     "wgmma_rs_m64n128(*reinterpret_cast<float(*)[16][4]>(&acc[16]), a, m + (2 * SW_ROWS * 64 * 2 >> 4), 1);",
+     "wgmma_rs_m64n128(*reinterpret_cast<float(*)[16][4]>(&acc[16]), a, m, 1);",
+     ("flash_fwd", "paged_prefill")),
     ("flash_fwd.cu", "f32: Q's third piece dropped (S without q2·k0)",
      "qk(2, 0);  // q2·k0: Q's third piece", ";"),
     ("flash_fwd.cu", "f32: K's third piece dropped (S without q0·k2)",
@@ -2060,6 +2374,8 @@ PLANTED_FAULTS = (
     ("paged_prefill.cu", "bf16: a tile taken as wholly visible when the warp's last row sees it",
      "const bool unmasked = t0 + BK <= rows.kend && t0 + BK - 1 <= wq_lo &&",
      "const bool unmasked = t0 + BK <= rows.kend && t0 + BK - 1 <= wq_hi &&"),
+    ("paged_prefill.cu", "d=256 (one raw stage a producer): its next copy fetches the tile after",
+     "          issue(tn, 0);", "          issue(skip_one(tn), 0);"),
     ("int4.cuh", "high nibble shifted as unsigned (0..15, not -8..7)",
      "__device__ __forceinline__ int int4_hi(int b) { return b >> 4; }",
      "__device__ __forceinline__ int int4_hi(int b) { return (b & 0xff) >> 4; }"),
@@ -2087,6 +2403,11 @@ PLANTED_FAULTS = (
     ("paged_decode.cu", "INT4 high nibbles not re-biased (read as n + 8)",
      "hi[c] = __uint_as_float(__byte_perm(hb, 0x4B000000u, 0x7540 + c)) - 8388616.f;",
      "hi[c] = __uint_as_float(__byte_perm(hb, 0x4B000000u, 0x7540 + c)) - 8388608.f;"),
+    ("paged_decode.cu", "d=256: the scores' fifth reduce-scatter step dropped",
+     "if constexpr (LPR >= 16) dot[0] += __shfl_xor_sync(FULL, dot[0], LPR / 16);",
+     "if constexpr (LPR >= 16) dot[0] += 0.f;"),
+    ("paged_decode.cu", "d=256 int8: a V row's second 4-byte word of a lane read as its first",
+     "int8x4(w.y, vf + 4);", "int8x4(w.x, vf + 4);"),
     ("paged_decode.cu", "window's first page skipped one page too far",
      "w0 = max(length - p.window, 0) / P;", "w0 = max(length - p.window, 0) / P + 1;"),
     ("flash_bwd.cu", "bf16 dK/dV: the group's last q head left out of the sum",
@@ -2190,6 +2511,30 @@ FAULT_SOURCES = {"flash_fwd": ("flash_fwd",), "paged_prefill": ("paged_prefill",
                  "w4_matmul": ("w4",), "flash_int8_fwd": ("fa8_",)}
 
 
+def decode_coverage_inputs(g, case):
+    """(operands of ops/decode._paged_decode_launch, its keywords with lse)
+    of one DECODE_COVERAGE case on the card."""
+    import torch
+    B, Hq, Hkv, D, P, window, sinks, cap, qbf16, max_pages, lens, neg = case
+    num_pages = B * max_pages + 1
+    lengths = torch.randint(1, P * max_pages + 1, (B,), generator=g, device="cuda",
+                            dtype=torch.int32)
+    if lens is not None:
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    tables = (torch.randperm(num_pages - 1, generator=g, device="cuda")[:B * max_pages]
+              + 1).reshape(B, max_pages).to(torch.int32)
+    k_pages, v_pages = torch.randint(-127, 128, (2, Hkv, num_pages, P, D), generator=g,
+                                     device="cuda", dtype=torch.int8)
+    k_scales, v_scales = torch.rand((2, Hkv, num_pages), generator=g, device="cuda") * 0.05
+    dt = torch.bfloat16 if qbf16 else torch.float32
+    q = torch.randn((B, Hq, D), generator=g, device="cuda")
+    if neg:
+        q, k_pages = -(q.abs() + 1.0) * 400.0, k_pages.abs() + 1
+    q = q.to(dt)
+    kw = dict(sm_scale=D**-0.5, window=window, softcap=cap, sinks=sinks, save_residuals=True)
+    return (q, k_pages, v_pages, k_scales, v_scales, lengths, tables), kw
+
+
 def _decode_coverage_ratios(g):
     """DECODE_COVERAGE: the INT8 decode kernel against plain on the card,
     each case launched twice, {case: [output, lse] err_over_tol} (a third
@@ -2197,26 +2542,10 @@ def _decode_coverage_ratios(g):
     import torch
     from quantizedmha_tpu_torch.ops import decode as dec
     ratios = {}
-    for i, (B, Hq, Hkv, D, P, window, sinks, cap, qbf16, max_pages, lens,
-            neg) in enumerate(DECODE_COVERAGE):
-        num_pages = B * max_pages + 1
-        lengths = torch.randint(1, P * max_pages + 1, (B,), generator=g, device="cuda",
-                                dtype=torch.int32)
-        if lens is not None:
-            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        tables = (torch.randperm(num_pages - 1, generator=g, device="cuda")[:B * max_pages]
-                  + 1).reshape(B, max_pages).to(torch.int32)
-        k_pages, v_pages = torch.randint(-127, 128, (2, Hkv, num_pages, P, D), generator=g,
-                                         device="cuda", dtype=torch.int8)
-        k_scales, v_scales = torch.rand((2, Hkv, num_pages), generator=g, device="cuda") * 0.05
-        dt = torch.bfloat16 if qbf16 else torch.float32
-        q = torch.randn((B, Hq, D), generator=g, device="cuda")
-        if neg:
-            q, k_pages = -(q.abs() + 1.0) * 400.0, k_pages.abs() + 1
-        q = q.to(dt)
-        kw = dict(sm_scale=D**-0.5, window=window, softcap=cap, sinks=sinks,
-                  save_residuals=True)
-        operands = (q, k_pages, v_pages, k_scales, v_scales, lengths, tables)
+    for i, case in enumerate(DECODE_COVERAGE):
+        operands, kw = decode_coverage_inputs(g, case)
+        q, k_pages, v_pages, k_scales, v_scales, lengths, tables = operands
+        D, cap, neg = q.shape[-1], kw["softcap"], case[-1]
         kernel, args, (out, lse), _operands = dec._paged_decode_launch(*operands, **kw)
         kernel(*args)
         torch.cuda.synchronize()
@@ -2283,6 +2612,7 @@ def _fault_checks(src):
             main[label] = _flash_fwd_check(q, kv[0], kv[1], _offsets(0, 0, 1, q.device),
                                            causal=causal, save_residuals=False)[2]
         ratios, _ = _coverage_float(g5)
+        ratios.update(_coverage_d256(("flash",), small=True))
     elif src == "flash_bwd":
         B, H, Hkv, S, D = (BWD_MAIN[x] for x in ("B", "H", "Hkv", "S", "D"))
         q = torch.randn((B, H, S, D), generator=g, device="cuda").to(torch.bfloat16)
@@ -2310,14 +2640,15 @@ def _fault_checks(src):
         main["serve_flash chunk"] = _paged_prefill_check(*_paged_main_inputs(g))[2]
         q, cache, lengths, tables, q_starts = _int4_prefill_main_inputs(g)
         main["serve_mixed chunk"] = _int4_check(q, cache, lengths, tables, q_starts)[2]
-        ratios = {**_coverage_float(g5)[0], **_coverage_int4(g5)}
+        ratios = {**_coverage_float(g5)[0], **_coverage_int4(g5), **_coverage_d256(("prefill",), small=True)}
     else:
         kw = dict(sm_scale=128**-0.5, window=None, softcap=None, sinks=0, save_residuals=False)
         for label, (hkv, seed, lens, slots) in DECODE_MAIN.items():
             operands = _decode_main_inputs(hkv, seed=seed, lengths=lens, max_pages=slots)
             main[label] = [_decode_check(operands, kw)[2]]
         main["serve_mixed decode"] = _int4_check(*_int4_decode_main_inputs(g))[2]
-        ratios = {**_decode_coverage_ratios(g5), **_coverage_int4(g5)}
+        ratios = {**_decode_coverage_ratios(g5), **_coverage_int4(g5),
+                  **_coverage_d256(("decode",), small=True)}
     return main, {k: max(r) for k, r in ratios.items() if k.startswith(FAULT_SOURCES[src])}
 
 
@@ -2338,15 +2669,16 @@ def phase_faults(st):
     out_dir = cuda_lib.BUILD_DIR / "faults"
     shutil.rmtree(out_dir, ignore_errors=True)
     builds = []
-    for i, (fname, what, old, new) in enumerate(PLANTED_FAULTS):
+    for i, (fname, what, old, new, *only) in enumerate(PLANTED_FAULTS):
         text = (cuda_lib.CSRC / fname).read_text()
         if text.count(old) != 1:
             raise AssertionError(f"fault {i}: the committed line is not unique in {fname}")
         copy = out_dir / f"fault{i}"
         shutil.copytree(cuda_lib.CSRC, copy)
         (copy / fname).write_text(text.replace(old, new))
-        srcs = [s for s in FAULT_SOURCES if fname == f"{s}.cu"
-                or f'#include "{fname}"' in (cuda_lib.CSRC / f"{s}.cu").read_text()]
+        srcs = only[0] if only else [
+            s for s in FAULT_SOURCES if fname == f"{s}.cu"
+            or f'#include "{fname}"' in (cuda_lib.CSRC / f"{s}.cu").read_text()]
         for src in srcs:
             lib = copy / f"lib{src}.so"
             proc = subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(lib),
@@ -2865,6 +3197,229 @@ def phase_serve_flash(st):
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     if not ok:
         raise AssertionError("serve_flash phase failed its checks")
+
+
+# serve_hybrid: LlamaConfig.gemma2_9b() through hybrid_kv pools, page 128.
+# Traffic: two bucketed prompts, a 6000-token one (three chunks of 2048,
+# interleaved; its decode starts past the 4096 window), 64 new tokens each,
+# then a prompt sharing the long one's first 46 pages (5888 tokens; the
+# sliding pool can share only the pages its window still holds, and the
+# owner's first trim freed pages 0-13, so a shorter shared prefix would
+# find no sliding row) plus 300 tokens of its own.
+#   Pages a pool holds at the peak without trims (A, B, C and D all active):
+#   3 (300 + 64 tokens) + 15 (1800 + 64) + 48 (6000 + 64) + 3 (D's pages past
+#   the 46 it shares) + the scrap page = 70. The full pool: 80 (70 and
+#   slack). The sliding pool: 68, two short of 70; its transient peak is C's
+#   admission beside A and B, 3 + 15 + 47 + 1 = 66, and after C's trims
+#   each sequence holds at most ceil((4096 + 128) / 128) + 1 = 33 + 1 = 34
+#   sliding pages.
+SERVE_HYBRID = dict(bucketed=(300, 1800), long=6000, shared_pages=46, hit_suffix=300,
+                    max_new=64, chunk=8, page=128, pages={"full": 80, "w4096": 68},
+                    max_pages=64, logit_tol=0.25)
+
+
+def _hybrid_traffic(eng, prompts, hit, sh, on_step=None):
+    """Drive serve_hybrid's traffic through `eng`: the three prompts at
+    once, the hit once the long prompt is decoding. Returns (request ids,
+    the hit's id, {rid: TTFT s}, decode-only step walls and batches)."""
+    import torch
+    t_add, ttft, rids = {}, {}, []
+    t0 = time.perf_counter()
+    for p in prompts:
+        rids.append(eng.add_request(p, max_new=sh["max_new"]))
+        t_add[rids[-1]] = t0
+    hit_rid, walls = None, []
+    while eng.queue or eng.active or eng.prefilling:
+        before = {c: eng.metrics.counter(c) for c in
+                  ("requests_admitted", "decode_steps", "prefill_chunks_interleaved")}
+        batch = len(eng.active)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        te = time.perf_counter()
+        d = {c: eng.metrics.counter(c) - before[c] for c in before}
+        if (d["requests_admitted"] == 0 and d["prefill_chunks_interleaved"] == 0
+                and d["decode_steps"] == sh["chunk"]):
+            walls.append((te - ts, batch))
+        for rid in t_add:
+            if rid not in ttft and _first_token_at(eng, rid):
+                ttft[rid] = te - t_add[rid]
+        if on_step is not None:
+            on_step(eng, rids, hit_rid)
+        if hit_rid is None and any(s.seq_id == rids[-1] for s in eng.active):
+            hit_rid = eng.add_request(hit, max_new=sh["max_new"])
+            t_add[hit_rid] = time.perf_counter()
+    return rids, hit_rid, ttft, walls
+
+
+def phase_serve_hybrid(st):
+    """Gemma-2-9B as configured (42 layers, head_dim 256, a 4096 window on
+    even layers, softcaps 50 and 30, attention_impl="flash", random bf16
+    weights) through the engine with hybrid_kv: a page pool for the full
+    layers and one for the sliding layers, prefix caching and interleaved
+    prefill. Rows 3, 5 and 10 run at head_dim 256. The same traffic then
+    runs through a shared-pool engine (hybrid_kv=False) on the card."""
+    import numpy as np
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    from quantizedmha_tpu_torch.serving import llama_adapter
+    from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem_at_start = torch.cuda.memory_allocated() / 1e9  # what earlier phases still hold
+    sh = SERVE_HYBRID
+    cfg = llama.LlamaConfig.gemma2_9b()
+    L, P = cfg.num_layers, sh["page"]
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def engine(hybrid):
+        return Engine(cfg, params, EngineConfig(
+            num_pages=sh["pages"]["full"], page_size=P, max_batch=4,
+            max_pages_per_seq=sh["max_pages"], prefill_buckets=(128, 256, 512, 1024, 2048),
+            max_new_tokens=sh["max_new"], decode_chunk=sh["chunk"], prefix_cache=True,
+            interleaved_prefill=True, hybrid_kv=hybrid,
+            hybrid_pages=dict(sh["pages"]) if hybrid else None), device="cuda")
+    eng = engine(True)
+    assert eng.hybrid and set(eng.allocs) == {"full", "w4096"}
+    rng = np.random.default_rng(0)
+    vocab = cfg.vocab_size
+    prompts = [rng.integers(1, vocab, n).tolist() for n in sh["bucketed"] + (sh["long"],)]
+    hit = prompts[-1][:sh["shared_pages"] * P] + rng.integers(1, vocab, sh["hit_suffix"]).tolist()
+    # Warm-up (first cuBLAS and kernel use) on tokens no later prompt shares.
+    for n in (100, 2100):
+        eng.add_request(rng.integers(1, vocab, n).tolist(), max_new=sh["chunk"] + 1)
+    eng.run()
+    eng.finished.clear()
+
+    kernels = {"flash_fwd[bf16]": fa.FLASH_FWD_BF16, "paged_prefill": pp.PAGED_PREFILL,
+               "paged_decode": dec.PAGED_DECODE}
+    counters = ("decode_steps", "prefix_cache_hits", "prefix_tokens_reused",
+                "prefill_chunks_interleaved", "requests_admitted", "pages_trimmed")
+    base = {c: eng.metrics.counter(c) for c in counters}
+    sliding_cap = -(-(4096 + P) // P) + 1
+    seen = {"max_sliding": 0, "long_full": 0, "long_live": {"full": 0, "w4096": 0}}
+
+    def watch(e, rids, hit_rid):
+        for k, a in e.allocs.items():
+            for rid, table in a.tables.items():
+                live = sum(p is not None for p in table)
+                if k == "w4096" and any(s.seq_id == rid for s in e.active):
+                    seen["max_sliding"] = max(seen["max_sliding"], live)
+                if rid == rids[-1]:  # the long sequence's pages at its last step
+                    seen["long_live"][k] = live
+                    if k == "full":
+                        seen["long_full"] = max(seen["long_full"], live)
+    for kern in kernels.values():
+        kern.reset()
+    t_run = time.perf_counter()
+    rids, hit_rid, ttft, walls = _hybrid_traffic(eng, prompts, hit, sh, on_step=watch)
+    run_s = time.perf_counter() - t_run
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    delta = {c: eng.metrics.counter(c) - base[c] for c in counters}
+    got = dict(eng.finished)
+    n_long_chunks = -(-sh["long"] // 2048)
+    want = {"flash_fwd[bf16]": L * len(sh["bucketed"]),
+            "paged_prefill": L * (n_long_chunks + 1),  # the hit's suffix fits one chunk
+            "paged_decode": L * int(delta["decode_steps"])}
+    for name, n in launches.items():
+        st["launches"][name] = st["launches"].get(name, 0) + n
+        st["launches_d256"][name] = st["launches_d256"].get(name, 0) + n
+    drained = all(not a.tables and a.free_pages == a.num_pages - 1
+                  for a in eng.allocs.values())
+    # KV bytes of the long sequence at its largest: INT8 K and V rows and
+    # their per-(head, page) scales, pages x layers of each pool.
+    page_bytes = 2 * cfg.num_kv_heads * (P * cfg.hd + 4)
+    groups = llama_adapter.window_groups(cfg)
+    kv_hybrid = sum(seen["long_live"][k] * len(groups[k]) * page_bytes for k in groups)
+    pool_bytes = {k: sh["pages"][k] * len(groups[k]) * page_bytes for k in groups}
+    dec_s = sum(w for w, _ in walls)
+    dec_steps = sh["chunk"] * len(walls)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    failed = dict(eng.failed)
+    del eng
+    torch.cuda.empty_cache()
+
+    # The same traffic through one shared pool: page contents are the same,
+    # only the page ids differ, so the streams must be too.
+    ref = engine(False)
+    assert not ref.hybrid
+    long_pages = {"n": 0}
+
+    def watch_shared(e, rids, hit_rid):
+        if rids[-1] in e.alloc.tables:
+            long_pages["n"] = max(long_pages["n"], len(e.alloc.tables[rids[-1]]))
+    r_rids, r_hit, _, _ = _hybrid_traffic(ref, prompts, hit, sh, on_step=watch_shared)
+    want_streams = dict(ref.finished)
+    kv_shared = long_pages["n"] * L * page_bytes
+    same = [got.get(a) == want_streams.get(b) for a, b in zip(rids, r_rids)]
+    hit_len_ok = (len(got.get(hit_rid, [])) == len(want_streams.get(r_hit, [])) == sh["max_new"])
+    del ref
+    torch.cuda.empty_cache()
+
+    # Right by the repo's own means: the long prompt's last logits, prefilled
+    # in chunks through fresh hybrid pools (each group's table another
+    # permutation of its pool), against the float attention golden.
+    caches = llama_adapter.make_cache_hybrid(cfg, {k: 49 for k in groups}, P, device="cuda")
+    n = sh["long"]
+    slots = -(-n // 2048) * 2048 // P
+    tables = {k: torch.randperm(48, generator=torch.Generator().manual_seed(i))[:slots]
+              .add(1).to(torch.int32).cuda() for i, k in enumerate(sorted(groups))}
+    toks = torch.tensor(prompts[-1], dtype=torch.int32, device="cuda")
+    for start in range(0, n, 2048):
+        part = torch.zeros((1, 2048), dtype=torch.int32, device="cuda")
+        m = min(2048, n - start)
+        part[0, :m] = toks[start:start + m]
+        logits, caches = llama_adapter.prefill_chunk(cfg, params, caches, part, start, tables,
+                                                     m - 1, page_size=P)
+    del caches
+    golden = llama_adapter.prefill_at(dataclasses.replace(cfg, attention_impl="reference"),
+                                      params, toks[None], n - 1)[0]
+    rel = ((logits.float() - golden.float()).abs().max() / golden.float().std()).item()
+    finite = bool(torch.isfinite(logits).all().item())
+    del golden
+    torch.cuda.empty_cache()
+
+    lens_ok = (hit_rid is not None and all(len(got.get(r, [])) == sh["max_new"]
+                                           for r in rids + [hit_rid]))
+    in_vocab = all(0 <= t < vocab for r in rids + [hit_rid] for t in got.get(r, []))
+    counts_ok = (launches == want and delta["prefix_cache_hits"] == 1
+                 and delta["prefix_tokens_reused"] == sh["shared_pages"] * P
+                 and delta["pages_trimmed"] > 0 and delta["prefill_chunks_interleaved"] > 0)
+    memory_ok = (seen["max_sliding"] <= sliding_cap
+                 and seen["long_full"] >= -(-sh["long"] // P))
+    ok = (all(same) and hit_len_ok and lens_ok and in_vocab and counts_ok and memory_ok
+          and drained and not failed and finite and rel <= sh["logit_tol"])
+    emit({"phase": "serve_hybrid", "ok": ok, "model": "gemma2_9b", "layers": L,
+          "head_dim": cfg.hd, "attention_impl": cfg.attention_impl, "weights": "bf16",
+          "init_s": init_s, "groups": {k: len(v) for k, v in groups.items()},
+          "pool_pages": sh["pages"], "pool_bytes": pool_bytes,
+          "prompts": list(sh["bucketed"]) + [sh["long"]],
+          "prefix_hit": {"len": len(hit), "shared_tokens": sh["shared_pages"] * P},
+          "max_new": sh["max_new"], "decode_chunk": sh["chunk"],
+          "streams_equal_shared_pool": same, "hit_stream_len_equal": hit_len_ok,
+          "launches": launches, "launches_expected": want, "counters": delta,
+          "sliding_pages_max_live": seen["max_sliding"], "sliding_pages_cap": sliding_cap,
+          "long_full_pages": seen["long_full"], "long_live_pages": seen["long_live"],
+          "kv_bytes_long_hybrid": kv_hybrid, "kv_bytes_long_shared": kv_shared,
+          "kv_ratio": kv_hybrid / kv_shared if kv_shared else None,
+          "pools_drained": drained, "failed": failed, "run_s": run_s,
+          "ttft_s": {"bucketed": [ttft.get(r) for r in rids[:-1]], "long": ttft.get(rids[-1]),
+                     "prefix_hit": ttft.get(hit_rid)},
+          "decode_engine_steps_timed": len(walls),
+          "decode_batches": sorted({b for _, b in walls}),
+          "decode_ms_per_step": dec_s * 1e3 / dec_steps if dec_steps else None,
+          "logits_rel_err_vs_reference": rel, "rel_err_tol": sh["logit_tol"],
+          "peak_mem_gb": peak_gb, "mem_at_start_gb": mem_at_start})
+    if not ok:
+        raise AssertionError("serve_hybrid phase failed its checks")
 
 
 SERVE_MIXED = dict(bucketed=(240, 1000, 2000), long=(5000, 7900), max_new=32, chunk=8,
@@ -3541,7 +4096,7 @@ def main(argv=None) -> int:
         phases.insert(0, "build")
     if "harness" in phases and "solve" not in phases:
         phases.append("solve")  # the harness phase holds its times to solve's
-    st = {"launches": {}, "profile": args.profile}
+    st = {"launches": {}, "launches_d256": {}, "profile": args.profile}
     for name in PHASES:
         if name not in phases:
             continue
@@ -3558,7 +4113,9 @@ def main(argv=None) -> int:
                                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             e.update({k: c[k] for k in ("also_replaces", "mqa", "serve_flash", "library_note",
                                         "library_backend", "library_f32", "solve", "serve_w4",
-                                        "prefill_bench") if k in c})
+                                        "prefill_bench", "gemma2") if k in c})
+            if "gemma2" in c:  # its launches: serve_hybrid's at head_dim 256
+                e["gemma2"] = dict(c["gemma2"], launches=st["launches_d256"].get(name, 0))
             if "shapes" in c:
                 e["shapes"] = [{k: s[k] for k in ("matmul", "rows", "ms", "wrapper_ms", "plain_ms",
                                                   "bound_ms", "library_ms")} for s in c["shapes"]]
@@ -3566,8 +4123,8 @@ def main(argv=None) -> int:
             entries.append(e)
         emit({"kernels": entries})
         idle = [e["name"] for e in entries if e["launches"] == 0]
-        if ({"solve", "serve", "serve_w4", "serve_flash", "serve_mixed", "train"} <= set(phases)
-                and idle):
+        if ({"solve", "serve", "serve_w4", "serve_flash", "serve_mixed", "serve_hybrid",
+             "train"} <= set(phases) and idle):
             print(f"chip_smoke: kernels never launched on a main path: {idle}",
                   file=sys.stderr)
             return 1

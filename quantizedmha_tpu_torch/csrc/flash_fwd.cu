@@ -73,7 +73,10 @@
 //   bf16 (Bf16Ring): 192 rows, three consumers, at d >= 64 (setmaxnreg 32 /
 //   160 registers a thread), three stages; 128 rows, two consumers, at
 //   d=32, where two blocks share an SM to fill each other's waits (24 /
-//   104), four stages; Q staged once scaled in bf16.
+//   104), four stages; Q staged once scaled in bf16. At d=256 (Gemma-2) a
+//   consumer's 64 x 256 f32 accumulator is 128 registers a thread and a
+//   K/V stage 64 KB: 128 rows, two consumers (40 / 232), two stages and
+//   no overlap; P·V as two m64n128 products, one a column half of V and O.
 //   f32 (F32Ring, flash_fwd_f32_kernel, the same walk in a kernel of its
 //   own): a split pass (flash_fwd_split_kernel) first writes three bf16
 //   planes each of Q (scaled in f32 first), K and V in the layout of a
@@ -163,20 +166,24 @@ struct Bf16Ring {
   // Consumer warpgroups (64 block rows each) and blocks an SM. At d=32,
   // bound by the exponentials, two blocks of two consumers share an SM and
   // fill each other's waits; above, one block of three, whose 192 rows
-  // share each copy of a K/V tile from L2.
-  static constexpr int CONSUMERS = D == 32 ? 2 : 3;
+  // share each copy of a K/V tile from L2; at d=256 one block of two, whose
+  // accumulators take the registers of three.
+  static constexpr int CONSUMERS = D == 32 || D == 256 ? 2 : 3;
   static constexpr int BLOCKS = D == 32 ? 2 : 1;
   static constexpr int ROWS = 64 * CONSUMERS;        // q heads x q positions
   static constexpr int NTB = 128 * (1 + CONSUMERS);  // threads; all meet at a handoff
-  static constexpr int STAGES = CONSUMERS == 3 ? 3 : 4;  // K/V stages in the ring
+  // K/V stages in the ring (d=256: two of 64 KB beside two Q tiles of 32 KB)
+  static constexpr int STAGES = D == 256 ? 2 : CONSUMERS == 3 ? 3 : 4;
   static constexpr int LAG = STAGES - 2;  // tiles in flight beyond the ones handed over
   // The registers of a producer and of a consumer thread (setmaxnreg; the
   // launch gives each thread 65536 / (NTB * BLOCKS), rounded down to 8).
-  static constexpr int PRODUCER_REGS = D == 32 ? 24 : 32, CONSUMER_REGS = D == 32 ? 104 : 160;
+  static constexpr int PRODUCER_REGS = D == 32 ? 24 : D == 256 ? 40 : 32;
+  static constexpr int CONSUMER_REGS = D == 32 ? 104 : D == 256 ? 232 : 160;
   // Whether the softmax of tile n + 1 runs while P·V of tile n is in
   // flight: at d=32 a consumer has not the registers to hold both (they
-  // spill), and its SM's other block fills the wait instead.
-  static constexpr bool OVERLAP = D != 32;
+  // spill), and its SM's other block fills the wait instead; at d=256 the
+  // accumulator leaves no room for both either.
+  static constexpr bool OVERLAP = D != 32 && D != 256;
   static_assert(PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <=
                 (1 + CONSUMERS) * (65536 / (NTB * BLOCKS) / 8 * 8), "register budget");
   // Full barriers a stage: one per consumer, so that a consumer can run
@@ -192,6 +199,7 @@ struct Bf16Ring {
   // bf16, 1024-byte aligned); 1 KB to align.
   static constexpr int KV_OFF = CONSUMERS * T::TILE * 2;
   static constexpr int BYTES = KV_OFF + STAGES * 2 * T::TILE * 2 + 1024;
+  static_assert(BYTES <= 232448, "shared memory of a block");
 };
 
 // Block row r holds q head kvh·G + hc·GB + r / NQ at q position q0 + r % NQ
@@ -920,10 +928,13 @@ cudaError_t launch_ring(Kernel kernel, Params p, int smem, cudaStream_t stream) 
 }
 
 template <int D>
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+  return launch_ring<Bf16Ring<D>>(flash_fwd_bf16_kernel<D>, p, Bf16Ring<D>::BYTES, stream);
+}
+
+template <int D>
 cudaError_t launch(Params p, void* planes, int bf16, cudaStream_t stream) {
-  if (bf16) {
-    return launch_ring<Bf16Ring<D>>(flash_fwd_bf16_kernel<D>, p, Bf16Ring<D>::BYTES, stream);
-  }
+  if (bf16) return launch_bf16<D>(p, stream);
   // f32: the split pass, then the walk over the planes.
   const size_t nq = size_t(p.B) * p.H * p.Sq * D, nkv = size_t(p.B) * p.Hkv * p.Skv * D;
   __nv_bfloat16* pl = static_cast<__nv_bfloat16*>(planes);
@@ -976,6 +987,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
     case 32: err = launch<32>(p, planes, bf16, s); break;
     case 64: err = launch<64>(p, planes, bf16, s); break;
     case 128: err = launch<128>(p, planes, bf16, s); break;
+    case 256:  // bf16 only: the f32 route is not built at d=256
+      if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
+      err = launch_bf16<256>(p, s);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);

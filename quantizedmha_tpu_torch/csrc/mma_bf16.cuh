@@ -292,11 +292,16 @@ __device__ __forceinline__ void stage_landed() {
 
 // The warpgroup's acc[64 x D] += x · m over one k16 step: x the A
 // fragments of its warps (m16n8k16 A fragments of their 16 rows), m a
-// tile's 16 rows through tile_desc_mn.
+// tile's 16 rows through tile_desc_mn. At d=256 two m64n128 products, the
+// second over the tile's column blocks 2-3 (16 KB on; a descriptor's start
+// address counts 16-byte units).
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&acc)[D / 8][4], const uint32_t (&a)[4],
                                          uint64_t m) {
-  if constexpr (D == 128) {
+  if constexpr (D == 256) {
+    wgmma_rs_m64n128(*reinterpret_cast<float(*)[16][4]>(&acc[0]), a, m, 1);
+    wgmma_rs_m64n128(*reinterpret_cast<float(*)[16][4]>(&acc[16]), a, m + (2 * SW_ROWS * 64 * 2 >> 4), 1);
+  } else if constexpr (D == 128) {
     wgmma_rs_m64n128(acc, a, m, 1);
   } else if constexpr (D == 64) {
     wgmma_rs_m64n64(acc, a, m, 1);

@@ -54,13 +54,18 @@
 //     reads 16 elements of a K row (16 bytes of int8, 8 bytes of nibbles),
 //     neighbouring lanes on neighbouring bytes, against the same 16
 //     elements of the four q rows in registers; the D/16 lanes of a row
-//     reduce-scatter the four dots by warp shuffle. P·V: each lane reads a
-//     4-byte word of a V row and a float4 of P (the four heads of one key)
-//     into four (INT4: eight) columns of four heads. int8 and int4 values
+//     reduce-scatter the four dots by warp shuffle (at d=256, 16 lanes: a
+//     fifth shuffle). P·V: each lane reads a 4-byte word of a V row (int8
+//     at d=256: 8 bytes, so that a row stays within the warp) and a float4
+//     of P (the four heads of one key) into four (INT4 and int8 at d=256:
+//     eight) columns of four heads. int8 and int4 values
 //     become f32 exactly by the 2^23 mantissa trick (byte_perm, one FADD),
 //     not by the quarter-rate int-to-float conversion. Softcap is a
 //     compile-time choice (a runtime branch in the per-score loop would be
 //     if-converted).
+//   * d=256 (Gemma-2): K and V pages of 128 keys take 128 KB of the two
+//     stages, so one block an SM (the launch bound asks for one, which
+//     leaves the registers for the larger P·V tile).
 // No fast math: expf and logf as before, so the f32 numerics are the
 // plain version's up to summation order.
 
@@ -106,10 +111,12 @@ struct Geo {
   static constexpr int VB = INT4 ? 8 : 16;
   static constexpr int LPR = RB / VB;
   static constexpr int KPI = 32 / LPR;         // keys a warp scores at once
-  // P·V: a lane reads a 4-byte word (EPL elements) of a V row, LW lanes a row.
-  static constexpr int LW = RB / 4;
+  // P·V: a lane reads a WB-byte word (EPL elements) of a V row, LW <= 32
+  // lanes a row (a 4-byte word but for int8 rows of 256 bytes).
+  static constexpr int LW = RB / 4 < 32 ? RB / 4 : 32;
+  static constexpr int WB = RB / LW;
   static constexpr int KG = 32 / LW;           // keys a warp sums at once
-  static constexpr int EPL = INT4 ? 8 : 4;
+  static constexpr int EPL = INT4 ? 8 : WB;
 };
 
 // Byte offsets in dynamic shared memory for GP (a multiple of 4) q heads.
@@ -163,16 +170,16 @@ __device__ __forceinline__ int score_col(int lr, int e) {
 template <int D, bool INT4>
 __device__ __forceinline__ int pv_col(int lw, int e) {
   if (INT4) return e < 4 ? lw * 4 + e : D / 2 + lw * 4 + e - 4;
-  return lw * 4 + e;
+  return lw * Geo<D, INT4>::WB + e;
 }
 
 // The LPR lanes of a K row hold partial dots of the warp's four heads:
 // halve the heads at each step (send the half the partner keeps), then sum
 // what is left. Returns the first head this lane's dot[0..] now holds in
-// full (LPR 2: two heads; 4 and 8: one, held twice at 8).
+// full (LPR 2: two heads; 4, 8 and 16: one, held LPR / 4 times).
 template <int LPR>
 __device__ __forceinline__ int reduce_scatter(float (&dot)[GW], int lane) {
-  static_assert(GW == 4 && LPR >= 2 && LPR <= 8, "four heads over 2-8 lanes");
+  static_assert(GW == 4 && LPR >= 2 && LPR <= 16, "four heads over 2-16 lanes");
   int hoff;
   {
     constexpr int o = LPR / 2;
@@ -192,6 +199,7 @@ __device__ __forceinline__ int reduce_scatter(float (&dot)[GW], int lane) {
     hoff += up ? 1 : 0;
   }
   if constexpr (LPR >= 8) dot[0] += __shfl_xor_sync(FULL, dot[0], LPR / 8);
+  if constexpr (LPR >= 16) dot[0] += __shfl_xor_sync(FULL, dot[0], LPR / 16);
   return hoff;
 }
 
@@ -208,13 +216,13 @@ __device__ __forceinline__ void store_out(const Params& p, size_t i, float x) {
 }
 
 template <int D, bool INT4, bool CAP>
-__global__ void __launch_bounds__(NT, 3) paged_decode_kernel(const Params p) {
+__global__ void __launch_bounds__(NT, D == 256 ? 1 : 3) paged_decode_kernel(const Params p) {
   using Gm = Geo<D, INT4>;
   constexpr int RB = Gm::RB;
   constexpr int LPR = Gm::LPR, KPI = Gm::KPI;
   constexpr int LW = Gm::LW, KG = Gm::KG, EPL = Gm::EPL;
   constexpr int NK = LPR >= 4 ? 1 : 2;   // heads a scoring lane holds after the reduction
-  constexpr int DUP = LPR >= 8 ? 2 : 1;  // lanes holding the same heads
+  constexpr int DUP = LPR >= 8 ? LPR / 4 : 1;  // lanes holding the same heads
   const int P = p.page_size;
   const int G = p.Hq / p.Hkv;
   const int chunks = (G + p.heads - 1) / p.heads;
@@ -415,12 +423,18 @@ __global__ void __launch_bounds__(NT, 3) paged_decode_kernel(const Params p) {
       const int lw = lane % LW;
 #pragma unroll 4
       for (int t = ks * KG + lane / LW; t < P; t += WPG * KG) {
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(vst + t * RB + 4 * lw);
         float vf[EPL];
-        if constexpr (INT4) {
-          int4x8(w, vf, vf + 4);
+        if constexpr (Gm::WB == 8) {
+          const uint2 w = *reinterpret_cast<const uint2*>(vst + t * RB + 8 * lw);
+          int8x4(w.x, vf);
+          int8x4(w.y, vf + 4);
         } else {
-          int8x4(w, vf);
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(vst + t * RB + 4 * lw);
+          if constexpr (INT4) {
+            int4x8(w, vf, vf + 4);
+          } else {
+            int8x4(w, vf);
+          }
         }
         const float4 p4 = *reinterpret_cast<const float4*>(pt + t * GP + hg * GW);
         const float pg[GW] = {p4.x, p4.y, p4.z, p4.w};
@@ -557,6 +571,7 @@ int dispatch(const Params& p, int D, int has_softcap, void* stream) {
     case 32: err = launch_d<32, INT4>(p, cap, s); break;
     case 64: err = launch_d<64, INT4>(p, cap, s); break;
     case 128: err = launch_d<128, INT4>(p, cap, s); break;
+    case 256: err = launch_d<256, INT4>(p, cap, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);

@@ -76,6 +76,12 @@
 // tiles (the end of the chunk) first. 164 KB of shared memory at d=128, one
 // block of 16 warps an SM. Every block writes its own rows in a fixed
 // reduction order: no atomics, the same bits every launch.
+//   d=256 (Gemma-2, bf16 q only): a consumer's 64 x 256 f32 accumulator
+//   alone is 128 registers a thread, and each bf16 K/V stage is 64 KB. So
+//   one consumer of 64 rows (setmaxnreg 240) and the same two producers,
+//   each with one raw stage (it converts a tile before it issues the next
+//   one's copies): 227 KB of shared memory. P·V runs as two m64n128
+//   products, one a column half of V and O.
 //
 // f32 q: one block of 256 threads per (sequence, kv head, 64-row q tile);
 // a 64-key tile is staged by cp.async, converted once to f32 beside its
@@ -330,11 +336,21 @@ __global__ void __launch_bounds__(NT) paged_prefill_f32_kernel(const Params p) {
 // bf16 q: tensor cores (wgmma), two producer and two consumer warpgroups.
 
 constexpr int PRODUCERS = 2;                  // producer warpgroups, one bf16 K/V stage each
-constexpr int CONSUMERS = 2;                  // consumer warpgroups, 64 q rows each
-constexpr int BROWS = 64 * CONSUMERS;         // q rows of a bf16 block
-constexpr int NTB = 128 * (PRODUCERS + CONSUMERS);  // threads of a bf16 block
-constexpr int HANDOFF = 128 * (1 + CONSUMERS);      // a producer and the consumers
 constexpr float LOG2E = 1.4426950408889634f;
+
+// The bf16 block's shape: consumer warpgroups of 64 q rows, raw stages a
+// producer, a consumer thread's registers.
+template <int D>
+struct Bf16Block {
+  static constexpr int CONSUMERS = D == 256 ? 1 : 2;
+  static constexpr int RAWS = D == 256 ? 1 : 2;
+  static constexpr int CONSUMER_REGS = D == 256 ? 240 : 200;
+  static constexpr int BROWS = 64 * CONSUMERS;                  // q rows of a bf16 block
+  static constexpr int NTB = 128 * (PRODUCERS + CONSUMERS);     // threads of a bf16 block
+  static constexpr int HANDOFF = 128 * (1 + CONSUMERS);         // a producer and the consumers
+  static_assert(PRODUCERS * 128 * 56 + CONSUMERS * 128 * CONSUMER_REGS <= 65536,
+                "register budget");
+};
 // Named barriers (0 is __syncthreads): stage s holds a tile (FULL + s),
 // stage s is free again (EMPTY + s), producer p's own (PRODUCER + p),
 // consumer c's Q tile is in place (QREADY + c).
@@ -344,26 +360,29 @@ constexpr int FULL = 1, EMPTY = FULL + PRODUCERS, PRODUCER = EMPTY + PRODUCERS,
 template <int D, bool INT4>
 struct Bf16Smem {
   using T = Bf16Tile<D>;
+  using K = Bf16Block<D>;
   static constexpr int RB = INT4 ? D / 2 : D;  // bytes of a stored K or V row
   static constexpr int CR = RB / 16;           // its 16-byte chunks
   static constexpr int STAGE = BK * RB;        // bytes of one raw K or V tile
   static constexpr int PER = (BK * CR + 127) / 128;  // raw chunks of a tile a producer thread
   // Each consumer's Q tile, then per producer's stage a K and a V tile
-  // (swizzled bf16, 1024-byte aligned); per producer two raw stages of K
+  // (swizzled bf16, 1024-byte aligned); per producer RAWS raw stages of K
   // and V bytes and their keys' K and V scales; per stage the keys' K and
   // V scales; 1 KB to align.
-  static constexpr int KV_OFF = CONSUMERS * T::TILE * 2;
+  static constexpr int KV_OFF = K::CONSUMERS * T::TILE * 2;
   static constexpr int RAW_OFF = KV_OFF + PRODUCERS * 2 * T::TILE * 2;
-  static constexpr int RAW_SCALE_OFF = RAW_OFF + PRODUCERS * 4 * STAGE;
-  static constexpr int SCALE_OFF = RAW_SCALE_OFF + PRODUCERS * 2 * 2 * BK * 4;
+  static constexpr int RAW_SCALE_OFF = RAW_OFF + PRODUCERS * 2 * K::RAWS * STAGE;
+  static constexpr int SCALE_OFF = RAW_SCALE_OFF + PRODUCERS * K::RAWS * 2 * BK * 4;
   static constexpr int BYTES = SCALE_OFF + PRODUCERS * 2 * BK * 4 + 1024;
+  static_assert(BYTES <= 232448, "shared memory of a block");
 };
 
 // 16-byte chunk c of raw row r sits at chunk c ^ f(r) of its row, f(r) =
-// (r / (8 / CR)) % CR: 8 consecutive rows of one chunk index fall in 8
-// distinct 16-byte bank groups.
+// (r / (8 / CR)) % CR (CR > 8: r % 8): 8 consecutive rows of one chunk
+// index fall in 8 distinct 16-byte bank groups.
 template <int CR>
 __device__ __forceinline__ int raw_at(int r, int c) {
+  if constexpr (CR > 8) return r * CR * 16 + 16 * (c ^ (r % 8));
   return r * CR * 16 + 16 * (c ^ ((r / (8 / CR)) % CR));
 }
 
@@ -443,9 +462,11 @@ __device__ __forceinline__ void convert_stage(const int8_t* rk, __nv_bfloat16* k
 // the walk's order and hand its stage back. Stages pass between them
 // through named barriers.
 template <int D, bool INT4>
-__global__ void __launch_bounds__(NTB, 1) paged_prefill_bf16_kernel(const Params p) {
+__global__ void __launch_bounds__(Bf16Block<D>::NTB, 1) paged_prefill_bf16_kernel(const Params p) {
   using T = Bf16Tile<D>;
   using S = Bf16Smem<D, INT4>;
+  using K = Bf16Block<D>;
+  constexpr int HANDOFF = K::HANDOFF;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = align_1k(smem_raw);
   __nv_bfloat16* kv = reinterpret_cast<__nv_bfloat16*>(smem + S::KV_OFF);  // stage s: K, V
@@ -468,8 +489,8 @@ __global__ void __launch_bounds__(NTB, 1) paged_prefill_bf16_kernel(const Params
   if (wg < PRODUCERS) {
     // Producer wg: the walk's tiles wg, wg + 2, ..., each into stage wg.
     setmaxnreg_dec<56>();
-    int8_t* raw = reinterpret_cast<int8_t*>(smem + S::RAW_OFF) + wg * 4 * S::STAGE;
-    float* raw_scales = reinterpret_cast<float*>(smem + S::RAW_SCALE_OFF) + wg * 2 * 2 * BK;
+    int8_t* raw = reinterpret_cast<int8_t*>(smem + S::RAW_OFF) + wg * 2 * K::RAWS * S::STAGE;
+    float* raw_scales = reinterpret_cast<float*>(smem + S::RAW_SCALE_OFF) + wg * K::RAWS * 2 * BK;
     __nv_bfloat16* kt = kv + 2 * wg * T::TILE;
     // The raw K and V rows of the key tile at t0 (raw stage buf: K at
     // 2·buf·STAGE, V next), and each key's K and V scale (0 past the
@@ -501,23 +522,31 @@ __global__ void __launch_bounds__(NTB, 1) paged_prefill_bf16_kernel(const Params
     if (wg == 1 && t0 < rows.kend) t0 = next_run(p, rows, t0 + BK);
     if (t0 < rows.kend) issue(t0, 0);
     for (int i = 0; t0 < rows.kend; ++i) {
-      const int buf = i & 1;
+      const int buf = K::RAWS == 2 ? i & 1 : 0;
       cp_async_wait_all();
       bar_sync(PRODUCER + wg, 128);  // raw stage buf landed; the other one is converted
       const int tn = skip_one(t0);
-      if (tn < rows.kend) issue(tn, buf ^ 1);
+      if constexpr (K::RAWS == 2) {
+        if (tn < rows.kend) issue(tn, buf ^ 1);
+      }
       if (i > 0) bar_sync(EMPTY + wg, HANDOFF);  // the consumers are done with stage wg
       convert_stage<D, INT4>(raw + 2 * buf * S::STAGE, kt, kt + T::TILE, gtid);
       kv_scales[2 * wg * BK + gtid] = raw_scales[2 * buf * BK + gtid];
       fence_async_shared();
       bar_arrive(FULL + wg, HANDOFF);  // stage wg holds this tile
+      if constexpr (K::RAWS == 1) {
+        if (tn < rows.kend) {
+          bar_sync(PRODUCER + wg, 128);  // every thread has read the raw stage
+          issue(tn, 0);
+        }
+      }
       t0 = tn;
     }
     return;
   }
 
   // Consumers.
-  setmaxnreg_inc<200>();
+  setmaxnreg_inc<K::CONSUMER_REGS>();
   const int cw = wg - PRODUCERS, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem) + cw * T::TILE;
@@ -710,23 +739,27 @@ __global__ void __launch_bounds__(NTB, 1) paged_prefill_bf16_kernel(const Params
 // ---------------------------------------------------------------------------
 
 template <int D, bool INT4>
-cudaError_t launch(const Params& p, bool q_bf16, cudaStream_t stream) {
-  cudaError_t err;
-  if (q_bf16) {
-    constexpr int smem = Bf16Smem<D, INT4>::BYTES;
-    err = cudaFuncSetAttribute(paged_prefill_bf16_kernel<D, INT4>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const unsigned blocks = unsigned((p.C + p.BQ - 1) / p.BQ) * p.Hkv * p.B;
-    paged_prefill_bf16_kernel<D, INT4><<<blocks, NTB, smem, stream>>>(p);
-  } else {
-    constexpr int smem = F32Smem<D, INT4>::BYTES;
-    err = cudaFuncSetAttribute(paged_prefill_f32_kernel<D, INT4>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((p.C + p.BQ - 1) / p.BQ, p.Hkv, p.B);
-    paged_prefill_f32_kernel<D, INT4><<<grid, NT, smem, stream>>>(p);
-  }
+cudaError_t launch_bf16(Params p, cudaStream_t stream) {
+  constexpr int smem = Bf16Smem<D, INT4>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(paged_prefill_bf16_kernel<D, INT4>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  p.BQ = Bf16Block<D>::BROWS / p.G;
+  const unsigned blocks = unsigned((p.C + p.BQ - 1) / p.BQ) * p.Hkv * p.B;
+  paged_prefill_bf16_kernel<D, INT4><<<blocks, Bf16Block<D>::NTB, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D, bool INT4>
+cudaError_t launch(Params p, bool q_bf16, cudaStream_t stream) {
+  if (q_bf16) return launch_bf16<D, INT4>(p, stream);
+  constexpr int smem = F32Smem<D, INT4>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(paged_prefill_f32_kernel<D, INT4>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  p.BQ = ROWS / p.G;
+  dim3 grid((p.C + p.BQ - 1) / p.BQ, p.Hkv, p.B);
+  paged_prefill_f32_kernel<D, INT4><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -742,6 +775,10 @@ int dispatch(const Params& p, int D, int q_bf16, void* stream) {
     case 32: err = launch<32, INT4>(p, q_bf16 != 0, s); break;
     case 64: err = launch<64, INT4>(p, q_bf16 != 0, s); break;
     case 128: err = launch<128, INT4>(p, q_bf16 != 0, s); break;
+    case 256:  // bf16 q only: the f32 route is not built at d=256
+      if (!q_bf16) return static_cast<int>(cudaErrorInvalidValue);
+      err = launch_bf16<256, INT4>(p, s);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
@@ -751,7 +788,7 @@ Params make_params(const void* q, const void* kp, const void* vp, const void* ks
                    const void* vs, const void* lengths, const void* qstarts, const void* tables,
                    void* o, void* lse, int B, int Hq, int Hkv, int C, int num_pages, int P,
                    int max_pages, int subs, float sm_scale, int has_softcap, float softcap,
-                   int window, int sinks, float mask_value, float mask_half, int q_bf16) {
+                   int window, int sinks, float mask_value, float mask_half) {
   Params p;
   p.q = q;
   p.kp = static_cast<const int8_t*>(kp);
@@ -771,7 +808,7 @@ Params make_params(const void* q, const void* kp, const void* vp, const void* ks
   p.P = P;
   p.max_pages = max_pages;
   p.G = Hq / Hkv;
-  p.BQ = p.G >= 1 && p.G <= ROWS ? (q_bf16 ? BROWS : ROWS) / p.G : 1;
+  p.BQ = 1;  // set by the launch: the block's rows over the group
   p.subs = subs;
   p.sm_scale = sm_scale;
   p.softcap = softcap;
@@ -793,7 +830,7 @@ extern "C" int paged_prefill(const void* q, const void* kp, const void* vp, cons
                              float mask_value, float mask_half, int q_bf16, void* stream) {
   const Params p = make_params(q, kp, vp, ks, vs, lengths, qstarts, tables, o, lse, B, Hq, Hkv,
                                C, num_pages, P, max_pages, 1, sm_scale, has_softcap, softcap,
-                               window, sinks, mask_value, mask_half, q_bf16);
+                               window, sinks, mask_value, mask_half);
   return dispatch<false>(p, D, q_bf16, stream);
 }
 
@@ -807,7 +844,7 @@ extern "C" int paged_prefill_int4(const void* q, const void* kp, const void* vp,
                                   int q_bf16, void* stream) {
   const Params p = make_params(q, kp, vp, ks, vs, lengths, qstarts, tables, o, lse, B, Hq, Hkv,
                                C, num_pages, P, max_pages, subs, sm_scale, has_softcap, softcap,
-                               window, sinks, mask_value, mask_half, q_bf16);
+                               window, sinks, mask_value, mask_half);
   return dispatch<true>(p, D, q_bf16, stream);
 }
 

@@ -29,9 +29,9 @@ the file.
   main shapes, bf16 q: each library's ms in turns (parent, this, this,
   parent; CUDA events over 20 launches) and its err_over_tol against the
   plain version under chip_smoke.py's tolerance.
-- The f32-q route at each main shape and at every paged prefill coverage
-  case of chip_smoke.py (INT8 and INT4), q taken in f32: whether the two
-  libraries give the same bits (output and lse).
+- Both routes, bf16 q and q taken in f32, at each main shape and at every
+  paged prefill coverage case of chip_smoke.py (INT8 and INT4): whether
+  the two libraries give the same bits (output and lse).
 
 --source paged_decode (csrc/paged_decode.cu):
 - Rows 3 (serve's shape and serve_flash's deep decode), 4 (MQA) and 12
@@ -39,7 +39,10 @@ the file.
   shapes: ms in turns as above (50 launches), err_over_tol against this
   tree's plain version, whether this tree's library gives the same bits
   twice, each C entry's host time a call (its launches enqueued, before
-  the sync), and SDPA's ms on the same K/V dequantized beforehand.
+  the sync), and SDPA's ms on the same K/V dequantized beforehand; whether
+  the parent's library gives this one's bits.
+- Every DECODE_COVERAGE and DECODE_INT4_COVERAGE case of chip_smoke.py:
+  whether the parent's library gives this one's bits (output and lse).
 
 --source flash_fwd (csrc/flash_fwd.cu, row 5):
 - Both routes at chip_smoke.py's main shapes: serve_flash's bucketed
@@ -242,7 +245,7 @@ def _prefill_ab(trees, g, result):
     mains = {"paged_prefill": ((q8, cache8, len8, st8, tab8), False),
              "paged_prefill_int4": ((q4, cache4, len4, st4, tab4), True)}
     nomask = dict(window=None, sinks=0, softcap=None)
-    result["f32_same_bits"] = {}
+    result["f32_same_bits"], result["bf16_same_bits"] = {}, {}
     ok = True
     for name, (inputs, int4) in mains.items():
         q, cache, lengths, q_starts, tables = inputs
@@ -261,6 +264,7 @@ def _prefill_ab(trees, g, result):
             row[which] = {"err_over_tol": [cs.err_over_tol(o, plain[0], tols[0]),
                                            cs.err_over_tol(lse, plain[1], tols[1])]}
             ok &= max(row[which]["err_over_tol"]) <= 1.0
+        result["bf16_same_bits"][name] = _same_bits(calls)
         _timed_turns(calls, row, iters=20)
         result["main"][name] = row
         # The f32 route at the main shape.
@@ -270,14 +274,24 @@ def _prefill_ab(trees, g, result):
     cases = ([(f"paged_prefill{i}", c, False) for i, c in enumerate(cs.PAGED_PREFILL_COVERAGE)]
              + [(f"paged_prefill_int4_{i}", c, True)
                 for i, c in enumerate(cs.PREFILL_INT4_COVERAGE)])
-    for name, case, int4 in cases:
-        q, cache, lengths, q_starts, tables, masks = cs.paged_prefill_coverage_inputs(
-            g, case, int4=int4, q_dtype=torch.float32)
-        kw = dict(sm_scale=q.shape[-1] ** -0.5, save_residuals=True, **masks)
-        outs = [launch((q, *cache, lengths, q_starts, tables), int4=int4, **kw)[0]
-                for launch in launchers.values()]
-        result["f32_same_bits"][name] = all(torch.equal(a, b) for a, b in zip(*outs))
-    return ok and all(result["f32_same_bits"].values())
+    for route, dt in (("f32_same_bits", torch.float32), ("bf16_same_bits", torch.bfloat16)):
+        for name, case, int4 in cases:
+            q, cache, lengths, q_starts, tables, masks = cs.paged_prefill_coverage_inputs(
+                g, case, int4=int4, q_dtype=dt)
+            kw = dict(sm_scale=q.shape[-1] ** -0.5, save_residuals=True, **masks)
+            outs = [launch((q, *cache, lengths, q_starts, tables), int4=int4, **kw)[0]
+                    for launch in launchers.values()]
+            result[route][name] = all(torch.equal(a, b) for a, b in zip(*outs))
+    return (ok and all(result["f32_same_bits"].values())
+            and all(result["bf16_same_bits"].values()))
+
+
+def _same_bits(calls):
+    """Whether every library's outputs ((output, lse) of calls[w][1],
+    None where there is no lse) are this one's bits."""
+    this = calls["this"][1][:2]
+    return all(torch.equal(a, b) for w, c in calls.items() if w != "this"
+               for a, b in zip(this, c[1][:2]) if a is not None)
 
 
 def _decode_ab(trees, g, result):
@@ -319,6 +333,9 @@ def _decode_ab(trees, g, result):
         row["this"]["same_bits_twice"] = cs._same_bits_again(
             lambda: calls["this"][0][0](*calls["this"][0][1]), outs)
         ok &= row["this"]["same_bits_twice"]
+        if "parent" in calls:
+            row["same_bits_as_parent"] = _same_bits(calls)
+            ok &= row["same_bits_as_parent"]
         _timed_turns(calls, row, iters=50)
         for which, ((fn, fargs), _) in calls.items():
             # The C entry's host cost (its launches): 100 calls enqueued
@@ -332,7 +349,23 @@ def _decode_ab(trees, g, result):
         row["sdpa_ms"], row["sdpa_backend"] = cs._sdpa_decode(q, k_pages, v_pages, k_scales,
                                                               v_scales, lengths, tables)
         result["main"][name] = row
-    return ok
+    if "parent" not in launchers:
+        return ok
+    # The coverage cases: the parent's bits (output and lse).
+    result["same_bits_as_parent"] = {}
+    for i, case in enumerate(cs.DECODE_COVERAGE):
+        operands, kw = cs.decode_coverage_inputs(g, case)
+        outs = [launchers[w](operands, int4=False, **kw)[0] for w in ("parent", "this")]
+        result["same_bits_as_parent"][f"decode{i}"] = all(
+            torch.equal(a, b) for a, b in zip(*outs))
+    for i, case in enumerate(cs.DECODE_INT4_COVERAGE):
+        q, cache, lengths, tables, masks = cs.decode_int4_coverage_inputs(g, case)
+        kw = dict(sm_scale=q.shape[-1] ** -0.5, save_residuals=True, **masks)
+        outs = [launchers[w]((q, *cache, lengths, tables), int4=True, **kw)[0]
+                for w in ("parent", "this")]
+        result["same_bits_as_parent"][f"paged_decode_int4_{i}"] = all(
+            torch.equal(a, b) for a, b in zip(*outs))
+    return ok and all(result["same_bits_as_parent"].values())
 
 
 # Row 5's main shapes: (q shape, kv heads, causal, lse, dtype).

@@ -43,7 +43,7 @@ PAGED_DECODE_INT4 = cuda_lib.CudaKernel(
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
        ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 # The paged decode kernels have no backward, in the JAX package as here:
 # jax.grad through its paged_decode_attention(_int4) raises.
 _NO_GRAD = ("paged decode attention is not differentiable (jax.grad through the "

@@ -49,7 +49,7 @@ PAGED_PREFILL_INT4 = cuda_lib.CudaKernel(
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)  # 256 (Gemma-2): bf16 q only
 _MAX_GROUP = 64  # the kernel holds a whole GQA group in its 64 q rows
 # The paged prefill kernels have no backward, in the JAX package as here:
 # jax.grad through its paged_prefill_attention(_int4) raises.
@@ -169,6 +169,10 @@ def _paged_prefill_launch(q, k_pages, v_pages, k_scales, v_scales, lengths, q_st
                          f"multiples of 16, got {P}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if D == 256 and q.dtype == torch.float32:
+        raise NotImplementedError("the CUDA paged prefill with f32 q at head_dim 256 is not "
+                                  "built yet (ROADMAP.md queue 2, head_dim 256 off the "
+                                  "serving path)")
     if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
         raise ValueError("k/v pages must be int8")
     q = q.contiguous()

@@ -28,15 +28,24 @@ windowed, and no prefix_cache. Per-sequence capacity becomes
 boundary_tokens + max_pages_per_seq * page_size (the int4 table is the
 growth frame).
 
-Not ported yet, and refused with NotImplementedError when set: the hybrid
-per-window-group KV pools and context-parallel prefill (ROADMAP.md queue 1
-items 6 and 8). `async_dispatch` (a TPU host-overlap trick) accepts only
-False.
+hybrid_kv gives each window group of a per-layer window pattern (Gemma-2's
+alternating 4096-token sliding and full layers) its own page pool and
+block tables: a sliding group's pages recycle behind its own window while
+the full group keeps its pages, so a sequence holds L_full * O(context) +
+L_slide * O(window + sinks) of KV. hybrid_pages sizes each pool by group
+key ("full", "w4096"; the rest take num_pages). A uniform pattern makes it
+a no-op.
+
+Not ported yet, and refused with NotImplementedError when set: hybrid_kv
+with mixed_kv on a pattern of several window groups, and context-parallel
+prefill (ROADMAP.md queue 1). `async_dispatch` (a TPU host-overlap trick)
+accepts only False.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
@@ -80,9 +89,60 @@ class EngineConfig:
 
 
 _UNPORTED = {
-    "hybrid_kv": "the hybrid per-window-group KV pools (ROADMAP.md queue 1 item 6)",
     "cp_mesh": "context-parallel prefill (ROADMAP.md queue 1 item 8)",
 }
+
+
+def build_pools(cfg: LlamaConfig, ecfg: EngineConfig, device):
+    """(cache, allocs, primary allocator, hybrid) for a model's KV state.
+
+    hybrid (ecfg.hybrid_kv on a pattern of more than one window group): one
+    cache and PageAllocator a group, page 0 of each pool its scrap page;
+    `allocs` is the group dict, and the primary allocator (the full group's
+    when there is one: its tables are never trimmed) holds the lengths
+    every pool shares. Otherwise one pool, INT8 or the mixed INT8 / INT4
+    pair, and allocs None."""
+    groups = llama_adapter.window_groups(cfg)
+    hybrid = bool(ecfg.hybrid_kv) and len(groups) > 1
+    if ecfg.mixed_kv is not None:
+        if hybrid:
+            raise NotImplementedError(
+                "EngineConfig.mixed_kv with hybrid_kv over several window groups (mixed "
+                "pools for the full group beside plain sliding ones) is not ported yet "
+                "(ROADMAP.md queue 1, hybrid x mixed)")
+        mk = dict(ecfg.mixed_kv)
+        boundary = mk["boundary_tokens"]
+        if len(set(cfg.layer_windows)) != 1:
+            raise ValueError("mixed_kv needs a uniform window pattern (use hybrid_kv "
+                             "for per-layer patterns)")
+        if cfg.recyclable_window and cfg.attention_sinks != boundary:
+            raise ValueError(
+                f"windowed mixed_kv needs attention_sinks ({cfg.attention_sinks}) == "
+                f"boundary_tokens ({boundary}): the int8 region must be exactly the "
+                "always-visible sinks")
+        cache = llama_adapter.make_cache_mixed(
+            cfg, mk["int8_pages"], mk["int4_pages"], ecfg.page_size,
+            subs=mk.get("subs", 4), device=device)
+        alloc = MixedPageAllocator(mk["int8_pages"], mk["int4_pages"], ecfg.page_size,
+                                   boundary)
+        return cache, None, alloc, False
+    if hybrid:
+        pages_by_group = dict(ecfg.hybrid_pages or {})
+        unknown = set(pages_by_group) - set(groups)
+        if unknown:
+            raise ValueError(
+                f"hybrid_pages keys {sorted(unknown)} match no window group of this "
+                f"model (groups: {sorted(groups)})")
+        for k in groups:
+            pages_by_group.setdefault(k, ecfg.num_pages)
+        cache = llama_adapter.make_cache_hybrid(
+            cfg, {k: pages_by_group[k] for k in groups}, ecfg.page_size, device=device)
+        allocs = {k: PageAllocator(pages_by_group[k], ecfg.page_size, scrap_page=0)
+                  for k in groups}
+        primary = "full" if "full" in allocs else sorted(allocs)[0]
+        return cache, allocs, allocs[primary], True
+    cache = llama_adapter.make_cache(cfg, ecfg.num_pages, ecfg.page_size, device=device)
+    return cache, None, PageAllocator(ecfg.num_pages, ecfg.page_size, scrap_page=0), False
 
 
 @dataclasses.dataclass
@@ -105,7 +165,9 @@ class _PrefillTask:
     rid: int
     prompt: List[int]
     max_new: int
-    table: Any  # [max_pages_per_seq] int32 on the device; mixed: (table8, table4)
+    # [max_pages_per_seq] int32 on the device; mixed: (table8, table4);
+    # hybrid: {group: table}
+    table: Any
     next_start: int
     chunk: int
 
@@ -128,37 +190,25 @@ class Engine:
         self.params = params
         self.ecfg = ecfg
         self.device = resolve_device(device)
+        # Window groups ("full", "w<N>" -> layers) and each group's window:
+        # the hybrid pools and their trims key on them.
+        self.groups = llama_adapter.window_groups(cfg)
+        self.group_windows = {llama_adapter.group_key(w): w for w in set(cfg.layer_windows)}
+        self.cache, self.allocs, self.alloc, self.hybrid = build_pools(cfg, ecfg, self.device)
         self.mixed = ecfg.mixed_kv is not None
-        if self.mixed:
-            mk = dict(ecfg.mixed_kv)
-            boundary = mk["boundary_tokens"]
-            if len(set(cfg.layer_windows)) != 1:
-                raise ValueError("mixed_kv needs a uniform window pattern (use hybrid_kv "
-                                 "for per-layer patterns)")
-            if cfg.recyclable_window and cfg.attention_sinks != boundary:
-                raise ValueError(
-                    f"windowed mixed_kv needs attention_sinks ({cfg.attention_sinks}) == "
-                    f"boundary_tokens ({boundary}): the int8 region must be exactly the "
-                    "always-visible sinks")
-            if ecfg.prefix_cache:
-                raise ValueError("prefix_cache does not compose with mixed_kv yet (shared "
-                                 "pages would need per-pool digest maps AND a "
-                                 "boundary-stable split)")
-            self.cache = llama_adapter.make_cache_mixed(
-                cfg, mk["int8_pages"], mk["int4_pages"], ecfg.page_size,
-                subs=mk.get("subs", 4), device=self.device)
-            self.alloc = MixedPageAllocator(mk["int8_pages"], mk["int4_pages"],
-                                            ecfg.page_size, boundary)
-        else:
-            self.cache = llama_adapter.make_cache(cfg, ecfg.num_pages, ecfg.page_size,
-                                                  device=self.device)
-            self.alloc = PageAllocator(ecfg.num_pages, ecfg.page_size, scrap_page=0)
-        # Prefix cache: chain digest -> page id and back; the allocator's
-        # on_free hook drops a page's entry when its last reference goes.
-        self._prefix_map: Dict[bytes, int] = {}
-        self._page_hash: Dict[int, bytes] = {}
+        if self.mixed and ecfg.prefix_cache:
+            raise ValueError("prefix_cache does not compose with mixed_kv yet (shared "
+                             "pages would need per-pool digest maps AND a "
+                             "boundary-stable split)")
+        # Prefix cache, per pool group ("shared" for the single pool):
+        # (group, chain digest) -> page id and back; each pool's on_free
+        # hook drops a page's entry when its last reference goes, window
+        # trims included.
+        self._prefix_map: Dict[Tuple[str, bytes], int] = {}
+        self._page_hash: Dict[Tuple[str, int], bytes] = {}
         if ecfg.prefix_cache:
-            self.alloc.on_free = self._on_page_free
+            for k, a in self._prefix_groups().items():
+                a.on_free = functools.partial(self._on_page_free, k)
         self.queue: deque = deque()
         self.active: List[_Sequence] = []
         self.prefilling: List[_PrefillTask] = []  # interleaved_prefill FIFO
@@ -175,6 +225,27 @@ class Engine:
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    # -- hybrid pool helpers -------------------------------------------------
+
+    def _prefix_groups(self) -> Dict[str, PageAllocator]:
+        """Every pool by group, as the prefix cache keys them: one a window
+        group (hybrid), else the single pool under the key "shared"."""
+        return self.allocs if self.hybrid else {"shared": self.alloc}
+
+    def _each_alloc(self) -> List[PageAllocator]:
+        return list(self._prefix_groups().values())
+
+    def _admit_all(self, rid: int, n: int):
+        """Admit into every pool (hybrid; each checked before any is
+        touched, so a failed admission leaks no page) or the single one:
+        {group: fresh pages}, or the single pool's pages."""
+        if not self.hybrid:
+            return self.alloc.admit(rid, n)
+        short = [k for k, a in self.allocs.items() if not a.can_admit(n)]
+        if short:
+            raise RuntimeError(f"out of pages in group(s) {sorted(short)} admitting {n} tokens")
+        return {k: a.admit(rid, n) for k, a in self.allocs.items()}
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -195,22 +266,34 @@ class Engine:
                 return b
         raise ValueError(f"prompt length {n} exceeds largest bucket")
 
-    def _resolve_prefix(self, prompt: List[int]) -> List[Optional[int]]:
-        """Usable cached-prefix slots for this prompt; empty when disabled,
-        missed, or when suffix chunking cannot fit the table."""
+    def _resolve_prefix(self, prompt: List[int]):
+        """Usable cached-prefix slots for this prompt, a slot list ({group:
+        slot list} when hybrid); empty when disabled, missed, or when
+        suffix chunking cannot fit the table."""
+        miss = {} if self.hybrid else []
         if not self.ecfg.prefix_cache:
-            return []
+            return miss
         cached = self._cached_prefix(prompt)
-        if cached and self._suffix_chunk(len(prompt), len(cached)) is None:
-            return []
+        if cached and self._suffix_chunk(len(prompt), self._cached_len(cached)) is None:
+            return miss
         return cached
 
+    @staticmethod
+    def _cached_len(cached) -> int:
+        """Reused prefix pages (table slots; every group's row of a hybrid
+        hit has the same length, scrap slots included)."""
+        if isinstance(cached, dict):
+            return len(next(iter(cached.values()))) if cached else 0
+        return len(cached)
+
     def _fits(self, prompt: List[int]) -> bool:
+        n = len(prompt)
         cached = self._resolve_prefix(prompt)
         if not cached:
-            return self.alloc.can_admit(len(prompt))
+            return all(a.can_admit(n) for a in self._each_alloc())
         # Fresh pages are needed only past the reused slots.
-        return self.alloc.pages_needed(len(prompt)) - len(cached) <= self.alloc.free_pages
+        m = self._cached_len(cached)
+        return all(a.pages_needed(n) - m <= a.free_pages for a in self._each_alloc())
 
     def _try_admit(self) -> bool:
         if (not self.queue or len(self.active) + len(self.prefilling)
@@ -273,7 +356,7 @@ class Engine:
         if n > max(self.ecfg.prefill_buckets):
             self._admit_chunked(rid, prompt, max_new)
             return
-        pages = self.alloc.admit(rid, n)
+        pages = self._admit_all(rid, n)
         bucket = self._bucket(n)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = prompt
@@ -290,7 +373,12 @@ class Engine:
         if n < n_write:
             keep = (torch.arange(n_write, device=self.device) < n)[None, None, :, None]
             k_w, v_w = k_w * keep, v_w * keep
-        if self.mixed:
+        if self.hybrid:
+            llama_adapter.write_prefill_hybrid(
+                self.cfg, self.cache, k_w, v_w,
+                {k: self._t(np.asarray(p, np.int32)) for k, p in pages.items()},
+                page_size=self.ecfg.page_size)
+        elif self.mixed:
             p8, p4 = pages  # the prompt's pages below the boundary, then past it
             llama_adapter.write_prefill_mixed(
                 self.cfg, self.cache, k_w, v_w, self._t(np.asarray(p8, np.int32)),
@@ -306,10 +394,14 @@ class Engine:
 
     def _table(self, rid: int):
         """One sequence's block table row, [max_pages_per_seq] on the
-        device; mixed: the ([boundary_pages], [max_pages_per_seq]) pair."""
+        device; mixed: the ([boundary_pages], [max_pages_per_seq]) pair;
+        hybrid: {group: row}."""
         mp = self.ecfg.max_pages_per_seq
         if self.mixed:
             return tuple(self._t(t[0]) for t in self.alloc.block_tables([rid], mp))
+        if self.hybrid:
+            return {k: self._t(a.block_table_array([rid], mp)[0])
+                    for k, a in self.allocs.items()}
         return self._t(self.alloc.block_table_array([rid], mp)[0])
 
     def _run_chunk(self, prompt: List[int], start: int, chunk: int, table):
@@ -332,7 +424,7 @@ class Engine:
         interleaved_prefill the chunks run one per step() instead."""
         chunk = max(self.ecfg.prefill_buckets)
         n = len(prompt)
-        self.alloc.admit(rid, n)
+        self._admit_all(rid, n)
         table = self._table(rid)
         if self.ecfg.interleaved_prefill:
             self.prefilling.append(_PrefillTask(rid, prompt, max_new, table, 0, chunk))
@@ -366,49 +458,62 @@ class Engine:
                 h + np.asarray(prompt[i * ps:(i + 1) * ps], np.int32).tobytes()).digest()
             yield i, h
 
-    def _cached_prefix(self, prompt: List[int]) -> List[Optional[int]]:
+    def _cached_prefix(self, prompt: List[int]):
         """Longest usable run of cached prefix pages, capped so that at least
         one suffix token remains to prefill (its logits give the first
-        sampled token). A model whose every layer shares one sliding window
-        needs only the pages a sequence of that prefix length would still
-        hold after trim_window (sink pages and pages not wholly behind the
-        window); older slots are None, ride the scrap page and stay unread
-        under the window mask. Shrinking the run slides the window back, so
-        runs are tried longest first."""
+        sampled token): a slot list, or {group: slot list} when hybrid.
+        A full-attention pool needs every page of the run; a sliding pool
+        (a sliding group's, or the single pool of a model whose every layer
+        shares one window) needs only the pages a sequence of that prefix
+        length would still hold after trim_window (sink pages and pages
+        not wholly behind the window); older slots are None, ride the scrap
+        page and stay unread under the window mask. The hash chain makes a
+        hit in any group certify the whole token prefix, so each group is
+        checked for its pages only. Shrinking the run slides the window
+        back, so runs are tried longest first."""
         ps = self.ecfg.page_size
         limit = (len(prompt) - 1) // ps
-        hits = [self._prefix_map.get(h) for i, h in self._page_chain(prompt) if i < limit]
+        digests = [h for i, h in self._page_chain(prompt) if i < limit]
+        groups = self._prefix_groups()
+        hits = {k: [self._prefix_map.get((k, h)) for h in digests] for k in groups}
         sinks = self.cfg.attention_sinks or 0
         sink_blocks = -(-sinks // ps) if sinks else 0
-        w = self.cfg.recyclable_window
         for m in range(limit, 0, -1):
-            first_block = max(m * ps - w, 0) // ps if w else 0
-            row: List[Optional[int]] = []
-            for i in range(m):
-                needed = i < sink_blocks or i >= first_block
-                if needed and hits[i] is None:
+            rows: Optional[Dict[str, List[Optional[int]]]] = {}
+            for k in groups:
+                w = self.group_windows.get(k) if self.hybrid else self.cfg.recyclable_window
+                first_block = max(m * ps - w, 0) // ps if w else 0
+                row: List[Optional[int]] = []
+                for i in range(m):
+                    needed = i < sink_blocks or i >= first_block
+                    if needed and hits[k][i] is None:
+                        rows = None
+                        break
+                    row.append(hits[k][i] if needed else None)
+                if rows is None:
                     break
-                row.append(hits[i] if needed else None)
-            else:
-                return row
-        return []
+                rows[k] = row
+            if rows is not None:
+                return rows if self.hybrid else rows["shared"]
+        return {} if self.hybrid else []
 
     def _register_prefix(self, prompt: List[int], rid: int) -> None:
         if not self.ecfg.prefix_cache:
             return
-        table = self.alloc.tables[rid]
-        for i, h in self._page_chain(prompt):
-            page = table[i]
-            if page is None:  # window-trimmed slot
-                continue
-            if h not in self._prefix_map and page not in self._page_hash:
-                self._prefix_map[h] = page
-                self._page_hash[page] = h
+        for k, a in self._prefix_groups().items():
+            table = a.tables[rid]
+            for i, h in self._page_chain(prompt):
+                page = table[i]
+                if page is None:  # window-trimmed slot
+                    continue
+                if (k, h) not in self._prefix_map and (k, page) not in self._page_hash:
+                    self._prefix_map[(k, h)] = page
+                    self._page_hash[(k, page)] = h
 
-    def _on_page_free(self, page: int) -> None:
-        h = self._page_hash.pop(page, None)
+    def _on_page_free(self, group: str, page: int) -> None:
+        h = self._page_hash.pop((group, page), None)
         if h is not None:
-            self._prefix_map.pop(h, None)
+            self._prefix_map.pop((group, h), None)
 
     def _suffix_chunk(self, n: int, n_cached_pages: int) -> Optional[int]:
         """Chunk size for prefilling the uncached suffix (the smallest
@@ -426,16 +531,25 @@ class Engine:
                 return b
         return None
 
-    def _admit_cached(self, rid: int, prompt: List[int], max_new: int,
-                      cached_pages: List[Optional[int]]) -> None:
+    def _admit_cached(self, rid: int, prompt: List[int], max_new: int, cached_pages) -> None:
         """Admission with a shared page-aligned prefix: the cached pages are
         shared by refcount (identical tokens quantize identically) and only
-        the suffix runs through prefill_chunk at its global offset."""
+        the suffix runs through prefill_chunk at its global offset. Hybrid:
+        each group shares its own row of slots (a sliding group's carries
+        scrap slots behind the window), every pool checked first."""
         n = len(prompt)
-        m = len(cached_pages)
+        m = self._cached_len(cached_pages)
         c = m * self.ecfg.page_size
         chunk = self._suffix_chunk(n, m)
-        self.alloc.admit_with_prefix(rid, n, cached_pages)
+        if self.hybrid:
+            short = [k for k, a in self.allocs.items() if a.pages_needed(n) - m > a.free_pages]
+            if short:
+                raise RuntimeError(f"out of pages in group(s) {sorted(short)} admitting {n} "
+                                   f"tokens with a {m}-page prefix")
+            for k, a in self.allocs.items():
+                a.admit_with_prefix(rid, n, cached_pages[k])
+        else:
+            self.alloc.admit_with_prefix(rid, n, cached_pages)
         table = self._table(rid)
         logits = None
         for start in range(c, n, chunk):
@@ -455,32 +569,34 @@ class Engine:
 
     def _finish(self, seq: _Sequence) -> None:
         self.finished[seq.seq_id] = seq.out
-        self.alloc.release(seq.seq_id)
+        for a in self._each_alloc():
+            a.release(seq.seq_id)
         self.metrics.inc("requests_finished")
 
     def _check_extend_headroom(self, n_tokens: int) -> None:
-        """Raise BEFORE mutating the allocator if extending every active
-        sequence by n_tokens could exhaust the pool or a block table."""
+        """Raise BEFORE mutating an allocator if extending every active
+        sequence by n_tokens could exhaust a pool or a block table."""
         if self.mixed:
             self.alloc.check_extend_headroom([s.seq_id for s in self.active], n_tokens,
                                              self.ecfg.max_pages_per_seq)
             return
-        needed = 0
-        for seq in self.active:
-            length = self.alloc.lengths[seq.seq_id]
-            pages_after = -(-(length + n_tokens) // self.ecfg.page_size)
-            if pages_after > self.ecfg.max_pages_per_seq:
+        for alloc in self._each_alloc():
+            needed = 0
+            for seq in self.active:
+                length = alloc.lengths[seq.seq_id]
+                pages_after = -(-(length + n_tokens) // self.ecfg.page_size)
+                if pages_after > self.ecfg.max_pages_per_seq:
+                    raise RuntimeError(
+                        f"seq {seq.seq_id}: extending by {n_tokens} token(s) "
+                        f"needs {pages_after} pages > max_pages_per_seq "
+                        f"({self.ecfg.max_pages_per_seq})")
+                needed += max(0, pages_after - len(alloc.tables[seq.seq_id]))
+            if needed > alloc.free_pages:
                 raise RuntimeError(
-                    f"seq {seq.seq_id}: extending by {n_tokens} token(s) "
-                    f"needs {pages_after} pages > max_pages_per_seq "
-                    f"({self.ecfg.max_pages_per_seq})")
-            needed += max(0, pages_after - len(self.alloc.tables[seq.seq_id]))
-        if needed > self.alloc.free_pages:
-            raise RuntimeError(
-                f"page pool exhausted: decoding {n_tokens} token(s) for "
-                f"{len(self.active)} sequences needs {needed} new pages, "
-                f"{self.alloc.free_pages} free. Raise num_pages or lower "
-                f"max_batch/max_new_tokens.")
+                    f"page pool exhausted: decoding {n_tokens} token(s) for "
+                    f"{len(self.active)} sequences needs {needed} new pages, "
+                    f"{alloc.free_pages} free. Raise num_pages or lower "
+                    f"max_batch/max_new_tokens.")
 
     def _sample_batch(self, logits) -> torch.Tensor:
         return sample(logits, self._generator, self.sampling)
@@ -491,7 +607,7 @@ class Engine:
     def _tables(self, seq_ids: List[int]):
         """[max_batch, max_pages_per_seq] block tables, padded lanes on the
         scrap page; mixed: the ([max_batch, boundary_pages], [max_batch,
-        max_pages_per_seq]) pair."""
+        max_pages_per_seq]) pair; hybrid: {group: tables}."""
         B, mp = self.ecfg.max_batch, self.ecfg.max_pages_per_seq
         if self.mixed:
             pair = []
@@ -500,9 +616,14 @@ class Engine:
                 full[:len(seq_ids)] = t
                 pair.append(self._t(full))
             return tuple(pair)
-        full = np.full((B, mp), self.alloc.scrap_page, np.int32)
-        full[:len(seq_ids)] = self.alloc.block_table_array(seq_ids, mp)
-        return self._t(full)
+
+        def one(alloc):
+            full = np.full((B, mp), alloc.scrap_page, np.int32)
+            full[:len(seq_ids)] = alloc.block_table_array(seq_ids, mp)
+            return self._t(full)
+        if self.hybrid:
+            return {k: one(a) for k, a in self.allocs.items()}
+        return one(self.alloc)
 
     # -- one engine step -----------------------------------------------------
 
@@ -546,17 +667,22 @@ class Engine:
         positions = np.zeros(B, np.int32)
         slots = np.zeros(B, np.int32)
         lengths = np.ones(B, np.int32)
-        pids = np.zeros(B, np.int32)
+        groups = self._prefix_groups()
+        pids = {k: np.zeros(B, np.int32) for k in groups}
         for i, seq in enumerate(self.active):
             positions[i] = self.alloc.lengths[seq.seq_id]
-            pids[i], slots[i], _ = self.alloc.extend(seq.seq_id)
+            for k, a in groups.items():
+                # The slot follows from the position: the same in every pool.
+                pids[k][i], slots[i], _ = a.extend(seq.seq_id)
             tokens[i] = seq.pending
             lengths[i] = self.alloc.lengths[seq.seq_id]
+        page_ids = ({k: self._t(p) for k, p in pids.items()} if self.hybrid
+                    else self._t(pids["shared"]))
         tables = self._tables([s.seq_id for s in self.active])
         with self.metrics.timed("decode_step"):
             logits, self.cache = llama_adapter.decode_step(
                 self.cfg, self.params, self.cache, self._t(tokens),
-                self._t(positions), self._t(pids), self._t(slots),
+                self._t(positions), page_ids, self._t(slots),
                 self._t(lengths), tables)
             next_tokens = self._sample_batch(logits).cpu().numpy()
         self.metrics.inc("decode_steps")
@@ -606,8 +732,9 @@ class Engine:
         for i, seq in enumerate(self.active):
             tokens[i] = seq.pending
             lengths0[i] = self.alloc.lengths[seq.seq_id]
-            for _ in range(chunk):
-                self.alloc.extend(seq.seq_id)
+            for a in self._each_alloc():
+                for _ in range(chunk):
+                    a.extend(seq.seq_id)
         with self.metrics.timed("decode_chunk"):
             if self.mixed:
                 out, self.cache = llama_adapter.decode_loop_mixed(
@@ -651,14 +778,21 @@ class Engine:
         self.metrics.set("free_pages", self.alloc.free_pages)
 
     def _trim_windows(self) -> None:
-        """Rolling-window page recycling for a model whose every layer
-        shares one sliding window: pages wholly behind every active
-        sequence's window (sinks aside) go back to the free list."""
-        w = self.cfg.recyclable_window
-        if not w:
-            return
-        freed = sum(self.alloc.trim_window(seq.seq_id, w, self.cfg.attention_sinks)
-                    for seq in self.active)
+        """Rolling-window page recycling: pages wholly behind an active
+        sequence's window (sinks aside) go back to the free list. Hybrid:
+        each sliding group's pool trims by its own window, and the full
+        group's is never trimmed; otherwise only a model whose every layer
+        shares one sliding window trims its single pool."""
+        sinks = self.cfg.attention_sinks
+        if self.hybrid:
+            freed = sum(a.trim_window(seq.seq_id, self.group_windows[k], sinks)
+                        for k, a in self.allocs.items() if self.group_windows[k]
+                        for seq in self.active)
+        else:
+            w = self.cfg.recyclable_window
+            if not w:
+                return
+            freed = sum(self.alloc.trim_window(seq.seq_id, w, sinks) for seq in self.active)
         if freed:
             self.metrics.inc("pages_trimmed", freed)
             self.metrics.set("free_pages", self.alloc.free_pages)

@@ -20,14 +20,17 @@ boundary, INT4 past it) has its own write_prefill_mixed, decode_step_mixed,
 decode_loop_mixed and prefill_chunk_mixed, for a uniform window pattern.
 
 The cache is layer-stacked ([num_layers, ...] tensors); each layer works on
-views of its slice. Not ported yet: speculative verify, the hybrid
-per-window-group caches, tensor and context parallelism.
+views of its slice. The hybrid cache (make_cache_hybrid) is a dict of such
+caches, one a window group, each with its own page pool: decode_step,
+decode_loop and prefill_chunk take it with per-group page ids and tables.
+Not ported yet: speculative verify, the hybrid cache with a mixed full
+group, tensor and context parallelism.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -95,6 +98,63 @@ def make_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
                                     device=device)
 
 
+# --- Hybrid (per-window-group) KV cache -------------------------------------
+#
+# A window pattern splits the layers into groups by window value. Each group
+# gets its own layer-stacked cache and page pool, so the engine recycles a
+# sliding group's pages behind its window while the full-attention group
+# keeps all of its own: a sequence holds L_full * O(context) + L_slide *
+# O(window + sinks) of KV instead of L * O(context). Group keys are strings
+# ("full", "w4096").
+
+def group_key(window: Optional[int]) -> str:
+    return "full" if window is None else f"w{window}"
+
+
+def window_groups(cfg: LlamaConfig) -> Dict[str, List[int]]:
+    """Group layout: key -> ascending global layer indices with that window."""
+    groups: Dict[str, List[int]] = {}
+    for i, w in enumerate(cfg.layer_windows):
+        groups.setdefault(group_key(w), []).append(i)
+    return groups
+
+
+def make_cache_hybrid(cfg: LlamaConfig, pages_by_group: Dict[str, int], page_size: int,
+                      device="cuda") -> Dict[str, PagedKVCacheState]:
+    """One layer-stacked cache per window group (leading dim the group's
+    layer count, stacked in ascending global layer order)."""
+    ensure_serving_supported(cfg)
+    groups = window_groups(cfg)
+    missing = set(groups) - set(pages_by_group)
+    if missing:
+        raise ValueError(f"pages_by_group missing groups {sorted(missing)}")
+    return {key: PagedKVCacheState.create(cfg.num_kv_heads, pages_by_group[key], page_size,
+                                          cfg.hd, num_layers=len(idxs), device=device)
+            for key, idxs in groups.items()}
+
+
+def _g(d, window):
+    """A maybe-grouped argument: a dict gives the window group's entry,
+    anything else is shared by every group."""
+    return d[group_key(window)] if isinstance(d, dict) else d
+
+
+def layer_stacks(cfg: LlamaConfig, cache) -> List[Tuple[Any, int]]:
+    """For each layer, (the layer-stacked cache that holds it, its index
+    there): a group dict gives a layer its group's stack and its rank in the
+    group; a single cache, itself and the layer's index."""
+    if not isinstance(cache, dict):
+        return [(cache, i) for i in range(cfg.num_layers)]
+    stacks: List[Tuple[Any, int]] = [None] * cfg.num_layers
+    for key, idxs in window_groups(cfg).items():
+        if key not in cache:
+            raise ValueError(f"the hybrid cache has no group {key!r} for layers {idxs} "
+                             f"(groups given: {sorted(cache)})")
+        for rank, i in enumerate(idxs):
+            stacks[i] = (cache[key], rank)
+    return stacks
+
+
 def prefill_at(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
                last_index):
     """Prefill over a (possibly right-padded) prompt.
@@ -150,6 +210,23 @@ def write_prefill(
     return cache
 
 
+def write_prefill_hybrid(
+    cfg: LlamaConfig,
+    caches: Dict[str, PagedKVCacheState],
+    k_all: torch.Tensor,  # [L, Hkv, n_tokens, hd], every layer
+    v_all: torch.Tensor,
+    page_ids: Dict[str, torch.Tensor],  # per group: [n_pages] its pool's ids
+    *,
+    page_size: int,
+) -> Dict[str, PagedKVCacheState]:
+    """write_prefill into the hybrid cache: each group receives its own
+    layers' K/V, written into its own page pool."""
+    for (cache, rank), k, v, window in zip(layer_stacks(cfg, caches), k_all, v_all,
+                                           cfg.layer_windows):
+        write_pages(cache.layer(rank), k, v, page_ids[group_key(window)], page_size)
+    return caches
+
+
 def prefill_chunk(
     cfg: LlamaConfig,
     params: Dict[str, Any],
@@ -167,14 +244,11 @@ def prefill_chunk(
     rows zeroed, so they cannot coarsen the per-page scales), then attend
     its queries from the pages: the prefix and the chunk's own keys, INT8
     as decode reads them, causal by global position (q_starts =
-    chunk_start, lengths = chunk_start + C). A (table8, table4) pair over
-    a mixed cache goes to prefill_chunk_mixed with boundary_tokens.
+    chunk_start, lengths = chunk_start + C). A hybrid cache (a group dict)
+    takes a group dict of tables. A (table8, table4) pair over a mixed
+    cache goes to prefill_chunk_mixed with boundary_tokens.
 
     Returns (logits [1, vocab] at last_index, cache)."""
-    if isinstance(cache, dict):
-        raise NotImplementedError(
-            "prefill_chunk over the hybrid per-window-group caches is not ported "
-            "yet (ROADMAP.md queue 1 item 6)")
     if isinstance(table, tuple):
         if boundary_tokens is None:
             raise ValueError("a mixed-cache chunk needs boundary_tokens")
@@ -191,9 +265,9 @@ def prefill_chunk(
     positions = chunk_start + torch.arange(C, device=dev)
     keep = (torch.arange(C, device=dev) <= last_index)[None, :, None]
     first = chunk_start // page_size
-    chunk_pages = table[first:first + C // page_size]
     lengths = torch.tensor([chunk_start + C], dtype=torch.int32, device=dev)
     q_starts = torch.tensor([chunk_start], dtype=torch.int32, device=dev)
+    stacks = layer_stacks(cfg, cache)
     x = embed_tokens(cfg, params, tokens)
     for i, window in enumerate(cfg.layer_windows):
         p = layer_params(params["layers"], i)
@@ -204,11 +278,14 @@ def prefill_chunk(
         v = v.reshape(b, C, cfg.num_kv_heads, hd).transpose(1, 2)
         q = apply_rope(q, cfg.rope_theta, positions)
         k = apply_rope(k, cfg.rope_theta, positions)
-        layer = cache.layer(i)
-        write_pages(layer, k[0] * keep, v[0] * keep, chunk_pages, page_size)
+        stack, li = stacks[i]
+        layer = stack.layer(li)
+        tbl = _g(table, window)
+        write_pages(layer, k[0] * keep, v[0] * keep, tbl[first:first + C // page_size],
+                    page_size)
         o = paged_prefill_attention(
             q, layer.k_pages, layer.v_pages, layer.k_scales, layer.v_scales,
-            lengths, q_starts, table[None], sm_scale=cfg.sm_scale, window=window,
+            lengths, q_starts, tbl[None], sm_scale=cfg.sm_scale, window=window,
             logit_softcap=cfg.logit_softcap,
             attention_sinks=cfg.attention_sinks if window is not None else 0,
         )
@@ -235,10 +312,15 @@ def decode_step(
     lengths: torch.Tensor,    # [B] context length INCLUDING this token
     tables: torch.Tensor,     # [B, max_pages]
 ) -> Tuple[torch.Tensor, PagedKVCacheState]:
-    """One decode step for a batch of sequences -> (logits [B, vocab], cache)."""
+    """One decode step for a batch of sequences -> (logits [B, vocab], cache).
+
+    A hybrid cache (a group dict, make_cache_hybrid) takes group dicts of
+    page_ids and tables (each group has its own pool); slots and lengths
+    follow from the positions and are shared."""
     b = tokens.shape[0]
     hd = cfg.hd
     dense = functools.partial(qdense, mode=cfg.weight_quant_mode)
+    stacks = layer_stacks(cfg, cache)
     x = embed_tokens(cfg, params, tokens)[:, None, :]  # [B, 1, hid]
     for i, window in enumerate(cfg.layer_windows):
         p = layer_params(params["layers"], i)
@@ -247,13 +329,14 @@ def decode_step(
         q = _rope_single(q.reshape(b, cfg.num_heads, hd), positions, cfg.rope_theta)
         k = _rope_single(k.reshape(b, cfg.num_kv_heads, hd), positions, cfg.rope_theta)
         v = v.reshape(b, cfg.num_kv_heads, hd)
-        append_tokens_batched(cache.layer(i), k, v, page_ids, slots)
+        stack, li = stacks[i]
+        append_tokens_batched(stack.layer(li), k, v, _g(page_ids, window), slots)
         o = paged_decode_attention(
-            q, cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales,
-            lengths, tables, sm_scale=cfg.sm_scale, window=window,
+            q, stack.k_pages, stack.v_pages, stack.k_scales, stack.v_scales,
+            lengths, _g(tables, window), sm_scale=cfg.sm_scale, window=window,
             logit_softcap=cfg.logit_softcap,
             attention_sinks=cfg.attention_sinks if window is not None else 0,
-            layer=i,
+            layer=li,
         )
         o = o.reshape(b, 1, cfg.num_heads * hd)
         x = _attn_residual(cfg, dense, p, x, o)
@@ -268,7 +351,7 @@ def decode_loop(
     cache: PagedKVCacheState,  # layer-stacked
     tokens: torch.Tensor,    # [B] pending tokens (K/V not yet cached)
     lengths: torch.Tensor,   # [B] context length EXCLUDING the pending token
-    tables: torch.Tensor,    # [B, max_pages] covering lengths + n_steps slots
+    tables: torch.Tensor,    # [B, max_pages] covering lengths + n_steps slots; hybrid: per group
     generator: Optional[torch.Generator] = None,  # used only when sampling
     *,
     n_steps: int,
@@ -285,10 +368,13 @@ def decode_loop(
     cached append."""
     sampling = sampling or SamplingParams()
     toks, lens = tokens, lengths.long()
-    tables_l = tables.long()
+
+    def pids_of(t):
+        return torch.gather(t.long(), 1, (lens // page_size)[:, None])[:, 0]
     out, all_logits = [], []
     for _ in range(n_steps):
-        pids = torch.gather(tables_l, 1, (lens // page_size)[:, None])[:, 0]
+        pids = ({k: pids_of(t) for k, t in tables.items()} if isinstance(tables, dict)
+                else pids_of(tables))
         logits, cache = decode_step(cfg, params, cache, toks, lens, pids,
                                     lens % page_size, lens + 1, tables)
         toks = sample(logits, generator, sampling)

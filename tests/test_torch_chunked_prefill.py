@@ -83,10 +83,11 @@ def test_prefill_chunk_matches_jax(models):
 
 
 def test_prefill_chunk_refuses_other_caches(models):
+    """A hybrid group dict that lacks a layer's window group raises."""
     _, _, tc, tp = models
     toks = torch.zeros((1, 16), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        tad.prefill_chunk(tc, tp, {"full": None}, toks, 0, torch.zeros(4), 15, page_size=8)
+    with pytest.raises(ValueError, match="no group 'full'"):
+        tad.prefill_chunk(tc, tp, {"w8": None}, toks, 0, torch.zeros(4), 15, page_size=8)
 
 
 def test_admit_with_prefix_and_on_free_match_jax():

@@ -1,0 +1,137 @@
+"""head_dim 256 (Gemma-2-9B) on the port's attention kernels: the CUDA
+wrappers admit it for the routes the serving path takes (rows 3 and 12,
+the paged decode; rows 10 and 11, the paged prefill with bf16 q; row 5,
+the bf16 flash forward), every other route raises and names its ROADMAP
+item, and the plain versions, which the kernels are held to on the card,
+agree with the JAX package's Pallas kernels (interpret mode) at d=256.
+
+Tolerances as in test_torch_decode.py, test_torch_paged_prefill.py and
+test_torch_flash.py: f32 from the same int8 pages, summation order only,
+rtol = atol = 1e-5 (lse 1e-5); bf16 flash, atol 2^-8 max|v| and rtol 2^-7
+(one bf16 rounding of P and of the output)."""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quantizedmha_tpu.ops.decode import paged_decode_attention as jdecode
+from quantizedmha_tpu.ops.paged_prefill import paged_prefill_attention as jprefill
+from quantizedmha_tpu_torch.ops import decode as tdec
+from quantizedmha_tpu_torch.ops import flash_attention as tfa
+from quantizedmha_tpu_torch.ops import flash_attention_int8 as tfa8
+from quantizedmha_tpu_torch.ops import paged_prefill as tpp
+from quantizedmha_tpu_torch.ops.flash_attention import _offsets
+
+jfa = importlib.import_module("quantizedmha_tpu.ops.flash_attention")
+D = 256
+TOL = 1e-5
+ITEM = "ROADMAP.md queue 2, head_dim 256 off the serving path"
+
+
+def test_serving_routes_admit_head_dim_256():
+    for mod in (tdec, tpp, tfa):
+        assert 256 in mod._HEAD_DIMS, mod.__name__
+    assert 256 not in tfa8._HEAD_DIMS
+
+
+def _raises_item(fn, *args, **kw):
+    with pytest.raises(NotImplementedError, match=ITEM):
+        fn(*args, **kw)
+
+
+def test_routes_left_out_raise_naming_their_item():
+    """The f32 flash forward, the flash backward, the paged prefill with
+    f32 q and the INT8 flash forward refuse head_dim 256 before any launch
+    (on the CPU tensors here, as they would on the card)."""
+    q = torch.zeros((1, 2, 8, D))
+    kv = torch.zeros((1, 1, 8, D))
+    offs = _offsets(0, 0, 1, q.device)
+    masks = dict(window=None, softcap=None, sinks=0)
+    _raises_item(tfa._flash_fwd_launch, q, kv, kv, offs, sm_scale=D**-0.5, causal=True,
+                 block_kv=8, save_residuals=False, **masks)
+    qb = q.to(torch.bfloat16)
+    _raises_item(tfa._flash_bwd_launch, qb, kv.to(torch.bfloat16), kv.to(torch.bfloat16), qb,
+                 torch.zeros((1, 2, 8)), qb, offs, sm_scale=D**-0.5, causal=True, **masks)
+    pages = torch.zeros((1, 3, 16, D), dtype=torch.int8)
+    scales = torch.ones((1, 3))
+    one = torch.ones(1, dtype=torch.int32)
+    _raises_item(tpp._paged_prefill_launch, q, pages, pages, scales, scales, one * 8, one * 0,
+                 torch.ones((1, 2), dtype=torch.int32), sm_scale=D**-0.5,
+                 save_residuals=False, **masks)
+    k8 = torch.zeros((1, 1, 8, D), dtype=torch.int8)
+    _raises_item(tfa8._flash_int8_launch, q, k8, torch.ones((1, 1, 1)), k8,
+                 torch.ones((1, 1, 1)), offs, sm_scale=D**-0.5, causal=True, kv_len=8,
+                 block_kv=8, scale_clamp=1e-8, p_scale=127.0, mode=0, save_residuals=False,
+                 **masks)
+
+
+def _pages(rng, hkv, num_pages, page):
+    kp, vp = rng.integers(-127, 128, (2, hkv, num_pages, page, D)).astype(np.int8)
+    ks, vs = rng.uniform(0.002, 0.02, (2, hkv, num_pages)).astype(np.float32)
+    return kp, vp, ks, vs
+
+
+def test_paged_decode_plain_matches_jax_at_256():
+    """Row 3's plain walk, Gemma-2's attention (GQA 2, sm_scale 256^-0.5,
+    softcap 50, a window) against the JAX kernel, output and lse."""
+    rng = np.random.default_rng(0)
+    lengths = np.asarray([9, 40, 23], np.int32)
+    tables = (rng.permutation(12)[:9] + 1).reshape(3, 3).astype(np.int32)
+    q = rng.normal(0, 1, (3, 4, D)).astype(np.float32)
+    args = (q, *_pages(rng, 2, 13, 16), lengths, tables)
+    kw = dict(sm_scale=D**-0.5, logit_softcap=50.0, window=20, save_residuals=True)
+    o, lse = tdec.paged_decode_attention(*(torch.from_numpy(a) for a in args), **kw)
+    jo, jlse = jdecode(*(jnp.asarray(a) for a in args), **kw)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=TOL, atol=TOL)
+
+
+def test_paged_prefill_plain_matches_jax_at_256():
+    """Row 10's plain walk: a 24-row chunk at position 16 of two sequences
+    over pages of 16, GQA 2, softcap 50, a window of 20."""
+    rng = np.random.default_rng(1)
+    tables = (rng.permutation(10)[:8] + 1).reshape(2, 4).astype(np.int32)
+    q = rng.normal(0, 1, (2, 4, 24, D)).astype(np.float32)
+    args = (q, *_pages(rng, 2, 11, 16), np.asarray([40, 30], np.int32),
+            np.asarray([16, 6], np.int32), tables)
+    kw = dict(sm_scale=D**-0.5, logit_softcap=50.0, window=20, save_residuals=True)
+    o, lse = tpp.paged_prefill_attention(*(torch.from_numpy(a) for a in args), **kw)
+    jo, jlse = jprefill(*(jnp.asarray(a) for a in args), **kw)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=TOL, atol=TOL)
+
+
+def test_flash_forward_plain_matches_jax_at_256():
+    """Row 5's plain version in bf16, causal GQA 2 with softcap 50 and a
+    window of 24, against the JAX kernel."""
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.normal(0, 1.5, s).astype(np.float32)
+               for s in ((1, 4, 48, D), (1, 2, 48, D), (1, 2, 48, D)))
+    kw = dict(causal=True, block_kv=16, sm_scale=D**-0.5, logit_softcap=50.0, window=24)
+    got = tfa.flash_attention(*(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+                              **kw)
+    want = jfa.flash_attention(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 4, 48, D)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=2.0**-7, atol=2.0**-8 * float(np.abs(v).max()))
+
+
+def test_planted_faults_name_committed_lines():
+    """Each of chip_smoke.py's planted faults (the d=256 ones among them)
+    names a line that occurs exactly once in its source and changes it, as
+    the faults phase requires before it builds the copies; a header's fault
+    held to some sources names sources that include the header."""
+    import pathlib
+
+    import chip_smoke
+    csrc = pathlib.Path(tdec.__file__).resolve().parents[1] / "csrc"
+    d256 = [f for f in chip_smoke.PLANTED_FAULTS if f[1].startswith("d=256")]
+    assert {f[0] for f in d256} == {"paged_decode.cu", "paged_prefill.cu", "mma_bf16.cuh"}
+    for fname, what, old, new, *only in chip_smoke.PLANTED_FAULTS:
+        assert (csrc / fname).read_text().count(old) == 1 and new != old, what
+        for src in (only[0] if only else ()):
+            assert src in chip_smoke.FAULT_SOURCES, what
+            assert f'#include "{fname}"' in (csrc / f"{src}.cu").read_text(), what

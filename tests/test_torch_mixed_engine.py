@@ -188,8 +188,11 @@ def test_mixed_gates_raise_like_jax(models, case):
         Engine(tc, tp, _ecfg(EngineConfig, mixed, **kw), device="cpu")
 
 
-def test_mixed_with_hybrid_stays_refused(models):
-    _, _, tc, tp = models
+def test_mixed_with_hybrid_stays_refused():
+    """mixed_kv with hybrid_kv over two window groups (hybrid x mixed) is
+    refused; on a uniform pattern hybrid_kv would be a no-op."""
+    tc = tl.LlamaConfig.tiny(num_layers=2, dtype=torch.float32, window_pattern=(8, None))
+    tp = tl.init_params(tc, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         Engine(tc, tp, dataclasses.replace(_ecfg(EngineConfig, MIXED), hybrid_kv=True),
                device="cpu")
