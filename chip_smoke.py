@@ -38,7 +38,11 @@ result line:
            256, serve_hybrid's Gemma-2 shapes (each entry's "gemma2"), and
            the d=256 coverage cases (D256_*: rows 3, 5, 10, 11 and 12,
            some with the slots behind the window on a scrap page of 0x7f
-           bytes and scale 1e30).
+           bytes and scale 1e30); row 10 at serve_spec's verify shape and
+           rows 11 and 12 at serve_hybrid_mixed's (gemma2 "verify" and
+           "full"), and VERIFY_COVERAGE (row 10 at verify's shape: 4 or 8
+           sequences of 2, 5 or 9 rows, each at its own offset, d=128 and
+           256, window 4096, softcap 50).
   solve    the reference ABI at N=8192, d_model=1024, h=32 in float32:
            solve(kernel="fa_int8"), then the float rungs "fa", "fa_bf16"
            and "unfused": time, relative RMS error against the float
@@ -115,6 +119,42 @@ result line:
            last logits (chunked through fresh hybrid pools) within 0.25 std
            of the float golden. Prints TTFT, decode ms a step, peak memory
            and the long sequence's KV bytes against one shared pool's.
+  serve_hybrid_mixed  Gemma-2-9B as serve_hybrid configures it, with
+           hybrid_kv and mixed_kv (boundary 256: the full layers' pool the
+           INT8 / INT4 pair, the sliding layers' plain INT8), interleaved
+           prefill, no prefix cache: prompts of 100, 300 and 1800 tokens
+           (bucketed) and 6000 (three chunks: rows 10 and 11), 64 new
+           tokens each in decode chunks of 8 (rows 3 and 12). Gates: exact
+           launches, pages trimmed, the INT4 pool holding the long
+           prompt's bulk, every pool drained, each request's logits at its
+           last decode step within 0.25 std of the golden whose float
+           attention reads K/V through the pools' INT8 / INT4 quantization
+           (scales fitted as prefill and decode fit them); the float
+           golden's distance printed. Prints TTFT, decode ms a step and the
+           long sequence's KV bytes.
+  serve_spec  speculative decoding (SpecDecodeEngine) on Gemma-2-9B with
+           hybrid_kv, the draft its first two layers (pattern (4096, None),
+           views of its weights): prompts of 300, 1800, 5000 and 4200
+           tokens, 48 new tokens each, batch 4: (a) greedy, k = 4; (b) the
+           target as its own draft; (c) adaptive k from 2 to 6; (d)
+           temperature 0.8, top-p 0.95. Gates: verify_step's logits
+           within 0.25 std of the golden whose float attention reads K/V
+           through the pools' INT8 quantization, on a shared 1800-token
+           prefix (decode_step's too) and on a full batch of (b) (the long
+           contexts, trimmed); the max |verify_step - decode_step| logit
+           delta on that prefix at most 8 bf16 ulps of the golden's largest
+           logit; (a)'s streams equal the plain hybrid engine's up to a
+           first divergence, allowed only where that engine's top-2 logit
+           gap is below twice the delta; every rejection of (b) at a top-2
+           gap (verify's logits) below twice the delta, and (b)'s
+           acceptance at least what rejecting at every near-tie (the plain
+           engine's top-2 gap within one bf16 ulp) would leave; three
+           planted verify faults (wrong slot, stale page, wrong offset),
+           each run through (b) and the prefix check, must each fail one of
+           those gates; exact launches (row 10 at verify's shape, rows 3
+           and 5 on both models); every pool of target and draft drained.
+           Prints acceptance, tokens/s, target forwards a token and the
+           pages rollbacks freed.
   train    sgd_train_step of LlamaConfig.llama3_8b() as configured (bf16,
            attention_impl="flash", 32 layers, random weights from seed 0)
            on one batch of 2048 random tokens, 4 steps at lr 0.5: every
@@ -139,7 +179,8 @@ result line:
 Launch counts: every kernel wrapper counts its launches; the counts are
 zeroed just before each main path (each solve rung, the harness run,
 serve, serve's prefill bench, each serve_w4 batch, serve_flash,
-serve_mixed, serve_hybrid, train's steps) runs and read just after,
+serve_mixed, serve_hybrid, serve_hybrid_mixed, serve_spec's four runs,
+train's steps) runs and read just after,
 and a kernel of that path that never launched fails the run. The last
 lines are the kernels summary, the card's name and power limit, and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -164,7 +205,7 @@ SOLVE_REL_RMS_TOL = 0.03  # int8 solve vs the float golden (phase_solve)
 PREFILL_BENCH_LEN = 2048  # serving_bench --prefill's prompt (phase_serve)
 
 PHASES = ("build", "kernels", "solve", "harness", "serve", "serve_w4", "serve_flash",
-          "serve_mixed", "serve_hybrid", "train", "faults")
+          "serve_mixed", "serve_hybrid", "serve_hybrid_mixed", "serve_spec", "train", "faults")
 
 
 def emit(obj) -> None:
@@ -1229,6 +1270,20 @@ D256_FLASH = (
     (1, 8, 4, 400, 400, 256, True, 64, 4, 30.0, True, None),
 )
 D256_SUBS = 4  # scale sub-tiles a page of the INT4 cases
+#   (Hq, Hkv, D, C, lengths, window, softcap, scrap): row 10 at verify_step's
+# shape, bf16 q on pages of 128: B = 4 or 8 sequences of C = k + 1 rows,
+# each at its own offset (q_start = length - C; a padded lane's length is
+# C + 1), Gemma-2's heads at d=256 (a sliding layer with the slots behind
+# its window on the scrap page, a full layer) and Llama-3-8B's at d=128.
+VERIFY_COVERAGE = (
+    (16, 8, 256, 5, (353, 1853, 5053, 4253), 4096, 50.0, True),
+    (16, 8, 256, 5, (353, 1853, 5053, 4253), None, 50.0, False),
+    (16, 8, 256, 9, (309, 1809, 5009, 4209, 130, 10, 10, 10), 4096, 50.0, True),
+    (16, 8, 256, 2, (302, 1802, 5002, 4202), 4096, 50.0, True),
+    (32, 8, 128, 2, (1000, 258, 4500, 3), 4096, 50.0, True),
+    (32, 8, 128, 5, (129, 5000, 700, 6, 6, 6, 6, 6), 4096, 50.0, True),
+    (32, 8, 128, 9, (4105, 4300, 140, 9000), 4096, 50.0, True),
+)
 
 
 def _scrap_behind(cache, tables, first_visible, sinks, P):
@@ -1327,6 +1382,38 @@ def _d256_prefill_inputs(g, case):
                                                             softcap=cap)
 
 
+def verify_coverage_inputs(g, case):
+    """(q, cache, lengths, q_starts, tables, clean, masks) of a
+    VERIFY_COVERAGE case, bf16 q, pages of 128."""
+    import torch
+    Hq, Hkv, D, C, lens, window, cap, scrap = case
+    P, B = 128, len(lens)
+    slots = max(-(-n // P) for n in lens) + 1
+    n = B * slots + 1
+    cache = _paged_cache(g, Hkv, n, P, D)
+    tables = _tables_for(g, B, slots, n)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q_starts = lengths - C
+    q = torch.randn((B, Hq, C, D), generator=g, device="cuda").to(torch.bfloat16)
+    clean = cache
+    if scrap:
+        cache, clean, tables = _scrap_behind(cache, tables, q_starts - window + 1, 0, P)
+    return q, cache, lengths, q_starts, tables, clean, dict(window=window, sinks=0, softcap=cap)
+
+
+def _coverage_verify():
+    """VERIFY_COVERAGE: row 10 at verify_step's shape against its plain
+    version, each case from its own generator and launched twice."""
+    import torch
+    ratios = {}
+    for i, case in enumerate(VERIFY_COVERAGE):
+        g = torch.Generator(device="cuda").manual_seed(380 + i)
+        q, cache, lengths, q_starts, tables, clean, masks = verify_coverage_inputs(g, case)
+        ratios[f"paged_prefill_verify_{i}"] = _d256_check(q, cache, lengths, tables, q_starts,
+                                                          int4=False, clean=clean, **masks)[2]
+    return ratios
+
+
 def _coverage_d256(kinds=("decode", "prefill", "flash"), small=False):
     """D256_DECODE, D256_PREFILL and D256_FLASH: each kernel at d=256
     against its plain version on the card, each case from its own
@@ -1376,7 +1463,11 @@ def _gemma2_sub(out, p_out, ratios, launch, plain, *, shape, nbytes, ops, librar
 def _gemma2_kernels():
     """Rows 3, 5 (bf16) and 10 (bf16 q) at serve_hybrid's shapes
     (GEMMA2_ATTN), each layer kind: {kernel name: {"full": sub-entry,
-    "sliding": sub-entry}}. Row 5: a 2048-token bucket, causal, softcap
+    "sliding": sub-entry}}; row 10 also at serve_spec's verify shape
+    ("verify": VERIFY_COVERAGE[1], a full layer), rows 11 and 12 at
+    serve_hybrid_mixed's full layer ("full": the long prompt's last chunk
+    in the INT4 frame; the decode batch of four at its final INT4
+    lengths). Row 5: a 2048-token bucket, causal, softcap
     (the window of 4096 masks nothing there). Row 10: a 2048-row chunk at
     4096 of context. Row 3: serve_hybrid's decode batch of three (lengths
     364, 1864 and 6064), 64 table slots; the sliding layer's slots behind
@@ -1388,7 +1479,8 @@ def _gemma2_kernels():
     ga = GEMMA2_ATTN
     Hq, Hkv, D, P, cap, win = (ga[x] for x in ("Hq", "Hkv", "D", "P", "softcap", "window"))
     g = torch.Generator(device="cuda").manual_seed(360)
-    out = {"flash_fwd[bf16]": {}, "paged_prefill": {}, "paged_decode": {}}
+    out = {"flash_fwd[bf16]": {}, "paged_prefill": {}, "paged_decode": {},
+           "paged_prefill_int4": {}, "paged_decode_int4": {}}
     S = 2048
     q = torch.randn((1, Hq, S, D), generator=g, device="cuda").to(torch.bfloat16)
     k, v = torch.randn((2, 1, Hkv, S, D), generator=g, device="cuda").to(torch.bfloat16)
@@ -1450,7 +1542,80 @@ def _gemma2_kernels():
             nbytes=q.numel() * 2 * 2 + 2 * seen * Hkv * D + 3 * Hq * 4,
             ops={"fp32": 2 * 2 * seen * Hq * D, "exp": seen * Hq},
             library=lambda: _sdpa_decode(q, *clean, lengths, tables, window=window))
+    _gemma2_verify_and_int4(g, out)
     return out
+
+
+def _gemma2_verify_and_int4(g, out):
+    """_gemma2_kernels' verify entry of row 10 and full entries of rows 11
+    and 12. SDPA (bf16, no softcap) on the same K/V dequantized beforehand,
+    each sequence's causal mask explicit."""
+    import torch
+    ga = GEMMA2_ATTN
+    Hq, Hkv, D, P, cap = (ga[x] for x in ("Hq", "Hkv", "D", "P", "softcap"))
+    q, cache, lengths, q_starts, tables, clean, masks = verify_coverage_inputs(
+        g, VERIFY_COVERAGE[1])
+    o, p_o, r, launch, plain = _d256_check(q, cache, lengths, tables, q_starts, int4=False,
+                                           clean=clean, **masks)
+    B, _, C, _ = q.shape
+    kpos = torch.arange(tables.shape[1] * P, device="cuda")
+    qpos = q_starts.long()[:, None] + torch.arange(C, device="cuda")[None]
+    mask = kpos[None, None, :] <= qpos[:, :, None]                       # [B, C, T]
+    pairs = Hq * int(mask.sum())
+    pages = sum(-(-int(n) // P) for n in lengths.tolist())
+    kd = _dense_kv(clean[0], clean[2], tables, Hq)
+    vd = _dense_kv(clean[1], clean[3], tables, Hq)
+    out["paged_prefill"]["verify"] = _gemma2_sub(
+        o, p_o, r, launch, plain,
+        shape={"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "P": P, "C": C,
+               "q_starts": q_starts.tolist(), "lengths": lengths.tolist(), "window": None,
+               "softcap": cap, "q": "bfloat16", "save_residuals": True},
+        nbytes=(2 * q.numel() * 2 + 2 * int(lengths.sum()) * Hkv * D + 2 * Hkv * pages * 4
+                + B * Hq * C * 4 + tables.numel() * 4),
+        ops={"bf16": 4 * pairs * D, "exp": pairs},
+        library=lambda: _sdpa(q, kd, vd, attn_mask=mask[:, None]))
+    del kd, vd, cache, clean
+    subs, bnd = D256_SUBS, SERVE_HYBRID_MIXED["mixed"]["boundary_tokens"]
+    C, q0 = 2048, 4096 - bnd
+    ctx = q0 + C
+    n_pages = -(-ctx // P)
+    cache = _int4_cache(g, Hkv, n_pages + 1, P, D, subs)
+    tables = _tables_for(g, 1, n_pages, n_pages + 1)
+    qc = torch.randn((1, Hq, C, D), generator=g, device="cuda").to(torch.bfloat16)
+    lengths = torch.tensor([ctx], dtype=torch.int32, device="cuda")
+    q_starts = torch.tensor([q0], dtype=torch.int32, device="cuda")
+    o, p_o, r, launch, plain = _d256_check(qc, cache, lengths, tables, q_starts, int4=True,
+                                           clean=cache, window=None, sinks=0, softcap=cap)
+    kd = _dense_kv(cache[0], cache[2], tables, Hq)[:, :, :ctx]
+    vd = _dense_kv(cache[1], cache[3], tables, Hq)[:, :, :ctx]
+    mask = (torch.arange(ctx, device="cuda")[None, :]
+            <= q0 + torch.arange(C, device="cuda")[:, None])
+    pairs = Hq * (C * q0 + C * (C + 1) // 2)
+    out["paged_prefill_int4"]["full"] = _gemma2_sub(
+        o, p_o, r, launch, plain,
+        shape={"Hq": Hq, "Hkv": Hkv, "D": D, "P": P, "subs": subs, "C": C, "q_start": q0,
+               "lengths": ctx, "window": None, "softcap": cap, "q": "bfloat16",
+               "save_residuals": True},
+        nbytes=(2 * qc.numel() * 2 + 2 * ctx * Hkv * D // 2 + 2 * Hkv * n_pages * subs * 4
+                + Hq * C * 4 + tables.numel() * 4),
+        ops={"bf16": 4 * pairs * D, "exp": pairs},
+        library=lambda: _sdpa(qc, kd, vd, attn_mask=mask))
+    del kd, vd, cache, qc
+    case = (4, Hq, Hkv, P, None, cap, 64, (0, 108, 1608, 5808), True, True, False)
+    q, cache, lengths, tables, clean, masks = _d256_decode_inputs(g, case)
+    o, p_o, r, launch, plain = _d256_check(q, cache, lengths, tables, int4=True, clean=clean,
+                                           **masks)
+    ctx = int(lengths.sum())
+    pages = sum(-(-int(n) // P) for n in lengths.tolist())
+    out["paged_decode_int4"]["full"] = _gemma2_sub(
+        o, p_o, r, launch, plain,
+        shape={"B": 4, "Hq": Hq, "Hkv": Hkv, "D": D, "page": P, "subs": subs,
+               "max_pages": 64, "lengths": lengths.tolist(), "window": None, "softcap": cap,
+               "q": "bfloat16", "save_residuals": True},
+        nbytes=(q.numel() * 2 * 2 + 4 * Hq * 4 + 2 * ctx * Hkv * D // 2
+                + 2 * pages * Hkv * subs * 4 + tables.numel() * 4),
+        ops={"fp32": 2 * 2 * ctx * Hq * D, "exp": ctx * Hq},
+        library=lambda: _sdpa_decode(q, *clean, lengths, tables))
 
 
 def _coverage():
@@ -1478,8 +1643,12 @@ def _coverage():
     r = _coverage_d256()
     ratios.update(r)
     failed += [k for k, x in r.items() if max(x) > 1.0]
+    r = _coverage_verify()
+    ratios.update(r)
+    failed += [k for k, x in r.items() if max(x) > 1.0]
     return {"flash_cases": len(FLASH_COVERAGE), "decode_cases": len(DECODE_COVERAGE),
             "d256_cases": len(D256_DECODE) + len(D256_PREFILL) + len(D256_FLASH),
+            "verify_cases": len(VERIFY_COVERAGE),
             "flash_fwd_cases": len(FLASH_FWD_COVERAGE),
             "flash_bwd_cases": len(FLASH_BWD_COVERAGE),
             "paged_prefill_cases": len(PAGED_PREFILL_COVERAGE),
@@ -3219,9 +3388,10 @@ SERVE_HYBRID = dict(bucketed=(300, 1800), long=6000, shared_pages=46, hit_suffix
 
 
 def _hybrid_traffic(eng, prompts, hit, sh, on_step=None):
-    """Drive serve_hybrid's traffic through `eng`: the three prompts at
-    once, the hit once the long prompt is decoding. Returns (request ids,
-    the hit's id, {rid: TTFT s}, decode-only step walls and batches)."""
+    """Drive serve_hybrid's traffic through `eng`: the prompts at once, the
+    hit (unless None) once the last prompt is decoding. Returns (request
+    ids, the hit's id, {rid: TTFT s}, decode-only step walls and
+    batches)."""
     import torch
     t_add, ttft, rids = {}, {}, []
     t0 = time.perf_counter()
@@ -3247,7 +3417,8 @@ def _hybrid_traffic(eng, prompts, hit, sh, on_step=None):
                 ttft[rid] = te - t_add[rid]
         if on_step is not None:
             on_step(eng, rids, hit_rid)
-        if hit_rid is None and any(s.seq_id == rids[-1] for s in eng.active):
+        if (hit is not None and hit_rid is None
+                and any(s.seq_id == rids[-1] for s in eng.active)):
             hit_rid = eng.add_request(hit, max_new=sh["max_new"])
             t_add[hit_rid] = time.perf_counter()
     return rids, hit_rid, ttft, walls
@@ -3436,55 +3607,69 @@ def _cache_page_bytes(cfg, page, subs=None):
     return cfg.num_layers * 2 * cfg.num_kv_heads * per_head
 
 
-def _kv_quantized_logits(cfg, params, toks, *, boundary, page, subs):
-    """Last-token logits of the model with float attention over K/V passed
+def _kv_quantized_logits(cfg, params, toks, *, boundary, page, subs, n_written=None, rows=None):
+    """Last-token logits (the last `rows` tokens', [B, rows, vocab], when
+    given) of the model with float attention over K/V passed
     through the mixed cache's quantization and back: each layer's K and V
     (after RoPE, in the model's dtype), page by page, INT8 with one scale a
     head below `boundary` and INT4 with one scale a head and sub-tile past
-    it, dequantized to f32. The golden of the mixed cache's numerics,
-    without its kernels, its paging or its chunking."""
+    it, dequantized to f32. A sliding layer (a window pattern's, in hybrid
+    pools whose full group alone is mixed) keeps every page INT8 and
+    attends within its window. The first n_written tokens (default all)
+    are written as a prefill writes them, a scale fitted over each page's
+    (sub-tile's) tokens; the rest as decode appends them, a page (sub-tile)
+    that starts there fitted by its first token and every later token
+    quantized with the scale it finds and clamped. The golden of the mixed
+    cache's numerics, without its kernels, its paging or its chunking."""
     import functools
     import torch
     from quantizedmha_tpu_torch.models.llama import (
         embed_tokens, final_logits, layer_params, qkv_triple, rms_norm)
-    from quantizedmha_tpu_torch.ops.quantize import unpack_int4_halves
+    from quantizedmha_tpu_torch.ops.quantize import true_div
     from quantizedmha_tpu_torch.quant.weights import qdense
     from quantizedmha_tpu_torch.reference.mha import apply_rope, mha_masked_reference
-    from quantizedmha_tpu_torch.serving.kv_cache import quantize_page
     from quantizedmha_tpu_torch.serving.llama_adapter import _attn_residual, _mlp_residual
-    from quantizedmha_tpu_torch.serving.mixed_kv import quantize_page_int4
     b, n = toks.shape
+    n_written = n if n_written is None else n_written
     n_pad = -(-n // page) * page
     nb = boundary // page
 
-    def through_cache(x):  # [Hkv, n, D] -> the dequantized cache contents, f32
+    def through_cache(x, nb):  # [Hkv, n, D] -> the dequantized cache contents, f32
         h, _, d = x.shape
         xp = torch.zeros((h, n_pad, d), dtype=torch.float32, device=x.device)
         xp[:, :n] = x.float()
-        pages = xp.reshape(h, n_pad // page, page, d).transpose(0, 1)  # [pages, Hkv, P, D]
-        q8, s8 = quantize_page(pages[:nb])
-        q4, s4 = quantize_page_int4(pages[nb:], subs)
-        d4 = torch.cat(unpack_int4_halves(q4), dim=-1).float()
-        d4 = d4 * s4.repeat_interleave(page // subs, dim=-1)[..., None]
-        out = torch.cat([q8.float() * s8[..., None, None], d4])
-        return out.transpose(0, 1).reshape(h, n_pad, d)[:, :n]
+        out = torch.empty_like(xp)
+        for start, stop, unit, qmax in ((0, min(nb * page, n_pad), page, 127.0),
+                                        (nb * page, n_pad, page // subs, 7.0)):
+            if stop <= start:
+                continue
+            seg = xp[:, start:stop].reshape(h, -1, unit, d)      # [Hkv, units, unit, D]
+            pos = start + torch.arange(stop - start, device=x.device).reshape(-1, unit)
+            amax = seg.abs().amax(-1)                             # [Hkv, units, unit]
+            fitted = torch.where(pos[:, 0] < n_written, (amax * (pos < n_written)).amax(-1),
+                                 amax[..., 0])
+            scale = true_div(torch.clamp(fitted, min=1e-8), qmax)[..., None, None]
+            q = torch.clamp(torch.round(seg / scale), -qmax, qmax)
+            out[:, start:stop] = (q * scale).reshape(h, stop - start, d)
+        return out[:, :n]
     dense = functools.partial(qdense, mode=cfg.weight_quant_mode)
     x = embed_tokens(cfg, params, toks)
     hd = cfg.hd
-    for i in range(cfg.num_layers):
+    for i, window in enumerate(cfg.layer_windows):
         p = layer_params(params["layers"], i)
         h = rms_norm(x, p["attn_norm"], cfg.rms_eps, cfg.rms_plus_one)
         q, k, v = qkv_triple(cfg, dense, h, p)
         q = apply_rope(q.reshape(b, n, cfg.num_heads, hd).transpose(1, 2), cfg.rope_theta)
         k = apply_rope(k.reshape(b, n, cfg.num_kv_heads, hd).transpose(1, 2), cfg.rope_theta)
         v = v.reshape(b, n, cfg.num_kv_heads, hd).transpose(1, 2)
-        o = mha_masked_reference(q, through_cache(k[0])[None], through_cache(v[0])[None],
-                                 sm_scale=cfg.sm_scale, causal=True,
-                                 softcap=cfg.logit_softcap)
+        nb_layer = nb if window is None else n_pad // page
+        o = mha_masked_reference(q, through_cache(k[0], nb_layer)[None],
+                                 through_cache(v[0], nb_layer)[None], sm_scale=cfg.sm_scale,
+                                 causal=True, window=window, softcap=cfg.logit_softcap)
         x = _attn_residual(cfg, dense, p, x, o.transpose(1, 2).reshape(b, n, -1))
         x = _mlp_residual(cfg, dense, p, x)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
-    return final_logits(cfg, x[:, -1], params["lm_head"])
+    return final_logits(cfg, x[:, -1] if rows is None else x[:, -rows:], params["lm_head"])
 
 
 def phase_serve_mixed(st):
@@ -3694,6 +3879,634 @@ def phase_serve_mixed(st):
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     if not ok:
         raise AssertionError("serve_mixed phase failed its checks")
+
+
+# Gemma-2-9B from hybrid pools whose full group is the mixed INT8-sink /
+# INT4-bulk pair: serve_hybrid's prompts without its prefix hit (JAX
+# refuses prefix_cache here), plus one that stays inside the boundary.
+# Pages of 128: the full group's INT8 pool holds 2 a sequence (boundary 256),
+# its INT4 pool the rest (the 6000-token prompt and its 64 tokens: 46 pages;
+# 1 + 13 + 46 = 60 for the three past the boundary); the sliding pool holds
+# a prompt's pages until its prefill ends (6000 tokens: 47), then about the
+# window (34): 80 leaves room for the others' growth meanwhile.
+SERVE_HYBRID_MIXED = dict(bucketed=(100, 300, 1800), long=6000, max_new=64, chunk=8, page=128,
+                          sliding_pages=80, max_pages=64, logit_tol=0.25,
+                          mixed={"boundary_tokens": 256, "int8_pages": 16, "int4_pages": 80,
+                                 "subs": 4})
+
+
+def phase_serve_hybrid_mixed(st):
+    """Gemma-2-9B as configured (random bf16 weights) through the engine
+    with hybrid_kv and mixed_kv: the full layers' pool is the mixed pair
+    (INT8 below 256 tokens, INT4 past), the sliding layers' plain INT8;
+    interleaved chunked prefill, decode chunks of 8. Rows 3, 5, 10, 11 and
+    12 run at head_dim 256. Each request's last decode logits are held to
+    the golden whose float attention reads K/V through the same INT8 / INT4
+    quantization."""
+    import numpy as np
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    from quantizedmha_tpu_torch.serving import llama_adapter
+    from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sh = SERVE_HYBRID_MIXED
+    mk = sh["mixed"]
+    cfg = llama.LlamaConfig.gemma2_9b()
+    L, P = cfg.num_layers, sh["page"]
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = Engine(cfg, params, EngineConfig(
+        page_size=P, max_batch=4, max_pages_per_seq=sh["max_pages"],
+        prefill_buckets=(128, 256, 512, 1024, 2048), max_new_tokens=sh["max_new"],
+        decode_chunk=sh["chunk"], interleaved_prefill=True, hybrid_kv=True,
+        hybrid_pages={"w4096": sh["sliding_pages"]}, mixed_kv=dict(mk)), device="cuda")
+    assert eng.hybrid_mixed and set(eng.allocs) == {"full", "w4096"}
+    full, sliding = eng.allocs["full"], eng.allocs["w4096"]
+    rng = np.random.default_rng(0)
+    vocab = cfg.vocab_size
+    prompts = [rng.integers(1, vocab, n).tolist() for n in sh["bucketed"] + (sh["long"],)]
+    for n in (100, 2100):  # warm-up on tokens no later prompt shares
+        eng.add_request(rng.integers(1, vocab, n).tolist(), max_new=sh["chunk"] + 1)
+    eng.run()
+    eng.finished.clear()
+
+    kernels = {"flash_fwd[bf16]": fa.FLASH_FWD_BF16, "paged_prefill": pp.PAGED_PREFILL,
+               "paged_prefill_int4": pp.PAGED_PREFILL_INT4, "paged_decode": dec.PAGED_DECODE,
+               "paged_decode_int4": dec.PAGED_DECODE_INT4}
+    counters = ("decode_steps", "prefill_chunks_interleaved", "requests_admitted",
+                "pages_trimmed")
+    base = {c: eng.metrics.counter(c) for c in counters}
+    seen = {"int4_used": 0, "long": {}}
+
+    def watch(e, rids, _hit):
+        seen["int4_used"] = max(seen["int4_used"], full.a4.num_pages - 1 - full.a4.free_pages)
+        if rids[-1] in full.lengths:  # the long sequence's pages at its last step
+            seen["long"] = {"int8": len(full.a8.tables[rids[-1]]),
+                            "int4": len(full.a4.tables[rids[-1]]),
+                            "sliding": sum(p is not None for p in sliding.tables[rids[-1]])}
+    # Each request's logits at its last decode step (the one that samples
+    # its last token), read off the engine's decode loop.
+    last, loop = {}, llama_adapter.decode_loop
+
+    def loop_keeping_last(*a, **kw):
+        toks, cache, logits = loop(*a, **dict(kw, return_logits=True))
+        for lane, seq in enumerate(eng.active):
+            j = seq.max_new - 1 - len(seq.out)
+            if 0 <= j < logits.shape[0]:
+                last[seq.seq_id] = logits[j, lane].float().clone()
+        return toks, cache
+    for kern in kernels.values():
+        kern.reset()
+    llama_adapter.decode_loop = loop_keeping_last
+    try:
+        t_run = time.perf_counter()
+        rids, _, ttft, walls = _hybrid_traffic(eng, prompts, None, sh, on_step=watch)
+        run_s = time.perf_counter() - t_run
+    finally:
+        llama_adapter.decode_loop = loop
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    delta = {c: eng.metrics.counter(c) - base[c] for c in counters}
+    got = dict(eng.finished)
+    groups = llama_adapter.window_groups(cfg)
+    F, S_ = len(groups["full"]), len(groups["w4096"])
+    n_chunks = -(-sh["long"] // 2048)
+    steps = int(delta["decode_steps"])
+    want = {"flash_fwd[bf16]": L * len(sh["bucketed"]), "paged_prefill": L * n_chunks,
+            "paged_prefill_int4": F * n_chunks, "paged_decode": L * steps,
+            "paged_decode_int4": F * steps}
+    for name, n in launches.items():
+        st["launches"][name] = st["launches"].get(name, 0) + n
+        st["launches_d256"][name] = st["launches_d256"].get(name, 0) + n
+    drained = (not full.lengths and full.a8.free_pages == mk["int8_pages"] - 1
+               and full.a4.free_pages == mk["int4_pages"] - 1
+               and not sliding.tables and sliding.free_pages == sliding.num_pages - 1)
+    page8 = 2 * cfg.num_kv_heads * (P * cfg.hd + 4)
+    page4 = 2 * cfg.num_kv_heads * (P * cfg.hd // 2 + 4 * mk["subs"])
+    lp = seen["long"]
+    kv_long = (F * (lp.get("int8", 0) * page8 + lp.get("int4", 0) * page4)
+               + S_ * lp.get("sliding", 0) * page8)
+    dec_s = sum(w for w, _ in walls)
+    dec_steps = sh["chunk"] * len(walls)
+    failed = dict(eng.failed)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Right by the repo's own means: each request's last decode logits
+    # against the golden over the same tokens (its prompt and all but its
+    # last sampled token) whose attention reads K/V through the INT8 / INT4
+    # quantization of the pools, and, reported, the float golden's.
+    ref_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    gated, vs_float, finite = {}, {}, True
+    for n, prompt, rid in zip(sh["bucketed"] + (sh["long"],), prompts, rids):
+        out = got.get(rid, [])
+        if len(out) != sh["max_new"] or rid not in last:
+            gated[n] = float("inf")
+            continue
+        toks = torch.tensor(prompt + out[:-1], dtype=torch.int32, device="cuda")[None]
+        logits = last[rid]
+        finite = finite and bool(torch.isfinite(logits).all().item())
+        ref = _kv_quantized_logits(cfg, params, toks, boundary=mk["boundary_tokens"], page=P,
+                                   subs=mk["subs"], n_written=len(prompt))[0].float()
+        gated[n] = ((logits - ref).abs().max() / ref.std()).item()
+        del ref
+        ref = llama_adapter.prefill_at(ref_cfg, params, toks, toks.shape[1] - 1)[0][0].float()
+        vs_float[n] = ((logits - ref).abs().max() / ref.std()).item()
+        del ref
+        torch.cuda.empty_cache()
+    lens_ok = all(len(got.get(r, [])) == sh["max_new"] for r in rids)
+    in_vocab = all(0 <= t < vocab for r in rids for t in got.get(r, []))
+    counts_ok = (launches == want and delta["pages_trimmed"] > 0
+                 and delta["prefill_chunks_interleaved"] == n_chunks)
+    int4_ok = seen["int4_used"] >= -(-(sh["long"] - mk["boundary_tokens"]) // P)
+    ok = (lens_ok and in_vocab and counts_ok and int4_ok and drained and not failed and finite
+          and max(gated.values()) <= sh["logit_tol"])
+    emit({"phase": "serve_hybrid_mixed", "ok": ok, "model": "gemma2_9b", "layers": L,
+          "head_dim": cfg.hd, "attention_impl": cfg.attention_impl, "weights": "bf16",
+          "init_s": init_s, "groups": {k: len(v) for k, v in groups.items()},
+          "mixed_kv": mk, "sliding_pages": sh["sliding_pages"],
+          "prompts": list(sh["bucketed"]) + [sh["long"]], "max_new": sh["max_new"],
+          "decode_chunk": sh["chunk"], "launches": launches, "launches_expected": want,
+          "counters": delta, "int4_pages_max_used": seen["int4_used"],
+          "long_pages_last_step": lp, "kv_bytes_long": kv_long,
+          "kv_bytes_long_serve_hybrid": 0.892e9, "pools_drained": drained,
+          "failed": failed, "run_s": run_s,
+          "ttft_s": {n: ttft.get(r) for n, r in zip(sh["bucketed"] + (sh["long"],), rids)},
+          "decode_engine_steps_timed": len(walls),
+          "decode_batches": sorted({b for _, b in walls}),
+          "decode_ms_per_step": dec_s * 1e3 / dec_steps if dec_steps else None,
+          "last_logits_rel_err_vs_kv_quantized_golden": gated,
+          "last_logits_rel_err_vs_float_golden": vs_float, "rel_err_tol": sh["logit_tol"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if not ok:
+        raise AssertionError("serve_hybrid_mixed phase failed its checks")
+
+
+# Speculative decoding on Gemma-2-9B (hybrid pools), with a draft of the
+# target's first two layers (pattern (4096, None): hybrid pools too; the
+# same embedding, final norm and lm_head). Prompts: 300 and 1800 tokens
+# (bucketed), 5000 (chunked, past the window at admission) and 4200 (its
+# window edge crosses a page while it decodes: trims under speculation).
+# verify_step is held to the KV-quantized golden (logit_tol std of its
+# logits), once on a shared prefix and once on a full batch of the
+# self-speculation run; the verify/decode logit delta may not pass
+# delta_ulps bf16 ulps at the golden's largest logit; verify_faults are
+# planted in turn, and each must fail one of these gates.
+SERVE_SPEC = dict(prompts=(300, 1800, 5000, 4200), max_new=48, k=4, page=128, pages=110,
+                  max_pages=64, adaptive=(2, 6),
+                  sampling=dict(temperature=0.8, top_p=0.95, seed=5),
+                  logit_tol=0.25, delta_ulps=8,
+                  verify_faults=("wrong_slot", "stale_page", "wrong_offset"))
+
+
+class _AdapterCalls:
+    """While active, counts the launches that the adapter calls made imply
+    (each layer of each call one launch of its kernel): prefill_at the
+    float flash kernel, prefill_chunk and verify_step the paged prefill,
+    decode_loop the paged decode a step; verify_step calls and the batch
+    lanes they verified besides."""
+
+    def __init__(self):
+        self.want = {"flash_fwd[bf16]": 0, "paged_prefill": 0, "paged_decode": 0}
+        self.verify_calls = 0
+
+    def __enter__(self):
+        from quantizedmha_tpu_torch.serving import llama_adapter as la
+        self.saved = {n: getattr(la, n) for n in ("prefill_at", "prefill_chunk", "verify_step",
+                                                  "decode_loop")}
+
+        def counting(name, kernel, steps=lambda kw: 1):
+            fn = self.saved[name]
+
+            def call(cfg, *a, **kw):
+                self.want[kernel] += cfg.num_layers * steps(kw)
+                if name == "verify_step":
+                    self.verify_calls += 1
+                return fn(cfg, *a, **kw)
+            return call
+        la.prefill_at = counting("prefill_at", "flash_fwd[bf16]")
+        la.prefill_chunk = counting("prefill_chunk", "paged_prefill")
+        la.verify_step = counting("verify_step", "paged_prefill")
+        la.decode_loop = counting("decode_loop", "paged_decode", lambda kw: kw["n_steps"])
+        return self
+
+    def __exit__(self, *exc):
+        from quantizedmha_tpu_torch.serving import llama_adapter as la
+        for n, fn in self.saved.items():
+            setattr(la, n, fn)
+
+
+class _VerifyWatch:
+    """While active over a SpecDecodeEngine `eng`: the target's top-2 logit
+    gap (verify_step's logits) at every draft position that a sequence of a
+    round had checked (`checked`), and for each sequence of each round
+    whose drafts the target's argmax rejects, at the first rejected
+    position (`gaps`); and the last verify call over a full batch (`full`:
+    each lane's tokens, the prompt's length among them, and the call's
+    logits [B, k + 1, vocab])."""
+
+    def __init__(self, eng):
+        self.eng, self.gaps, self.checked, self.full = eng, [], [], None
+
+    def __enter__(self):
+        import torch
+        from quantizedmha_tpu_torch.serving import llama_adapter as la
+        self.saved = (la.decode_loop, la.verify_step)
+        loop, verify = self.saved
+        drafts = {}
+
+        def draft_loop(*a, **kw):
+            out = loop(*a, **kw)
+            drafts["last"] = out[0].cpu()  # [k, B]
+            return out
+
+        def verify_watched(cfg, params, cache, tokens, positions0, *a, **kw):
+            logits, cache = verify(cfg, params, cache, tokens, positions0, *a, **kw)
+            top = logits.float().topk(2, dim=-1).values
+            gap = (top[..., 0] - top[..., 1]).cpu()  # [B, S]
+            best = torch.argmax(logits, dim=-1).cpu()  # the engine's choice, ties too
+            d = drafts["last"]
+            active = self.eng.active
+            for lane in range(len(active)):
+                miss = (d[:, lane] != best[lane, :d.shape[0]]).nonzero()
+                last = int(miss[0]) if len(miss) else d.shape[0] - 1
+                self.checked += gap[lane, :last + 1].tolist()
+                if len(miss):
+                    self.gaps.append(gap[lane, last].item())
+            if len(active) == self.eng.ecfg.max_batch:
+                fed, pos0 = tokens.tolist(), positions0.tolist()
+                lanes = [(s.prompt + s.out + fed[i][1:], len(s.prompt))
+                         for i, s in enumerate(active)]
+                # The cache holds the prompt and every token out but the
+                # pending one, fed first: the rows are positions pos0..
+                if any(len(t) != p0 + len(f) for (t, _), p0, f in zip(lanes, pos0, fed)):
+                    raise AssertionError("verify's rows are not the lanes' next positions")
+                self.full = (lanes, logits.float().clone())
+            return logits, cache
+        la.decode_loop, la.verify_step = draft_loop, verify_watched
+        return self
+
+    def __exit__(self, *exc):
+        from quantizedmha_tpu_torch.serving import llama_adapter as la
+        la.decode_loop, la.verify_step = self.saved
+
+
+class _VerifyFault:
+    """While active, verify_step runs with one argument wrong, as a faulty
+    caller or schedule would pass it: `wrong_slot` appends each token's K/V
+    one slot further on (the last slot wraps to the page's first, which
+    refits its scale), `stale_page` appends to the scrap page (attention
+    reads the sequence's stale slots), `wrong_offset` takes every position
+    (RoPE, q_starts, lengths) one token early."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        import torch
+        from quantizedmha_tpu_torch.serving import llama_adapter as la
+        self.saved = verify = la.verify_step
+        name = self.name
+
+        def faulty(cfg, params, cache, tokens, positions0, page_sched, slot_sched, tables, *,
+                   page_size):
+            if name == "wrong_slot":
+                slot_sched = (slot_sched + 1) % page_size
+            elif name == "stale_page":
+                page_sched = ({g: torch.zeros_like(t) for g, t in page_sched.items()}
+                              if isinstance(page_sched, dict) else torch.zeros_like(page_sched))
+            elif name == "wrong_offset":
+                positions0 = positions0 - 1
+            else:
+                raise ValueError(f"unknown verify fault {name}")
+            return verify(cfg, params, cache, tokens, positions0, page_sched, slot_sched, tables,
+                          page_size=page_size)
+        la.verify_step = faulty
+        return self
+
+    def __exit__(self, *exc):
+        from quantizedmha_tpu_torch.serving import llama_adapter as la
+        la.verify_step = self.saved
+
+
+def _bf16_ulp(cfg, logit: float) -> float:
+    """One bf16 ulp of a logit before the final softcap (the lm_head's
+    bf16 output): the unit that two correct roundings of it differ in."""
+    cap = cfg.final_logit_softcap
+    x = abs(logit)
+    if cap is not None:
+        x = cap * math.atanh(min(x / cap, 1 - 2.0 ** -24))
+    return 2.0 ** (math.floor(math.log2(max(x, 2.0 ** -126))) - 7)
+
+
+def _verify_on_prefix(cfg, params, prompt, tokens, P):
+    """`tokens` fed after `prompt` (prefilled into two fresh hybrid pools
+    alike): decode_step one token at a time in one, verify_step all at once
+    in the other. Returns max |verify - decode| over their logits, each
+    path's max |logit - golden| / std(golden) over the same rows (the
+    golden: float attention over the pools' INT8 quantization, tokens past
+    the prompt quantized as appends are), and the golden's max |logit|."""
+    import torch
+    from quantizedmha_tpu_torch.serving import llama_adapter as la
+    n, S = len(prompt), len(tokens)
+    groups = la.window_groups(cfg)
+    slots = -(-(n + S) // P)
+    table = {k: torch.arange(1, slots + 1, dtype=torch.int32, device="cuda")[None]
+             for k in groups}
+    bucket = max(128, 1 << (n - 1).bit_length())  # the engine's bucket (n <= 2048)
+    toks = torch.zeros((1, bucket), dtype=torch.int32, device="cuda")
+    toks[0, :n] = torch.tensor(prompt, device="cuda")
+    _, k_all, v_all = la.prefill_at(cfg, params, toks, n - 1)
+    n_w = -(-n // P) * P
+    keep = (torch.arange(n_w, device="cuda") < n)[None, None, :, None]
+    caches = []
+    for _ in range(2):
+        c = la.make_cache_hybrid(cfg, {k: slots + 1 for k in groups}, P, device="cuda")
+        la.write_prefill_hybrid(cfg, c, k_all[:, :, :n_w] * keep, v_all[:, :, :n_w] * keep,
+                                {k: t[0, :n_w // P] for k, t in table.items()}, page_size=P)
+        caches.append(c)
+    del k_all, v_all
+    pos = torch.arange(n, n + S, device="cuda")
+    fed = torch.tensor(tokens, dtype=torch.int32, device="cuda")
+    step_logits = []
+    for j in range(S):
+        p = pos[j:j + 1]
+        logits, _ = la.decode_step(cfg, params, caches[0], fed[j:j + 1], p.int(),
+                                   {k: t[0, p // P] for k, t in table.items()}, (p % P).int(),
+                                   (p + 1).int(), table)
+        step_logits.append(logits[0].float())
+    ver, _ = la.verify_step(cfg, params, caches[1], fed[None], pos[:1].int(),
+                            {k: t[:, pos // P] for k, t in table.items()},
+                            (pos % P).int()[None], table, page_size=P)
+    del caches
+    step, ver = torch.stack(step_logits), ver[0].float()
+    ref = _kv_quantized_logits(cfg, params, torch.tensor(prompt + list(tokens), dtype=torch.int32,
+                                                         device="cuda")[None],
+                               boundary=slots * P, page=P, subs=1, n_written=n,
+                               rows=S)[0].float()
+    std = ref.std()
+    return {"delta": (step - ver).abs().max().item(),
+            "verify_vs_golden": ((ver - ref).abs().max() / std).item(),
+            "decode_vs_golden": ((step - ref).abs().max() / std).item(),
+            "golden_max_abs_logit": ref.abs().max().item()}
+
+
+def _full_batch_vs_golden(cfg, params, full, P):
+    """Each lane of a verify call over a full batch (_VerifyWatch.full):
+    max |logit - golden| / std(golden) over its k + 1 rows, the golden over
+    the lane's tokens as _verify_on_prefix takes it."""
+    import torch
+    lanes, logits = full
+    out = []
+    for lane, (toks, n_prompt) in enumerate(lanes):
+        S = logits.shape[1]
+        ref = _kv_quantized_logits(cfg, params, torch.tensor(toks, dtype=torch.int32,
+                                                             device="cuda")[None],
+                                   boundary=-(-len(toks) // P) * P, page=P, subs=1,
+                                   n_written=n_prompt, rows=S)[0].float()
+        out.append(((logits[lane] - ref).abs().max() / ref.std()).item())
+        del ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _verify_gates(cfg, ss, prefix, self_run, full_batch, tie_share):
+    """serve_spec's gates on verify_step, from one self-speculation run
+    (greedy, the target as its own draft) and _verify_on_prefix: verify's
+    and decode's logits within logit_tol std of the golden on the prefix,
+    and verify's on the run's full batch; the verify/decode delta at most
+    delta_ulps bf16 ulps of the golden's largest logit; every rejection at
+    a top-2 gap below twice that delta; acceptance at least what rejecting
+    at every near-tie would leave (a near-tie: the plain engine's top-2 gap
+    within one bf16 ulp of its top logit, `tie_share` of its positions;
+    k drafts a round). Returns (gates, delta cap, acceptance floor)."""
+    k, tol = ss["k"], ss["logit_tol"]
+    cap = ss["delta_ulps"] * _bf16_ulp(cfg, prefix["golden_max_abs_logit"])
+    floor = sum((1 - tie_share) ** j for j in range(1, k + 1)) / k
+    gates = {
+        "golden_prefix": max(prefix["verify_vs_golden"], prefix["decode_vs_golden"]) <= tol,
+        "golden_full_batch": bool(full_batch) and max(full_batch) <= tol,
+        "delta_capped": prefix["delta"] <= cap,
+        "rejections_near_ties": all(g < 2 * prefix["delta"]
+                                    for g in self_run["rejection_top2_gaps"]),
+        "acceptance_floor": self_run["acceptance"] >= floor}
+    return gates, cap, floor
+
+
+def phase_serve_spec(st):
+    """Speculative decoding on Gemma-2-9B as configured (random bf16
+    weights, hybrid_kv) with a two-layer draft cut from it: (a) greedy at
+    k = 4, held to the plain hybrid engine's streams up to a first
+    divergence that only a near-tie allows; (b) self-speculation (the
+    target as its own draft), held by _verify_gates, which each planted
+    verify fault must fail; (c) adaptive k from 2 up to 6; (d) temperature
+    0.8, top-p 0.95. Row 10 runs at verify's shape (4 sequences of k + 1
+    rows, each at its own offset), rows 3 and 5 on both models."""
+    import numpy as np
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    from quantizedmha_tpu_torch.serving import llama_adapter
+    from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
+    from quantizedmha_tpu_torch.serving.sampling import SamplingParams
+    from quantizedmha_tpu_torch.serving.speculative import SpecConfig, SpecDecodeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ss = SERVE_SPEC
+    cfg = llama.LlamaConfig.gemma2_9b()
+    L, P = cfg.num_layers, ss["page"]
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    dcfg = dataclasses.replace(cfg, num_layers=2, window_pattern=(4096, None))
+    dparams = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
+    rng = np.random.default_rng(0)
+    vocab = cfg.vocab_size
+    prompts = [rng.integers(1, vocab, n).tolist() for n in ss["prompts"]]
+
+    def ecfg(**kw):
+        return EngineConfig(**dict(dict(
+            page_size=P, max_batch=4, max_pages_per_seq=ss["max_pages"],
+            prefill_buckets=(128, 256, 512, 1024, 2048), max_new_tokens=ss["max_new"],
+            hybrid_kv=True, hybrid_pages={"full": ss["pages"], "w4096": ss["pages"]}), **kw))
+
+    def pools(e):
+        return list(e.allocs.values()) + list(e.draft_allocs.values())
+
+    def drive(eng):
+        """Serve the prompts: (streams by prompt, wall s, decode-only walls
+        and tokens, pages freed by rollbacks)."""
+        freed = {"pages": 0}
+        for a in pools(eng):
+            def rollback(seq_id, new_len, a=a, fn=a.rollback):
+                before = a.free_pages
+                fn(seq_id, new_len)
+                freed["pages"] += a.free_pages - before
+            a.rollback = rollback
+        rids = [eng.add_request(p) for p in prompts]
+        walls, t0 = [], time.perf_counter()
+        while eng.queue or eng.active or eng.prefilling:
+            before = {c: eng.metrics.counter(c) for c in ("requests_admitted",
+                                                          "tokens_generated")}
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            if eng.metrics.counter("requests_admitted") == before["requests_admitted"]:
+                walls.append((time.perf_counter() - ts, eng.metrics.counter("tokens_generated")
+                              - before["tokens_generated"]))
+        return ([eng.finished.get(r, []) for r in rids], time.perf_counter() - t0, walls,
+                freed["pages"])
+
+    def serve(draft_cfg, draft_params, scfg, **kw):
+        """One run over the prompts: (its record, its streams, its watch)."""
+        eng = SpecDecodeEngine(cfg, params, draft_cfg, draft_params, ecfg(**kw), scfg,
+                               device="cuda")
+        assert eng.hybrid and eng.draft_hybrid
+        with _VerifyWatch(eng) as watch:
+            streams, wall, walls, freed = drive(eng)
+        watch.eng = None  # the engine's pools go with it below
+        m = eng.metrics
+        dec_s, dec_tok = sum(w for w, _ in walls), sum(t for _, t in walls)
+        run = {
+            "acceptance": eng.acceptance_rate, "spec_rounds": m.counter("spec_rounds"),
+            "tokens_generated": m.counter("tokens_generated"),
+            "target_forwards_per_token": (m.counter("spec_rounds")
+                                          / max(m.counter("tokens_generated"), 1)),
+            "k_final": eng._k, "k_changes": m.counter("spec_k_changes"),
+            "pages_trimmed": m.counter("pages_trimmed"),
+            "pages_freed_by_rollback": freed, "run_s": wall,
+            "decode_tok_s": dec_tok / dec_s if dec_s else None,
+            "drained": all(not a.tables and a.free_pages == a.num_pages - 1
+                           for a in pools(eng)),
+            "lens_ok": all(len(s) == ss["max_new"] for s in streams),
+            "in_vocab": all(0 <= t < vocab for s in streams for t in s),
+            "failed": dict(eng.failed)}
+        if eng.sampling.greedy:
+            run["rejection_top2_gaps"] = watch.gaps
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return run, streams, watch
+
+    # Warm-up (first use of every shape's cuBLAS and kernels) off the record.
+    warm = SpecDecodeEngine(cfg, params, dcfg, dparams, ecfg(),
+                            SpecConfig(num_draft_tokens=ss["k"]), device="cuda")
+    warm.add_request(rng.integers(1, vocab, 100).tolist(), max_new=9)
+    warm.run()
+    del warm
+
+    kernels = {"flash_fwd[bf16]": fa.FLASH_FWD_BF16, "paged_prefill": pp.PAGED_PREFILL,
+               "paged_decode": dec.PAGED_DECODE}
+    runs, results, watches = {}, {}, {}
+    for kern in kernels.values():
+        kern.reset()
+    with _AdapterCalls() as calls:
+        for name, (d_cfg, d_params, scfg, kw) in {
+                "greedy_k4": (dcfg, dparams, SpecConfig(num_draft_tokens=ss["k"]), {}),
+                "self_k4": (cfg, params, SpecConfig(num_draft_tokens=ss["k"]), {}),
+                "adaptive": (dcfg, dparams, SpecConfig(
+                    num_draft_tokens=ss["adaptive"][0], adaptive=True, min_k=1,
+                    max_k=ss["adaptive"][1]), {}),
+                "sampled": (dcfg, dparams, SpecConfig(num_draft_tokens=ss["k"]),
+                            dict(sampling=SamplingParams(**ss["sampling"])))}.items():
+            runs[name], results[name], watches[name] = serve(d_cfg, d_params, scfg, **kw)
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    for name, n in launches.items():
+        st["launches"][name] = st["launches"].get(name, 0) + n
+        st["launches_d256"][name] = st["launches_d256"].get(name, 0) + n
+
+    # The plain hybrid engine (decode_chunk 1) on the same prompts, each
+    # step's top-2 logit gap and top logit kept by (request, token index).
+    ref = Engine(cfg, params, ecfg(), device="cuda")
+    gaps, step = {}, llama_adapter.decode_step
+
+    def step_keeping_gaps(*a, **kw):
+        logits, cache = step(*a, **kw)
+        top = logits.float().topk(2, dim=-1).values
+        for lane, seq in enumerate(ref.active):
+            gaps[(seq.seq_id, len(seq.out))] = ((top[lane, 0] - top[lane, 1]).item(),
+                                                top[lane, 0].item())
+        return logits, cache
+    llama_adapter.decode_step = step_keeping_gaps
+    try:
+        rids = [ref.add_request(p) for p in prompts]
+        ref.run()
+    finally:
+        llama_adapter.decode_step = step
+    plain = [ref.finished.get(r, []) for r in rids]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    tie_share = sum(g <= _bf16_ulp(cfg, t) for g, t in gaps.values()) / len(gaps)
+
+    def verify_checks(self_run, watch):
+        prefix = _verify_on_prefix(cfg, params, prompts[1], plain[1][:ss["k"]], P)
+        full = _full_batch_vs_golden(cfg, params, watch.full, P) if watch.full else []
+        gates, cap, floor = _verify_gates(cfg, ss, prefix, self_run, full, tie_share)
+        return dict(prefix, full_batch_vs_golden=full, delta_cap=cap, acceptance_floor=floor,
+                    acceptance=self_run["acceptance"], gates=gates)
+    verify = verify_checks(runs["self_k4"], watches["self_k4"])
+    delta = verify["delta"]
+
+    divergences, streams_ok = [], True
+    for i, (got, want) in enumerate(zip(results["greedy_k4"], plain)):
+        at = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        if at is None:
+            streams_ok = streams_ok and len(got) == len(want)
+            continue
+        gap = gaps.get((rids[i], at), (None,))[0]
+        allowed = gap is not None and gap < 2 * delta and verify["gates"]["delta_capped"]
+        divergences.append({"prompt": ss["prompts"][i], "at": at, "top2_gap": gap,
+                            "allowed": allowed})
+        streams_ok = streams_ok and allowed
+    checked = watches["self_k4"].checked
+    runs["self_k4"]["checked_positions"] = {
+        "n": len(checked), "top2_tied": sum(g == 0 for g in checked) / max(len(checked), 1),
+        "top2_gap_below_2_delta": sum(g < 2 * delta for g in checked) / max(len(checked), 1)}
+    del watches
+
+    # Each planted verify fault in turn: the self-speculation run and the
+    # prefix check again, held by the same gates, one of which must fail.
+    faults = {}
+    for name in ss["verify_faults"]:
+        with _VerifyFault(name):
+            run, _, watch = serve(cfg, params, SpecConfig(num_draft_tokens=ss["k"]))
+            f = verify_checks(run, watch)
+        del watch
+        faults[name] = dict(f, caught=not all(f["gates"].values()))
+    want_launches = dict(calls.want)
+    runs_ok = all(r["drained"] and r["lens_ok"] and r["in_vocab"] and not r["failed"]
+                  for r in runs.values())
+    counts_ok = (launches == want_launches and all(n > 0 for n in launches.values())
+                 and runs["greedy_k4"]["pages_trimmed"] > 0)
+    verify_ok = all(verify["gates"].values())
+    faults_ok = all(f["caught"] for f in faults.values())
+    ok = streams_ok and runs_ok and counts_ok and verify_ok and faults_ok
+    emit({"phase": "serve_spec", "ok": ok, "model": "gemma2_9b", "layers": L,
+          "draft": {"layers": 2, "window_pattern": [4096, None], "params": "views of the "
+                    "target's first two layers, its embed, final norm and lm_head"},
+          "prompts": list(ss["prompts"]), "max_new": ss["max_new"], "k": ss["k"],
+          "runs": runs, "launches": launches, "launches_expected": want_launches,
+          "verify_calls": calls.verify_calls, "verify": verify,
+          "plain_top2_near_tie_share": tie_share, "rel_err_tol": ss["logit_tol"],
+          "greedy_streams_equal_plain_to_first_divergence": streams_ok,
+          "divergences": divergences, "verify_faults": faults,
+          "adaptive_streams_equal_greedy_k4": [a == b for a, b in zip(results["adaptive"],
+                                                                      results["greedy_k4"])],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if not ok:
+        raise AssertionError("serve_spec phase failed its checks")
 
 
 # Llama-3-8B as configured, trained by SGD on one batch of random tokens.
@@ -4124,7 +4937,7 @@ def main(argv=None) -> int:
         emit({"kernels": entries})
         idle = [e["name"] for e in entries if e["launches"] == 0]
         if ({"solve", "serve", "serve_w4", "serve_flash", "serve_mixed", "serve_hybrid",
-             "train"} <= set(phases) and idle):
+             "serve_hybrid_mixed", "serve_spec", "train"} <= set(phases) and idle):
             print(f"chip_smoke: kernels never launched on a main path: {idle}",
                   file=sys.stderr)
             return 1

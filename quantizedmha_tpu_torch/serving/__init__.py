@@ -13,6 +13,7 @@ from quantizedmha_tpu_torch.serving.mixed_kv import (
     mixed_paged_prefill_attention,
 )
 from quantizedmha_tpu_torch.serving.sampling import SamplingParams
+from quantizedmha_tpu_torch.serving.speculative import SpecConfig, SpecDecodeEngine
 
 __all__ = [
     "Engine",
@@ -22,6 +23,8 @@ __all__ = [
     "PageAllocator",
     "PagedKVCacheState",
     "SamplingParams",
+    "SpecConfig",
+    "SpecDecodeEngine",
     "append_token_mixed",
     "append_tokens_batched",
     "mixed_paged_decode_attention",

@@ -34,12 +34,13 @@ block tables: a sliding group's pages recycle behind its own window while
 the full group keeps its pages, so a sequence holds L_full * O(context) +
 L_slide * O(window + sinks) of KV. hybrid_pages sizes each pool by group
 key ("full", "w4096"; the rest take num_pages). A uniform pattern makes it
-a no-op.
+a no-op. hybrid_kv with mixed_kv puts the mixed pool pair on the full group
+(its INT4 bulk takes the context that grows) and keeps the sliding groups
+plain INT8; it needs a full group and no prefix_cache.
 
-Not ported yet, and refused with NotImplementedError when set: hybrid_kv
-with mixed_kv on a pattern of several window groups, and context-parallel
-prefill (ROADMAP.md queue 1). `async_dispatch` (a TPU host-overlap trick)
-accepts only False.
+Not ported yet, and refused with NotImplementedError when set:
+context-parallel prefill (ROADMAP.md queue 1). `async_dispatch` (a TPU
+host-overlap trick) accepts only False.
 """
 
 from __future__ import annotations
@@ -93,25 +94,44 @@ _UNPORTED = {
 }
 
 
+def _hybrid_pages(groups, ecfg: EngineConfig) -> Dict[str, int]:
+    pages_by_group = dict(ecfg.hybrid_pages or {})
+    unknown = set(pages_by_group) - set(groups)
+    if unknown:
+        raise ValueError(
+            f"hybrid_pages keys {sorted(unknown)} match no window group of this "
+            f"model (groups: {sorted(groups)})")
+    return {k: pages_by_group.get(k, ecfg.num_pages) for k in groups}
+
+
 def build_pools(cfg: LlamaConfig, ecfg: EngineConfig, device):
-    """(cache, allocs, primary allocator, hybrid) for a model's KV state.
+    """(cache, allocs, primary allocator, hybrid) for a model's KV state;
+    SpecDecodeEngine builds its draft's with it too (the draft's own
+    pattern decides whether its pools are hybrid).
 
     hybrid (ecfg.hybrid_kv on a pattern of more than one window group): one
     cache and PageAllocator a group, page 0 of each pool its scrap page;
     `allocs` is the group dict, and the primary allocator (the full group's
     when there is one: its tables are never trimmed) holds the lengths
-    every pool shares. Otherwise one pool, INT8 or the mixed INT8 / INT4
-    pair, and allocs None."""
+    every pool shares. With mixed_kv the full group's is a
+    MixedPageAllocator over its INT8 / INT4 pair. Otherwise one pool, INT8
+    or the mixed INT8 / INT4 pair, and allocs None."""
     groups = llama_adapter.window_groups(cfg)
     hybrid = bool(ecfg.hybrid_kv) and len(groups) > 1
     if ecfg.mixed_kv is not None:
-        if hybrid:
-            raise NotImplementedError(
-                "EngineConfig.mixed_kv with hybrid_kv over several window groups (mixed "
-                "pools for the full group beside plain sliding ones) is not ported yet "
-                "(ROADMAP.md queue 1, hybrid x mixed)")
         mk = dict(ecfg.mixed_kv)
         boundary = mk["boundary_tokens"]
+        if hybrid:
+            pages_by_group = _hybrid_pages(groups, ecfg)
+            cache = llama_adapter.make_cache_hybrid_mixed(
+                cfg, pages_by_group, ecfg.page_size, n8_pages=mk["int8_pages"],
+                n4_pages=mk["int4_pages"], subs=mk.get("subs", 4), device=device)
+            allocs = {k: (MixedPageAllocator(mk["int8_pages"], mk["int4_pages"],
+                                             ecfg.page_size, boundary)
+                          if k == "full" else
+                          PageAllocator(pages_by_group[k], ecfg.page_size, scrap_page=0))
+                      for k in groups}
+            return cache, allocs, allocs["full"], True
         if len(set(cfg.layer_windows)) != 1:
             raise ValueError("mixed_kv needs a uniform window pattern (use hybrid_kv "
                              "for per-layer patterns)")
@@ -127,16 +147,9 @@ def build_pools(cfg: LlamaConfig, ecfg: EngineConfig, device):
                                    boundary)
         return cache, None, alloc, False
     if hybrid:
-        pages_by_group = dict(ecfg.hybrid_pages or {})
-        unknown = set(pages_by_group) - set(groups)
-        if unknown:
-            raise ValueError(
-                f"hybrid_pages keys {sorted(unknown)} match no window group of this "
-                f"model (groups: {sorted(groups)})")
-        for k in groups:
-            pages_by_group.setdefault(k, ecfg.num_pages)
-        cache = llama_adapter.make_cache_hybrid(
-            cfg, {k: pages_by_group[k] for k in groups}, ecfg.page_size, device=device)
+        pages_by_group = _hybrid_pages(groups, ecfg)
+        cache = llama_adapter.make_cache_hybrid(cfg, pages_by_group, ecfg.page_size,
+                                                device=device)
         allocs = {k: PageAllocator(pages_by_group[k], ecfg.page_size, scrap_page=0)
                   for k in groups}
         primary = "full" if "full" in allocs else sorted(allocs)[0]
@@ -166,7 +179,7 @@ class _PrefillTask:
     prompt: List[int]
     max_new: int
     # [max_pages_per_seq] int32 on the device; mixed: (table8, table4);
-    # hybrid: {group: table}
+    # hybrid: {group: table}, a mixed group's a pair
     table: Any
     next_start: int
     chunk: int
@@ -195,8 +208,14 @@ class Engine:
         self.groups = llama_adapter.window_groups(cfg)
         self.group_windows = {llama_adapter.group_key(w): w for w in set(cfg.layer_windows)}
         self.cache, self.allocs, self.alloc, self.hybrid = build_pools(cfg, ecfg, self.device)
-        self.mixed = ecfg.mixed_kv is not None
-        if self.mixed and ecfg.prefix_cache:
+        # Three cache modes: `mixed`, one mixed pool pair for a uniform
+        # pattern; `hybrid_mixed`, group pools whose full group is mixed;
+        # plain hybrid or single otherwise.
+        self.mixed = ecfg.mixed_kv is not None and not self.hybrid
+        self.hybrid_mixed = ecfg.mixed_kv is not None and self.hybrid
+        # The boundary every mixed pool pair splits at (None without one).
+        self.boundary = self.alloc.boundary if ecfg.mixed_kv is not None else None
+        if ecfg.mixed_kv is not None and ecfg.prefix_cache:
             raise ValueError("prefix_cache does not compose with mixed_kv yet (shared "
                              "pages would need per-pool digest maps AND a "
                              "boundary-stable split)")
@@ -233,19 +252,49 @@ class Engine:
         group (hybrid), else the single pool under the key "shared"."""
         return self.allocs if self.hybrid else {"shared": self.alloc}
 
-    def _each_alloc(self) -> List[PageAllocator]:
-        return list(self._prefix_groups().values())
+    def _pools(self):
+        """This engine's pools: {group: pool} (hybrid) or the single pool.
+        The pool helpers below take such a value for another model's pools
+        (speculation passes its draft's)."""
+        return self.allocs if self.hybrid else self.alloc
 
-    def _admit_all(self, rid: int, n: int):
-        """Admit into every pool (hybrid; each checked before any is
-        touched, so a failed admission leaks no page) or the single one:
+    def _each_alloc(self, pools=None) -> List[PageAllocator]:
+        pools = self._pools() if pools is None else pools
+        return list(pools.values()) if isinstance(pools, dict) else [pools]
+
+    def _admit_all(self, rid: int, n: int, pools=None):
+        """Admit into every pool of a group dict (each checked before any
+        is touched, so a failed admission leaks no page) or the single one:
         {group: fresh pages}, or the single pool's pages."""
-        if not self.hybrid:
-            return self.alloc.admit(rid, n)
-        short = [k for k, a in self.allocs.items() if not a.can_admit(n)]
+        pools = self._pools() if pools is None else pools
+        if not isinstance(pools, dict):
+            return pools.admit(rid, n)
+        short = [k for k, a in pools.items() if not a.can_admit(n)]
         if short:
             raise RuntimeError(f"out of pages in group(s) {sorted(short)} admitting {n} tokens")
-        return {k: a.admit(rid, n) for k, a in self.allocs.items()}
+        return {k: a.admit(rid, n) for k, a in pools.items()}
+
+    def _write_prompt(self, cfg: LlamaConfig, cache, pages, k_all, v_all, n: int) -> None:
+        """A bucketed prompt's K/V ([L, Hkv, bucket, hd], n real tokens) to
+        its fresh pages: {group: pages} (hybrid), a mixed pool's (below the
+        boundary, past it) pair, or one pool's. The padding rows past the
+        prompt are zeroed first: the per-(head, page) scale is fitted over
+        the whole page, and padding K/V would coarsen it for the page's
+        real tokens."""
+        ps = self.ecfg.page_size
+        n_write = -(-n // ps) * ps
+        k_w, v_w = k_all[:, :, :n_write], v_all[:, :, :n_write]
+        if n < n_write:
+            keep = (torch.arange(n_write, device=self.device) < n)[None, None, :, None]
+            k_w, v_w = k_w * keep, v_w * keep
+        if isinstance(pages, dict):
+            llama_adapter.write_prefill_hybrid(
+                cfg, cache, k_w, v_w, {k: self._ids(p) for k, p in pages.items()}, page_size=ps)
+        elif isinstance(pages, tuple):
+            llama_adapter.write_prefill_mixed(cfg, cache, k_w, v_w, *self._ids(pages),
+                                              page_size=ps)
+        else:
+            llama_adapter.write_prefill(cfg, cache, k_w, v_w, self._ids(pages), page_size=ps)
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -365,44 +414,27 @@ class Engine:
                 self.cfg, self.params, self._t(toks), n - 1)
         self.metrics.inc("requests_admitted")
         self.metrics.inc("prefill_tokens", n)
-        # Zero the padding rows past the prompt before the page write: the
-        # per-(head, page) scale is fitted over the whole page, and padding
-        # K/V would coarsen it for the page's real tokens.
-        n_write = self.alloc.pages_needed(n) * self.ecfg.page_size
-        k_w, v_w = k_all[:, :, :n_write], v_all[:, :, :n_write]
-        if n < n_write:
-            keep = (torch.arange(n_write, device=self.device) < n)[None, None, :, None]
-            k_w, v_w = k_w * keep, v_w * keep
-        if self.hybrid:
-            llama_adapter.write_prefill_hybrid(
-                self.cfg, self.cache, k_w, v_w,
-                {k: self._t(np.asarray(p, np.int32)) for k, p in pages.items()},
-                page_size=self.ecfg.page_size)
-        elif self.mixed:
-            p8, p4 = pages  # the prompt's pages below the boundary, then past it
-            llama_adapter.write_prefill_mixed(
-                self.cfg, self.cache, k_w, v_w, self._t(np.asarray(p8, np.int32)),
-                self._t(np.asarray(p4, np.int32)), page_size=self.ecfg.page_size)
-        else:
-            llama_adapter.write_prefill(self.cfg, self.cache, k_w, v_w,
-                                        self._t(np.asarray(pages, np.int32)),
-                                        page_size=self.ecfg.page_size)
+        self._write_prompt(self.cfg, self.cache, pages, k_all, v_all, n)
         first = self._sample(logits)
         self._register_prefix(prompt, rid)
         self._activate(_Sequence(rid, prompt, [first], first, max_new))
         self._trim_windows()
 
-    def _table(self, rid: int):
+    def _ids(self, pages):
+        """Fresh page ids on the device; a mixed pool's (INT8, INT4) pair."""
+        if isinstance(pages, tuple):
+            return tuple(self._ids(p) for p in pages)
+        return self._t(np.asarray(pages, np.int32))
+
+    def _table(self, rid: int, allocs=None):
         """One sequence's block table row, [max_pages_per_seq] on the
         device; mixed: the ([boundary_pages], [max_pages_per_seq]) pair;
-        hybrid: {group: row}."""
-        mp = self.ecfg.max_pages_per_seq
-        if self.mixed:
-            return tuple(self._t(t[0]) for t in self.alloc.block_tables([rid], mp))
-        if self.hybrid:
-            return {k: self._t(a.block_table_array([rid], mp)[0])
-                    for k, a in self.allocs.items()}
-        return self._t(self.alloc.block_table_array([rid], mp)[0])
+        hybrid: {group: row}. `allocs` as in _tables_for."""
+        t = self._tables_for([rid], 1, allocs)
+        if isinstance(t, dict):
+            return {k: tuple(x[0] for x in v) if isinstance(v, tuple) else v[0]
+                    for k, v in t.items()}
+        return tuple(x[0] for x in t) if isinstance(t, tuple) else t[0]
 
     def _run_chunk(self, prompt: List[int], start: int, chunk: int, table):
         """Prefill prompt[start:start + chunk] (right-padded) through the
@@ -413,8 +445,7 @@ class Engine:
         with self.metrics.timed("prefill"):
             logits, self.cache = llama_adapter.prefill_chunk(
                 self.cfg, self.params, self.cache, self._t(toks), start, table,
-                len(part) - 1, page_size=self.ecfg.page_size,
-                boundary_tokens=self.alloc.boundary if self.mixed else None)
+                len(part) - 1, page_size=self.ecfg.page_size, boundary_tokens=self.boundary)
         return logits
 
     def _admit_chunked(self, rid: int, prompt: List[int], max_new: int) -> None:
@@ -573,14 +604,16 @@ class Engine:
             a.release(seq.seq_id)
         self.metrics.inc("requests_finished")
 
-    def _check_extend_headroom(self, n_tokens: int) -> None:
+    def _check_extend_headroom(self, n_tokens: int, alloc=None) -> None:
         """Raise BEFORE mutating an allocator if extending every active
-        sequence by n_tokens could exhaust a pool or a block table."""
-        if self.mixed:
-            self.alloc.check_extend_headroom([s.seq_id for s in self.active], n_tokens,
-                                             self.ecfg.max_pages_per_seq)
-            return
-        for alloc in self._each_alloc():
+        sequence by n_tokens could exhaust a pool or a block table. `alloc`:
+        the one allocator to check (speculation passes its draft's), else
+        every pool of this engine."""
+        for alloc in [alloc] if alloc is not None else self._each_alloc():
+            if isinstance(alloc, MixedPageAllocator):
+                alloc.check_extend_headroom([s.seq_id for s in self.active], n_tokens,
+                                            self.ecfg.max_pages_per_seq)
+                continue
             needed = 0
             for seq in self.active:
                 length = alloc.lengths[seq.seq_id]
@@ -604,26 +637,28 @@ class Engine:
     def _sample(self, logits) -> int:
         return int(self._sample_batch(logits)[0])
 
-    def _tables(self, seq_ids: List[int]):
-        """[max_batch, max_pages_per_seq] block tables, padded lanes on the
-        scrap page; mixed: the ([max_batch, boundary_pages], [max_batch,
-        max_pages_per_seq]) pair; hybrid: {group: tables}."""
-        B, mp = self.ecfg.max_batch, self.ecfg.max_pages_per_seq
-        if self.mixed:
-            pair = []
-            for t in self.alloc.block_tables(seq_ids, mp):
-                full = np.full((B, t.shape[1]), self.alloc.scrap_page, np.int32)
-                full[:len(seq_ids)] = t
-                pair.append(self._t(full))
-            return tuple(pair)
+    def _tables_for(self, seq_ids: List[int], pad_to: int, allocs=None, host: bool = False):
+        """[pad_to, max_pages_per_seq] block tables, padded lanes on the
+        scrap page; a mixed pool's: the ([pad_to, boundary_pages], [pad_to,
+        max_pages_per_seq]) pair; hybrid: {group: tables}. `allocs`: a pool
+        or {group: pool} to read (this engine's by default; speculation
+        passes its draft's). host: numpy arrays instead of device tensors."""
+        allocs = self._pools() if allocs is None else allocs
+        mp = self.ecfg.max_pages_per_seq
+        put = (lambda a: a) if host else self._t
+
+        def pad(t, scrap):
+            full = np.full((pad_to, t.shape[1]), scrap, np.int32)
+            full[:len(seq_ids)] = t
+            return put(full)
 
         def one(alloc):
-            full = np.full((B, mp), alloc.scrap_page, np.int32)
-            full[:len(seq_ids)] = alloc.block_table_array(seq_ids, mp)
-            return self._t(full)
-        if self.hybrid:
-            return {k: one(a) for k, a in self.allocs.items()}
-        return one(self.alloc)
+            if isinstance(alloc, MixedPageAllocator):
+                return tuple(pad(t, alloc.scrap_page) for t in alloc.block_tables(seq_ids, mp))
+            return pad(alloc.block_table_array(seq_ids, mp), alloc.scrap_page)
+        if isinstance(allocs, dict):
+            return {k: one(a) for k, a in allocs.items()}
+        return one(allocs)
 
     # -- one engine step -----------------------------------------------------
 
@@ -657,9 +692,6 @@ class Engine:
         if self.ecfg.decode_chunk > 1:
             self._step_fused(self.ecfg.decode_chunk)
             return
-        if self.mixed:
-            self._step_mixed()
-            return
         B = self.ecfg.max_batch
         nseq = len(self.active)
         self._check_extend_headroom(1)
@@ -668,52 +700,28 @@ class Engine:
         slots = np.zeros(B, np.int32)
         lengths = np.ones(B, np.int32)
         groups = self._prefix_groups()
-        pids = {k: np.zeros(B, np.int32) for k in groups}
+        # Each lane's page in every pool; a mixed pool's pair (the pool that
+        # does not own the position gives its scrap page).
+        pids = {k: np.zeros((2 if isinstance(a, MixedPageAllocator) else 1, B), np.int32)
+                for k, a in groups.items()}
         for i, seq in enumerate(self.active):
             positions[i] = self.alloc.lengths[seq.seq_id]
             for k, a in groups.items():
-                # The slot follows from the position: the same in every pool.
-                pids[k][i], slots[i], _ = a.extend(seq.seq_id)
+                # extend gives (page[, page4], slot, ...); the slot follows
+                # from the position, the same in every pool.
+                got, n = a.extend(seq.seq_id), len(pids[k])
+                pids[k][:, i], slots[i] = got[:n], got[n]
             tokens[i] = seq.pending
             lengths[i] = self.alloc.lengths[seq.seq_id]
-        page_ids = ({k: self._t(p) for k, p in pids.items()} if self.hybrid
-                    else self._t(pids["shared"]))
-        tables = self._tables([s.seq_id for s in self.active])
+        dev = {k: tuple(self._t(r) for r in p) if len(p) == 2 else self._t(p[0])
+               for k, p in pids.items()}
+        page_ids = dev if self.hybrid else dev["shared"]
+        tables = self._tables_for([s.seq_id for s in self.active], B)
         with self.metrics.timed("decode_step"):
             logits, self.cache = llama_adapter.decode_step(
                 self.cfg, self.params, self.cache, self._t(tokens),
                 self._t(positions), page_ids, self._t(slots),
-                self._t(lengths), tables)
-            next_tokens = self._sample_batch(logits).cpu().numpy()
-        self.metrics.inc("decode_steps")
-        self.metrics.inc("tokens_generated", nseq)
-        self.metrics.set("active_sequences", nseq)
-        self._commit(next_tokens[None, :])
-
-    def _step_mixed(self) -> None:
-        """One decode step over the mixed cache: MixedPageAllocator.extend
-        routes each lane's append (the pool that does not own its position
-        gets its scrap page), both tables go to decode_step_mixed."""
-        B = self.ecfg.max_batch
-        nseq = len(self.active)
-        self._check_extend_headroom(1)
-        tokens = np.zeros(B, np.int32)
-        positions = np.zeros(B, np.int32)
-        slots = np.zeros(B, np.int32)
-        lengths = np.ones(B, np.int32)
-        pid8 = np.zeros(B, np.int32)
-        pid4 = np.zeros(B, np.int32)
-        for i, seq in enumerate(self.active):
-            positions[i] = self.alloc.lengths[seq.seq_id]
-            pid8[i], pid4[i], slots[i], _ = self.alloc.extend(seq.seq_id)
-            tokens[i] = seq.pending
-            lengths[i] = self.alloc.lengths[seq.seq_id]
-        t8, t4 = self._tables([s.seq_id for s in self.active])
-        with self.metrics.timed("decode_step"):
-            logits, self.cache = llama_adapter.decode_step_mixed(
-                self.cfg, self.params, self.cache, self._t(tokens), self._t(positions),
-                self._t(pid8), self._t(pid4), self._t(slots), self._t(lengths), t8, t4,
-                boundary_tokens=self.alloc.boundary)
+                self._t(lengths), tables, boundary_tokens=self.boundary)
             next_tokens = self._sample_batch(logits).cpu().numpy()
         self.metrics.inc("decode_steps")
         self.metrics.inc("tokens_generated", nseq)
@@ -736,18 +744,11 @@ class Engine:
                 for _ in range(chunk):
                     a.extend(seq.seq_id)
         with self.metrics.timed("decode_chunk"):
-            if self.mixed:
-                out, self.cache = llama_adapter.decode_loop_mixed(
-                    self.cfg, self.params, self.cache, self._t(tokens),
-                    self._t(lengths0), *self._tables(ids), self._generator,
-                    n_steps=chunk, page_size=self.ecfg.page_size,
-                    boundary_tokens=self.alloc.boundary, sampling=self.sampling)
-            else:
-                out, self.cache = llama_adapter.decode_loop(
-                    self.cfg, self.params, self.cache, self._t(tokens),
-                    self._t(lengths0), self._tables(ids), self._generator,
-                    n_steps=chunk, page_size=self.ecfg.page_size,
-                    sampling=self.sampling)
+            out, self.cache = llama_adapter.decode_loop(
+                self.cfg, self.params, self.cache, self._t(tokens), self._t(lengths0),
+                self._tables_for(ids, B), self._generator, n_steps=chunk,
+                page_size=self.ecfg.page_size, sampling=self.sampling,
+                boundary_tokens=self.boundary)
             out = out.cpu().numpy()  # [chunk, B] — the single host sync
         self.metrics.inc("decode_steps", chunk)
         self.metrics.set("active_sequences", nseq)
@@ -777,25 +778,31 @@ class Engine:
         self._trim_windows()
         self.metrics.set("free_pages", self.alloc.free_pages)
 
-    def _trim_windows(self) -> None:
+    def _trim_windows(self, margin: int = 0) -> None:
         """Rolling-window page recycling: pages wholly behind an active
         sequence's window (sinks aside) go back to the free list. Hybrid:
         each sliding group's pool trims by its own window, and the full
         group's is never trimmed; otherwise only a model whose every layer
-        shares one sliding window trims its single pool."""
-        sinks = self.cfg.attention_sinks
-        if self.hybrid:
-            freed = sum(a.trim_window(seq.seq_id, self.group_windows[k], sinks)
-                        for k, a in self.allocs.items() if self.group_windows[k]
-                        for seq in self.active)
-        else:
-            w = self.cfg.recyclable_window
-            if not w:
-                return
-            freed = sum(self.alloc.trim_window(seq.seq_id, w, sinks) for seq in self.active)
+        shares one sliding window trims its single pool. margin: positions
+        kept alive behind the window besides."""
+        freed = self._trim(self.cfg, self._pools(), self.group_windows, margin)
         if freed:
             self.metrics.inc("pages_trimmed", freed)
             self.metrics.set("free_pages", self.alloc.free_pages)
+
+    def _trim(self, cfg: LlamaConfig, pools, group_windows, margin: int = 0) -> int:
+        """_trim_windows over `pools` of model `cfg` (speculation passes its
+        draft's): a group dict's sliding pools by their windows
+        (group_windows), a single pool by cfg's one recyclable window.
+        Returns the pages freed."""
+        sinks = cfg.attention_sinks
+        if isinstance(pools, dict):
+            return sum(a.trim_window(seq.seq_id, group_windows[k] + margin, sinks)
+                       for k, a in pools.items() if group_windows[k] for seq in self.active)
+        w = cfg.recyclable_window
+        if not w:
+            return 0
+        return sum(pools.trim_window(seq.seq_id, w + margin, sinks) for seq in self.active)
 
     def run(self) -> Dict[int, List[int]]:
         """Drive until queue and active set drain; returns {req_id: tokens}."""

@@ -203,6 +203,26 @@ class PageAllocator:
         self.lengths[seq_id] = n + 1
         return table[n // self.page_size], slot, new_page
 
+    def rollback(self, seq_id: int, new_len: int) -> None:
+        """Rewind a sequence to `new_len` tokens and free its pages past the
+        new end (a sequence keeps at least one page). Slots between new_len
+        and the old length keep stale K/V, overwritten before they are read:
+        slots are position-indexed (speculative decoding drops rejected
+        drafts so). Raises RuntimeError on reaching a window-trimmed slot:
+        trims must follow the speculative commits."""
+        old = self.lengths[seq_id]
+        if not 0 <= new_len <= old:
+            raise ValueError(f"rollback to {new_len} outside [0, {old}]")
+        table = self.tables[seq_id]
+        keep = self.pages_needed(new_len)
+        while len(table) > max(keep, 1):
+            page = table.pop()
+            if page is None:  # not an assert: the check must survive python -O
+                raise RuntimeError("rollback reached a window-trimmed page: trim_window "
+                                   "must only run after speculative commits")
+            self._release_page(page)
+        self.lengths[seq_id] = new_len
+
     def trim_window(self, seq_id: int, window: int, sinks: int = 0) -> int:
         """Free pages wholly behind the sliding window that hold no sink
         position; their table slots become None (the scrap page in block
@@ -301,6 +321,13 @@ class MixedPageAllocator:
             out = (self.a8.scrap_page, pid, slot, False)
         self.lengths[seq_id] = n + 1
         return out
+
+    def rollback(self, seq_id: int, new_len: int) -> None:
+        """PageAllocator.rollback of each pool, at new_len's share of it."""
+        n8, n4 = self._split(new_len)
+        self.a8.rollback(seq_id, n8)
+        self.a4.rollback(seq_id, n4)
+        self.lengths[seq_id] = new_len
 
     def trim_window(self, seq_id: int, window: int, sinks: int = 0) -> int:
         """Windowed mixed serving has sinks == boundary (the int8 pool is

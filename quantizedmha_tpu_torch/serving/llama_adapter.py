@@ -1,6 +1,6 @@
 """Llama model adapter for the serving engine: prefill + paged decode
-(counterpart of the plain- and mixed-cache parts of
-quantizedmha_tpu/serving/llama_adapter.py).
+(counterpart of quantizedmha_tpu/serving/llama_adapter.py, tensor and
+context parallelism aside).
 
   - prefill: causal attention over the (right-padded) prompt through the
     fused INT8 kernel; returns the per-layer K/V (post-RoPE) for cache
@@ -14,17 +14,21 @@ quantizedmha_tpu/serving/llama_adapter.py).
     suffix past a cached prefix): its K/V are written to their pages
     first, then its queries attend from the pages with
     ops.paged_prefill.paged_prefill_attention.
+  - verify_step: speculative decoding's verification, k + 1 tokens a
+    sequence in one forward (appended token by token, then attended with
+    per-sequence offsets through paged_prefill_attention).
 
 The mixed-precision cache (serving/mixed_kv.py: INT8 pages below a
-boundary, INT4 past it) has its own write_prefill_mixed, decode_step_mixed,
-decode_loop_mixed and prefill_chunk_mixed, for a uniform window pattern.
+boundary, INT4 past it) takes (INT8, INT4) pairs of page ids and tables
+and boundary_tokens in decode_step, decode_loop and prefill_chunk;
+write_prefill_mixed writes a prompt to it.
 
 The cache is layer-stacked ([num_layers, ...] tensors); each layer works on
 views of its slice. The hybrid cache (make_cache_hybrid) is a dict of such
 caches, one a window group, each with its own page pool: decode_step,
-decode_loop and prefill_chunk take it with per-group page ids and tables.
-Not ported yet: speculative verify, the hybrid cache with a mixed full
-group, tensor and context parallelism.
+decode_loop, prefill_chunk and verify_step take it with per-group page ids
+and tables. make_cache_hybrid_mixed makes the full-attention group a mixed
+cache, whose ids and tables travel as pairs inside the group dicts.
 """
 
 from __future__ import annotations
@@ -133,6 +137,30 @@ def make_cache_hybrid(cfg: LlamaConfig, pages_by_group: Dict[str, int], page_siz
             for key, idxs in groups.items()}
 
 
+def make_cache_hybrid_mixed(cfg: LlamaConfig, pages_by_group: Dict[str, int], page_size: int,
+                            *, n8_pages: int, n4_pages: int, subs: int = 4,
+                            device="cuda") -> Dict[str, Any]:
+    """make_cache_hybrid with the full-attention group a layer-stacked
+    MixedPagedKVState (INT8 sinks, INT4 bulk) and the sliding groups plain
+    INT8: the full layers are the group whose KV grows with the context
+    (trims hold a sliding group to its window and sinks), so the INT4
+    capacity goes there."""
+    ensure_serving_supported(cfg)
+    groups = window_groups(cfg)
+    if "full" not in groups:
+        raise ValueError("mixed_kv x hybrid_kv puts the int8/int4 split on the full-attention "
+                         f"group; this window pattern has none (groups: {sorted(groups)})")
+    missing = set(groups) - set(pages_by_group) - {"full"}
+    if missing:
+        raise ValueError(f"pages_by_group missing groups {sorted(missing)}")
+    return {key: (MixedPagedKVState.create(cfg.num_kv_heads, n8_pages, n4_pages, page_size,
+                                           cfg.hd, subs, num_layers=len(idxs), device=device)
+                  if key == "full" else
+                  PagedKVCacheState.create(cfg.num_kv_heads, pages_by_group[key], page_size,
+                                           cfg.hd, num_layers=len(idxs), device=device))
+            for key, idxs in groups.items()}
+
+
 def _g(d, window):
     """A maybe-grouped argument: a dict gives the window group's entry,
     anything else is shared by every group."""
@@ -215,45 +243,69 @@ def write_prefill_hybrid(
     caches: Dict[str, PagedKVCacheState],
     k_all: torch.Tensor,  # [L, Hkv, n_tokens, hd], every layer
     v_all: torch.Tensor,
-    page_ids: Dict[str, torch.Tensor],  # per group: [n_pages] its pool's ids
+    page_ids: Dict[str, Any],  # per group: [n_pages] its pool's ids; mixed: (ids8, ids4)
     *,
     page_size: int,
-) -> Dict[str, PagedKVCacheState]:
+) -> Dict[str, Any]:
     """write_prefill into the hybrid cache: each group receives its own
-    layers' K/V, written into its own page pool."""
+    layers' K/V, written into its own page pool (a mixed group's first
+    len(ids8) pages INT8, the rest INT4)."""
     for (cache, rank), k, v, window in zip(layer_stacks(cfg, caches), k_all, v_all,
                                            cfg.layer_windows):
-        write_pages(cache.layer(rank), k, v, page_ids[group_key(window)], page_size)
+        ids = page_ids[group_key(window)]
+        if isinstance(ids, tuple):
+            write_pages_mixed(cache.layer(rank), k, v, *ids)
+        else:
+            write_pages(cache.layer(rank), k, v, ids, page_size)
     return caches
+
+
+def _chunk_page_ids(table, chunk_start: int, C: int, page_size: int,
+                    boundary_tokens: Optional[int]):
+    """The pages a chunk [chunk_start, +C) writes: a slice of a plain
+    table; for a mixed (table8, table4) pair the (INT8 ids, INT4 ids) split
+    on the host (a table index past the INT4 table clips to its last slot,
+    as the JAX package's routed write does)."""
+    first, last = chunk_start // page_size, (chunk_start + C) // page_size
+    if not isinstance(table, tuple):
+        return table[first:last]
+    if boundary_tokens is None:
+        raise ValueError("a mixed-cache chunk needs boundary_tokens")
+    t8, t4 = table
+    bp = boundary_tokens // page_size
+    return (t8[[i for i in range(first, last) if i < bp]],
+            t4[[min(i - bp, t4.shape[0] - 1) for i in range(first, last) if i >= bp]])
+
+
+def _attn_masks(cfg: LlamaConfig, window: Optional[int]) -> Dict[str, Any]:
+    return dict(sm_scale=cfg.sm_scale, window=window, logit_softcap=cfg.logit_softcap,
+                attention_sinks=cfg.attention_sinks if window is not None else 0)
 
 
 def prefill_chunk(
     cfg: LlamaConfig,
     params: Dict[str, Any],
-    cache: PagedKVCacheState,  # layer-stacked, updated in place
+    cache,                     # layer-stacked (or a group dict), updated in place
     tokens: torch.Tensor,      # [1, C] one chunk, right-padded
     chunk_start: int,          # multiple of page_size
-    table: torch.Tensor,       # [max_pages] this sequence's block table
+    table,                     # [max_pages] this sequence's block table
     last_index: int,           # last REAL token index within the chunk
     *,
     page_size: int,
     boundary_tokens: Optional[int] = None,
-) -> Tuple[torch.Tensor, PagedKVCacheState]:
+) -> Tuple[torch.Tensor, Any]:
     """One chunk of a chunked prefill: per layer, project and RoPE the
     chunk at its global positions, write its K/V into its pages (padding
     rows zeroed, so they cannot coarsen the per-page scales), then attend
     its queries from the pages: the prefix and the chunk's own keys, INT8
     as decode reads them, causal by global position (q_starts =
     chunk_start, lengths = chunk_start + C). A hybrid cache (a group dict)
-    takes a group dict of tables. A (table8, table4) pair over a mixed
-    cache goes to prefill_chunk_mixed with boundary_tokens.
+    takes a group dict of tables. A mixed cache (a mixed group) takes a
+    (table8, table4) pair and boundary_tokens: the chunk's pages below the
+    boundary are written INT8 and the rest INT4, and its queries attend
+    through mixed_paged_prefill_attention.
 
     Returns (logits [1, vocab] at last_index, cache)."""
-    if isinstance(table, tuple):
-        if boundary_tokens is None:
-            raise ValueError("a mixed-cache chunk needs boundary_tokens")
-        return prefill_chunk_mixed(cfg, params, cache, tokens, chunk_start, *table, last_index,
-                                   page_size=page_size, boundary_tokens=boundary_tokens)
     b, C = tokens.shape
     if b != 1:
         raise ValueError("chunked prefill is per-sequence")
@@ -264,10 +316,10 @@ def prefill_chunk(
     dense = functools.partial(qdense, mode=cfg.weight_quant_mode)
     positions = chunk_start + torch.arange(C, device=dev)
     keep = (torch.arange(C, device=dev) <= last_index)[None, :, None]
-    first = chunk_start // page_size
     lengths = torch.tensor([chunk_start + C], dtype=torch.int32, device=dev)
     q_starts = torch.tensor([chunk_start], dtype=torch.int32, device=dev)
     stacks = layer_stacks(cfg, cache)
+    chunk_ids = {}  # group key -> the pages this chunk writes in that group
     x = embed_tokens(cfg, params, tokens)
     for i, window in enumerate(cfg.layer_windows):
         p = layer_params(params["layers"], i)
@@ -281,14 +333,19 @@ def prefill_chunk(
         stack, li = stacks[i]
         layer = stack.layer(li)
         tbl = _g(table, window)
-        write_pages(layer, k[0] * keep, v[0] * keep, tbl[first:first + C // page_size],
-                    page_size)
-        o = paged_prefill_attention(
-            q, layer.k_pages, layer.v_pages, layer.k_scales, layer.v_scales,
-            lengths, q_starts, tbl[None], sm_scale=cfg.sm_scale, window=window,
-            logit_softcap=cfg.logit_softcap,
-            attention_sinks=cfg.attention_sinks if window is not None else 0,
-        )
+        key = group_key(window)
+        if key not in chunk_ids:
+            chunk_ids[key] = _chunk_page_ids(tbl, chunk_start, C, page_size, boundary_tokens)
+        if isinstance(stack, MixedPagedKVState):
+            write_pages_mixed(layer, k[0] * keep, v[0] * keep, *chunk_ids[key])
+            o = mixed_paged_prefill_attention(q, layer, lengths, q_starts, tbl[0][None],
+                                              tbl[1][None], boundary_tokens,
+                                              **_attn_masks(cfg, window))
+        else:
+            write_pages(layer, k[0] * keep, v[0] * keep, chunk_ids[key], page_size)
+            o = paged_prefill_attention(
+                q, layer.k_pages, layer.v_pages, layer.k_scales, layer.v_scales,
+                lengths, q_starts, tbl[None], **_attn_masks(cfg, window))
         o = o.transpose(1, 2).reshape(b, C, cfg.num_heads * hd)
         x = _attn_residual(cfg, dense, p, x, o)
         x = _mlp_residual(cfg, dense, p, x)
@@ -296,27 +353,39 @@ def prefill_chunk(
     return final_logits(cfg, x[0, last_index], params["lm_head"])[None], cache
 
 
+def _rope_positions(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """RoPE with per-sequence absolute positions. x: [B, H, S, hd];
+    positions: [B, S]."""
+    return apply_rope(x, theta, positions[:, None, :])
+
+
 def _rope_single(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """RoPE for one token per sequence. x: [B, H, hd]; positions: [B]."""
-    return apply_rope(x[:, :, None, :], theta, positions[:, None, None])[:, :, 0, :]
+    return _rope_positions(x[:, :, None, :], positions[:, None], theta)[:, :, 0, :]
 
 
 def decode_step(
     cfg: LlamaConfig,
     params: Dict[str, Any],
-    cache: PagedKVCacheState,  # layer-stacked, updated in place
+    cache,                    # layer-stacked (or a group dict), updated in place
     tokens: torch.Tensor,     # [B] the tokens just sampled
     positions: torch.Tensor,  # [B] their absolute positions
-    page_ids: torch.Tensor,   # [B] page receiving each token's K/V
+    page_ids,                 # [B] page receiving each token's K/V
     slots: torch.Tensor,      # [B] slot within that page
     lengths: torch.Tensor,    # [B] context length INCLUDING this token
-    tables: torch.Tensor,     # [B, max_pages]
-) -> Tuple[torch.Tensor, PagedKVCacheState]:
+    tables,                   # [B, max_pages]
+    *,
+    boundary_tokens: Optional[int] = None,
+) -> Tuple[torch.Tensor, Any]:
     """One decode step for a batch of sequences -> (logits [B, vocab], cache).
 
     A hybrid cache (a group dict, make_cache_hybrid) takes group dicts of
     page_ids and tables (each group has its own pool); slots and lengths
-    follow from the positions and are shared."""
+    follow from the positions and are shared. A mixed cache or group
+    (make_cache_mixed, make_cache_hybrid_mixed) takes (pid8, pid4) and
+    (tables8, tables4) pairs and boundary_tokens: each lane's append goes to
+    the pool that owns its position (the other pool's scrap page takes its
+    copy) and attention merges the two partials by lse."""
     b = tokens.shape[0]
     hd = cfg.hd
     dense = functools.partial(qdense, mode=cfg.weight_quant_mode)
@@ -330,14 +399,21 @@ def decode_step(
         k = _rope_single(k.reshape(b, cfg.num_kv_heads, hd), positions, cfg.rope_theta)
         v = v.reshape(b, cfg.num_kv_heads, hd)
         stack, li = stacks[i]
-        append_tokens_batched(stack.layer(li), k, v, _g(page_ids, window), slots)
-        o = paged_decode_attention(
-            q, stack.k_pages, stack.v_pages, stack.k_scales, stack.v_scales,
-            lengths, _g(tables, window), sm_scale=cfg.sm_scale, window=window,
-            logit_softcap=cfg.logit_softcap,
-            attention_sinks=cfg.attention_sinks if window is not None else 0,
-            layer=li,
-        )
+        if isinstance(stack, MixedPagedKVState):
+            if boundary_tokens is None:
+                raise ValueError("a mixed-cache decode step needs boundary_tokens")
+            layer = stack.layer(li)
+            pid8, pid4 = _g(page_ids, window)
+            t8, t4 = _g(tables, window)
+            append_tokens_batched_mixed(layer, k, v, positions, boundary_tokens, pid8, pid4,
+                                        slots)
+            o = mixed_paged_decode_attention(q, layer, lengths, t8, t4, boundary_tokens,
+                                             **_attn_masks(cfg, window))
+        else:
+            append_tokens_batched(stack.layer(li), k, v, _g(page_ids, window), slots)
+            o = paged_decode_attention(
+                q, stack.k_pages, stack.v_pages, stack.k_scales, stack.v_scales,
+                lengths, _g(tables, window), layer=li, **_attn_masks(cfg, window))
         o = o.reshape(b, 1, cfg.num_heads * hd)
         x = _attn_residual(cfg, dense, p, x, o)
         x = _mlp_residual(cfg, dense, p, x)
@@ -348,20 +424,25 @@ def decode_step(
 def decode_loop(
     cfg: LlamaConfig,
     params: Dict[str, Any],
-    cache: PagedKVCacheState,  # layer-stacked
+    cache,                   # layer-stacked (or a group dict)
     tokens: torch.Tensor,    # [B] pending tokens (K/V not yet cached)
     lengths: torch.Tensor,   # [B] context length EXCLUDING the pending token
-    tables: torch.Tensor,    # [B, max_pages] covering lengths + n_steps slots; hybrid: per group
+    tables,                  # [B, max_pages] covering lengths + n_steps slots; hybrid: per group
     generator: Optional[torch.Generator] = None,  # used only when sampling
     *,
     n_steps: int,
     page_size: int,
     sampling: Optional[SamplingParams] = None,
     return_logits: bool = False,
+    boundary_tokens: Optional[int] = None,
 ):
     """Decode `n_steps` tokens per sequence on device: the sampled token
     feeds the next step and each step's (page, slot) comes from the block
-    table and the running length. The host pre-reserves the pages.
+    table and the running length. The host pre-reserves the pages. A mixed
+    (tables8, tables4) pair picks each lane's pool on the device (below =
+    position < boundary_tokens selects which table feeds the append, the
+    other pool gets scrap page 0), so a chunk crosses the boundary without
+    a host round-trip.
 
     Returns (tokens [n_steps, B], cache), plus logits [n_steps, B, vocab]
     with return_logits. tokens[i] is the token sampled after the i-th
@@ -369,14 +450,22 @@ def decode_loop(
     sampling = sampling or SamplingParams()
     toks, lens = tokens, lengths.long()
 
+    def take(t, idx):
+        return torch.gather(t.long(), 1, idx.clamp(0, t.shape[1] - 1)[:, None])[:, 0]
+
     def pids_of(t):
-        return torch.gather(t.long(), 1, (lens // page_size)[:, None])[:, 0]
+        if not isinstance(t, tuple):
+            return take(t, lens // page_size)
+        below = lens < boundary_tokens
+        return (torch.where(below, take(t[0], lens // page_size), 0),
+                torch.where(below, 0, take(t[1], torch.div(lens - boundary_tokens, page_size,
+                                                           rounding_mode="floor"))))
     out, all_logits = [], []
     for _ in range(n_steps):
         pids = ({k: pids_of(t) for k, t in tables.items()} if isinstance(tables, dict)
                 else pids_of(tables))
-        logits, cache = decode_step(cfg, params, cache, toks, lens, pids,
-                                    lens % page_size, lens + 1, tables)
+        logits, cache = decode_step(cfg, params, cache, toks, lens, pids, lens % page_size,
+                                    lens + 1, tables, boundary_tokens=boundary_tokens)
         toks = sample(logits, generator, sampling)
         out.append(toks)
         if return_logits:
@@ -387,17 +476,75 @@ def decode_loop(
     return torch.stack(out), cache
 
 
+def verify_step(
+    cfg: LlamaConfig,
+    params: Dict[str, Any],
+    cache,                      # layer-stacked (or a group dict), updated in place
+    tokens: torch.Tensor,       # [B, S] the pending token + S - 1 draft tokens
+    positions0: torch.Tensor,   # [B] absolute position of tokens[:, 0]
+    page_sched,                 # [B, S] page receiving token j's K/V; hybrid: per group
+    slot_sched: torch.Tensor,   # [B, S] slot within that page
+    tables,                     # [B, max_pages]; hybrid: per group
+    *,
+    page_size: int,
+) -> Tuple[torch.Tensor, Any]:
+    """Speculative decoding's verification: S tokens a sequence in one
+    forward. Their K/V are appended to the paged cache token by token (so
+    each page's scale is fitted by its slot-0 token, as plain decode fits
+    it; the slots are position-indexed, so a rejected draft's K/V is
+    overwritten after the host rolls back), then the queries attend from
+    the pages with per-sequence offsets (q_starts = positions0, lengths =
+    positions0 + S) through paged_prefill_attention.
+
+    Returns (logits [B, S, vocab], cache)."""
+    del page_size
+    b, S = tokens.shape
+    hd = cfg.hd
+    dense = functools.partial(qdense, mode=cfg.weight_quant_mode)
+    positions = positions0.long()[:, None] + torch.arange(S, device=tokens.device)[None, :]
+    lengths = (positions0 + S).to(torch.int32)
+    q_starts = positions0.to(torch.int32)
+    slot_sched = slot_sched.long()
+    stacks = layer_stacks(cfg, cache)
+    x = embed_tokens(cfg, params, tokens)  # [B, S, hid]
+    for i, window in enumerate(cfg.layer_windows):
+        p = layer_params(params["layers"], i)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_eps, cfg.rms_plus_one)
+        q, k, v = qkv_triple(cfg, dense, h, p)
+        q = q.reshape(b, S, cfg.num_heads, hd).transpose(1, 2)
+        k = k.reshape(b, S, cfg.num_kv_heads, hd).transpose(1, 2)
+        v = v.reshape(b, S, cfg.num_kv_heads, hd).transpose(1, 2)
+        q = _rope_positions(q, positions, cfg.rope_theta)
+        k = _rope_positions(k, positions, cfg.rope_theta)
+        stack, li = stacks[i]
+        if isinstance(stack, MixedPagedKVState):
+            raise ValueError("verify_step takes plain INT8 caches (speculation refuses mixed_kv)")
+        layer = stack.layer(li)
+        psched = _g(page_sched, window)
+        for j in range(S):
+            append_tokens_batched(layer, k[:, :, j], v[:, :, j], psched[:, j], slot_sched[:, j])
+        o = paged_prefill_attention(
+            q, layer.k_pages, layer.v_pages, layer.k_scales, layer.v_scales,
+            lengths, q_starts, _g(tables, window), **_attn_masks(cfg, window))
+        o = o.transpose(1, 2).reshape(b, S, cfg.num_heads * hd)
+        x = _attn_residual(cfg, dense, p, x, o)
+        x = _mlp_residual(cfg, dense, p, x)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
+    return final_logits(cfg, x, params["lm_head"]), cache
+
+
 # --- Mixed-precision KV (INT8 sinks + INT4 bulk, serving/mixed_kv.py) -------
 #
 # Positions below boundary_tokens live in an INT8 page pool, the rest
 # nibble-packed INT4; attention merges the two partial softmaxes exactly by
-# lse. The mode needs a uniform window pattern.
+# lse. The uniform-pattern cache below needs one window for every layer
+# (hybrid pools put the split on the full group: make_cache_hybrid_mixed).
 
 def ensure_mixed_supported(cfg: LlamaConfig) -> None:
     if len(set(cfg.layer_windows)) != 1:
         raise ValueError(
             "mixed KV needs a uniform window pattern (hybrid_kv covers per-layer "
-            "patterns; their composition is not supported yet)")
+            "patterns: make_cache_hybrid_mixed)")
 
 
 def make_cache_mixed(cfg: LlamaConfig, n8_pages: int, n4_pages: int, page_size: int,
@@ -424,148 +571,3 @@ def write_prefill_mixed(
     for i in range(cfg.num_layers):
         write_pages_mixed(cache.layer(i), k_all[i], v_all[i], page_ids8, page_ids4)
     return cache
-
-
-def decode_step_mixed(
-    cfg: LlamaConfig,
-    params: Dict[str, Any],
-    cache: MixedPagedKVState,  # layer-stacked, updated in place
-    tokens: torch.Tensor,      # [B] the tokens just sampled
-    positions: torch.Tensor,   # [B] their absolute positions
-    page_ids8: torch.Tensor,   # [B] int8 page owning the slot (or scrap)
-    page_ids4: torch.Tensor,   # [B] int4 page owning the slot (or scrap)
-    slots: torch.Tensor,       # [B]
-    lengths: torch.Tensor,     # [B] context length INCLUDING this token
-    tables8: torch.Tensor,     # [B, boundary_pages]
-    tables4: torch.Tensor,     # [B, max_pages4]
-    *,
-    boundary_tokens: int,
-) -> Tuple[torch.Tensor, MixedPagedKVState]:
-    """decode_step over the mixed cache: batched appends routed by
-    position (the other pool's scrap page takes each lane's copy) and the
-    two-partial attention. Returns (logits [B, vocab], cache)."""
-    ensure_mixed_supported(cfg)
-    b = tokens.shape[0]
-    hd = cfg.hd
-    w = cfg.layer_windows[0]
-    dense = functools.partial(qdense, mode=cfg.weight_quant_mode)
-    x = embed_tokens(cfg, params, tokens)[:, None, :]  # [B, 1, hid]
-    for i in range(cfg.num_layers):
-        p = layer_params(params["layers"], i)
-        h = rms_norm(x, p["attn_norm"], cfg.rms_eps, cfg.rms_plus_one)
-        q, k, v = qkv_triple(cfg, dense, h, p)
-        q = _rope_single(q.reshape(b, cfg.num_heads, hd), positions, cfg.rope_theta)
-        k = _rope_single(k.reshape(b, cfg.num_kv_heads, hd), positions, cfg.rope_theta)
-        v = v.reshape(b, cfg.num_kv_heads, hd)
-        layer = cache.layer(i)
-        append_tokens_batched_mixed(layer, k, v, positions, boundary_tokens, page_ids8,
-                                    page_ids4, slots)
-        o = mixed_paged_decode_attention(
-            q, layer, lengths, tables8, tables4, boundary_tokens, sm_scale=cfg.sm_scale,
-            window=w, logit_softcap=cfg.logit_softcap,
-            attention_sinks=cfg.attention_sinks if w is not None else 0)
-        o = o.reshape(b, 1, cfg.num_heads * hd)
-        x = _attn_residual(cfg, dense, p, x, o)
-        x = _mlp_residual(cfg, dense, p, x)
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
-    return final_logits(cfg, x[:, 0], params["lm_head"]), cache
-
-
-def prefill_chunk_mixed(
-    cfg: LlamaConfig,
-    params: Dict[str, Any],
-    cache: MixedPagedKVState,  # layer-stacked, updated in place
-    tokens: torch.Tensor,      # [1, C] one chunk, right-padded
-    chunk_start: int,          # multiple of page_size
-    table8: torch.Tensor,      # [boundary_pages]
-    table4: torch.Tensor,      # [max_pages4]
-    last_index: int,           # last REAL token index within the chunk
-    *,
-    page_size: int,
-    boundary_tokens: int,
-) -> Tuple[torch.Tensor, MixedPagedKVState]:
-    """prefill_chunk over the mixed cache. The chunk's pages below the
-    boundary are written INT8 and the rest INT4, split on the host (a
-    table index past the int4 table clips to its last slot, as the JAX
-    package's routed write does); the queries attend through
-    mixed_paged_prefill_attention. Returns (logits [1, vocab], cache)."""
-    ensure_mixed_supported(cfg)
-    b, C = tokens.shape
-    if b != 1:
-        raise ValueError("chunked prefill is per-sequence")
-    if chunk_start % page_size or C % page_size:
-        raise ValueError(f"chunk [{chunk_start}, +{C}) is not page-aligned ({page_size})")
-    hd = cfg.hd
-    w = cfg.layer_windows[0]
-    dev = tokens.device
-    dense = functools.partial(qdense, mode=cfg.weight_quant_mode)
-    bp = boundary_tokens // page_size
-    logical = range(chunk_start // page_size, chunk_start // page_size + C // page_size)
-    pid8 = table8[[i for i in logical if i < bp]]
-    pid4 = table4[[min(i - bp, table4.shape[0] - 1) for i in logical if i >= bp]]
-    positions = chunk_start + torch.arange(C, device=dev)
-    keep = (torch.arange(C, device=dev) <= last_index)[None, :, None]
-    lengths = torch.tensor([chunk_start + C], dtype=torch.int32, device=dev)
-    q_starts = torch.tensor([chunk_start], dtype=torch.int32, device=dev)
-    x = embed_tokens(cfg, params, tokens)
-    for i in range(cfg.num_layers):
-        p = layer_params(params["layers"], i)
-        h = rms_norm(x, p["attn_norm"], cfg.rms_eps, cfg.rms_plus_one)
-        q, k, v = qkv_triple(cfg, dense, h, p)
-        q = q.reshape(b, C, cfg.num_heads, hd).transpose(1, 2)
-        k = k.reshape(b, C, cfg.num_kv_heads, hd).transpose(1, 2)
-        v = v.reshape(b, C, cfg.num_kv_heads, hd).transpose(1, 2)
-        q = apply_rope(q, cfg.rope_theta, positions)
-        k = apply_rope(k, cfg.rope_theta, positions)
-        layer = cache.layer(i)
-        write_pages_mixed(layer, k[0] * keep, v[0] * keep, pid8, pid4)
-        o = mixed_paged_prefill_attention(
-            q, layer, lengths, q_starts, table8[None], table4[None], boundary_tokens,
-            sm_scale=cfg.sm_scale, window=w, logit_softcap=cfg.logit_softcap,
-            attention_sinks=cfg.attention_sinks if w is not None else 0)
-        o = o.transpose(1, 2).reshape(b, C, cfg.num_heads * hd)
-        x = _attn_residual(cfg, dense, p, x, o)
-        x = _mlp_residual(cfg, dense, p, x)
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
-    return final_logits(cfg, x[0, last_index], params["lm_head"])[None], cache
-
-
-def decode_loop_mixed(
-    cfg: LlamaConfig,
-    params: Dict[str, Any],
-    cache: MixedPagedKVState,  # layer-stacked
-    tokens: torch.Tensor,      # [B] pending tokens (K/V not yet cached)
-    lengths: torch.Tensor,     # [B] context EXCLUDING the pending token
-    tables8: torch.Tensor,     # [B, boundary_pages]
-    tables4: torch.Tensor,     # [B, max_pages4] covering lengths + n_steps
-    generator: Optional[torch.Generator] = None,  # used only when sampling
-    *,
-    n_steps: int,
-    page_size: int,
-    boundary_tokens: int,
-    sampling: Optional[SamplingParams] = None,
-):
-    """decode_loop over the mixed cache: each step picks the pool of every
-    lane's append on the device (below = position < boundary selects which
-    table feeds it; the other pool gets scrap page 0), so a chunk crosses
-    the boundary without a host round-trip. Returns (tokens [n_steps, B],
-    cache)."""
-    sampling = sampling or SamplingParams()
-    toks, lens = tokens, lengths.long()
-    t8, t4 = tables8.long(), tables4.long()
-
-    def take(t, idx):
-        return torch.gather(t, 1, idx.clamp(0, t.shape[1] - 1)[:, None])[:, 0]
-    out = []
-    for _ in range(n_steps):
-        below = lens < boundary_tokens
-        pid8 = torch.where(below, take(t8, lens // page_size), 0)
-        pid4 = torch.where(below, 0, take(t4, torch.div(lens - boundary_tokens, page_size,
-                                                         rounding_mode="floor")))
-        logits, cache = decode_step_mixed(cfg, params, cache, toks, lens, pid8, pid4,
-                                          lens % page_size, lens + 1, tables8, tables4,
-                                          boundary_tokens=boundary_tokens)
-        toks = sample(logits, generator, sampling)
-        out.append(toks)
-        lens = lens + 1
-    return torch.stack(out), cache

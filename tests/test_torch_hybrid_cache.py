@@ -260,3 +260,47 @@ def test_prefill_chunk_hybrid_matches_jax():
                                  torch.from_numpy(table1))
     assert torch.equal(l1, l2)
     _assert_pages_match_single(tc, tcaches, single, tables, table1, n_pages + 1)
+
+
+@pytest.mark.parametrize("layout", ["single", "grouped"])
+def test_verify_step_matches_jax(layout):
+    """verify_step (three tokens appended at positions 9-11, past a page
+    boundary, then attended with the sequence's offset) on a single pool
+    and on the group dicts: logits within 1e-2 of JAX's verify_step on the
+    same cache and inputs, the grouped ones bit-exact with the port's
+    single pool's, pages included (the port of the JAX package's
+    test_verify_step_grouped_matches_single)."""
+    models = hybrid_models((8, None, 8, None))
+    jc, jp, tc, tp = models
+    n, S = 9, 3
+    s = _setup(models, n)
+    draft = np.random.default_rng(3).integers(0, jc.vocab_size, (1, S)).astype(np.int32)
+    pos = n + np.arange(S)
+    slot_sched = (pos % PAGE).astype(np.int32)[None]
+    tables = s["tables"]
+    sched = {k: t[0, pos // PAGE][None].astype(np.int32) for k, t in tables.items()}
+    sched1 = s["table1"][0, pos // PAGE][None].astype(np.int32)
+    if layout == "single":
+        jcache = jad.write_prefill(jc, jad.make_cache(jc, 32, PAGE), jnp.asarray(s["k_all"]),
+                                   jnp.asarray(s["v_all"]),
+                                   jnp.arange(s["n_pages"], dtype=jnp.int32), page_size=PAGE)
+        jargs = (jcache, jnp.asarray(sched1), jnp.asarray(s["table1"]))
+    else:
+        jargs = (s["jcaches"], {k: jnp.asarray(v) for k, v in sched.items()},
+                 {k: jnp.asarray(t) for k, t in tables.items()})
+    jlog, _ = jad.verify_step(jc, jp, jargs[0], jnp.asarray(draft), jnp.asarray([n], jnp.int32),
+                              jargs[1], jnp.asarray(slot_sched), jargs[2], page_size=PAGE)
+    tok, pos0, slots = _i32(draft, [n], slot_sched)
+    l1, single = tad.verify_step(tc, tp, s["single"], tok, pos0, torch.from_numpy(sched1), slots,
+                                 torch.from_numpy(s["table1"]), page_size=PAGE)
+    got = l1
+    if layout == "grouped":
+        got, tcaches = tad.verify_step(tc, tp, s["tcaches"], tok, pos0,
+                                       {k: torch.from_numpy(v) for k, v in sched.items()}, slots,
+                                       {k: torch.from_numpy(t) for k, t in tables.items()},
+                                       page_size=PAGE)
+        assert torch.equal(got, l1)
+        _assert_pages_match_single(tc, tcaches, single, tables, s["table1"],
+                                   -(-(n + S) // PAGE))
+    assert got.shape == (1, S, jc.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jlog), rtol=1e-2, atol=1e-2)

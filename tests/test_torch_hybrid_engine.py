@@ -188,6 +188,29 @@ def test_engine_hybrid_pool_errors(gemma_pattern):
     assert eng.allocs["full"].free_pages == 63
 
 
+@pytest.mark.parametrize("margin", [0, 6])
+def test_trim_windows_margin_matches_jax(gemma_pattern, margin):
+    """_trim_windows(margin) on a 30-token sequence admitted into the
+    hybrid pools (no trim at admission): the tables left in each group,
+    the free counts and pages_trimmed equal JAX's; margin keeps its
+    positions alive behind the window besides."""
+    jc, jp, tc, tp = gemma_pattern
+    cfg = dict(BASE, hybrid_kv=True)
+    engines = (JEngine(jc, jp, JEngineConfig(**cfg)),
+               Engine(tc, tp, EngineConfig(**cfg), device="cpu"))
+    kept = []
+    for eng in engines:
+        eng._admit_all(0, 30)
+        eng.active = [type("Seq", (), {"seq_id": 0})()]
+        eng._trim_windows(margin)
+        kept.append(({k: list(a.tables[0]) for k, a in eng.allocs.items()},
+                     {k: a.free_pages for k, a in eng.allocs.items()},
+                     eng.metrics.counter("pages_trimmed")))
+    assert kept[0] == kept[1]
+    live = sum(p is not None for p in kept[1][0]["w8"])
+    assert live == len({p // PAGE for p in range(30 - 8 - margin, 30)})
+
+
 def test_hybrid_engine_composes_with_w4_weights():
     """INT4 weights (group 32) with hybrid pools: the streams equal the
     shared-pool w4 engine's."""
@@ -209,3 +232,43 @@ def test_numpy_params_reach_both_packages():
     assert len(flat) == len(tflat) > 0
     for a, b in zip(flat, tflat):
         np.testing.assert_array_equal(a, b.numpy())
+
+
+@pytest.fixture(scope="module")
+def spec_hybrid():
+    """Greedy speculation over hybrid pools on both sides (a pattern target
+    and a pattern draft): JAX's SpecDecodeEngine at k = 3, and the port's
+    plain shared-pool engine on the same prompts."""
+    from quantizedmha_tpu.serving.speculative import SpecConfig as JSpecConfig
+    from quantizedmha_tpu.serving.speculative import SpecDecodeEngine as JSpecDecodeEngine
+    target = hybrid_models((8, None, 8, None))
+    draft = hybrid_models((8, None), seed=7)
+    prompts = _prompts(5, (6, 9))
+    kw = dict(BASE, max_new_tokens=10, hybrid_kv=True, hybrid_pages={"w8": 24})
+    jeng = JSpecDecodeEngine(target[0], target[1], draft[0], draft[1], JEngineConfig(**kw),
+                             JSpecConfig(num_draft_tokens=3))
+    for p in prompts:
+        jeng.add_request(list(p))
+    plain, _, _ = _serve(Engine, target[2], target[3], prompts, max_new_tokens=10)
+    return target, draft, prompts, kw, jeng.run(), plain
+
+
+@pytest.mark.parametrize("k", [1, 3, 5])
+def test_spec_engine_composes_with_hybrid(spec_hybrid, k):
+    """Greedy speculation over a hybrid-pool target and a hybrid-pool draft
+    emits the plain shared-pool engine's tokens and JAX's speculative
+    engine's, at every k: speculation is lossless and the pools' layout
+    invisible. Both sides' sliding groups trim and every pool drains."""
+    from quantizedmha_tpu_torch.serving.speculative import SpecConfig, SpecDecodeEngine
+    target, draft, prompts, kw, want, plain = spec_hybrid
+    eng = SpecDecodeEngine(target[2], target[3], draft[2], draft[3], EngineConfig(**kw),
+                           SpecConfig(num_draft_tokens=k), device="cpu")
+    assert eng.hybrid and eng.draft_hybrid
+    assert set(eng.allocs) == set(eng.draft_allocs) == {"w8", "full"}
+    for p in prompts:
+        eng.add_request(list(p))
+    got = eng.run()
+    assert got == want and got == plain
+    assert eng.metrics.counter("pages_trimmed") > 0
+    for a in list(eng.allocs.values()) + list(eng.draft_allocs.values()):
+        assert not a.tables and a.free_pages == a.num_pages - 1

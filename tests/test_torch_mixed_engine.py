@@ -189,10 +189,15 @@ def test_mixed_gates_raise_like_jax(models, case):
 
 
 def test_mixed_with_hybrid_stays_refused():
-    """mixed_kv with hybrid_kv over two window groups (hybrid x mixed) is
-    refused; on a uniform pattern hybrid_kv would be a no-op."""
+    """mixed_kv with hybrid_kv over two window groups builds, as in JAX:
+    the full group's pool is the mixed pair and the sliding group's plain
+    INT8; with prefix_cache the composition is refused, as in JAX."""
     tc = tl.LlamaConfig.tiny(num_layers=2, dtype=torch.float32, window_pattern=(8, None))
     tp = tl.init_params(tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Engine(tc, tp, dataclasses.replace(_ecfg(EngineConfig, MIXED), hybrid_kv=True),
-               device="cpu")
+    ecfg = dataclasses.replace(_ecfg(EngineConfig, MIXED), hybrid_kv=True)
+    eng = Engine(tc, tp, ecfg, device="cpu")
+    assert eng.hybrid_mixed and not eng.mixed
+    assert type(eng.allocs["full"]).__name__ == "MixedPageAllocator"
+    assert type(eng.allocs["w8"]).__name__ == "PageAllocator"
+    with pytest.raises(ValueError, match="prefix_cache"):
+        Engine(tc, tp, dataclasses.replace(ecfg, prefix_cache=True), device="cpu")
