@@ -64,6 +64,19 @@ result line:
            2048 random tokens through prefill_at, its ms, TFLOP/s and share
            of the tensor cores' bf16 speed of light (<= 100%), every layer's
            attention through the int8-P kernel (exact launches).
+  serve_w8a8  the serve phase's model and traffic with
+           weight_quant_mode="w8a8" (serve's INT8 params, or the same seed's):
+           each activation row quantized to int8, int8 x int8 products on
+           torch._int_mm. First every W8A8_MATMULS shape (rows 1-2048 against
+           Llama-3-8B's (in, out) pairs and an INT8 lm_head's), f32 and bf16
+           x with a zero row and a row of rounding ties, bit for bit: the row
+           quantization against the CPU's, the int32 product against the
+           exact plain one, the output; the product's times beside w8a16's
+           and a row-major weight's. Gates: exact launches of rows 1 and 3,
+           7 w8a8 products a layer a forward, every token, pools drained,
+           the last-token logits within 0.25 std of the reference-attention
+           model; then the 2048-token prefill bench in w8a8 beside serve's
+           w8a16 figure, and w8a8's logits against w8a16's (printed).
   serve_w4 "llama3-8b-shape-int4-lmh8": the same model's random weights
            quantized to INT4 (group 128, halves packing, wq|wk|wv and
            w_gate|w_up fused) with an int8 lm_head, served by the serving
@@ -166,6 +179,22 @@ result line:
            step within 2^-4 of its largest entry of the same step through
            the float golden (attention_impl="reference"). Prints the losses,
            ms a step, tokens/s, the share of weights changed, peak memory.
+  parallel ring and context parallelism at Llama-3-8B's attention width
+           (B=1, Hq=32, Hkv=8, d=128, bf16, causal, 32768 tokens): 4 ranks'
+           steps driven in one process in ring order (simulate_ring, no
+           process group): ring_attention (row 5 a step), at window 4096
+           too, ring_attention_int8 (block_kv 512, row 1; the shards'
+           payloads and scales equal the unsharded ones bit for bit),
+           context_parallel_attention with q the last 2048 rows; the INT8
+           ring at the reference workload (N=8192, h=32, d=32, f32, causal
+           and not: row 2). Each partial finite and within its kernel
+           tolerance, each ring within its steps' tolerances merged of the
+           plain ring, and of the kernel over the unsharded sequence; a
+           planted fault (kv offsets from rank idx + step) must fail. Then
+           the public entries and head_parallel_attention (both kernels) on a
+           one-rank NCCL group, bit for bit the unsharded kernel; the group
+           is destroyed. The rotation over NCCL between cards is not checked
+           on one card.
   faults   each line of PLANTED_FAULTS planted in a copy of csrc/, the
            kernel sources that the changed file is part of (flash_fwd.cu,
            paged_prefill.cu, paged_decode.cu, flash_bwd.cu, w4_matmul.cu,
@@ -178,9 +207,10 @@ result line:
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 zeroed just before each main path (each solve rung, the harness run,
-serve, serve's prefill bench, each serve_w4 batch, serve_flash,
-serve_mixed, serve_hybrid, serve_hybrid_mixed, serve_spec's four runs,
-train's steps) runs and read just after,
+serve, serve's prefill bench, serve_w8a8 and its prefill bench, each
+serve_w4 batch, serve_flash, serve_mixed, serve_hybrid, serve_hybrid_mixed,
+serve_spec's four runs, train's steps, each of parallel's rings and its
+one-rank group) runs and read just after,
 and a kernel of that path that never launched fails the run. The last
 lines are the kernels summary, the card's name and power limit, and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -204,8 +234,9 @@ REFERENCE_L4_MS = 7.70  # the reference study's fa_tc_int8_b on an NVIDIA L4
 SOLVE_REL_RMS_TOL = 0.03  # int8 solve vs the float golden (phase_solve)
 PREFILL_BENCH_LEN = 2048  # serving_bench --prefill's prompt (phase_serve)
 
-PHASES = ("build", "kernels", "solve", "harness", "serve", "serve_w4", "serve_flash",
-          "serve_mixed", "serve_hybrid", "serve_hybrid_mixed", "serve_spec", "train", "faults")
+PHASES = ("build", "kernels", "solve", "harness", "serve", "serve_w8a8", "serve_w4",
+          "serve_flash", "serve_mixed", "serve_hybrid", "serve_hybrid_mixed", "serve_spec",
+          "train", "parallel", "faults")
 
 
 def emit(obj) -> None:
@@ -3148,6 +3179,9 @@ def phase_serve(st):
         emit({"phase": "serve_prefill_profile", "prefill_len": PREFILL_BENCH_LEN,
               **_profile_prefill(lambda: llama_adapter.prefill_at(
                   cfg, params, bench_toks, PREFILL_BENCH_LEN - 1))})
+    if st.get("keep_serve_params"):  # serve_w8a8 serves the same params in w8a8
+        st["serve_params"] = params
+    st["serve_prefill_ms"] = prefill["prefill_ms"]
     emit({"phase": "serve", "ok": ok, "model": "llama3_8b", "layers": cfg.num_layers,
           "weights_gb": wbytes / 1e9, "init_s": init_s,
           "requests": batch, "prompt_len": prompt_len, "max_new": max_new,
@@ -3161,6 +3195,296 @@ def phase_serve(st):
                             "launches_expected": prefill_want}})
     if not ok:
         raise AssertionError("serve phase failed its checks")
+
+
+# The w8a8 products of Llama-3-8B: rows 1-8 (decode), 17 (the least
+# torch._int_mm takes unpadded), 256 (serve's prefill) and 2048 (the prefill
+# bench) against (in, out) of wq, wk|wv, w_gate|w_up, w_down and an INT8
+# lm_head; timed at decode's 8 rows and the bench's 2048.
+W8A8_MATMULS = dict(rows=(1, 8, 17, 256, 2048), timed_rows=(8, 2048),
+                    shapes=((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                            (4096, 128256)))
+
+
+def _w8a8_rows(g, rows, in_dim, dtype):
+    """Random activation rows, a row of zeros (the 1e-8 clamp) and a last
+    row whose max-abs is 127 (row scale 1.0) with the rest on halves, so
+    x / row_scale lands on rounding ties."""
+    import torch
+    x = torch.randn((rows, in_dim), generator=g, device="cuda") * 2.0
+    if rows > 1:
+        x[0] = 0.0
+    tie = (torch.arange(in_dim, device="cuda") % 9 - 4).float() + 0.5
+    tie[0] = 127.0
+    x[-1] = tie
+    return x.to(dtype)
+
+
+def _int_mm_checks():
+    """w8a8's route on the card (quant/weights.py: quantize_rows, then
+    torch._int_mm through _int_mm_padded) held bit for bit at every
+    W8A8_MATMULS shape, f32 and bf16 x: the row quantization against the
+    CPU's (exact division), the int32 product against the exact plain
+    product (float64 sums), the output against the plain product scaled as
+    qdense scales it. Then the times at the timed rows: qdense w8a8 and its
+    parts, torch._int_mm on a row-major copy of the weight (the layout
+    quantize_weight does not store), qdense w8a16 and the plain product."""
+    import torch
+    from quantizedmha_tpu_torch.quant import weights as tw
+    g = torch.Generator(device="cuda").manual_seed(18)
+    cases, failed, timed = 0, [], []
+    for in_dim, out_dim in W8A8_MATMULS["shapes"]:
+        w = tw.quantize_weight(torch.randn((in_dim, out_dim), generator=g, device="cuda") * 0.02)
+        for rows in W8A8_MATMULS["rows"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = _w8a8_rows(g, rows, in_dim, dtype)
+                xq, row_scale = tw.quantize_rows(x)
+                cpu_xq, cpu_scale = tw.quantize_rows(x.cpu())
+                acc = tw._int_mm_padded(xq, w.values)
+                ref = tw._w8a8_plain(xq, w.values)
+                out = tw.qdense(x, w, mode="w8a8")
+                want = (ref.float() * row_scale * w.scale).to(dtype)
+                checks = {"payload": torch.equal(xq.cpu(), cpu_xq),
+                          "row_scale": torch.equal(row_scale.cpu(), cpu_scale),
+                          "int32": torch.equal(acc, ref), "out": torch.equal(out, want)}
+                cases += 1
+                if not all(checks.values()):
+                    failed.append({"rows": rows, "in": in_dim, "out": out_dim,
+                                   "x": str(dtype), **checks})
+        w_row_major = w.values.contiguous()
+        for rows in W8A8_MATMULS["timed_rows"]:
+            x = _w8a8_rows(g, rows, in_dim, torch.bfloat16)
+            xq, _ = tw.quantize_rows(x)
+            padded = torch.nn.functional.pad(xq, (0, 0, 0, max(0, tw._INT_MM_MIN_ROWS - rows)))
+            nbytes = rows * in_dim * 2 + in_dim * out_dim + out_dim * 4 + rows * out_dim * 2
+            bms, by = bound(nbytes, {"int8": 2 * rows * in_dim * out_dim})
+            timed.append({
+                "rows": rows, "in": in_dim, "out": out_dim,
+                "w8a8_ms": cuda_ms(lambda: tw.qdense(x, w, mode="w8a8"), iters=20),
+                "quantize_rows_ms": cuda_ms(lambda: tw.quantize_rows(x), iters=20),
+                "int_mm_ms": cuda_ms(lambda: tw._int_mm_padded(xq, w.values), iters=20),
+                "int_mm_row_major_ms": cuda_ms(lambda: torch._int_mm(padded, w_row_major),
+                                               iters=20),
+                "w8a16_ms": cuda_ms(lambda: tw.qdense(x, w, mode="w8a16"), iters=20),
+                "plain_ms": cuda_ms(lambda: tw._w8a8_plain(xq, w.values), iters=2, warmup=1),
+                "bound_ms": bms, "bound_by": by})
+        del w, w_row_major
+        torch.cuda.empty_cache()
+    return {"cases": cases, "failed": failed, "timed": timed}
+
+
+class _CountCalls:
+    """Counts the calls of a module attribute for the length of a `with`
+    (the engine reaches it through the module, so the wrapper sees every
+    call), and restores it after."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.orig(*a, **kw)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _logit_distance(a, b):
+    """max |a - b| / std(b), the serve phases' logit distance."""
+    return ((a - b).abs().max() / b.std()).item()
+
+
+def _w8a8_logit_gates(cfg, params, toks):
+    """The w8a8 model's last-token prefill logits, held (1) bit for bit to
+    the same model with every int8 product taken by the exact plain product
+    (float64 sums) in place of torch._int_mm, and (2) to the same model
+    with the float reference attention within 0.25 std (the serve phase's
+    budget for the INT8 attention) plus the golden's own activation
+    quantization noise: its distance from the golden without it (the
+    reference-attention model in w8a16, the same INT8 weights). w8a8's
+    per-row rounding amplifies any small change of its input (on these
+    random weights a 2^-7 nudge of the embeddings moves the logits by
+    0.20-0.34 std at 1-32 layers, w8a16's by 0.06-0.11), so a golden with
+    float attention sits that much off; the formula itself is held bit for
+    bit by (1), by _int_mm_checks and by the CPU tests against JAX.
+    Two faults planted at run time must each fail a gate: the row scale
+    dropped from qdense's output, and the row scale divided by 127 through
+    the reciprocal (PyTorch's CUDA division by a Python scalar) against the
+    CPU's row quantization."""
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.quant import weights as tw
+    from quantizedmha_tpu_torch.serving import llama_adapter
+
+    def last_logits():
+        return llama_adapter.prefill_at(cfg, params, toks, toks.shape[1] - 1)[0]
+
+    logits = last_logits()
+    exact_product = tw._int_mm_padded
+    tw._int_mm_padded = tw._w8a8_plain
+    try:
+        plain = last_logits()
+    finally:
+        tw._int_mm_padded = exact_product
+    ref_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    ref = llama.forward(ref_cfg, params, toks)[:, -1]
+    ref16 = llama.forward(dataclasses.replace(ref_cfg, weight_quant_mode="w8a16"),
+                          params, toks)[:, -1]
+    w8a16 = llama_adapter.prefill_at(dataclasses.replace(cfg, weight_quant_mode="w8a16"),
+                                     params, toks, toks.shape[1] - 1)[0]
+    golden_noise = _logit_distance(ref, ref16)
+    tol = 0.25 + golden_noise
+    rel = _logit_distance(logits, ref)
+
+    w8a8 = tw._w8a8
+    tw._w8a8 = lambda x, w: (w8a8(x, w) / tw.quantize_rows(x)[1]).to(x.dtype)
+    try:
+        no_row_scale = _logit_distance(last_logits(), ref)
+    finally:
+        tw._w8a8 = w8a8
+    x = _w8a8_rows(torch.Generator(device="cuda").manual_seed(7), 2048, 4096, torch.bfloat16)
+    true_div = tw.true_div
+    tw.true_div = lambda t, c: t / c
+    try:
+        reciprocal_equal = all(torch.equal(a.cpu(), b) for a, b in zip(
+            tw.quantize_rows(x), tw.quantize_rows(x.cpu())))
+    finally:
+        tw.true_div = true_div
+    faults = {"no_row_scale": {"distance": no_row_scale, "caught": no_row_scale > tol},
+              "reciprocal_row_scale": {"equal_cpu": reciprocal_equal,
+                                       "caught": not reciprocal_equal}}
+    res = {"bit_equal_exact_product": torch.equal(logits, plain),
+           "rel_err_vs_reference": rel, "rel_err_tol": tol,
+           "reference_w8a8_vs_w8a16": golden_noise,
+           "rms_vs_reference": ((logits - ref).pow(2).mean().sqrt() / ref.std()).item(),
+           "rel_err_vs_w8a16_same_attention": _logit_distance(logits, w8a16),
+           "finite": bool(torch.isfinite(logits).all()), "planted_faults": faults}
+    res["ok"] = (res["bit_equal_exact_product"] and res["finite"] and rel <= tol
+                 and all(f["caught"] for f in faults.values()))
+    return res
+
+
+def phase_serve_w8a8(st):
+    import numpy as np
+    import torch
+    from quantizedmha_tpu_torch.harness import serving_bench
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.quant import weights as tw
+    from quantizedmha_tpu_torch.serving import llama_adapter
+    from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
+
+    mm = _int_mm_checks()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), attention_impl="flash_int8",
+                              weight_quant_mode="w8a8")
+    params = st.pop("serve_params", None)
+    if params is None:  # serve did not run in this call: its params, from its seed
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = tw.quantize_llama_params(llama.init_params(cfg, gen, device="cuda"), bits=8)
+        torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    batch, prompt_len, max_new, chunk, page = 8, 256, 32, 8, 128
+    mpps = -(-(prompt_len + max_new + chunk + 1) // page)
+    ecfg = EngineConfig(num_pages=batch * mpps + 2, page_size=page, max_batch=batch,
+                        max_pages_per_seq=mpps, prefill_buckets=(prompt_len,),
+                        max_new_tokens=max_new, decode_chunk=chunk)
+    eng = Engine(cfg, params, ecfg, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len).tolist() for _ in range(batch)]
+    eng.add_request(prompts[0][:100], max_new=chunk + 1)  # warm-up, outside the count
+    eng.run()
+    eng.finished.clear()
+
+    for kern in (fa8.FLASH_INT8_P, fa8.FLASH_BF16_P, dec.PAGED_DECODE):
+        kern.reset()
+    admitted0 = eng.metrics.counter("requests_admitted")
+    steps0 = eng.metrics.counter("decode_steps")
+    with _CountCalls(tw, "_int_mm_padded") as int_mm:
+        rids = [eng.add_request(p, max_new=max_new) for p in prompts]
+        t0 = time.perf_counter()
+        eng.step()  # 8 admissions (prefills) + the first fused chunk
+        first_step_s = time.perf_counter() - t0
+        toks0 = eng.metrics.counter("tokens_generated")
+        sd0 = eng.metrics.counter("decode_steps")
+        t0 = time.perf_counter()
+        results = eng.run()
+        dt = time.perf_counter() - t0
+        toks = eng.metrics.counter("tokens_generated") - toks0
+        steps = eng.metrics.counter("decode_steps") - sd0
+        before = eng.metrics.counter("tokens_generated")
+        t1 = time.perf_counter()
+        eng.add_request(prompts[1], max_new=max_new)
+        while eng.metrics.counter("tokens_generated") == before and (eng.queue or eng.active):
+            eng.step()
+        ttft = time.perf_counter() - t1
+        eng.run()
+    launches = {"flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P.launches,
+                "flash_int8_fwd[bf16_p]": fa8.FLASH_BF16_P.launches,
+                "paged_decode": dec.PAGED_DECODE.launches}
+    admitted = eng.metrics.counter("requests_admitted") - admitted0
+    decode_steps = eng.metrics.counter("decode_steps") - steps0
+    want = {"flash_int8_fwd[int8_p]": cfg.num_layers * admitted, "flash_int8_fwd[bf16_p]": 0,
+            "paged_decode": cfg.num_layers * decode_steps}
+    # every forward runs the seven layer matmuls of each layer in w8a8
+    int_mm_want = 7 * cfg.num_layers * (admitted + decode_steps)
+    for name in ("flash_int8_fwd[int8_p]", "paged_decode"):
+        st["launches"][name] = st["launches"].get(name, 0) + launches[name]
+    lens_ok = all(len(results.get(r, [])) == max_new for r in rids)
+    drained = eng.alloc.free_pages == ecfg.num_pages - 1
+
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gates = _w8a8_logit_gates(cfg, params, torch.tensor([prompts[2]], dtype=torch.int32,
+                                                        device="cuda"))
+    ok = (not mm["failed"] and launches == want and int_mm.calls == int_mm_want and lens_ok
+          and drained and not eng.failed and gates["ok"])
+
+    torch.cuda.empty_cache()
+    fa8.FLASH_INT8_P.reset()
+    fa8.FLASH_BF16_P.reset()
+    prefill = serving_bench.run_prefill_bench(cfg, params, prompt_len=PREFILL_BENCH_LEN)
+    torch.cuda.synchronize()
+    timing = serving_bench.PREFILL_TIMING
+    prefill_launches = {"flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P.launches,
+                        "flash_int8_fwd[bf16_p]": fa8.FLASH_BF16_P.launches}
+    prefill_want = {"flash_int8_fwd[int8_p]": cfg.num_layers * (
+                        timing["warmup"] + timing["runs"] * timing["repeats"]),
+                    "flash_int8_fwd[bf16_p]": 0}
+    st["launches"]["flash_int8_fwd[int8_p]"] += prefill_launches["flash_int8_fwd[int8_p]"]
+    prefill_ok = (prefill_launches == prefill_want and prefill["prefill_ms"] > 0
+                  and 0 < prefill["prefill_pct_mxu_sol"] <= 100)
+    ok = ok and prefill_ok
+    if st.get("profile"):
+        bench_toks = torch.as_tensor(
+            np.random.default_rng(0).integers(1, cfg.vocab_size, (1, PREFILL_BENCH_LEN)),
+            dtype=torch.int32, device="cuda")
+        emit({"phase": "serve_w8a8_prefill_profile", "prefill_len": PREFILL_BENCH_LEN,
+              **_profile_prefill(lambda: llama_adapter.prefill_at(
+                  cfg, params, bench_toks, PREFILL_BENCH_LEN - 1))})
+    emit({"phase": "serve_w8a8", "ok": ok, "model": "llama3_8b", "layers": cfg.num_layers,
+          "weight_quant_mode": cfg.weight_quant_mode, "int_mm": mm,
+          "requests": batch, "prompt_len": prompt_len, "max_new": max_new,
+          "decode_chunk": chunk, "tokens_each": sorted({len(results.get(r, [])) for r in rids}),
+          "failed": eng.failed, "pools_drained": drained, "launches": launches,
+          "launches_expected": want, "int_mm_calls": int_mm.calls,
+          "int_mm_calls_expected": int_mm_want, "first_step_s": first_step_s,
+          "ttft_warm_s": ttft, "decode_tok_s": toks / dt,
+          "decode_ms_per_step": dt * 1e3 / max(steps, 1), "measured_tokens": toks,
+          "logit_gates": gates, "peak_mem_gb": peak_gb,
+          "prefill_bench": {**prefill, "ok": prefill_ok, "launches": prefill_launches,
+                            "launches_expected": prefill_want,
+                            "w8a16_prefill_ms_same_run": st.get("serve_prefill_ms")},
+          "gpu": st["gpu"]})
+    if not ok:
+        raise AssertionError("serve_w8a8 phase failed its checks")
 
 
 SERVE_FLASH = dict(bucketed=(256, 700, 1500, 2000), long=(5000, 7900), shared=4096,
@@ -4514,6 +4838,430 @@ def phase_serve_spec(st):
 # where lr·|g| passes half an ulp; the lm_head's target columns see
 # gradients ~ |x| / tokens ~ 5e-4, so lr 0.5 moves them while a step stays
 # small against the weights.
+def simulate_ring(q, k, v, n, *, int8=False, block_kv=512, on_partial=None, **kw):
+    """The ring attention of n ranks driven in one process, no process
+    group: q, k, v unsharded [b, h, S, d], cut into n shards; rank idx's
+    steps (parallel/ring.ring_step) are fed the K/V block of rank (idx -
+    step) mod n, the order the ring's rotation delivers them, and merged as
+    the ring merges them (the f32 accumulator, merge_two_partials, the last
+    step peeled). Returns the ranks' rows concatenated, bit for bit the
+    output of ring_attention[_int8] on n ranks. on_partial(idx, step, o,
+    lse) sees each step's partial."""
+    import torch
+    from quantizedmha_tpu_torch.parallel import ring
+    from quantizedmha_tpu_torch.parallel.combine import merge_two_partials
+    qs, ks, vs = ([c.contiguous() for c in x.chunk(n, dim=2)] for x in (q, k, v))
+    blocks = [ring.quantize_shard(ks[i], vs[i], block_kv) if int8 else (ks[i], vs[i])
+              for i in range(n)]
+    outs = []
+    for idx in range(n):
+        partial = ring.ring_step(qs[idx], idx=idx, n=n, kv_shard_len=ks[idx].shape[2],
+                                 int8=int8, **{"sm_scale": None, "causal": False,
+                                               "window": None, "logit_softcap": None,
+                                               "attention_sinks": 0, **kw})
+        o = torch.zeros(qs[idx].shape, dtype=torch.float32, device=q.device)
+        lse = torch.full(qs[idx].shape[:3], float("-inf"), dtype=torch.float32, device=q.device)
+        for step in range(n):
+            o_s, lse_s = partial(step, *blocks[(idx - step) % n])
+            if on_partial is not None:
+                on_partial(idx, step, o_s, lse_s)
+            o, lse = merge_two_partials(o, lse, o_s, lse_s)
+        outs.append(o.to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def simulate_context_parallel(q, k, v, n, *, seq_len=None, **kw):
+    """context_parallel_attention of n ranks in one process: each rank's
+    flash partial against its K/V shard at its global offsets, then the
+    merge of parallel/combine.merge_partial_attention with the two
+    all-reduces as a max and a sum over the ranks in rank order."""
+    import torch
+    from quantizedmha_tpu_torch.ops.flash_attention import flash_attention
+    ks, vs = ([c.contiguous() for c in x.chunk(n, dim=2)] for x in (k, v))
+    total = seq_len if seq_len is not None else k.shape[2]
+    parts = [flash_attention(q, ks[i], vs[i], save_residuals=True,
+                             q_offset=total - q.shape[2], kv_offset=i * ks[i].shape[2], **kw)
+             for i in range(n)]
+    lse = torch.stack([p[1].float() for p in parts])
+    m = lse.amax(dim=0)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(torch.where(torch.isfinite(lse), lse - m_safe, torch.full_like(lse, float("-inf"))))
+    l_sum, o_sum = w[0], parts[0][0].float() * w[0][..., None]
+    for i in range(1, n):
+        l_sum = l_sum + w[i]
+        o_sum = o_sum + parts[i][0].float() * w[i][..., None]
+    l_safe = torch.where(l_sum == 0.0, torch.ones_like(l_sum), l_sum)
+    return (o_sum / l_safe[..., None]).to(q.dtype)
+
+
+# Ring and context parallelism at Llama-3-8B's attention width: 4 ranks'
+# steps driven in one process (simulate_ring), 32768 tokens, 8192 a shard;
+# the INT8 ring's quant block divides the shard, so its payloads and scales
+# are the unsharded ones. The reference workload's INT8 ring runs row 2.
+PARALLEL = dict(ranks=4, seq=32768, Hq=32, Hkv=8, D=128, block_kv=512, suffix=2048,
+                window=4096, reference=dict(N=8192, h=32, d=32))
+
+
+def _merge_chain(parts, tols):
+    """Partials (o, lse) merged in order as the ring merges them (an f32
+    accumulator, merge_two_partials) and the merged output's tolerance
+    from theirs (tol_o, tol_lse) through merge_tolerance; a merged lse =
+    log(e^la + e^lb) moves by at most w_a d_a + w_b d_b."""
+    import torch
+    from quantizedmha_tpu_torch.parallel.combine import merge_two_partials
+    acc_o, acc_lse = parts[0][0].float(), parts[0][1].float()
+    t_o, t_lse = tols[0]
+    for (o, lse), (to, tl) in zip(parts[1:], tols[1:]):
+        new_o, new_lse = merge_two_partials(acc_o, acc_lse, o, lse)
+        t_o = merge_tolerance(new_o, (acc_lse, lse), (acc_o, o), (t_o, to), (t_lse, tl))
+        both = torch.logaddexp(acc_lse.double(), lse.double())
+        wa, wb = (torch.where(torch.isfinite(both) & torch.isfinite(x),
+                              torch.exp(x.double() - both), torch.zeros_like(both))
+                  for x in (acc_lse, lse))
+        t_lse = wa * t_lse + wb * tl
+        acc_o, acc_lse = new_o, new_lse
+    return acc_o, acc_lse, t_o
+
+
+def _visible_keys(q_pos, k0, n_keys, causal):
+    """Keys of [k0, k0 + n_keys) that a row at global position q_pos sees."""
+    import torch
+    if not causal:
+        return torch.full_like(q_pos, n_keys)
+    return (q_pos - k0 + 1).clamp(0, n_keys)
+
+
+def _int8_plain(q, k_i8, ks, v_i8, vs, q_offset, kv_offset, *, causal, mode):
+    """The INT8 kernel's plain version with its state: (o, lse, l, tol_o,
+    tol_lse), the tolerances flash_tolerances gives its kernel."""
+    import math
+    import torch
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    block_kv = k_i8.shape[2] // ks.shape[-1]
+    offsets = fa8._offsets(q_offset, kv_offset, q.shape[0], q.device)
+    acc, m, l = fa8._flash_int8_plain_state(
+        q, k_i8, ks, v_i8, vs, offsets, sm_scale=q.shape[-1] ** -0.5, causal=causal,
+        kv_len=k_i8.shape[2], block_kv=block_kv, scale_clamp=1e-8, p_scale=127.0,
+        window=None, softcap=None, sinks=0, mode=mode)
+    o = (acc * torch.where(l == 0.0, torch.ones_like(l), 1.0 / l)).to(q.dtype)
+    lse = torch.where(l > 0.0, m + torch.log(l) - math.log(127.0),
+                      torch.full_like(l, float("-inf")))[..., 0]
+    tol_o, tol_lse = flash_tolerances(o, lse, l, v_i8, vs, block_kv, mode)
+    return o, lse, l, tol_o, tol_lse
+
+
+def _float_plain(q, k, v, q_offset, kv_offset, *, causal, window):
+    """Row 5's plain version at these offsets: (o, lse, tol_o, tol_lse)."""
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    offsets = fa._offsets(q_offset, kv_offset, q.shape[0], q.device)
+    sm = q.shape[-1] ** -0.5
+    kw = dict(sm_scale=sm, causal=causal, block_kv=min(1024, k.shape[2]), window=window,
+              softcap=None, sinks=0)
+    o, lse = fa._flash_fwd_plain(q, k, v, offsets, save_residuals=True, **kw)
+    w_abs = fa._flash_fwd_plain(q, k, v.abs(), offsets, save_residuals=False, **kw)
+    tol_o, tol_lse = flash_fwd_tolerances(q, k, v, o, lse, w_abs, sm_scale=sm, softcap=None)
+    return o, lse, tol_o, tol_lse
+
+
+def _ring_case(name, q, k, v, *, int8, causal, window=None, block_kv=512):
+    """One ring of PARALLEL["ranks"] simulated ranks against its reference,
+    the kernel over the unsharded sequence (for INT8, the prequant kernel
+    over the unsharded payloads, which the shards' must equal bit for bit).
+
+    Gates: every partial finite in o (lse -inf only where a row sees no
+    key of the step's block) and within its kernel tolerance of its plain
+    version; the ring within tol_ring (the steps' tolerances merged,
+    _merge_chain) of the plain partials merged; the reference within its
+    own tolerance tol_ref of its plain version; the ring within 2 (tol_ring
+    + tol_ref) + requant of the reference. Each tolerance bounds its
+    kernel's distance from the same attention with unrounded P (it adds a
+    kernel's and a plain version's), hence the 2; requant bounds P rounded
+    against other running maxima: an int8 P is off by at most 0.5 a key
+    (0.5 max|v| n / l on each side, n the visible keys), a bf16 P by 2^-8
+    relatively, covered by the 2 (float) or 2^-5 max|v| (INT8 bf16 P).
+    Returns (result dict, ring output, reference output, gate tolerance)."""
+    import torch
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
+    from quantizedmha_tpu_torch.parallel import ring
+    n, S = PARALLEL["ranks"], q.shape[2]
+    shard = S // n
+    mode = 1 if q.shape[-1] <= 64 else 0
+    counters = ((fa8.FLASH_INT8_P if mode == 0 else fa8.FLASH_BF16_P,) if int8
+                else (fa.FLASH_FWD_BF16 if q.dtype == torch.bfloat16 else fa.FLASH_FWD_F32,))
+    kw = dict(causal=causal, window=window)
+    for c in counters:
+        c.reset()
+    partials = {}
+    t0 = time.perf_counter()
+    out = simulate_ring(q, k, v, n, int8=int8, block_kv=block_kv,
+                        on_partial=lambda i, s, o, lse: partials.__setitem__((i, s), (o, lse)),
+                        **kw)
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    launches = counters[0].launches
+    qs, ks_, vs_ = ([c.contiguous() for c in x.chunk(n, dim=2)] for x in (q, k, v))
+    blocks = [ring.quantize_shard(ks_[i], vs_[i], block_kv) for i in range(n)] if int8 else None
+    res = {"name": name, "launches": launches, "launches_expected": n * n,
+           "ring_wall_s": ring_s}
+    ratios, masked, nonfinite = [], 0, 0
+    q_pos_all = torch.arange(S, device=q.device, dtype=torch.float64)
+    ring_parts, ring_tol, requant_ring = [], [], []
+    for idx in range(n):
+        parts, tols, reqs = [], [], []
+        q_pos = q_pos_all[idx * shard:(idx + 1) * shard][None, None, :, None]
+        for step in range(n):
+            src = (idx - step) % n
+            o_k, lse_k = partials[(idx, step)]
+            nonfinite += int((~torch.isfinite(o_k)).sum()) + int(torch.isnan(lse_k).sum())
+            masked += int(bool(torch.isneginf(lse_k).all()))
+            if int8:
+                o_p, lse_p, l_p, to, tl = _int8_plain(qs[idx], *blocks[src], idx * shard,
+                                                      src * shard, causal=causal, mode=mode)
+                vmax = _int8_vmax(blocks[src][2], blocks[src][3], q.shape[1])
+                if mode == 0:
+                    l_d = l_p.double()
+                    vis = _visible_keys(q_pos, src * shard, shard, causal)
+                    reqs.append(torch.where(l_d > 0, 0.5 * vmax * vis / l_d,
+                                            torch.zeros_like(l_d)))
+            else:
+                o_p, lse_p, to, tl = _float_plain(qs[idx], ks_[src], vs_[src], idx * shard,
+                                                  src * shard, **kw)
+            ratios.append(max(err_over_tol(o_k, o_p, to), err_over_tol(lse_k, lse_p, tl)))
+            parts.append((o_p, lse_p))
+            tols.append((to, tl))
+        o_m, lse_m, t_m = _merge_chain(parts, tols)
+        if reqs:  # each step's bound, weighted as the merge weighs its output
+            requant_ring.append(sum(
+                torch.where(torch.isfinite(lse_p), torch.exp(lse_p.double() - lse_m.double()),
+                            torch.zeros_like(lse_m.double()))[..., None] * r
+                for (_, lse_p), r in zip(parts, reqs)))
+        if q.dtype == torch.bfloat16:
+            t_m = t_m + 2.0**-7 * (o_m.double().abs() + t_m)
+        ring_parts.append(o_m.to(q.dtype))
+        ring_tol.append(t_m)
+    plain_ring = torch.cat(ring_parts, dim=2)
+    tol_ring = torch.cat(ring_tol, dim=2)
+    # the reference: the kernel over the unsharded sequence, and its plain version
+    if int8:
+        k_i8, k_sc = quantize_kv_blocks(k, block_kv)
+        v_i8, v_sc = quantize_kv_blocks(v, block_kv)
+        whole = (k_i8, k_sc, v_i8, v_sc)
+        res["payloads_equal_unsharded"] = all(
+            torch.equal(torch.cat([b[j] for b in blocks], dim=2), whole[j]) for j in range(4))
+        entry = fa8.flash_attention_int8_prequant if mode == 0 else fa8.flash_attention_int8_t_prequant
+        ref_kw = {"block_kv": block_kv} if mode == 0 else {}
+        t0 = time.perf_counter()
+        ref = entry(q, *whole, causal=causal, **ref_kw)
+        torch.cuda.synchronize()
+        res["unsharded_kernel_wall_s"] = time.perf_counter() - t0
+        o_ref_p, _, l_ref, tol_ref, _ = _int8_plain(q, *whole, 0, 0, causal=causal, mode=mode)
+        vmax = _int8_vmax(v_i8, v_sc, q.shape[1])
+        if mode == 0:
+            vis = _visible_keys(q_pos_all[None, None, :, None], 0, S, causal)
+            l_d = l_ref.double()
+            requant = (torch.where(l_d > 0, 0.5 * vmax * vis / l_d, torch.zeros_like(l_d))
+                       + torch.cat(requant_ring, dim=2))
+        else:
+            requant = 2.0**-5 * vmax
+        ref_ratio = err_over_tol(ref, o_ref_p, tol_ref)
+    else:
+        offsets = fa._offsets(0, 0, q.shape[0], q.device)
+        ref, o_ref_p, ref_ratios, tol_ref, _, _ = _flash_fwd_check(q, k, v, offsets,
+                                                                   causal=causal, window=window)
+        ref_ratio = max(ref_ratios)
+        requant = 0.0
+    gate = 2.0 * (tol_ring + tol_ref) + requant
+    res.update({
+        "partials": len(partials), "partials_fully_masked": masked,
+        "nonfinite_in_partials": nonfinite,
+        "partial_err_over_tol": max(ratios),
+        "ring_vs_plain_err_over_tol": err_over_tol(out, plain_ring, tol_ring),
+        "reference_err_over_tol": ref_ratio,
+        "ring_vs_reference_err_over_tol": err_over_tol(out, ref, gate),
+        "max_abs_err_vs_reference": (out.float() - ref.float()).abs().max().item(),
+        "tolerance_range": [gate.min().item(), gate.max().item()],
+        "ring_tolerance_range": [tol_ring.min().item(), tol_ring.max().item()],
+        "output_finite": bool(torch.isfinite(out).all())})
+    res["ok"] = (launches == n * n and nonfinite == 0 and res["output_finite"]
+                 and max(res["partial_err_over_tol"], res["ring_vs_plain_err_over_tol"],
+                         ref_ratio, res["ring_vs_reference_err_over_tol"]) <= 1.0
+                 and res.get("payloads_equal_unsharded", True))
+    return res, out, ref, gate
+
+
+def _int8_vmax(v_i8, v_scales, heads):
+    """Each q head's max dequantized |v| over its kv head, [1, H, 1, 1]."""
+    from quantizedmha_tpu_torch.ops.quantize import dequantize_kv_blocks
+    block = v_i8.shape[2] // v_scales.shape[-1]
+    vmax = dequantize_kv_blocks(v_i8, v_scales, block).abs().amax(dim=(-2, -1))
+    return vmax.repeat_interleave(heads // v_i8.shape[1], dim=1)[:, :, None, None].double()
+
+
+def _cp_suffix_case(q, k, v):
+    """context_parallel_attention of PARALLEL["ranks"] simulated ranks with
+    q the sequence's last rows, against row 5 over the unsharded sequence
+    (end-aligned), gated as _ring_case gates a ring."""
+    import torch
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    n, S, Sq = PARALLEL["ranks"], k.shape[2], q.shape[2]
+    shard = S // n
+    fa.FLASH_FWD_BF16.reset()
+    out = simulate_context_parallel(q, k, v, n, causal=True)
+    torch.cuda.synchronize()
+    launches = fa.FLASH_FWD_BF16.launches
+    parts, tols = [], []
+    for r in range(n):
+        o_p, lse_p, to, tl = _float_plain(q, k[:, :, r * shard:(r + 1) * shard].contiguous(),
+                                          v[:, :, r * shard:(r + 1) * shard].contiguous(),
+                                          S - Sq, r * shard, causal=True, window=None)
+        parts.append((o_p, lse_p))
+        tols.append((to, tl))
+    o_m, _, t_m = _merge_chain(parts, tols)
+    t_m = t_m + 2.0**-7 * (o_m.double().abs() + t_m)
+    offsets = fa._offsets(S - Sq, 0, q.shape[0], q.device)
+    ref, _, ref_ratios, tol_ref, _, _ = _flash_fwd_check(q, k, v, offsets, causal=True)
+    gate = 2.0 * (t_m + tol_ref)
+    res = {"name": "context_parallel suffix", "launches": launches, "launches_expected": n,
+           "ranks_vs_plain_err_over_tol": err_over_tol(out, o_m.to(q.dtype), t_m),
+           "reference_err_over_tol": max(ref_ratios),
+           "vs_reference_err_over_tol": err_over_tol(out, ref, gate),
+           "max_abs_err_vs_reference": (out.float() - ref.float()).abs().max().item(),
+           "tolerance_range": [gate.min().item(), gate.max().item()],
+           "output_finite": bool(torch.isfinite(out).all())}
+    res["ok"] = (launches == n and res["output_finite"]
+                 and max(res["ranks_vs_plain_err_over_tol"], res["reference_err_over_tol"],
+                         res["vs_reference_err_over_tol"]) <= 1.0)
+    return res
+
+
+def _single_rank_groups(q, k, v):
+    """The public entries on a one-rank NCCL group (a FileStore in the build
+    directory): make_mesh((1,), ("cp",)) for ring_attention,
+    ring_attention_int8 and context_parallel_attention, a 1 x 1 ("dp",
+    "tp") mesh for head_parallel_attention with both kernels. With one rank
+    each is one launch of its kernel over the whole sequence and must equal
+    that kernel's output bit for bit. The group is destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+    from quantizedmha_tpu_torch.ops import cuda_lib
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.parallel import (context_parallel_attention,
+                                                 head_parallel_attention, make_mesh,
+                                                 ring_attention, ring_attention_int8)
+    from quantizedmha_tpu_torch.parallel.ring import quantize_shard
+    bkv = PARALLEL["block_kv"]
+    refs = {"ring_attention": fa.flash_attention(q, k, v, causal=True, save_residuals=True)[0],
+            "ring_attention_int8": fa8.flash_attention_int8_prequant(
+                q, *quantize_shard(k, v, bkv), block_kv=bkv, causal=True,
+                save_residuals=True)[0],
+            "head_parallel fa": fa.flash_attention(q, k, v, causal=True),
+            "head_parallel fa_int8": fa8.flash_attention_int8(q, k, v, causal=True)}
+    refs["context_parallel_attention"] = refs["ring_attention"]
+    store = cuda_lib.BUILD_DIR / f"nccl_store_{os.getpid()}"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        group = make_mesh((1,), ("cp",)).get_group("cp")
+        mesh = make_mesh((1, 1), ("dp", "tp"))
+        for c in (fa.FLASH_FWD_BF16, fa8.FLASH_INT8_P, fa8.FLASH_BF16_P):
+            c.reset()
+        outs = {"ring_attention": ring_attention(q, k, v, group=group, causal=True),
+                "ring_attention_int8": ring_attention_int8(q, k, v, group=group, causal=True,
+                                                           block_kv=bkv),
+                "context_parallel_attention": context_parallel_attention(
+                    q, k, v, group=group, causal=True),
+                "head_parallel fa": head_parallel_attention(q, k, v, mesh, causal=True),
+                "head_parallel fa_int8": head_parallel_attention(q, k, v, mesh, causal=True,
+                                                                 kernel="fa_int8")}
+        torch.cuda.synchronize()
+        launches = {"flash_fwd[bf16]": fa.FLASH_FWD_BF16.launches,
+                    "flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P.launches,
+                    "flash_int8_fwd[bf16_p]": fa8.FLASH_BF16_P.launches}
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    equal = {name: torch.equal(outs[name], refs[name]) for name in outs}
+    want = {"flash_fwd[bf16]": 3, "flash_int8_fwd[int8_p]": 2, "flash_int8_fwd[bf16_p]": 0}
+    return {"bit_equal": equal, "launches": launches, "launches_expected": want,
+            "ok": all(equal.values()) and launches == want}
+
+
+def phase_parallel(st):
+    import torch
+    from quantizedmha_tpu_torch.parallel import ring
+    pr = PARALLEL
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    shape = lambda h, s, d: (1, h, s, d)  # noqa: E731
+    q, k, v = (torch.randn(shape(h, pr["seq"], pr["D"]), generator=g, device="cuda")
+               .to(torch.bfloat16) for h in (pr["Hq"], pr["Hkv"], pr["Hkv"]))
+    cases, launches = [], {}
+
+    def add(name, n):
+        launches[name] = launches.get(name, 0) + n
+
+    res, out, ref, gate = _ring_case("ring_attention causal", q, k, v, int8=False, causal=True)
+    cases.append(res)
+    add("flash_fwd[bf16]", res["launches"])
+    # The planted fault: each step's kv offset from rank idx + step, the
+    # blocks still fed in ring order. It must fail the reference gate.
+    right = ring.source_rank
+    ring.source_rank = lambda idx, step, n: (idx + step) % n
+    try:
+        bad = simulate_ring(q, k, v, pr["ranks"], causal=True)
+    finally:
+        ring.source_rank = right
+    fault = {"planted": "source rank idx + step (wrong kv offsets)",
+             "ring_vs_reference_err_over_tol": err_over_tol(bad, ref, gate)}
+    fault["caught"] = fault["ring_vs_reference_err_over_tol"] > 1.0
+    print(f"chip_smoke parallel: planted fault ({fault['planted']}) "
+          f"{'caught' if fault['caught'] else 'NOT caught'}: err/tol "
+          f"{fault['ring_vs_reference_err_over_tol']:.3g}", flush=True)
+    del out, ref, gate, bad
+    res = _ring_case("ring_attention window 4096", q, k, v, int8=False, causal=True,
+                     window=pr["window"])[0]
+    cases.append(res)
+    add("flash_fwd[bf16]", res["launches"])
+    res = _ring_case("ring_attention_int8 causal", q, k, v, int8=True, causal=True,
+                     block_kv=pr["block_kv"])[0]
+    cases.append(res)
+    add("flash_int8_fwd[int8_p]", res["launches"])
+    res = _cp_suffix_case(q[:, :, -pr["suffix"]:].contiguous(), k, v)
+    cases.append(res)
+    add("flash_fwd[bf16]", res["launches"])
+    single = _single_rank_groups(q, k, v)
+    for name, n in single["launches"].items():
+        add(name, n)
+    del q, k, v
+    torch.cuda.empty_cache()
+    rw = pr["reference"]
+    for causal in (False, True):
+        qr, kr, vr = (torch.randn((1, rw["h"], rw["N"], rw["d"]), generator=g, device="cuda")
+                      for _ in range(3))
+        res = _ring_case(f"ring_attention_int8 reference workload causal={causal}",
+                         qr, kr, vr, int8=True, causal=causal, block_kv=pr["block_kv"])[0]
+        cases.append(res)
+        add("flash_int8_fwd[bf16_p]", res["launches"])
+    for name, n in launches.items():
+        st["launches"][name] = st["launches"].get(name, 0) + n
+    ok = all(c["ok"] for c in cases) and single["ok"] and fault["caught"]
+    emit({"phase": "parallel", "ok": ok, "ranks_simulated": pr["ranks"], "shape": {
+              "B": 1, "Hq": pr["Hq"], "Hkv": pr["Hkv"], "S": pr["seq"], "D": pr["D"],
+              "dtype": "bfloat16", "shard": pr["seq"] // pr["ranks"]},
+          "cases": cases, "single_rank_nccl": single, "planted_fault": fault,
+          "launches": launches,
+          "not_checked": "the rotation over NCCL between cards (the script needs one card): the "
+                         "simulated ranks check the ring's arithmetic, the one-rank "
+                         "group the entries' wiring",
+          "gpu": st["gpu"]})
+    if not ok:
+        raise AssertionError("parallel phase failed its checks")
+
+
 TRAIN = dict(tokens=2048, steps=4, lr=0.5, check_layers=2, grad_rel_tol=2.0**-4)
 
 
@@ -4909,7 +5657,8 @@ def main(argv=None) -> int:
         phases.insert(0, "build")
     if "harness" in phases and "solve" not in phases:
         phases.append("solve")  # the harness phase holds its times to solve's
-    st = {"launches": {}, "launches_d256": {}, "profile": args.profile}
+    st = {"launches": {}, "launches_d256": {}, "profile": args.profile,
+          "keep_serve_params": "serve_w8a8" in phases}
     for name in PHASES:
         if name not in phases:
             continue

@@ -244,9 +244,10 @@ def prefill_flops(cfg: LlamaConfig, prompt_len: int) -> float:
 def run_prefill_bench(cfg: LlamaConfig, params: Dict[str, Any], *,
                       prompt_len: int = 2048, chip: Optional[ChipSpec] = None,
                       device="cuda") -> Dict[str, Any]:
-    """Prefill TFLOP/s against the tensor cores' bf16 speed of light
-    (w8a16 matmuls run in bf16): `prefill_at` over `prompt_len` random
-    tokens (numpy seed 0), timed by harness.timing.benchmark
+    """Prefill TFLOP/s against the tensor cores' bf16 speed of light in
+    every weight mode (cfg.weight_quant_mode: w8a16's matmuls run in bf16,
+    w8a8's in int8 at up to twice that rate): `prefill_at` over
+    `prompt_len` random tokens (numpy seed 0), timed by harness.timing.benchmark
     (PREFILL_TIMING). `chip` gives the peaks off the card. Beside
     the JAX package's keys (unrounded here) the row carries the device
     and the FLOPs counted."""

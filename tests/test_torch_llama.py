@@ -129,6 +129,15 @@ def test_init_params_shapes_match_jax():
 
 
 def test_unported_paths_raise():
+    """w8a8 is ported (tests/test_torch_w8a8.py); an unknown mode still
+    raises as JAX's does, and the INT8 attention's bf16-P / f32-l numerics
+    (summode="vpu") still refuse, naming their ROADMAP item."""
     q = tw.quantize_weight(torch.ones(4, 4))
+    with pytest.raises(ValueError, match="mode"):
+        tw.qdense(torch.ones(1, 4), q, mode="w4a4")
+    with pytest.raises(ValueError, match="mode"):
+        jw.qdense(jnp.ones((1, 4)), jw.quantize_weight(jnp.ones((4, 4))), mode="w4a4")
+    from quantizedmha_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
+    x = torch.ones(1, 1, 8, 32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tw.qdense(torch.ones(1, 4), q, mode="w8a8")
+        flash_attention_int8(x, x, x, pv_dtype="bf16", summode="vpu")
