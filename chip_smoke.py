@@ -195,6 +195,47 @@ result line:
            one-rank NCCL group, bit for bit the unsharded kernel; the group
            is destroyed. The rotation over NCCL between cards is not checked
            on one card.
+  serve_tp tensor parallelism on the one card: ranks are processes sharing
+           GPU 0, joined by gloo through a FileStore in a temporary directory
+           (N processes time-share the card and every collective crosses the
+           host: not multi-GPU speeds). The unsharded side first, on the same
+           weights (serve's seed), then freed: the Engine's streams, prefill
+           logits and top-2 gaps, and the reference-attention golden. (a)
+           TPEngine at tp=4 on serve's model (Llama-3-8B, 32 layers, w8a16,
+           each rank making its shard layer by layer: _serve_params_lazy) and
+           traffic. Gates: every rank's streams bit-equal; the 8 prefill
+           logits within 0.25 std of the golden and of the unsharded engine's;
+           the streams equal the unsharded engine's up to a first divergence,
+           allowed only where its top-2 gap is below twice the largest logit
+           delta; exact launches of rows 1 and 3 a rank; the audit: 2
+           all-reduces a layer a forward, nothing else, bytes 2 x layers x
+           rows x hidden x 2; each rank's parameter bytes equal to the plan
+           (meta tensors), its pages at 2 kv heads; pools drained; rows 1 and
+           3 held against their plain versions at the rank's shapes (Hq 8, Hkv
+           2). The same at 2 layers clean and with a planted fault (wo's rows
+           of two heads swapped: a head order unlike wq's), which must fail a
+           gate. (b) TPSpecDecodeEngine at tp=4, the draft the first two
+           layers, k = 4, 4 requests, greedy, then temperature 0.8 / top-p
+           0.95: streams bit-equal across ranks, row 10 launched at verify's
+           shape on every rank (and held to its plain version there), pools of
+           both drained, acceptance printed. (c) TPEngine at tp=8 (8
+           processes) on Llama-3-70B's layer dims at 2 layers (f32, MLP 2048,
+           vocabulary 512): row 4 launched at 8 q / 1 kv head and held to its
+           plain version, streams equal across ranks and to the unsharded
+           engine's, bytes as planned. Prints TTFT, decode ms a step, peak
+           memory a rank, the audit and the all-reduces' share of the run.
+  serve_cp context-parallel prefill in the engine (EngineConfig.cp_mesh)
+           over 4 such ranks, parameters replicated (serve's INT8 weights,
+           made layer by layer): a 7900- and a 2000-token prompt, buckets
+           (2048, 8192), 16 new tokens each, greedy. Gates: the last logits
+           within 0.25 std of the unsharded prefill_at's (float flash) and of
+           the golden; the gathered K/V of layers 0 (one bf16 ulp) and 31
+           (0.25 std) against prefill_at's; streams bit-equal across ranks;
+           exact launches (row 5: 4 ring steps x 32 layers a prefill; row 3
+           the decodes); the audit: 2 collective-permutes a rotating ring
+           step and one all-gather a prefill, nothing else; each rank's first
+           ring step held to row 5's plain version; a planted fault
+           (rank-local RoPE positions) must move the logits past 0.25 std.
   faults   each line of PLANTED_FAULTS planted in a copy of csrc/, the
            kernel sources that the changed file is part of (flash_fwd.cu,
            paged_prefill.cu, paged_decode.cu, flash_bwd.cu, w4_matmul.cu,
@@ -210,7 +251,8 @@ zeroed just before each main path (each solve rung, the harness run,
 serve, serve's prefill bench, serve_w8a8 and its prefill bench, each
 serve_w4 batch, serve_flash, serve_mixed, serve_hybrid, serve_hybrid_mixed,
 serve_spec's four runs, train's steps, each of parallel's rings and its
-one-rank group) runs and read just after,
+one-rank group, and in every rank of serve_tp's and serve_cp's runs: the
+summary adds rank 0's) runs and read just after,
 and a kernel of that path that never launched fails the run. The last
 lines are the kernels summary, the card's name and power limit, and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -236,7 +278,7 @@ PREFILL_BENCH_LEN = 2048  # serving_bench --prefill's prompt (phase_serve)
 
 PHASES = ("build", "kernels", "solve", "harness", "serve", "serve_w8a8", "serve_w4",
           "serve_flash", "serve_mixed", "serve_hybrid", "serve_hybrid_mixed", "serve_spec",
-          "train", "parallel", "faults")
+          "train", "parallel", "serve_tp", "serve_cp", "faults")
 
 
 def emit(obj) -> None:
@@ -711,8 +753,9 @@ def _sdpa_decode(q, k_pages, v_pages, k_scales, v_scales, lengths, tables, windo
 
 # The INT8 decode's main shapes at batch 8: (kv heads, seed, lengths, table
 # slots). serve's decode (8 kv heads, 257-300 tokens of context), the same
-# kernel for MQA (rows 3 and 4 are one kernel; no 8B path has one kv head),
-# and serve_flash's decode at up to 8192 tokens of context (64 slots).
+# kernel for MQA (rows 3 and 4 are one kernel; serve_tp's tp=8 ranks have
+# one kv head), and serve_flash's decode at up to 8192 tokens of context (64
+# slots).
 DECODE_MAIN = {"serve decode": (8, 2, (257, 300), 4), "mqa decode": (1, 3, (257, 300), 4),
                "serve_flash decode": (8, 6, (2048, 8192), 64)}
 
@@ -2438,8 +2481,8 @@ def phase_kernels(st):
                     library=True),
     ]
     # DECODE_MAIN: serve's shape is the entry; the same CUDA kernel stands
-    # for the per-kv-head grid form used for MQA (no 8B path gives it
-    # Hkv=1) and runs serve_flash's deep decode: both checked and timed
+    # for the per-kv-head grid form used for MQA (serve_tp's tp=8 ranks give
+    # it Hkv=1) and runs serve_flash's deep decode: both checked and timed
     # here and reported inside the paged_decode entry.
     serve, mqa, deep = (
         _decode_case("paged_decode", hkv, seed=seed, lengths=lens, max_pages=slots,
@@ -3179,6 +3222,7 @@ def phase_serve(st):
         emit({"phase": "serve_prefill_profile", "prefill_len": PREFILL_BENCH_LEN,
               **_profile_prefill(lambda: llama_adapter.prefill_at(
                   cfg, params, bench_toks, PREFILL_BENCH_LEN - 1))})
+    st["serve_streams"] = [results[r] for r in rids]  # serve_tp's unsharded side
     if st.get("keep_serve_params"):  # serve_w8a8 serves the same params in w8a8
         st["serve_params"] = params
     st["serve_prefill_ms"] = prefill["prefill_ms"]
@@ -4501,7 +4545,7 @@ class _VerifyFault:
         name = self.name
 
         def faulty(cfg, params, cache, tokens, positions0, page_sched, slot_sched, tables, *,
-                   page_size):
+                   page_size, **kw):
             if name == "wrong_slot":
                 slot_sched = (slot_sched + 1) % page_size
             elif name == "stale_page":
@@ -4512,7 +4556,7 @@ class _VerifyFault:
             else:
                 raise ValueError(f"unknown verify fault {name}")
             return verify(cfg, params, cache, tokens, positions0, page_sched, slot_sched, tables,
-                          page_size=page_size)
+                          page_size=page_size, **kw)
         la.verify_step = faulty
         return self
 
@@ -5262,6 +5306,815 @@ def phase_parallel(st):
         raise AssertionError("parallel phase failed its checks")
 
 
+# --- Tensor and context parallelism: ranks as processes on the one card -----
+#
+# NCCL refuses two ranks on one GPU, so serve_tp and serve_cp spawn their
+# ranks as processes that share GPU 0, joined by a gloo group through a
+# FileStore in a temporary directory (gloo moves CUDA tensors in all_reduce
+# and all_gather; a ring's send / recv goes through host buffers:
+# parallel/ring.py). N processes time-share the card and every collective
+# crosses the host, so their times are not multi-GPU speeds. The mesh's
+# device type only places DTensors, which these paths do not use: its groups
+# are the default group's gloo.
+
+SERVE_TP = dict(tp=4, batch=8, prompt_len=256, max_new=32, chunk=8, page=128, block_kv=256,
+                seed=0, fault_layers=2, timeout_s=900,
+                spec=dict(requests=4, max_new=32, k=4, draft_layers=2, temperature=0.8,
+                          top_p=0.95, seed=7),
+                # Llama-3-70B's layer dims (JAX tests/test_sharded_serving.py:308):
+                # hidden 8192, 64 / 8 heads, head_dim 128 at tp=8 -> 8 q / 1 kv
+                # head a rank; depth cut to 2 layers, the MLP to 2048 and the
+                # vocabulary to 512 (as that test does); f32, as that test
+                # runs, so the streams hold to the unsharded engine's.
+                wide=dict(tp=8, layers=2, hidden=8192, heads=64, kv_heads=8, head_dim=128,
+                          intermediate=2048, vocab=512, prompts=((1, 2, 3, 4, 5), (7, 8, 9)),
+                          max_new=4, page=16, timeout_s=600))
+SERVE_CP = dict(cp=4, prompts=(7900, 2000), buckets=(2048, 8192), max_new=16, page=128,
+                seed=0, timeout_s=600)
+
+
+def _serve_params_lazy(cfg, seed, *, keep_layers=None, device="cuda"):
+    """serve's weights made on demand (serving.sharded.LayerStack / Lazy):
+    the numbers of quantize_llama_params(init_params(cfg, seed), bits=8), an
+    INT8 (w8a16) layer stack and a float lm_head, drawn in init_params's
+    order (each matmul weight's layers in turn, then embed, then lm_head),
+    so a rank that keeps a shard never holds the whole model. keep_layers:
+    the first layers only (a draft cut from the model; the rest are drawn
+    and dropped, so the later draws stay in step)."""
+    import torch
+    from quantizedmha_tpu_torch.quant.weights import quantize_weight
+    from quantizedmha_tpu_torch.serving.sharded import LayerStack, Lazy
+    gen = torch.Generator(device=device).manual_seed(seed)
+    L, h, hd, dt = cfg.num_layers, cfg.hidden_size, cfg.hd, cfg.dtype
+    keep = L if keep_layers is None else keep_layers
+
+    def draw(shape, scale=None):
+        scale = scale if scale is not None else shape[0] ** -0.5
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dt)
+
+    def stack(shape):
+        def make(i):
+            w = quantize_weight(draw(shape))
+            if i == keep - 1:
+                for _ in range(keep, L):
+                    draw(shape)
+            return w
+        return LayerStack(keep, make)
+
+    def ones(*shape):
+        return Lazy(lambda: torch.ones(shape, dtype=dt, device=device))
+    layers = dict(attn_norm=ones(keep, h), wq=stack((h, cfg.num_heads * hd)),
+                  wk=stack((h, cfg.num_kv_heads * hd)), wv=stack((h, cfg.num_kv_heads * hd)),
+                  wo=stack((cfg.num_heads * hd, h)), mlp_norm=ones(keep, h),
+                  w_gate=stack((h, cfg.intermediate_size)),
+                  w_up=stack((h, cfg.intermediate_size)),
+                  w_down=stack((cfg.intermediate_size, h)))
+    return dict(layers=layers, embed=Lazy(lambda: draw((cfg.vocab_size, h), 0.02)),
+                final_norm=ones(h), lm_head=Lazy(lambda: draw((h, cfg.vocab_size))))
+
+
+def _tp_plan_bytes(cfg, tp):
+    """A rank's parameter bytes by the sharding plan, sized from the
+    abstract parameters (meta tensors: nothing is allocated): replicated
+    leaves whole, sharded leaves / tp."""
+    from quantizedmha_tpu_torch.models.llama import init_params
+    from quantizedmha_tpu_torch.quant.weights import quantize_llama_params, weight_bytes
+    from quantizedmha_tpu_torch.serving.sharded import shard_params, tp_param_specs
+    abstract = quantize_llama_params(init_params(cfg, device="meta"), bits=8)
+    return weight_bytes(shard_params(abstract, tp_param_specs(), (0, tp)))
+
+
+def _rank_main(rank, world, store, out_dir, jobs):
+    """One rank: the default group on gloo over GPU 0, each job in turn, the
+    results (host tensors) saved for the parent."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        out = {job["name"]: _RANK_JOBS[job["kind"]](rank, job) for job in jobs}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(jobs, world, timeout_s):
+    """Run `jobs` on `world` spawned ranks; each rank's results, in rank
+    order. A rank that raises (its traceback in the exception), exits
+    non-zero or outlives timeout_s fails the call; every rank is stopped
+    before this returns."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as d:
+        ctx = mp.start_processes(_rank_main, args=(world, os.path.join(d, "store"), d, jobs),
+                                 nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not ctx.join(timeout=2):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"a rank of {world} ran past {timeout_s} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+class _Capture:
+    """While active: the logits of every prefill_at / prefill_cp_at call and
+    the operands of the last call of the adapter's attention functions
+    (the model's `_attention`, paged decode and paged prefill), for holding
+    each kernel against its plain version at this rank's shapes."""
+
+    NAMES = ("prefill_at", "prefill_cp_at", "_attention", "paged_decode_attention",
+             "paged_prefill_attention")
+
+    def __init__(self):
+        self.prefill_logits, self.last = [], {}
+
+    def __enter__(self):
+        from quantizedmha_tpu_torch.serving import llama_adapter as la
+        self.saved = {n: getattr(la, n) for n in self.NAMES}
+
+        def prefill(name):
+            fn = self.saved[name]
+
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                self.prefill_logits.append(out[0].float().cpu())
+                return out
+            return call
+
+        def keep(name):
+            fn = self.saved[name]
+
+            def call(*a, **kw):
+                self.last[name] = (a, kw)
+                return fn(*a, **kw)
+            return call
+        la.prefill_at, la.prefill_cp_at = prefill("prefill_at"), prefill("prefill_cp_at")
+        for n in self.NAMES[2:]:
+            setattr(la, n, keep(n))
+        return self
+
+    def __exit__(self, *exc):
+        from quantizedmha_tpu_torch.serving import llama_adapter as la
+        for n, fn in self.saved.items():
+            setattr(la, n, fn)
+
+
+def _decode_call_check(call):
+    """A captured paged_decode_attention call's kernel against its plain
+    version (_decode_check): err/tol and the (Hq, Hkv) it ran at."""
+    (q, kp, vp, ks, vs, lengths, tables), kw = call
+    layer = kw["layer"]
+    operands = (q, kp[layer], vp[layer], ks[layer], vs[layer], lengths, tables)
+    sm = kw.get("sm_scale") or q.shape[-1] ** -0.5
+    ratio = _decode_check(operands, dict(sm_scale=sm, window=kw.get("window"),
+                                         softcap=kw.get("logit_softcap"),
+                                         sinks=kw.get("attention_sinks", 0),
+                                         save_residuals=False))[2]
+    return {"err_over_tol": ratio, "Hq": q.shape[1], "Hkv": kp.shape[1], "B": q.shape[0]}
+
+
+def _tp_stats(eng, records, t_run, steps, run_from=0):
+    """What every TP rank reports of a run: parameter and cache shapes and
+    bytes, the audit (every record), the host time inside the all-reduces of
+    the timed part (records[run_from:], t_run seconds, `steps` decode
+    steps) and decode ms a step."""
+    import torch
+    from quantizedmha_tpu_torch.profiling.collectives import audit_events
+    from quantizedmha_tpu_torch.quant.weights import weight_bytes
+    rep = audit_events(records)
+    ar_s = sum(r.seconds for r in records[run_from:] if r.kind == "all-reduce")
+    return {"param_bytes": weight_bytes(eng.params), "kv_heads": eng.acfg.num_kv_heads,
+            "audit": {"counts": rep.counts, "bytes": rep.bytes_by_kind,
+                      "dtypes": sorted({r.dtype for r in records}),
+                      "groups": sorted({r.ranks for r in records})},
+            "all_reduce_s": ar_s, "run_s": t_run,
+            "decode_ms_per_step": t_run * 1e3 / max(steps, 1),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _drained(eng, allocs) -> bool:
+    return all(not a.tables and a.free_pages == a.num_pages - 1 for a in allocs)
+
+
+def _rank_tp_serve(rank, job):
+    """TPEngine on serve's model and traffic (job["cfg"] sets the depth):
+    a warm-up request, then the measured run (launches zeroed before it, read
+    after; its collectives recorded), then a fresh request's TTFT. A
+    planted fault permutes two heads of each rank's wo rows."""
+    import numpy as np
+    import torch
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.parallel import make_mesh, record_collectives
+    from quantizedmha_tpu_torch.serving.sharded import TPEngine
+    cfg, ecfg, tp, dev = job["cfg"], job["ecfg"], job["tp"], job.get("device", "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh((tp,), ("tp",), device_type="cpu")
+    t0 = time.perf_counter()
+    eng = TPEngine(cfg, _serve_params_lazy(cfg, job["seed"], device=dev), ecfg, mesh,
+                   device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if job.get("fault") == "wo head order":
+        wo = eng.params["layers"]["wo"].values  # [L, in / tp, out], rows head-major
+        hd = cfg.hd
+        wo[:, :2 * hd] = torch.cat([wo[:, hd:2 * hd], wo[:, :hd]], dim=1).clone()
+    # A warm-up prefill outside the measured run (first kernel and cuBLAS
+    # use); its one token ends it at admission, with no decode chunk.
+    eng.add_request(job["prompts"][0][:100], max_new=1)
+    eng.run()
+    eng.finished.clear()
+    kernels = {"flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P,
+               "flash_int8_fwd[bf16_p]": fa8.FLASH_BF16_P, "paged_decode": dec.PAGED_DECODE}
+    for k in kernels.values():
+        k.reset()
+    admitted0 = eng.metrics.counter("requests_admitted")
+    steps0 = eng.metrics.counter("decode_steps")
+    with _Capture() as cap, record_collectives() as records:
+        rids = [eng.add_request(p, max_new=job["max_new"]) for p in job["prompts"]]
+        t0 = time.perf_counter()
+        eng.step()
+        first_step_s = time.perf_counter() - t0
+        sd0 = eng.metrics.counter("decode_steps")
+        run_from = len(records)
+        t0 = time.perf_counter()
+        results = eng.run()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    admitted = eng.metrics.counter("requests_admitted") - admitted0
+    steps = eng.metrics.counter("decode_steps") - steps0
+    out = {"streams": [results[r] for r in rids], "launches": launches,
+           "admitted": admitted, "decode_steps": steps, "build_s": build_s,
+           "first_step_s": first_step_s, "failed": dict(eng.failed),
+           "drained": _drained(eng, eng._each_alloc()),
+           **_tp_stats(eng, records, t_run, eng.metrics.counter("decode_steps") - sd0,
+                       run_from)}
+    if rank == 0:
+        out["prefill_logits"] = torch.cat(cap.prefill_logits)
+        if job.get("kernels"):
+            q, k, v = cap.last["_attention"][0][1:4]
+            e = _flash_case("tp", 0, q, k, v, job["block_kv"], True, replaces=None,
+                            library=False, timed=False)
+            out["row1"] = {"err_over_tol": e["err_over_tol"], "same_bits_twice":
+                           e["same_bits_twice"], "Hq": q.shape[1], "Hkv": k.shape[1],
+                           "S": q.shape[2]}
+            out["row3"] = _decode_call_check(cap.last["paged_decode_attention"])
+    if job.get("kernels"):
+        before = eng.metrics.counter("tokens_generated")
+        t0 = time.perf_counter()
+        eng.add_request(job["prompts"][1], max_new=job["max_new"])
+        while eng.metrics.counter("tokens_generated") == before and (eng.queue or eng.active):
+            eng.step()
+        out["ttft_s"] = time.perf_counter() - t0
+        eng.run()
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_tp_spec(rank, job):
+    """TPSpecDecodeEngine on serve's model, its draft the first layers (drawn
+    in step with the target's, so the same numbers): one run a sampling
+    setting, each on a fresh engine; row 10 held at verify's shape."""
+    import dataclasses as dc
+    import torch
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    from quantizedmha_tpu_torch.parallel import make_mesh
+    from quantizedmha_tpu_torch.serving.sampling import SamplingParams
+    from quantizedmha_tpu_torch.serving.sharded import TPSpecDecodeEngine
+    from quantizedmha_tpu_torch.serving.speculative import SpecConfig
+    cfg, tp, sp, dev = job["cfg"], job["tp"], job["spec"], job.get("device", "cuda")
+    dcfg = dc.replace(cfg, num_layers=sp["draft_layers"])
+    mesh = make_mesh((tp,), ("tp",), device_type="cpu")
+    runs = {}
+    for label, sampling in (("greedy", SamplingParams()),
+                            ("sampled", SamplingParams(temperature=sp["temperature"],
+                                                       top_p=sp["top_p"], seed=sp["seed"]))):
+        ecfg = dc.replace(job["ecfg"], sampling=sampling)
+        eng = TPSpecDecodeEngine(cfg, _serve_params_lazy(cfg, job["seed"], device=dev), dcfg,
+                                 _serve_params_lazy(cfg, job["seed"], device=dev,
+                                                    keep_layers=sp["draft_layers"]),
+                                 ecfg, mesh, SpecConfig(num_draft_tokens=sp["k"]),
+                                 device=dev)
+        pp.PAGED_PREFILL.reset()
+        with _Capture() as cap:
+            t0 = time.perf_counter()
+            rids = [eng.add_request(p, max_new=sp["max_new"]) for p in job["prompts"]]
+            results = eng.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        rounds = eng.metrics.counter("spec_rounds")
+        r = {"streams": [results[i] for i in rids], "rounds": rounds,
+             "acceptance": eng.acceptance_rate, "run_s": run_s,
+             "tokens_s": sum(len(results[i]) for i in rids) / run_s,
+             "paged_prefill": pp.PAGED_PREFILL.launches,
+             "paged_prefill_expected": cfg.num_layers * rounds,
+             "drained": _drained(eng, eng._each_alloc() + eng._each_alloc(eng._draft_pools()))}
+        if rank == 0 and label == "greedy":
+            a, kw = cap.last["paged_prefill_attention"]
+            q, kp, vp, ks, vs, lengths, q_starts, tables = a
+            ratios = _paged_prefill_check(q, (kp, vp, ks, vs), lengths, q_starts, tables)[2]
+            r["row10"] = {"err_over_tol": max(ratios), "B": q.shape[0], "Hq": q.shape[1],
+                          "Hkv": kp.shape[0], "rows": q.shape[2]}
+        runs[label] = r
+        del eng
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _rank_tp_wide(rank, job):
+    """TPEngine at tp=8 on Llama-3-70B's layer dims: each rank's streams,
+    the decode kernel's launches and shape (8 q / 1 kv head: row 4), held
+    against its plain version; parameter bytes and kv heads."""
+    import torch
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.parallel import make_mesh, record_collectives
+    from quantizedmha_tpu_torch.serving.sharded import TPEngine
+    cfg, ecfg, tp, dev = job["cfg"], job["ecfg"], job["tp"], job.get("device", "cuda")
+    eng = TPEngine(cfg, _serve_params_lazy(cfg, job["seed"], device=dev), ecfg,
+                   make_mesh((tp,), ("tp",), device_type="cpu"), device=dev)
+    dec.PAGED_DECODE.reset()
+    with _Capture() as cap, record_collectives() as records:
+        rids = [eng.add_request(list(p), max_new=job["max_new"]) for p in job["prompts"]]
+        t0 = time.perf_counter()
+        results = eng.run()
+        run_s = time.perf_counter() - t0
+    out = {"streams": [results[r] for r in rids], "paged_decode": dec.PAGED_DECODE.launches,
+           "paged_decode_expected": cfg.num_layers * eng.metrics.counter("decode_steps"),
+           "drained": _drained(eng, eng._each_alloc()),
+           **_tp_stats(eng, records, run_s, eng.metrics.counter("decode_steps"))}
+    if rank == 0:
+        out["row4"] = _decode_call_check(cap.last["paged_decode_attention"])
+    return out
+
+
+def _rank_cp_serve(rank, job):
+    """The engine with cp_mesh over every rank, parameters replicated (made
+    layer by layer): both prompts, the launches and collectives of the run,
+    rank 0's prefill logits and layers 0 / L-1 of its gathered K/V, each
+    rank's first ring step held against its plain version; then the planted
+    fault (rank-local RoPE positions) on one CP prefill of the short prompt."""
+    import dataclasses as dc
+    import torch
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.parallel import make_mesh, record_collectives
+    from quantizedmha_tpu_torch.parallel import ring
+    from quantizedmha_tpu_torch.serving import llama_adapter as la
+    from quantizedmha_tpu_torch.serving.engine import Engine
+    from quantizedmha_tpu_torch.serving.sharded import shard_params, tp_param_specs
+    cfg, n, dev = job["cfg"], job["cp"], job.get("device", "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = shard_params(_serve_params_lazy(cfg, job["seed"], device=dev), tp_param_specs(),
+                          (0, 1))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mesh = make_mesh((n,), ("cp",), device_type="cpu")
+    eng = Engine(cfg, params, dc.replace(job["ecfg"], cp_mesh=mesh), device=dev)
+    kv_keep = {}
+    first_step = {}
+    real_cp = la.prefill_cp_at
+    real_flash = ring.flash_attention
+
+    def cp_kept(*a, **kw):
+        logits, k_all, v_all = real_cp(*a, **kw)
+        if rank == 0:
+            kv_keep[len(kv_keep)] = [x[[0, -1]].cpu() for x in (k_all, v_all)]
+        return logits, k_all, v_all
+
+    def flash_kept(q, k, v, **kw):
+        first_step.setdefault("call", (q, k, v, kw))
+        return real_flash(q, k, v, **kw)
+    for c in (fa.FLASH_FWD_BF16, dec.PAGED_DECODE):
+        c.reset()
+    la.prefill_cp_at, ring.flash_attention = cp_kept, flash_kept
+    ttft = []
+    try:
+        with _Capture() as cap, record_collectives() as records:
+            rids = []
+            for p in job["prompts"]:
+                t0 = time.perf_counter()
+                rids.append(eng.add_request(p, max_new=job["max_new"]))
+                eng.step()  # its admission (the CP prefill) and a decode step
+                torch.cuda.synchronize()
+                ttft.append(time.perf_counter() - t0)
+            steps0 = eng.metrics.counter("decode_steps")
+            t0 = time.perf_counter()
+            results = eng.run()
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+    finally:
+        la.prefill_cp_at, ring.flash_attention = real_cp, real_flash
+    steps = eng.metrics.counter("decode_steps")
+    launches = {"flash_fwd[bf16]": fa.FLASH_FWD_BF16.launches,
+                "paged_decode": dec.PAGED_DECODE.launches}
+    q, k, v, kw = first_step["call"]
+    offsets = fa._offsets(kw["q_offset"], kw["kv_offset"], q.shape[0], q.device)
+    ratios = _flash_fwd_check(q, k, v, offsets, causal=True)[2]
+    from quantizedmha_tpu_torch.profiling.collectives import audit_events
+    rep = audit_events(records)
+    out = {"streams": [results[r] for r in rids], "launches": launches, "decode_steps": steps,
+           "steps_after_admission": steps - steps0, "build_s": build_s, "ttft_s": ttft,
+           "decode_ms_per_step": decode_s * 1e3 / max(steps - steps0, 1),
+           "audit": {"counts": rep.counts, "bytes": rep.bytes_by_kind,
+                     "gather_s": sum(r.seconds for r in records if r.kind == "all-gather")},
+           "row5": {"err_over_tol": max(ratios), "Hq": q.shape[1], "Hkv": k.shape[1],
+                    "rows": q.shape[2], "keys": k.shape[2], "q_offset": kw["q_offset"],
+                    "kv_offset": kw["kv_offset"]},
+           "drained": _drained(eng, eng._each_alloc()),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if rank == 0:
+        out["prefill_logits"] = torch.cat(cap.prefill_logits)
+        out["kv_layers"] = kv_keep
+    # The planted fault: rank-local positions in RoPE, one CP prefill.
+    short, b = job["fault_prompt"], job["bucket_short"]
+    toks = torch.zeros((1, b), dtype=torch.int32, device=dev)
+    toks[0, :len(short)] = torch.tensor(short, dtype=torch.int32)
+    shard = b // n
+    real_pos = la._cp_positions
+    la._cp_positions = lambda idx, n_shard, device: torch.arange(n_shard, device=device)
+    try:
+        bad, _, _ = la.prefill_cp_at(cfg, params, toks[:, rank * shard:(rank + 1) * shard],
+                                     len(short) - 1, group=eng.cp_group)
+    finally:
+        la._cp_positions = real_pos
+    if rank == 0:
+        out["fault_logits"] = bad.float().cpu()
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+_RANK_JOBS = {"tp_serve": _rank_tp_serve, "tp_spec": _rank_tp_spec, "tp_wide": _rank_tp_wide,
+              "cp_serve": _rank_cp_serve}
+
+
+def _rel(a, ref) -> float:
+    """max |a - ref| / std(ref): the serve phases' logit distance."""
+    return ((a.float() - ref.float()).abs().max() / ref.float().std()).item()
+
+
+def _tp_reference(cfg, ecfg, prompts, max_new, seed, *, warm=True, device="cuda"):
+    """The unsharded engine on the same weights and traffic (serve's, the
+    same warm-up first): its streams, each prompt's prefill logits, the
+    top-2 logit gap behind every token it chose, and the golden (the
+    reference-attention model's last-token logits of each prompt)."""
+    import numpy as np
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.quant.weights import quantize_llama_params
+    from quantizedmha_tpu_torch.serving import llama_adapter as la
+    from quantizedmha_tpu_torch.serving.engine import Engine
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = quantize_llama_params(llama.init_params(cfg, gen, device=device), bits=8)
+    torch.cuda.empty_cache()
+    eng = Engine(cfg, params, ecfg, device=device)
+    if warm:
+        eng.add_request(list(prompts[0][:100]), max_new=1)
+        eng.run()
+        eng.finished.clear()
+
+    def gap(logits):
+        top = logits.float().topk(2, dim=-1).values
+        return (top[..., 0] - top[..., 1]).cpu()
+    gaps, real_step = [], la.decode_step
+
+    def step(*a, **kw):
+        logits, cache = real_step(*a, **kw)
+        gaps.append(gap(logits))
+        return logits, cache
+    la.decode_step = step
+    try:
+        with _Capture() as cap:
+            rids = [eng.add_request(list(p), max_new=max_new) for p in prompts]
+            results = eng.run()
+    finally:
+        la.decode_step = real_step
+    pre = torch.cat(cap.prefill_logits)
+    # token 0 of request i comes from its prefill, token j > 0 from decode
+    # step j - 1 at lane i (every request stays active to the end).
+    tok_gaps = [[gap(pre[i]).item()] + [g[i].item() for g in gaps[:max_new - 1]]
+                for i in range(len(prompts))]
+    ref_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    golden = torch.cat([llama.forward(ref_cfg, params, torch.tensor(
+        [list(p)], dtype=torch.int32, device=device))[:, -1].float().cpu() for p in prompts])
+    out = {"streams": [results[r] for r in rids], "prefill_logits": pre, "gaps": tok_gaps,
+           "golden": golden}
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stream_gate(got, want, gaps, delta):
+    """Streams equal up to a first divergence, allowed only where the
+    unsharded engine's top-2 gap is below twice the logit delta (serve_spec's
+    rule): (ok, [(request, first divergence, gap) ...])."""
+    div = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        j = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None and len(g) != len(w):
+            j = min(len(g), len(w))
+        if j is not None:
+            div.append((i, j, gaps[i][j] if j < len(gaps[i]) else None))
+    return all(gp is not None and gp < 2 * delta for _, _, gp in div), div
+
+
+def _tp_gates(ranks, ref, *, want_launch, want_ar, plan_bytes, kv_heads, golden_tol=0.25):
+    """serve_tp (a)'s gates over every rank's results; {gate: bool} and the
+    figures they read."""
+    r0 = ranks[0]
+    delta = (r0["prefill_logits"] - ref["prefill_logits"]).abs().max().item()
+    streams_ok, div = _stream_gate(r0["streams"], ref["streams"], ref["gaps"], delta)
+    n = len(ref["golden"])
+    golden_rel = [_rel(r0["prefill_logits"][i], ref["golden"][i]) for i in range(n)]
+    unsharded_rel = [_rel(r0["prefill_logits"][i], ref["prefill_logits"][i]) for i in range(n)]
+    gates = {
+        "ranks_bit_equal": all(r["streams"] == r0["streams"] for r in ranks),
+        # the delta that the stream gate allows divergences by, itself held
+        # to the logits' criterion against the unsharded engine's
+        "logits_vs_unsharded": max(unsharded_rel) <= golden_tol,
+        "streams_vs_unsharded": streams_ok,
+        "logits_vs_golden": max(golden_rel) <= golden_tol,
+        "launches": all(r["launches"] == want_launch(r) for r in ranks),
+        "audit": all(r["audit"]["counts"] == {"all-reduce": want_ar(r)[0]}
+                     and r["audit"]["bytes"] == {"all-reduce": want_ar(r)[1]} for r in ranks),
+        "param_bytes": all(r["param_bytes"] == plan_bytes for r in ranks),
+        "kv_heads": all(r["kv_heads"] == kv_heads for r in ranks),
+        "drained": all(r["drained"] and not r["failed"] for r in ranks),
+    }
+    return gates, {"logit_delta_vs_unsharded": delta, "unsharded_rel_max": max(unsharded_rel),
+                   "divergences": div, "golden_rel_max": max(golden_rel),
+                   "golden_tol": golden_tol}
+
+
+def phase_serve_tp(st):
+    import numpy as np
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.serving.engine import EngineConfig
+    from quantizedmha_tpu_torch.serving.sharded import local_config
+    c = SERVE_TP
+    tp, dev = c["tp"], st.get("device", "cuda")
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), attention_impl="flash_int8")
+    batch, plen, max_new, chunk, page = (c[k] for k in ("batch", "prompt_len", "max_new",
+                                                         "chunk", "page"))
+    mpps = -(-(plen + max_new + chunk + 1) // page)
+    ecfg = EngineConfig(num_pages=batch * mpps + 2, page_size=page, max_batch=batch,
+                        max_pages_per_seq=mpps, prefill_buckets=(plen,),
+                        max_new_tokens=max_new, decode_chunk=chunk)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, plen).tolist() for _ in range(batch)]
+    cfg2 = dataclasses.replace(cfg, num_layers=c["fault_layers"])
+    w = c["wide"]
+    wcfg = llama.LlamaConfig(vocab_size=w["vocab"], hidden_size=w["hidden"],
+                             intermediate_size=w["intermediate"], num_layers=w["layers"],
+                             num_heads=w["heads"], num_kv_heads=w["kv_heads"],
+                             head_dim=w["head_dim"], dtype=torch.float32,
+                             attention_impl="flash_int8")
+    wecfg = EngineConfig(num_pages=16, page_size=w["page"], max_batch=2, max_pages_per_seq=2,
+                         prefill_buckets=(w["page"],), max_new_tokens=w["max_new"],
+                         decode_chunk=w["max_new"])
+    s = c["spec"]
+    smpps = -(-(plen + s["max_new"] + s["k"] + 1) // page)
+    secfg = EngineConfig(num_pages=s["requests"] * smpps + 2, page_size=page,
+                         max_batch=s["requests"], max_pages_per_seq=smpps,
+                         prefill_buckets=(plen,), max_new_tokens=s["max_new"])
+
+    # The unsharded side first, on the same weights (made from serve's seed),
+    # then freed: the ranks need the card.
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = _tp_reference(cfg, ecfg, prompts, max_new, c["seed"], device=dev)
+    ref2 = _tp_reference(cfg2, ecfg, prompts, max_new, c["seed"], device=dev)
+    wref = _tp_reference(wcfg, wecfg, w["prompts"], w["max_new"], c["seed"], warm=False,
+                         device=dev)
+    ref_s = time.perf_counter() - t0
+    serve_streams = st.get("serve_streams")
+
+    base = dict(tp=tp, ecfg=ecfg, prompts=prompts, max_new=max_new, seed=c["seed"],
+                block_kv=c["block_kv"], device=dev)
+    jobs = [dict(base, name="a", kind="tp_serve", cfg=cfg, kernels=True),
+            dict(base, name="clean2", kind="tp_serve", cfg=cfg2),
+            dict(base, name="fault2", kind="tp_serve", cfg=cfg2, fault="wo head order"),
+            dict(base, name="b", kind="tp_spec", cfg=cfg, ecfg=secfg,
+                 prompts=prompts[:s["requests"]], spec=s)]
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(jobs, tp, c["timeout_s"])
+    spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide = _spawn_ranks([dict(name="c", kind="tp_wide", cfg=wcfg, ecfg=wecfg, tp=w["tp"],
+                              prompts=w["prompts"], max_new=w["max_new"], seed=c["seed"],
+                              device=dev)],
+                        w["tp"], w["timeout_s"])
+    wide_s = time.perf_counter() - t0
+
+    def gates_for(name, gcfg, gref):
+        rs = [r[name] for r in ranks]
+        L, hid = gcfg.num_layers, gcfg.hidden_size
+        want_launch = lambda r: {"flash_int8_fwd[int8_p]": L * r["admitted"],  # noqa: E731
+                                 "flash_int8_fwd[bf16_p]": 0,
+                                 "paged_decode": L * r["decode_steps"]}
+        size = torch.empty((), dtype=gcfg.dtype).element_size()
+        want_ar = lambda r: (2 * L * (r["admitted"] + r["decode_steps"]),  # noqa: E731
+                             2 * L * hid * size * (r["admitted"] * plen
+                                                   + r["decode_steps"] * batch))
+        return _tp_gates(rs, gref, want_launch=want_launch, want_ar=want_ar,
+                         plan_bytes=_tp_plan_bytes(gcfg, tp),
+                         kv_heads=local_config(gcfg, tp).num_kv_heads)
+    a_gates, a_figs = gates_for("a", cfg, ref)
+    c2_gates, c2_figs = gates_for("clean2", cfg2, ref2)
+    f_gates, f_figs = gates_for("fault2", cfg2, ref2)
+    r0 = ranks[0]["a"]
+    kernel_ok = (r0["row1"]["err_over_tol"] <= 1 and r0["row1"]["same_bits_twice"]
+                 and r0["row3"]["err_over_tol"] <= 1 and r0["row3"]["Hkv"] == 2)
+    fault = {"planted": "wo rows of two heads swapped on every rank (head order unlike wq's)",
+             "failed_gates": sorted(g for g, ok in f_gates.items() if not ok), **f_figs}
+    fault["caught"] = bool(fault["failed_gates"])
+
+    spec = {}
+    for label in ("greedy", "sampled"):
+        rs = [r["b"][label] for r in ranks]
+        spec[label] = {
+            "ranks_bit_equal": all(x["streams"] == rs[0]["streams"] for x in rs),
+            "row10_launches": all(x["paged_prefill"] == x["paged_prefill_expected"] > 0
+                                  for x in rs),
+            "drained": all(x["drained"] for x in rs),
+            "tokens_each": sorted({len(t) for t in rs[0]["streams"]}),
+            "acceptance": rs[0]["acceptance"], "rounds": rs[0]["rounds"],
+            "tokens_s": rs[0]["tokens_s"], "run_s": rs[0]["run_s"]}
+    row10 = ranks[0]["b"]["greedy"]["row10"]
+    spec_ok = (all(v["ranks_bit_equal"] and v["row10_launches"] and v["drained"]
+                   and v["tokens_each"] == [s["max_new"]] for v in spec.values())
+               and row10["err_over_tol"] <= 1 and row10["Hkv"] == 2)
+
+    wr = [r["c"] for r in wide]
+    wplan = _tp_plan_bytes(wcfg, w["tp"])
+    wide_res = {
+        "ranks_bit_equal": all(x["streams"] == wr[0]["streams"] for x in wr),
+        "streams_vs_unsharded": wr[0]["streams"] == wref["streams"],
+        "row4_launches": all(x["paged_decode"] == x["paged_decode_expected"] > 0 for x in wr),
+        "param_bytes": all(x["param_bytes"] == wplan for x in wr),
+        "kv_heads": all(x["kv_heads"] == 1 for x in wr),
+        "drained": all(x["drained"] for x in wr),
+        "row4": wr[0]["row4"]}
+    wide_ok = (all(v for k, v in wide_res.items() if k != "row4")
+               and wr[0]["row4"]["err_over_tol"] <= 1 and wr[0]["row4"]["Hkv"] == 1
+               and wr[0]["row4"]["Hq"] == 8)
+
+    ra = [r["a"] for r in ranks]
+    launches = {"flash_int8_fwd[int8_p]": ra[0]["launches"]["flash_int8_fwd[int8_p]"],
+                "paged_decode": ra[0]["launches"]["paged_decode"] + wr[0]["paged_decode"],
+                "paged_prefill": ranks[0]["b"]["greedy"]["paged_prefill"]
+                + ranks[0]["b"]["sampled"]["paged_prefill"]}
+    for name, n in launches.items():
+        st["launches"][name] = st["launches"].get(name, 0) + n
+    st["launches_mqa"] = st.get("launches_mqa", 0) + wr[0]["paged_decode"]
+    st["tp_shapes"] = {"flash_int8_fwd[int8_p]": r0["row1"], "paged_decode": r0["row3"],
+                       "paged_prefill": row10}
+    ok = (all(a_gates.values()) and all(c2_gates.values()) and fault["caught"] and kernel_ok
+          and spec_ok and wide_ok)
+    print(f"chip_smoke serve_tp: planted fault ({fault['planted']}) "
+          f"{'caught by ' + ', '.join(fault['failed_gates']) if fault['caught'] else 'NOT caught'}",
+          flush=True)
+    emit({"phase": "serve_tp", "ok": ok, "model": "llama3_8b", "layers": cfg.num_layers,
+          "tp": tp, "transport": f"{tp} processes time-sharing one card, gloo through the host",
+          "gates": a_gates, **a_figs, "clean_2_layers": c2_gates,
+          "matches_serve_streams": (None if serve_streams is None
+                                    else serve_streams == ref["streams"]),
+          "planted_fault": fault, "tp_shapes": st["tp_shapes"],
+          "per_rank": [{k: r[k] for k in ("param_bytes", "kv_heads", "audit", "all_reduce_s",
+                                           "run_s", "decode_ms_per_step", "peak_mem_gb",
+                                           "first_step_s", "ttft_s", "build_s")}
+                       for r in ra],
+          "plan_bytes": _tp_plan_bytes(cfg, tp),
+          "all_reduce_share_of_run": ra[0]["all_reduce_s"] / ra[0]["run_s"],
+          "spec": spec, "row10": row10,
+          "wide": {"cfg": {k: w[k] for k in ("tp", "layers", "hidden", "heads", "kv_heads",
+                                              "head_dim", "intermediate", "vocab")},
+                   **wide_res, "plan_bytes": wplan,
+                   "per_rank": [{k: x[k] for k in ("param_bytes", "audit", "all_reduce_s",
+                                                    "run_s", "peak_mem_gb")} for x in wr]},
+          "launches": launches, "reference_s": ref_s, "spawn_s": spawn_s, "wide_spawn_s": wide_s,
+          "gpu": st["gpu"]})
+    if not ok:
+        raise AssertionError("serve_tp phase failed its checks")
+
+
+def phase_serve_cp(st):
+    import numpy as np
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.quant.weights import quantize_llama_params
+    from quantizedmha_tpu_torch.serving import llama_adapter as la
+    from quantizedmha_tpu_torch.serving.engine import EngineConfig
+    c = SERVE_CP
+    n, page, max_new, dev = c["cp"], c["page"], c["max_new"], st.get("device", "cuda")
+    cfg = llama.LlamaConfig.llama3_8b()  # attention_impl "flash": the unsharded side's row 5
+    big = max(c["buckets"])
+    mpps = -(-(big + max_new + 1) // page)
+    ecfg = EngineConfig(num_pages=len(c["prompts"]) * mpps + 2, page_size=page,
+                        max_batch=len(c["prompts"]), max_pages_per_seq=mpps,
+                        prefill_buckets=c["buckets"], max_new_tokens=max_new)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, m).tolist() for m in c["prompts"]]
+
+    # The unsharded side on the same weights: prefill_at over each padded
+    # bucket (its logits, layers 0 and L-1 of its K/V) and the float golden
+    # (reference attention), then freed.
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(c["seed"])
+    params = quantize_llama_params(llama.init_params(cfg, gen, device=dev), bits=8)
+    ref_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    refs = []
+    for p in prompts:
+        b = next(x for x in sorted(c["buckets"]) if len(p) <= x)
+        toks = torch.zeros((1, b), dtype=torch.int32, device=dev)
+        toks[0, :len(p)] = torch.tensor(p, dtype=torch.int32)
+        with torch.no_grad():
+            logits, k_all, v_all = la.prefill_at(cfg, params, toks, len(p) - 1)
+            kv = [x[[0, -1]].cpu() for x in (k_all, v_all)]
+            del k_all, v_all
+            golden = llama.forward(ref_cfg, params, toks[:, :len(p)])[:, -1].float().cpu()
+        refs.append({"logits": logits.float().cpu(), "kv": kv, "golden": golden, "bucket": b})
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+
+    job = dict(name="cp", kind="cp_serve", cfg=cfg, ecfg=ecfg, cp=n, prompts=prompts,
+               max_new=max_new, seed=c["seed"], fault_prompt=prompts[1],
+               bucket_short=refs[1]["bucket"], device=dev)
+    t0 = time.perf_counter()
+    ranks = [r["cp"] for r in _spawn_ranks([job], n, c["timeout_s"])]
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    L = cfg.num_layers
+    per_prompt = []
+    for i, ref in enumerate(refs):
+        got = r0["prefill_logits"][i]
+        k_cp, v_cp = r0["kv_layers"][i]
+        kv_err = {}
+        for name, a, b in (("k", k_cp, ref["kv"][0]), ("v", v_cp, ref["kv"][1])):
+            a, b = a[:, :, :len(prompts[i])].float(), b[:, :, :len(prompts[i])].float()
+            # layer 0: one bf16 rounding of the same projection; layer L-1:
+            # the logits' criterion, 0.25 std of the unsharded values.
+            kv_err[name] = {"layer0_err_over_ulp": ((a[0] - b[0]).abs()
+                                                     / (2.0**-8 * b[0].abs() + 1e-6)).max().item(),
+                            "last_rel": _rel(a[1], b[1])}
+        per_prompt.append({"len": len(prompts[i]), "bucket": ref["bucket"],
+                           "rel_vs_unsharded": _rel(got, ref["logits"][0]),
+                           "rel_vs_golden": _rel(got, ref["golden"][0]),
+                           "unsharded_rel_vs_golden": _rel(ref["logits"][0], ref["golden"][0]),
+                           "kv": kv_err})
+    fault_rel = _rel(r0["fault_logits"][0], refs[1]["logits"][0])
+    prefills = len(prompts)
+    steps = r0["decode_steps"]
+    rotations = 2 * (n - 1) * L * prefills
+    gates = {
+        "logits_vs_unsharded": all(p["rel_vs_unsharded"] <= 0.25 for p in per_prompt),
+        "logits_vs_golden": all(p["rel_vs_golden"] <= 0.25 for p in per_prompt),
+        "kv_layers": all(e["layer0_err_over_ulp"] <= 1 and e["last_rel"] <= 0.25
+                         for p in per_prompt for e in p["kv"].values()),
+        "ranks_bit_equal": all(r["streams"] == r0["streams"] for r in ranks),
+        "tokens": all(len(t) == max_new for t in r0["streams"]),
+        "launches": all(r["launches"] == {"flash_fwd[bf16]": n * L * prefills,
+                                          "paged_decode": L * r["decode_steps"]}
+                        for r in ranks),
+        "audit": all(r["audit"]["counts"] == {"collective-permute": rotations,
+                                              "all-gather": prefills} for r in ranks),
+        "row5": all(r["row5"]["err_over_tol"] <= 1 for r in ranks),
+        "drained": all(r["drained"] for r in ranks),
+    }
+    fault = {"planted": "rank-local positions in RoPE", "rel_vs_unsharded": fault_rel,
+             "caught": fault_rel > 0.25}
+    for name, k in (("flash_fwd[bf16]", "flash_fwd[bf16]"), ("paged_decode", "paged_decode")):
+        st["launches"][name] = st["launches"].get(name, 0) + r0["launches"][k]
+    st["cp_shapes"] = {"flash_fwd[bf16]": r0["row5"]}
+    ok = all(gates.values()) and fault["caught"]
+    print(f"chip_smoke serve_cp: planted fault ({fault['planted']}) "
+          f"{'caught' if fault['caught'] else 'NOT caught'}: {fault_rel:.3g} std", flush=True)
+    emit({"phase": "serve_cp", "ok": ok, "model": "llama3_8b", "layers": L, "cp": n,
+          "transport": f"{n} processes time-sharing one card, gloo through the host",
+          "gates": gates, "prompts": per_prompt, "planted_fault": fault,
+          "per_rank": [{k: r[k] for k in ("ttft_s", "decode_ms_per_step", "peak_mem_gb",
+                                           "audit", "row5", "build_s", "launches")}
+                       for r in ranks],
+          "decode_steps": steps, "reference_s": ref_s, "spawn_s": spawn_s, "gpu": st["gpu"]})
+    if not ok:
+        raise AssertionError("serve_cp phase failed its checks")
+
+
 TRAIN = dict(tokens=2048, steps=4, lr=0.5, check_layers=2, grad_rel_tol=2.0**-4)
 
 
@@ -5678,6 +6531,11 @@ def main(argv=None) -> int:
                                         "prefill_bench", "gemma2") if k in c})
             if "gemma2" in c:  # its launches: serve_hybrid's at head_dim 256
                 e["gemma2"] = dict(c["gemma2"], launches=st["launches_d256"].get(name, 0))
+            if "mqa" in c:  # row 4: its launches at one kv head (serve_tp's tp=8 ranks)
+                e["mqa"] = dict(c["mqa"], launches=st.get("launches_mqa", 0))
+            for key in ("tp_shapes", "cp_shapes"):  # a rank's shapes under TP / CP
+                if name in st.get(key, {}):
+                    e[key.replace("_shapes", "_rank")] = st[key][name]
             if "shapes" in c:
                 e["shapes"] = [{k: s[k] for k in ("matmul", "rows", "ms", "wrapper_ms", "plain_ms",
                                                   "bound_ms", "library_ms")} for s in c["shapes"]]

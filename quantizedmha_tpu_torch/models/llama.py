@@ -10,7 +10,9 @@ INT8 kernel and "reference" through the plain golden. The JAX package's 8-row
 lm_head pad is a TPU lowering trick with bitwise-equal logits and has no
 counterpart here. `loss_fn` and `sgd_train_step` train through the flash
 kernel's backward (or autograd of the golden); the INT8 kernel raises
-under grad, as its JAX counterpart does.
+under grad, as its JAX counterpart does. `param_shardings` gives the
+("dp", "tp") training layout as PartitionSpecs; serving.sharded.shard_params
+cuts a rank's shard by it.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from quantizedmha_tpu_torch.device import resolve_device
 from quantizedmha_tpu_torch.ops.flash_attention import flash_attention
 from quantizedmha_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
 from quantizedmha_tpu_torch.ops.quantize import true_div
+from quantizedmha_tpu_torch.parallel.mesh import P
 from quantizedmha_tpu_torch.quant.weights import QuantizedWeight, QuantizedWeight4, qdense
 from quantizedmha_tpu_torch.reference.mha import apply_rope, mha_masked_reference
 
@@ -146,16 +149,19 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
     `generator` (seed 0 when None). Layer matmul weights are drawn one layer
     at a time into their stacked tensor, so no float32 copy of a whole
     stack is ever live. The numbers differ from the JAX package's
-    jax.random draws; tests convert JAX parameters with params_from_numpy."""
-    dev = resolve_device(device)
-    if generator is None:
+    jax.random draws; tests convert JAX parameters with params_from_numpy.
+    device="meta" gives the tree's shapes and dtypes and allocates nothing
+    (the abstract parameters that sharding plans are sized from)."""
+    meta = str(device) == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
+    if generator is None and not meta:
         generator = torch.Generator(device=dev).manual_seed(0)
     hd, L, dt = cfg.hd, cfg.num_layers, cfg.dtype
 
     def dense(shape, scale=None, layers=None):
         scale = scale if scale is not None else shape[0] ** -0.5
         out = torch.empty(((layers,) if layers else ()) + shape, dtype=dt, device=dev)
-        for i in range(layers or 1):
+        for i in range(0 if meta else layers or 1):
             draw = torch.randn(shape, generator=generator, device=dev) * scale
             (out[i] if layers else out).copy_(draw)
         return out
@@ -185,6 +191,39 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
         layers=layers,
         final_norm=norm((h,), dtype=dt, device=dev),
         lm_head=dense((h, cfg.vocab_size)),
+    )
+
+
+def param_shardings(cfg: LlamaConfig) -> Dict[str, Any]:
+    """PartitionSpecs for a ("dp", "tp") mesh: attention heads and the MLP
+    hidden dim cut over "tp" (Megatron column / row parallel), the lm_head
+    over its vocab columns, everything else replicated (JAX
+    models/llama.py:211). The row-parallel products (wo, w_down) need an
+    all-reduce after them (serving.llama_adapter's `group`)."""
+    layer = dict(
+        attn_norm=P(None, None),
+        wq=P(None, None, "tp"),
+        wk=P(None, None, "tp"),
+        wv=P(None, None, "tp"),
+        wo=P(None, "tp", None),
+        mlp_norm=P(None, None),
+        w_gate=P(None, None, "tp"),
+        w_up=P(None, None, "tp"),
+        w_down=P(None, "tp", None),
+    )
+    if cfg.sandwich_norms:
+        layer["post_attn_norm"] = P(None, None)
+        layer["post_mlp_norm"] = P(None, None)
+    if cfg.attention_bias:
+        # biases shard with their projection's output (column) dim
+        layer["bq"] = P(None, "tp")
+        layer["bk"] = P(None, "tp")
+        layer["bv"] = P(None, "tp")
+    return dict(
+        embed=P(None, None),
+        layers=layer,
+        final_norm=P(None),
+        lm_head=P(None, "tp"),
     )
 
 

@@ -5,7 +5,9 @@ XLA insert the collectives. Here a mesh is a torch.distributed DeviceMesh
 over the ranks of the default process group, which the caller initializes
 (`torch.distributed.init_process_group`, one rank a GPU); each named axis
 has its own process group (`mesh.get_group(name)`) for the collectives of
-`parallel/combine.py` and `parallel/ring.py`.
+`parallel/combine.py` and `parallel/ring.py`. `PartitionSpec` (`P`) names,
+for each dim of a tensor, the mesh axis it is cut over (None: replicated),
+as JAX's does; `serving.sharded.shard_params` cuts a rank's shard by it.
 """
 
 from __future__ import annotations
@@ -16,6 +18,21 @@ from typing import Sequence, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+
+class PartitionSpec(tuple):
+    """JAX's PartitionSpec: one entry a tensor dim, the mesh axis name that
+    dim is cut over or None (replicated). A tuple, so it compares equal to
+    JAX's spec of the same entries."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
 
 
 def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str], *,

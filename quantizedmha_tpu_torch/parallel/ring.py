@@ -24,6 +24,13 @@ in ring order and reproduce a rank's result without a process group.
 of one mesh axis (`mesh.get_group("cp")`), None for the default group. The
 entries refuse grad (torch.distributed's calls are not tracked by
 autograd; ROADMAP.md queue 1 item 8).
+
+Transport: gloo's send and recv take host pointers only (on a CUDA tensor
+the sending rank aborts in writev, "Bad address": `harness/gloo_probe.py`),
+while its all_reduce, broadcast and all_gather take CUDA tensors. So on a
+gloo group `_rotate` stages CUDA blocks through host buffers: a copy to the
+host, the send / recv, a copy back. The attention still runs on the card;
+an NCCL group never takes that path.
 """
 
 from __future__ import annotations
@@ -123,16 +130,42 @@ def ring_step(q: torch.Tensor, *, idx: int, n: int, kv_shard_len: int, int8: boo
     return partial
 
 
-def _rotate(block: Sequence[torch.Tensor], group, idx: int, n: int):
+def _host_staged(group, tensors: Sequence[torch.Tensor]) -> bool:
+    """Whether a send / recv of `tensors` over `group` goes through host
+    buffers: CUDA tensors on a gloo group (module docstring)."""
+    return (any(t.is_cuda for t in tensors)
+            and dist.get_backend(group if group is not None else dist.group.WORLD) == "gloo")
+
+
+def _rotate(block: Sequence[torch.Tensor], group, idx: int, n: int) -> Callable:
     """Send each tensor of `block` to the right neighbour and receive the
-    left one's into fresh buffers: (requests, received)."""
+    left one's into fresh buffers; returns finish(), which waits and gives
+    the received block (on block's device: staged through host buffers on a
+    gloo group, where the transfer no longer overlaps the compute)."""
     world = group if group is not None else dist.group.WORLD
     right = dist.get_global_rank(world, (idx + 1) % n)
     left = dist.get_global_rank(world, (idx - 1) % n)
-    received = [torch.empty_like(t) for t in block]
-    ops = ([dist.P2POp(dist.isend, t, right, group, tag) for tag, t in enumerate(block)]
+    staged = _host_staged(group, block)
+    sent = [t.contiguous().cpu() for t in block] if staged else list(block)
+    received = [torch.empty_like(t) for t in sent]
+    ops = ([dist.P2POp(dist.isend, t, right, group, tag) for tag, t in enumerate(sent)]
            + [dist.P2POp(dist.irecv, r, left, group, tag) for tag, r in enumerate(received)])
-    return dist.batch_isend_irecv(ops), received
+    requests = dist.batch_isend_irecv(ops)
+
+    def finish():
+        for r in requests:
+            r.wait()
+        return [r.to(t.device) for r, t in zip(received, block)] if staged else received
+    return finish
+
+
+def gather_shards(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's x stacked in rank order: [group size, *x.shape], one
+    all_gather."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.stack(parts)
 
 
 def _run_ring(q: torch.Tensor, block, group, partial) -> torch.Tensor:
@@ -144,11 +177,9 @@ def _run_ring(q: torch.Tensor, block, group, partial) -> torch.Tensor:
     o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.full(q.shape[:3], float("-inf"), dtype=torch.float32, device=q.device)
     for step in range(n - 1):
-        requests, incoming = _rotate(block, group, idx, n)
+        finish = _rotate(block, group, idx, n)
         o, lse = merge_two_partials(o, lse, *partial(step, *block))
-        for r in requests:
-            r.wait()
-        block = incoming
+        block = finish()
     o, _ = merge_two_partials(o, lse, *partial(n - 1, *block))
     return o.to(q.dtype)
 

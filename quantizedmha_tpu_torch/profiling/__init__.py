@@ -7,11 +7,11 @@ NCU workflow, tools/ and profiles/ reborn).
 - `memory`:        one call's memory budget from the CUDA allocator.
 - `device_info`:   hardware-limits dump (tools/device_info.cu analog).
 - `compare`:       markdown diff of two bench reports.
-
-Not ported yet: `collectives` (waits for multi-GPU, ROADMAP.md queue 1
-item 8).
+- `collectives`:   count and size the collectives a call issues (recorded
+                   as they run: parallel.distributed.record_collectives).
 """
 
+from quantizedmha_tpu_torch.profiling.collectives import CollectiveReport, audit_events, audit_fn
 from quantizedmha_tpu_torch.profiling.compare import compare_files, compare_reports
 from quantizedmha_tpu_torch.profiling.device_info import (
     device_info as get_device_info,
@@ -35,6 +35,9 @@ from quantizedmha_tpu_torch.profiling.trace_summary import (
 )
 
 __all__ = [
+    "CollectiveReport",
+    "audit_events",
+    "audit_fn",
     "compare_files",
     "compare_reports",
     "get_device_info",

@@ -13,9 +13,33 @@ from quantizedmha_tpu_torch.serving.mixed_kv import (
     mixed_paged_prefill_attention,
 )
 from quantizedmha_tpu_torch.serving.sampling import SamplingParams
+from quantizedmha_tpu_torch.serving.sharded import (
+    LayerStack,
+    Lazy,
+    TPEngine,
+    TPSpecDecodeEngine,
+    expand_param_specs,
+    local_config,
+    make_tp_mesh,
+    shard_params,
+    tp_cache_specs,
+    tp_mixed_cache_specs,
+    tp_param_specs,
+)
 from quantizedmha_tpu_torch.serving.speculative import SpecConfig, SpecDecodeEngine
 
 __all__ = [
+    "LayerStack",
+    "Lazy",
+    "TPEngine",
+    "TPSpecDecodeEngine",
+    "expand_param_specs",
+    "local_config",
+    "make_tp_mesh",
+    "shard_params",
+    "tp_cache_specs",
+    "tp_mixed_cache_specs",
+    "tp_param_specs",
     "Engine",
     "EngineConfig",
     "MixedPageAllocator",

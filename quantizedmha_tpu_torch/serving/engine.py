@@ -38,9 +38,18 @@ a no-op. hybrid_kv with mixed_kv puts the mixed pool pair on the full group
 (its INT4 bulk takes the context that grows) and keeps the sliding groups
 plain INT8; it needs a full group and no prefix_cache.
 
-Not ported yet, and refused with NotImplementedError when set:
-context-parallel prefill (ROADMAP.md queue 1). `async_dispatch` (a TPU
-host-overlap trick) accepts only False.
+cp_mesh (a DeviceMesh; its `cp_axis` group) runs each bucketed prefill
+context-parallel: every rank of the group prefills its shard of the
+bucket's sequence with ring attention a layer
+(llama_adapter.prefill_cp_at), the whole prompt's K/V are gathered once,
+and every rank writes them to its own cache and decodes the same batch
+(the SPMD host code is the same on each rank). Buckets must be multiples
+of the axis size.
+
+serving/sharded.py's TPEngine is this engine on each rank's shard of the
+weights and KV heads: the adapter runs `acfg` (the local config) and
+all-reduces over `tp_group`. `async_dispatch` (a TPU host-overlap trick)
+accepts only False.
 """
 
 from __future__ import annotations
@@ -53,6 +62,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from quantizedmha_tpu_torch.device import resolve_device
 from quantizedmha_tpu_torch.models.llama import LlamaConfig
@@ -85,13 +96,10 @@ class EngineConfig:
     hybrid_pages: Optional[Dict[str, int]] = None
     interleaved_prefill: bool = False
     mixed_kv: Optional[Dict[str, int]] = None
+    # Context-parallel bucketed prefill over this DeviceMesh's cp_axis group
+    # (module docstring); buckets must be multiples of the axis size.
     cp_mesh: Any = None
     cp_axis: str = "cp"
-
-
-_UNPORTED = {
-    "cp_mesh": "context-parallel prefill (ROADMAP.md queue 1 item 8)",
-}
 
 
 def _hybrid_pages(groups, ecfg: EngineConfig) -> Dict[str, int]:
@@ -186,11 +194,17 @@ class _PrefillTask:
 
 
 class Engine:
+    # Tensor parallelism (serving/sharded.py's TPEngine sets both): the
+    # process group the adapter all-reduces over, None on one rank.
+    tp_group = None
+
+    def _local(self, cfg: LlamaConfig) -> LlamaConfig:
+        """The config the adapter runs for model `cfg`: a TP rank's local
+        config (its share of the heads), here the model's own."""
+        return cfg
+
     def __init__(self, cfg: LlamaConfig, params: Dict[str, Any],
                  ecfg: EngineConfig, device="cuda"):
-        for name, what in _UNPORTED.items():
-            if getattr(ecfg, name):
-                raise NotImplementedError(f"EngineConfig.{name}: {what} is not ported yet")
         if ecfg.async_dispatch:
             raise ValueError("async_dispatch overlaps a TPU host round-trip; "
                              "this engine takes only async_dispatch=False")
@@ -199,7 +213,11 @@ class Engine:
             raise ValueError(
                 f"prefill_buckets {bad} are not multiples of "
                 f"page_size={ecfg.page_size}")
+        self.cp_group = None if ecfg.cp_mesh is None else self._cp_group(ecfg)
+        if self.cp_group is not None and self.tp_group is not None:
+            raise ValueError("cp_mesh and tensor parallelism do not compose in one engine")
         self.cfg = cfg
+        self.acfg = self._local(cfg)  # what the adapter runs
         self.params = params
         self.ecfg = ecfg
         self.device = resolve_device(device)
@@ -207,7 +225,8 @@ class Engine:
         # the hybrid pools and their trims key on them.
         self.groups = llama_adapter.window_groups(cfg)
         self.group_windows = {llama_adapter.group_key(w): w for w in set(cfg.layer_windows)}
-        self.cache, self.allocs, self.alloc, self.hybrid = build_pools(cfg, ecfg, self.device)
+        self.cache, self.allocs, self.alloc, self.hybrid = build_pools(self.acfg, ecfg,
+                                                                      self.device)
         # Three cache modes: `mixed`, one mixed pool pair for a uniform
         # pattern; `hybrid_mixed`, group pools whose full group is mixed;
         # plain hybrid or single otherwise.
@@ -241,6 +260,25 @@ class Engine:
         self.sampling = ecfg.sampling.validate()
         self._generator = torch.Generator(device=self.device).manual_seed(
             self.sampling.seed)
+
+    @staticmethod
+    def _cp_group(ecfg: EngineConfig):
+        """The cp axis's process group of ecfg.cp_mesh, its buckets checked."""
+        if not isinstance(ecfg.cp_mesh, DeviceMesh):
+            raise TypeError(f"cp_mesh takes a torch.distributed DeviceMesh "
+                            f"(parallel.make_mesh), got {type(ecfg.cp_mesh).__name__}")
+        names = ecfg.cp_mesh.mesh_dim_names or ()
+        if ecfg.cp_axis not in names:
+            raise ValueError(f"cp_mesh has no axis {ecfg.cp_axis!r} (axes {names})")
+        n = ecfg.cp_mesh.size(names.index(ecfg.cp_axis))
+        group = ecfg.cp_mesh.get_group(ecfg.cp_axis)
+        if dist.get_world_size(group) != n:
+            raise ValueError(f"the {ecfg.cp_axis!r} group has {dist.get_world_size(group)} "
+                             f"ranks where the mesh gives {n}")
+        bad = [b for b in ecfg.prefill_buckets if b % n]
+        if bad:
+            raise ValueError(f"prefill_buckets {bad} are not multiples of the cp axis size {n}")
+        return group
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -410,15 +448,27 @@ class Engine:
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = prompt
         with self.metrics.timed("prefill"):
-            logits, k_all, v_all = llama_adapter.prefill_at(
-                self.cfg, self.params, self._t(toks), n - 1)
+            logits, k_all, v_all = self._prefill_bucket(toks, n)
         self.metrics.inc("requests_admitted")
         self.metrics.inc("prefill_tokens", n)
-        self._write_prompt(self.cfg, self.cache, pages, k_all, v_all, n)
+        self._write_prompt(self.acfg, self.cache, pages, k_all, v_all, n)
         first = self._sample(logits)
         self._register_prefix(prompt, rid)
         self._activate(_Sequence(rid, prompt, [first], first, max_new))
         self._trim_windows()
+
+    def _prefill_bucket(self, toks: np.ndarray, n: int):
+        """A bucketed prompt's prefill: (logits, k_all, v_all), the whole
+        bucket's K/V on every rank; context-parallel over cp_group (this
+        rank prefills its contiguous shard of the bucket) when set."""
+        if self.cp_group is None:
+            return llama_adapter.prefill_at(self.acfg, self.params, self._t(toks), n - 1,
+                                            group=self.tp_group)
+        size, idx = dist.get_world_size(self.cp_group), dist.get_rank(self.cp_group)
+        shard = toks.shape[1] // size
+        return llama_adapter.prefill_cp_at(
+            self.acfg, self.params, self._t(toks[:, idx * shard:(idx + 1) * shard]), n - 1,
+            group=self.cp_group)
 
     def _ids(self, pages):
         """Fresh page ids on the device; a mixed pool's (INT8, INT4) pair."""
@@ -444,8 +494,9 @@ class Engine:
         toks[0, :len(part)] = part
         with self.metrics.timed("prefill"):
             logits, self.cache = llama_adapter.prefill_chunk(
-                self.cfg, self.params, self.cache, self._t(toks), start, table,
-                len(part) - 1, page_size=self.ecfg.page_size, boundary_tokens=self.boundary)
+                self.acfg, self.params, self.cache, self._t(toks), start, table,
+                len(part) - 1, page_size=self.ecfg.page_size, boundary_tokens=self.boundary,
+                group=self.tp_group)
         return logits
 
     def _admit_chunked(self, rid: int, prompt: List[int], max_new: int) -> None:
@@ -719,9 +770,9 @@ class Engine:
         tables = self._tables_for([s.seq_id for s in self.active], B)
         with self.metrics.timed("decode_step"):
             logits, self.cache = llama_adapter.decode_step(
-                self.cfg, self.params, self.cache, self._t(tokens),
+                self.acfg, self.params, self.cache, self._t(tokens),
                 self._t(positions), page_ids, self._t(slots),
-                self._t(lengths), tables, boundary_tokens=self.boundary)
+                self._t(lengths), tables, boundary_tokens=self.boundary, group=self.tp_group)
             next_tokens = self._sample_batch(logits).cpu().numpy()
         self.metrics.inc("decode_steps")
         self.metrics.inc("tokens_generated", nseq)
@@ -745,10 +796,10 @@ class Engine:
                     a.extend(seq.seq_id)
         with self.metrics.timed("decode_chunk"):
             out, self.cache = llama_adapter.decode_loop(
-                self.cfg, self.params, self.cache, self._t(tokens), self._t(lengths0),
+                self.acfg, self.params, self.cache, self._t(tokens), self._t(lengths0),
                 self._tables_for(ids, B), self._generator, n_steps=chunk,
                 page_size=self.ecfg.page_size, sampling=self.sampling,
-                boundary_tokens=self.boundary)
+                boundary_tokens=self.boundary, group=self.tp_group)
             out = out.cpu().numpy()  # [chunk, B] — the single host sync
         self.metrics.inc("decode_steps", chunk)
         self.metrics.set("active_sequences", nseq)

@@ -1,6 +1,5 @@
 """Llama model adapter for the serving engine: prefill + paged decode
-(counterpart of quantizedmha_tpu/serving/llama_adapter.py, tensor and
-context parallelism aside).
+(counterpart of quantizedmha_tpu/serving/llama_adapter.py).
 
   - prefill: causal attention over the (right-padded) prompt through the
     fused INT8 kernel; returns the per-layer K/V (post-RoPE) for cache
@@ -29,6 +28,21 @@ caches, one a window group, each with its own page pool: decode_step,
 decode_loop, prefill_chunk and verify_step take it with per-group page ids
 and tables. make_cache_hybrid_mixed makes the full-attention group a mixed
 cache, whose ids and tables travel as pairs inside the group dicts.
+
+Tensor parallelism: prefill_at, prefill, prefill_chunk, decode_step,
+decode_loop and verify_step take a `group` (JAX's axis_name: a
+torch.distributed process group, None for one rank). With it, the call runs
+on this rank's shard of Megatron-sharded weights (wq / wk / wv / w_gate /
+w_up cut on contiguous head groups, wo / w_down on their input rows;
+serving/sharded.py) and of a kv-head-sharded cache, given the LOCAL config
+(sharded.local_config); the wo and w_down products are all-reduced over the
+group before the residual add, the only two collectives of a TP decoder
+layer. Norms, embeddings and the lm_head are replicated, so every rank
+computes the same logits.
+
+Context parallelism: prefill_cp_at runs a prompt's sequence shard on each
+rank of a group with ring attention a layer and gathers the whole prompt's
+K/V (and the last token's hidden row) once at the end.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from quantizedmha_tpu_torch.models.llama import (
     LlamaConfig,
@@ -76,18 +91,26 @@ def ensure_serving_supported(cfg: LlamaConfig) -> None:
     cfg.layer_windows  # raises on a mis-sized window_pattern
 
 
-def _attn_residual(cfg: LlamaConfig, dense, p, x, o_flat):
-    o = dense(o_flat.to(cfg.dtype), p["wo"])
+def _tp_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum a row-parallel product's partials over the TP group, in its own
+    dtype (JAX's psum), in place; no-op without a group."""
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def _attn_residual(cfg: LlamaConfig, dense, p, x, o_flat, group=None):
+    o = _tp_sum(dense(o_flat.to(cfg.dtype), p["wo"]), group)
     if cfg.sandwich_norms:
         o = rms_norm(o, p["post_attn_norm"], cfg.rms_eps, cfg.rms_plus_one)
     return x + o
 
 
-def _mlp_residual(cfg: LlamaConfig, dense, p, x):
+def _mlp_residual(cfg: LlamaConfig, dense, p, x, group=None):
     h = rms_norm(x, p["mlp_norm"], cfg.rms_eps, cfg.rms_plus_one)
     g_pre, up = mlp_gate_up(cfg, dense, h, p)
     gate = _act(cfg, g_pre.float()).to(x.dtype)
-    m = dense(gate * up, p["w_down"])
+    m = _tp_sum(dense(gate * up, p["w_down"]), group)
     if cfg.sandwich_norms:
         m = rms_norm(m, p["post_mlp_norm"], cfg.rms_eps, cfg.rms_plus_one)
     return x + m
@@ -184,7 +207,7 @@ def layer_stacks(cfg: LlamaConfig, cache) -> List[Tuple[Any, int]]:
 
 
 def prefill_at(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
-               last_index):
+               last_index, *, group=None):
     """Prefill over a (possibly right-padded) prompt.
 
     tokens: [1, n_pad]; last_index: index of the final REAL token (causal
@@ -209,8 +232,8 @@ def prefill_at(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
         v_all.append(v[0])
         o = _attention(cfg, q, k, v, causal=True, window=window)
         o = o.transpose(1, 2).reshape(b, n, cfg.num_heads * hd)
-        x = _attn_residual(cfg, dense, p, x, o)
-        x = _mlp_residual(cfg, dense, p, x)
+        x = _attn_residual(cfg, dense, p, x, o, group)
+        x = _mlp_residual(cfg, dense, p, x, group)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
     # Project ONLY the requested position (the full [n, vocab] logits would
     # be discarded but for one row).
@@ -218,9 +241,70 @@ def prefill_at(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
     return logits, torch.stack(k_all), torch.stack(v_all)
 
 
-def prefill(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor):
+def prefill(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor, *, group=None):
     """tokens: [1, n] -> (last_logits [1, vocab], k_all, v_all [L, Hkv, n, hd])."""
-    return prefill_at(cfg, params, tokens, tokens.shape[1] - 1)
+    return prefill_at(cfg, params, tokens, tokens.shape[1] - 1, group=group)
+
+
+def _cp_positions(idx: int, n_shard: int, device) -> torch.Tensor:
+    """Global positions of rank idx's contiguous shard of a CP prefill."""
+    return idx * n_shard + torch.arange(n_shard, device=device)
+
+
+def prefill_cp_at(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
+                  last_index: int, *, group):
+    """Context-parallel prefill over the ranks of `group` (JAX's axis_name),
+    parameters replicated: `tokens` is this rank's contiguous shard [1,
+    n_shard] of the (right-padded) prompt, shard r at positions [r n_shard,
+    (r + 1) n_shard); last_index the final REAL token's GLOBAL index.
+
+    A rank's embeddings, norms, projections and MLP are local; RoPE takes
+    global positions; each layer's attention is the ring
+    (parallel.ring.ring_attention: K/V shards rotate, windows, sinks and
+    softcap on global positions). At the end one all-gather brings every
+    rank's K/V and, from the last token's owner, its normed hidden row, so
+    every rank computes the same logits and holds the whole prompt's K/V
+    for its cache (JAX returns them sharded and gathers them implicitly).
+
+    Returns (logits [1, vocab], k_all, v_all [L, Hkv, n_shard * ranks, hd],
+    post-RoPE)."""
+    from quantizedmha_tpu_torch.parallel.ring import gather_shards, ring_attention
+
+    b, n_shard = tokens.shape
+    if b != 1:
+        raise ValueError("context-parallel prefill is per-sequence")
+    hd = cfg.hd
+    dense = functools.partial(qdense, mode=cfg.weight_quant_mode)
+    idx, size = dist.get_rank(group), dist.get_world_size(group)
+    positions = _cp_positions(idx, n_shard, tokens.device)[None, :]  # [1, S]
+    x = embed_tokens(cfg, params, tokens)
+    k_all, v_all = [], []
+    for i, window in enumerate(cfg.layer_windows):
+        p = layer_params(params["layers"], i)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_eps, cfg.rms_plus_one)
+        q, k, v = qkv_triple(cfg, dense, h, p)
+        q = q.reshape(b, n_shard, cfg.num_heads, hd).transpose(1, 2)
+        k = k.reshape(b, n_shard, cfg.num_kv_heads, hd).transpose(1, 2)
+        v = v.reshape(b, n_shard, cfg.num_kv_heads, hd).transpose(1, 2)
+        q = _rope_positions(q, positions, cfg.rope_theta)
+        k = _rope_positions(k, positions, cfg.rope_theta)
+        k_all.append(k[0])
+        v_all.append(v[0])
+        o = ring_attention(q, k, v, group=group, causal=True, **_attn_masks(cfg, window))
+        o = o.transpose(1, 2).reshape(b, n_shard, cfg.num_heads * hd)
+        x = _attn_residual(cfg, dense, p, x, o)
+        x = _mlp_residual(cfg, dense, p, x)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
+    owner, row = divmod(int(last_index), n_shard)
+    x_last = x[0, row] if idx == owner else torch.zeros_like(x[0, 0])
+    kv = torch.stack([torch.stack(k_all), torch.stack(v_all)])  # [2, L, Hkv, S, hd]
+    del k_all, v_all
+    parts = gather_shards(torch.cat([kv.flatten(), x_last]), group)
+    n_kv = kv.numel()
+    kv = parts[:, :n_kv].reshape(size, *kv.shape).permute(1, 2, 3, 0, 4, 5)
+    kv = kv.reshape(2, cfg.num_layers, cfg.num_kv_heads, size * n_shard, hd)
+    logits = final_logits(cfg, parts[owner, n_kv:][None], params["lm_head"])
+    return logits, kv[0], kv[1]
 
 
 def write_prefill(
@@ -293,6 +377,7 @@ def prefill_chunk(
     *,
     page_size: int,
     boundary_tokens: Optional[int] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, Any]:
     """One chunk of a chunked prefill: per layer, project and RoPE the
     chunk at its global positions, write its K/V into its pages (padding
@@ -347,8 +432,8 @@ def prefill_chunk(
                 q, layer.k_pages, layer.v_pages, layer.k_scales, layer.v_scales,
                 lengths, q_starts, tbl[None], **_attn_masks(cfg, window))
         o = o.transpose(1, 2).reshape(b, C, cfg.num_heads * hd)
-        x = _attn_residual(cfg, dense, p, x, o)
-        x = _mlp_residual(cfg, dense, p, x)
+        x = _attn_residual(cfg, dense, p, x, o, group)
+        x = _mlp_residual(cfg, dense, p, x, group)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
     return final_logits(cfg, x[0, last_index], params["lm_head"])[None], cache
 
@@ -376,6 +461,7 @@ def decode_step(
     tables,                   # [B, max_pages]
     *,
     boundary_tokens: Optional[int] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, Any]:
     """One decode step for a batch of sequences -> (logits [B, vocab], cache).
 
@@ -415,8 +501,8 @@ def decode_step(
                 q, stack.k_pages, stack.v_pages, stack.k_scales, stack.v_scales,
                 lengths, _g(tables, window), layer=li, **_attn_masks(cfg, window))
         o = o.reshape(b, 1, cfg.num_heads * hd)
-        x = _attn_residual(cfg, dense, p, x, o)
-        x = _mlp_residual(cfg, dense, p, x)
+        x = _attn_residual(cfg, dense, p, x, o, group)
+        x = _mlp_residual(cfg, dense, p, x, group)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
     return final_logits(cfg, x[:, 0], params["lm_head"]), cache
 
@@ -435,6 +521,7 @@ def decode_loop(
     sampling: Optional[SamplingParams] = None,
     return_logits: bool = False,
     boundary_tokens: Optional[int] = None,
+    group=None,
 ):
     """Decode `n_steps` tokens per sequence on device: the sampled token
     feeds the next step and each step's (page, slot) comes from the block
@@ -465,7 +552,8 @@ def decode_loop(
         pids = ({k: pids_of(t) for k, t in tables.items()} if isinstance(tables, dict)
                 else pids_of(tables))
         logits, cache = decode_step(cfg, params, cache, toks, lens, pids, lens % page_size,
-                                    lens + 1, tables, boundary_tokens=boundary_tokens)
+                                    lens + 1, tables, boundary_tokens=boundary_tokens,
+                                    group=group)
         toks = sample(logits, generator, sampling)
         out.append(toks)
         if return_logits:
@@ -487,6 +575,7 @@ def verify_step(
     tables,                     # [B, max_pages]; hybrid: per group
     *,
     page_size: int,
+    group=None,
 ) -> Tuple[torch.Tensor, Any]:
     """Speculative decoding's verification: S tokens a sequence in one
     forward. Their K/V are appended to the paged cache token by token (so
@@ -527,8 +616,8 @@ def verify_step(
             q, layer.k_pages, layer.v_pages, layer.k_scales, layer.v_scales,
             lengths, q_starts, _g(tables, window), **_attn_masks(cfg, window))
         o = o.transpose(1, 2).reshape(b, S, cfg.num_heads * hd)
-        x = _attn_residual(cfg, dense, p, x, o)
-        x = _mlp_residual(cfg, dense, p, x)
+        x = _attn_residual(cfg, dense, p, x, o, group)
+        x = _mlp_residual(cfg, dense, p, x, group)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
     return final_logits(cfg, x, params["lm_head"]), cache
 

@@ -93,8 +93,9 @@ class SpecDecodeEngine(Engine):
         # The draft's own cache and allocators over the same page layout;
         # under hybrid_kv the draft's own window pattern decides whether its
         # pools are grouped.
+        self.draft_acfg = self._local(draft_cfg)  # what the adapter runs
         (self.draft_cache, self.draft_allocs, self.draft_alloc,
-         self.draft_hybrid) = build_pools(draft_cfg, ecfg, self.device)
+         self.draft_hybrid) = build_pools(self.draft_acfg, ecfg, self.device)
         self.draft_group_windows = {llama_adapter.group_key(w): w
                                     for w in set(draft_cfg.layer_windows)}
 
@@ -134,9 +135,9 @@ class SpecDecodeEngine(Engine):
         pages = self._admit_all(rid, n, self._draft_pools())
         toks = np.zeros((1, self._bucket(n)), np.int32)
         toks[0, :n] = prompt
-        _, k_all, v_all = llama_adapter.prefill_at(self.draft_cfg, self.draft_params,
-                                                   self._t(toks), n - 1)
-        self._write_prompt(self.draft_cfg, self.draft_cache, pages, k_all, v_all, n)
+        _, k_all, v_all = llama_adapter.prefill_at(self.draft_acfg, self.draft_params,
+                                                   self._t(toks), n - 1, group=self.tp_group)
+        self._write_prompt(self.draft_acfg, self.draft_cache, pages, k_all, v_all, n)
         self._trim_draft()
 
     def _on_prefill_complete(self, rid: int, prompt: List[int]) -> None:
@@ -170,8 +171,8 @@ class SpecDecodeEngine(Engine):
             toks = np.zeros((1, chunk), np.int32)
             toks[0, :len(part)] = part
             _, self.draft_cache = llama_adapter.prefill_chunk(
-                self.draft_cfg, self.draft_params, self.draft_cache, self._t(toks), start,
-                table, len(part) - 1, page_size=self.ecfg.page_size)
+                self.draft_acfg, self.draft_params, self.draft_cache, self._t(toks), start,
+                table, len(part) - 1, page_size=self.ecfg.page_size, group=self.tp_group)
 
     # -- one speculation round --------------------------------------------------
 
@@ -240,10 +241,10 @@ class SpecDecodeEngine(Engine):
         self._reserve(draft_pools, seq_ids, k)
         with self.metrics.timed("draft"):
             drafted = llama_adapter.decode_loop(
-                self.draft_cfg, self.draft_params, self.draft_cache, self._t(tokens0),
+                self.draft_acfg, self.draft_params, self.draft_cache, self._t(tokens0),
                 self._t(lengths0), self._tables_for(seq_ids, B, self._draft_pools()),
                 self._generator, n_steps=k, page_size=ps, sampling=self.sampling,
-                return_logits=not greedy)
+                return_logits=not greedy, group=self.tp_group)
             drafts = drafted[0].cpu().numpy()  # [k, B]
 
         # 2. The target verifies the pending token and the drafts in one
@@ -265,8 +266,9 @@ class SpecDecodeEngine(Engine):
             page_sched, tables = sched_from(t_tables), self._t(t_tables)
         with self.metrics.timed("verify"):
             logits, self.cache = llama_adapter.verify_step(
-                self.cfg, self.params, self.cache, self._t(fed), self._t(lengths0), page_sched,
-                self._t((pos % ps).astype(np.int32)), tables, page_size=ps)
+                self.acfg, self.params, self.cache, self._t(fed), self._t(lengths0), page_sched,
+                self._t((pos % ps).astype(np.int32)), tables, page_size=ps,
+                group=self.tp_group)
             if greedy:
                 target = torch.argmax(logits, dim=-1).cpu().numpy()  # [B, S]
             else:

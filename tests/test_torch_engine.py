@@ -170,14 +170,16 @@ def test_eos_and_max_new(models):
     ("hybrid_kv", True),
     ("cp_mesh", object())])
 def test_unported_engine_options_raise(models, field, value):
-    """cp_mesh raises; hybrid_kv on this uniform pattern is a no-op, as in
-    the JAX package (one shared pool)."""
+    """cp_mesh takes a DeviceMesh (context parallelism is ported:
+    tests/test_torch_cp_prefill.py) and raises on anything else; hybrid_kv
+    on this uniform pattern is a no-op, as in the JAX package (one shared
+    pool)."""
     _, _, tc, tp = models
     if field == "hybrid_kv":
         eng = Engine(tc, tp, EngineConfig(**{field: value}), device="cpu")
         assert not eng.hybrid and eng.allocs is None
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Engine(tc, tp, EngineConfig(**{field: value}), device="cpu")
 
 
