@@ -179,6 +179,45 @@ result line:
            step within 2^-4 of its largest entry of the same step through
            the float golden (attention_impl="reference"). Prints the losses,
            ms a step, tokens/s, the share of weights changed, peak memory.
+  train_parallel  training across ranks: one spawn of 4 ranks on GPU 0
+           joined by gloo (4 processes time-share the card and every
+           collective crosses the host: not multi-GPU speeds), three jobs,
+           the unsharded side computed first and freed. (a) DP x TP: dp 2 x
+           tp 2 (a (2,) x (2,) hybrid mesh) at Llama-3-8B's width, depth cut
+           to 4 layers, bf16, attention_impl="flash", 2048 tokens a dp rank,
+           3 steps at lr 0.5; the parent saves the initial weights with
+           utils.checkpoint.CheckpointManager and each rank restore_sharded's
+           its shard. Gates: step 1's loss within 2e-3 relative of the
+           unsharded sgd_train_step's on the same global batch (the bf16
+           bound of tests/test_torch_train.py), a later step's within that
+           plus 2^-4 of the unsharded loss's change over the steps before
+           it; the same losses on every rank, falling; every leaf's first-step gradient shard within 2^-4 of
+           its largest entry of the unsharded gradient's slice; weights
+           finite; exact launches (rows 5, 6, 7: 4 a step); the audit exact:
+           the records of every step equal parallel.distributed.
+           train_step_collectives (4L + 3 all-reduces on tp, two on dp), tp
+           on "ici" and dp on "dcn" at granule 2, bytes too. (b) PP: pp 4,
+           8 layers (2 a stage), 4 x 512 tokens in 4 microbatches: every
+           rank's logits the same, within 0.25 std of the unsharded
+           forward's; each stage's layer gradients within 2^-4 of the
+           unsharded loss's; exact launches. (c) CP: cp 4 at Llama-3-8B's
+           attention width (Hq 32, Hkv 8, d 128, bf16, causal, 32768 tokens,
+           8192 a rank): ring_attention, ring_attention_int8 (block_kv 512)
+           and context_parallel_attention (q the last 2048 rows), forward and
+           backward: dq, dk, dv within ring_grad_tolerances of the flash
+           kernel's backward over the unsharded sequence (the INT8 ring's at
+           the shards' dequantized K/V), and the INT8 ring's gradients equal
+           to ring_attention's at the dequantized K/V bit for bit; exact
+           launches. Five planted faults (the dp gradient summed, not
+           averaged; copy_to_group without its backward all-reduce; a stage
+           dropping microbatch 0's gradient; the ring's gradient rotation
+           sent right; the INT8 straight-through backward at the raw K/V)
+           must each fail a gate. Rows 5, 6 and 7 at a tp rank's attention
+           (16 q / 4 kv heads, 2048 tokens) and a ring step (8192 x 8192 at
+           offsets, with an lse cotangent), row 1 at an INT8 ring step, each
+           within its plain version's tolerance (the kernels line's
+           "train_parallel_rank"). Prints ms a step a rank, peak memory a
+           rank and the collectives' host seconds.
   parallel ring and context parallelism at Llama-3-8B's attention width
            (B=1, Hq=32, Hkv=8, d=128, bf16, causal, 32768 tokens): 4 ranks'
            steps driven in one process in ring order (simulate_ring, no
@@ -251,8 +290,8 @@ zeroed just before each main path (each solve rung, the harness run,
 serve, serve's prefill bench, serve_w8a8 and its prefill bench, each
 serve_w4 batch, serve_flash, serve_mixed, serve_hybrid, serve_hybrid_mixed,
 serve_spec's four runs, train's steps, each of parallel's rings and its
-one-rank group, and in every rank of serve_tp's and serve_cp's runs: the
-summary adds rank 0's) runs and read just after,
+one-rank group, and in every rank of serve_tp's, serve_cp's and
+train_parallel's runs: the summary adds rank 0's) runs and read just after,
 and a kernel of that path that never launched fails the run. The last
 lines are the kernels summary, the card's name and power limit, and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -278,7 +317,7 @@ PREFILL_BENCH_LEN = 2048  # serving_bench --prefill's prompt (phase_serve)
 
 PHASES = ("build", "kernels", "solve", "harness", "serve", "serve_w8a8", "serve_w4",
           "serve_flash", "serve_mixed", "serve_hybrid", "serve_hybrid_mixed", "serve_spec",
-          "train", "parallel", "serve_tp", "serve_cp", "faults")
+          "train", "train_parallel", "parallel", "serve_tp", "serve_cp", "faults")
 
 
 def emit(obj) -> None:
@@ -5389,7 +5428,8 @@ def _rank_main(rank, world, store, out_dir, jobs):
     results (host tensors) saved for the parent."""
     import torch
     import torch.distributed as dist
-    torch.cuda.set_device(0)
+    if torch.cuda.is_available():  # (a CPU rehearsal has none)
+        torch.cuda.set_device(0)
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world)
     try:
@@ -6239,6 +6279,733 @@ def phase_train(st):
         raise AssertionError("train phase failed its checks")
 
 
+# Training across ranks (phase_train_parallel): 4 processes on GPU 0 joined
+# by gloo, one spawn running three jobs. (a) DP x TP: dp 2 x tp 2 at
+# Llama-3-8B's width, depth cut to 4 layers, 2048 tokens a dp rank, 3 steps;
+# each rank holds ~2.4 GB of parameter shards (embed replicated 1.05 GB,
+# lm_head half 0.53 GB, 4 layers' halves 0.87 GB) and as much of
+# gradients, with its clone for the planted faults and the flattened dp
+# buffer: ~12 GB a rank at peak with the activations. (b) PP: pp 4 at the
+# same width, 8 layers (2 a stage), a batch of 4 x 512 tokens in 4
+# microbatches. (c) CP: cp 4 at Llama-3-8B's attention width, 32768 tokens,
+# 8192 a rank. lr: train's.
+TRAIN_PARALLEL = dict(world=4, timeout_s=600, seed=0, lr=0.5, grad_rel_tol=2.0**-4,
+                      loss_rel_tol=2e-3, granule=2, model={},
+                      dp_tp=dict(dp=2, tp=2, layers=4, tokens=2048, steps=3),
+                      pp=dict(pp=4, layers=8, batch=4, seq=512, n_micro=4),
+                      cp=dict(cp=4, seq=32768, Hq=32, Hkv=8, D=128, block_kv=512, suffix=2048,
+                              rows=4096))
+
+
+def _ref_step(cfg, params, tokens, lr):
+    """sgd_train_step(mesh=None)'s arithmetic, also returning the gradients
+    as a tree shaped like params (layers stacked): (loss, grads)."""
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    leaves = llama.float_leaves(params)
+    loss = llama.loss_fn(cfg, leaves, tokens)
+    loss.backward()
+    grads = {k: v.grad for k, v in leaves.items() if k != "layers"}
+    grads["layers"] = {k: torch.stack([r.grad for r in rows])
+                       for k, rows in leaves["layers"].items()}
+    with torch.no_grad():
+        for p in llama._leaf_list(leaves):
+            p.sub_(torch.tensor(lr, dtype=p.dtype, device=p.device) * p.grad.to(p.dtype))
+    return loss.item(), grads
+
+
+def _named_grads(params, grads_list):
+    """{name: gradient} from _dp_average's leaves (in _leaf_list's order:
+    the top-level leaves, then each layer key's layers), layers stacked."""
+    import torch
+    names = [k for k in params if k != "layers"]
+    out = dict(zip(names, grads_list[:len(names)]))
+    rest = grads_list[len(names):]
+    L = len(next(iter(params["layers"].values())))
+    for j, k in enumerate(params["layers"]):
+        out[f"layers.{k}"] = torch.stack(rest[j * L:(j + 1) * L])
+    return out
+
+
+def _flat_tree(tree):
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    out.update({f"layers.{k}": v for k, v in tree["layers"].items()})
+    return out
+
+
+def _grad_rel(got, ref, dev="cuda"):
+    """Each leaf's max |got - ref| / max |ref| (on the card, a leaf at a
+    time)."""
+    out = {}
+    for k in ref:
+        g, r = got[k].to(dev).float(), ref[k].to(dev).float()
+        out[k] = ((g - r).abs().max() / r.abs().max()).item()
+    return out
+
+
+class _Patched:
+    """Module attributes swapped for the length of a block (a planted
+    fault), restored after."""
+
+    def __init__(self, *patches):
+        self.patches = patches
+
+    def __enter__(self):
+        self.saved = [(obj, name, getattr(obj, name)) for obj, name, _ in self.patches]
+        for obj, name, value in self.patches:
+            setattr(obj, name, value)
+
+    def __exit__(self, *exc):
+        for obj, name, value in self.saved:
+            setattr(obj, name, value)
+
+
+def _train_kernels():
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    return {"flash_fwd[bf16]": fa.FLASH_FWD_BF16, "flash_bwd_dkv": fa.FLASH_BWD_DKV,
+            "flash_bwd_dq": fa.FLASH_BWD_DQ, "flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P}
+
+
+def _empty_cache(dev) -> None:
+    import torch
+    if str(dev).startswith("cuda"):
+        torch.cuda.empty_cache()
+
+
+def _sync(dev) -> None:
+    import torch
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _peak_gb(dev) -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 1e9 if str(dev).startswith("cuda") else 0.0
+
+
+def _counted(fn, dev="cuda"):
+    """fn() with the train kernels' launch counts zeroed before and read
+    after: (result, launches)."""
+    kernels = _train_kernels()
+    for k in kernels.values():
+        k.reset()
+    out = fn()
+    _sync(dev)
+    return out, {n: k.launches for n, k in kernels.items()}
+
+
+def _rank_dp_tp(rank, job):
+    """(a): this rank's shard restored from the parent's checkpoint, three
+    DP x TP steps (launches counted, collectives recorded, the first step's
+    averaged gradients kept), then each planted fault for one step from the
+    same shards."""
+    import torch
+    import torch.distributed as dist
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.parallel import combine, hybrid_mesh, record_collectives
+    from quantizedmha_tpu_torch.parallel.distributed import classify_collectives, collective_bytes
+    from quantizedmha_tpu_torch.parallel.distributed import train_step_collectives
+    from quantizedmha_tpu_torch.utils.checkpoint import CheckpointManager
+    cfg, c, lr, dev = job["cfg"], job["c"], job["lr"], job["device"]
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    mesh = hybrid_mesh((c["dp"],), (c["tp"],), ("dp",), ("tp",), device_type="cpu")
+    specs = llama.param_shardings(cfg)
+    like = llama.init_params(cfg, device="meta")
+    t0 = time.perf_counter()
+    params = CheckpointManager(job["weights"]).restore_sharded(like, specs, mesh, device=dev)
+    ref = _flat_tree(CheckpointManager(job["grads"]).restore_sharded(like, specs, mesh,
+                                                                      device="cpu"))
+    restore_s = time.perf_counter() - t0
+    init = {k: v.cpu() for k, v in _flat_tree(params).items()}
+    tokens = job["tokens"][mesh.get_local_rank("dp")][None].to(dev)
+    captured = []
+    orig = llama._dp_average
+
+    def spy_on(average):
+        """`average` keeping the first step's averaged gradients (on the
+        host)."""
+        def spy(leaves, loss, group):
+            out = average(leaves, loss, group)
+            if not captured:
+                captured.append([p.grad.cpu() for p in leaves])
+            return out
+        return spy
+
+    def steps(n):
+        losses, step_s, records = [], [], []
+        for _ in range(n):
+            _sync(dev)
+            t = time.perf_counter()
+            with record_collectives() as rec:
+                _, loss = llama.sgd_train_step(cfg, params, tokens, lr, mesh=mesh)
+            _sync(dev)
+            step_s.append(time.perf_counter() - t)
+            losses.append(float(loss))
+            records.append(rec)
+        return losses, step_s, records
+
+    with _Patched((llama, "_dp_average", spy_on(orig))):
+        (losses, step_s, records), launches = _counted(lambda: steps(c["steps"]), dev)
+    grad_rel = _grad_rel(_named_grads(params, captured[0]), ref, dev)
+    finite = all(bool(torch.isfinite(v).all()) for v in _flat_tree(params).values())
+    want = train_step_collectives(cfg, params, tuple(tokens.shape))
+    groups = {a: tuple(dist.get_process_group_ranks(mesh.get_group(a))) for a in ("dp", "tp")}
+    got = [(r.kind, r.dtype, r.nbytes, r.ranks) for r in records[0]]
+    audit = {"exact": got == [(w["kind"], w["dtype"], w["nbytes"], groups[w["axis"]])
+                              for w in want],
+             "every_step": all([(r.kind, r.dtype, r.nbytes, r.ranks) for r in rec] == got
+                               for rec in records),
+             "by_axis": classify_collectives(records[0], job["granule"]),
+             "bytes_by_axis": collective_bytes(records[0], job["granule"]),
+             "want_by_axis": {"ici": {"all-reduce": sum(w["axis"] == "tp" for w in want)},
+                              "dcn": {"all-reduce": sum(w["axis"] == "dp" for w in want)}},
+             "want_bytes_by_axis": {
+                 "ici": sum(w["nbytes"] for w in want if w["axis"] == "tp"),
+                 "dcn": sum(w["nbytes"] for w in want if w["axis"] == "dp")},
+             "collective_host_s": [sum(r.seconds for r in rec) for rec in records]}
+    peak = _peak_gb(dev)
+
+    def summed_avg(leaves, loss, group):  # the dp gradient summed, not averaged
+        out = orig(leaves, loss, group)
+        for p in leaves:
+            p.grad.mul_(dist.get_world_size(group))
+        return out
+
+    def no_reduce(ctx, g):  # copy_to_group without its backward all-reduce
+        return g, None
+    faults = {}
+    for name, patches in (("dp gradient summed, not averaged",
+                           ((llama, "_dp_average", spy_on(summed_avg)),)),
+                          ("copy_to_group without its backward all-reduce",
+                           ((combine._CopyToGroup, "backward", staticmethod(no_reduce)),
+                            (llama, "_dp_average", spy_on(orig))))):
+        params = {k: init[k].to(dev) for k in ("embed", "final_norm", "lm_head")}
+        params["layers"] = {k[7:]: v.to(dev) for k, v in init.items() if k.startswith("layers.")}
+        captured.clear()
+        with _Patched(*patches):
+            _, floss = llama.sgd_train_step(cfg, params, tokens, lr, mesh=mesh)
+        frel = _grad_rel(_named_grads(params, captured[0]), ref, dev)
+        faults[name] = {"max_grad_rel": max(frel.values()), "loss": float(floss)}
+    del params, init, ref
+    return {"losses": losses, "step_s": step_s, "launches": launches, "grad_rel": grad_rel,
+            "weights_finite": finite, "audit": audit, "peak_mem_gb": peak,
+            "restore_s": restore_s, "faults": faults,
+            "coords": (mesh.get_local_rank("dp"), mesh.get_local_rank("tp"))}
+
+
+def _pp_loss(logits, tokens):
+    """loss_fn's shifted cross-entropy from the logits."""
+    import torch
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    return -logp.gather(-1, tokens[:, 1:, None].long())[..., 0].mean()
+
+
+def _rank_pp(rank, job):
+    """(b): the parent's weights made again from the seed, this stage's two
+    layers kept as leaves; the pipeline's logits and its loss's gradients,
+    then once more with a planted fault (each stage's sends drop
+    microbatch 0's gradient)."""
+    import hashlib
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.parallel import make_mesh, pipeline_llama_forward
+    from quantizedmha_tpu_torch.parallel import pipeline as pl
+    cfg, c, dev = job["cfg"], job["c"], job["device"]
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh((c["pp"],), ("pp",), device_type="cpu")
+    stage = mesh.get_local_rank("pp")
+    per = cfg.num_layers // c["pp"]
+    full = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(job["seed"]),
+                             device=dev)
+    params = {k: v for k, v in full.items() if k != "layers"}
+    params["layers"] = {k: v[stage * per:(stage + 1) * per].clone()
+                        for k, v in full["layers"].items()}
+    del full
+    tokens = job["tokens"].to(dev)
+    ref = torch.load(job["ref"], weights_only=False)
+    ref_grads = ref["stages"][stage]
+
+    def run():
+        leaves = llama.float_leaves(params)
+        _sync(dev)
+        t = time.perf_counter()
+        logits = pipeline_llama_forward(cfg, leaves, tokens, mesh, n_microbatches=c["n_micro"])
+        loss = _pp_loss(logits, tokens)
+        loss.backward()
+        _sync(dev)
+        grads = {k: torch.stack([r.grad for r in rows]).cpu()
+                 for k, rows in leaves["layers"].items()}
+        return logits.detach(), loss.item(), grads, time.perf_counter() - t
+    (logits, loss, grads, run_s), launches = _counted(run, dev)
+    logits_ref = ref["logits"].to(dev)
+    out = {"stage": stage, "launches": launches, "loss": loss, "run_s": run_s,
+           "rel_vs_unsharded": _rel(logits, logits_ref),
+           "logits_sha1": hashlib.sha1(logits.cpu().numpy().tobytes()).hexdigest(),
+           "grad_rel": _grad_rel(grads, ref_grads, dev),
+           "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
+           "peak_mem_gb": _peak_gb(dev)}
+    del logits, grads
+    orig = pl._SendOn.backward
+
+    def drop_first(ctx, token):  # a stage that drops microbatch 0's gradient
+        _, _, g = orig(ctx, token)
+        return None, None, torch.zeros_like(g) if ctx.comm[2] == 0 else g
+    with _Patched((pl._SendOn, "backward", staticmethod(drop_first))):
+        _, _, fgrads, _ = run()
+    out["fault_max_grad_rel"] = max(_grad_rel(fgrads, ref_grads, dev).values())
+    del fgrads, params, ref_grads, logits_ref
+    return out
+
+
+def _cp_inputs(c, seed, device="cuda"):
+    """q, k, v [1, H, S, D] bf16 and the output cotangent, from the seed."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    S, D = c["seq"], c["D"]
+
+    def draw(h):
+        return (torch.randn((1, h, S, D), generator=g, device=device) * 0.5).to(torch.bfloat16)
+    return draw(c["Hq"]), draw(c["Hkv"]), draw(c["Hkv"]), draw(c["Hq"])
+
+
+def _rank_cp(rank, job):
+    """(c): ring_attention, ring_attention_int8, ring_attention at the
+    shards' dequantized K/V (the INT8 ring's backward must equal it bit for
+    bit) and context_parallel_attention with a suffix q, each forward and
+    backward of sum(out * cotangent); then the planted faults (the ring's
+    gradient rotation sent right; the INT8 ring's straight-through backward
+    at the raw K/V)."""
+    import torch
+    from quantizedmha_tpu_torch.parallel import (context_parallel_attention, make_mesh,
+                                                 ring_attention, ring_attention_int8)
+    from quantizedmha_tpu_torch.parallel import ring
+    c, dev = job["c"], job["device"]
+    mesh = make_mesh((c["cp"],), ("cp",), device_type="cpu")
+    group, idx = mesh.get_group("cp"), mesh.get_local_rank("cp")
+    full = _cp_inputs(c, job["seed"], dev)
+    q, k, v, do = (x.chunk(c["cp"], dim=2)[idx].contiguous() for x in full)
+    q_suffix, do_suffix = (x[:, :, -c["suffix"]:].contiguous() for x in (full[0], full[3]))
+    del full
+    k_deq, v_deq = ring._ste_residuals(k, v, c["block_kv"])
+
+    def grads(fn, q_, k_, v_, ct, **kw):
+        def run():
+            qq, kk, vv = (x.detach().requires_grad_() for x in (q_, k_, v_))
+            out = fn(qq, kk, vv, group=group, causal=True, **kw)
+            (out.float() * ct.float()).sum().backward()
+            return [x.grad.cpu() for x in (qq, kk, vv)]
+        return _counted(run, dev)
+    res = {}
+    for name, fn, args, kw in (
+            ("ring", ring_attention, (q, k, v, do), {}),
+            ("ring_int8", ring_attention_int8, (q, k, v, do), dict(block_kv=c["block_kv"])),
+            ("ring_at_dequantized", ring_attention, (q, k_deq, v_deq, do), {}),
+            ("context_parallel", context_parallel_attention, (q_suffix, k, v, do_suffix), {})):
+        _sync(dev)
+        t = time.perf_counter()
+        (g, launches) = grads(fn, *args, **kw)
+        res[name] = {"grads": g, "launches": launches, "wall_s": time.perf_counter() - t}
+    with _Patched((ring, "_BACKWARD_SHIFT", 1)):
+        res["fault_rotation_right"] = grads(ring_attention, q, k, v, do)[0]
+    with _Patched((ring, "_ste_residuals", lambda k_, v_, b: (k_, v_))):
+        res["fault_ste_raw"] = grads(ring_attention_int8, q, k, v, do,
+                                     block_kv=c["block_kv"])[0]
+    return res
+
+
+def _rank_train_parallel(rank, job):
+    """The three jobs of phase_train_parallel in one spawn, each with the
+    card's memory released after it."""
+    import torch
+    out = {}
+    for name, fn in (("dp_tp", _rank_dp_tp), ("pp", _rank_pp), ("cp", _rank_cp)):
+        out[name] = fn(rank, dict(job[name], device=job["device"]))
+        gc.collect()
+        if job["device"] == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def ring_grad_tolerances(q, k, v, o, lse, do, grads, q_offset, n, *, rows):
+    """Per-element tolerances (dq, dk, dv) of a sequence-parallel backward
+    over n ranks (ring_attention, the INT8 ring's straight-through backward,
+    context_parallel_attention; bf16, causal, no window) against the flash
+    kernel's backward over the unsharded sequence, whose forward gave o and
+    lse and whose gradients are `grads`: 2 T + R.
+
+    T is flash_bwd_tolerances's bound of the backward kernels against their
+    plain version, evaluated over the unsharded sequence in blocks of
+    `rows` q rows (keys past a causal block's last row are masked and add
+    nothing), with the whole sequence's summation lengths. Each side's
+    kernels are within T of the plain arithmetic: the sequence-parallel
+    side sums, over its steps, the same terms over disjoint key (dq) or row
+    (dk, dv) ranges at each step's lse and merge-weighted dO (p_s w_s = p,
+    dP_s = w_s dP, di_s = w_s di: the step's dS is the global one), so its
+    kernels' errors are bounded by the same sums; hence the 2.
+
+    R bounds what only the sequence-parallel side rounds (u8 = 2^-8, a
+    bf16 half ulp): each step's dO (w_s dO, rounded to bf16 by the merge's
+    backward) moves dV by u8 pᵀ|dO| and dS by u8 p |dO|·|V|ᵀ scale; each
+    step's gradients are written in bf16 and summed in bf16 across the n
+    steps (the ring's rotations, context parallelism's all-reduce of dQ):
+    2n + 2 roundings of at most u8 of the magnitude sums M_dq = |dS|·|K|,
+    M_dk = |dS|ᵀ|Q|, M_dv = Pᵀ|dO|; and di: the sequence-parallel side
+    takes it of the merged f32 output, the reference of its own bf16 o;
+    both outputs are within 2^-7 (|o| + max|v|) of the exact one
+    (flash_fwd_tolerances's bf16 terms, ds negligible at this width), so
+    di moves by at most delta = |dO|·2^-6 (|o| + max|v|), and dS by
+    p delta scale."""
+    import torch
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    u, u8 = 2.0**-24, 2.0**-8
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    sm = D ** -0.5
+    offsets = fa._offsets(q_offset, 0, B, q.device)
+    di_all = fa._bwd_di(o, do, None)
+    tols = [torch.zeros(x.shape, dtype=torch.float64, device=x.device) for x in grads]
+    extra = [torch.zeros(x.shape, dtype=torch.float64, device=x.device) for x in grads]
+    g_kv, g_q = 2 * (Skv + 1) * u, 2 * (G * Sq + 1) * u
+    for h in range(Hkv):
+        grp = slice(h * G, (h + 1) * G)
+        kh, vh = k[:, h].float(), v[:, h].float()
+        kn = kh.norm(dim=-1).amax(dim=-1)[:, None, None]
+        vn = vh.norm(dim=-1).amax(dim=-1)[:, None, None]
+        vmax = vh.abs().amax()
+        for r0 in range(0, Sq, rows):
+            r1 = min(Sq, r0 + rows)
+            kend = min(Skv, q_offset + r1)  # causal: later keys are masked
+            qh = q[:, grp, r0:r1].float()
+            doh = do[:, grp, r0:r1].float()
+            oh = o[:, grp, r0:r1].float()
+            di = di_all[:, grp, r0:r1]
+            lse_h = lse[:, grp, r0:r1].float()
+            kc, vc = kh[:, :kend], vh[:, :kend]
+            q_pos, k_pos = fa._bwd_positions(offsets, Sq, kend)
+            p, dp, ds = fa._bwd_pairs(qh, kc, vc, doh, lse_h, di, q_pos[:, r0:r1], k_pos,
+                                      sm_scale=sm, causal=True, window=None, softcap=None,
+                                      sinks=0)
+            e_s = (2 * D + 33) * u * qh.norm(dim=-1) * kn * sm
+            lse_a = torch.nan_to_num(lse_h.abs(), posinf=0.0)
+            delta = 1.01 * e_s + 2.0**-22 * (1.0 + lse_a) + 2.0**-21
+            e_dp = 2 * (D + 16) * u * doh.norm(dim=-1) * vn
+            A = p * (sm * (delta + 4 * u)[..., None] * (dp - di[..., None]).abs()
+                     + sm * e_dp[..., None]) + 2.0**-7 * ds.abs()
+            e_p = p * delta[..., None] + 2.0**-7 * p
+            d_di = (doh.abs() * 2.0**-6 * (oh.abs() + vmax)).sum(dim=-1)
+            E = p * sm * (u8 * (doh.abs() @ vc.abs()[:, None].transpose(-1, -2))
+                         + d_di[..., None])
+            ka, qa, da = kc.abs()[:, None], qh.abs(), doh.abs()
+            dsa = ds.abs()
+            tols[0][:, grp, r0:r1] += (A @ ka + g_kv * (dsa @ ka)).double()
+            tols[1][:, h, :kend] += (torch.einsum("bgqk,bgqd->bkd", A, qa)
+                                     + g_q * torch.einsum("bgqk,bgqd->bkd", dsa, qa)).double()
+            tols[2][:, h, :kend] += (torch.einsum("bgqk,bgqd->bkd", e_p, da)
+                                     + g_q * torch.einsum("bgqk,bgqd->bkd", p, da)).double()
+            m = (2 * n + 2) * u8
+            extra[0][:, grp, r0:r1] += (m * (dsa @ ka) + E @ ka).double()
+            extra[1][:, h, :kend] += (m * torch.einsum("bgqk,bgqd->bkd", dsa, qa)
+                                      + torch.einsum("bgqk,bgqd->bkd", E, qa)).double()
+            extra[2][:, h, :kend] += ((m + u8) * torch.einsum("bgqk,bgqd->bkd", p, da)).double()
+            del p, dp, ds, A, e_p, E, dsa
+    tols = [t + 2.0**-7 * (g.double().abs() + t) for t, g in zip(tols, grads)]
+    return [2.0 * t + x for t, x in zip(tols, extra)]
+
+
+def _train_parallel_kernels(c):
+    """Rows 5, 6 and 7 at a tp rank's attention shape (16 q / 4 kv heads,
+    2048 tokens, causal) and at a ring step (8192 q rows against an 8192-key
+    block on the diagonal, global offsets 8192, a seeded lse cotangent),
+    and row 1 at an INT8 ring step (block_kv 512), each against its plain
+    version: {kernel: {shape name: {err_over_tol, shape}}}."""
+    import torch
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.parallel import ring
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def draw(*shape):
+        return (torch.randn(shape, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    out = {"flash_fwd[bf16]": {}, "flash_bwd_dkv": {}, "flash_bwd_dq": {},
+           "flash_int8_fwd[int8_p]": {}}
+    shard, D = c["seq"] // c["cp"], c["D"]
+    for name, (H, Hkv, S, off, dlse) in (("tp", (16, 4, 2048, 0, False)),
+                                         ("ring_step", (c["Hq"], c["Hkv"], shard, shard, True))):
+        q, k, v, do = draw(1, H, S, D), draw(1, Hkv, S, D), draw(1, Hkv, S, D), draw(1, H, S, D)
+        offsets = fa._offsets(off, off, 1, q.device)
+        _, _, ratios, _, _, _ = _flash_fwd_check(q, k, v, offsets, causal=True)
+        shape = {"B": 1, "Hq": H, "Hkv": Hkv, "Sq": S, "Skv": S, "q_offset": off,
+                 "kv_offset": off}
+        out["flash_fwd[bf16]"][name] = {"err_over_tol": max(ratios), **shape}
+        dl = (torch.randn((1, H, S), generator=g, device="cuda") if dlse else None)
+        _, _, bwd_ratios, _, _, _, same = _flash_bwd_check(q, k, v, offsets, do, dl, causal=True)
+        for kern, ratio in (("flash_bwd_dkv", max(bwd_ratios[1:])),
+                            ("flash_bwd_dq", bwd_ratios[0])):
+            out[kern][name] = {"err_over_tol": ratio if same else float("inf"),
+                               "dlse": dlse, **shape}
+        del q, k, v, do
+    q, k, v = draw(1, c["Hq"], shard, D), draw(1, c["Hkv"], shard, D), draw(1, c["Hkv"], shard, D)
+    k_i8, ks, v_i8, vs = ring.quantize_shard(k, v, c["block_kv"])
+    kw = dict(block_kv=c["block_kv"], causal=True, q_offset=shard, kv_offset=shard,
+              save_residuals=True)
+    o, lse = fa8.flash_attention_int8_prequant(q, k_i8, ks, v_i8, vs, **kw)
+    o_p, lse_p, _, tol_o, tol_lse = _int8_plain(q, k_i8, ks, v_i8, vs, shard, shard,
+                                                causal=True, mode=0)
+    out["flash_int8_fwd[int8_p]"]["ring_step"] = {
+        "err_over_tol": max(err_over_tol(o, o_p, tol_o), err_over_tol(lse, lse_p, tol_lse)),
+        "B": 1, "Hq": c["Hq"], "Hkv": c["Hkv"], "Sq": shard, "Skv": shard,
+        "q_offset": shard, "kv_offset": shard, "block_kv": c["block_kv"]}
+    return out
+
+
+def _cp_reference(c, seed, dev="cuda"):
+    """The flash kernel's forward and backward over the unsharded sequence
+    for (c): the ring's inputs, the INT8 ring's at the shards' dequantized
+    K/V, and context parallelism's suffix q; each with its gradients and
+    ring_grad_tolerances. {name: (grads, tolerances)} on the host."""
+    import torch
+    from quantizedmha_tpu_torch.ops.flash_attention import flash_attention
+    from quantizedmha_tpu_torch.parallel import ring
+    q, k, v, do = _cp_inputs(c, seed, dev)
+    parts = [ring._ste_residuals(a, b, c["block_kv"])
+             for a, b in zip(k.chunk(c["cp"], dim=2), v.chunk(c["cp"], dim=2))]
+    k_deq, v_deq = (torch.cat([p_[i] for p_ in parts], dim=2) for i in (0, 1))
+    del parts
+    S, Sq = c["seq"], c["suffix"]
+    out = {}
+    for name, (qq, kk, vv, dd) in (("ring", (q, k, v, do)),
+                                   ("ring_int8", (q, k_deq, v_deq, do)),
+                                   ("context_parallel", (q[:, :, -Sq:].contiguous(), k, v,
+                                                         do[:, :, -Sq:].contiguous()))):
+        with torch.no_grad():
+            o, lse = flash_attention(qq, kk, vv, causal=True, save_residuals=True,
+                                     q_offset=S - qq.shape[2], kv_offset=0)
+        xs = [x.detach().requires_grad_() for x in (qq, kk, vv)]
+        grads = torch.autograd.grad(flash_attention(*xs, causal=True), xs, dd)
+        tols = ring_grad_tolerances(qq, kk, vv, o, lse, dd, grads, S - qq.shape[2], c["cp"],
+                                    rows=c["rows"])
+        out[name] = ([x.cpu() for x in grads], [t.float().cpu() for t in tols])
+        del o, lse, xs, grads, tols
+        _empty_cache(dev)
+    return out
+
+
+def phase_train_parallel(st):
+    """Training across ranks: one spawn of 4 ranks on GPU 0 over gloo
+    (N processes time-share the card and every collective crosses the
+    host: not multi-GPU speeds). The unsharded side first, then freed:
+    (a)'s initial weights saved with CheckpointManager and its unsharded
+    sgd_train_step (losses, first-step gradients, saved as a checkpoint),
+    (b)'s unsharded forward and loss gradients. Then the ranks, then (c)'s
+    unsharded references and tolerances, then rows 1, 5, 6 and 7 at the
+    ranks' shapes. Gates in the docstring at the top of this file."""
+    import tempfile
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.utils.checkpoint import CheckpointManager
+    tp_ = TRAIN_PARALLEL
+    a, b, c = tp_["dp_tp"], tp_["pp"], tp_["cp"]
+    seed, lr, dev = tp_["seed"], tp_["lr"], st.get("device", "cuda")
+    model = dataclasses.replace(llama.LlamaConfig.llama3_8b(), **tp_["model"])
+    gc.collect()
+    _empty_cache(dev)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        cfg_a = dataclasses.replace(model, num_layers=a["layers"])
+        params = llama.init_params(cfg_a, torch.Generator(device=dev).manual_seed(seed),
+                                   device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        tokens_a = torch.randint(0, cfg_a.vocab_size, (a["dp"], a["tokens"]), generator=gen,
+                                 device=dev, dtype=torch.int32)
+        t0 = time.perf_counter()
+        CheckpointManager(os.path.join(d, "weights")).save(0, params)
+        save_s = time.perf_counter() - t0
+        loss0, grads = _ref_step(cfg_a, params, tokens_a, lr)
+        CheckpointManager(os.path.join(d, "grads")).save(0, grads)
+        del grads
+        ref_losses = [loss0]
+        for _ in range(a["steps"] - 1):
+            _, loss = llama.sgd_train_step(cfg_a, params, tokens_a, lr)
+            ref_losses.append(float(loss))
+        del params
+        gc.collect()
+        _empty_cache(dev)
+
+        cfg_b = dataclasses.replace(model, num_layers=b["layers"])
+        params = llama.init_params(cfg_b, torch.Generator(device=dev).manual_seed(seed),
+                                   device=dev)
+        tokens_b = torch.randint(0, cfg_b.vocab_size, (b["batch"], b["seq"]), generator=gen,
+                                 device=dev, dtype=torch.int32)
+        leaves = llama.float_leaves(params)
+        logits = llama.forward(cfg_b, leaves, tokens_b)
+        loss_b = _pp_loss(logits, tokens_b)
+        loss_b.backward()
+        per = cfg_b.num_layers // b["pp"]
+        stages = [{k: torch.stack([r.grad for r in rows[s * per:(s + 1) * per]]).cpu()
+                   for k, rows in leaves["layers"].items()} for s in range(b["pp"])]
+        torch.save({"logits": logits.detach().cpu(), "stages": stages},
+                   os.path.join(d, "pp_ref.pt"))
+        del params, leaves, logits, stages
+        gc.collect()
+        _empty_cache(dev)
+        ref_s = time.perf_counter() - t_phase
+
+        job = dict(name="train", kind="train_parallel", device=dev,
+                   dp_tp=dict(cfg=cfg_a, c=a, lr=lr, granule=tp_["granule"],
+                              weights=os.path.join(d, "weights"), grads=os.path.join(d, "grads"),
+                              tokens=tokens_a.cpu()),
+                   pp=dict(cfg=cfg_b, c=b, seed=seed, tokens=tokens_b.cpu(),
+                           ref=os.path.join(d, "pp_ref.pt")),
+                   cp=dict(c=c, seed=seed + 2))
+        t0 = time.perf_counter()
+        ranks = [r["train"] for r in _spawn_ranks([job], tp_["world"], tp_["timeout_s"])]
+        spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cp_ref = _cp_reference(c, seed + 2, dev)
+    cp_ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shapes = _train_parallel_kernels(c) if dev == "cuda" else {}  # the kernels need the card
+    kernels_s = time.perf_counter() - t0
+
+    # (a) DP x TP
+    A = [r["dp_tp"] for r in ranks]
+    rel_tol, grad_tol = tp_["loss_rel_tol"], tp_["grad_rel_tol"]
+    L_a = cfg_a.num_layers
+    want_a = {"flash_fwd[bf16]": L_a * a["steps"], "flash_bwd_dkv": L_a * a["steps"],
+              "flash_bwd_dq": L_a * a["steps"], "flash_int8_fwd[int8_p]": 0}
+    # The loss: step 1 (the same weights on both sides) within rel_tol of
+    # the unsharded step's; a later step may move further by what the
+    # earlier updates moved it: each update's gradients are within
+    # grad_tol of the unsharded ones, so the loss change each caused is
+    # within grad_tol of the unsharded change.
+    drift = [0.0]
+    for x, y in zip(ref_losses, ref_losses[1:]):
+        drift.append(drift[-1] + grad_tol * abs(y - x))
+    loss_bound = [rel_tol * abs(y) + dr for y, dr in zip(ref_losses, drift)]
+    loss_rel = [max(abs(x - y) / bnd for x, y, bnd in zip(r["losses"], ref_losses, loss_bound))
+                for r in A]
+    gates_a = {
+        "loss_vs_unsharded": max(loss_rel) <= 1.0,
+        "ranks_same_loss": all(r["losses"] == A[0]["losses"] for r in A),
+        "loss_falling": all(y < x for x, y in zip(A[0]["losses"], A[0]["losses"][1:])),
+        "grads_vs_unsharded": all(max(r["grad_rel"].values()) <= grad_tol for r in A),
+        "weights_finite": all(r["weights_finite"] for r in A),
+        "launches": all(r["launches"] == want_a for r in A),
+        "audit_exact": all(r["audit"]["exact"] and r["audit"]["every_step"] for r in A),
+        "audit_by_axis": all(r["audit"]["by_axis"] == r["audit"]["want_by_axis"]
+                             and r["audit"]["bytes_by_axis"] == r["audit"]["want_bytes_by_axis"]
+                             for r in A)}
+    # A planted fault is caught when it fails the gradient gate on a rank.
+    faults = {name: {"max_grad_rel": max(r["faults"][name]["max_grad_rel"] for r in A),
+                     "caught": any(r["faults"][name]["max_grad_rel"] > grad_tol for r in A)}
+              for name in A[0]["faults"]}
+
+    # (b) PP
+    B_ = [r["pp"] for r in ranks]
+    want_b = {"flash_fwd[bf16]": per * b["n_micro"], "flash_bwd_dkv": per * b["n_micro"],
+              "flash_bwd_dq": per * b["n_micro"], "flash_int8_fwd[int8_p]": 0}
+    gates_b = {
+        "logits_vs_unsharded": all(r["rel_vs_unsharded"] <= 0.25 for r in B_),
+        "ranks_same_logits": len({r["logits_sha1"] for r in B_}) == 1,
+        "grads_vs_unsharded": all(max(r["grad_rel"].values()) <= grad_tol for r in B_),
+        "grads_finite": all(r["grads_finite"] for r in B_),
+        "launches": all(r["launches"] == want_b for r in B_)}
+    faults["pipeline stage drops microbatch 0's gradient"] = {
+        "max_grad_rel": max(r["fault_max_grad_rel"] for r in B_),
+        "caught": any(r["fault_max_grad_rel"] > grad_tol for r in B_)}
+
+    # (c) CP
+    n, shard = c["cp"], c["seq"] // c["cp"]
+    C = [r["cp"] for r in ranks]
+
+    def held(name, got_of, ref_name=None):
+        """err_over_tol of every rank's (dq, dk, dv) against its shard of the
+        unsharded reference's gradients, within ring_grad_tolerances."""
+        grads, tols = cp_ref[ref_name or name]
+        worst = 0.0
+        for i, r in enumerate(C):
+            got = got_of(r)
+            for j, (gg, ref_g, tol) in enumerate(zip(got, grads, tols)):
+                if not (j == 0 and name.startswith("context")):
+                    ref_g, tol = (x.chunk(n, dim=2)[i] for x in (ref_g, tol))
+                worst = max(worst, err_over_tol(gg.to(dev), ref_g.to(dev), tol.to(dev).double()))
+        return worst
+    ratios_c = {"ring": held("ring", lambda r: r["ring"]["grads"]),
+                "ring_int8": held("ring_int8", lambda r: r["ring_int8"]["grads"]),
+                "context_parallel": held("context_parallel",
+                                         lambda r: r["context_parallel"]["grads"])}
+    int8_bits = all(all(torch.equal(x, y) for x, y in zip(r["ring_int8"]["grads"],
+                                                           r["ring_at_dequantized"]["grads"]))
+                    for r in C)
+    want_c = {"ring": {"flash_fwd[bf16]": n, "flash_bwd_dkv": n, "flash_bwd_dq": n,
+                       "flash_int8_fwd[int8_p]": 0},
+              "ring_int8": {"flash_fwd[bf16]": n, "flash_bwd_dkv": n, "flash_bwd_dq": n,
+                            "flash_int8_fwd[int8_p]": n},
+              "ring_at_dequantized": {"flash_fwd[bf16]": n, "flash_bwd_dkv": n,
+                                      "flash_bwd_dq": n, "flash_int8_fwd[int8_p]": 0},
+              "context_parallel": {"flash_fwd[bf16]": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1,
+                                   "flash_int8_fwd[int8_p]": 0}}
+    gates_c = {"grads_vs_unsharded": max(ratios_c.values()) <= 1.0,
+               "int8_ste_equals_float_ring_at_dequantized": int8_bits,
+               "launches": all(r[k]["launches"] == w for r in C for k, w in want_c.items())}
+    fault_rot = held("ring", lambda r: r["fault_rotation_right"])
+    faults["ring gradient rotation sent right"] = {"err_over_tol": fault_rot,
+                                                   "caught": fault_rot > 1.0}
+    ste_bits = all(all(torch.equal(x, y) for x, y in zip(r["fault_ste_raw"],
+                                                         r["ring_at_dequantized"]["grads"]))
+                   for r in C)
+    faults["INT8 straight-through backward at the raw K/V"] = {
+        "err_over_tol": held("ring_int8", lambda r: r["fault_ste_raw"]),
+        "caught": not ste_bits}
+
+    kernel_ok = all(e["err_over_tol"] <= 1.0 for per_k in shapes.values() for e in per_k.values())
+    launches = {}
+    for name in _train_kernels():
+        launches[name] = (A[0]["launches"][name] + B_[0]["launches"][name]
+                          + sum(C[0][k]["launches"][name] for k in want_c))
+        st["launches"][name] = st["launches"].get(name, 0) + launches[name]
+    st["train_parallel_shapes"] = shapes
+    ok = (all(gates_a.values()) and all(gates_b.values()) and all(gates_c.values())
+          and all(f["caught"] for f in faults.values()) and kernel_ok)
+    for name, f in faults.items():
+        print(f"chip_smoke train_parallel: planted fault ({name}) "
+              f"{'caught' if f['caught'] else 'NOT caught'}", flush=True)
+    emit({"phase": "train_parallel", "ok": ok, "model": "llama3_8b",
+          "transport": f"{tp_['world']} processes time-sharing one card, gloo through the host",
+          "dp_tp": {"dp": a["dp"], "tp": a["tp"], "layers": L_a, "tokens_per_dp_rank": a["tokens"],
+                    "steps": a["steps"], "lr": lr, "gates": gates_a, "losses": A[0]["losses"],
+                    "unsharded_losses": ref_losses, "loss_err_over_bound": max(loss_rel),
+                    "loss_bound": loss_bound, "loss_rel_tol": rel_tol, "max_grad_rel": max(max(r["grad_rel"].values())
+                                                                 for r in A),
+                    "grad_rel_tol": grad_tol, "audit": A[0]["audit"],
+                    "per_rank": [{"coords": r["coords"], "step_ms": [x * 1e3 for x in r["step_s"]],
+                                  "peak_mem_gb": r["peak_mem_gb"], "restore_s": r["restore_s"],
+                                  "collective_host_s": r["audit"]["collective_host_s"]}
+                                 for r in A],
+                    "checkpoint_save_s": save_s},
+          "pp": {"pp": b["pp"], "layers": cfg_b.num_layers, "batch": b["batch"], "seq": b["seq"],
+                 "microbatches": b["n_micro"], "gates": gates_b,
+                 "rel_vs_unsharded": max(r["rel_vs_unsharded"] for r in B_),
+                 "max_grad_rel": max(max(r["grad_rel"].values()) for r in B_),
+                 "per_rank": [{k: r[k] for k in ("stage", "run_s", "peak_mem_gb", "loss")}
+                              for r in B_]},
+          "cp": {"cp": n, "seq": c["seq"], "per_rank_tokens": shard, "block_kv": c["block_kv"],
+                 "suffix": c["suffix"], "gates": gates_c, "grad_err_over_tol": ratios_c,
+                 "wall_s": {k: C[0][k]["wall_s"] for k in want_c}},
+          "planted_faults": faults, "rank_shapes": shapes, "launches": launches,
+          "reference_s": ref_s, "spawn_s": spawn_s, "cp_reference_s": cp_ref_s,
+          "kernels_s": kernels_s, "phase_s": time.perf_counter() - t_phase, "gpu": st["gpu"]})
+    if not ok:
+        raise AssertionError("train_parallel phase failed its checks")
+
+
+_RANK_JOBS["train_parallel"] = _rank_train_parallel
+
+
 def _dequantized(params, dtype):
     """params with every QuantizedWeight4 layer stack replaced by its
     dequantized weights as plain `dtype` tensors, one layer at a time."""
@@ -6533,7 +7300,7 @@ def main(argv=None) -> int:
                 e["gemma2"] = dict(c["gemma2"], launches=st["launches_d256"].get(name, 0))
             if "mqa" in c:  # row 4: its launches at one kv head (serve_tp's tp=8 ranks)
                 e["mqa"] = dict(c["mqa"], launches=st.get("launches_mqa", 0))
-            for key in ("tp_shapes", "cp_shapes"):  # a rank's shapes under TP / CP
+            for key in ("tp_shapes", "cp_shapes", "train_parallel_shapes"):  # a rank's shapes
                 if name in st.get(key, {}):
                     e[key.replace("_shapes", "_rank")] = st[key][name]
             if "shapes" in c:

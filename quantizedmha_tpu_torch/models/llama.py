@@ -13,6 +13,20 @@ kernel's backward (or autograd of the golden); the INT8 kernel raises
 under grad, as its JAX counterpart does. `param_shardings` gives the
 ("dp", "tp") training layout as PartitionSpecs; serving.sharded.shard_params
 cuts a rank's shard by it.
+
+Training across ranks (`sgd_train_step(..., mesh=)`): Megatron's tensor
+parallelism over "tp" and data parallelism over "dp", with the gradient
+convention of parallel/combine.py. Each tp rank runs the layers on its
+heads and MLP columns (`local_config`): the inputs of the column-parallel
+products (wq / wk / wv, w_gate / w_up, the vocab-sharded lm_head) enter
+through `copy_to_group`, whose backward all-reduces their gradient, and
+the row-parallel products' outputs (wo, w_down) leave through
+`reduce_from_group`, an all-reduce in cfg.dtype. The loss over the whole
+vocabulary is a vocab-parallel log-softmax (`_vocab_parallel_nll`): the
+logits stay sharded, one all-reduce MAX of the detached row maxima and one
+all-reduce SUM of each row's [sum of exp | target logit] give every rank
+the loss, with no all-gather of the logits. Then every gradient is
+averaged over "dp" (`_dp_average`: one flattened all-reduce a dtype).
 """
 
 from __future__ import annotations
@@ -22,12 +36,14 @@ import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from quantizedmha_tpu_torch.device import resolve_device
 from quantizedmha_tpu_torch.ops.flash_attention import flash_attention
 from quantizedmha_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
 from quantizedmha_tpu_torch.ops.quantize import true_div
+from quantizedmha_tpu_torch.parallel.combine import copy_to_group, reduce_from_group
 from quantizedmha_tpu_torch.parallel.mesh import P
 from quantizedmha_tpu_torch.quant.weights import QuantizedWeight, QuantizedWeight4, qdense
 from quantizedmha_tpu_torch.reference.mha import apply_rope, mha_masked_reference
@@ -321,14 +337,27 @@ def _attention(cfg: LlamaConfig, q, k, v, *, causal=True, window=_UNSET):
         softcap=cfg.logit_softcap, sinks=sinks)
 
 
+def _tp_in(h: torch.Tensor, group) -> torch.Tensor:
+    """A column-parallel product's input under tensor parallelism."""
+    return h if group is None else copy_to_group(h, group)
+
+
+def _tp_out(y: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel product's output under tensor parallelism: the ranks'
+    partial sums added, in y's dtype."""
+    return y if group is None else reduce_from_group(y, group)
+
+
 def decoder_layer(cfg: LlamaConfig, p: Dict[str, Any], x: torch.Tensor,
                   positions: Optional[torch.Tensor] = None,
-                  window=_UNSET) -> torch.Tensor:
+                  window=_UNSET, group=None) -> torch.Tensor:
+    """One decoder layer. group: the tensor-parallel process group (p this
+    rank's shard, cfg its local_config), or None."""
     b, s, _ = x.shape
     hd = cfg.hd
     plus1 = cfg.rms_plus_one
     dense = functools.partial(qdense, mode=cfg.weight_quant_mode)
-    h = rms_norm(x, p["attn_norm"], cfg.rms_eps, plus1)
+    h = _tp_in(rms_norm(x, p["attn_norm"], cfg.rms_eps, plus1), group)
     q, k, v = qkv_triple(cfg, dense, h, p)
     q = q.reshape(b, s, cfg.num_heads, hd).transpose(1, 2)
     k = k.reshape(b, s, cfg.num_kv_heads, hd).transpose(1, 2)
@@ -337,15 +366,15 @@ def decoder_layer(cfg: LlamaConfig, p: Dict[str, Any], x: torch.Tensor,
     k = apply_rope(k, cfg.rope_theta, positions)
     o = _attention(cfg, q, k, v, causal=True, window=window)
     o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * hd)
-    o = dense(o, p["wo"])
+    o = _tp_out(dense(o, p["wo"]), group)
     if cfg.sandwich_norms:
         o = rms_norm(o, p["post_attn_norm"], cfg.rms_eps, plus1)
     x = x + o
 
-    h = rms_norm(x, p["mlp_norm"], cfg.rms_eps, plus1)
+    h = _tp_in(rms_norm(x, p["mlp_norm"], cfg.rms_eps, plus1), group)
     g_pre, up = mlp_gate_up(cfg, dense, h, p)
     gate = _act(cfg, g_pre.float()).to(x.dtype)
-    m = dense(gate * up, p["w_down"])
+    m = _tp_out(dense(gate * up, p["w_down"]), group)
     if cfg.sandwich_norms:
         m = rms_norm(m, p["post_mlp_norm"], cfg.rms_eps, plus1)
     return x + m
@@ -369,20 +398,46 @@ def final_logits(cfg: LlamaConfig, x: torch.Tensor, lm_head) -> torch.Tensor:
 
 
 def forward(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens: [batch, seq] int -> logits [batch, seq, vocab] f32."""
+            positions: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
+    """tokens: [batch, seq] int -> logits [batch, seq, vocab] f32. group:
+    the tensor-parallel group (params this rank's shard, cfg its
+    local_config): the logits are this rank's vocabulary columns."""
     x = embed_tokens(cfg, params, tokens)
     for i, window in enumerate(cfg.layer_windows):
         x = decoder_layer(cfg, layer_params(params["layers"], i), x, positions,
-                          window=window)
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
+                          window=window, group=group)
+    x = _tp_in(rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one), group)
     return final_logits(cfg, x, params["lm_head"])
 
 
-def loss_fn(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
+def _vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor, group) -> torch.Tensor:
+    """The mean negative log-likelihood of `targets` under the softmax over
+    the whole vocabulary, from each rank's contiguous block of its columns
+    (logits [..., V / tp] f32): log_softmax's formula (the shift a constant)
+    with the row max, the sum of exp and the target's logit reduced over
+    the group."""
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+    v_local = logits.shape[-1]
+    m = logits.detach().amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    shifted = logits - m[..., None]
+    local = targets.long() - rank * v_local
+    inside = (local >= 0) & (local < v_local)
+    picked = shifted.gather(-1, local.clamp(0, v_local - 1)[..., None])[..., 0]
+    sums = reduce_from_group(torch.stack([shifted.exp().sum(dim=-1),
+                                          torch.where(inside, picked, torch.zeros_like(picked))],
+                                         dim=-1), group)
+    return -(sums[..., 1] - torch.log(sums[..., 0])).mean()
+
+
+def loss_fn(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
+            group=None) -> torch.Tensor:
     """Next-token cross-entropy (shifted): log_softmax of the f32 logits,
-    the target's entry, minus the mean."""
-    logits = forward(cfg, params, tokens)[:, :-1]
+    the target's entry, minus the mean. group: the tensor-parallel group
+    (the vocab-parallel form, _vocab_parallel_nll)."""
+    logits = forward(cfg, params, tokens, group=group)[:, :-1]
+    if group is not None:
+        return _vocab_parallel_nll(logits, tokens[:, 1:], group)
     logp = F.log_softmax(logits, dim=-1)
     ll = logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
     return -ll.mean()
@@ -408,20 +463,68 @@ def float_leaves(params: Dict[str, Any]) -> Dict[str, Any]:
     return leaves
 
 
+def _leaf_list(leaves: Dict[str, Any]):
+    return [v for k, v in leaves.items() if k != "layers"] + [
+        p for rows in leaves["layers"].values() for p in rows]
+
+
+def _dp_average(leaves, loss: torch.Tensor, group) -> torch.Tensor:
+    """Every leaf's gradient averaged over the data-parallel `group` (the
+    global mean loss is the mean of the ranks' equal-sized means), in one
+    flattened all-reduce a dtype; the loss rides in the float32 buffer (a
+    buffer of its own when no gradient is float32). Returns the global
+    loss."""
+    size = dist.get_world_size(group)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for p in leaves:
+        if p.grad is None:  # a leaf the loss does not reach: zero gradient
+            p.grad = torch.zeros_like(p)
+        by_dtype.setdefault(p.grad.dtype, []).append(p)
+    by_dtype.setdefault(torch.float32, [])
+    for dtype, ps in by_dtype.items():
+        parts = [p.grad.reshape(-1) for p in ps]
+        if dtype == torch.float32:
+            parts.append(loss.detach().reshape(1).float())
+        flat = torch.cat(parts)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat.div_(torch.tensor(float(size), dtype=dtype, device=flat.device))
+        sizes = [p.numel() for p in ps]
+        for p, g in zip(ps, flat[:sum(sizes)].split(sizes)):
+            p.grad = g.view_as(p.grad)
+        if dtype == torch.float32:
+            loss = flat[-1]
+    return loss
+
+
 def sgd_train_step(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
-                   lr: float = 1e-3) -> Tuple[Dict[str, Any], torch.Tensor]:
+                   lr: float = 1e-3, *, mesh=None) -> Tuple[Dict[str, Any], torch.Tensor]:
     """One SGD step: the loss and the gradient of every float leaf, then p
     <- p - lr * g in the parameter's dtype, lr rounded to that dtype first
     (JAX's weakly typed Python float becomes a constant of the leaf's dtype,
     as scaled_q rounds sm_scale). Unlike JAX's fresh pytree, the update is
     in place: the same dict comes back, its tensors updated (no second copy
-    of the weights). Raises on quantized weights."""
+    of the weights). Raises on quantized weights.
+
+    mesh: a ("dp", "tp") DeviceMesh (parallel.distributed.hybrid_mesh) for
+    training across ranks: params are this rank's shards
+    (serving.sharded.shard_params(params, param_shardings(cfg), mesh)) and
+    tokens this dp rank's rows, an equal share of the global batch. The
+    step runs tensor-parallel over "tp" and averages the gradients over
+    "dp" (module docstring); it returns the global batch's loss, and each
+    rank's update is its shard of JAX's step on the whole batch. None: one
+    process, as before."""
     leaves = float_leaves(params)
-    loss = loss_fn(cfg, leaves, tokens)
+    if mesh is None:
+        loss = loss_fn(cfg, leaves, tokens)
+    else:
+        from quantizedmha_tpu_torch.serving.sharded import local_config
+        tp = mesh.get_group("tp")
+        loss = loss_fn(local_config(cfg, dist.get_world_size(tp)), leaves, tokens, group=tp)
     loss.backward()
+    if mesh is not None:
+        loss = _dp_average(_leaf_list(leaves), loss, mesh.get_group("dp"))
     with torch.no_grad():
-        for p in [v for k, v in leaves.items() if k != "layers"] + [
-                p for rows in leaves["layers"].values() for p in rows]:
+        for p in _leaf_list(leaves):
             if p.grad is None:  # a leaf the loss does not reach: zero gradient
                 continue
             p.sub_(torch.tensor(lr, dtype=p.dtype, device=p.device) * p.grad.to(p.dtype))

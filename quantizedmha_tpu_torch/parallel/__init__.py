@@ -10,6 +10,7 @@ from quantizedmha_tpu_torch.parallel.distributed import (
     record_collectives,
 )
 from quantizedmha_tpu_torch.parallel.mesh import P, PartitionSpec, make_mesh
+from quantizedmha_tpu_torch.parallel.pipeline import pipeline_llama_forward
 from quantizedmha_tpu_torch.parallel.ring import (
     context_parallel_attention,
     ring_attention,
@@ -35,4 +36,5 @@ __all__ = [
     "ring_attention",
     "ring_attention_int8",
     "context_parallel_attention",
+    "pipeline_llama_forward",
 ]

@@ -254,6 +254,64 @@ def audit_bytes_by_axis(fn, *args, granule_size: int, **kwargs) -> Dict[str, int
     return collective_bytes(records, granule_size)
 
 
+def _numel_by_dtype(tree, out=None) -> Dict[torch.dtype, int]:
+    """Elements of each dtype over a tree's tensors, in first-seen order."""
+    out = {} if out is None else out
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _numel_by_dtype(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _numel_by_dtype(v, out)
+    else:
+        out[tree.dtype] = out.get(tree.dtype, 0) + tree.numel()
+    return out
+
+
+def train_step_collectives(cfg, params, tokens_shape) -> List[dict]:
+    """The collectives one rank issues in models.llama.sgd_train_step(...,
+    mesh=) on a ("dp", "tp") mesh, in order, derived from the code: each
+    {"phase", "axis", "kind", "dtype", "nbytes"}. params: the rank's shards;
+    tokens_shape: its (batch, seq). With N = batch x seq rows, h the hidden
+    size, L layers, e the size of cfg.dtype:
+
+      forward, "tp": per layer the all-reduces of wo's and w_down's outputs
+        (reduce_from_group), N h e bytes each; then the vocab-parallel loss,
+        an all-reduce MAX of batch x (seq - 1) f32 row maxima and one SUM
+        of their [sum of exp | target logit] pairs;
+      backward, "tp": the gradients of the column-parallel inputs
+        (copy_to_group): the lm_head's, then per layer (last to first) the
+        MLP's and the attention's, N h e bytes each;
+      dp, "dp": one all-reduce a gradient dtype of every gradient of that
+        dtype flattened, the loss in the float32 buffer (one of its own when
+        no gradient is float32).
+
+    Per step: 4L + 3 all-reduces on "tp", one or two on "dp"."""
+    batch, seq = tokens_shape
+    e = torch.empty((), dtype=cfg.dtype).element_size()
+    act = _dtype(torch.empty((), dtype=cfg.dtype))
+    row = batch * seq * cfg.hidden_size * e
+    rows = batch * (seq - 1)
+    out = []
+
+    def add(phase, axis, dtype, nbytes):
+        out.append({"phase": phase, "axis": axis, "kind": "all-reduce", "dtype": dtype,
+                    "nbytes": nbytes})
+    for _ in range(2 * cfg.num_layers):
+        add("forward", "tp", act, row)
+    add("forward", "tp", "float32", 4 * rows)
+    add("forward", "tp", "float32", 8 * rows)
+    for _ in range(2 * cfg.num_layers + 1):
+        add("backward", "tp", act, row)
+    numel = _numel_by_dtype(params)
+    numel.setdefault(torch.float32, 0)
+    for dtype, n in numel.items():
+        extra = 1 if dtype == torch.float32 else 0
+        add("dp", "dp", _dtype(torch.empty((), dtype=dtype)),
+            (n + extra) * torch.empty((), dtype=dtype).element_size())
+    return out
+
+
 def model_scaling_efficiency(step_time_s: float, dcn_bytes_per_step: float,
                              *, dcn_gbps: float = 25.0,
                              latency_s: float = 10e-6) -> float:

@@ -283,6 +283,29 @@ def shard_params(params: Any, specs: Any,
     return _cut_leaf(params, specs, axis, rank, size)
 
 
+def gather_params(shards: Any, specs: Any, mesh: DeviceMesh, axis: str = "tp") -> Any:
+    """The whole tree from every rank's float shards (shard_params'
+    inverse, for saving a sharded run): each leaf cut along `axis` is
+    all-gathered over the axis's group and joined on the dims its spec maps
+    to the axis; replicated leaves are returned as they are. Every rank of
+    the axis's group makes the same call."""
+    if isinstance(shards, dict):
+        _check_keys(shards, specs)
+        return {k: gather_params(v, specs[k], mesh, axis) for k, v in shards.items()}
+    if isinstance(shards, (QuantizedWeight, QuantizedWeight4)):
+        raise TypeError("gather_params joins float leaves only")
+    dims = [d for d, name in enumerate(specs) if name == axis]
+    if not dims:
+        return shards
+    if len(dims) > 1:
+        raise ValueError(f"spec {specs!r} cuts more than one dim over {axis!r}")
+    group = mesh.get_group(axis)
+    x = shards.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dims[0])
+
+
 def make_tp_mesh(tp: int, *, device_type: str = "cuda") -> DeviceMesh:
     """A 1-D ("tp",) mesh over the first `tp` ranks of the default group."""
     have = dist.get_world_size() if dist.is_initialized() else 1

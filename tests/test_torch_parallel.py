@@ -77,6 +77,11 @@ HEAD_CASES = {
     "head_int8_d32": (dict(seed=23, b=2, h=4, s=128), dict(causal=False, kernel="fa_int8")),
 }
 GRAD_CASE = dict(seed=30, b=2, h=4, hkv=2, s=64)
+# The cross-rank entries' gradients against the unsharded flash kernel's
+# (entry: qkv arguments, keyword arguments); cp takes q whole.
+CROSS_GRAD = {"context_parallel_attention": (dict(seed=31, h=4, hkv=2, s=64), dict(causal=True)),
+              "ring_attention": (dict(seed=32, h=4, hkv=2, s=64), dict(causal=True)),
+              "ring_attention_int8": (dict(seed=33, s=64), dict(causal=True, block_kv=8))}
 
 
 def _merge_inputs():
@@ -106,6 +111,40 @@ def _seq_case(rank, group, entry, qkv, kw):
     block_kv = kw.get("block_kv", 512)
     return {"out": ring_attention_int8(_shard(q, rank), ks, vs, group=group, **kw),
             "payloads": quantize_shard(ks, vs, block_kv)}
+
+
+def _cross_ct(entry):
+    """A seeded cotangent of the entry's whole output (a linear loss: the
+    INT8 ring's straight-through gradient does not depend on its forward)."""
+    qkv_kw, _ = CROSS_GRAD[entry]
+    q = _qkv(**qkv_kw)[0]
+    return torch.from_numpy(np.random.default_rng(qkv_kw["seed"]).normal(
+        0, 1.0, q.shape).astype(np.float32))
+
+
+def _cross_grads(rank, group):
+    """Each entry's (dq, dk, dv) of sum(out * ct) on this rank, and the
+    merge's (do, dlse) of sum(merged²)."""
+    out = {}
+    for entry, (qkv_kw, kw) in CROSS_GRAD.items():
+        q, k, v = _qkv(**qkv_kw)
+        ks, vs = (_shard(x, rank).requires_grad_() for x in (k, v))
+        if entry == "context_parallel_attention":
+            qt = torch.from_numpy(q).requires_grad_()
+            o = context_parallel_attention(qt, ks, vs, group=group, **kw)
+            ct = _cross_ct(entry)
+        else:
+            qt = _shard(q, rank).requires_grad_()
+            fn = ring_attention if entry == "ring_attention" else ring_attention_int8
+            o = fn(qt, ks, vs, group=group, **kw)
+            ct = _cross_ct(entry).chunk(WORLD, dim=2)[rank]
+        (o * ct).sum().backward()
+        out[entry] = (qt.grad, ks.grad, vs.grad)
+    o, lse = _merge_inputs()
+    ot, lt = (torch.from_numpy(x[rank]).requires_grad_() for x in (o, lse))
+    (merge_partial_attention(ot, lt, group) ** 2).sum().backward()
+    out["merge_partial_attention"] = (ot.grad, lt.grad)
+    return out
 
 
 def _error(fn):
@@ -142,6 +181,7 @@ def _rank_main(rank, store, out_dir):
         for g in grads:
             dist.all_reduce(g)
         res["grads"] = grads
+        res["cross_grads"] = _cross_grads(rank, group)
         q, k, v = (torch.from_numpy(x) for x in _qkv(seed=50, b=1, h=8, hkv=2, s=64))
         res["gqa_error"] = _error(lambda: head_parallel_attention(q, k, v, wide))
         res["mesh_error"] = _error(lambda: make_mesh((2 * WORLD,), ("x",), device_type="cpu"))
@@ -362,17 +402,51 @@ def test_infer_dp_tp_matches_jax():
     assert [infer_dp_tp(n, h) for n, h in table] == [jinfer(n, h) for n, h in table]
 
 
+def _unsharded_grads(entry):
+    """The entry's gradients computed in one process: the flash kernel over
+    the whole sequence (the INT8 ring: at the K/V its shards dequantize to,
+    the straight-through VJP's point), or the partials merged pairwise."""
+    from quantizedmha_tpu_torch.ops.flash_attention import flash_attention
+    from quantizedmha_tpu_torch.parallel.combine import merge_two_partials
+    from quantizedmha_tpu_torch.parallel.ring import _ste_residuals
+    if entry == "merge_partial_attention":
+        o, lse = (torch.from_numpy(x).requires_grad_() for x in _merge_inputs())
+        acc_o, acc_lse = o[0], lse[0]
+        for r in range(1, WORLD):
+            acc_o, acc_lse = merge_two_partials(acc_o, acc_lse, o[r], lse[r])
+        (acc_o ** 2).sum().backward()
+        return o.grad, lse.grad
+    qkv_kw, kw = CROSS_GRAD[entry]
+    q, k, v = (torch.from_numpy(x) for x in _qkv(**qkv_kw))
+    if entry == "ring_attention_int8":
+        parts = [_ste_residuals(a, b, kw["block_kv"]) for a, b in
+                 zip(k.chunk(WORLD, dim=2), v.chunk(WORLD, dim=2))]
+        k, v = (torch.cat([p[i] for p in parts], dim=2) for i in (0, 1))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    (flash_attention(q, k, v, causal=True) * _cross_ct(entry)).sum().backward()
+    return q.grad, k.grad, v.grad
+
+
 @pytest.mark.parametrize("entry", ["context_parallel_attention", "ring_attention",
                                    "ring_attention_int8", "merge_partial_attention"])
-def test_cross_rank_entries_refuse_grad(entry):
-    """torch.distributed's calls are not tracked by autograd: the ring
-    entries and the merge refuse an input that requires grad before any
-    collective (no process group is needed to see it)."""
-    x = torch.ones(1, 2, 8, 32, requires_grad=True)
-    call = {"context_parallel_attention": lambda: context_parallel_attention(x, x, x),
-            "ring_attention": lambda: ring_attention(x, x, x),
-            "ring_attention_int8": lambda: ring_attention_int8(x, x, x),
-            "merge_partial_attention": lambda: merge_partial_attention(x, x[..., 0])}[entry]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8, gradients "
-                                                  "across ranks"):
-        call()
+def test_cross_rank_entries_grad(ranks, entry):
+    """The ring entries and the merge are differentiable on 4 gloo ranks:
+    each rank's gradients of the global loss equal its shard of the same
+    gradient computed in one process (the flash kernel over the unsharded
+    sequence; the INT8 ring by its straight-through VJP at the dequantized
+    shards; the merge as pairwise merges), within the float atol (f32
+    backward sums in other orders). Context parallelism's q gradient is
+    whole on every rank."""
+    want = [w.numpy() for w in _unsharded_grads(entry)]
+    for rank, r in enumerate(ranks):
+        got = [g.numpy() for g in r["cross_grads"][entry]]
+        if entry == "merge_partial_attention":
+            for g, w in zip(got, want):
+                assert np.isfinite(g).all()
+                np.testing.assert_allclose(g, w[rank], rtol=0, atol=FLOAT_ATOL)
+            continue
+        split = [w if (i == 0 and entry == "context_parallel_attention")
+                 else np.split(w, WORLD, axis=2)[rank] for i, w in enumerate(want)]
+        for g, w in zip(got, split):
+            atol = FLOAT_ATOL * max(1.0, float(np.abs(w).max()))
+            np.testing.assert_allclose(g, w, rtol=0, atol=atol)
