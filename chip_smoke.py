@@ -36,6 +36,8 @@ result line:
            kernel / plain / library times (CUDA events) and the least time
            the card could take (bound). Rows 3, 5 and 10 also at head_dim
            256, serve_hybrid's Gemma-2 shapes (each entry's "gemma2"), and
+           and row 1 (int8 P) at serve_hf's Gemma-2 shapes ("full": 2048
+           tokens, "sliding": 8192 under the 4096 window, "f32": f32 q),
            the d=256 coverage cases (D256_*: rows 3, 5, 10, 11 and 12,
            some with the slots behind the window on a scrap page of 0x7f
            bytes and scale 1e30); row 10 at serve_spec's verify shape and
@@ -168,6 +170,32 @@ result line:
            and 5 on both models); every pool of target and draft drained.
            Prints acceptance, tokens/s, target forwards a token and the
            pages rollbacks freed.
+  serve_hf a checkpoint in HF's layout written into a temporary directory
+           (SERVE_HF: LlamaConfig.gemma2_9b()'s widths, vocabulary 256000,
+           head_dim 256, softcaps 50 / 30, depth cut to 4 layers, sliding
+           and full in turn; bf16 from seeded generators, HF's tensor names
+           and rotate-half q/k rows, tied embeddings, three files and an
+           index, written by the port's safetensors writer), read by
+           models.hf_loader.config_from_hf and load_llama(quantize=True)
+           (w8a16) and served with attention_impl="flash_int8" through the
+           engine with hybrid_kv and interleaved prefill: prompts of 300,
+           1200 and 2000 tokens (bucketed: row 1, int8 P, at d=256 with S =
+           512 and 2048) and 5200 (three chunks: row 10, the 4096 window
+           biting on the sliding layers), 16 new tokens each, after a
+           warm-up whose launches are counted apart. Gates: (a) the loaded
+           config equals the preset cut to 4 layers in every field; (b)
+           every INT8 projection's values and scales equal quantize_weight
+           of the tensor as written (unpermuted, transposed), norms and the
+           embedding (and the tied lm_head) the written bf16, bit for bit;
+           (c) each prompt's last logits from the engine within 0.25 std of
+           the golden: the same loaded params with the float reference
+           attention, the prompt unpadded; (d) exact launches of rows 1, 10
+           and 3 (row 1: layers x bucketed prefills); (e) the same traffic
+           run twice gives the same streams; (f) a config.json with head_dim
+           96 is refused by load_llama on the card with the head-dim rule's
+           message. Prints the write, read-and-quantize and serve times,
+           TTFT, decode ms a step, peak memory and the long sequence's KV
+           bytes.
   train    sgd_train_step of LlamaConfig.llama3_8b() as configured (bf16,
            attention_impl="flash", 32 layers, random weights from seed 0)
            on one batch of 2048 random tokens, 4 steps at lr 0.5: every
@@ -305,6 +333,7 @@ import gc
 import json
 import math
 import os
+import pathlib
 import re
 import subprocess
 import sys
@@ -317,7 +346,7 @@ PREFILL_BENCH_LEN = 2048  # serving_bench --prefill's prompt (phase_serve)
 
 PHASES = ("build", "kernels", "solve", "harness", "serve", "serve_w8a8", "serve_w4",
           "serve_flash", "serve_mixed", "serve_hybrid", "serve_hybrid_mixed", "serve_spec",
-          "train", "train_parallel", "parallel", "serve_tp", "serve_cp", "faults")
+          "serve_hf", "train", "train_parallel", "parallel", "serve_tp", "serve_cp", "faults")
 
 
 def emit(obj) -> None:
@@ -1113,6 +1142,14 @@ FLASH_COVERAGE = (
     (1, 4, 2, 400, 512, 400, 128, 128, True, 64, 4, None, 0, True, None),
     (1, 4, 2, 128, 256, 256, 64, 256, False, None, 0, 25.0, 0, False, None),
     (2, 2, 2, 150, 256, 256, 32, 64, True, None, 0, None, 0, True, (10, 50)),
+    # d=256 (Gemma-2's head dim, int8 P only): odd lengths with kv_len < Skv
+    # and softcap, window + sinks in f32, offsets per sequence, GQA 8 not
+    # causal, and two quant blocks the second sequence's offset masks.
+    (1, 4, 2, 77, 200, 190, 256, 200, True, None, 0, 50.0, 0, True, None),
+    (1, 4, 2, 300, 512, 512, 256, 256, True, 64, 4, None, 0, False, None),
+    (2, 4, 2, 96, 192, 192, 256, 64, True, None, 0, 50.0, 0, True, ((70, 10), (0, 40))),
+    (1, 8, 1, 70, 128, 128, 256, 128, False, None, 0, None, 0, True, None),
+    (2, 2, 1, 130, 256, 256, 256, 128, True, None, 0, None, 0, False, (0, 100)),
 )
 FIRST_INT8P_CASE = 17
 #   (B, Hq, Hkv, D, page, window, sinks, softcap, bf16 q, table slots,
@@ -1573,6 +1610,70 @@ def _gemma2_sub(out, p_out, ratios, launch, plain, *, shape, nbytes, ops, librar
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, "library_backend": backend}
 
 
+def _int8p_window_pairs(S, window):
+    """(q, kv) pairs of an S-token causal self-attention under a window."""
+    return sum(min(i + 1, window) for i in range(S)) if window else S * (S + 1) // 2
+
+
+def _gemma2_int8p(g):
+    """Row 1 (int8 P) at d=256, serve_hf's prefill: Gemma-2's attention
+    (GEMMA2_ATTN: 16 q over 8 kv heads, sm_scale 256^-0.5, softcap 50),
+    block_kv 1024 as pick_blocks gives it: "full", a 2048-token bucket in
+    bf16; "sliding", 8192 tokens under the 4096 window (eight quant blocks,
+    the window biting); "f32", the full shape with f32 q. Each launched
+    twice (the same bits), held to _flash_int8_plain within
+    flash_tolerances; SDPA in bf16 (no softcap: it has none) on the same
+    K/V with the window in its mask."""
+    import torch
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
+    ga = GEMMA2_ATTN
+    Hq, Hkv, D, cap = ga["Hq"], ga["Hkv"], ga["D"], ga["softcap"]
+    out = {}
+    for kind, S, window, dt in (("full", 2048, None, torch.bfloat16),
+                                ("sliding", 8192, ga["window"], torch.bfloat16),
+                                ("f32", 2048, None, torch.float32)):
+        q = torch.randn((1, Hq, S, D), generator=g, device="cuda").to(dt)
+        k, v = torch.randn((2, 1, Hkv, S, D), generator=g, device="cuda").to(dt)
+        bkv = min(1024, S)
+        k_i8, ks = quantize_kv_blocks(k, bkv)
+        v_i8, vs = quantize_kv_blocks(v, bkv)
+        operands = (q, k_i8, ks, v_i8, vs, fa8._offsets(0, 0, 1, q.device))
+        kw = dict(sm_scale=D**-0.5, causal=True, kv_len=S, block_kv=bkv, scale_clamp=1e-8,
+                  p_scale=127.0, window=window, softcap=cap, sinks=0, mode=0,
+                  save_residuals=True)
+        kernel, args, (o, lse), _keep = fa8._flash_int8_launch(*operands, **kw)
+        kernel(*args)
+        torch.cuda.synchronize()
+        same = _same_bits_again(lambda: kernel(*args), (o, lse))
+        p_o, p_lse = fa8._flash_int8_plain(*operands, **kw)
+        _, _, l = fa8._flash_int8_plain_state(
+            *operands, **{x: y for x, y in kw.items() if x != "save_residuals"})
+        tol, lse_tol = flash_tolerances(p_o, p_lse, l, v_i8, vs, bkv, 0)
+        ratios = [err_over_tol(o, p_o, tol), err_over_tol(lse, p_lse, lse_tol)]
+        if not same:
+            ratios.append(float("inf"))
+        pairs = Hq * _int8p_window_pairs(S, window)
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        mask = None
+        if window is not None:
+            i = torch.arange(S, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        sdpa_kw = dict(attn_mask=mask) if mask is not None else dict(is_causal=True)
+        out[kind] = _gemma2_sub(
+            o, p_o, ratios, lambda: kernel(*args),
+            lambda: fa8._flash_int8_plain(*operands, **kw),
+            shape={"B": 1, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D, "causal": True,
+                   "window": window, "softcap": cap, "block_kv": bkv, "q": str(dt)},
+            nbytes=(2 * q.numel() * q.element_size() + 2 * k_i8.numel() + 2 * ks.numel() * 4
+                    + Hq * S * 4),
+            ops={"int8": 2 * 2 * pairs * D, "exp": pairs},
+            library=lambda: _sdpa(qb, kb, vb, enable_gqa=True, **sdpa_kw))
+        del q, k, v, qb, kb, vb, k_i8, v_i8, o, p_o, l, tol, mask
+        torch.cuda.empty_cache()
+    return out
+
+
 def _gemma2_kernels():
     """Rows 3, 5 (bf16) and 10 (bf16 q) at serve_hybrid's shapes
     (GEMMA2_ATTN), each layer kind: {kernel name: {"full": sub-entry,
@@ -1656,6 +1757,7 @@ def _gemma2_kernels():
             ops={"fp32": 2 * 2 * seen * Hq * D, "exp": seen * Hq},
             library=lambda: _sdpa_decode(q, *clean, lengths, tables, window=window))
     _gemma2_verify_and_int4(g, out)
+    out["flash_int8_fwd[int8_p]"] = _gemma2_int8p(torch.Generator(device="cuda").manual_seed(361))
     return out
 
 
@@ -2560,7 +2662,8 @@ def phase_kernels(st):
     cases.append(_int4_decode_case(g))
     # The training step's backward: rows 6 (dK/dV) and 7 (dQ).
     cases += _flash_bwd_cases(g)
-    # Rows 3, 5 and 10 at head_dim 256, serve_hybrid's Gemma-2 shapes.
+    # Rows 3, 5 and 10 at head_dim 256, serve_hybrid's Gemma-2 shapes; row
+    # 1 at serve_hf's.
     by_name = {c["name"]: c for c in cases}
     for name, subs in _gemma2_kernels().items():
         by_name[name]["gemma2"] = subs
@@ -2785,6 +2888,15 @@ PLANTED_FAULTS = (
     ("flash_int8_fwd.cu", "int8 P: an item's K and V copied into the next stage (stale reads)",
      "          copy_item(t0, kb1, sw == 1, s);",
      "          copy_item(t0, kb1, sw == 1, (n + 1) % R::STAGES);"),
+    ("flash_int8_fwd.cu", "d=256 int8 P: S's k32 steps 4-7 read the first 128-byte halves of Q and K",
+     "    return s8_desc(tile + (kc >> 2) * (ROWS * S8_ROW), kc & 3);",
+     "    return s8_desc(tile, kc & 3);"),
+    ("flash_int8_fwd.cu", "d=256 int8 P: P·V's second column half against Vᵀ's first (O's columns 128-255)",
+     "                     s8_desc(vt + 128 * S8_ROW, kc));",
+     "                     s8_desc(vt, kc));"),
+    ("flash_int8_fwd.cu", "d=256 int8 P: acc in shared memory not rescaled by alpha (rows g)",
+     "        x.x = fmaf(x.x, alpha[0], static_cast<float>(pvi[j][0]) * vsc);",
+     "        x.x = fmaf(x.x, 1.f, static_cast<float>(pvi[j][0]) * vsc);"),
 )
 # The kernel sources the faults are held to, and the prefixes of their
 # coverage cases.
@@ -2911,7 +3023,8 @@ def _fault_checks(src):
         for name, mode, shape, hkv, dt, bkv, causal in (
                 ("solve fa_int8", 1, (1, 32, 8192, 32), 32, torch.float32, 512, False),
                 ("serve prefill", 0, (1, 32, 256, 128), 8, torch.bfloat16, 256, True),
-                ("serve_w4 prefill", 0, (1, 32, 512, 128), 8, torch.bfloat16, 512, True)):
+                ("serve_w4 prefill", 0, (1, 32, 512, 128), 8, torch.bfloat16, 512, True),
+                ("serve_hf prefill", 0, (1, 16, 512, 256), 8, torch.bfloat16, 512, True)):
             q = torch.randn(shape, generator=g, device="cuda").to(dt)
             k, v = torch.randn((2, 1, hkv) + shape[2:], generator=g, device="cuda").to(dt)
             e = _flash_case(name, mode, q, k, v, bkv, causal, replaces=None, library=False,
@@ -3998,6 +4111,327 @@ def phase_serve_hybrid(st):
           "peak_mem_gb": peak_gb, "mem_at_start_gb": mem_at_start})
     if not ok:
         raise AssertionError("serve_hybrid phase failed its checks")
+
+
+# serve_hf: a Gemma-2-9B-width checkpoint in HF's layout, cut to 4 layers
+# (sliding, full, sliding, full), bf16, tied embeddings, three files and an
+# index. Pools: the full layers hold every page of the four prompts (3 + 10
+# + 16 + 41 pages, a decode chunk's reserve each, the scrap page); the
+# sliding layers at most 34 a sequence (the window's 32 pages, the page
+# being written and one more) for the long one and every page of the three
+# short ones.
+SERVE_HF = dict(layers=4, shards=3, seed=21, bucketed=(300, 1200, 2000), long=5200, max_new=16,
+                chunk=8, page=128, pages={"full": 80, "w4096": 68}, max_pages=64,
+                logit_tol=0.25)
+
+
+def _gemma2_hf_names(cfg):
+    """[(HF name, HF shape, kind)] of a Gemma-2 checkpoint (tied: no
+    lm_head.weight): kind "norm", "embed", "q" / "k" (rows in HF's
+    rotate-half order) or "w"."""
+    h, hd, inter = cfg.hidden_size, cfg.hd, cfg.intermediate_size
+    out = [("model.embed_tokens.weight", (cfg.vocab_size, h), "embed"),
+           ("model.norm.weight", (h,), "norm")]
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        out += [(pre + n + ".weight", (h,), "norm")
+                for n in ("input_layernorm", "post_attention_layernorm",
+                          "pre_feedforward_layernorm", "post_feedforward_layernorm")]
+        out += [(pre + "self_attn.q_proj.weight", (cfg.num_heads * hd, h), "q"),
+                (pre + "self_attn.k_proj.weight", (cfg.num_kv_heads * hd, h), "k"),
+                (pre + "self_attn.v_proj.weight", (cfg.num_kv_heads * hd, h), "w"),
+                (pre + "self_attn.o_proj.weight", (h, cfg.num_heads * hd), "w"),
+                (pre + "mlp.gate_proj.weight", (inter, h), "w"),
+                (pre + "mlp.up_proj.weight", (inter, h), "w"),
+                (pre + "mlp.down_proj.weight", (h, inter), "w")]
+    return out
+
+
+def _gemma2_hf_tensor(name, shape, kind, seed, hidden, dev="cuda"):
+    """One tensor of the checkpoint in bf16, on the card, from a generator
+    seeded by (seed, name), rows in the port's order (q / k unpermuted):
+    norms ~ N(0, 0.1) (Gemma scales by 1 + w), the embedding ~ N(0,
+    hidden^-1) (times sqrt(hidden) in the model), a projection [out, in] ~
+    N(0, in^-1)."""
+    import zlib
+
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed * 2**32 + zlib.crc32(name.encode()))
+    std = 0.1 if kind == "norm" else hidden**-0.5 if kind == "embed" else shape[-1]**-0.5
+    return (torch.randn(shape, generator=g, device=dev) * std).to(torch.bfloat16)
+
+
+def _rotate_half_rows(w, hd):
+    """HF's q/k row order from the port's: each head's rows (hd/2, 2) ->
+    (2, hd/2), the permutation HF's convert script applies."""
+    out, inp = w.shape
+    return w.reshape(out // hd, hd // 2, 2, inp).transpose(1, 2).reshape(out, inp)
+
+
+def _write_gemma2_hf(path, cfg, seed, shards, dev="cuda"):
+    """A Gemma-2 checkpoint directory in HF's layout (config.json with the
+    keys config_from_hf reads, the preset's values; tensors in bf16 over
+    `shards` files and model.safetensors.index.json), written with the
+    port's safetensors writer one file at a time. Returns the bytes
+    written."""
+    import torch
+    from quantizedmha_tpu_torch.utils.safetensors_io import save_file
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(dict(
+        architectures=["Gemma2ForCausalLM"], model_type="gemma2", torch_dtype="bfloat16",
+        vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+        intermediate_size=cfg.intermediate_size, num_hidden_layers=cfg.num_layers,
+        num_attention_heads=cfg.num_heads, num_key_value_heads=cfg.num_kv_heads,
+        head_dim=cfg.hd, rope_theta=cfg.rope_theta, rms_norm_eps=cfg.rms_eps,
+        sliding_window=next(w for w in cfg.layer_windows if w is not None),
+        query_pre_attn_scalar=cfg.query_pre_attn_scalar,
+        attn_logit_softcapping=cfg.logit_softcap,
+        final_logit_softcapping=cfg.final_logit_softcap,
+        hidden_activation="gelu_pytorch_tanh", tie_word_embeddings=True)))
+    names = sorted(_gemma2_hf_names(cfg))
+    per = -(-len(names) // shards)
+    weight_map, nbytes = {}, 0
+    for s in range(shards):
+        fname = f"model-{s + 1:05d}-of-{shards:05d}.safetensors"
+        part = {}
+        for name, shape, kind in names[s * per:(s + 1) * per]:
+            t = _gemma2_hf_tensor(name, shape, kind, seed, cfg.hidden_size, dev)
+            if kind in ("q", "k"):
+                t = _rotate_half_rows(t, cfg.hd)
+            part[name] = t.cpu()
+            nbytes += t.numel() * 2
+            weight_map[name] = fname
+        save_file(part, path / fname, metadata={"format": "pt"})
+        del part
+        _empty_cache(dev)
+    (path / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": nbytes}, "weight_map": weight_map}))
+    return nbytes
+
+
+def _loaded_as_written(cfg, params, seed, dev="cuda"):
+    """Gate (b): every INT8 projection's values and scales bit-equal to
+    quantize_weight of the tensor as written (unpermuted, transposed), and
+    every norm and the embedding (and the tied lm_head) bit-equal to the
+    written bf16. Returns the names that differ."""
+    import torch
+    from quantizedmha_tpu_torch.quant.weights import quantize_weight
+    ours = {"self_attn.q_proj": "wq", "self_attn.k_proj": "wk", "self_attn.v_proj": "wv",
+            "self_attn.o_proj": "wo", "mlp.gate_proj": "w_gate", "mlp.up_proj": "w_up",
+            "mlp.down_proj": "w_down", "input_layernorm": "attn_norm",
+            "post_attention_layernorm": "post_attn_norm",
+            "pre_feedforward_layernorm": "mlp_norm",
+            "post_feedforward_layernorm": "post_mlp_norm"}
+    bad = []
+    for name, shape, kind in _gemma2_hf_names(cfg):
+        t = _gemma2_hf_tensor(name, shape, kind, seed, cfg.hidden_size, dev)
+        if name == "model.embed_tokens.weight":
+            same = (torch.equal(params["embed"], t)
+                    and torch.equal(params["lm_head"], t.T))
+        elif name == "model.norm.weight":
+            same = torch.equal(params["final_norm"], t)
+        else:
+            i, rest = name[len("model.layers."):].split(".", 1)
+            leaf = params["layers"][ours[rest.rsplit(".", 1)[0]]]
+            if kind == "norm":
+                same = torch.equal(leaf[int(i)], t)
+            else:
+                want, got = quantize_weight(t.T.contiguous()), leaf.layer(int(i))
+                same = torch.equal(got.values, want.values) and torch.equal(got.scale, want.scale)
+        if not same:
+            bad.append(name)
+        del t
+    return bad
+
+
+class _EngineLogits:
+    """While active, the last-token logits of every bucketed prefill
+    (prefill_at) and every prefill chunk (prefill_chunk) the engine runs,
+    keyed by the prompt length they end (a chunk's start + its last index
+    + 1): the engine's own logits for each prompt."""
+
+    def __enter__(self):
+        from quantizedmha_tpu_torch.serving import llama_adapter as la
+        self.saved = {n: getattr(la, n) for n in ("prefill_at", "prefill_chunk")}
+        self.logits = {}
+
+        def at(cfg, params, tokens, last_index, **kw):
+            out = self.saved["prefill_at"](cfg, params, tokens, last_index, **kw)
+            self.logits[last_index + 1] = out[0].detach().float().clone()
+            return out
+
+        def chunk(cfg, params, cache, tokens, chunk_start, table, last_index, **kw):
+            out = self.saved["prefill_chunk"](cfg, params, cache, tokens, chunk_start, table,
+                                              last_index, **kw)
+            self.logits[chunk_start + last_index + 1] = out[0].detach().float().clone()
+            return out
+        la.prefill_at, la.prefill_chunk = at, chunk
+        return self
+
+    def __exit__(self, *exc):
+        from quantizedmha_tpu_torch.serving import llama_adapter as la
+        for n, fn in self.saved.items():
+            setattr(la, n, fn)
+
+
+def phase_serve_hf(st):
+    """A Gemma-2-9B-width checkpoint written in HF's layout (SERVE_HF),
+    loaded by config_from_hf and load_llama(quantize=True) (w8a16) and
+    served with attention_impl="flash_int8" through the engine with
+    hybrid_kv: row 1 (int8 P) at d=256 runs every bucketed prefill, row 10
+    the long prompt's chunks, row 3 the decode. Gates (a)-(f) of the
+    module docstring."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from quantizedmha_tpu_torch.models import hf_loader, llama
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    from quantizedmha_tpu_torch.serving import llama_adapter
+    from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
+
+    t_phase = time.perf_counter()
+    dev = st.get("device", "cuda")
+    _empty_cache(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sh = SERVE_HF
+    L, P = sh["layers"], sh["page"]
+    preset = llama.LlamaConfig.gemma2_9b()
+    cut = dataclasses.replace(preset, num_layers=L, window_pattern=preset.window_pattern[:L])
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="serve_hf_"))
+    try:
+        t0 = time.perf_counter()
+        written = _write_gemma2_hf(tmp / "gemma2", cut, sh["seed"], sh["shards"], dev)
+        write_s = time.perf_counter() - t0
+        # (a) the config.
+        cfg = hf_loader.config_from_hf(tmp / "gemma2")
+        differ = [f.name for f in dataclasses.fields(cfg)
+                  if getattr(cfg, f.name) != getattr(cut, f.name)]
+        config_ok = not differ and cfg.num_layers == L
+        # (f) head_dim 96 refused on the card by the head-dim rule.
+        bad_dir = tmp / "head_dim_96"
+        bad_dir.mkdir()
+        (bad_dir / "config.json").write_text(json.dumps(dict(
+            json.loads((tmp / "gemma2" / "config.json").read_text()), head_dim=96)))
+        try:
+            hf_loader.load_llama(bad_dir, quantize=True, device="cuda")
+            refusal = None
+        except NotImplementedError as e:
+            refusal = str(e)
+        refused = refusal is not None and "head-dim rule" in refusal
+        # Read and quantize.
+        _sync(dev)
+        t0 = time.perf_counter()
+        params = hf_loader.load_llama(tmp / "gemma2", cfg, quantize=True, device=dev)
+        _sync(dev)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # (b) the leaves as written.
+    not_as_written = _loaded_as_written(cut, params, sh["seed"], dev)
+    cfg = dataclasses.replace(cfg, attention_impl="flash_int8")
+
+    eng = Engine(cfg, params, EngineConfig(
+        num_pages=sh["pages"]["full"], page_size=P, max_batch=4,
+        max_pages_per_seq=sh["max_pages"], prefill_buckets=(128, 256, 512, 1024, 2048),
+        max_new_tokens=sh["max_new"], decode_chunk=sh["chunk"], interleaved_prefill=True,
+        hybrid_kv=True, hybrid_pages=dict(sh["pages"])), device=dev)
+    assert eng.hybrid and set(eng.allocs) == {"full", "w4096"}
+    rng = np.random.default_rng(sh["seed"])
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in sh["bucketed"] + (sh["long"],)]
+    kernels = {"flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P, "paged_prefill": pp.PAGED_PREFILL,
+               "paged_decode": dec.PAGED_DECODE}
+    # Warm-up (first cuBLAS and kernel use), its launches counted apart.
+    for kern in kernels.values():
+        kern.reset()
+    eng.add_request(rng.integers(1, cfg.vocab_size, 100).tolist(), max_new=sh["chunk"] + 1)
+    eng.run()
+    eng.finished.clear()
+    warmup = {name: kern.launches for name, kern in kernels.items()}
+
+    seen = {"long_live": {"full": 0, "w4096": 0}}
+
+    def watch(e, rids, _hit):
+        for k, a in e.allocs.items():
+            if rids[-1] in a.tables:
+                seen["long_live"][k] = max(seen["long_live"][k],
+                                           sum(p is not None for p in a.tables[rids[-1]]))
+    runs = []
+    for attempt in range(2):  # (e) the same traffic twice, the same streams
+        for kern in kernels.values():
+            kern.reset()
+        steps0 = eng.metrics.counter("decode_steps")
+        _sync(dev)
+        t_run = time.perf_counter()
+        with _EngineLogits() as cap:
+            rids, _, ttft, walls = _hybrid_traffic(eng, prompts, None, sh, on_step=watch)
+        run_s = time.perf_counter() - t_run
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        steps = eng.metrics.counter("decode_steps") - steps0
+        runs.append(dict(streams=[eng.finished.get(r) for r in rids], launches=launches,
+                         steps=steps, ttft=[ttft.get(r) for r in rids], walls=walls,
+                         run_s=run_s, logits=cap.logits))
+        eng.finished.clear()
+        if attempt == 0:
+            for name, n in launches.items():
+                st["launches"][name] = st["launches"].get(name, 0) + n
+                st["launches_d256"][name] = st["launches_d256"].get(name, 0) + n
+    drained = all(not a.tables and a.free_pages == a.num_pages - 1 for a in eng.allocs.values())
+    first = runs[0]
+    n_chunks = -(-sh["long"] // 2048)
+    want = {"flash_int8_fwd[int8_p]": L * len(sh["bucketed"]), "paged_prefill": L * n_chunks,
+            "paged_decode": L * int(first["steps"])}
+    same_streams = runs[1]["streams"] == first["streams"]
+    lens_ok = all(s is not None and len(s) == sh["max_new"] for s in first["streams"])
+    peak_gb = _peak_gb(dev)
+    del eng
+    _empty_cache(dev)
+
+    # (c) each prompt's last logits from the engine against the golden: the
+    # same loaded params with the float reference attention
+    # (mha_masked_reference, K/V unquantized), the prompt unpadded.
+    ref_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    dist, finite = {}, True
+    for p in prompts:
+        got = first["logits"].get(len(p))
+        golden = llama_adapter.prefill_at(ref_cfg, params, torch.tensor(
+            [p], dtype=torch.int32, device=dev), len(p) - 1)[0].float()
+        dist[len(p)] = None if got is None else _logit_distance(got, golden)
+        finite &= got is not None and bool(torch.isfinite(got).all().item())
+        del golden
+    logits_ok = finite and all(d is not None and d <= sh["logit_tol"] for d in dist.values())
+    groups = llama_adapter.window_groups(cfg)
+    page_bytes = 2 * cfg.num_kv_heads * (P * cfg.hd + 4)
+    kv_long = sum(seen["long_live"][k] * len(groups[k]) * page_bytes for k in groups)
+    dec_s = sum(w for w, _ in first["walls"])
+    dec_steps = sh["chunk"] * len(first["walls"])
+    ok = (config_ok and not not_as_written and logits_ok and first["launches"] == want
+          and same_streams and refused and lens_ok and drained)
+    emit({"phase": "serve_hf", "ok": ok, "model": "gemma2_9b width, HF checkpoint",
+          "layers": L, "head_dim": cfg.hd, "weights": "w8a16 (INT8 on load)",
+          "attention_impl": cfg.attention_impl, "checkpoint_bytes": written,
+          "checkpoint_files": sh["shards"], "config_equal_preset": config_ok,
+          "config_fields_differing": differ, "not_as_written": not_as_written,
+          "head_dim_96_refused": refused, "refusal": refusal,
+          "prompts": list(sh["bucketed"]) + [sh["long"]], "max_new": sh["max_new"],
+          "launches": first["launches"], "launches_expected": want,
+          "launches_second_run": runs[1]["launches"], "warmup_launches": warmup,
+          "streams_same_twice": same_streams, "pools_drained": drained,
+          "logit_distance_vs_reference_golden": dist, "logit_tol": sh["logit_tol"],
+          "write_s": write_s, "read_quantize_s": load_s, "serve_s": first["run_s"],
+          "ttft_s": first["ttft"], "decode_ms_per_step":
+              dec_s * 1e3 / dec_steps if dec_steps else None,
+          "decode_engine_steps_timed": len(first["walls"]),
+          "kv_bytes_long": kv_long, "long_live_pages": seen["long_live"],
+          "peak_mem_gb": peak_gb, "phase_s": time.perf_counter() - t_phase,
+          "gpu": st["gpu"]})
+    if not ok:
+        raise AssertionError("serve_hf phase failed its checks")
 
 
 SERVE_MIXED = dict(bucketed=(240, 1000, 2000), long=(5000, 7900), max_new=32, chunk=8,
@@ -7279,15 +7713,19 @@ def main(argv=None) -> int:
         phases.append("solve")  # the harness phase holds its times to solve's
     st = {"launches": {}, "launches_d256": {}, "profile": args.profile,
           "keep_serve_params": "serve_w8a8" in phases}
+    seconds = {}
     for name in PHASES:
         if name not in phases:
             continue
+        t0 = time.perf_counter()
         try:
             globals()[f"phase_{name}"](st)
         except Exception:
             traceback.print_exc()
             emit({"phase": name, "ok": False})
             return 1
+        seconds[name] = round(time.perf_counter() - t0, 1)
+    emit({"phase_seconds": seconds, "total": round(sum(seconds.values()), 1)})
     if "kernels" in st:
         entries = []
         for name, c in st["kernels"].items():
@@ -7311,7 +7749,7 @@ def main(argv=None) -> int:
         emit({"kernels": entries})
         idle = [e["name"] for e in entries if e["launches"] == 0]
         if ({"solve", "serve", "serve_w4", "serve_flash", "serve_mixed", "serve_hybrid",
-             "serve_hybrid_mixed", "serve_spec", "train"} <= set(phases) and idle):
+             "serve_hybrid_mixed", "serve_spec", "serve_hf", "train"} <= set(phases) and idle):
             print(f"chip_smoke: kernels never launched on a main path: {idle}",
                   file=sys.stderr)
             return 1

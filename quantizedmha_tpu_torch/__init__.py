@@ -21,6 +21,7 @@ from quantizedmha_tpu_torch.ops.flash_attention import flash_attention
 from quantizedmha_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
 from quantizedmha_tpu_torch.ops.paged_prefill import paged_prefill_attention
 from quantizedmha_tpu_torch.ops.unfused import unfused_mha
+from quantizedmha_tpu_torch.reference.mha import mha_reference_shaped
 from quantizedmha_tpu_torch.version import __version__
 
 __all__ = [
@@ -31,6 +32,7 @@ __all__ = [
     "ReferenceWorkload",
     "flash_attention",
     "flash_attention_int8",
+    "mha_reference_shaped",
     "paged_decode_attention",
     "paged_prefill_attention",
     "solve",

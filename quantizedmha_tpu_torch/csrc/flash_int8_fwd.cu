@@ -89,6 +89,17 @@
 // walk is never split across blocks: P' depends on the running max over
 // every quant block so far, which sets which P rounds up. No atomics: the
 // same bits every launch.
+//   d=256 (Gemma-2, MODE_INT8_P only; MODE_BF16_P raises there, ROADMAP.md
+//   queue 2 item 2): a Q or K row is 256 bytes, stored as two 128-byte
+//   halves, each a tile of its own in wgmma_s8.cuh's layout (sw8_d), so
+//   S = Qq·Kqᵀ is 8 k32 steps of the m64n64 product, steps 4-7 at the
+//   second halves' descriptors (s8_desc_d). P·V at N = 256 is two m64n128
+//   products a k32 step, the second against Vᵀ's rows 128-255 (pv_step).
+//   pvi alone is 128 registers a consumer thread, so acc (64 x 256 f32)
+//   lives in shared memory, each thread's own float4s, read and written
+//   once a quant block (and by the epilogue); one block of a producer and
+//   one consumer an SM, no setmaxnreg (256 threads may hold 255 registers
+//   each), two stages of 64 KB (K, V's rows, Vᵀ): 209 KB of shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -626,19 +637,23 @@ struct Int8pRing {
   // Consumer warpgroups (64 block rows each), keys an item (a tile: 64 or
   // 128) and blocks an SM: one consumer a block and 64-key tiles, two
   // blocks an SM (the serving prefill's few blocks spread over every SM,
-  // a light block beside a heavy one); else one block an SM.
+  // a light block beside a heavy one); else one block an SM. d=256 (WIDE):
+  // one consumer, one block an SM, acc in shared memory, two stages.
+  static constexpr bool WIDE = D == 256;
   static constexpr int CONSUMERS = C;
   static constexpr int ROWS = 64 * C;                // q heads x q positions
-  static constexpr int BLOCKS = C == 1 && TK == 64 ? 2 : 1;
-  static_assert(BLOCKS == 2 || C == 2, "one consumer takes two blocks an SM");
+  static constexpr int BLOCKS = C == 1 && TK == 64 && !WIDE ? 2 : 1;
+  static_assert(BLOCKS == 2 || C == 2 || WIDE, "one consumer takes two blocks an SM");
+  static_assert(!WIDE || (C == 1 && TK == 64), "d=256: one consumer, 64-key tiles");
   static constexpr int NTB = 128 * (1 + C);          // threads; all meet at a handoff
-  static constexpr int STAGES = TK == 64 && C == 2 ? 4 : 3;  // stages in the ring
+  static constexpr int STAGES = WIDE ? 2 : TK == 64 && C == 2 ? 4 : 3;  // stages in the ring
   static constexpr int KCPT = TK * D / 2048;  // 16-byte chunks of a K tile a producer thread copies
   // Items in flight beyond the one handed over (as Bf16pRing's LAG); the
   // 4-key x 16-byte units of a V tile.
   static constexpr int LAG = STAGES - 1, VUNITS = TK * D / 64;
   // The registers of a producer and of a consumer thread (setmaxnreg; the
   // launch gives each thread 65536 / (NTB * BLOCKS), rounded down to 8).
+  // WIDE takes no setmaxnreg: its 256 threads may each hold 255.
   static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = C == 1 ? 216 : 232;
   static_assert(PRODUCER_REGS + C * CONSUMER_REGS <=
                 (1 + C) * (65536 / (NTB * BLOCKS) / 8 * 8), "register budget");
@@ -649,16 +664,58 @@ struct Int8pRing {
   static constexpr int FULL_THREADS = 256;  // the producer and one consumer
   static_assert(QREADY + C <= 16, "16 named barriers");
   // A stage: the K tile and V's rows as copied (TK rows each, int8,
-  // wgmma_s8.cuh's layout), then Vᵀ: D rows (one a column of V) of 128
-  // bytes, the tile's keys in the first TK, in the order P's register A
-  // takes them. Shared memory: each consumer's Q tile, the stages, the
-  // rows' scales; 1 KB to align.
-  static constexpr int TILE = TK * S8_ROW;
+  // wgmma_s8.cuh's layout; KH 128-byte halves of a row, sw8_d), then Vᵀ: D
+  // rows (one a column of V) of 128 bytes, the tile's keys in the first
+  // TK, in the order P's register A takes them. Shared memory: each
+  // consumer's Q tile, the stages, WIDE's acc (each consumer thread's ND
+  // float4s, threads side by side), the rows' scales; 1 KB to align.
+  static constexpr int KH = D > 128 ? D / 128 : 1;
+  static constexpr int QTILE = KH * S8_TILE;
+  static constexpr int TILE = KH * TK * S8_ROW;
   static constexpr int STAGE = 2 * TILE + D * S8_ROW;
-  static constexpr int KV_OFF = C * S8_TILE;
-  static constexpr int SQ_OFF = KV_OFF + STAGES * STAGE;
+  static constexpr int KV_OFF = C * QTILE;
+  static constexpr int ACC_OFF = KV_OFF + STAGES * STAGE;
+  static constexpr int SQ_OFF = ACC_OFF + (WIDE ? C * 64 * D * 4 : 0);
   static constexpr int BYTES = SQ_OFF + ROWS * 4 + 1024;
+  static_assert(BYTES <= 232448, "shared memory of one block");
 };
+
+// Byte offset of 16-byte chunk c of row r in an int8 tile of ROWS rows of
+// D bytes: a row wider than 128 bytes (d=256) is stored as 128-byte halves,
+// each half a tile of ROWS rows of its own (wgmma_s8.cuh's layout).
+template <int D, int ROWS>
+__device__ __forceinline__ int sw8_d(int r, int c) {
+  if constexpr (D <= 128) {
+    return sw8(r, c);
+  } else {
+    return (c >> 3) * (ROWS * S8_ROW) + sw8(r, c & 7);
+  }
+}
+
+// Descriptor of k32 step kc of such a tile: at d=256 steps 4-7 read the
+// second half.
+template <int D, int ROWS>
+__device__ __forceinline__ uint64_t s8_desc_d(const int8_t* tile, int kc) {
+  if constexpr (D <= 128) {
+    return s8_desc(tile, kc);
+  } else {
+    return s8_desc(tile + (kc >> 2) * (ROWS * S8_ROW), kc & 3);
+  }
+}
+
+// pvi += P·V over k32 step kc of the stage's Vᵀ: at d=256 two m64n128
+// products, the second over Vᵀ's rows 128-255 (O's columns 128-255).
+template <int D>
+__device__ __forceinline__ void pv_step(int (&pvi)[D / 8][4], const uint32_t (&a)[4],
+                                        const int8_t* vt, int kc) {
+  if constexpr (D == 256) {
+    wgmma_s8_pv<128>(*reinterpret_cast<int(*)[16][4]>(&pvi[0]), a, s8_desc(vt, kc));
+    wgmma_s8_pv<128>(*reinterpret_cast<int(*)[16][4]>(&pvi[16]), a,
+                     s8_desc(vt + 128 * S8_ROW, kc));
+  } else {
+    wgmma_s8_pv<D>(pvi, a, s8_desc(vt, kc));
+  }
+}
 
 // Block row r holds q head kvh·G + hc·GB + r / NQ at q position q0 + r % NQ
 // (GB heads of the group a block, NQ = ROWS / GB positions); the row exists
@@ -801,7 +858,7 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
     // Producer: item n into stage n % STAGES once the consumers handed that
     // stage back; handed over LAG items later, when its copies have landed
     // (and its V is transposed).
-    setmaxnreg_dec<R::PRODUCER_REGS>();
+    if constexpr (!R::WIDE) setmaxnreg_dec<R::PRODUCER_REGS>();
     const size_t kvbase = (size_t(b) * p.Hkv + kvh) * p.Skv * D;
     const int8_t* kg = p.k + kvbase;
     const int8_t* vg = p.v + kvbase;
@@ -821,7 +878,7 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
       for (int i = 0; i < R::KCPT; ++i) {
         const int e = gtid + 128 * i, r = e / (D / 16), c = e % (D / 16);
         const bool ok = t0 + r < kend;  // zero past the quant block's end
-        cp_async16(k_of(s) + sw8(r, c), kg + size_t(ok ? t0 + r : 0) * D + 16 * c, ok);
+        cp_async16(k_of(s) + sw8_d<D, TK>(r, c), kg + size_t(ok ? t0 + r : 0) * D + 16 * c, ok);
       }
       if (v_item) {
         for (int u = gtid; u < R::VUNITS; u += 128) {
@@ -830,7 +887,8 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
           for (int i = 0; i < 4; ++i) {
             const int r = x.vr + (i & 1) + 8 * (i >> 1);
             const bool ok = t0 + r < kend;
-            cp_async16(raw_of(s) + sw8(r, x.ucc), vg + size_t(ok ? t0 + r : 0) * D + 16 * x.ucc, ok);
+            cp_async16(raw_of(s) + sw8_d<D, TK>(r, x.ucc),
+                       vg + size_t(ok ? t0 + r : 0) * D + 16 * x.ucc, ok);
           }
         }
       }
@@ -846,7 +904,8 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
           uint4 w[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            w[i] = *reinterpret_cast<const uint4*>(raw_of(s) + sw8(x.vr + (i & 1) + 8 * (i >> 1), x.ucc));
+            w[i] = *reinterpret_cast<const uint4*>(
+                raw_of(s) + sw8_d<D, TK>(x.vr + (i & 1) + 8 * (i >> 1), x.ucc));
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const uint32_t lo01 = __byte_perm(word(w[0], i), word(w[1], i), 0x5140);
@@ -897,10 +956,10 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
   }
 
   // Consumers.
-  setmaxnreg_inc<R::CONSUMER_REGS>();
+  if constexpr (!R::WIDE) setmaxnreg_inc<R::CONSUMER_REGS>();
   const int cw = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  int8_t* qs = reinterpret_cast<int8_t*>(smem) + cw * S8_TILE;
+  int8_t* qs = reinterpret_cast<int8_t*>(smem) + cw * R::QTILE;
   float* sqs = reinterpret_cast<float*>(smem + R::SQ_OFF) + 64 * cw;
   const int wrow = 64 * cw + 16 * warp;  // this warp's first block row
 
@@ -943,7 +1002,7 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
           w[e / 4] = e % 4 == 0 ? byte : w[e / 4] | (byte << (8 * (e % 4)));
         }
         const int d0 = PE * (part + 8 * i);  // the piece's first column
-        int8_t* dst = qs + sw8(rr, d0 / 16) + d0 % 16;
+        int8_t* dst = qs + sw8_d<D, 64>(rr, d0 / 16) + d0 % 16;
         if constexpr (PE == 8) {
           *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
         } else {
@@ -968,8 +1027,15 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
   const int wlo = wspan.x, whi = wspan.y;
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[ND][4];
+  // acc: in registers (the C fragment of pvi's n8 tiles), or WIDE's in
+  // shared memory (n8 tile j at acc4[128j], the same four values a thread).
+  float acc[R::WIDE ? 1 : ND][4];
   zero(acc);
+  float4* acc4 = reinterpret_cast<float4*>(smem + R::ACC_OFF) + 128 * ND * cw + gtid;
+  if constexpr (R::WIDE) {
+#pragma unroll
+    for (int j = 0; j < ND; ++j) acc4[128 * j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   int pvi[ND][4];    // P·V of the quant block's exp sweep, exact in int32
   uint32_t a[TK / 32][4];  // P of an exp item: register A of k32 step c (keys 32c..32c+31)
 
@@ -983,7 +1049,8 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
     wgmma_fence();
     fence_operands(sc);
 #pragma unroll
-    for (int kc = 0; kc < D / 32; ++kc) wgmma_s8_ss<TK>(sc, s8_desc(qs, kc), s8_desc(kt, kc), kc);
+    for (int kc = 0; kc < D / 32; ++kc)
+      wgmma_s8_ss<TK>(sc, s8_desc_d<D, 64>(qs, kc), s8_desc_d<D, TK>(kt, kc), kc);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(sc);
@@ -1113,7 +1180,7 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
       wgmma_fence();
       fence_operands(pvi);
 #pragma unroll
-      for (int kc = 0; kc < TK / 32; ++kc) wgmma_s8_pv<D>(pvi, a[kc], s8_desc(vt, kc));
+      for (int kc = 0; kc < TK / 32; ++kc) pv_step<D>(pvi, a[kc], vt, kc);
       wgmma_commit();
     }
     wgmma_wait<0>();
@@ -1128,11 +1195,23 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
       l[r] = fmaf(alpha[r], l[r], quad_sum(lsum[r]));
       m[r] = m_next[r];
     }
+    if constexpr (R::WIDE) {
 #pragma unroll
-    for (int j = 0; j < ND; ++j)
+      for (int j = 0; j < ND; ++j) {
+        float4 x = acc4[128 * j];
+        x.x = fmaf(x.x, alpha[0], static_cast<float>(pvi[j][0]) * vsc);
+        x.y = fmaf(x.y, alpha[0], static_cast<float>(pvi[j][1]) * vsc);
+        x.z = fmaf(x.z, alpha[1], static_cast<float>(pvi[j][2]) * vsc);
+        x.w = fmaf(x.w, alpha[1], static_cast<float>(pvi[j][3]) * vsc);
+        acc4[128 * j] = x;
+      }
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[j][e] = fmaf(acc[j][e], alpha[e >> 1], static_cast<float>(pvi[j][e]) * vsc);
+      for (int j = 0; j < ND; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[j][e] = fmaf(acc[j][e], alpha[e >> 1], static_cast<float>(pvi[j][e]) * vsc);
+    }
   }
 
   // ---- Epilogue: o = acc / l (l == 0 -> o = 0); lse = m + log l - ln p.
@@ -1154,7 +1233,16 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
       for (int r = 0; r < 2; ++r) {
         const int row = g + 8 * r, at = (8 * j + 2 * t - ps * CP) * int(sizeof(OT));
         unsigned char* dst = st + row * S8_ROW + (((at >> 4) ^ (row & 7)) << 4) + (at & 15);
-        const float o0 = acc[j][2 * r] * l_inv[r], o1 = acc[j][2 * r + 1] * l_inv[r];
+        float a0, a1;
+        if constexpr (R::WIDE) {
+          const float4 x = acc4[128 * j];
+          a0 = r ? x.z : x.x;
+          a1 = r ? x.w : x.y;
+        } else {
+          a0 = acc[j][2 * r];
+          a1 = acc[j][2 * r + 1];
+        }
+        const float o0 = a0 * l_inv[r], o1 = a1 * l_inv[r];
         if constexpr (QBF16) {
           *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(o0, o1);
         } else {
@@ -1216,13 +1304,21 @@ cudaError_t launch_bf16_p(const Params& p, cudaStream_t stream) {
 
 template <int D>
 cudaError_t dispatch_mode(const Params& p, int mode, int q_bf16, cudaStream_t stream) {
+  if constexpr (D == 256) {
+    // MODE_INT8_P alone at d=256 (MODE_BF16_P: ROADMAP.md queue 2 item 2).
+    if (mode != MODE_INT8_P) return cudaErrorInvalidValue;
+  }
   if (mode == MODE_INT8_P) {
     constexpr int CONSUMERS = 1;  // consumer warpgroups of an int8-P block
     constexpr int TILE_KEYS = 64;  // keys of an int8-P item
     return q_bf16 ? launch_int8_p<D, true, CONSUMERS, TILE_KEYS>(p, stream)
                   : launch_int8_p<D, false, CONSUMERS, TILE_KEYS>(p, stream);
   }
-  return q_bf16 ? launch_bf16_p<D, true>(p, stream) : launch_bf16_p<D, false>(p, stream);
+  if constexpr (D == 256) {
+    return cudaErrorInvalidValue;
+  } else {
+    return q_bf16 ? launch_bf16_p<D, true>(p, stream) : launch_bf16_p<D, false>(p, stream);
+  }
 }
 
 }  // namespace
@@ -1269,6 +1365,7 @@ extern "C" int flash_int8_fwd(const void* q, const void* k, const void* v, const
     case 32: err = dispatch_mode<32>(p, mode, q_bf16, s); break;
     case 64: err = dispatch_mode<64>(p, mode, q_bf16, s); break;
     case 128: err = dispatch_mode<128>(p, mode, q_bf16, s); break;
+    case 256: err = dispatch_mode<256>(p, mode, q_bf16, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);

@@ -50,7 +50,7 @@ _ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
 FLASH_INT8_P = cuda_lib.CudaKernel("flash_int8_fwd", "flash_int8_fwd", _ARGS)
 FLASH_BF16_P = cuda_lib.CudaKernel("flash_int8_fwd", "flash_int8_fwd", _ARGS)
 _KERNEL_OF_MODE = {0: FLASH_INT8_P, 1: FLASH_BF16_P}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)  # 256: int8 P (mode 0) alone
 
 
 def _flash_int8_plain_state(q, k_i8, k_scales, v_i8, v_scales, offsets, *, sm_scale,
@@ -143,9 +143,10 @@ def _flash_int8_launch(q, k_i8, k_scales, v_i8, v_scales, offsets, *, sm_scale,
     """Checked operands of one kernel launch: (kernel, ctypes args, outputs)."""
     B, H, Sq, D = q.shape
     Hkv, Skv = k_i8.shape[1], k_i8.shape[2]
-    if D == 256:
-        raise NotImplementedError("the CUDA int8 attention at head_dim 256 is not built yet "
-                                  "(ROADMAP.md queue 2, head_dim 256 off the serving path)")
+    if D == 256 and mode == 1:
+        raise NotImplementedError(
+            "the CUDA int8 attention with bf16 P (the transposed route) at head_dim 256 is "
+            "not built yet (ROADMAP.md queue 2 item 2, row 2 at d=256)")
     if D not in _HEAD_DIMS:
         raise ValueError(f"the CUDA int8 attention takes head_dim in {_HEAD_DIMS}, got {D}")
     if q.dtype not in (torch.float32, torch.bfloat16):

@@ -17,8 +17,9 @@ import glob
 import json
 import os
 import pathlib
+import pickle
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -92,3 +93,21 @@ def annotate(name: str):
     """Named trace region (the `cudaProfilerStart/Stop` bracket analog,
     usable as decorator or context manager)."""
     return record_function(name)
+
+
+def device_memory_profile(path: Optional[str] = None) -> bytes:
+    """Snapshot the card's memory: torch.cuda.memory._snapshot() (every
+    segment and block the caching allocator holds, with allocation stacks
+    when torch.cuda.memory._record_memory_history is on), pickled; written
+    to `path` when given. The format differs from the JAX package's, a
+    pprof protobuf: read it with torch's memory_viz
+    (python -m torch.cuda._memory_viz, or pytorch.org/memory_viz). Raises
+    without a card: the CPU has no device memory to profile."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_memory_profile snapshots the CUDA caching allocator: "
+                           "no CUDA device is available")
+    prof = pickle.dumps(torch.cuda.memory._snapshot())
+    if path:
+        pathlib.Path(path).parent.mkdir(parents=True, exist_ok=True)
+        pathlib.Path(path).write_bytes(prof)
+    return prof

@@ -6,6 +6,7 @@ from quantizedmha_tpu_torch.reference.mha import (
     mha_with_intermediates,
 )
 from quantizedmha_tpu_torch.reference.quant_ref import (
+    fake_quant_int8,
     mha_int8_reference,
     quantize_int8_tile,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "mha_reference",
     "mha_reference_shaped",
     "mha_with_intermediates",
+    "fake_quant_int8",
     "mha_int8_reference",
     "quantize_int8_tile",
 ]

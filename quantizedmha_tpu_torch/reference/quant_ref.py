@@ -30,6 +30,13 @@ def quantize_int8_tile(
     return q, scale
 
 
+def fake_quant_int8(x: torch.Tensor, *, axis=(-2, -1), scale_clamp: float = 1e-8) -> torch.Tensor:
+    """x through quantize_int8_tile and back: the int8 values times their
+    scales, in float32."""
+    q, scale = quantize_int8_tile(x, axis=axis, scale_clamp=scale_clamp)
+    return q.float() * scale
+
+
 def mha_int8_reference(
     q: torch.Tensor,
     k: torch.Tensor,

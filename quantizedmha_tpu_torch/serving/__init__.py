@@ -3,6 +3,7 @@ from quantizedmha_tpu_torch.serving.kv_cache import (
     MixedPageAllocator,
     PageAllocator,
     PagedKVCacheState,
+    append_token,
     append_tokens_batched,
     write_pages,
 )
@@ -49,6 +50,7 @@ __all__ = [
     "SamplingParams",
     "SpecConfig",
     "SpecDecodeEngine",
+    "append_token",
     "append_token_mixed",
     "append_tokens_batched",
     "mixed_paged_decode_attention",

@@ -110,6 +110,21 @@ def append_tokens_batched(
     return state
 
 
+def append_token(
+    state: PagedKVCacheState,
+    k_tok: torch.Tensor,  # [num_kv_heads, head_dim]
+    v_tok: torch.Tensor,
+    page_id,  # the physical page holding the slot (int or 0-d tensor)
+    slot,  # offset within the page
+) -> PagedKVCacheState:
+    """Single-token form of append_tokens_batched (B = 1), in place."""
+    dev = state.k_pages.device
+    return append_tokens_batched(
+        state, k_tok[None], v_tok[None],
+        torch.as_tensor(page_id, dtype=torch.int32, device=dev).reshape(1),
+        torch.as_tensor(slot, dtype=torch.int32, device=dev).reshape(1))
+
+
 class PageAllocator:
     """Host-side physical page free-list + per-sequence block tables, with
     a permanently reserved scrap page and per-page refcounts."""

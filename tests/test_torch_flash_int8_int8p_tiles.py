@@ -13,7 +13,11 @@ transposes. Here:
 - The layout: S's accumulator fragments packed into the s8 register A and
   the producer's Vᵀ (its byte permutes, its key order and the 128-byte
   swizzle) emulated thread by thread; the product they make equals
-  round(P') @ V exactly in int32, at d = 32, 64 and 128.
+  round(P') @ V exactly in int32, at d = 32, 64, 128 and 256 (V's rows as
+  two 128-byte halves, P·V as two m64n128 products, the second over Vᵀ's
+  rows 128-255). S = Qq·Kqᵀ read through the k32 steps' descriptors from
+  the swizzled tiles equals the integer product, at d=256 over both
+  128-byte halves of each row.
 - The walk: `_walk`, the kernel's algorithm block by block, against JAX's
   flash_attention_int8_prequant(pv_dtype="int8") in interpret mode (a
   causal GQA prefill with block_kv = S, and window + sinks), and against
@@ -62,6 +66,39 @@ def _sw8(r, c):
     return r * 128 + ((c ^ (r & 7)) << 4)
 
 
+def _sw8_d(D, rows, r, c):
+    """sw8_d of flash_int8_fwd.cu: a row wider than 128 bytes (d=256) as
+    128-byte halves, each half a tile of `rows` rows."""
+    if D <= 128:
+        return _sw8(r, c)
+    return (c >> 3) * rows * 128 + _sw8(r, c & 7)
+
+
+def _s_product(Q, K, fault=None):
+    """S [64, 64] of one item as the s8 wgmma reads it: Q and K [64, D]
+    int8 laid into their swizzled tiles (sw8_d), then for each k32 step kc
+    the 32 bytes from 32·(kc % 4) of each row at the descriptor's base
+    (s8_desc_d: at d=256 steps 4-7 on the second halves; the planted
+    fault reads the first halves again)."""
+    D = Q.shape[1]
+    tiles = []
+    for X in (Q, K):
+        buf = bytearray(64 * max(D, 128))
+        for r in range(64):
+            for c in range(D // 16):
+                at = _sw8_d(D, 64, r, c)
+                buf[at:at + 16] = X[r, 16 * c:16 * c + 16].astype(np.int8).tobytes()
+        tiles.append(np.frombuffer(bytes(buf), np.int8).astype(np.int64))
+    S = np.zeros((64, 64), np.int64)
+    for kc in range(D // 32):
+        base = (kc >> 2) * 64 * 128 if D > 128 and fault != "s_half" else 0
+        step = (kc & 3) if D > 128 else kc
+        ops = [np.array([[t[base + _sw8(r, (32 * step + kk) // 16) + kk % 16] for kk in range(32)]
+                         for r in range(64)]) for t in tiles]
+        S += ops[0] @ ops[1].T
+    return S
+
+
 def _words(buf, at):
     return [int.from_bytes(bytes(buf[at + 4 * i:at + 4 * i + 4]), "little") for i in range(4)]
 
@@ -71,17 +108,18 @@ def _vt_tile(v_tile, fault=None):
     swizzled raw tile, each unit's four rows transposed by byte permutes
     into D rows of 128 bytes."""
     D = v_tile.shape[1]
-    raw = bytearray(64 * 128)
+    raw = bytearray(64 * max(D, 128))
     for r in range(64):
         for c in range(D // 16):
-            raw[_sw8(r, c):_sw8(r, c) + 16] = v_tile[r, 16 * c:16 * c + 16].astype(np.int8).tobytes()
+            at = _sw8_d(D, BK, r, c)
+            raw[at:at + 16] = v_tile[r, 16 * c:16 * c + 16].astype(np.int8).tobytes()
     vt = bytearray(D * 128)
     for u in range(BK * D // 64):
         ut, uh, rest = u & 3, (u >> 3) & 1, u >> 4
         uc = rest % (BK // 32)
         ucc = 2 * (rest // (BK // 32)) + ((u >> 2) & 1)
         q, vr = 2 * uc + uh, 32 * uc + 16 * uh + 2 * ut
-        w = [_words(raw, _sw8(vr + (i & 1) + 8 * (i >> 1), ucc)) for i in range(4)]
+        w = [_words(raw, _sw8_d(D, BK, vr + (i & 1) + 8 * (i >> 1), ucc)) for i in range(4)]
         for i in range(4):
             lo01 = _byte_perm(w[0][i], w[1][i], 0x5140)
             hi01 = _byte_perm(w[0][i], w[1][i], 0x7362)
@@ -129,10 +167,14 @@ def _register_a(pe, fault=None):
 
 def _pv_product(pe, v_tile, fault=None):
     """The int32 P·V of one exp item: register A against the K-major Vᵀ
-    tile that s8_desc names (row n, k byte kk at chunk kk / 16)."""
+    tile that s8_desc names (row n, k byte kk at chunk kk / 16); at d=256
+    two products, the second from Vᵀ's row 128 on (the planted fault's from
+    row 0 again)."""
     D = v_tile.shape[1]
     vt = np.frombuffer(bytes(_vt_tile(v_tile, fault)), np.int8).astype(np.int64)
     b = np.array([[vt[_sw8(n, kk // 16) + kk % 16] for kk in range(BK)] for n in range(D)])
+    if D == 256 and fault == "pv_half":
+        b[128:] = b[:128]
     return _register_a(pe, fault) @ b.T
 
 
@@ -145,11 +187,18 @@ def _layout_inputs(D, seed):
     return pe, v
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_register_a_against_vt_is_round_p_times_v(D):
     pe, v = _layout_inputs(D, seed=D)
     want = np.rint(pe.astype(np.float64)).astype(np.int64) @ v
     np.testing.assert_array_equal(_pv_product(pe, v), want)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_scores_from_the_k_halves_are_q_kt(D):
+    rng = np.random.default_rng(D + 1)
+    Q, K = rng.integers(-127, 128, (2, 64, D))
+    np.testing.assert_array_equal(_s_product(Q, K), Q @ K.T)
 
 
 def test_byte_permutes_transpose_a_4x4_block():
@@ -178,6 +227,14 @@ def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
     o = torch.full((B, H, Sq, D), float("nan"), dtype=q.dtype)
     lse = torch.full((B, H, Sq), float("nan"))
     f32 = bf16p_tiles._f32
+
+    def scores(Q, kt):
+        """S of an item; at d=256 the planted fault's k32 steps 4-7 read the
+        first 128-byte halves of Q and K again."""
+        if fault == "s_half" and D == 256:
+            return 2 * (Q[:, :128] @ kt[:, :128].T)
+        return Q @ kt.T
+
     for b in range(B):
         q_off, kv_off = int(offsets[b, 0]), int(offsets[b, 1])
         for h in range(H):
@@ -243,7 +300,7 @@ def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
                     any_masked = torch.zeros(ROWS, dtype=torch.bool)
                     for t0 in tiles:
                         tend = min(t0 + BK, kb1)
-                        S = Q @ tile_of(t0, kb1)[0].T
+                        S = scores(Q, tile_of(t0, kb1)[0])
                         kloc = t0 + torch.arange(BK)
                         for w in range(ROWS // 16):
                             r = slice(16 * w, 16 * w + 16)
@@ -277,7 +334,7 @@ def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
                             kt, vt = (tile_of(exp_order[item - 1][1], exp_order[item - 1][0])
                                       if item > 0 else (torch.zeros_like(kt), torch.zeros_like(vt)))
                         item += 1
-                        S = Q @ kt.T
+                        S = scores(Q, kt)
                         P = torch.zeros(ROWS, BK)
                         for w in range(ROWS // 16):
                             r = slice(16 * w, 16 * w + 16)
@@ -296,8 +353,14 @@ def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
                         P8 = torch.from_numpy(_round_p(P.numpy(), fault))
                         lsum += (P8.float() if fault == "l_rounded" else P).sum(dim=1)
                         pvi += P8 @ vt
-                    a_acc = torch.ones(ROWS) if fault == "no_alpha" else alpha
-                    acc = acc * a_acc[:, None] + pvi.float() * vsc
+                        if fault == "pv_half" and D == 256:  # O's columns 128-255 from V's 0-127
+                            pvi[:, 128:] += P8 @ (vt[:, :128] - vt[:, 128:])
+                    a_acc = (torch.ones(ROWS) if fault == "no_alpha" else alpha)[:, None]
+                    if fault == "wide_no_alpha" and D == 256:  # rows g, columns 2t: not rescaled
+                        rows_g = (torch.arange(ROWS) % 16 < 8)[:, None]
+                        even = (torch.arange(D) % 2 == 0)[None, :]
+                        a_acc = torch.where(rows_g & even, torch.ones(()), a_acc)
+                    acc = acc * a_acc + pvi.float() * vsc
                     l = alpha * l + lsum
                     m = m_next
                 l_inv = torch.where(l == 0, torch.ones_like(l), 1.0 / l)
@@ -369,7 +432,7 @@ def test_coverage_holds_the_kernels_edges():
     assert any(isinstance(c[14], tuple) and isinstance(c[14][0], tuple) for c in cases)
     assert any(c[9] is not None and c[10] for c in cases)
     assert any(c[11] is not None and not c[8] for c in cases)
-    assert {c[6] for c in cases} == {32, 64, 128}
+    assert {c[6] for c in cases} == {32, 64, 128, 256}
     assert {c[13] for c in cases} == {False, True}
 
 
@@ -386,11 +449,19 @@ FAULTS = {
         "int8 P: a warp's tile taken as mask-free when its last row sees it whole",
     "stale_stage": "int8 P: an item's K and V copied into the next stage (stale reads)",
 }
+FAULTS_D256 = {
+    "s_half": "d=256 int8 P: S's k32 steps 4-7 read the first 128-byte halves of Q and K",
+    "pv_half": "d=256 int8 P: P·V's second column half against Vᵀ's first (O's columns 128-255)",
+    "wide_no_alpha": "d=256 int8 P: acc in shared memory not rescaled by alpha (rows g)",
+}
 LAYOUT_FAULTS = {"vt_shift", "p_trunc"}
 # Causal GQA, d=64, quant blocks of 96 keys (tiles clipped at each block's
 # end) and a second sequence whose first 40 rows see no key.
 FAULT_CASE = (2, 4, 2, 100, 288, 288, 64, 96, True, None, 0, None, 0, False,
               ((150, 0), (0, 40)))
+# d=256: causal GQA 2 over two quant blocks of 128 keys (alpha moves), a
+# partial second q tile.
+FAULT_CASE_D256 = (1, 4, 2, 100, 256, 256, 256, 128, True, None, 0, None, 0, False, None)
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
@@ -409,7 +480,26 @@ def test_planted_fault_analogues_break_the_layout_or_the_walk(fault):
     assert worst > 1.0
 
 
+@pytest.mark.parametrize("fault", sorted(FAULTS_D256))
+def test_planted_d256_fault_analogues_break_the_layout_or_the_walk(fault):
+    assert any(f[0] == "flash_int8_fwd.cu" and f[1] == FAULTS_D256[fault]
+               for f in chip_smoke.PLANTED_FAULTS)
+    rng = np.random.default_rng(9)
+    if fault == "s_half":
+        Q, K = rng.integers(-127, 128, (2, 64, 256))
+        assert not np.array_equal(_s_product(Q, K, fault), Q @ K.T)
+    if fault == "pv_half":
+        pe, v = _layout_inputs(256, seed=6)
+        assert not np.array_equal(_pv_product(pe, v, fault), _pv_product(pe, v))
+    inputs = bf16p_tiles._inputs(FAULT_CASE_D256, seed=8)
+    o, lse, tol, lse_tol = bf16p_tiles._plain(*inputs)
+    wo, wlse = _walk(*inputs)
+    assert max(chip_smoke.err_over_tol(wo, o, tol), chip_smoke.err_over_tol(wlse, lse, lse_tol)) <= 1.0
+    fo, flse = _walk(*inputs, fault=fault)
+    assert max(chip_smoke.err_over_tol(fo, o, tol), chip_smoke.err_over_tol(flse, lse, lse_tol)) > 1.0
+
+
 def test_every_planted_fault_has_an_analogue():
-    lines = [f[1] for f in chip_smoke.PLANTED_FAULTS
-             if f[0] == "flash_int8_fwd.cu" and f[1].startswith("int8 P:")]
-    assert sorted(lines) == sorted(FAULTS.values())
+    lines = [f[1] for f in chip_smoke.PLANTED_FAULTS if f[0] == "flash_int8_fwd.cu"
+             and f[1].startswith(("int8 P:", "d=256 int8 P:"))]
+    assert sorted(lines) == sorted([*FAULTS.values(), *FAULTS_D256.values()])

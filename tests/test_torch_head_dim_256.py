@@ -1,14 +1,19 @@
 """head_dim 256 (Gemma-2-9B) on the port's attention kernels: the CUDA
 wrappers admit it for the routes the serving path takes (rows 3 and 12,
 the paged decode; rows 10 and 11, the paged prefill with bf16 q; row 5,
-the bf16 flash forward), every other route raises and names its ROADMAP
-item, and the plain versions, which the kernels are held to on the card,
-agree with the JAX package's Pallas kernels (interpret mode) at d=256.
+the bf16 flash forward; row 1, the INT8 flash forward with int8 P), every
+other route raises and names its ROADMAP item (row 2, the int8 flash
+with bf16 P, its own), and the plain versions, which the kernels are held
+to on the card, agree with the JAX package's Pallas kernels (interpret
+mode) at d=256.
 
 Tolerances as in test_torch_decode.py, test_torch_paged_prefill.py and
 test_torch_flash.py: f32 from the same int8 pages, summation order only,
 rtol = atol = 1e-5 (lse 1e-5); bf16 flash, atol 2^-8 max|v| and rtol 2^-7
-(one bf16 rounding of P and of the output)."""
+(one bf16 rounding of P and of the output); row 1 as
+test_torch_flash_int8_int8p_tiles.py states it (chip_smoke.flash_tolerances:
+two P-rounding flips of a row and 1e-5 of f32 order; rows where XLA's
+jitted Q quantizer gives other int8 Q than the exact one left out)."""
 
 import importlib
 
@@ -18,7 +23,11 @@ import pytest
 import torch
 
 from quantizedmha_tpu.ops.decode import paged_decode_attention as jdecode
+from quantizedmha_tpu.ops.flash_attention_int8 import flash_attention_int8 as jfa8
 from quantizedmha_tpu.ops.paged_prefill import paged_prefill_attention as jprefill
+import chip_smoke
+import test_torch_flash_int8_tiles as bf16p_tiles
+from quantizedmha_tpu_torch.ops import cuda_lib
 from quantizedmha_tpu_torch.ops import decode as tdec
 from quantizedmha_tpu_torch.ops import flash_attention as tfa
 from quantizedmha_tpu_torch.ops import flash_attention_int8 as tfa8
@@ -29,12 +38,24 @@ jfa = importlib.import_module("quantizedmha_tpu.ops.flash_attention")
 D = 256
 TOL = 1e-5
 ITEM = "ROADMAP.md queue 2, head_dim 256 off the serving path"
+ROW2_ITEM = "ROADMAP.md queue 2 item 2"
 
 
-def test_serving_routes_admit_head_dim_256():
-    for mod in (tdec, tpp, tfa):
+def test_serving_routes_admit_head_dim_256(monkeypatch):
+    """Every serving route's wrapper takes d=256, the INT8 flash forward
+    with int8 P among them: its launch is built (no card needed to build
+    it; the stream is stubbed) for row 1's kernel at D = 256."""
+    for mod in (tdec, tpp, tfa, tfa8):
         assert 256 in mod._HEAD_DIMS, mod.__name__
-    assert 256 not in tfa8._HEAD_DIMS
+    monkeypatch.setattr(cuda_lib, "stream_of", lambda t: 0)
+    q = torch.zeros((1, 2, 8, D), dtype=torch.bfloat16)
+    k8 = torch.zeros((1, 1, 8, D), dtype=torch.int8)
+    kernel, args, (o, lse), _ = tfa8._flash_int8_launch(
+        q, k8, torch.ones((1, 1, 1)), k8, torch.ones((1, 1, 1)), _offsets(0, 0, 1, q.device),
+        sm_scale=D**-0.5, causal=True, kv_len=8, block_kv=8, scale_clamp=1e-8, p_scale=127.0,
+        window=None, softcap=50.0, sinks=0, mode=0, save_residuals=True)
+    assert kernel is tfa8.FLASH_INT8_P and kernel.launches == 0
+    assert args[14] == D and args[-3] == 0 and o.shape == q.shape and lse.shape == (1, 2, 8)
 
 
 def _raises_item(fn, *args, **kw):
@@ -44,8 +65,9 @@ def _raises_item(fn, *args, **kw):
 
 def test_routes_left_out_raise_naming_their_item():
     """The f32 flash forward, the flash backward, the paged prefill with
-    f32 q and the INT8 flash forward refuse head_dim 256 before any launch
-    (on the CPU tensors here, as they would on the card)."""
+    f32 q and the INT8 flash forward with bf16 P (row 2, by its own item)
+    refuse head_dim 256 before any launch (on the CPU tensors here, as
+    they would on the card)."""
     q = torch.zeros((1, 2, 8, D))
     kv = torch.zeros((1, 1, 8, D))
     offs = _offsets(0, 0, 1, q.device)
@@ -62,10 +84,11 @@ def test_routes_left_out_raise_naming_their_item():
                  torch.ones((1, 2), dtype=torch.int32), sm_scale=D**-0.5,
                  save_residuals=False, **masks)
     k8 = torch.zeros((1, 1, 8, D), dtype=torch.int8)
-    _raises_item(tfa8._flash_int8_launch, q, k8, torch.ones((1, 1, 1)), k8,
-                 torch.ones((1, 1, 1)), offs, sm_scale=D**-0.5, causal=True, kv_len=8,
-                 block_kv=8, scale_clamp=1e-8, p_scale=127.0, mode=0, save_residuals=False,
-                 **masks)
+    with pytest.raises(NotImplementedError, match=ROW2_ITEM):  # row 2: bf16 P
+        tfa8._flash_int8_launch(q, k8, torch.ones((1, 1, 1)), k8, torch.ones((1, 1, 1)), offs,
+                                sm_scale=D**-0.5, causal=False, kv_len=8, block_kv=8,
+                                scale_clamp=1e-8, p_scale=127.0, mode=1, save_residuals=False,
+                                **masks)
 
 
 def _pages(rng, hkv, num_pages, page):
@@ -119,6 +142,35 @@ def test_flash_forward_plain_matches_jax_at_256():
                                rtol=2.0**-7, atol=2.0**-8 * float(np.abs(v).max()))
 
 
+@pytest.mark.parametrize("case", ["causal", "window_sinks"])
+def test_flash_int8_plain_matches_jax_at_256(case):
+    """Row 1's plain version (int8 P) against JAX's flash_attention_int8,
+    whose default route at d > 128 is _int8_fwd_kernel (interpret mode):
+    GQA 2, sm_scale 256^-0.5, softcap 50, quant blocks of 32 (two of them,
+    so the softmax steps); causal, and a window of 40 with 4 sinks."""
+    rng = np.random.default_rng(3 + len(case))
+    S = 64
+    q = rng.normal(0, 2.0, (1, 4, S, D)).astype(np.float32)
+    k, v = rng.normal(0, 1.0, (2, 1, 2, S, D)).astype(np.float32)
+    masks = dict(window=40, attention_sinks=4) if case == "window_sinks" else {}
+    kw = dict(sm_scale=D**-0.5, causal=True, block_kv=32, logit_softcap=50.0, **masks)
+    got = tfa8.flash_attention_int8(*(torch.from_numpy(x) for x in (q, k, v)), **kw)
+    want = torch.from_numpy(np.array(jfa8(*(jnp.asarray(x) for x in (q, k, v)), **kw)))
+    k_i8, ks = tfa8.quantize_kv_blocks(torch.from_numpy(k), 32)
+    v_i8, vs = tfa8.quantize_kv_blocks(torch.from_numpy(v), 32)
+    pkw = dict(sm_scale=D**-0.5, causal=True, kv_len=S, block_kv=32, scale_clamp=1e-8,
+               p_scale=127.0, window=masks.get("window"), softcap=50.0,
+               sinks=masks.get("attention_sinks", 0), mode=0)
+    operands = (torch.from_numpy(q), k_i8, ks, v_i8, vs, _offsets(0, 0, 1, "cpu"))
+    plain = tfa8._flash_int8_plain(*operands, save_residuals=False, **pkw)
+    _, _, l = tfa8._flash_int8_plain_state(*operands, **pkw)
+    tol, _ = chip_smoke.flash_tolerances(plain, None, l, v_i8, vs, 32, 0)
+    assert torch.equal(got, plain)
+    keep = ~bf16p_tiles._tie_rows(torch.from_numpy(q))
+    assert keep.float().mean() > 0.95
+    assert chip_smoke.err_over_tol(got[keep], want[keep], tol.expand_as(got)[keep]) <= 1.0
+
+
 def test_planted_faults_name_committed_lines():
     """Each of chip_smoke.py's planted faults (the d=256 ones among them)
     names a line that occurs exactly once in its source and changes it, as
@@ -129,7 +181,8 @@ def test_planted_faults_name_committed_lines():
     import chip_smoke
     csrc = pathlib.Path(tdec.__file__).resolve().parents[1] / "csrc"
     d256 = [f for f in chip_smoke.PLANTED_FAULTS if f[1].startswith("d=256")]
-    assert {f[0] for f in d256} == {"paged_decode.cu", "paged_prefill.cu", "mma_bf16.cuh"}
+    assert {f[0] for f in d256} == {"paged_decode.cu", "paged_prefill.cu", "mma_bf16.cuh",
+                                    "flash_int8_fwd.cu"}
     for fname, what, old, new, *only in chip_smoke.PLANTED_FAULTS:
         assert (csrc / fname).read_text().count(old) == 1 and new != old, what
         for src in (only[0] if only else ()):
