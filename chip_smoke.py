@@ -18,7 +18,7 @@ result line:
            paths and on the two mixed-cache compositions (INT8 and INT4
            partials merged by lse) against their plain compositions; the
            backward's two kernels at the training step's attention shape
-           and on 11 small cases, each pair launched twice (the same bits
+           and on 16 small cases (5 at d=256), each pair launched twice (the same bits
            both times, or the check fails), and so is every INT8 flash
            launch (both numerics modes at their main shapes, the int8-P
            one at serve's 256-token, serve_w4's 512-token and the prefill
@@ -38,6 +38,9 @@ result line:
            256, serve_hybrid's Gemma-2 shapes (each entry's "gemma2"), and
            and row 1 (int8 P) at serve_hf's Gemma-2 shapes ("full": 2048
            tokens, "sliding": 8192 under the 4096 window, "f32": f32 q),
+           rows 6 and 7 at train_gemma2's ("full": 8192 tokens causal,
+           "sliding": under the 4096 window, both softcap 50 with a dlse;
+           SDPA's bf16 backward beside them),
            the d=256 coverage cases (D256_*: rows 3, 5, 10, 11 and 12,
            some with the slots behind the window on a scrap page of 0x7f
            bytes and scale 1e30); row 10 at serve_spec's verify shape and
@@ -207,6 +210,21 @@ result line:
            step within 2^-4 of its largest entry of the same step through
            the float golden (attention_impl="reference"). Prints the losses,
            ms a step, tokens/s, the share of weights changed, peak memory.
+  train_gemma2  sgd_train_step of LlamaConfig.gemma2_9b() at full width
+           (hidden 3584, 16 q / 8 kv heads of 256, MLP 14336, vocabulary
+           256000; bf16, attention_impl="flash", random weights from seed
+           0), depth cut from 42 to 8 layers (4 sliding, 4 full: the memory
+           reckoning at TRAIN_GEMMA2), on one batch of 8192 random tokens
+           (Gemma-2's context; the 4096 window bites on the even layers), 4
+           steps at train's lr: every forward through row 5 and every
+           backward through rows 6 and 7 at head_dim 256. Gates as train's:
+           exact launches (8 a step of each of rows 5-7, none of the f32 or
+           INT8 kernels), finite loss and weights, step 0's loss within 1e-5
+           of loss_fn without grad, the loss falling every step; then the
+           same width at 2 layers (one sliding, one full) on 5120 tokens,
+           every leaf's gradient within 2^-4 of its largest entry of the
+           float golden's (attention_impl="reference"). Prints the losses,
+           ms a step, tokens/s after the first step, peak memory.
   train_parallel  training across ranks: one spawn of 4 ranks on GPU 0
            joined by gloo (4 processes time-share the card and every
            collective crosses the host: not multi-GPU speeds), three jobs,
@@ -308,16 +326,20 @@ result line:
            paged_prefill.cu, paged_decode.cu, flash_bwd.cu, w4_matmul.cu,
            flash_int8_fwd.cu, their shared f32_tile.cuh, int4.cuh,
            wgmma_s8.cuh and mma_bf16.cuh; a line that only the d=256
-           instances compile, in the sources named beside it) built in
-           parallel and
-           bound in turn in place of the committed kernels, their checks
-           rerun: every fault must fail them.
+           instances compile, in the sources named beside it) built (one
+           nvcc a core, largest first; with other phases in the run they
+           start after build, niced, on all but two cores, behind those
+           phases) and bound in place of the committed kernels as each
+           build ends, their checks rerun: every fault must fail them (a
+           fault of flash_bwd.cu's d=256 kernels a d=256 coverage case by
+           10x or more).
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 zeroed just before each main path (each solve rung, the harness run,
 serve, serve's prefill bench, serve_w8a8 and its prefill bench, each
 serve_w4 batch, serve_flash, serve_mixed, serve_hybrid, serve_hybrid_mixed,
-serve_spec's four runs, train's steps, each of parallel's rings and its
+serve_spec's four runs, train's and train_gemma2's steps, each of
+parallel's rings and its
 one-rank group, and in every rank of serve_tp's, serve_cp's and
 train_parallel's runs: the summary adds rank 0's) runs and read just after,
 and a kernel of that path that never launched fails the run. The last
@@ -335,8 +357,10 @@ import math
 import os
 import pathlib
 import re
+import signal
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -346,7 +370,8 @@ PREFILL_BENCH_LEN = 2048  # serving_bench --prefill's prompt (phase_serve)
 
 PHASES = ("build", "kernels", "solve", "harness", "serve", "serve_w8a8", "serve_w4",
           "serve_flash", "serve_mixed", "serve_hybrid", "serve_hybrid_mixed", "serve_spec",
-          "serve_hf", "train", "train_parallel", "parallel", "serve_tp", "serve_cp", "faults")
+          "serve_hf", "train", "train_gemma2", "train_parallel", "parallel", "serve_tp",
+          "serve_cp", "faults")
 
 
 def emit(obj) -> None:
@@ -1677,7 +1702,8 @@ def _gemma2_int8p(g):
 def _gemma2_kernels():
     """Rows 3, 5 (bf16) and 10 (bf16 q) at serve_hybrid's shapes
     (GEMMA2_ATTN), each layer kind: {kernel name: {"full": sub-entry,
-    "sliding": sub-entry}}; row 10 also at serve_spec's verify shape
+    "sliding": sub-entry}}, and rows 6 and 7 at train_gemma2's
+    (_gemma2_bwd); row 10 also at serve_spec's verify shape
     ("verify": VERIFY_COVERAGE[1], a full layer), rows 11 and 12 at
     serve_hybrid_mixed's full layer ("full": the long prompt's last chunk
     in the INT4 frame; the decode batch of four at its final INT4
@@ -1758,6 +1784,7 @@ def _gemma2_kernels():
             library=lambda: _sdpa_decode(q, *clean, lengths, tables, window=window))
     _gemma2_verify_and_int4(g, out)
     out["flash_int8_fwd[int8_p]"] = _gemma2_int8p(torch.Generator(device="cuda").manual_seed(361))
+    out.update(_gemma2_bwd(torch.Generator(device="cuda").manual_seed(362)))
     return out
 
 
@@ -2442,12 +2469,13 @@ def _flash_bwd_check(q, k, v, offsets, do, dlse=None, *, causal, window=None, si
             lambda: fa._flash_bwd_plain(q, k, v, o, lse, do, offsets, dlse, **kw), lse, same_bits)
 
 
-def _sdpa_bwd(q, k, v, do, *, is_causal):
+def _sdpa_bwd(q, k, v, do, *, is_causal, attn_mask=None):
     """(ms, backend) of SDPA's backward in bf16 on these inputs, K/V
     expanded to the q heads beforehand (untimed): the time of
     torch.autograd.grad through one call minus the time of the call alone,
     the first of the flash, memory-efficient and cuDNN backends that takes
-    them. One call computes dQ, dK and dV. The port never calls it."""
+    them (with attn_mask, a [Sq, Skv] bool mask, in place of is_causal).
+    One call computes dQ, dK and dV. The port never calls it."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2457,6 +2485,8 @@ def _sdpa_bwd(q, k, v, do, *, is_causal):
     dob = do.to(torch.bfloat16)
 
     def fwd():
+        if attn_mask is not None:
+            return sdpa(qb, kb, vb, attn_mask=attn_mask)
         return sdpa(qb, kb, vb, is_causal=is_causal)
 
     def fwd_bwd():
@@ -2522,6 +2552,55 @@ def _flash_bwd_cases(g):
     return entries
 
 
+def _gemma2_bwd(g):
+    """Rows 6 and 7 at d=256, train_gemma2's attention (GEMMA2_ATTN: 16 q
+    over 8 kv heads, sm_scale 256^-0.5, softcap 50) at Gemma-2's 8192
+    tokens, bf16, with a seeded random dO and a dlse cotangent: "full"
+    (causal) and "sliding" (the 4096 window). Each pair launched twice (the
+    same bits), held to _flash_bwd_plain within flash_bwd_tolerances; SDPA's
+    bf16 backward at the same shape (no softcap: it has none; the window
+    in its mask) as the library time. {kernel name: {kind: sub-entry}}."""
+    import torch
+    from quantizedmha_tpu_torch.ops.flash_attention import _offsets
+    ga = GEMMA2_ATTN
+    Hq, Hkv, D, cap = ga["Hq"], ga["Hkv"], ga["D"], ga["softcap"]
+    S = TRAIN_GEMMA2["tokens"]
+    out = {"flash_bwd_dkv": {}, "flash_bwd_dq": {}}
+    for kind, window in (("full", None), ("sliding", ga["window"])):
+        q = torch.randn((1, Hq, S, D), generator=g, device="cuda").to(torch.bfloat16)
+        k, v = torch.randn((2, 1, Hkv, S, D), generator=g, device="cuda").to(torch.bfloat16)
+        do = torch.randn((1, Hq, S, D), generator=g, device="cuda").to(torch.bfloat16)
+        dlse = torch.randn((1, Hq, S), generator=g, device="cuda")
+        grads, plain, ratios, launches, plain_call, _, same_bits = _flash_bwd_check(
+            q, k, v, _offsets(0, 0, 1, q.device), do, dlse, causal=True, window=window,
+            softcap=cap)
+        mask = None
+        if window is not None:
+            i = torch.arange(S, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        lib = _sdpa_bwd(q, k, v, do, is_causal=True, attn_mask=mask)
+        pairs = Hq * _int8p_window_pairs(S, window)
+        rows = 2 * q.numel() * 2                         # q and dO, bf16
+        kv = 2 * k.numel() * 2                           # k and v (dK, dV the same)
+        stats = 3 * Hq * S * 4                           # lse, di and dlse, f32
+        shape = {"B": 1, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D, "causal": True,
+                 "window": window, "softcap": cap, "dlse": True, "dtype": "bfloat16"}
+        for name, idx, ops, nbytes, launch in (
+                ("flash_bwd_dkv", (1, 2), {"bf16": 8 * pairs * D, "exp": pairs},
+                 rows + kv + stats + kv, launches[0]),
+                ("flash_bwd_dq", (0,), {"bf16": 6 * pairs * D, "exp": pairs},
+                 rows + kv + stats + q.numel() * 2, launches[1])):
+            r = [ratios[i] for i in idx] + ([] if same_bits else [float("inf")])
+            out[name][kind] = _gemma2_sub(
+                torch.stack([grads[i] for i in idx]), torch.stack([plain[i] for i in idx]), r,
+                launch, plain_call, shape=shape, nbytes=nbytes, ops=ops,
+                library=lambda: lib)
+        del q, k, v, do, dlse, grads, plain, launches, mask
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 # Small cases off the training path, each kernel against plain on the card:
 # f32, d 32/64, MQA, group 1, cross attention at unaligned lengths, a window
 # smaller than a tile with and without sinks that end mid-tile, softcap,
@@ -2540,6 +2619,16 @@ FLASH_BWD_COVERAGE = (
     (2, 4, 2, 64, 100, 64, True, None, 0, None, False, ((30, 0), (0, 20)), False),
     (1, 4, 2, 90, 90, 128, True, None, 0, None, True, None, True),
     (1, 2, 1, 70, 120, 32, True, 16, 0, None, False, ((10, 40),), True),
+    # d=256 (bf16 only: Gemma-2's training path): GQA 2:1 with softcap 50 at
+    # a length that is no multiple of 64; 1:1 cross attention, not causal;
+    # Sq != Skv at explicit offsets per sequence with a dlse, whose first
+    # sequence's 40 rows see no key (dq exactly 0); a window with sinks
+    # that end mid-tile, softcap and a dlse; a window that skips whole tiles.
+    (1, 4, 2, 150, 150, 256, True, None, 0, 50.0, True, None, False),
+    (2, 2, 2, 100, 190, 256, False, None, 0, None, True, None, False),
+    (2, 4, 2, 70, 130, 256, True, None, 0, None, True, ((0, 40), (60, 0)), True),
+    (1, 4, 2, 200, 260, 256, True, 48, 5, 50.0, True, None, True),
+    (1, 4, 2, 400, 400, 256, True, 100, 0, 50.0, True, None, False),
 )
 
 
@@ -2814,6 +2903,19 @@ PLANTED_FAULTS = (
      "const int r = 32 * h + 8 * n + 2 * t + (e >> 1);"),
     ("flash_bwd.cu", "bf16 dK/dV: next Q/dO tile copied into the stage being read (stale reads)",
      "if (more) issue(hd_next, q_next, buf ^ 1);", "if (more) issue(hd_next, q_next, buf);"),
+    ("flash_bwd.cu", "d=256 dK/dV: dV's second column half from dO's first (dV's columns 128-255)",
+     "wgmma_ss_m64n128(acc_v, tile_desc(pts, 0, kk), tile_desc_mn(dot, 16 * kk) + half, 1);",
+     "wgmma_ss_m64n128(acc_v, tile_desc(pts, 0, kk), tile_desc_mn(dot, 16 * kk), 1);"),
+    ("flash_bwd.cu", "d=256 dK/dV: group 1's dSᵀ written over group 0's q rows (rows 32-63 of "
+     "each q tile never reach dK)",
+     "put_scores(dsts, 16 * warp, r0, dpt);", "put_scores(dsts, 16 * warp, 0, dpt);"),
+    ("flash_bwd.cu", "d=256 dQ: group 1's K read from column block 1, not 2 (a descriptor base "
+     "that misses the third swizzle block: dQ's columns 128-255)",
+     "wgmma_ss_m64n128(acc, tile_desc(dss, 0, kk), tile_desc_mn(kt, 16 * kk) + half, 1);",
+     "wgmma_ss_m64n128(acc, tile_desc(dss, 0, kk), tile_desc_mn(kt, 16 * kk) + half / 2, 1);"),
+    ("flash_bwd.cu", "d=256 dK/dV: dlse folded with the wrong sign",
+     "st_s[BR + r] - st_s[2 * BR + r]);  // di − dlse",
+     "st_s[BR + r] + st_s[2 * BR + r]);  // di − dlse"),
     ("w4_matmul.cu", "bf16: the high plane's scales from the next group (the last one's own)",
      "const size_t src = ok ? size_t(g0 + slot + plane * hi_goff) * p.n + col : 0;",
      "const size_t src = ok ? size_t(min(g0 + slot + plane * (hi_goff + 1), "
@@ -3047,52 +3149,103 @@ def _fault_checks(src):
     return main, {k: max(r) for k, r in ratios.items() if k.startswith(FAULT_SOURCES[src])}
 
 
+class _FaultBuilds:
+    """The faults phase's libraries: each PLANTED_FAULTS line planted in a
+    copy of csrc/, and every kernel source that the changed file is part of
+    built from it by nvcc, at most `workers` at a time, the largest sources
+    first. main() starts them right after the build phase, niced and on all
+    but two cores, so that they use the CPU time the other phases leave
+    idle (the builds bound the faults phase: ~84 nvcc runs of 17-60 s).
+    `builds`: (fault, source, .cu, library) in PLANTED_FAULTS order;
+    `futures`: {future: index into builds}, each future's result the
+    seconds from the start to its build's end."""
+
+    def __init__(self, workers, nice):
+        import concurrent.futures
+        import shutil
+        from quantizedmha_tpu_torch.ops import cuda_lib
+        out_dir = cuda_lib.BUILD_DIR / "faults"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        self.t0 = time.perf_counter()
+        self.builds = []
+        for i, (fname, what, old, new, *only) in enumerate(PLANTED_FAULTS):
+            text = (cuda_lib.CSRC / fname).read_text()
+            if text.count(old) != 1:
+                raise AssertionError(f"fault {i}: the committed line is not unique in {fname}")
+            copy = out_dir / f"fault{i}"
+            shutil.copytree(cuda_lib.CSRC, copy)
+            (copy / fname).write_text(text.replace(old, new))
+            srcs = only[0] if only else [
+                s for s in FAULT_SOURCES if fname == f"{s}.cu"
+                or f'#include "{fname}"' in (cuda_lib.CSRC / f"{s}.cu").read_text()]
+            for src in srcs:
+                self.builds.append((what, src, copy / f"{src}.cu", copy / f"lib{src}.so"))
+        self.prefix = ["nice", "-n", "19"] if nice and shutil.which("nice") else []
+        self.procs = set()
+        self.stopped = False
+        self.lock = threading.Lock()
+        self.pool = concurrent.futures.ThreadPoolExecutor(max_workers=workers)
+        self.futures = {self.pool.submit(self._build, job): i for i, job in
+                        sorted(enumerate(self.builds), key=lambda ij: -ij[1][2].stat().st_size)}
+
+    def _build(self, job):
+        from quantizedmha_tpu_torch.ops import cuda_lib
+        _, _, cu, lib = job
+        with self.lock:
+            if self.stopped:
+                raise RuntimeError("fault builds stopped")
+            # A session of its own: stop() ends nvcc's cicc and ptxas too.
+            proc = subprocess.Popen([*self.prefix, cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o",
+                                     str(lib), str(cu)], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, start_new_session=True)
+            self.procs.add(proc)
+        log = proc.communicate()[0].decode(errors="replace")
+        with self.lock:
+            self.procs.discard(proc)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for a planted fault:\n{log}")
+        return time.perf_counter() - self.t0
+
+    def stop(self):
+        """Ends every build still queued or running (a failed run)."""
+        with self.lock:
+            self.stopped = True
+            for proc in self.procs:
+                os.killpg(proc.pid, signal.SIGKILL)
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
 def phase_faults(st):
-    """Plant each PLANTED_FAULTS line in a copy of csrc/, build every float
-    kernel source that the changed file is part of (all copies in
-    parallel), bind each library in turn in place of the committed one and
-    rerun that kernel's main-shape and coverage checks: every fault must
-    fail them."""
+    """Bind each _FaultBuilds library in place of the committed one as its
+    build ends and rerun that kernel's main-shape and coverage checks while
+    the other builds go on: every fault must fail them, a fault of the
+    d=256 backward ("d=256 ..." in flash_bwd.cu) a d=256 coverage case by
+    10x or more. The builds are main()'s, started after the build phase, or
+    started here on every core."""
+    import concurrent.futures
     import ctypes
-    import shutil
-    from quantizedmha_tpu_torch.ops import cuda_lib
     from quantizedmha_tpu_torch.ops import decode as dec
     from quantizedmha_tpu_torch.ops import flash_attention as fa
     from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
     from quantizedmha_tpu_torch.ops import paged_prefill as pp
     from quantizedmha_tpu_torch.ops import w4_matmul as w4
-    out_dir = cuda_lib.BUILD_DIR / "faults"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    builds = []
-    for i, (fname, what, old, new, *only) in enumerate(PLANTED_FAULTS):
-        text = (cuda_lib.CSRC / fname).read_text()
-        if text.count(old) != 1:
-            raise AssertionError(f"fault {i}: the committed line is not unique in {fname}")
-        copy = out_dir / f"fault{i}"
-        shutil.copytree(cuda_lib.CSRC, copy)
-        (copy / fname).write_text(text.replace(old, new))
-        srcs = only[0] if only else [
-            s for s in FAULT_SOURCES if fname == f"{s}.cu"
-            or f'#include "{fname}"' in (cuda_lib.CSRC / f"{s}.cu").read_text()]
-        for src in srcs:
-            lib = copy / f"lib{src}.so"
-            proc = subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(lib),
-                                     str(copy / f"{src}.cu")],
-                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            builds.append((what, src, proc, lib))
-    for _, _, proc, _ in builds:
-        log = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for a planted fault:\n{log}")
+    fb = st.pop("fault_builds", None) or _FaultBuilds(os.cpu_count() or 8, nice=False)
+    t_phase = time.perf_counter()
+    done_before = sum(f.done() for f in fb.futures)
+    builds, futures = fb.builds, fb.futures
     kernels = {"flash_fwd": (fa.FLASH_FWD_BF16, fa.FLASH_FWD_F32),
                "paged_prefill": (pp.PAGED_PREFILL, pp.PAGED_PREFILL_INT4),
                "paged_decode": (dec.PAGED_DECODE, dec.PAGED_DECODE_INT4),
                "flash_bwd": (fa.FLASH_BWD_DKV, fa.FLASH_BWD_DQ),
                "w4_matmul": (w4.W4_MATMUL,),
                "flash_int8_fwd": (fa8.FLASH_INT8_P, fa8.FLASH_BF16_P)}
-    rows = []
+    rows = {}
+    build_s = 0.0
     try:
-        for what, src, _, lib in builds:
+        for fut in concurrent.futures.as_completed(futures):
+            build_s = max(build_s, fut.result())
+            what, src, _, lib = builds[futures[fut]]
+            t_check = time.perf_counter()
             variant = ctypes.CDLL(str(lib))
             for kern in kernels[src]:
                 fn = getattr(variant, kern.symbol)
@@ -3100,16 +3253,31 @@ def phase_faults(st):
                 kern._fn = fn
             main, cov = _fault_checks(src)
             worst = max([max(r) for r in main.values()] + list(cov.values()))
-            rows.append({"source": src, "fault": what, "main_err_over_tol": main,
-                         "coverage_failing": sorted(k for k, r in cov.items() if r > 1.0),
-                         "coverage_err_over_tol": cov, "max_err_over_tol": worst,
-                         "caught": worst > 1.0})
+            # A fault of the d=256 backward must fail a d=256 case by 10x.
+            d256 = None
+            if src == "flash_bwd" and what.startswith("d=256"):
+                d256 = max(cov[f"flash_bwd{i}"] for i, c in enumerate(FLASH_BWD_COVERAGE)
+                           if c[5] == 256)
+            rows[futures[fut]] = {
+                "source": src, "fault": what, "main_err_over_tol": main,
+                "coverage_failing": sorted(k for k, r in cov.items() if r > 1.0),
+                "coverage_err_over_tol": cov, "max_err_over_tol": worst,
+                "d256_max_err_over_tol": d256,
+                "caught": worst > 1.0 and (d256 is None or d256 >= 10.0),
+                "check_s": round(time.perf_counter() - t_check, 2)}
     finally:
+        fb.stop()
         for kerns in kernels.values():
             for kern in kerns:
                 kern._fn = None  # rebind the committed kernel at its next call
-    ok = all(r["caught"] for r in rows)
-    emit({"phase": "faults", "ok": ok, "faults": rows})
+    rows = [rows[i] for i in sorted(rows)]
+    ok = len(rows) == len(builds) and all(r["caught"] for r in rows)
+    # build_s: from the builds' start to the last one's end (the checks
+    # ran meanwhile); built_before_phase: the builds done when it began.
+    emit({"phase": "faults", "ok": ok, "builds": len(builds), "build_s": round(build_s, 1),
+          "built_before_phase": done_before,
+          "last_build_end_in_phase_s": round(max(0.0, fb.t0 + build_s - t_phase), 1),
+          "faults": rows})
     if not ok:
         raise AssertionError("a planted fault passed the kernel checks")
 
@@ -6713,6 +6881,123 @@ def phase_train(st):
         raise AssertionError("train phase failed its checks")
 
 
+# Gemma-2-9B training (phase_train_gemma2): LlamaConfig.gemma2_9b() at full
+# width (hidden 3584, 16 q / 8 kv heads of 256, MLP 14336, vocabulary
+# 256000) on one batch of Gemma-2's 8192-token context, where the even
+# layers' 4096 window masks half of the last rows' keys. Depth cut from 42
+# to 8 layers (4 sliding, 4 full): at 8192 tokens the 42 layers' weights
+# and gradients (~40 GB in bf16), their activations and the f32 logits
+# tensors of the loss (8192 x 256000 x 4 B = 8.4 GB each, several alive in
+# its backward) do not fit in 80 GB; at 8 layers weights and gradients take
+# 6.9 GB each, the logits 30-40 GB, the activations ~8-28 GB. The gradient
+# check: the same width at 2 layers (one sliding, one full) on 5120 tokens
+# (the window still bites; the reference's S x S tensors are 1.7 GB each).
+TRAIN_GEMMA2 = dict(tokens=8192, layers=8, steps=4, check_layers=2, check_tokens=5120)
+
+
+def phase_train_gemma2(st):
+    """sgd_train_step of LlamaConfig.gemma2_9b() at full width, depth cut
+    to TRAIN_GEMMA2["layers"] (bf16, attention_impl="flash", random weights
+    from seed 0), on one batch of 8192 random tokens, TRAIN_GEMMA2["steps"]
+    steps at TRAIN's lr (tokens/s over the steps after the first): every
+    forward through row 5 and every backward through rows 6 and 7 at
+    head_dim 256 (softcap 50, the window on the even layers). Then the same
+    width cut to 2 layers on 5120 tokens: one step's gradient of every leaf
+    through the kernels against autograd through the float golden
+    (attention_impl="reference"), each within TRAIN["grad_rel_tol"] of the
+    leaf's largest entry."""
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tg = TRAIN_GEMMA2
+    full = llama.LlamaConfig.gemma2_9b()
+
+    def cut(layers):
+        return dataclasses.replace(full, num_layers=layers,
+                                   window_pattern=full.window_pattern[:layers])
+    cfg = cut(tg["layers"])
+    L, steps, lr = cfg.num_layers, tg["steps"], TRAIN["lr"]
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, tg["tokens"]), generator=g, device="cuda",
+                           dtype=torch.int32)
+    with torch.no_grad():
+        loss_direct = float(llama.loss_fn(cfg, params, tokens))
+
+    kernels = {"flash_fwd[bf16]": fa.FLASH_FWD_BF16, "flash_fwd[f32]": fa.FLASH_FWD_F32,
+               "flash_bwd_dkv": fa.FLASH_BWD_DKV, "flash_bwd_dq": fa.FLASH_BWD_DQ,
+               "flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P,
+               "flash_int8_fwd[bf16_p]": fa8.FLASH_BF16_P}
+    for kern in kernels.values():
+        kern.reset()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        params, loss = llama.sgd_train_step(cfg, params, tokens, lr=lr)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_fwd[bf16]": L * steps, "flash_fwd[f32]": 0, "flash_bwd_dkv": L * steps,
+            "flash_bwd_dq": L * steps, "flash_int8_fwd[int8_p]": 0, "flash_int8_fwd[bf16_p]": 0}
+    for name in ("flash_fwd[bf16]", "flash_bwd_dkv", "flash_bwd_dq"):
+        st["launches"][name] = st["launches"].get(name, 0) + launches[name]
+        st["launches_d256"][name] = st["launches_d256"].get(name, 0) + launches[name]
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 [params[k] for k in params if k != "layers"] + list(params["layers"].values()))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Every leaf's gradient through the kernels against autograd through
+    # mha_masked_reference, at 2 layers on the first check_tokens tokens.
+    small = cut(tg["check_layers"])
+    toks = tokens[:, :tg["check_tokens"]]
+    grads = {}
+    for impl in ("flash", "reference"):
+        p2 = llama.init_params(small, torch.Generator(device="cuda").manual_seed(0),
+                               device="cuda")
+        grads[impl] = _leaf_grads(dataclasses.replace(small, attention_impl=impl), p2, toks)
+        del p2
+        gc.collect()
+        torch.cuda.empty_cache()
+    grad_rel = {k: ((grads["flash"][k].float() - grads["reference"][k].float()).abs().max()
+                    / grads["reference"][k].float().abs().max()).item() for k in grads["flash"]}
+    grads_finite = all(bool(torch.isfinite(x).all()) for x in grads["flash"].values())
+    del grads
+    torch.cuda.empty_cache()
+
+    ok = (launches == want and finite and grads_finite
+          and all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - loss_direct) <= 1e-5 * abs(loss_direct)
+          and all(b < a for a, b in zip(losses, losses[1:]))
+          and max(grad_rel.values()) <= TRAIN["grad_rel_tol"])
+    step_s = sum(step_ms[1:]) / len(step_ms[1:]) / 1e3
+    emit({"phase": "train_gemma2", "ok": ok, "model": "gemma2_9b", "attention_impl": "flash",
+          "layers": L, "layers_published": full.num_layers, "windows": list(cfg.layer_windows),
+          "weights": "bf16", "init_s": init_s, "batch": 1, "tokens": tg["tokens"], "lr": lr,
+          "steps": steps, "losses": losses, "loss_no_grad": loss_direct, "step_ms": step_ms,
+          "tokens_per_s_after_first": tg["tokens"] / step_s, "weights_finite": finite,
+          "launches": launches, "launches_expected": want, "peak_mem_gb": peak_gb,
+          "grad_check_layers": tg["check_layers"], "grad_check_tokens": tg["check_tokens"],
+          "grad_rel_err_vs_reference": grad_rel, "grad_rel_tol": TRAIN["grad_rel_tol"],
+          "gpu": st["gpu"]})
+    if not ok:
+        raise AssertionError("train_gemma2 phase failed its checks")
+
+
 # Training across ranks (phase_train_parallel): 4 processes on GPU 0 joined
 # by gloo, one spawn running three jobs. (a) DP x TP: dp 2 x tp 2 at
 # Llama-3-8B's width, depth cut to 4 layers, 2048 tokens a dp rank, 3 steps;
@@ -7714,17 +7999,24 @@ def main(argv=None) -> int:
     st = {"launches": {}, "launches_d256": {}, "profile": args.profile,
           "keep_serve_params": "serve_w8a8" in phases}
     seconds = {}
-    for name in PHASES:
-        if name not in phases:
-            continue
-        t0 = time.perf_counter()
-        try:
-            globals()[f"phase_{name}"](st)
-        except Exception:
-            traceback.print_exc()
-            emit({"phase": name, "ok": False})
-            return 1
-        seconds[name] = round(time.perf_counter() - t0, 1)
+    try:
+        for name in PHASES:
+            if name not in phases:
+                continue
+            t0 = time.perf_counter()
+            try:
+                globals()[f"phase_{name}"](st)
+            except Exception:
+                traceback.print_exc()
+                emit({"phase": name, "ok": False})
+                return 1
+            seconds[name] = round(time.perf_counter() - t0, 1)
+            if name == "build" and "faults" in phases and len(phases) > 2:
+                # The faults phase's builds, behind the other phases (_FaultBuilds).
+                st["fault_builds"] = _FaultBuilds(max(1, (os.cpu_count() or 8) - 2), nice=True)
+    finally:
+        if "fault_builds" in st:
+            st.pop("fault_builds").stop()
     emit({"phase_seconds": seconds, "total": round(sum(seconds.values()), 1)})
     if "kernels" in st:
         entries = []
@@ -7749,7 +8041,8 @@ def main(argv=None) -> int:
         emit({"kernels": entries})
         idle = [e["name"] for e in entries if e["launches"] == 0]
         if ({"solve", "serve", "serve_w4", "serve_flash", "serve_mixed", "serve_hybrid",
-             "serve_hybrid_mixed", "serve_spec", "serve_hf", "train"} <= set(phases) and idle):
+             "serve_hybrid_mixed", "serve_spec", "serve_hf", "train", "train_gemma2"}
+                <= set(phases) and idle):
             print(f"chip_smoke: kernels never launched on a main path: {idle}",
                   file=sys.stderr)
             return 1

@@ -71,6 +71,35 @@
 // f32: 256 threads, each owning 4 x 4 of a 64 x 64 score tile and 4 rows x
 // d/16 columns of a 64-row accumulator on the CUDA cores, P and dS through
 // shared memory, as the first version.
+//
+// d=256 (bf16 only: Gemma-2's training path; f32 is not built). What bounds
+// it: at the Gemma-2-9B training shape (B=1, H=16, Hkv=8, S=8192, causal,
+// softcap 50) dK/dV does 1.1e12 flop and dQ 8.3e11 over the visible pairs,
+// 1.11 and 0.83 ms at 989 TFLOP/s (0.83 and 0.63 ms under the 4096 window);
+// the diagonal and window-edge tiles are computed whole, 0.8% more pairs.
+// The 5.4e8 exponentials and ~0.27 GB of operands and outputs are far
+// below that: the tensor cores. The d<=128 design does not carry over: a dK/dV thread of
+// one warp group would hold 2·16·256/32 = 256 f32 of accumulators (a
+// thread has 255 registers), and a group's own Q/dO stages take 64 KB
+// each. So both kernels run two warp groups on every step, each owning a
+// column half of the accumulators (dK and dV 128 registers a thread, dQ
+// 64), and split the score products by rows instead of recomputing them:
+// group j computes Sᵀ and dPᵀ of the 64 keys against q rows 32j..32j+31
+// (dQ: S and dP of the 64 q rows against keys 32j..32j+31), writes P and dS
+// rounded to bf16 into a [64][64] swizzled tile in shared memory, and
+// after a block barrier each group runs the second products over all 64
+// rows for its half, m64n128k16 with A and B read from shared memory (B's
+// descriptor 16 KB on, column block 2, for the second half). Not chosen:
+// one group computing the scores and handing Pᵀ to a dV-only group (3 of
+// the 4 products and all per-pair work in one group); both groups
+// recomputing Sᵀ and dPᵀ for a d split (50% more products); dK/dV in
+// shared memory (128 KB of f32 beside K, V and the stages does not fit).
+// Shared memory: dK/dV K, V, two shared stages of Q/dO, Pᵀ, dSᵀ and the
+// stats, 215,552 bytes; dQ Q, dO, two stages of K/V and dS, 205,824: one
+// block of 8 warps an SM. ptxas -v on the H100 (sm_90a):
+// flash_bwd_dkv_d256_kernel 223-224 registers, flash_bwd_dq_d256_kernel 158,
+// 0 bytes of spill each, no serialized wgmma (C7514). As at d<=128 each
+// wgmma sequence is waited on before its results are read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -859,6 +888,359 @@ __global__ void __launch_bounds__(NTB, 2) flash_bwd_dq_bf16_kernel(const Params 
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at d=256: two warp groups on one step, each owning a column half.
+
+constexpr int D2 = 256;
+using T2 = Bf16Tile<D2>;  // a [64][256] tile: four 64-column blocks, 32 KB
+constexpr int HTILE = 64 * 64;  // a [64][64] bf16 score tile (Pᵀ, dSᵀ or dS), 8 KB
+// Descriptor start of column block 2 (columns 128-255) from block 0 of a
+// tile: 16 KB on, in the descriptor's 16-byte units.
+constexpr uint32_t HALF_DESC = 2 * SW_ROWS * 64 * 2 >> 4;
+
+// Rows r0 + g + 8r (< n) of a [n][256] bf16 output, columns col0.. (the
+// group's half) from a warp's m64n128 accumulator.
+__device__ __forceinline__ void store_half(__nv_bfloat16* dst, int r0, int n, int col0,
+                                           const float (&acc)[16][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(dst + size_t(row) * D2 + col0 + 8 * c + 2 * t) =
+          __floats2bfloat162_rn(acc[c][2 * r], acc[c][2 * r + 1]);
+  }
+}
+
+// A warp's 16 x 32 f32 score fragment x (x[n][e]: row g + 8(e >> 1) of the
+// warp's rows row0.., column col0 + 8n + 2t + (e & 1)) rounded to bf16 into
+// a [64][64] swizzled score tile, the K-major A operand of the second
+// products.
+__device__ __forceinline__ void put_scores(__nv_bfloat16* tile, int row0, int col0,
+                                           const float (&x)[4][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<__nv_bfloat162*>(tile + sw(row0 + g + 8 * r, (col0 >> 3) + n) + 2 * t) =
+          __floats2bfloat162_rn(x[n][2 * r], x[n][2 * r + 1]);
+}
+
+struct DkvD256Smem {
+  // K, V, two stages of (Q, dO): six tiles; Pᵀ and dSᵀ; per stage the q
+  // rows' lse, di and dlse; 1 KB to align.
+  static constexpr int PT_OFF = 6 * T2::TILE * 2;
+  static constexpr int STATS_OFF = PT_OFF + 2 * HTILE * 2;
+  static constexpr int BYTES = STATS_OFF + 2 * 3 * BR * 4 + 1024;
+};
+
+// dK/dV at d=256: one block per (batch, kv head, 64-key tile), two warp
+// groups on every (q head, q tile) step of the GQA group, sharing its
+// double-buffered Q/dO stages. Group j computes Sᵀ and dPᵀ of the 64 keys
+// against q rows 32j..32j+31 of the tile (warp w: keys 16w..16w+15), turns
+// them into Pᵀ and dSᵀ and writes them in bf16 to shared memory; after a
+// barrier each group adds Pᵀ·dO and dSᵀ·Q over all 64 q rows into its
+// column half 128j..128j+127 of dV and dK.
+__global__ void __launch_bounds__(NTKV, 1) flash_bwd_dkv_d256_kernel(const Params p) {
+  using S = DkvD256Smem;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align_1k(smem_raw);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vs = ks + T2::TILE;
+  __nv_bfloat16* stage = vs + T2::TILE;  // Q of stage s at stage + 2s·TILE, dO one tile on
+  __nv_bfloat16* pts = reinterpret_cast<__nv_bfloat16*>(smem + S::PT_OFF);  // Pᵀ [key][q row]
+  __nv_bfloat16* dsts = pts + HTILE;                                         // dSᵀ
+  float* stats = reinterpret_cast<float*>(smem + S::STATS_OFF);
+
+  const int tid = threadIdx.x, grp = tid >> 7, gtid = tid & 127;
+  const int warp = gtid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.y * BR;
+  const int kvh = blockIdx.x % p.Hkv, b = blockIdx.x / p.Hkv;
+  const int group = p.H / p.Hkv;
+  const int q_off = p.offs[2 * b], kv_off = p.offs[2 * b + 1];
+  const size_t kvbase = (size_t(b) * p.Hkv + kvh) * p.Skv * D2;
+  const size_t bh0 = size_t(b) * p.H + size_t(kvh) * group;
+  const __nv_bfloat16* qg = reinterpret_cast<const __nv_bfloat16*>(p.q) + bh0 * p.Sq * D2;
+  const __nv_bfloat16* dog = reinterpret_cast<const __nv_bfloat16*>(p.dout) + bh0 * p.Sq * D2;
+
+  auto issue = [&](int hd, int q0, int buf) {
+    const size_t off = size_t(hd) * p.Sq * D2;
+    issue_rows<D2, NTKV>(stage + 2 * buf * T2::TILE, qg + off, q0, p.Sq, tid);
+    issue_rows<D2, NTKV>(stage + (2 * buf + 1) * T2::TILE, dog + off, q0, p.Sq, tid);
+    if (tid < BR) {
+      float* st = stats + buf * 3 * BR;
+      const bool ok = q0 + tid < p.Sq;
+      const size_t at = (bh0 + hd) * p.Sq + (ok ? q0 + tid : 0);
+      cp_async4(st + tid, p.lse + at, ok);
+      cp_async4(st + BR + tid, p.di + at, ok);
+      cp_async4(st + 2 * BR + tid, p.dlse != nullptr ? p.dlse + at : p.lse + at,
+                ok && p.dlse != nullptr);
+    }
+    cp_async_commit();
+  };
+  const int first_kv = kv_off + k0, last_kv = kv_off + min(k0 + BR, p.Skv) - 1;
+  auto next_q = [&](int q0) {
+    while (q0 < p.Sq &&
+           !range_should_run(p, q_off + q0, q_off + min(q0 + BR, p.Sq) - 1, first_kv, last_kv))
+      q0 += BR;
+    return q0;
+  };
+  const int q_first = next_q(0);
+
+  issue_rows<D2, NTKV>(ks, reinterpret_cast<const __nv_bfloat16*>(p.k) + kvbase, k0, p.Skv, tid);
+  issue_rows<D2, NTKV>(vs, reinterpret_cast<const __nv_bfloat16*>(p.v) + kvbase, k0, p.Skv, tid);
+  int hd = q_first < p.Sq ? 0 : group, q0 = q_first;
+  if (hd < group) {
+    issue(hd, q0, 0);
+  } else {
+    cp_async_commit();
+  }
+
+  float acc_k[16][4], acc_v[16][4];
+  zero(acc_k);
+  zero(acc_v);
+
+  const int wk_lo = k0 + 16 * warp, wk_hi = min(wk_lo + 16, p.Skv) - 1;
+  const int key_r[2] = {wk_lo + g, wk_lo + g + 8};
+  const int r0 = 32 * grp;  // this group's q rows of the tile
+
+  // st[n][e] pairs key g + 8(e >> 1) of the warp with q row r0 + 8n + 2t +
+  // (e & 1) of the tile; Sᵀ and dPᵀ become Pᵀ and dSᵀ in place.
+  auto grads = [&](auto unmasked_tag, auto cap_tag, float (&st)[4][4], float (&dpt)[4][4],
+                   int q0, const float* st_s) {
+    constexpr bool UNMASKED = decltype(unmasked_tag)::value;
+    constexpr int CAP = decltype(cap_tag)::value ? 1 : 0;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + 8 * n + 2 * t + (e & 1);
+        const bool valid = UNMASKED || pair_valid(p, q0 + r, key_r[e >> 1], q_off, kv_off);
+        const float2 pd = score_grad<CAP>(p, valid, st[n][e], dpt[n][e], st_s[r],
+                                          st_s[BR + r] - st_s[2 * BR + r]);  // di − dlse
+        st[n][e] = pd.x;
+        dpt[n][e] = pd.y;
+      }
+  };
+
+  int buf = 0;
+  while (hd < group) {
+    stage_landed();
+    __syncthreads();  // this stage landed; both groups are done with the other, Pᵀ and dSᵀ
+    int hd_next = hd, q_next = q0;
+    q_next = next_q(q_next + BR);
+    if (q_next >= p.Sq) {
+      ++hd_next;
+      q_next = q_first;
+    }
+    if (hd_next < group) issue(hd_next, q_next, buf ^ 1);
+    const __nv_bfloat16* qt = stage + 2 * buf * T2::TILE;
+    const __nv_bfloat16* dot = qt + T2::TILE;
+    const float* st_s = stats + buf * 3 * BR;
+    float st[4][4], dpt[4][4];
+    zero(st);
+    zero(dpt);
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ of the 64 keys and this group's 32 q rows.
+    wgmma_fence();
+    fence_operands(st);
+    fence_operands(dpt);
+#pragma unroll
+    for (int kc = 0; kc < T2::KC; ++kc)
+      wgmma_m64n32(st, tile_desc(ks, 0, kc), tile_desc(qt, r0, kc), kc);
+#pragma unroll
+    for (int kc = 0; kc < T2::KC; ++kc)
+      wgmma_m64n32(dpt, tile_desc(vs, 0, kc), tile_desc(dot, r0, kc), kc);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_operands(st);
+    fence_operands(dpt);
+    const int gq_lo = q0 + r0;
+    const bool warp_runs =
+        wk_lo < p.Skv && gq_lo < p.Sq &&
+        range_should_run(p, q_off + gq_lo, q_off + min(gq_lo + 32, p.Sq) - 1, kv_off + wk_lo,
+                         kv_off + wk_hi);
+    if (warp_runs) {
+      with_tags(range_unmasked(p, gq_lo, gq_lo + 31, wk_lo, wk_lo + 15, q_off, kv_off),
+                p.has_softcap, [&](auto unmasked_tag, auto cap_tag) {
+                  grads(unmasked_tag, cap_tag, st, dpt, q0, st_s);
+                });
+    } else {
+      zero(st);
+      zero(dpt);
+    }
+    // Pᵀ and dSᵀ of this group's q rows to both groups (bf16).
+    put_scores(pts, 16 * warp, r0, st);
+    put_scores(dsts, 16 * warp, r0, dpt);
+    fence_async_shared();
+    __syncthreads();  // Pᵀ and dSᵀ are complete
+    // dV[:, half] += Pᵀ·dO[:, half] and dK[:, half] += dSᵀ·Q[:, half] over
+    // the tile's 64 q rows, A and B read from shared memory.
+    const uint32_t half = grp * HALF_DESC;
+    wgmma_fence();
+    fence_operands(acc_v);
+    fence_operands(acc_k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss_m64n128(acc_v, tile_desc(pts, 0, kk), tile_desc_mn(dot, 16 * kk) + half, 1);
+      wgmma_ss_m64n128(acc_k, tile_desc(dsts, 0, kk), tile_desc_mn(qt, 16 * kk) + half, 1);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_operands(acc_v);
+    fence_operands(acc_k);
+    buf ^= 1;
+    hd = hd_next;
+    q0 = q_next;
+  }
+  cp_async_wait_all();
+  store_half(reinterpret_cast<__nv_bfloat16*>(p.dk) + kvbase, wk_lo, p.Skv, 128 * grp, acc_k);
+  store_half(reinterpret_cast<__nv_bfloat16*>(p.dv) + kvbase, wk_lo, p.Skv, 128 * grp, acc_v);
+}
+
+// Q, dO, two stages of K and V: six tiles; dS; 1 KB to align.
+constexpr int DQ_D256_SMEM = 6 * T2::TILE * 2 + HTILE * 2 + 1024;
+
+// dQ at d=256: one block per (batch, q head, 64-row q tile), two warp
+// groups on every key tile. Group j computes S and dP of the 64 q rows
+// (warp w: rows 16w..16w+15) against keys 32j..32j+31 of the tile, turns
+// them into dS and writes it in bf16 to shared memory; after a barrier each
+// group adds dS·K over all 64 keys into its column half of dQ.
+__global__ void __launch_bounds__(NTKV, 1) flash_bwd_dq_d256_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(align_1k(smem_raw));
+  __nv_bfloat16* dos = qs + T2::TILE;
+  __nv_bfloat16* kbuf = dos + T2::TILE;
+  __nv_bfloat16* vbuf = kbuf + 2 * T2::TILE;
+  __nv_bfloat16* dss = vbuf + 2 * T2::TILE;  // dS [q row][key]
+
+  const int tid = threadIdx.x, grp = tid >> 7, gtid = tid & 127;
+  const int warp = gtid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
+  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
+  const int kvh = h / (p.H / p.Hkv);
+  const int q_off = p.offs[2 * b], kv_off = p.offs[2 * b + 1];
+  const size_t bh = size_t(b) * p.H + h;
+  const size_t kvbase = (size_t(b) * p.Hkv + kvh) * p.Skv * D2;
+  const __nv_bfloat16* kg = reinterpret_cast<const __nv_bfloat16*>(p.k) + kvbase;
+  const __nv_bfloat16* vg = reinterpret_cast<const __nv_bfloat16*>(p.v) + kvbase;
+
+  auto issue = [&](int t0, int buf) {
+    issue_rows<D2, NTKV>(kbuf + buf * T2::TILE, kg, t0, p.Skv, tid);
+    issue_rows<D2, NTKV>(vbuf + buf * T2::TILE, vg, t0, p.Skv, tid);
+    cp_async_commit();
+  };
+  const int first_q = q_off + q0, last_q = q_off + min(q0 + BR, p.Sq) - 1;
+  auto next_run = [&](int t0) {
+    while (t0 < p.Skv &&
+           !range_should_run(p, first_q, last_q, kv_off + t0, kv_off + min(t0 + BR, p.Skv) - 1))
+      t0 += BR;
+    return t0;
+  };
+
+  issue_rows<D2, NTKV>(qs, reinterpret_cast<const __nv_bfloat16*>(p.q) + bh * p.Sq * D2, q0,
+                       p.Sq, tid);
+  issue_rows<D2, NTKV>(dos, reinterpret_cast<const __nv_bfloat16*>(p.dout) + bh * p.Sq * D2, q0,
+                       p.Sq, tid);
+  int t0 = next_run(0);
+  if (t0 < p.Skv) {
+    issue(t0, 0);
+  } else {
+    cp_async_commit();
+  }
+
+  const int wq_lo = q0 + 16 * warp, wq_hi = min(wq_lo + 16, p.Sq) - 1;
+  const int qrow[2] = {wq_lo + g, wq_lo + g + 8};
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t at = bh * p.Sq + qrow[r];
+    lse_r[r] = qrow[r] < p.Sq ? p.lse[at] : 0.f;
+    di_r[r] = qrow[r] < p.Sq ? row_di(p, at) : 0.f;
+  }
+  const int c0 = 32 * grp;  // this group's keys of the tile
+
+  float acc[16][4];
+  zero(acc);
+
+  // s[n][e] pairs q row g + 8(e >> 1) of the warp with key t0 + c0 + 8n +
+  // 2t + (e & 1); S becomes dS in place.
+  auto grads = [&](auto unmasked_tag, auto cap_tag, float (&s)[4][4], float (&dp)[4][4],
+                   int t0) {
+    constexpr bool UNMASKED = decltype(unmasked_tag)::value;
+    constexpr int CAP = decltype(cap_tag)::value ? 1 : 0;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kloc = t0 + c0 + 8 * n + 2 * t + (e & 1);
+        const bool valid = UNMASKED || pair_valid(p, qrow[r], kloc, q_off, kv_off);
+        s[n][e] = score_grad<CAP>(p, valid, s[n][e], dp[n][e], lse_r[r], di_r[r]).y;
+      }
+  };
+
+  int buf = 0;
+  while (t0 < p.Skv) {
+    stage_landed();
+    __syncthreads();  // this tile landed; both groups are done with the other and dS
+    const int tn = next_run(t0 + BR);
+    if (tn < p.Skv) issue(tn, buf ^ 1);
+    const __nv_bfloat16* kt = kbuf + buf * T2::TILE;
+    const __nv_bfloat16* vt = vbuf + buf * T2::TILE;
+    // S = Q·Kᵀ and dP = dO·Vᵀ of the 64 q rows and this group's 32 keys.
+    float s[4][4], dp[4][4];
+    zero(s);
+    zero(dp);
+    wgmma_fence();
+    fence_operands(s);
+    fence_operands(dp);
+#pragma unroll
+    for (int kc = 0; kc < T2::KC; ++kc)
+      wgmma_m64n32(s, tile_desc(qs, 0, kc), tile_desc(kt, c0, kc), kc);
+#pragma unroll
+    for (int kc = 0; kc < T2::KC; ++kc)
+      wgmma_m64n32(dp, tile_desc(dos, 0, kc), tile_desc(vt, c0, kc), kc);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_operands(s);
+    fence_operands(dp);
+    const int gk_lo = t0 + c0;
+    const bool warp_runs =
+        wq_lo < p.Sq && gk_lo < p.Skv &&
+        range_should_run(p, q_off + wq_lo, q_off + wq_hi, kv_off + gk_lo,
+                         kv_off + min(gk_lo + 32, p.Skv) - 1);
+    if (warp_runs) {
+      with_tags(range_unmasked(p, wq_lo, wq_lo + 15, gk_lo, gk_lo + 31, q_off, kv_off),
+                p.has_softcap, [&](auto unmasked_tag, auto cap_tag) {
+                  grads(unmasked_tag, cap_tag, s, dp, t0);
+                });
+    } else {
+      zero(s);
+    }
+    put_scores(dss, 16 * warp, c0, s);
+    fence_async_shared();
+    __syncthreads();  // dS is complete
+    // dQ[:, half] += dS·K[:, half] over the tile's 64 keys.
+    const uint32_t half = grp * HALF_DESC;
+    wgmma_fence();
+    fence_operands(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_m64n128(acc, tile_desc(dss, 0, kk), tile_desc_mn(kt, 16 * kk) + half, 1);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_operands(acc);
+    buf ^= 1;
+    t0 = tn;
+  }
+  cp_async_wait_all();
+  store_half(reinterpret_cast<__nv_bfloat16*>(p.dq) + bh * p.Sq * D2, wq_lo, p.Sq, 128 * grp,
+             acc);
+}
+
+// ---------------------------------------------------------------------------
 
 template <int D>
 cudaError_t launch_f32(const Params& p, bool dkv, cudaStream_t stream) {
@@ -902,11 +1284,31 @@ cudaError_t launch_bf16(const Params& p, bool dkv, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+cudaError_t launch_bf16_d256(const Params& p, bool dkv, cudaStream_t stream) {
+  cudaError_t err;
+  if (dkv) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_d256_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, DkvD256Smem::BYTES);
+    if (err != cudaSuccess) return err;
+    dim3 grid(p.Hkv * p.B, (p.Skv + BR - 1) / BR);
+    flash_bwd_dkv_d256_kernel<<<grid, NTKV, DkvD256Smem::BYTES, stream>>>(p);
+  } else {
+    err = cudaFuncSetAttribute(flash_bwd_dq_d256_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_D256_SMEM);
+    if (err != cudaSuccess) return err;
+    dim3 grid(p.H * p.B, (p.Sq + BR - 1) / BR);
+    flash_bwd_dq_d256_kernel<<<grid, NTKV, DQ_D256_SMEM, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
 cudaError_t launch_d(const Params& p, int D, bool bf16, bool dkv, cudaStream_t s) {
   switch (D) {
     case 32: return bf16 ? launch_bf16<32>(p, dkv, s) : launch_f32<32>(p, dkv, s);
     case 64: return bf16 ? launch_bf16<64>(p, dkv, s) : launch_f32<64>(p, dkv, s);
     case 128: return bf16 ? launch_bf16<128>(p, dkv, s) : launch_f32<128>(p, dkv, s);
+    // f32 at d=256 is not built: the wrapper raises before a launch.
+    case 256: return bf16 ? launch_bf16_d256(p, dkv, s) : cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

@@ -25,8 +25,9 @@ P). Under autograd the call is a `torch.autograd.Function` whose backward
 is `csrc/flash_bwd.cu`'s dK/dV and dQ kernels (TPU `_bwd_dkv_kernel`,
 `_bwd_dq_kernel`) on a CUDA tensor and `_flash_bwd_plain` on a CPU one. In
 bf16 the backward runs on the tensor cores with P and dS rounded to bf16
-as the operands of dV, dK and dQ (the TPU's Precision.DEFAULT); in f32 it
-runs every product in f32 (Precision.HIGHEST).
+as the operands of dV, dK and dQ (the TPU's Precision.DEFAULT), at head_dim
+256 too (Gemma-2's training path); in f32 it runs every product in f32
+(Precision.HIGHEST), at head_dim 256 not yet (it raises).
 """
 
 from __future__ import annotations
@@ -51,8 +52,9 @@ _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
 FLASH_FWD_BF16 = cuda_lib.CudaKernel("flash_fwd", "flash_fwd", _ARGS)
 FLASH_FWD_F32 = cuda_lib.CudaKernel("flash_fwd", "flash_fwd", _ARGS)
 _HEAD_DIMS = (32, 64, 128, 256)
-# head_dim 256 (Gemma-2) is built for the bf16 forward only, the serving
-# path's; the f32 forward and the backward there are still to build.
+# head_dim 256 (Gemma-2) is built in bf16 only, forward and backward (the
+# serving and training paths'); the f32 forward and backward there are
+# still to build.
 _D256_TODO = "(ROADMAP.md queue 2, head_dim 256 off the serving path)"
 
 
@@ -348,11 +350,11 @@ def _flash_bwd_launch(q, k, v, o, lse, do, offsets, dlse=None, *, sm_scale, caus
     Hkv, Skv = k.shape[1], k.shape[2]
     if D not in _HEAD_DIMS:
         raise ValueError(f"the CUDA flash backward takes head_dim in {_HEAD_DIMS}, got {D}")
-    if D == 256:
-        raise NotImplementedError(f"the CUDA flash backward at head_dim 256 is not built yet "
-                                  f"{_D256_TODO}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if D == 256 and q.dtype == torch.float32:
+        raise NotImplementedError("the CUDA f32 flash backward at head_dim 256 is not built "
+                                  "yet (ROADMAP.md queue 2 item 3)")
     if any(x.dtype != q.dtype for x in (k, v, do)):
         raise ValueError("q, k, v and the output gradient must share a dtype")
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))

@@ -1,11 +1,12 @@
 """head_dim 256 (Gemma-2-9B) on the port's attention kernels: the CUDA
 wrappers admit it for the routes the serving path takes (rows 3 and 12,
 the paged decode; rows 10 and 11, the paged prefill with bf16 q; row 5,
-the bf16 flash forward; row 1, the INT8 flash forward with int8 P), every
-other route raises and names its ROADMAP item (row 2, the int8 flash
-with bf16 P, its own), and the plain versions, which the kernels are held
-to on the card, agree with the JAX package's Pallas kernels (interpret
-mode) at d=256.
+the bf16 flash forward; row 1, the INT8 flash forward with int8 P) and the
+training path's (rows 6 and 7, the bf16 flash backward), every other
+route raises and names its ROADMAP item (row 2, the int8 flash with bf16
+P, and the f32 backward, their own), and the plain versions, which the
+kernels are held to on the card, agree with the JAX package's Pallas
+kernels (interpret mode) at d=256.
 
 Tolerances as in test_torch_decode.py, test_torch_paged_prefill.py and
 test_torch_flash.py: f32 from the same int8 pages, summation order only,
@@ -39,6 +40,7 @@ D = 256
 TOL = 1e-5
 ITEM = "ROADMAP.md queue 2, head_dim 256 off the serving path"
 ROW2_ITEM = "ROADMAP.md queue 2 item 2"
+BWD_F32_ITEM = "ROADMAP.md queue 2 item 3"
 
 
 def test_serving_routes_admit_head_dim_256(monkeypatch):
@@ -63,20 +65,29 @@ def _raises_item(fn, *args, **kw):
         fn(*args, **kw)
 
 
-def test_routes_left_out_raise_naming_their_item():
-    """The f32 flash forward, the flash backward, the paged prefill with
-    f32 q and the INT8 flash forward with bf16 P (row 2, by its own item)
-    refuse head_dim 256 before any launch (on the CPU tensors here, as
-    they would on the card)."""
+def test_routes_left_out_raise_naming_their_item(monkeypatch):
+    """The f32 flash forward, the f32 flash backward (by its own item), the
+    paged prefill with f32 q and the INT8 flash forward with bf16 P (row 2,
+    by its own item) refuse head_dim 256 before any launch (on the CPU
+    tensors here, as they would on the card). The bf16 flash backward
+    (rows 6 and 7, the training path's) builds its launches at D = 256
+    (the stream stubbed)."""
     q = torch.zeros((1, 2, 8, D))
     kv = torch.zeros((1, 1, 8, D))
     offs = _offsets(0, 0, 1, q.device)
     masks = dict(window=None, softcap=None, sinks=0)
     _raises_item(tfa._flash_fwd_launch, q, kv, kv, offs, sm_scale=D**-0.5, causal=True,
                  block_kv=8, save_residuals=False, **masks)
+    with pytest.raises(NotImplementedError, match=BWD_F32_ITEM):
+        tfa._flash_bwd_launch(q, kv, kv, q, torch.zeros((1, 2, 8)), q, offs, sm_scale=D**-0.5,
+                              causal=True, **masks)
+    monkeypatch.setattr(cuda_lib, "stream_of", lambda t: 0)
     qb = q.to(torch.bfloat16)
-    _raises_item(tfa._flash_bwd_launch, qb, kv.to(torch.bfloat16), kv.to(torch.bfloat16), qb,
-                 torch.zeros((1, 2, 8)), qb, offs, sm_scale=D**-0.5, causal=True, **masks)
+    launches, _, _ = tfa._flash_bwd_launch(qb, kv.to(torch.bfloat16), kv.to(torch.bfloat16), qb,
+                                           torch.zeros((1, 2, 8)), qb, offs, sm_scale=D**-0.5,
+                                           causal=True, **masks)
+    assert [k for k, _ in launches] == [tfa.FLASH_BWD_DKV, tfa.FLASH_BWD_DQ]
+    assert all(args[-9] == D and args[-2] == 1 for _, args in launches)
     pages = torch.zeros((1, 3, 16, D), dtype=torch.int8)
     scales = torch.ones((1, 3))
     one = torch.ones(1, dtype=torch.int32)
@@ -182,7 +193,8 @@ def test_planted_faults_name_committed_lines():
     csrc = pathlib.Path(tdec.__file__).resolve().parents[1] / "csrc"
     d256 = [f for f in chip_smoke.PLANTED_FAULTS if f[1].startswith("d=256")]
     assert {f[0] for f in d256} == {"paged_decode.cu", "paged_prefill.cu", "mma_bf16.cuh",
-                                    "flash_int8_fwd.cu"}
+                                    "flash_int8_fwd.cu", "flash_bwd.cu"}
+    assert sum(f[0] == "flash_bwd.cu" for f in d256) >= 3  # rows 6-7's d=256 kernels
     for fname, what, old, new, *only in chip_smoke.PLANTED_FAULTS:
         assert (csrc / fname).read_text().count(old) == 1 and new != old, what
         for src in (only[0] if only else ()):
