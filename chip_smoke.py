@@ -40,17 +40,22 @@ result line:
            tokens, "sliding": 8192 under the 4096 window, "f32": f32 q),
            rows 6 and 7 at train_gemma2's ("full": 8192 tokens causal,
            "sliding": under the 4096 window, both softcap 50 with a dlse;
-           SDPA's bf16 backward beside them),
+           SDPA's bf16 backward beside them), rows 5, 10 and 11 in f32 at
+           serve_gemma2_f32's ("full_f32", "sliding_f32": row 5 at 2048
+           tokens causal and at 8192 under the 4096 window, rows 10-11
+           with f32 q at a 2048-row chunk at 4096; SDPA in f32 beside
+           them),
            the d=256 coverage cases (D256_*: rows 3, 5, 10, 11 and 12,
-           some with the slots behind the window on a scrap page of 0x7f
-           bytes and scale 1e30); row 10 at serve_spec's verify shape and
+           rows 5, 10 and 11 in f32 too, some with the slots behind the
+           window on a scrap page of 0x7f bytes and scale 1e30); row 10 at serve_spec's verify shape and
            rows 11 and 12 at serve_hybrid_mixed's (gemma2 "verify" and
            "full"), and VERIFY_COVERAGE (row 10 at verify's shape: 4 or 8
            sequences of 2, 5 or 9 rows, each at its own offset, d=128 and
            256, window 4096, softcap 50).
   solve    the reference ABI at N=8192, d_model=1024, h=32 in float32:
            solve(kernel="fa_int8"), then the float rungs "fa", "fa_bf16"
-           and "unfused": time, relative RMS error against the float
+           and "unfused", and "fa" again at d_model=4096, h=16 (head_dim
+           256, "fa_d256"): time, relative RMS error against the float
            golden with each rung's limit, and the constant-input gate
            (all-ones -> exactly 1.0).
   harness  the reference driver, `harness.cli.run(["--kernel", "all",
@@ -150,6 +155,21 @@ result line:
            (scales fitted as prefill and decode fit them); the float
            golden's distance printed. Prints TTFT, decode ms a step and the
            long sequence's KV bytes.
+  serve_gemma2_f32  LlamaConfig.gemma2_9b() with dtype float32 at full
+           width and depth (42 layers, 10.16e9 parameters, 40.6 GB, random
+           weights from a seeded generator), serve_hybrid's traffic with
+           32 new tokens each (SERVE_GEMMA2_F32), twice: (a) hybrid INT8
+           pools with the prefix hit (rows 3, 5, 10 in f32 at d=256), then
+           the same traffic through a shared pool; (b) hybrid pools with
+           the mixed INT8 / INT4 full group (rows 11, 12 too; no prefix
+           cache). Gates: exact launches of each run (no bf16 kernel), the
+           non-hit streams equal the shared pool's, the hit's length and
+           prefix counters, pages trimmed, every pool drained, the INT4
+           pool holding the long prompt's bulk, each request's last decode
+           logits within 2^-6 std of the golden whose float attention reads
+           K/V through the same quantization (the derivation at
+           SERVE_GEMMA2_F32). Prints weights' GB, peak memory, TTFT,
+           decode ms a step and the long sequence's KV bytes of each run.
   serve_spec  speculative decoding (SpecDecodeEngine) on Gemma-2-9B with
            hybrid_kv, the draft its first two layers (pattern (4096, None),
            views of its weights): prompts of 300, 1800, 5000 and 4200
@@ -338,7 +358,7 @@ Launch counts: every kernel wrapper counts its launches; the counts are
 zeroed just before each main path (each solve rung, the harness run,
 serve, serve's prefill bench, serve_w8a8 and its prefill bench, each
 serve_w4 batch, serve_flash, serve_mixed, serve_hybrid, serve_hybrid_mixed,
-serve_spec's four runs, train's and train_gemma2's steps, each of
+serve_gemma2_f32's two runs, serve_spec's four runs, train's and train_gemma2's steps, each of
 parallel's rings and its
 one-rank group, and in every rank of serve_tp's, serve_cp's and
 train_parallel's runs: the summary adds rank 0's) runs and read just after,
@@ -369,7 +389,8 @@ SOLVE_REL_RMS_TOL = 0.03  # int8 solve vs the float golden (phase_solve)
 PREFILL_BENCH_LEN = 2048  # serving_bench --prefill's prompt (phase_serve)
 
 PHASES = ("build", "kernels", "solve", "harness", "serve", "serve_w8a8", "serve_w4",
-          "serve_flash", "serve_mixed", "serve_hybrid", "serve_hybrid_mixed", "serve_spec",
+          "serve_flash", "serve_mixed", "serve_hybrid", "serve_hybrid_mixed",
+          "serve_gemma2_f32", "serve_spec",
           "serve_hf", "train", "train_gemma2", "train_parallel", "parallel", "serve_tp",
           "serve_cp", "faults")
 
@@ -540,7 +561,11 @@ def flash_fwd_tolerances(q, k, v, o_plain, lse_plain, w_abs, *, sm_scale, softca
     piece is dropped (up to 2^-17 of each p or v) misses c on rows of few
     keys and small scores; a Q or K whose third piece is dropped moves
     large aligned scores by up to 2^-17 of |q||k|, past ds + 2^-22|lse|
-    in lse (FLASH_FWD_PIECES)."""
+    in lse (FLASH_FWD_PIECES). At d=256 the f32 kernel runs true f32 FMAs
+    (f32_tile.cuh) and the same terms bound it: its scores differ from
+    the plain version's by the f32 order alone, (D + 16)·u of |q||k|
+    (score_err), under (9D/8 + 2)·u; expf is within a few ulps of exp,
+    under 2^-22; acc and l sum in f32 in another order, the 2^-20 term."""
     import torch
     from quantizedmha_tpu_torch.ops.flash_attention import scaled_q
     D = q.shape[-1]
@@ -1422,27 +1447,41 @@ D256_DECODE = (
     (2, 8, 1, 32, None, 30.0, 20, (600, 1), False, False, False),
     (3, 16, 8, 128, 4096, 50.0, 48, (6000, 4200, 0), True, True, True),
 )
-#   (Hq, Hkv, page, C, lengths, q_starts, window, sinks, softcap, int4, scrap)
+#   (Hq, Hkv, page, C, lengths, q_starts, window, sinks, softcap, int4, scrap,
+#    bf16 q)
 # bf16 q: a Gemma-2 sliding layer's chunk past the window (scrap slots),
 # its full layer over two sequences, GQA 4 on 32-key pages with sinks
 # (scrap slots between the sinks and the window), INT4 pages (row 11) of 4
-# sub-tiles past the window, and INT4 with a negative q_start.
+# sub-tiles past the window, and INT4 with a negative q_start. f32 q (the
+# CUDA-core route, V's tile in K's): the sliding chunk, the 32-key pages
+# with sinks, INT4 with a negative q_start (16-key sub-tiles) and INT4 over
+# the full layer's two sequences.
 D256_PREFILL = (
-    (16, 8, 128, 300, (6000,), (5700,), 4096, 0, 50.0, False, True),
-    (16, 8, 128, 200, (2000, 150), (1800, 0), None, 0, 50.0, False, False),
-    (8, 2, 32, 130, (500, 300), (370, 170), 100, 3, None, False, True),
-    (16, 8, 128, 300, (6000,), (5700,), 4096, 0, 50.0, True, True),
-    (4, 2, 64, 100, (200, 30), (100, -40), None, 0, 20.0, True, False),
+    (16, 8, 128, 300, (6000,), (5700,), 4096, 0, 50.0, False, True, True),
+    (16, 8, 128, 200, (2000, 150), (1800, 0), None, 0, 50.0, False, False, True),
+    (8, 2, 32, 130, (500, 300), (370, 170), 100, 3, None, False, True, True),
+    (16, 8, 128, 300, (6000,), (5700,), 4096, 0, 50.0, True, True, True),
+    (4, 2, 64, 100, (200, 30), (100, -40), None, 0, 20.0, True, False, True),
+    (16, 8, 128, 300, (6000,), (5700,), 4096, 0, 50.0, False, True, False),
+    (8, 2, 32, 130, (500, 300), (370, 170), 100, 3, None, False, True, False),
+    (4, 2, 64, 100, (200, 30), (100, -40), None, 0, 20.0, True, False, False),
+    (16, 8, 128, 200, (2000, 150), (1800, 0), None, 0, 50.0, True, False, False),
 )
-#   FLASH_FWD_COVERAGE's tuples at d=256, bf16: Gemma-2's GQA 2 with
-# softcap, a window that skips tiles (4096 scaled to the case), a ragged
-# non-causal case, offsets per sequence, window + sinks.
+#   FLASH_FWD_COVERAGE's tuples at d=256, bf16 then f32 (the CUDA-core
+# route): Gemma-2's GQA 2 with softcap, a window that skips tiles (4096
+# scaled to the case), a ragged non-causal case, offsets per sequence,
+# window + sinks.
 D256_FLASH = (
     (1, 16, 8, 600, 600, 256, True, None, 0, 50.0, True, None),
     (1, 4, 2, 700, 700, 256, True, 256, 0, 50.0, True, None),
     (2, 4, 2, 100, 190, 256, False, None, 0, None, True, None),
     (2, 4, 2, 96, 160, 256, True, None, 0, None, True, ((70, 10), (0, 40))),
     (1, 8, 4, 400, 400, 256, True, 64, 4, 30.0, True, None),
+    (1, 16, 8, 600, 600, 256, True, None, 0, 50.0, False, None),
+    (1, 4, 2, 700, 700, 256, True, 256, 0, 50.0, False, None),
+    (2, 4, 2, 100, 190, 256, False, None, 0, None, False, None),
+    (2, 4, 2, 96, 160, 256, True, None, 0, None, False, ((70, 10), (0, 40))),
+    (1, 8, 4, 400, 400, 256, True, 64, 4, 30.0, False, None),
 )
 D256_SUBS = 4  # scale sub-tiles a page of the INT4 cases
 #   (Hq, Hkv, D, C, lengths, window, softcap, scrap): row 10 at verify_step's
@@ -1538,9 +1577,9 @@ def _d256_decode_inputs(g, case):
 
 def _d256_prefill_inputs(g, case):
     """(q, cache, lengths, q_starts, tables, clean, masks) of a D256_PREFILL
-    case, bf16 q."""
+    case."""
     import torch
-    Hq, Hkv, P, C, lens, starts, window, sinks, cap, int4, scrap = case
+    Hq, Hkv, P, C, lens, starts, window, sinks, cap, int4, scrap, bf16 = case
     B = len(lens)
     slots = max(-(-n // P) for n in lens) + 1
     n = B * slots + 1
@@ -1549,7 +1588,8 @@ def _d256_prefill_inputs(g, case):
     tables = _tables_for(g, B, slots, n)
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q_starts = torch.tensor(starts, dtype=torch.int32, device="cuda")
-    q = torch.randn((B, Hq, C, 256), generator=g, device="cuda").to(torch.bfloat16)
+    q = torch.randn((B, Hq, C, 256), generator=g, device="cuda")
+    q = q.to(torch.bfloat16) if bf16 else q
     clean = cache
     if scrap:
         cache, clean, tables = _scrap_behind(cache, tables, q_starts - window + 1, sinks, P)
@@ -1707,7 +1747,8 @@ def _gemma2_kernels():
     ("verify": VERIFY_COVERAGE[1], a full layer), rows 11 and 12 at
     serve_hybrid_mixed's full layer ("full": the long prompt's last chunk
     in the INT4 frame; the decode batch of four at its final INT4
-    lengths). Row 5: a 2048-token bucket, causal, softcap
+    lengths), rows 5, 10 and 11 in f32 at serve_gemma2_f32's ("full_f32",
+    "sliding_f32": _gemma2_f32). Row 5: a 2048-token bucket, causal, softcap
     (the window of 4096 masks nothing there). Row 10: a 2048-row chunk at
     4096 of context. Row 3: serve_hybrid's decode batch of three (lengths
     364, 1864 and 6064), 64 table slots; the sliding layer's slots behind
@@ -1719,8 +1760,8 @@ def _gemma2_kernels():
     ga = GEMMA2_ATTN
     Hq, Hkv, D, P, cap, win = (ga[x] for x in ("Hq", "Hkv", "D", "P", "softcap", "window"))
     g = torch.Generator(device="cuda").manual_seed(360)
-    out = {"flash_fwd[bf16]": {}, "paged_prefill": {}, "paged_decode": {},
-           "paged_prefill_int4": {}, "paged_decode_int4": {}}
+    out = {"flash_fwd[bf16]": {}, "flash_fwd[f32]": {}, "paged_prefill": {},
+           "paged_decode": {}, "paged_prefill_int4": {}, "paged_decode_int4": {}}
     S = 2048
     q = torch.randn((1, Hq, S, D), generator=g, device="cuda").to(torch.bfloat16)
     k, v = torch.randn((2, 1, Hkv, S, D), generator=g, device="cuda").to(torch.bfloat16)
@@ -1783,6 +1824,7 @@ def _gemma2_kernels():
             ops={"fp32": 2 * 2 * seen * Hq * D, "exp": seen * Hq},
             library=lambda: _sdpa_decode(q, *clean, lengths, tables, window=window))
     _gemma2_verify_and_int4(g, out)
+    _gemma2_f32(torch.Generator(device="cuda").manual_seed(363), out)
     out["flash_int8_fwd[int8_p]"] = _gemma2_int8p(torch.Generator(device="cuda").manual_seed(361))
     out.update(_gemma2_bwd(torch.Generator(device="cuda").manual_seed(362)))
     return out
@@ -1858,6 +1900,105 @@ def _gemma2_verify_and_int4(g, out):
                 + 2 * pages * Hkv * subs * 4 + tables.numel() * 4),
         ops={"fp32": 2 * 2 * ctx * Hq * D, "exp": ctx * Hq},
         library=lambda: _sdpa_decode(q, *clean, lengths, tables))
+
+
+def _f32_bounds(sub, nbytes, passes, pairs, D):
+    """Complete an f32 d=256 sub-entry whose bound_ms counts `passes` bf16
+    passes on the tensor cores: the bound on the CUDA cores' f32 FMAs (the
+    kernel's own route) beside it, and the kernel's time over each."""
+    cc_ms, cc_by = bound(nbytes, {"fp32": 4 * pairs * D, "exp": pairs})
+    sub.update({"bound_tensor_core_passes": passes, "bound_cuda_cores_ms": cc_ms,
+                "bound_cuda_cores_by": cc_by, "over_bound": sub["ms"] / sub["bound_ms"],
+                "over_bound_cuda_cores": sub["ms"] / cc_ms})
+
+
+def _gemma2_f32(g, out):
+    """Rows 5, 10 and 11 in f32 at head_dim 256, serve_gemma2_f32's shapes
+    (GEMMA2_ATTN), into _gemma2_kernels' entries: row 5 ("flash_fwd[f32]")
+    "full_f32", a 2048-token bucket, causal, softcap 50, and "sliding_f32",
+    8192 tokens under the 4096 window (the tiles wholly behind it
+    skipped); rows 10 and 11 with f32 q, "full_f32" and "sliding_f32", a
+    2048-row chunk at 4096 of context over INT8 pages or INT4 pages of
+    D256_SUBS sub-tiles (the sliding layer's slots behind the window on the
+    scrap page). Each launched twice (the same bits) and held to its plain
+    version. Bound (_f32_bounds): the card's best route for the same f32
+    function, bf16 passes on the tensor cores (six for row 5, as its d <= 128
+    route runs; three for rows 10-11, whose int8 / int4 K and V are exact in
+    bf16), or the bytes, whichever is larger; beside it the kernel's own
+    route, the f32 FMAs on the CUDA cores ("bound_cuda_cores_ms"), 4·d
+    operations a visible pair. Library: SDPA in f32 (TF32 off)
+    on the same K/V, expanded to the q heads (and dequantized, for the paged
+    kernels) beforehand, each kind's window in its mask; the backend that
+    took it is named."""
+    import torch
+    from quantizedmha_tpu_torch.ops.flash_attention import _offsets
+    ga = GEMMA2_ATTN
+    Hq, Hkv, D, P, cap, win = (ga[x] for x in ("Hq", "Hkv", "D", "P", "softcap", "window"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for kind, S, window in (("full_f32", 2048, None), ("sliding_f32", 8192, win)):
+        q = torch.randn((1, Hq, S, D), generator=g, device="cuda")
+        k, v = torch.randn((2, 1, Hkv, S, D), generator=g, device="cuda")
+        o, p_o, r, _tol, launch, plain = _flash_fwd_check(
+            q, k, v, _offsets(0, 0, 1, q.device), causal=True, window=window, softcap=cap,
+            save_residuals=False)
+        pairs = Hq * _int8p_window_pairs(S, window)
+        sdpa_kw = dict(is_causal=True)
+        if window is not None:
+            i = torch.arange(S, device="cuda")
+            sdpa_kw = dict(attn_mask=(i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window))
+        # K/V expanded to the q heads beforehand (untimed): SDPA's fused f32
+        # kernels refuse a GQA layout and would fall back to its math path.
+        ke, ve = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (k, v))
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4
+        out["flash_fwd[f32]"][kind] = _gemma2_sub(
+            o, p_o, r, launch, plain,
+            shape={"B": 1, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D, "causal": True,
+                   "window": window, "softcap": cap, "dtype": "float32"},
+            nbytes=nbytes, ops={"bf16": 6 * 4 * pairs * D, "exp": pairs},
+            library=lambda: _sdpa(q, ke, ve, **sdpa_kw))
+        _f32_bounds(out["flash_fwd[f32]"][kind], nbytes, 6, pairs, D)
+        del q, k, v, ke, ve, o, p_o, sdpa_kw
+        torch.cuda.empty_cache()
+    C, q0 = 2048, 4096
+    ctx = q0 + C
+    n_pages = ctx // P
+    for name, int4 in (("paged_prefill", False), ("paged_prefill_int4", True)):
+        for kind, window in (("full_f32", None), ("sliding_f32", win)):
+            cache = (_int4_cache(g, Hkv, n_pages + 1, P, D, D256_SUBS) if int4
+                     else _paged_cache(g, Hkv, n_pages + 1, P, D))
+            tables = _tables_for(g, 1, n_pages, n_pages + 1)
+            qc = torch.randn((1, Hq, C, D), generator=g, device="cuda")
+            lengths = torch.tensor([ctx], dtype=torch.int32, device="cuda")
+            q_starts = torch.tensor([q0], dtype=torch.int32, device="cuda")
+            clean = cache
+            if window is not None:
+                cache, clean, tables = _scrap_behind(cache, tables, q_starts - window + 1, 0, P)
+            o, p_o, r, launch, plain = _d256_check(qc, cache, lengths, tables, q_starts,
+                                                   int4=int4, clean=clean, window=window,
+                                                   sinks=0, softcap=cap)
+            qpos = q0 + torch.arange(C, device="cuda")
+            kpos = torch.arange(ctx, device="cuda")
+            mask = kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                mask &= kpos[None, :] > qpos[:, None] - window
+            pairs = Hq * int(mask.sum())
+            keys = int(mask.any(0).sum())
+            kd = _dense_kv(clean[0], clean[2], tables, Hq, dtype=torch.float32)
+            vd = _dense_kv(clean[1], clean[3], tables, Hq, dtype=torch.float32)
+            row_bytes = D // 2 if int4 else D
+            subs = D256_SUBS if int4 else 1
+            nbytes = (2 * qc.numel() * 4 + 2 * keys * Hkv * row_bytes
+                      + 2 * Hkv * -(-keys // P) * subs * 4 + Hq * C * 4)
+            out[name][kind] = _gemma2_sub(
+                o, p_o, r, launch, plain,
+                shape={"Hq": Hq, "Hkv": Hkv, "D": D, "P": P, "C": C, "q_start": q0,
+                       "lengths": ctx, "window": window, "softcap": cap, "q": "float32",
+                       "subs": subs, "save_residuals": True},
+                nbytes=nbytes, ops={"bf16": 3 * 4 * pairs * D, "exp": pairs},
+                library=lambda: _sdpa(qc, kd, vd, attn_mask=mask))
+            _f32_bounds(out[name][kind], nbytes, 3, pairs, D)
+            del kd, vd, cache, clean, qc, o, p_o, mask
+            torch.cuda.empty_cache()
 
 
 def _coverage():
@@ -2999,6 +3140,19 @@ PLANTED_FAULTS = (
     ("flash_int8_fwd.cu", "d=256 int8 P: acc in shared memory not rescaled by alpha (rows g)",
      "        x.x = fmaf(x.x, alpha[0], static_cast<float>(pvi[j][0]) * vsc);",
      "        x.x = fmaf(x.x, 1.f, static_cast<float>(pvi[j][0]) * vsc);"),
+    ("flash_fwd.cu", "d=256 f32: O's second column half (columns 128-255) left unwritten",
+     "for (int c4 = 0; c4 < T::CPT; c4 += 4)  // columns 4tx + 16c4 .. + 3",
+     "for (int c4 = 0; c4 < T::CPT / 2; c4 += 4)  // columns 4tx + 16c4 .. + 3"),
+    ("flash_fwd.cu", "d=256 f32: the window's tile skip one tile early (a tile's last key "
+     "taken 64 keys back)",
+     "kv_off + min(t0 + TILE_KEYS, p.Skv) - 1))",
+     "kv_off + min(t0 + TILE_KEYS, p.Skv) - 1 - TILE_KEYS))"),
+    ("paged_prefill.cu", "f32 q: V's f32 tile converted from K's stage (S's keys in P·V)",
+     "const int4 raw = *reinterpret_cast<const int4*>(v8 + buf * S::STAGE + r * S::RB + 16 * c);",
+     "const int4 raw = *reinterpret_cast<const int4*>(k8 + buf * S::STAGE + r * S::RB + 16 * c);"),
+    ("paged_prefill.cu", "f32 q: a key's K scale taken from the next key's page / INT4 sub-tile",
+     "kss[tid] = ok ? p.ks[sidx] : 0.f;",
+     "kss[tid] = ok ? p.ks[scale_index(p, rows, min(kpos + 1, kend - 1), true)] : 0.f;"),
 )
 # The kernel sources the faults are held to, and the prefixes of their
 # coverage cases.
@@ -3314,8 +3468,18 @@ def phase_solve(st):
     ok = (launches["flash_int8_fwd[bf16_p]"] == 1 and finite and rel_rms <= SOLVE_REL_RMS_TOL
           and tuple(out.shape) == (N, d_model) and const_dev <= 1e-6)
     rungs = {name: _solve_rung(name, q, k, v, ref, ones, st) for name in SOLVE_RUNG_TOL}
-    ok = ok and all(r["ok"] for r in rungs.values())
     st["solve_ms"] = {"fa_int8": ms, **{name: r["ms"] for name, r in rungs.items()}}
+    # Gemma-2's head dim through the reference ABI: the fa rung at d_model
+    # 4096 over h 16 (d = 256, the f32 kernel's CUDA-core route), gated as
+    # fa is.
+    g2 = torch.Generator(device="cuda").manual_seed(6)
+    q2, k2, v2 = (torch.randn((N, 4096), generator=g2, device="cuda") for _ in range(3))
+    ref2 = solve(q2, k2, v2, 4096, 16, kernel="reference")
+    rungs["fa_d256"] = _solve_rung("fa", q2, k2, v2, ref2, torch.ones((N, 4096), device="cuda"),
+                                   st, h=16)
+    del q2, k2, v2, ref2
+    torch.cuda.empty_cache()
+    ok = ok and all(r["ok"] for r in rungs.values())
     emit({"phase": "solve", "ok": ok, "ms": ms, "launches": launches,
           "rel_rms_err_vs_reference": rel_rms, "rel_rms_tol": SOLVE_REL_RMS_TOL,
           "max_abs_err_vs_reference": max_abs, "ref_rms": (ref.norm() / N**0.5 / d_model**0.5).item(),
@@ -3335,15 +3499,14 @@ SOLVE_RUNG_TOL = {"fa": (1e-5, "flash_fwd[f32]"), "fa_bf16": (1e-2, "flash_fwd[b
                   "unfused": (1e-5, None)}
 
 
-def _solve_rung(kernel, q, k, v, ref, ones, st):
-    """One float rung at the reference workload: launches of its kernel in
-    one call (counts zeroed just before), time, error against the golden,
-    the all-ones gate."""
+def _solve_rung(kernel, q, k, v, ref, ones, st, h=32):
+    """One float rung at the reference workload (or at d_model / h = 256):
+    launches of its kernel in one call (counts zeroed just before), time
+    (CUDA events), error against the golden, the all-ones gate."""
     import torch
     from quantizedmha_tpu_torch import solve
     from quantizedmha_tpu_torch.ops import flash_attention as fa
     N, d_model = q.shape
-    h = 32
     tol, name = SOLVE_RUNG_TOL[kernel]
     counters = {"flash_fwd[f32]": fa.FLASH_FWD_F32, "flash_fwd[bf16]": fa.FLASH_FWD_BF16}
     for c in counters.values():
@@ -3360,7 +3523,8 @@ def _solve_rung(kernel, q, k, v, ref, ones, st):
     ok = (launches == want and bool(torch.isfinite(out).all().item()) and rel_rms <= tol
           and out.dtype == torch.float32 and const_dev <= 1e-6)
     return {"ok": ok, "ms": ms, "launches": launches, "rel_rms_err_vs_reference": rel_rms,
-            "rel_rms_tol": tol, "ones_max_dev": const_dev, "ones_tol": 1e-6}
+            "rel_rms_tol": tol, "ones_max_dev": const_dev, "ones_tol": 1e-6,
+            "shape": {"N": N, "d_model": d_model, "h": h, "head_dim": d_model // h}}
 
 
 # The harness phase: the kernel counter each rung of the reference driver
@@ -4118,15 +4282,11 @@ def phase_serve_hybrid(st):
     weights) through the engine with hybrid_kv: a page pool for the full
     layers and one for the sliding layers, prefix caching and interleaved
     prefill. Rows 3, 5 and 10 run at head_dim 256. The same traffic then
-    runs through a shared-pool engine (hybrid_kv=False) on the card."""
-    import numpy as np
+    runs through a shared-pool engine (hybrid_kv=False) on the card
+    (_gemma2_pools_run)."""
     import torch
     from quantizedmha_tpu_torch.models import llama
-    from quantizedmha_tpu_torch.ops import decode as dec
-    from quantizedmha_tpu_torch.ops import flash_attention as fa
-    from quantizedmha_tpu_torch.ops import paged_prefill as pp
     from quantizedmha_tpu_torch.serving import llama_adapter
-    from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4138,90 +4298,8 @@ def phase_serve_hybrid(st):
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-
-    def engine(hybrid):
-        return Engine(cfg, params, EngineConfig(
-            num_pages=sh["pages"]["full"], page_size=P, max_batch=4,
-            max_pages_per_seq=sh["max_pages"], prefill_buckets=(128, 256, 512, 1024, 2048),
-            max_new_tokens=sh["max_new"], decode_chunk=sh["chunk"], prefix_cache=True,
-            interleaved_prefill=True, hybrid_kv=hybrid,
-            hybrid_pages=dict(sh["pages"]) if hybrid else None), device="cuda")
-    eng = engine(True)
-    assert eng.hybrid and set(eng.allocs) == {"full", "w4096"}
-    rng = np.random.default_rng(0)
-    vocab = cfg.vocab_size
-    prompts = [rng.integers(1, vocab, n).tolist() for n in sh["bucketed"] + (sh["long"],)]
-    hit = prompts[-1][:sh["shared_pages"] * P] + rng.integers(1, vocab, sh["hit_suffix"]).tolist()
-    # Warm-up (first cuBLAS and kernel use) on tokens no later prompt shares.
-    for n in (100, 2100):
-        eng.add_request(rng.integers(1, vocab, n).tolist(), max_new=sh["chunk"] + 1)
-    eng.run()
-    eng.finished.clear()
-
-    kernels = {"flash_fwd[bf16]": fa.FLASH_FWD_BF16, "paged_prefill": pp.PAGED_PREFILL,
-               "paged_decode": dec.PAGED_DECODE}
-    counters = ("decode_steps", "prefix_cache_hits", "prefix_tokens_reused",
-                "prefill_chunks_interleaved", "requests_admitted", "pages_trimmed")
-    base = {c: eng.metrics.counter(c) for c in counters}
-    sliding_cap = -(-(4096 + P) // P) + 1
-    seen = {"max_sliding": 0, "long_full": 0, "long_live": {"full": 0, "w4096": 0}}
-
-    def watch(e, rids, hit_rid):
-        for k, a in e.allocs.items():
-            for rid, table in a.tables.items():
-                live = sum(p is not None for p in table)
-                if k == "w4096" and any(s.seq_id == rid for s in e.active):
-                    seen["max_sliding"] = max(seen["max_sliding"], live)
-                if rid == rids[-1]:  # the long sequence's pages at its last step
-                    seen["long_live"][k] = live
-                    if k == "full":
-                        seen["long_full"] = max(seen["long_full"], live)
-    for kern in kernels.values():
-        kern.reset()
-    t_run = time.perf_counter()
-    rids, hit_rid, ttft, walls = _hybrid_traffic(eng, prompts, hit, sh, on_step=watch)
-    run_s = time.perf_counter() - t_run
-    launches = {name: kern.launches for name, kern in kernels.items()}
-    delta = {c: eng.metrics.counter(c) - base[c] for c in counters}
-    got = dict(eng.finished)
-    n_long_chunks = -(-sh["long"] // 2048)
-    want = {"flash_fwd[bf16]": L * len(sh["bucketed"]),
-            "paged_prefill": L * (n_long_chunks + 1),  # the hit's suffix fits one chunk
-            "paged_decode": L * int(delta["decode_steps"])}
-    for name, n in launches.items():
-        st["launches"][name] = st["launches"].get(name, 0) + n
-        st["launches_d256"][name] = st["launches_d256"].get(name, 0) + n
-    drained = all(not a.tables and a.free_pages == a.num_pages - 1
-                  for a in eng.allocs.values())
-    # KV bytes of the long sequence at its largest: INT8 K and V rows and
-    # their per-(head, page) scales, pages x layers of each pool.
-    page_bytes = 2 * cfg.num_kv_heads * (P * cfg.hd + 4)
+    run = _gemma2_pools_run(st, cfg, params, sh, mixed=False, launches_key="launches_d256")
     groups = llama_adapter.window_groups(cfg)
-    kv_hybrid = sum(seen["long_live"][k] * len(groups[k]) * page_bytes for k in groups)
-    pool_bytes = {k: sh["pages"][k] * len(groups[k]) * page_bytes for k in groups}
-    dec_s = sum(w for w, _ in walls)
-    dec_steps = sh["chunk"] * len(walls)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    failed = dict(eng.failed)
-    del eng
-    torch.cuda.empty_cache()
-
-    # The same traffic through one shared pool: page contents are the same,
-    # only the page ids differ, so the streams must be too.
-    ref = engine(False)
-    assert not ref.hybrid
-    long_pages = {"n": 0}
-
-    def watch_shared(e, rids, hit_rid):
-        if rids[-1] in e.alloc.tables:
-            long_pages["n"] = max(long_pages["n"], len(e.alloc.tables[rids[-1]]))
-    r_rids, r_hit, _, _ = _hybrid_traffic(ref, prompts, hit, sh, on_step=watch_shared)
-    want_streams = dict(ref.finished)
-    kv_shared = long_pages["n"] * L * page_bytes
-    same = [got.get(a) == want_streams.get(b) for a, b in zip(rids, r_rids)]
-    hit_len_ok = (len(got.get(hit_rid, [])) == len(want_streams.get(r_hit, [])) == sh["max_new"])
-    del ref
-    torch.cuda.empty_cache()
 
     # Right by the repo's own means: the long prompt's last logits, prefilled
     # in chunks through fresh hybrid pools (each group's table another
@@ -4231,7 +4309,8 @@ def phase_serve_hybrid(st):
     slots = -(-n // 2048) * 2048 // P
     tables = {k: torch.randperm(48, generator=torch.Generator().manual_seed(i))[:slots]
               .add(1).to(torch.int32).cuda() for i, k in enumerate(sorted(groups))}
-    toks = torch.tensor(prompts[-1], dtype=torch.int32, device="cuda")
+    toks = torch.tensor(run["requests"][len(sh["bucketed"])][1], dtype=torch.int32,
+                        device="cuda")
     for start in range(0, n, 2048):
         part = torch.zeros((1, 2048), dtype=torch.int32, device="cuda")
         m = min(2048, n - start)
@@ -4246,37 +4325,12 @@ def phase_serve_hybrid(st):
     del golden
     torch.cuda.empty_cache()
 
-    lens_ok = (hit_rid is not None and all(len(got.get(r, [])) == sh["max_new"]
-                                           for r in rids + [hit_rid]))
-    in_vocab = all(0 <= t < vocab for r in rids + [hit_rid] for t in got.get(r, []))
-    counts_ok = (launches == want and delta["prefix_cache_hits"] == 1
-                 and delta["prefix_tokens_reused"] == sh["shared_pages"] * P
-                 and delta["pages_trimmed"] > 0 and delta["prefill_chunks_interleaved"] > 0)
-    memory_ok = (seen["max_sliding"] <= sliding_cap
-                 and seen["long_full"] >= -(-sh["long"] // P))
-    ok = (all(same) and hit_len_ok and lens_ok and in_vocab and counts_ok and memory_ok
-          and drained and not failed and finite and rel <= sh["logit_tol"])
+    ok = run["ok"] and finite and rel <= sh["logit_tol"]
     emit({"phase": "serve_hybrid", "ok": ok, "model": "gemma2_9b", "layers": L,
           "head_dim": cfg.hd, "attention_impl": cfg.attention_impl, "weights": "bf16",
-          "init_s": init_s, "groups": {k: len(v) for k, v in groups.items()},
-          "pool_pages": sh["pages"], "pool_bytes": pool_bytes,
-          "prompts": list(sh["bucketed"]) + [sh["long"]],
-          "prefix_hit": {"len": len(hit), "shared_tokens": sh["shared_pages"] * P},
-          "max_new": sh["max_new"], "decode_chunk": sh["chunk"],
-          "streams_equal_shared_pool": same, "hit_stream_len_equal": hit_len_ok,
-          "launches": launches, "launches_expected": want, "counters": delta,
-          "sliding_pages_max_live": seen["max_sliding"], "sliding_pages_cap": sliding_cap,
-          "long_full_pages": seen["long_full"], "long_live_pages": seen["long_live"],
-          "kv_bytes_long_hybrid": kv_hybrid, "kv_bytes_long_shared": kv_shared,
-          "kv_ratio": kv_hybrid / kv_shared if kv_shared else None,
-          "pools_drained": drained, "failed": failed, "run_s": run_s,
-          "ttft_s": {"bucketed": [ttft.get(r) for r in rids[:-1]], "long": ttft.get(rids[-1]),
-                     "prefix_hit": ttft.get(hit_rid)},
-          "decode_engine_steps_timed": len(walls),
-          "decode_batches": sorted({b for _, b in walls}),
-          "decode_ms_per_step": dec_s * 1e3 / dec_steps if dec_steps else None,
+          "init_s": init_s, **run["report"],
           "logits_rel_err_vs_reference": rel, "rel_err_tol": sh["logit_tol"],
-          "peak_mem_gb": peak_gb, "mem_at_start_gb": mem_at_start})
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "mem_at_start_gb": mem_at_start})
     if not ok:
         raise AssertionError("serve_hybrid phase failed its checks")
 
@@ -4616,7 +4670,8 @@ def _cache_page_bytes(cfg, page, subs=None):
     return cfg.num_layers * 2 * cfg.num_kv_heads * per_head
 
 
-def _kv_quantized_logits(cfg, params, toks, *, boundary, page, subs, n_written=None, rows=None):
+def _kv_quantized_logits(cfg, params, toks, *, boundary, page, subs, n_written=None, rows=None,
+                         float_prompt=False):
     """Last-token logits (the last `rows` tokens', [B, rows, vocab], when
     given) of the model with float attention over K/V passed
     through the mixed cache's quantization and back: each layer's K and V
@@ -4628,8 +4683,12 @@ def _kv_quantized_logits(cfg, params, toks, *, boundary, page, subs, n_written=N
     are written as a prefill writes them, a scale fitted over each page's
     (sub-tile's) tokens; the rest as decode appends them, a page (sub-tile)
     that starts there fitted by its first token and every later token
-    quantized with the scale it finds and clamped. The golden of the mixed
-    cache's numerics, without its kernels, its paging or its chunking."""
+    quantized with the scale it finds and clamped. float_prompt: the first
+    n_written rows attend to their own float K/V, as a bucketed prefill's
+    flash attention does before it writes the pages (a chunked or
+    prefix-cached prefill reads them back through the cache, the default).
+    The golden of the mixed cache's numerics, without its kernels, its
+    paging or its chunking."""
     import functools
     import torch
     from quantizedmha_tpu_torch.models.llama import (
@@ -4672,9 +4731,15 @@ def _kv_quantized_logits(cfg, params, toks, *, boundary, page, subs, n_written=N
         k = apply_rope(k.reshape(b, n, cfg.num_kv_heads, hd).transpose(1, 2), cfg.rope_theta)
         v = v.reshape(b, n, cfg.num_kv_heads, hd).transpose(1, 2)
         nb_layer = nb if window is None else n_pad // page
-        o = mha_masked_reference(q, through_cache(k[0], nb_layer)[None],
-                                 through_cache(v[0], nb_layer)[None], sm_scale=cfg.sm_scale,
-                                 causal=True, window=window, softcap=cfg.logit_softcap)
+        masks = dict(sm_scale=cfg.sm_scale, causal=True, window=window,
+                     softcap=cfg.logit_softcap)
+        kc, vc = (through_cache(x[0], nb_layer)[None] for x in (k, v))
+        if float_prompt:
+            m = n_written
+            o = torch.cat([mha_masked_reference(q[:, :, :m], k[:, :, :m], v[:, :, :m], **masks),
+                           mha_masked_reference(q[:, :, m:], kc, vc, **masks)], dim=2)
+        else:
+            o = mha_masked_reference(q, kc, vc, **masks)
         x = _attn_residual(cfg, dense, p, x, o.transpose(1, 2).reshape(b, n, -1))
         x = _mlp_residual(cfg, dense, p, x)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.rms_plus_one)
@@ -4904,22 +4969,44 @@ SERVE_HYBRID_MIXED = dict(bucketed=(100, 300, 1800), long=6000, max_new=64, chun
                                  "subs": 4})
 
 
+class _LastDecodeLogits:
+    """Each request's logits at its last decode step (the one that samples
+    its last token), read off `eng`'s decode loop while in the with block
+    (llama_adapter.decode_loop wrapped, then restored): {seq id: f32
+    logits}."""
+
+    def __init__(self, eng):
+        self.eng, self.last = eng, {}
+
+    def __enter__(self):
+        from quantizedmha_tpu_torch.serving import llama_adapter
+        loop = self.loop = llama_adapter.decode_loop
+
+        def keeping_last(*a, **kw):
+            toks, cache, logits = loop(*a, **dict(kw, return_logits=True))
+            for lane, seq in enumerate(self.eng.active):
+                j = seq.max_new - 1 - len(seq.out)
+                if 0 <= j < logits.shape[0]:
+                    self.last[seq.seq_id] = logits[j, lane].float().clone()
+            return toks, cache
+        llama_adapter.decode_loop = keeping_last
+        return self.last
+
+    def __exit__(self, *exc):
+        from quantizedmha_tpu_torch.serving import llama_adapter
+        llama_adapter.decode_loop = self.loop
+
+
 def phase_serve_hybrid_mixed(st):
     """Gemma-2-9B as configured (random bf16 weights) through the engine
     with hybrid_kv and mixed_kv: the full layers' pool is the mixed pair
     (INT8 below 256 tokens, INT4 past), the sliding layers' plain INT8;
-    interleaved chunked prefill, decode chunks of 8. Rows 3, 5, 10, 11 and
-    12 run at head_dim 256. Each request's last decode logits are held to
-    the golden whose float attention reads K/V through the same INT8 / INT4
-    quantization."""
-    import numpy as np
+    interleaved chunked prefill, decode chunks of 8 (_gemma2_pools_run).
+    Rows 3, 5, 10, 11 and 12 run at head_dim 256. Each request's last
+    decode logits are held to the golden whose float attention reads K/V
+    through the same INT8 / INT4 quantization (_last_logits_gate)."""
     import torch
     from quantizedmha_tpu_torch.models import llama
-    from quantizedmha_tpu_torch.ops import decode as dec
-    from quantizedmha_tpu_torch.ops import flash_attention as fa
-    from quantizedmha_tpu_torch.ops import paged_prefill as pp
-    from quantizedmha_tpu_torch.serving import llama_adapter
-    from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4927,136 +5014,325 @@ def phase_serve_hybrid_mixed(st):
     sh = SERVE_HYBRID_MIXED
     mk = sh["mixed"]
     cfg = llama.LlamaConfig.gemma2_9b()
-    L, P = cfg.num_layers, sh["page"]
     t0 = time.perf_counter()
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    eng = Engine(cfg, params, EngineConfig(
-        page_size=P, max_batch=4, max_pages_per_seq=sh["max_pages"],
-        prefill_buckets=(128, 256, 512, 1024, 2048), max_new_tokens=sh["max_new"],
-        decode_chunk=sh["chunk"], interleaved_prefill=True, hybrid_kv=True,
-        hybrid_pages={"w4096": sh["sliding_pages"]}, mixed_kv=dict(mk)), device="cuda")
-    assert eng.hybrid_mixed and set(eng.allocs) == {"full", "w4096"}
-    full, sliding = eng.allocs["full"], eng.allocs["w4096"]
-    rng = np.random.default_rng(0)
-    vocab = cfg.vocab_size
-    prompts = [rng.integers(1, vocab, n).tolist() for n in sh["bucketed"] + (sh["long"],)]
-    for n in (100, 2100):  # warm-up on tokens no later prompt shares
-        eng.add_request(rng.integers(1, vocab, n).tolist(), max_new=sh["chunk"] + 1)
-    eng.run()
-    eng.finished.clear()
-
-    kernels = {"flash_fwd[bf16]": fa.FLASH_FWD_BF16, "paged_prefill": pp.PAGED_PREFILL,
-               "paged_prefill_int4": pp.PAGED_PREFILL_INT4, "paged_decode": dec.PAGED_DECODE,
-               "paged_decode_int4": dec.PAGED_DECODE_INT4}
-    counters = ("decode_steps", "prefill_chunks_interleaved", "requests_admitted",
-                "pages_trimmed")
-    base = {c: eng.metrics.counter(c) for c in counters}
-    seen = {"int4_used": 0, "long": {}}
-
-    def watch(e, rids, _hit):
-        seen["int4_used"] = max(seen["int4_used"], full.a4.num_pages - 1 - full.a4.free_pages)
-        if rids[-1] in full.lengths:  # the long sequence's pages at its last step
-            seen["long"] = {"int8": len(full.a8.tables[rids[-1]]),
-                            "int4": len(full.a4.tables[rids[-1]]),
-                            "sliding": sum(p is not None for p in sliding.tables[rids[-1]])}
-    # Each request's logits at its last decode step (the one that samples
-    # its last token), read off the engine's decode loop.
-    last, loop = {}, llama_adapter.decode_loop
-
-    def loop_keeping_last(*a, **kw):
-        toks, cache, logits = loop(*a, **dict(kw, return_logits=True))
-        for lane, seq in enumerate(eng.active):
-            j = seq.max_new - 1 - len(seq.out)
-            if 0 <= j < logits.shape[0]:
-                last[seq.seq_id] = logits[j, lane].float().clone()
-        return toks, cache
-    for kern in kernels.values():
-        kern.reset()
-    llama_adapter.decode_loop = loop_keeping_last
-    try:
-        t_run = time.perf_counter()
-        rids, _, ttft, walls = _hybrid_traffic(eng, prompts, None, sh, on_step=watch)
-        run_s = time.perf_counter() - t_run
-    finally:
-        llama_adapter.decode_loop = loop
-    launches = {name: kern.launches for name, kern in kernels.items()}
-    delta = {c: eng.metrics.counter(c) - base[c] for c in counters}
-    got = dict(eng.finished)
-    groups = llama_adapter.window_groups(cfg)
-    F, S_ = len(groups["full"]), len(groups["w4096"])
-    n_chunks = -(-sh["long"] // 2048)
-    steps = int(delta["decode_steps"])
-    want = {"flash_fwd[bf16]": L * len(sh["bucketed"]), "paged_prefill": L * n_chunks,
-            "paged_prefill_int4": F * n_chunks, "paged_decode": L * steps,
-            "paged_decode_int4": F * steps}
-    for name, n in launches.items():
-        st["launches"][name] = st["launches"].get(name, 0) + n
-        st["launches_d256"][name] = st["launches_d256"].get(name, 0) + n
-    drained = (not full.lengths and full.a8.free_pages == mk["int8_pages"] - 1
-               and full.a4.free_pages == mk["int4_pages"] - 1
-               and not sliding.tables and sliding.free_pages == sliding.num_pages - 1)
-    page8 = 2 * cfg.num_kv_heads * (P * cfg.hd + 4)
-    page4 = 2 * cfg.num_kv_heads * (P * cfg.hd // 2 + 4 * mk["subs"])
-    lp = seen["long"]
-    kv_long = (F * (lp.get("int8", 0) * page8 + lp.get("int4", 0) * page4)
-               + S_ * lp.get("sliding", 0) * page8)
-    dec_s = sum(w for w, _ in walls)
-    dec_steps = sh["chunk"] * len(walls)
-    failed = dict(eng.failed)
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # Right by the repo's own means: each request's last decode logits
-    # against the golden over the same tokens (its prompt and all but its
-    # last sampled token) whose attention reads K/V through the INT8 / INT4
-    # quantization of the pools, and, reported, the float golden's.
-    ref_cfg = dataclasses.replace(cfg, attention_impl="reference")
-    gated, vs_float, finite = {}, {}, True
-    for n, prompt, rid in zip(sh["bucketed"] + (sh["long"],), prompts, rids):
-        out = got.get(rid, [])
-        if len(out) != sh["max_new"] or rid not in last:
-            gated[n] = float("inf")
-            continue
-        toks = torch.tensor(prompt + out[:-1], dtype=torch.int32, device="cuda")[None]
-        logits = last[rid]
-        finite = finite and bool(torch.isfinite(logits).all().item())
-        ref = _kv_quantized_logits(cfg, params, toks, boundary=mk["boundary_tokens"], page=P,
-                                   subs=mk["subs"], n_written=len(prompt))[0].float()
-        gated[n] = ((logits - ref).abs().max() / ref.std()).item()
-        del ref
-        ref = llama_adapter.prefill_at(ref_cfg, params, toks, toks.shape[1] - 1)[0][0].float()
-        vs_float[n] = ((logits - ref).abs().max() / ref.std()).item()
-        del ref
-        torch.cuda.empty_cache()
-    lens_ok = all(len(got.get(r, [])) == sh["max_new"] for r in rids)
-    in_vocab = all(0 <= t < vocab for r in rids for t in got.get(r, []))
-    counts_ok = (launches == want and delta["pages_trimmed"] > 0
-                 and delta["prefill_chunks_interleaved"] == n_chunks)
-    int4_ok = seen["int4_used"] >= -(-(sh["long"] - mk["boundary_tokens"]) // P)
-    ok = (lens_ok and in_vocab and counts_ok and int4_ok and drained and not failed and finite
-          and max(gated.values()) <= sh["logit_tol"])
-    emit({"phase": "serve_hybrid_mixed", "ok": ok, "model": "gemma2_9b", "layers": L,
-          "head_dim": cfg.hd, "attention_impl": cfg.attention_impl, "weights": "bf16",
-          "init_s": init_s, "groups": {k: len(v) for k, v in groups.items()},
-          "mixed_kv": mk, "sliding_pages": sh["sliding_pages"],
-          "prompts": list(sh["bucketed"]) + [sh["long"]], "max_new": sh["max_new"],
-          "decode_chunk": sh["chunk"], "launches": launches, "launches_expected": want,
-          "counters": delta, "int4_pages_max_used": seen["int4_used"],
-          "long_pages_last_step": lp, "kv_bytes_long": kv_long,
-          "kv_bytes_long_serve_hybrid": 0.892e9, "pools_drained": drained,
-          "failed": failed, "run_s": run_s,
-          "ttft_s": {n: ttft.get(r) for n, r in zip(sh["bucketed"] + (sh["long"],), rids)},
-          "decode_engine_steps_timed": len(walls),
-          "decode_batches": sorted({b for _, b in walls}),
-          "decode_ms_per_step": dec_s * 1e3 / dec_steps if dec_steps else None,
+    run = _gemma2_pools_run(st, cfg, params, sh, mixed=True, launches_key="launches_d256")
+    gated, vs_float, finite = _last_logits_gate(
+        cfg, params, run, sh, boundary=mk["boundary_tokens"], subs=mk["subs"],
+        vs_float=[name for name, _, _ in run["requests"]])
+    ok = run["ok"] and finite and max(gated.values()) <= sh["logit_tol"]
+    emit({"phase": "serve_hybrid_mixed", "ok": ok, "model": "gemma2_9b",
+          "layers": cfg.num_layers, "head_dim": cfg.hd, "attention_impl": cfg.attention_impl,
+          "weights": "bf16", "init_s": init_s, **run["report"],
+          "kv_bytes_long_serve_hybrid": 0.892e9,
           "last_logits_rel_err_vs_kv_quantized_golden": gated,
           "last_logits_rel_err_vs_float_golden": vs_float, "rel_err_tol": sh["logit_tol"],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     if not ok:
         raise AssertionError("serve_hybrid_mixed phase failed its checks")
+
+
+def _gemma2_pools_run(st, cfg, params, sh, *, mixed, launches_key):
+    """One run of serve_hybrid's traffic (sh's prompts, page 128,
+    interleaved prefill, decode chunks) through the engine on Gemma-2 in
+    cfg's dtype, the kernel counters zeroed just before the traffic and
+    added to st["launches"] and st[launches_key] just after. mixed False:
+    hybrid INT8 pools (sh["pages"]) with prefix caching and the prefix hit,
+    then the same traffic through one shared pool, whose streams the
+    hybrid run's must equal (page contents are the same, only the page ids
+    differ). mixed True: hybrid pools whose full group is sh["mixed"]'s
+    INT8 / INT4 pair, no prefix cache (mixed_kv refuses it). Returns the
+    run's record: "ok" (launches exact, counters, streams, pools drained,
+    page use), "report" (the keys a phase emits), and the prompts, request
+    ids, streams and each request's last decode logits for the phase's own
+    logit gate."""
+    import numpy as np
+    import torch
+    from quantizedmha_tpu_torch.ops import decode as dec
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    from quantizedmha_tpu_torch.serving import llama_adapter
+    from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
+
+    L, P = cfg.num_layers, sh["page"]
+    mk = sh["mixed"] if mixed else None
+    groups = llama_adapter.window_groups(cfg)
+    F = len(groups["full"])
+
+    def engine(hybrid):
+        pools = (dict(hybrid_pages={"w4096": sh["sliding_pages"]}, mixed_kv=dict(mk)) if mixed
+                 else dict(num_pages=sh["pages"]["full"], prefix_cache=True,
+                           hybrid_pages=dict(sh["pages"]) if hybrid else None))
+        return Engine(cfg, params, EngineConfig(
+            page_size=P, max_batch=4, max_pages_per_seq=sh["max_pages"],
+            prefill_buckets=(128, 256, 512, 1024, 2048), max_new_tokens=sh["max_new"],
+            decode_chunk=sh["chunk"], interleaved_prefill=True, hybrid_kv=hybrid, **pools),
+            device="cuda")
+    eng = engine(True)
+    assert eng.hybrid and set(eng.allocs) == {"full", "w4096"}
+    assert eng.hybrid_mixed == mixed
+    full, sliding = eng.allocs["full"], eng.allocs["w4096"]
+    rng = np.random.default_rng(0)
+    vocab = cfg.vocab_size
+    lens = tuple(sh["bucketed"]) + (sh["long"],)
+    prompts = [rng.integers(1, vocab, n).tolist() for n in lens]
+    hit = (None if mixed else prompts[-1][:sh["shared_pages"] * P]
+           + rng.integers(1, vocab, sh["hit_suffix"]).tolist())
+    # Warm-up (first cuBLAS and kernel use) on tokens no later prompt shares.
+    for n in (100, 2100):
+        eng.add_request(rng.integers(1, vocab, n).tolist(), max_new=sh["chunk"] + 1)
+    eng.run()
+    eng.finished.clear()
+
+    kernels = {"flash_fwd[bf16]": fa.FLASH_FWD_BF16, "flash_fwd[f32]": fa.FLASH_FWD_F32,
+               "paged_prefill": pp.PAGED_PREFILL, "paged_prefill_int4": pp.PAGED_PREFILL_INT4,
+               "paged_decode": dec.PAGED_DECODE, "paged_decode_int4": dec.PAGED_DECODE_INT4}
+    counters = ("decode_steps", "prefill_chunks_interleaved", "requests_admitted",
+                "pages_trimmed") + (() if mixed else ("prefix_cache_hits",
+                                                       "prefix_tokens_reused"))
+    base = {c: eng.metrics.counter(c) for c in counters}
+    sliding_cap = -(-(4096 + P) // P) + 1
+    seen = {"max_sliding": 0, "long_full": 0, "long_live": {}, "int4_used": 0}
+
+    def watch(e, rids, hit_rid):
+        if mixed:
+            seen["int4_used"] = max(seen["int4_used"],
+                                    full.a4.num_pages - 1 - full.a4.free_pages)
+            if rids[-1] in full.lengths:  # the long sequence's pages at its last step
+                seen["long_live"] = {"int8": len(full.a8.tables[rids[-1]]),
+                                     "int4": len(full.a4.tables[rids[-1]]),
+                                     "sliding": sum(p is not None
+                                                    for p in sliding.tables[rids[-1]])}
+            return
+        for k, a in e.allocs.items():
+            for rid, table in a.tables.items():
+                live = sum(p is not None for p in table)
+                if k == "w4096" and any(s.seq_id == rid for s in e.active):
+                    seen["max_sliding"] = max(seen["max_sliding"], live)
+                if rid == rids[-1]:  # the long sequence's pages at its last step
+                    seen["long_live"][k] = live
+                    if k == "full":
+                        seen["long_full"] = max(seen["long_full"], live)
+    for kern in kernels.values():
+        kern.reset()
+    with _LastDecodeLogits(eng) as last:
+        t_run = time.perf_counter()
+        rids, hit_rid, ttft, walls = _hybrid_traffic(eng, prompts, hit, sh, on_step=watch)
+        run_s = time.perf_counter() - t_run
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    delta = {c: eng.metrics.counter(c) - base[c] for c in counters}
+    got = dict(eng.finished)
+    n_chunks = -(-sh["long"] // 2048)
+    steps = int(delta["decode_steps"])
+    flash = "flash_fwd[f32]" if cfg.dtype == torch.float32 else "flash_fwd[bf16]"
+    want = {flash: L * len(sh["bucketed"]), "paged_decode": L * steps,
+            # the hit's suffix fits one chunk
+            "paged_prefill": L * (n_chunks + (0 if mixed else 1))}
+    if mixed:
+        want.update(paged_prefill_int4=F * n_chunks, paged_decode_int4=F * steps)
+    want = {name: want.get(name, 0) for name in kernels}
+    for name, n in launches.items():
+        st["launches"][name] = st["launches"].get(name, 0) + n
+        st[launches_key][name] = st[launches_key].get(name, 0) + n
+    if mixed:
+        drained = (not full.lengths and full.a8.free_pages == mk["int8_pages"] - 1
+                   and full.a4.free_pages == mk["int4_pages"] - 1)
+    else:
+        drained = not full.tables and full.free_pages == full.num_pages - 1
+    drained = drained and not sliding.tables and sliding.free_pages == sliding.num_pages - 1
+    # KV bytes of the long sequence at its last step: INT8 (INT4) K and V
+    # rows and their per-(head, page (sub-tile)) scales, pages x layers.
+    page8 = 2 * cfg.num_kv_heads * (P * cfg.hd + 4)
+    lp = seen["long_live"]
+    if mixed:
+        page4 = 2 * cfg.num_kv_heads * (P * cfg.hd // 2 + 4 * mk["subs"])
+        kv_long = (F * (lp.get("int8", 0) * page8 + lp.get("int4", 0) * page4)
+                   + len(groups["w4096"]) * lp.get("sliding", 0) * page8)
+    else:
+        kv_long = sum(lp.get(k, 0) * len(groups[k]) * page8 for k in groups)
+    dec_s = sum(w for w, _ in walls)
+    dec_steps = sh["chunk"] * len(walls)
+    failed = dict(eng.failed)
+    del eng, full, sliding
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    all_rids = rids + ([] if mixed else [hit_rid])
+    ok = (launches == want and not failed and drained and delta["pages_trimmed"] > 0
+          and (mixed or hit_rid is not None)
+          and all(len(got.get(r, [])) == sh["max_new"] for r in all_rids)
+          and all(0 <= t < vocab for r in all_rids for t in got.get(r, [])))
+    report = {"groups": {k: len(v) for k, v in groups.items()},
+              "prompts": list(lens), "max_new": sh["max_new"], "decode_chunk": sh["chunk"],
+              "launches": launches, "launches_expected": want, "counters": delta,
+              "kv_bytes_long": kv_long, "pools_drained": drained, "failed": failed,
+              "run_s": run_s,
+              "ttft_s": dict({n: ttft.get(r) for n, r in zip(lens, rids)},
+                             **({} if mixed else {"prefix_hit": ttft.get(hit_rid)})),
+              "decode_engine_steps_timed": len(walls),
+              "decode_batches": sorted({b for _, b in walls}),
+              "decode_ms_per_step": dec_s * 1e3 / dec_steps if dec_steps else None}
+    if mixed:
+        int4_ok = seen["int4_used"] >= -(-(sh["long"] - mk["boundary_tokens"]) // P)
+        ok = ok and int4_ok and delta["prefill_chunks_interleaved"] == n_chunks
+        report.update(mixed_kv=mk, sliding_pages=sh["sliding_pages"],
+                      int4_pages_max_used=seen["int4_used"], long_pages_last_step=lp)
+    else:
+        ref = engine(False)
+        assert not ref.hybrid
+        long_pages = {"n": 0}
+
+        def watch_shared(e, rids, hit_rid):
+            if rids[-1] in e.alloc.tables:
+                long_pages["n"] = max(long_pages["n"], len(e.alloc.tables[rids[-1]]))
+        r_rids, r_hit, _, _ = _hybrid_traffic(ref, prompts, hit, sh, on_step=watch_shared)
+        want_streams = dict(ref.finished)
+        kv_shared = long_pages["n"] * L * page8
+        same = [got.get(a) == want_streams.get(b) for a, b in zip(rids, r_rids)]
+        hit_len_ok = (len(got.get(hit_rid, [])) == len(want_streams.get(r_hit, []))
+                      == sh["max_new"])
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        ok = (ok and all(same) and hit_len_ok and delta["prefix_cache_hits"] == 1
+              and delta["prefix_tokens_reused"] == sh["shared_pages"] * P
+              and delta["prefill_chunks_interleaved"] > 0
+              and seen["max_sliding"] <= sliding_cap
+              and seen["long_full"] >= -(-sh["long"] // P))
+        report.update(pool_pages=sh["pages"],
+                      pool_bytes={k: sh["pages"][k] * len(groups[k]) * page8 for k in groups},
+                      prefix_hit={"len": len(hit), "shared_tokens": sh["shared_pages"] * P},
+                      streams_equal_shared_pool=same, hit_stream_len_equal=hit_len_ok,
+                      sliding_pages_max_live=seen["max_sliding"], sliding_pages_cap=sliding_cap,
+                      long_full_pages=seen["long_full"], long_live_pages=lp,
+                      kv_bytes_long_shared=kv_shared,
+                      kv_ratio=kv_long / kv_shared if kv_shared else None)
+    names = list(zip(lens, prompts, rids)) + ([] if mixed else [("prefix_hit", hit, hit_rid)])
+    return {"ok": ok, "report": report, "requests": names, "streams": got, "last": last}
+
+
+def _last_logits_gate(cfg, params, run, sh, *, boundary, subs, vs_float=()):
+    """Each request's last decode logits (run["last"]) against the golden
+    over the same tokens (its prompt and all but its last sampled token)
+    whose float attention reads K/V through the pools' quantization
+    (_kv_quantized_logits: INT8 below `boundary`, INT4 of `subs` sub-tiles
+    past it; a bucketed
+    prompt's own rows over its float K/V, as the flash prefill computes
+    them), as a share of the golden's std: ({request: share}, {request in
+    vs_float: share of the float golden's std}, all finite). A request
+    whose stream or logits are missing counts inf."""
+    import torch
+    from quantizedmha_tpu_torch.serving import llama_adapter
+    ref_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    gated, floats, finite = {}, {}, True
+    for name, prompt, rid in run["requests"]:
+        out = run["streams"].get(rid, [])
+        if len(out) != sh["max_new"] or rid not in run["last"]:
+            gated[name] = float("inf")
+            continue
+        toks = torch.tensor(prompt + out[:-1], dtype=torch.int32, device="cuda")[None]
+        logits = run["last"][rid]
+        finite = finite and bool(torch.isfinite(logits).all().item())
+        golden = _kv_quantized_logits(cfg, params, toks, boundary=boundary, page=sh["page"],
+                                      subs=subs, n_written=len(prompt),
+                                      float_prompt=name in sh["bucketed"])[0].float()
+        gated[name] = ((logits - golden).abs().max() / golden.std()).item()
+        del golden
+        if name in vs_float:
+            golden = llama_adapter.prefill_at(ref_cfg, params, toks,
+                                              toks.shape[1] - 1)[0][0].float()
+            floats[name] = ((logits - golden).abs().max() / golden.std()).item()
+            del golden
+        torch.cuda.empty_cache()
+    return gated, floats, finite
+
+
+# serve_gemma2_f32: Gemma-2-9B in f32 at full width and depth (42 layers,
+# 10.16e9 parameters, 40.6 GB beside pools of 1.6 GB), serve_hybrid's
+# prompts with max_new cut from 64 to 32 (the phase's time: an f32 decode
+# step reads the 40.6 GB of weights), once through serve_hybrid's INT8
+# pools with the prefix hit ("int8": rows 3, 5 and 10 in f32 at d=256) and
+# once through serve_hybrid_mixed's, whose full group is the mixed INT8 /
+# INT4 pair ("mixed": rows 3, 5, 10, 11 and 12; no prefix cache: mixed_kv
+# refuses it). logit_tol: each request's last decode logits against the
+# golden whose float attention reads K/V through the same INT8 / INT4 quantization
+# (_kv_quantized_logits; a bucketed prompt's own rows over its float K/V,
+# as the flash prefill computes them), as a share of the golden's std. The
+# two sum every product of 42 layers in other orders. In bf16
+# (serve_hybrid_mixed) each rounding is 2^-9 and 0.25 std is allowed; in
+# f32 each is 2^-24, which scales that down to 8e-6 std. The cache's
+# quantization turns the order's ulps into whole steps: a K or V element
+# that the two orders put on either side of an int8 / int4 rounding
+# boundary differs by a step (1/127 of its page's largest |x|, 1/7 in
+# INT4), thousands of elements over 42 layers and 6000 tokens. That is the
+# distance measured (NVIDIA H100 80GB HBM3, 700 W): 0.0030-0.0056 std on
+# the chunked and prefix-hit requests, three orders above the order's own
+# 8e-6. The gate allows 2^-6 = 0.0156 std, 2.8x the largest seen. The
+# bucketed requests against a golden that reads their prompt through the
+# cache (a quantization the engine does not make there) stand at
+# 0.069-0.089 std: a wrong page, scale or tile moves the logits past the
+# gate.
+SERVE_GEMMA2_F32 = {kind: dict(base, bucketed=SERVE_HYBRID["bucketed"], max_new=32,
+                               logit_tol=2.0**-6)
+                    for kind, base in (("int8", SERVE_HYBRID), ("mixed", SERVE_HYBRID_MIXED))}
+
+
+def phase_serve_gemma2_f32(st):
+    """LlamaConfig.gemma2_9b() with dtype float32 (42 layers, head_dim 256,
+    a 4096 window on even layers, softcaps 50 and 30, attention_impl=
+    "flash", random f32 weights from a seeded generator) through the
+    engine as serve_hybrid and serve_hybrid_mixed drive it
+    (_gemma2_pools_run): (a) hybrid INT8 pools, prefix caching and
+    interleaved prefill, then the same traffic through one shared pool;
+    (b) hybrid pools with the mixed INT8 / INT4 full group. Every prefill
+    attention runs the f32 routes at d=256: row 5's CUDA-core kernel, rows
+    10 and 11 with f32 q. Each request's last decode logits are held to
+    the KV-quantized golden (_last_logits_gate)."""
+    import torch
+    from quantizedmha_tpu_torch.models import llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem_at_start = torch.cuda.memory_allocated() / 1e9  # what earlier phases still hold
+    cfg = dataclasses.replace(llama.LlamaConfig.gemma2_9b(), dtype=torch.float32)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [x for x in _flat_tree(params).values() if isinstance(x, torch.Tensor)]
+    n_params = sum(x.numel() for x in leaves)
+    weights_gb = sum(x.numel() * x.element_size() for x in leaves) / 1e9
+    del leaves
+    mk = SERVE_GEMMA2_F32["mixed"]["mixed"]
+    runs = {}
+    for name, kind in (("hybrid_int8", "int8"), ("hybrid_mixed", "mixed")):
+        sh = SERVE_GEMMA2_F32[kind]
+        run = _gemma2_pools_run(st, cfg, params, sh, mixed=kind == "mixed",
+                                launches_key="launches_d256_f32")
+        # The long request beside the float golden (no quantization), whose
+        # distance the cache's quantization sets.
+        gated, vs_float, finite = _last_logits_gate(
+            cfg, params, run, sh, boundary=mk["boundary_tokens"] if kind == "mixed" else 1 << 30,
+            subs=mk["subs"], vs_float=[sh["long"]])
+        runs[name] = dict(run["report"],
+                          ok=run["ok"] and finite and max(gated.values()) <= sh["logit_tol"],
+                          last_logits_rel_err_vs_kv_quantized_golden=gated,
+                          long_last_logits_rel_err_vs_float_golden=vs_float.get(sh["long"]))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = all(r["ok"] for r in runs.values())
+    emit({"phase": "serve_gemma2_f32", "ok": ok, "model": "gemma2_9b", "dtype": "float32",
+          "layers": cfg.num_layers, "head_dim": cfg.hd, "attention_impl": cfg.attention_impl,
+          "params": n_params, "weights_gb": weights_gb, "init_s": init_s,
+          "rel_err_tol": SERVE_GEMMA2_F32["int8"]["logit_tol"], **runs,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "mem_at_start_gb": mem_at_start})
+    if not ok:
+        raise AssertionError("serve_gemma2_f32 phase failed its checks")
 
 
 # Speculative decoding on Gemma-2-9B (hybrid pools), with a draft of the
@@ -7996,7 +8272,7 @@ def main(argv=None) -> int:
         phases.insert(0, "build")
     if "harness" in phases and "solve" not in phases:
         phases.append("solve")  # the harness phase holds its times to solve's
-    st = {"launches": {}, "launches_d256": {}, "profile": args.profile,
+    st = {"launches": {}, "launches_d256": {}, "launches_d256_f32": {}, "profile": args.profile,
           "keep_serve_params": "serve_w8a8" in phases}
     seconds = {}
     try:
@@ -8026,8 +8302,13 @@ def main(argv=None) -> int:
             e.update({k: c[k] for k in ("also_replaces", "mqa", "serve_flash", "library_note",
                                         "library_backend", "library_f32", "solve", "serve_w4",
                                         "prefill_bench", "gemma2") if k in c})
-            if "gemma2" in c:  # its launches: serve_hybrid's at head_dim 256
+            if "gemma2" in c:  # its launches: serve_hybrid's at head_dim 256 (f32:
+                # serve_gemma2_f32's, in each f32 sub-entry)
                 e["gemma2"] = dict(c["gemma2"], launches=st["launches_d256"].get(name, 0))
+                for kind, sub in c["gemma2"].items():
+                    if kind.endswith("_f32"):
+                        e["gemma2"][kind] = dict(
+                            sub, launches=st["launches_d256_f32"].get(name, 0))
             if "mqa" in c:  # row 4: its launches at one kv head (serve_tp's tp=8 ranks)
                 e["mqa"] = dict(c["mqa"], launches=st.get("launches_mqa", 0))
             for key in ("tp_shapes", "cp_shapes", "train_parallel_shapes"):  # a rank's shapes
@@ -8041,7 +8322,8 @@ def main(argv=None) -> int:
         emit({"kernels": entries})
         idle = [e["name"] for e in entries if e["launches"] == 0]
         if ({"solve", "serve", "serve_w4", "serve_flash", "serve_mixed", "serve_hybrid",
-             "serve_hybrid_mixed", "serve_spec", "serve_hf", "train", "train_gemma2"}
+             "serve_hybrid_mixed", "serve_gemma2_f32", "serve_spec", "serve_hf", "train",
+             "train_gemma2"}
                 <= set(phases) and idle):
             print(f"chip_smoke: kernels never launched on a main path: {idle}",
                   file=sys.stderr)

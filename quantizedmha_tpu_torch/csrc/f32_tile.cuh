@@ -1,13 +1,16 @@
-// Device code shared by flash_fwd.cu (its f32 kernel) and paged_prefill.cu:
-// one step of the f32 online softmax on the CUDA cores over a 64-row x
-// 64-key tile held in shared memory (and, through cp_async.cuh, the copies
-// that fill it).
+// Device code shared by paged_prefill.cu (its f32-q kernel) and flash_fwd.cu
+// (its f32 kernel at head_dim 256; at d <= 128 flash_fwd.cu's f32 route
+// runs six bf16 wgmma passes instead): one step of the f32 online softmax
+// on the CUDA cores over a 64-row x 64-key tile held in shared memory
+// (and, through cp_async.cuh, the copies that fill it).
 //
 // Layout of the tile step: 256 threads; thread (ty, tx) = (tid / 16, tid %
 // 16) owns rows 4ty..4ty+3, keys tx + 16j (j < 4) of S, and output columns
 // tx*VW + 16*VW*nv + w of its four rows. Products are true f32 FMAs (not
 // TF32) over float4 shared-memory reads; P goes through shared memory to
-// the P·V loop.
+// the P·V loop. The step is two halves, f32_tile_scores (S, the softmax,
+// P) and f32_tile_pv (acc += P·V), so that paged_prefill.cu can land V in
+// K's tile between them (d=256: three f32 tiles and P take 217 KB).
 
 #pragma once
 
@@ -55,18 +58,19 @@ struct F32Tile {
   using Vec = typename VecF<VW>::T;
 };
 
-// One tile step of the online softmax. qs: [64][ROW] q rows, already scaled;
-// kt, vt: [64][ROW] f32 K and V of the tile; ps: [64][PROW] scratch. m,
-// lpart and acc are this thread's running max, partial P sum and output.
-// score(i, key, s) turns the raw dot s of row i and tile key `key` into the
-// (softcapped, masked) score; p_of(key, pe) is what P·V takes for key's
-// probability pe. Rows whose running max is still the mask value (<=
-// mask_half) get p = 0; l sums the f32 p.
+// The score half of a tile step. qs: [64][ROW] q rows, already scaled;
+// kt: [64][ROW] f32 K of the tile; ps: [64][PROW] P, written here. m, lpart
+// and acc are this thread's running max, partial P sum and output (acc is
+// rescaled here). score(i, key, s) turns the raw dot s of row i and tile
+// key `key` into the (softcapped, masked) score; p_of(key, pe) is what P·V
+// takes for key's probability pe. Rows whose running max is still the mask
+// value (<= mask_half) get p = 0; l sums the f32 p. The caller syncs the
+// block before P is read (f32_tile_pv) or kt is written again.
 template <int D, typename Score, typename POf>
-__device__ __forceinline__ void f32_tile_step(const float* qs, const float* kt, const float* vt,
-                                              float* ps, float (&m)[4], float (&lpart)[4],
-                                              float (&acc)[4][D / 16], float mask_half,
-                                              Score score, POf p_of) {
+__device__ __forceinline__ void f32_tile_scores(const float* qs, const float* kt, float* ps,
+                                                float (&m)[4], float (&lpart)[4],
+                                                float (&acc)[4][D / 16], float mask_half,
+                                                Score score, POf p_of) {
   using T = F32Tile<D>;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   float s[4][4];
@@ -116,7 +120,15 @@ __device__ __forceinline__ void f32_tile_step(const float* qs, const float* kt, 
 #pragma unroll
     for (int c = 0; c < T::CPT; ++c) acc[i][c] *= alpha;
   }
-  __syncthreads();  // the P tile is complete
+}
+
+// The P·V half: acc += P·V over the tile's 64 keys. ps: the complete P
+// tile; vt: [64][ROW] f32 V of the tile.
+template <int D>
+__device__ __forceinline__ void f32_tile_pv(const float* ps, const float* vt,
+                                            float (&acc)[4][D / 16]) {
+  using T = F32Tile<D>;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll 2
   for (int k = 0; k < TILE_KEYS; k += 4) {
     float4 pr[4];

@@ -16,7 +16,10 @@
 //   2^-134), and a·b is the sum of the six bf16 products a0b0, a0b1, a1b0,
 //   a0b2, a1b1, a2b0 on wgmma with f32 accumulators, the small ones first.
 //   The three left out, a1b2, a2b1, a2b2, are at most 2^-24·|a||b| together
-//   (|a1| <= 2^-8|a|, |a2| <= 2^-17|a|). Softcap cap·tanh(s/cap) on the
+//   (|a1| <= 2^-8|a|, |a2| <= 2^-17|a|). At d=256 the f32 route takes
+//   true f32 FMAs on the CUDA cores instead (nothing left out), p =
+//   expf(x − m) and P·V summed straight into the f32 acc, key after key.
+//   Softcap cap·tanh(s/cap) on the
 //   scaled scores, then masked scores take
 //   the mask value: causal at global positions (kpos + kv_off <= qpos +
 //   q_off), the window ((qpos+q_off) - (kpos+kv_off) < window, OR'd with
@@ -44,7 +47,9 @@
 // with six bf16 passes a product: 1.6e12 tensor-core flops, 1.67 ms at 989
 // TFLOP/s, above the exponentials' 0.51 ms (true f32 FMAs on the CUDA
 // cores would be 4.1 ms at 67 TFLOP/s); its split pass moves 240 MB
-// (0.07 ms at 3.35 TB/s).
+// (0.07 ms at 3.35 TB/s). Gemma-2 served in f32 (d=256, 16 q over 8 kv
+// heads, S=2048 causal) is 3.4e10 f32 flops a layer, 0.51 ms on the CUDA
+// cores at 67 TFLOP/s, far above its 3.4e7 exponentials and 100 MB.
 //
 // What this design does about it. A block is (batch, kv head, q tile of
 // ROWS rows), whose rows hold all `group` q heads of the tile (48
@@ -89,6 +94,17 @@
 //   at d=64 (40 / 232), three stages. At d=128 a key tile is 32 keys (two
 //   planes a 16 KB tile, a stage 48 KB) and one consumer of 64 rows takes
 //   all the registers (no setmaxnreg).
+//   f32 at d=256 (flash_fwd_f32_d256_kernel): three planes of a 64 x 256
+//   operand take 96 KB, so a ring of them does not fit beside Q's, and the
+//   64 x 256 accumulator of one consumer is 128 registers a thread. So
+//   true f32 FMAs on the CUDA cores over f32_tile.cuh's tile step (the
+//   device code of paged_prefill.cu's f32-q kernel): a block of 256 threads
+//   is (batch, q head, 64 q rows); Q, K and V as [64][260] f32 tiles and P
+//   take 217 KB, one stage each of K and V filled by cp.async straight from
+//   the f32 tensors (no split pass, no scratch), K's next tile landing while
+//   P·V runs and V's while the next scores run. Tiles past the causal bound
+//   or wholly behind the window are never loaded (a sliding layer at 8192
+//   tokens does half the work); the heaviest q tiles run first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,6 +114,7 @@
 
 #include <type_traits>
 
+#include "f32_tile.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -914,6 +931,137 @@ __global__ void __launch_bounds__(F32Ring<D>::NTB, 1) flash_fwd_f32_kernel(const
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32 at d=256 (Gemma-2 served in f32): true f32 FMAs on the CUDA cores over
+// f32_tile.cuh's tile step. Three planes of a 64 x 256 operand do not fit a
+// ring beside Q's (a consumer's 64 x 256 accumulator alone is 128 registers
+// a thread), so this route reads f32 straight from the tensors: no split
+// pass, no scratch.
+
+// One block of 256 threads per (batch, q head, 64-row q tile): Q, K and V as
+// [64][260] f32 tiles and P beside them, 217,088 bytes, so one K stage and
+// one V stage. Two cp.async groups a key tile: K's next tile lands while
+// P·V runs and V's while the next scores run.
+struct F32D256 {
+  using T = F32Tile<256>;
+  static constexpr int K_OFF = TILE_ROWS * T::ROW;
+  static constexpr int V_OFF = K_OFF + TILE_KEYS * T::ROW;
+  static constexpr int P_OFF = V_OFF + TILE_KEYS * T::ROW;
+  static constexpr int BYTES = (P_OFF + TILE_ROWS * T::PROW) * 4;
+  static_assert(BYTES <= 232448, "shared memory of a block");
+};
+
+__global__ void __launch_bounds__(TILE_THREADS, 1) flash_fwd_f32_d256_kernel(const Params p) {
+  constexpr int D = 256;
+  using T = F32Tile<D>;
+  extern __shared__ __align__(16) float smf[];
+  float* qs = smf;
+  float* kt = smf + F32D256::K_OFF;
+  float* vt = smf + F32D256::V_OFF;
+  float* ps = smf + F32D256::P_OFF;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  // Heaviest first: the q tile is the grid's slow index, counted from the end.
+  const int heads = p.H * p.B;
+  const int ntiles = (p.Sq + TILE_ROWS - 1) / TILE_ROWS;
+  const int q0 = (ntiles - 1 - int(blockIdx.x / heads)) * TILE_ROWS;
+  const int h = blockIdx.x % p.H;
+  const int b = (blockIdx.x % heads) / p.H;
+  const int q_off = p.offs[2 * b], kv_off = p.offs[2 * b + 1];
+  const int first_q = q_off + q0, last_q = q_off + min(q0 + TILE_ROWS, p.Sq) - 1;
+  // The walk: the key tiles from t0 on that a row of the block can see.
+  auto next_run = [&](int t0) {
+    while (t0 < p.Skv && !range_should_run(p, first_q, last_q, kv_off + t0,
+                                           kv_off + min(t0 + TILE_KEYS, p.Skv) - 1))
+      t0 += TILE_KEYS;
+    return t0;
+  };
+  const size_t kv_base = (size_t(b) * p.Hkv + h / p.G) * p.Skv * D;
+  const float* kg = static_cast<const float*>(p.k) + kv_base;
+  const float* vg = static_cast<const float*>(p.v) + kv_base;
+  // A key tile of src into dst (rows past Skv zero-filled): one group.
+  auto issue = [&](const float* src, float* dst, int t0) {
+    for (int e = tid; e < TILE_KEYS * (D / 4); e += TILE_THREADS) {
+      const int r = e / (D / 4), c = e % (D / 4);
+      const bool ok = t0 + r < p.Skv;
+      cp_async16(dst + r * T::ROW + 4 * c, src + size_t(ok ? t0 + r : 0) * D + 4 * c, ok);
+    }
+    cp_async_commit();
+  };
+  int t0 = next_run(0);
+  if (t0 < p.Skv) {
+    issue(kg, kt, t0);
+    issue(vg, vt, t0);
+  }
+  // Q rows times sm_scale, one f32 product (the plain version's scaled_q);
+  // rows past Sq are 0.
+  const float* qg = static_cast<const float*>(p.q) + ((size_t(b) * p.H + h) * p.Sq + q0) * D;
+  for (int e = tid; e < TILE_ROWS * (D / 4); e += TILE_THREADS) {
+    const int r = e / (D / 4), c = e % (D / 4);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < p.Sq) x = *reinterpret_cast<const float4*>(qg + size_t(r) * D + 4 * c);
+    *reinterpret_cast<float4*>(qs + r * T::ROW + 4 * c) =
+        make_float4(x.x * p.sm_scale, x.y * p.sm_scale, x.z * p.sm_scale, x.w * p.sm_scale);
+  }
+  float m[4], lpart[4], acc[4][T::CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    lpart[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < T::CPT; ++c) acc[i][c] = 0.f;
+  }
+  auto p_of = [](int, float pe) { return pe; };
+  while (t0 < p.Skv) {
+    const int tn = next_run(t0 + TILE_KEYS);
+    cp_async_wait<1>();  // K of this tile landed (V's may still be in flight)
+    __syncthreads();
+    auto score = [&](int i, int key, float s) {
+      float x = s;
+      if (p.has_softcap) x = p.softcap * tanhf(x / p.softcap);
+      const int kloc = t0 + key;
+      return pair_valid(p, first_q + ty * 4 + i, kv_off + kloc, kloc) ? x : p.mask_value;
+    };
+    f32_tile_scores<D>(qs, kt, ps, m, lpart, acc, p.mask_half, score, p_of);
+    __syncthreads();  // P is complete and K's tile read
+    if (tn < p.Skv) issue(kg, kt, tn);
+    else cp_async_commit();  // an empty group keeps the count of the waits
+    cp_async_wait<1>();  // V of this tile landed (the next K may be in flight)
+    __syncthreads();
+    f32_tile_pv<D>(ps, vt, acc);
+    __syncthreads();  // V's tile and P read
+    if (tn < p.Skv) issue(vg, vt, tn);
+    else cp_async_commit();
+    t0 = tn;
+  }
+
+  // Epilogue: o = acc · l_inv in f32; lse = m + log l.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float l = row_sum16(lpart[i]);
+    const int r = ty * 4 + i;
+    if (q0 + r >= p.Sq) continue;
+    const size_t row = (size_t(b) * p.H + h) * p.Sq + q0 + r;
+    const float l_inv = l == 0.f ? 1.f : 1.f / l;
+    float* of = static_cast<float*>(p.o) + row * D;
+#pragma unroll
+    for (int c4 = 0; c4 < T::CPT; c4 += 4)  // columns 4tx + 16c4 .. + 3
+      *reinterpret_cast<float4*>(of + 4 * tx + 16 * c4) =
+          make_float4(acc[i][c4] * l_inv, acc[i][c4 + 1] * l_inv, acc[i][c4 + 2] * l_inv,
+                      acc[i][c4 + 3] * l_inv);
+    if (p.lse != nullptr && tx == 0) p.lse[row] = l > 0.f ? m[i] + logf(l) : -INFINITY;
+  }
+}
+
+cudaError_t launch_f32_d256(const Params& p, cudaStream_t stream) {
+  constexpr int smem = F32D256::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_d256_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = unsigned((p.Sq + TILE_ROWS - 1) / TILE_ROWS) * p.H * p.B;
+  flash_fwd_f32_d256_kernel<<<blocks, TILE_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 // One launch of a route's kernel: its blocks fold the GQA group into R's rows.
 template <typename R, typename Kernel>
 cudaError_t launch_ring(Kernel kernel, Params p, int smem, cudaStream_t stream) {
@@ -954,7 +1102,8 @@ cudaError_t launch(Params p, void* planes, int bf16, cudaStream_t stream) {
 }  // namespace
 
 // planes: the f32 route's scratch, 3·(B·H·Sq + 2·B·Hkv·Skv)·D bf16 (unused
-// in bf16). The f32 route launches the split pass and the main kernel.
+// in bf16 and at d=256). The f32 route launches the split pass and the main
+// kernel at d <= 128, one kernel at d=256.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* offs, void* o,
                          void* lse, void* planes, int B, int H, int Hkv, int Sq, int Skv, int D,
                          float sm_scale, int has_softcap, float softcap, int causal, int window,
@@ -987,10 +1136,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
     case 32: err = launch<32>(p, planes, bf16, s); break;
     case 64: err = launch<64>(p, planes, bf16, s); break;
     case 128: err = launch<128>(p, planes, bf16, s); break;
-    case 256:  // bf16 only: the f32 route is not built at d=256
-      if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
-      err = launch_bf16<256>(p, s);
-      break;
+    case 256: err = bf16 ? launch_bf16<256>(p, s) : launch_f32_d256(p, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);

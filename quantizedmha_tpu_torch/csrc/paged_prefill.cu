@@ -76,7 +76,7 @@
 // tiles (the end of the chunk) first. 164 KB of shared memory at d=128, one
 // block of 16 warps an SM. Every block writes its own rows in a fixed
 // reduction order: no atomics, the same bits every launch.
-//   d=256 (Gemma-2, bf16 q only): a consumer's 64 x 256 f32 accumulator
+//   d=256 (Gemma-2, bf16 q): a consumer's 64 x 256 f32 accumulator
 //   alone is 128 registers a thread, and each bf16 K/V stage is 64 KB. So
 //   one consumer of 64 rows (setmaxnreg 240) and the same two producers,
 //   each with one raw stage (it converts a tile before it issues the next
@@ -87,7 +87,9 @@
 // a 64-key tile is staged by cp.async, converted once to f32 beside its
 // per-key scales, and each thread computes 4 rows x 4 keys of S and 4 rows
 // x d/16 columns of O from float4 shared-memory reads (f32_tile.cuh's tile
-// step, shared with flash_fwd.cu's f32 kernel).
+// step, shared with flash_fwd.cu's f32 kernel at d=256). V is converted
+// into K's f32 tile once the tile's scores are done, so at d=256 (Gemma-2
+// served in f32) the two raw stages still fit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -175,11 +177,15 @@ __device__ __forceinline__ size_t scale_index(const Params& p, const Rows& s, in
 
 template <int D, bool INT4>
 struct F32Smem {
+  // At d=256 Q's, K's and V's f32 tiles and P would take 217 KB, and the
+  // raw stages another 32-64 KB: so V lands in K's tile (KV_OFF) once the
+  // scores are done (f32_tile_scores, then f32_tile_pv), 216.6 KB with INT8
+  // stages; the same at every d. (The other way out, a tile of 32 q rows,
+  // would read and convert every K/V tile twice as often.)
   static constexpr int ROW = F32Tile<D>::ROW;
   static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = ROWS * ROW;
-  static constexpr int V_OFF = K_OFF + BK * ROW;
-  static constexpr int P_OFF = V_OFF + BK * ROW;
+  static constexpr int KV_OFF = ROWS * ROW;
+  static constexpr int P_OFF = KV_OFF + BK * ROW;
   static constexpr int KS_OFF = P_OFF + ROWS * F32Tile<D>::PROW;
   static constexpr int VS_OFF = KS_OFF + BK;
   static constexpr int F32_BYTES = (VS_OFF + BK) * 4;
@@ -187,6 +193,7 @@ struct F32Smem {
   static constexpr int STAGE = BK * RB;  // bytes of one staged K or V tile
   static constexpr int BYTES = F32_BYTES + 4 * STAGE;  // + 2 K and 2 V stages
   static constexpr int CPR = RB / 16;   // 16-byte chunks of a stored row
+  static_assert(BYTES <= 232448, "shared memory of a block");
 };
 
 // One staged 16-byte chunk (chunk c of a stored row) to f32 in the tile's
@@ -218,8 +225,7 @@ __global__ void __launch_bounds__(NT) paged_prefill_f32_kernel(const Params p) {
 
   extern __shared__ __align__(16) float sm[];
   float* qs = sm + S::Q_OFF;
-  float* kf = sm + S::K_OFF;
-  float* vf = sm + S::V_OFF;
+  float* kvf = sm + S::KV_OFF;  // K's f32 tile, then V's
   float* ps = sm + S::P_OFF;
   float* kss = sm + S::KS_OFF;
   float* vss = sm + S::VS_OFF;
@@ -282,12 +288,11 @@ __global__ void __launch_bounds__(NT) paged_prefill_f32_kernel(const Params p) {
     __syncthreads();  // this stage landed; every thread is done with the last tile
     const int tn = next_run(p, rows, t0 + BK);
     if (tn < kend) issue(tn, buf ^ 1);
-    // int8 / int4 -> f32 tiles, and each key's scales (0 past the context).
+    // int8 / int4 -> K's f32 tile, and each key's scales (0 past the context).
     for (int e = tid; e < BK * S::CPR; e += NT) {
       const int r = e / S::CPR, c = e % S::CPR;
-      const size_t off = buf * S::STAGE + r * S::RB + 16 * c;
-      chunk_to_f32<D, INT4>(*reinterpret_cast<const int4*>(k8 + off), c, kf + r * S::ROW);
-      chunk_to_f32<D, INT4>(*reinterpret_cast<const int4*>(v8 + off), c, vf + r * S::ROW);
+      const int4 raw = *reinterpret_cast<const int4*>(k8 + buf * S::STAGE + r * S::RB + 16 * c);
+      chunk_to_f32<D, INT4>(raw, c, kvf + r * S::ROW);
     }
     if (tid < BK) {
       const int kpos = t0 + tid;
@@ -303,8 +308,16 @@ __global__ void __launch_bounds__(NT) paged_prefill_f32_kernel(const Params p) {
       if (p.has_softcap) x = p.softcap * tanhf(x / p.softcap);
       return key_visible(p, t0 + key, qpos[i], kend) ? x : p.mask_value;
     };
-    f32_tile_step<D>(qs, kf, vf, ps, m, lpart, acc, p.mask_half, score,
-                     [&](int key, float pe) { return pe * vss[key]; });
+    f32_tile_scores<D>(qs, kvf, ps, m, lpart, acc, p.mask_half, score,
+                       [&](int key, float pe) { return pe * vss[key]; });
+    __syncthreads();  // P is complete and K's tile read: V takes its place
+    for (int e = tid; e < BK * S::CPR; e += NT) {
+      const int r = e / S::CPR, c = e % S::CPR;
+      const int4 raw = *reinterpret_cast<const int4*>(v8 + buf * S::STAGE + r * S::RB + 16 * c);
+      chunk_to_f32<D, INT4>(raw, c, kvf + r * S::ROW);
+    }
+    __syncthreads();
+    f32_tile_pv<D>(ps, kvf, acc);
     buf ^= 1;
     t0 = tn;
   }
@@ -775,10 +788,7 @@ int dispatch(const Params& p, int D, int q_bf16, void* stream) {
     case 32: err = launch<32, INT4>(p, q_bf16 != 0, s); break;
     case 64: err = launch<64, INT4>(p, q_bf16 != 0, s); break;
     case 128: err = launch<128, INT4>(p, q_bf16 != 0, s); break;
-    case 256:  // bf16 q only: the f32 route is not built at d=256
-      if (!q_bf16) return static_cast<int>(cudaErrorInvalidValue);
-      err = launch_bf16<256, INT4>(p, s);
-      break;
+    case 256: err = launch<256, INT4>(p, q_bf16 != 0, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);

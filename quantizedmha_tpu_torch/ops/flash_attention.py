@@ -18,7 +18,11 @@ cores too, as the TPU's Precision.HIGHEST runs on its matrix unit: a split
 pass writes Q (scaled in f32), K and V as three bf16 planes each (a = a0 +
 a1 + a2 exactly), each product is the sum of six bf16 products (a0b0,
 a0b1, a1b0, a0b2, a1b1, a2b0), and P is split the same way for P·V; the
-terms left out are at most 2^-24·|a||b|. The TPU grid's shrunk windowed kv
+terms left out are at most 2^-24·|a||b|. At head_dim 256 (Gemma-2 served
+in f32) three bf16 planes of a tile do not fit, so the f32 kernel runs true
+f32 FMAs on the CUDA cores instead (`csrc/f32_tile.cuh`'s tile step, a block
+of 64 rows of one q head, f32 tiles of Q, K and V straight from the
+tensors: no split pass and no planes scratch). The TPU grid's shrunk windowed kv
 dimension and its ones-column l sum (`summode="mxu"`) are TPU
 devices with no counterpart: the only sum mode is "vpu" (l sums the f32
 P). Under autograd the call is a `torch.autograd.Function` whose backward
@@ -27,7 +31,8 @@ is `csrc/flash_bwd.cu`'s dK/dV and dQ kernels (TPU `_bwd_dkv_kernel`,
 bf16 the backward runs on the tensor cores with P and dS rounded to bf16
 as the operands of dV, dK and dQ (the TPU's Precision.DEFAULT), at head_dim
 256 too (Gemma-2's training path); in f32 it runs every product in f32
-(Precision.HIGHEST), at head_dim 256 not yet (it raises).
+(Precision.HIGHEST), at head_dim 256 not yet (it raises: ROADMAP.md queue
+2 item 3b).
 """
 
 from __future__ import annotations
@@ -46,16 +51,17 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
          + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 3
          + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
-# One launch counter per input dtype, both on the tensor cores (wgmma): bf16
-# in one pass, f32 in six bf16 passes after its split pass (one launch of
-# the C entry, counted once); both stand for `_fwd_kernel`.
+# One launch counter per input dtype: bf16 in one wgmma pass, f32 in six bf16
+# wgmma passes after its split pass (one launch of the C entry, counted
+# once) at head_dim <= 128 and in true f32 FMAs on the CUDA cores at 256;
+# both stand for `_fwd_kernel`.
 FLASH_FWD_BF16 = cuda_lib.CudaKernel("flash_fwd", "flash_fwd", _ARGS)
 FLASH_FWD_F32 = cuda_lib.CudaKernel("flash_fwd", "flash_fwd", _ARGS)
 _HEAD_DIMS = (32, 64, 128, 256)
-# head_dim 256 (Gemma-2) is built in bf16 only, forward and backward (the
-# serving and training paths'); the f32 forward and backward there are
-# still to build.
-_D256_TODO = "(ROADMAP.md queue 2, head_dim 256 off the serving path)"
+# head_dim 256 (Gemma-2): the forward in bf16 and f32, the backward in bf16
+# (the serving paths' and the bf16 training path's); the f32 backward there
+# is still to build.
+_D256_BWD_TODO = "(ROADMAP.md queue 2 item 3b, the f32 backward at head_dim 256)"
 
 
 def validate_masking(causal: bool, window, sinks: int) -> None:
@@ -180,7 +186,8 @@ def _flash_fwd_launch(q, k, v, offsets, *, sm_scale, causal, block_kv, window,
     """Checked operands of one kernel launch: (kernel, ctypes args,
     outputs, operands). block_kv is the plain version's step; the kernel
     picks its own tiles. The f32 route's scratch, Q's, K's and V's three
-    bf16 planes each, is the last operand."""
+    bf16 planes each, is the last operand (None in bf16 and at head_dim
+    256, whose f32 kernel reads the f32 tensors)."""
     del block_kv
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -190,9 +197,6 @@ def _flash_fwd_launch(q, k, v, offsets, *, sm_scale, causal, block_kv, window,
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k and v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D == 256 and q.dtype == torch.float32:
-        raise NotImplementedError(f"the CUDA f32 flash attention at head_dim 256 is not "
-                                  f"built yet {_D256_TODO}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     bf16 = q.dtype == torch.bfloat16
     # The kernel multiplies by the scale in q's dtype: round it there first.
@@ -200,7 +204,7 @@ def _flash_fwd_launch(q, k, v, offsets, *, sm_scale, causal, block_kv, window,
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if save_residuals else None)
-    planes = (None if bf16 else
+    planes = (None if bf16 or D == 256 else
               torch.empty(3 * (q.numel() + k.numel() + v.numel()), dtype=torch.bfloat16,
                           device=q.device))
     ptr = cuda_lib.ptr
@@ -353,8 +357,8 @@ def _flash_bwd_launch(q, k, v, o, lse, do, offsets, dlse=None, *, sm_scale, caus
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
     if D == 256 and q.dtype == torch.float32:
-        raise NotImplementedError("the CUDA f32 flash backward at head_dim 256 is not built "
-                                  "yet (ROADMAP.md queue 2 item 3)")
+        raise NotImplementedError(f"the CUDA f32 flash backward at head_dim 256 is not built "
+                                  f"yet {_D256_BWD_TODO}")
     if any(x.dtype != q.dtype for x in (k, v, do)):
         raise ValueError("q, k, v and the output gradient must share a dtype")
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))

@@ -23,7 +23,9 @@ sum_j p_j |v_j| / l from the plain version; l sums the f32 p, so lse only
 sees the summation order. The bound of the heaviest serving chunk (2048
 rows at 4096 of context, Llama-3-8B heads) is its bf16 operations, 0.174
 ms on an H100. f32 q runs true f32 FMAs on the CUDA cores, the plain
-version up to the summation order.
+version up to the summation order, at every head dim (at 256, Gemma-2
+served in f32, V's f32 tile takes K's place once a tile's scores are done,
+so that the raw page stages still fit in shared memory).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ PAGED_PREFILL_INT4 = cuda_lib.CudaKernel(
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_HEAD_DIMS = (32, 64, 128, 256)  # 256 (Gemma-2): bf16 q only
+_HEAD_DIMS = (32, 64, 128, 256)  # 256: Gemma-2, bf16 and f32 q
 _MAX_GROUP = 64  # the kernel holds a whole GQA group in its 64 q rows
 # The paged prefill kernels have no backward, in the JAX package as here:
 # jax.grad through its paged_prefill_attention(_int4) raises.
@@ -169,10 +171,6 @@ def _paged_prefill_launch(q, k_pages, v_pages, k_scales, v_scales, lengths, q_st
                          f"multiples of 16, got {P}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if D == 256 and q.dtype == torch.float32:
-        raise NotImplementedError("the CUDA paged prefill with f32 q at head_dim 256 is not "
-                                  "built yet (ROADMAP.md queue 2, head_dim 256 off the "
-                                  "serving path)")
     if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
         raise ValueError("k/v pages must be int8")
     q = q.contiguous()

@@ -41,6 +41,7 @@ import torch
 import chip_smoke
 import test_torch_flash_fwd_tiles as bf16_tiles
 from quantizedmha_tpu_torch.ops import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RING = {32: (192, 64), 64: (128, 64), 128: (64, 32)}  # block rows, keys a tile
 STAGES = 3  # the ring of K/V stages

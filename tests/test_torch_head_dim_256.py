@@ -1,12 +1,12 @@
 """head_dim 256 (Gemma-2-9B) on the port's attention kernels: the CUDA
-wrappers admit it for the routes the serving path takes (rows 3 and 12,
-the paged decode; rows 10 and 11, the paged prefill with bf16 q; row 5,
-the bf16 flash forward; row 1, the INT8 flash forward with int8 P) and the
-training path's (rows 6 and 7, the bf16 flash backward), every other
-route raises and names its ROADMAP item (row 2, the int8 flash with bf16
-P, and the f32 backward, their own), and the plain versions, which the
-kernels are held to on the card, agree with the JAX package's Pallas
-kernels (interpret mode) at d=256.
+wrappers admit it for the routes the serving paths take (rows 3 and 12,
+the paged decode; rows 10 and 11, the paged prefill with bf16 and f32 q;
+row 5, the flash forward in bf16 and f32; row 1, the INT8 flash forward
+with int8 P) and the bf16 training path's (rows 6 and 7, the bf16 flash
+backward), every other route raises and names its ROADMAP item (row 2,
+the int8 flash with bf16 P, and the f32 backward), and the plain versions,
+which the kernels are held to on the card, agree with the JAX package's
+Pallas kernels (interpret mode) at d=256.
 
 Tolerances as in test_torch_decode.py, test_torch_paged_prefill.py and
 test_torch_flash.py: f32 from the same int8 pages, summation order only,
@@ -38,15 +38,16 @@ from quantizedmha_tpu_torch.ops.flash_attention import _offsets
 jfa = importlib.import_module("quantizedmha_tpu.ops.flash_attention")
 D = 256
 TOL = 1e-5
-ITEM = "ROADMAP.md queue 2, head_dim 256 off the serving path"
 ROW2_ITEM = "ROADMAP.md queue 2 item 2"
-BWD_F32_ITEM = "ROADMAP.md queue 2 item 3"
+BWD_F32_ITEM = "ROADMAP.md queue 2 item 3b"
 
 
 def test_serving_routes_admit_head_dim_256(monkeypatch):
-    """Every serving route's wrapper takes d=256, the INT8 flash forward
-    with int8 P among them: its launch is built (no card needed to build
-    it; the stream is stubbed) for row 1's kernel at D = 256."""
+    """Every serving route's wrapper takes d=256 and builds its launch (no
+    card needed to build it; the stream is stubbed): the INT8 flash
+    forward with int8 P (row 1), the f32 flash forward (row 5's CUDA-core
+    route, with no planes scratch) and the paged prefill with f32 q, over
+    INT8 pages (row 10) and INT4 pages (row 11)."""
     for mod in (tdec, tpp, tfa, tfa8):
         assert 256 in mod._HEAD_DIMS, mod.__name__
     monkeypatch.setattr(cuda_lib, "stream_of", lambda t: 0)
@@ -58,26 +59,37 @@ def test_serving_routes_admit_head_dim_256(monkeypatch):
         window=None, softcap=50.0, sinks=0, mode=0, save_residuals=True)
     assert kernel is tfa8.FLASH_INT8_P and kernel.launches == 0
     assert args[14] == D and args[-3] == 0 and o.shape == q.shape and lse.shape == (1, 2, 8)
-
-
-def _raises_item(fn, *args, **kw):
-    with pytest.raises(NotImplementedError, match=ITEM):
-        fn(*args, **kw)
+    qf = q.float()
+    kv = torch.zeros((1, 1, 8, D))
+    masks = dict(window=None, softcap=50.0, sinks=0)
+    kernel, args, (o, lse), operands = tfa._flash_fwd_launch(
+        qf, kv, kv, _offsets(0, 0, 1, q.device), sm_scale=D**-0.5, causal=True, block_kv=8,
+        save_residuals=True, **masks)
+    assert kernel is tfa.FLASH_FWD_F32 and kernel.launches == 0
+    assert operands[-1] is None and args[6] is None  # no bf16 planes at d=256
+    assert args[12] == D and args[-2] == 0 and o.dtype == torch.float32
+    one = torch.ones(1, dtype=torch.int32)
+    tables = torch.ones((1, 2), dtype=torch.int32)
+    for int4, kern in ((False, tpp.PAGED_PREFILL), (True, tpp.PAGED_PREFILL_INT4)):
+        pages = torch.zeros((1, 3, 16, D // 2 if int4 else D), dtype=torch.int8)
+        scales = torch.ones((1, 3, 4) if int4 else (1, 3))
+        kernel, args, (o, lse), _ = tpp._paged_prefill_launch(
+            qf, pages, pages, scales, scales, one * 8, one * 0, tables, sm_scale=D**-0.5,
+            save_residuals=True, int4=int4, **masks)
+        assert kernel is kern and kernel.launches == 0
+        assert args[17] == D and args[-2] == 0 and o.dtype == torch.float32
 
 
 def test_routes_left_out_raise_naming_their_item(monkeypatch):
-    """The f32 flash forward, the f32 flash backward (by its own item), the
-    paged prefill with f32 q and the INT8 flash forward with bf16 P (row 2,
-    by its own item) refuse head_dim 256 before any launch (on the CPU
-    tensors here, as they would on the card). The bf16 flash backward
-    (rows 6 and 7, the training path's) builds its launches at D = 256
-    (the stream stubbed)."""
+    """The f32 flash backward and the INT8 flash forward with bf16 P (row
+    2) refuse head_dim 256 before any launch, each naming its ROADMAP item
+    (on the CPU tensors here, as they would on the card). The bf16 flash
+    backward (rows 6 and 7, the training path's) builds its launches at D =
+    256 (the stream stubbed)."""
     q = torch.zeros((1, 2, 8, D))
     kv = torch.zeros((1, 1, 8, D))
     offs = _offsets(0, 0, 1, q.device)
     masks = dict(window=None, softcap=None, sinks=0)
-    _raises_item(tfa._flash_fwd_launch, q, kv, kv, offs, sm_scale=D**-0.5, causal=True,
-                 block_kv=8, save_residuals=False, **masks)
     with pytest.raises(NotImplementedError, match=BWD_F32_ITEM):
         tfa._flash_bwd_launch(q, kv, kv, q, torch.zeros((1, 2, 8)), q, offs, sm_scale=D**-0.5,
                               causal=True, **masks)
@@ -88,12 +100,6 @@ def test_routes_left_out_raise_naming_their_item(monkeypatch):
                                            causal=True, **masks)
     assert [k for k, _ in launches] == [tfa.FLASH_BWD_DKV, tfa.FLASH_BWD_DQ]
     assert all(args[-9] == D and args[-2] == 1 for _, args in launches)
-    pages = torch.zeros((1, 3, 16, D), dtype=torch.int8)
-    scales = torch.ones((1, 3))
-    one = torch.ones(1, dtype=torch.int32)
-    _raises_item(tpp._paged_prefill_launch, q, pages, pages, scales, scales, one * 8, one * 0,
-                 torch.ones((1, 2), dtype=torch.int32), sm_scale=D**-0.5,
-                 save_residuals=False, **masks)
     k8 = torch.zeros((1, 1, 8, D), dtype=torch.int8)
     with pytest.raises(NotImplementedError, match=ROW2_ITEM):  # row 2: bf16 P
         tfa8._flash_int8_launch(q, k8, torch.ones((1, 1, 1)), k8, torch.ones((1, 1, 1)), offs,
@@ -193,7 +199,7 @@ def test_planted_faults_name_committed_lines():
     csrc = pathlib.Path(tdec.__file__).resolve().parents[1] / "csrc"
     d256 = [f for f in chip_smoke.PLANTED_FAULTS if f[1].startswith("d=256")]
     assert {f[0] for f in d256} == {"paged_decode.cu", "paged_prefill.cu", "mma_bf16.cuh",
-                                    "flash_int8_fwd.cu", "flash_bwd.cu"}
+                                    "flash_int8_fwd.cu", "flash_bwd.cu", "flash_fwd.cu"}
     assert sum(f[0] == "flash_bwd.cu" for f in d256) >= 3  # rows 6-7's d=256 kernels
     for fname, what, old, new, *only in chip_smoke.PLANTED_FAULTS:
         assert (csrc / fname).read_text().count(old) == 1 and new != old, what

@@ -54,6 +54,7 @@ from quantizedmha_tpu_torch.serving.sharded import (
     tp_param_specs,
 )
 from quantizedmha_tpu_torch.serving.speculative import SpecConfig, SpecDecodeEngine
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORLD = 4
 TPS = (2, 4)

@@ -40,6 +40,7 @@ from quantizedmha_tpu_torch.ops import w4_matmul as tm
 from quantizedmha_tpu_torch.quant import weights as tw
 from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
 from test_torch_llama import assert_int8_close, to_numpy_tree
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _weights(shape, seed):
