@@ -18,7 +18,10 @@ result line:
            paths and on the two mixed-cache compositions (INT8 and INT4
            partials merged by lse) against their plain compositions; the
            backward's two kernels at the training step's attention shape
-           and on 16 small cases (5 at d=256), each pair launched twice (the same bits
+           (bf16, and f32 in each entry's "train_f32") and on 21 small cases
+           (10 at d=256, 5 of them in f32) and 2 f32 d=256 cases on a grid
+           that makes the raw dots exact (FLASH_BWD_GRID: a bf16-rounded P
+           or dS shows there), each pair launched twice (the same bits
            both times, or the check fails), and so is every INT8 flash
            launch (both numerics modes at their main shapes, the int8-P
            one at serve's 256-token, serve_w4's 512-token and the prefill
@@ -40,7 +43,9 @@ result line:
            tokens, "sliding": 8192 under the 4096 window, "f32": f32 q),
            rows 6 and 7 at train_gemma2's ("full": 8192 tokens causal,
            "sliding": under the 4096 window, both softcap 50 with a dlse;
-           SDPA's bf16 backward beside them), rows 5, 10 and 11 in f32 at
+           SDPA's bf16 backward beside them) and in f32 at
+           train_gemma2_f32's ("full_f32", "sliding_f32"; SDPA's f32
+           backward beside them), rows 5, 10 and 11 in f32 at
            serve_gemma2_f32's ("full_f32", "sliding_f32": row 5 at 2048
            tokens causal and at 8192 under the 4096 window, rows 10-11
            with f32 q at a 2048-row chunk at 4096; SDPA in f32 beside
@@ -245,6 +250,18 @@ result line:
            every leaf's gradient within 2^-4 of its largest entry of the
            float golden's (attention_impl="reference"). Prints the losses,
            ms a step, tokens/s after the first step, peak memory.
+  train_gemma2_f32  the same in f32 (dtype=torch.float32), depth cut to 4
+           layers (2 sliding, 2 full: the memory reckoning at
+           TRAIN_GEMMA2_F32): every forward through row 5's f32 route and
+           every backward through rows 6 and 7's f32 kernels at head_dim 256.
+           Gates: exact launches (4 a step of each of rows 5-7, none of the
+           bf16 forward or INT8 kernels), every backward launch built at
+           head_dim 256 with the bf16 flag 0, finite loss and weights, step
+           0's loss within 1e-6 of loss_fn without grad, the loss falling
+           every step; then 2 layers on 5120 tokens, every leaf's gradient
+           within 2^-10 of its largest entry of the float golden's. Prints
+           the losses, ms a step, tokens/s after the first step, the
+           weights' GB, peak memory and the card.
   train_parallel  training across ranks: one spawn of 4 ranks on GPU 0
            joined by gloo (4 processes time-share the card and every
            collective crosses the host: not multi-GPU speeds), three jobs,
@@ -358,7 +375,8 @@ Launch counts: every kernel wrapper counts its launches; the counts are
 zeroed just before each main path (each solve rung, the harness run,
 serve, serve's prefill bench, serve_w8a8 and its prefill bench, each
 serve_w4 batch, serve_flash, serve_mixed, serve_hybrid, serve_hybrid_mixed,
-serve_gemma2_f32's two runs, serve_spec's four runs, train's and train_gemma2's steps, each of
+serve_gemma2_f32's two runs, serve_spec's four runs, train's, train_gemma2's and
+train_gemma2_f32's steps, each of
 parallel's rings and its
 one-rank group, and in every rank of serve_tp's, serve_cp's and
 train_parallel's runs: the summary adds rank 0's) runs and read just after,
@@ -391,8 +409,8 @@ PREFILL_BENCH_LEN = 2048  # serving_bench --prefill's prompt (phase_serve)
 PHASES = ("build", "kernels", "solve", "harness", "serve", "serve_w8a8", "serve_w4",
           "serve_flash", "serve_mixed", "serve_hybrid", "serve_hybrid_mixed",
           "serve_gemma2_f32", "serve_spec",
-          "serve_hf", "train", "train_gemma2", "train_parallel", "parallel", "serve_tp",
-          "serve_cp", "faults")
+          "serve_hf", "train", "train_gemma2", "train_gemma2_f32", "train_parallel", "parallel",
+          "serve_tp", "serve_cp", "faults")
 
 
 def emit(obj) -> None:
@@ -1742,8 +1760,8 @@ def _gemma2_int8p(g):
 def _gemma2_kernels():
     """Rows 3, 5 (bf16) and 10 (bf16 q) at serve_hybrid's shapes
     (GEMMA2_ATTN), each layer kind: {kernel name: {"full": sub-entry,
-    "sliding": sub-entry}}, and rows 6 and 7 at train_gemma2's
-    (_gemma2_bwd); row 10 also at serve_spec's verify shape
+    "sliding": sub-entry}}, and rows 6 and 7 at train_gemma2's and, in
+    f32, train_gemma2_f32's (_gemma2_bwd); row 10 also at serve_spec's verify shape
     ("verify": VERIFY_COVERAGE[1], a full layer), rows 11 and 12 at
     serve_hybrid_mixed's full layer ("full": the long prompt's last chunk
     in the INT4 frame; the decode batch of four at its final INT4
@@ -1902,11 +1920,12 @@ def _gemma2_verify_and_int4(g, out):
         library=lambda: _sdpa_decode(q, *clean, lengths, tables))
 
 
-def _f32_bounds(sub, nbytes, passes, pairs, D):
+def _f32_bounds(sub, nbytes, passes, pairs, D, products=2):
     """Complete an f32 d=256 sub-entry whose bound_ms counts `passes` bf16
     passes on the tensor cores: the bound on the CUDA cores' f32 FMAs (the
-    kernel's own route) beside it, and the kernel's time over each."""
-    cc_ms, cc_by = bound(nbytes, {"fp32": 4 * pairs * D, "exp": pairs})
+    kernel's own route, `products` products of 2·D flop a visible pair)
+    beside it, and the kernel's time over each."""
+    cc_ms, cc_by = bound(nbytes, {"fp32": 2 * products * pairs * D, "exp": pairs})
     sub.update({"bound_tensor_core_passes": passes, "bound_cuda_cores_ms": cc_ms,
                 "bound_cuda_cores_by": cc_by, "over_bound": sub["ms"] / sub["bound_ms"],
                 "over_bound_cuda_cores": sub["ms"] / cc_ms})
@@ -2509,7 +2528,7 @@ def _w4_kernels(g):
 
 
 def flash_bwd_tolerances(q, k, v, o, lse, do, dlse, offsets, grads, *, sm_scale, causal,
-                         window, softcap, sinks):
+                         window, softcap, sinks, exact_dots=False):
     """Per-element tolerances (dq, dk, dv) of the two backward kernels
     against _flash_bwd_plain on the same inputs (o, lse, di and dlse equal
     on both sides: the wrapper's di prepass is the plain version's op).
@@ -2537,7 +2556,15 @@ def flash_bwd_tolerances(q, k, v, o, lse, do, dlse, offsets, grads, *, sm_scale,
     error grows by 2^-7 |p| (in dV) and 2^-7 |ds| (in dK and dQ), carried
     through the three sums as A is (times |dO|, |q| and |k|). Rounding
     never moves a value by more than half an ulp, so the magnitudes in the
-    summation-order terms grow by at most 2^-8, far inside that term."""
+    summation-order terms grow by at most 2^-8, far inside that term.
+
+    exact_dots: q, k, v and dO lie on a grid on which every product and
+    partial sum of the raw dots Q·K and dO·V is exact in f32 (small
+    multiples of a power of two), so both sides compute them exactly in any
+    order: e_s keeps one rounding of s·sm_scale, u |q||k|max sm_scale (and
+    tanh's ulps), and e_dp is u |dO||v|max. These cases let the f32 gate see
+    a loss of precision after the dots (P or dS rounded to bf16) that the
+    2(D+16) u bound of two summation orders would hide at d=256."""
     import torch
     from quantizedmha_tpu_torch.ops import flash_attention as fa
     u = 2.0**-24
@@ -2556,13 +2583,14 @@ def flash_bwd_tolerances(q, k, v, o, lse, do, dlse, offsets, grads, *, sm_scale,
                                   softcap=softcap, sinks=sinks)
         kn = kh.norm(dim=-1).amax(dim=-1)[:, None, None]          # [B, 1, 1]
         vn = vh.norm(dim=-1).amax(dim=-1)[:, None, None]
-        e_s = (2 * D + 33) * u * qh.norm(dim=-1) * kn * sm_scale  # [B, G, Sq]
+        dot_u = u if exact_dots else 2 * (D + 16) * u
+        e_s = (dot_u + u) * qh.norm(dim=-1) * kn * sm_scale         # [B, G, Sq]
         if softcap is not None:
             e_s = e_s + 2.0**-22 * softcap
         lse_h = torch.nan_to_num(lse[:, grp].float().abs(), posinf=0.0)
         delta = 1.01 * e_s + 2.0**-22 * (1.0 + lse_h) + 2.0**-21
         a = delta + 4 * u + (2.0 * e_s / softcap if softcap is not None else 0.0)
-        e_dp = 2 * (D + 16) * u * doh.norm(dim=-1) * vn
+        e_dp = dot_u * doh.norm(dim=-1) * vn
         A = p * (sm_scale * a[..., None] * (dp - di[:, grp, :, None]).abs()
                  + sm_scale * e_dp[..., None])
         e_p = p * delta[..., None]
@@ -2583,17 +2611,26 @@ def flash_bwd_tolerances(q, k, v, o, lse, do, dlse, offsets, grads, *, sm_scale,
 
 
 def _flash_bwd_check(q, k, v, offsets, do, dlse=None, *, causal, window=None, sinks=0,
-                     softcap=None):
-    """The float flash forward on the card (its o and lse), then the two
-    backward launches against _flash_bwd_plain: (kernel grads, plain grads,
-    [dq, dk, dv] err_over_tol, [launch of dK/dV, of dQ], plain call, lse,
-    whether a second pair of launches gave the same bits)."""
+                     softcap=None, exact_dots=False):
+    """The float flash forward on the card (its o and lse, held to its plain
+    version under flash_fwd_tolerances: the residuals the backward runs
+    on), then the two backward launches against _flash_bwd_plain
+    (flash_bwd_tolerances, with exact_dots for inputs on its grid): (kernel
+    grads, plain grads, [dq, dk, dv] err_over_tol, [launch of dK/dV, of dQ],
+    plain call, lse, whether a second pair of launches gave the same bits,
+    the forward's [o, lse] err_over_tol)."""
     import torch
     from quantizedmha_tpu_torch.ops import flash_attention as fa
     sm = q.shape[-1] ** -0.5
     kw = dict(sm_scale=sm, causal=causal, window=window, softcap=softcap, sinks=sinks)
-    o, lse = fa._flash_fwd_cuda(q, k, v, offsets, block_kv=min(1024, k.shape[2]),
-                                save_residuals=True, **kw)
+    bkv = min(1024, k.shape[2])
+    o, lse = fa._flash_fwd_cuda(q, k, v, offsets, block_kv=bkv, save_residuals=True, **kw)
+    p_o, p_lse = fa._flash_fwd_plain(q, k, v, offsets, block_kv=bkv, save_residuals=True, **kw)
+    w_abs = fa._flash_fwd_plain(q, k, v.abs(), offsets, block_kv=bkv, save_residuals=False, **kw)
+    tol_o, tol_lse = flash_fwd_tolerances(q, k, v, p_o, p_lse, w_abs, sm_scale=sm,
+                                          softcap=softcap)
+    fwd = [err_over_tol(o, p_o, tol_o), err_over_tol(lse, p_lse, tol_lse)]
+    del p_o, p_lse, w_abs, tol_o, tol_lse
     launches, grads, operands = fa._flash_bwd_launch(q, k, v, o, lse, do, offsets, dlse, **kw)
     for kernel, args in launches:
         kernel(*args)
@@ -2604,14 +2641,17 @@ def _flash_bwd_check(q, k, v, offsets, do, dlse=None, *, causal, window=None, si
     launches = [lambda kernel=kernel, args=args, keep=operands: kernel(*args)
                 for kernel, args in launches]
     plain = fa._flash_bwd_plain(q, k, v, o, lse, do, offsets, dlse, **kw)
-    tols = flash_bwd_tolerances(q, k, v, o, lse, do, dlse, offsets, plain, **kw)
+    tols = flash_bwd_tolerances(q, k, v, o, lse, do, dlse, offsets, plain, exact_dots=exact_dots,
+                                **kw)
     ratios = [err_over_tol(g, p, t) for g, p, t in zip(grads, plain, tols)]
     return (grads, plain, ratios, launches,
-            lambda: fa._flash_bwd_plain(q, k, v, o, lse, do, offsets, dlse, **kw), lse, same_bits)
+            lambda: fa._flash_bwd_plain(q, k, v, o, lse, do, offsets, dlse, **kw), lse, same_bits,
+            fwd)
 
 
-def _sdpa_bwd(q, k, v, do, *, is_causal, attn_mask=None):
-    """(ms, backend) of SDPA's backward in bf16 on these inputs, K/V
+def _sdpa_bwd(q, k, v, do, *, is_causal, attn_mask=None, dtype=None):
+    """(ms, backend) of SDPA's backward in bf16 (or `dtype`: in f32 only the
+    memory-efficient backend takes it, TF32 off) on these inputs, K/V
     expanded to the q heads beforehand (untimed): the time of
     torch.autograd.grad through one call minus the time of the call alone,
     the first of the flash, memory-efficient and cuDNN backends that takes
@@ -2620,10 +2660,11 @@ def _sdpa_bwd(q, k, v, do, *, is_causal, attn_mask=None):
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    dtype = dtype or torch.bfloat16
     group = q.shape[1] // k.shape[1]
-    qb, kb, vb = (x.to(torch.bfloat16).repeat_interleave(r, dim=1).detach().requires_grad_()
+    qb, kb, vb = (x.to(dtype).repeat_interleave(r, dim=1).detach().requires_grad_()
                   for x, r in ((q, 1), (k, group), (v, group)))
-    dob = do.to(torch.bfloat16)
+    dob = do.to(dtype)
 
     def fwd():
         if attn_mask is not None:
@@ -2661,7 +2702,7 @@ def _flash_bwd_cases(g):
     q = torch.randn((B, H, S, D), generator=g, device="cuda").to(bf)
     k, v = torch.randn((2, B, Hkv, S, D), generator=g, device="cuda").to(bf)
     do = torch.randn((B, H, S, D), generator=g, device="cuda").to(bf)
-    grads, plain, ratios, launches, plain_call, _, same_bits = _flash_bwd_check(
+    grads, plain, ratios, launches, plain_call, _, same_bits, fwd = _flash_bwd_check(
         q, k, v, _offsets(0, 0, B, q.device), do, causal=True)
     plain_ms = cuda_ms(plain_call, iters=1, warmup=1)
     lib_ms, backend = _sdpa_bwd(q, k, v, do, is_causal=True)
@@ -2685,58 +2726,109 @@ def _flash_bwd_cases(g):
             "max_abs_err": max((grads[i].float() - plain[i].float()).abs().max().item()
                                for i in idx),
             "err_over_tol": max(ratios[i] for i in idx), "same_bits_twice": same_bits,
-            "ok": max(ratios[i] for i in idx) <= 1.0 and same_bits, "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "forward_err_over_tol": fwd,
+            "ok": max([ratios[i] for i in idx] + fwd) <= 1.0 and same_bits,
+            "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms, "library_backend": backend,
             "library_note": ("SDPA backward in bf16 (K/V expanded to the q heads): one call "
                              "computes dQ, dK and dV; plain_ms is _flash_bwd_plain, both "
                              "kernels' work")})
+    _train_f32_bwd(entries)
     return entries
 
 
+def _bwd_subs(check, q, k, *, dlse, shape, pairs, lib):
+    """Rows 6 and 7's sub-entries of one _flash_bwd_check on inputs q, k
+    (with a dlse cotangent or not): {kernel name: sub-entry} with its check
+    (the same bits twice; the forward behind it, row 5 with lse, held to its
+    plain version, "forward_err_over_tol"), kernel / plain / library times
+    (lib: (ms, backend)) and the bound over `pairs` visible pairs: one bf16
+    pass of the four (dK/dV) or three (dQ) products on the tensor cores; in
+    f32 six, beside their true f32 FMAs on the CUDA cores (_f32_bounds)."""
+    import torch
+    grads, plain, ratios, launches, plain_call, _, same_bits, fwd = check
+    D, es = q.shape[-1], q.element_size()
+    passes = 6 if q.dtype == torch.float32 else 1  # bf16 passes a product
+    rows = 2 * q.numel() * es                        # q and dO
+    kv = 2 * k.numel() * es                          # k and v (dK, dV the same)
+    stats = (3 if dlse else 2) * (q.numel() // D) * 4  # lse, di (and dlse), f32
+    out = {}
+    for name, idx, products, nbytes, launch in (
+            ("flash_bwd_dkv", (1, 2), 4, rows + kv + stats + kv, launches[0]),
+            ("flash_bwd_dq", (0,), 3, rows + kv + stats + q.numel() * es, launches[1])):
+        r = [ratios[i] for i in idx] + ([] if same_bits else [float("inf")])
+        sub = _gemma2_sub(
+            torch.stack([grads[i] for i in idx]), torch.stack([plain[i] for i in idx]), r,
+            launch, plain_call, shape=shape, nbytes=nbytes,
+            ops={"bf16": passes * 2 * products * pairs * D, "exp": pairs}, library=lambda: lib)
+        sub["forward_err_over_tol"] = fwd
+        sub["ok"] = sub["ok"] and max(fwd) <= 1.0
+        if passes == 6:
+            _f32_bounds(sub, nbytes, passes, pairs, D, products=products)
+        out[name] = sub
+    return out
+
+
+def _train_f32_bwd(entries):
+    """The f32 route of rows 6 and 7 at d <= 128 (no main path: train runs
+    bf16) at BWD_MAIN's shape, causal, from its own generator: each entry's
+    "train_f32" sub-entry (_bwd_subs, SDPA's f32 backward)."""
+    import torch
+    from quantizedmha_tpu_torch.ops.flash_attention import _offsets
+    B, H, Hkv, S, D = (BWD_MAIN[x] for x in ("B", "H", "Hkv", "S", "D"))
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q = torch.randn((B, H, S, D), generator=g, device="cuda")
+    k, v = torch.randn((2, B, Hkv, S, D), generator=g, device="cuda")
+    do = torch.randn((B, H, S, D), generator=g, device="cuda")
+    check = _flash_bwd_check(q, k, v, _offsets(0, 0, B, q.device), do, causal=True)
+    lib = _sdpa_bwd(q, k, v, do, is_causal=True, dtype=torch.float32)
+    subs = _bwd_subs(check, q, k, dlse=False, shape=dict(BWD_MAIN, causal=True, dtype="float32"),
+                     pairs=B * H * _visible_pairs(S, S, True), lib=lib)
+    for e in entries:
+        e["train_f32"] = subs[e["name"]]
+        e["ok"] = e["ok"] and e["train_f32"]["ok"]
+
+
 def _gemma2_bwd(g):
-    """Rows 6 and 7 at d=256, train_gemma2's attention (GEMMA2_ATTN: 16 q
-    over 8 kv heads, sm_scale 256^-0.5, softcap 50) at Gemma-2's 8192
-    tokens, bf16, with a seeded random dO and a dlse cotangent: "full"
-    (causal) and "sliding" (the 4096 window). Each pair launched twice (the
-    same bits), held to _flash_bwd_plain within flash_bwd_tolerances; SDPA's
-    bf16 backward at the same shape (no softcap: it has none; the window
-    in its mask) as the library time. {kernel name: {kind: sub-entry}}."""
+    """Rows 6 and 7 at d=256, train_gemma2's and train_gemma2_f32's
+    attention (GEMMA2_ATTN: 16 q over 8 kv heads, sm_scale 256^-0.5,
+    softcap 50) at Gemma-2's 8192 tokens with a seeded random dO and a dlse
+    cotangent: "full" (causal) and "sliding" (the 4096 window) in bf16,
+    "full_f32" and "sliding_f32" in f32, each through _bwd_subs: launched
+    twice (the same bits), held to _flash_bwd_plain within
+    flash_bwd_tolerances, the forward behind it (row 5 at train_gemma2's
+    and train_gemma2_f32's shape, with lse) held to its plain version;
+    SDPA's backward at the same shape and dtype (no softcap: it has none;
+    the window in its mask; f32 on the memory-efficient backend) as the
+    library time. {kernel name: {kind: sub-entry}}."""
     import torch
     from quantizedmha_tpu_torch.ops.flash_attention import _offsets
     ga = GEMMA2_ATTN
     Hq, Hkv, D, cap = ga["Hq"], ga["Hkv"], ga["D"], ga["softcap"]
     S = TRAIN_GEMMA2["tokens"]
     out = {"flash_bwd_dkv": {}, "flash_bwd_dq": {}}
-    for kind, window in (("full", None), ("sliding", ga["window"])):
-        q = torch.randn((1, Hq, S, D), generator=g, device="cuda").to(torch.bfloat16)
-        k, v = torch.randn((2, 1, Hkv, S, D), generator=g, device="cuda").to(torch.bfloat16)
-        do = torch.randn((1, Hq, S, D), generator=g, device="cuda").to(torch.bfloat16)
+    for dt, kind, window in ((torch.bfloat16, "full", None),
+                             (torch.bfloat16, "sliding", ga["window"]),
+                             (torch.float32, "full_f32", None),
+                             (torch.float32, "sliding_f32", ga["window"])):
+        q = torch.randn((1, Hq, S, D), generator=g, device="cuda").to(dt)
+        k, v = torch.randn((2, 1, Hkv, S, D), generator=g, device="cuda").to(dt)
+        do = torch.randn((1, Hq, S, D), generator=g, device="cuda").to(dt)
         dlse = torch.randn((1, Hq, S), generator=g, device="cuda")
-        grads, plain, ratios, launches, plain_call, _, same_bits = _flash_bwd_check(
-            q, k, v, _offsets(0, 0, 1, q.device), do, dlse, causal=True, window=window,
-            softcap=cap)
+        check = _flash_bwd_check(q, k, v, _offsets(0, 0, 1, q.device), do, dlse, causal=True,
+                                 window=window, softcap=cap)
         mask = None
         if window is not None:
             i = torch.arange(S, device="cuda")
             mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-        lib = _sdpa_bwd(q, k, v, do, is_causal=True, attn_mask=mask)
-        pairs = Hq * _int8p_window_pairs(S, window)
-        rows = 2 * q.numel() * 2                         # q and dO, bf16
-        kv = 2 * k.numel() * 2                           # k and v (dK, dV the same)
-        stats = 3 * Hq * S * 4                           # lse, di and dlse, f32
+        lib = _sdpa_bwd(q, k, v, do, is_causal=True, attn_mask=mask, dtype=dt)
         shape = {"B": 1, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D, "causal": True,
-                 "window": window, "softcap": cap, "dlse": True, "dtype": "bfloat16"}
-        for name, idx, ops, nbytes, launch in (
-                ("flash_bwd_dkv", (1, 2), {"bf16": 8 * pairs * D, "exp": pairs},
-                 rows + kv + stats + kv, launches[0]),
-                ("flash_bwd_dq", (0,), {"bf16": 6 * pairs * D, "exp": pairs},
-                 rows + kv + stats + q.numel() * 2, launches[1])):
-            r = [ratios[i] for i in idx] + ([] if same_bits else [float("inf")])
-            out[name][kind] = _gemma2_sub(
-                torch.stack([grads[i] for i in idx]), torch.stack([plain[i] for i in idx]), r,
-                launch, plain_call, shape=shape, nbytes=nbytes, ops=ops,
-                library=lambda: lib)
-        del q, k, v, do, dlse, grads, plain, launches, mask
+                 "window": window, "softcap": cap, "dlse": True, "dtype": str(dt)[6:]}
+        subs = _bwd_subs(check, q, k, dlse=True, shape=shape,
+                         pairs=Hq * _int8p_window_pairs(S, window), lib=lib)
+        for name, sub in subs.items():
+            out[name][kind] = sub
+        del q, k, v, do, dlse, check, subs, mask
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -2760,44 +2852,84 @@ FLASH_BWD_COVERAGE = (
     (2, 4, 2, 64, 100, 64, True, None, 0, None, False, ((30, 0), (0, 20)), False),
     (1, 4, 2, 90, 90, 128, True, None, 0, None, True, None, True),
     (1, 2, 1, 70, 120, 32, True, 16, 0, None, False, ((10, 40),), True),
-    # d=256 (bf16 only: Gemma-2's training path): GQA 2:1 with softcap 50 at
-    # a length that is no multiple of 64; 1:1 cross attention, not causal;
-    # Sq != Skv at explicit offsets per sequence with a dlse, whose first
-    # sequence's 40 rows see no key (dq exactly 0); a window with sinks
-    # that end mid-tile, softcap and a dlse; a window that skips whole tiles.
-    (1, 4, 2, 150, 150, 256, True, None, 0, 50.0, True, None, False),
-    (2, 2, 2, 100, 190, 256, False, None, 0, None, True, None, False),
-    (2, 4, 2, 70, 130, 256, True, None, 0, None, True, ((0, 40), (60, 0)), True),
-    (1, 4, 2, 200, 260, 256, True, 48, 5, 50.0, True, None, True),
-    (1, 4, 2, 400, 400, 256, True, 100, 0, 50.0, True, None, False),
+    # d=256 (Gemma-2's training path), in bf16 and then in f32: GQA 2:1 with
+    # softcap 50 at a length that is no multiple of 64; 1:1 cross attention,
+    # not causal; Sq != Skv at explicit offsets per sequence with a dlse,
+    # whose first sequence's 40 rows see no key (dq exactly 0); a window
+    # with sinks that end mid-tile, softcap and a dlse; a window that skips
+    # whole tiles.
+    *(case for bf16 in (True, False) for case in (
+        (1, 4, 2, 150, 150, 256, True, None, 0, 50.0, bf16, None, False),
+        (2, 2, 2, 100, 190, 256, False, None, 0, None, bf16, None, False),
+        (2, 4, 2, 70, 130, 256, True, None, 0, None, bf16, ((0, 40), (60, 0)), True),
+        (1, 4, 2, 200, 260, 256, True, 48, 5, 50.0, bf16, None, True),
+        (1, 4, 2, 400, 400, 256, True, 100, 0, 50.0, bf16, None, False))),
 )
 
 
+# f32 at d=256 on a grid (multiples of 1/4 in [-3/4, 3/4]: every product
+# and partial sum of Q·K and dO·V is exact in f32), held with exact_dots:
+# a dS rounded to bf16 fails these by ~100x where the summation-order bound
+# of the random cases leaves it at 2-3x, too little for the faults phase's
+# 10x rule. GQA 2:1, 4 over 2 heads at 48 tokens under a window of 30 and 8
+# over 4 heads at 40 tokens, causal, softcap 50, a dlse.
+#   (B, H, Hkv, Sq, Skv, window)
+FLASH_BWD_GRID = ((1, 4, 2, 48, 48, 30), (1, 8, 4, 40, 40, None))
+
+
+def flash_bwd_grid_inputs(g, case, device="cuda"):
+    """(q, k, v, dO, dlse, offsets) of one FLASH_BWD_GRID case, f32."""
+    import torch
+    B, H, Hkv, Sq, Skv, _ = case
+    def grid(*shape):
+        return torch.randint(-3, 4, shape, generator=g, device=device).float() * 0.25
+    q, do = grid(B, H, Sq, 256), grid(B, H, Sq, 256)
+    k, v = grid(B, Hkv, Skv, 256), grid(B, Hkv, Skv, 256)
+    dlse = torch.randn((B, H, Sq), generator=g, device=device)
+    offsets = torch.tensor([[Skv - Sq, 0]] * B, dtype=torch.int32, device=device)
+    return q, k, v, do, dlse, offsets
+
+
+def flash_bwd_coverage_inputs(g, case, device="cuda"):
+    """(q, k, v, dO, dlse or None, offsets, masks) of one FLASH_BWD_COVERAGE
+    case."""
+    import torch
+    B, H, Hkv, Sq, Skv, D, causal, window, sinks, cap, bf16, offs, with_dlse = case
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q = (torch.randn((B, H, Sq, D), generator=g, device=device) * 1.5).to(dt)
+    k, v = torch.randn((2, B, Hkv, Skv, D), generator=g, device=device).to(dt)
+    do = torch.randn((B, H, Sq, D), generator=g, device=device).to(dt)
+    dlse = torch.randn((B, H, Sq), generator=g, device=device) if with_dlse else None
+    offsets = torch.tensor([[Skv - Sq, 0]] * B if offs is None else offs, dtype=torch.int32,
+                           device=device)
+    return q, k, v, do, dlse, offsets, dict(causal=causal, window=window, sinks=sinks,
+                                            softcap=cap)
+
+
 def _coverage_bwd(g):
-    """FLASH_BWD_COVERAGE: {case: [dq, dk, dv] err_over_tol}; a row whose
-    lse is -inf (it sees no key) must get dq exactly 0, and a second pair of
-    launches must give the same bits (inf appended otherwise)."""
+    """FLASH_BWD_COVERAGE and FLASH_BWD_GRID: {case: [dq, dk, dv, the
+    forward's o, lse] err_over_tol}; a row whose lse is -inf (it sees no
+    key) must get dq exactly 0, and a second pair of launches must give the
+    same bits (inf appended otherwise)."""
     import torch
     ratios = {}
-    for i, (B, H, Hkv, Sq, Skv, D, causal, window, sinks, cap, bf16, offs,
-            with_dlse) in enumerate(FLASH_BWD_COVERAGE):
-        dt = torch.bfloat16 if bf16 else torch.float32
-        q = (torch.randn((B, H, Sq, D), generator=g, device="cuda") * 1.5).to(dt)
-        k, v = torch.randn((2, B, Hkv, Skv, D), generator=g, device="cuda").to(dt)
-        do = torch.randn((B, H, Sq, D), generator=g, device="cuda").to(dt)
-        dlse = torch.randn((B, H, Sq), generator=g, device="cuda") if with_dlse else None
-        if offs is None:
-            offsets = torch.tensor([[Skv - Sq, 0]] * B, dtype=torch.int32, device="cuda")
-        else:
-            offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
-        grads, _, r, _, _, lse, same_bits = _flash_bwd_check(
-            q, k, v, offsets, do, dlse, causal=causal, window=window, sinks=sinks, softcap=cap)
+    for i, case in enumerate(FLASH_BWD_COVERAGE):
+        q, k, v, do, dlse, offsets, masks = flash_bwd_coverage_inputs(g, case)
+        grads, _, r, _, _, lse, same_bits, fwd = _flash_bwd_check(q, k, v, offsets, do, dlse,
+                                                                  **masks)
+        r = r + fwd
         empty = torch.isinf(lse)
         if empty.any() and not bool((grads[0][empty] == 0).all()):
             r = r + [float("inf")]
         if not same_bits:
             r = r + [float("inf")]
         ratios[f"flash_bwd{i}"] = r
+    for i, case in enumerate(FLASH_BWD_GRID):
+        q, k, v, do, dlse, offsets = flash_bwd_grid_inputs(g, case)
+        _, _, r, _, _, _, same_bits, fwd = _flash_bwd_check(
+            q, k, v, offsets, do, dlse, causal=True, window=case[-1], softcap=50.0,
+            exact_dots=True)
+        ratios[f"flash_bwd_grid{i}"] = r + fwd + ([] if same_bits else [float("inf")])
     return ratios
 
 
@@ -3057,6 +3189,20 @@ PLANTED_FAULTS = (
     ("flash_bwd.cu", "d=256 dK/dV: dlse folded with the wrong sign",
      "st_s[BR + r] - st_s[2 * BR + r]);  // di − dlse",
      "st_s[BR + r] + st_s[2 * BR + r]);  // di − dlse"),
+    ("flash_bwd.cu", "f32 dQ: dS rounded to bf16 before dQ += dS·K",
+     "const float ds = score_grad<CAP>(p, valid, s[i][j], dp[i][j], lse_s[r], di_s[r]).y;",
+     "const float ds = __bfloat162float(__float2bfloat16("
+     "score_grad<CAP>(p, valid, s[i][j], dp[i][j], lse_s[r], di_s[r]).y));"),
+    ("flash_bwd.cu", "f32 dK/dV: dSᵀ rounded to bf16 before dK += dSᵀ·Q",
+     "for (int j = 0; j < 4; ++j) pds[(ty * 4 + i) * T::PROW + tx + 16 * j] = dpt[i][j];",
+     "for (int j = 0; j < 4; ++j) pds[(ty * 4 + i) * T::PROW + tx + 16 * j] = "
+     "__bfloat162float(__float2bfloat16(dpt[i][j]));"),
+    ("flash_bwd.cu", "f32 dQ: K lands in V's tile before dP = dO·Vᵀ is done (dP from K)",
+     "dot_tile<D>(dos, kvt, dp);  // dP = dO·Vᵀ",
+     "land<D>(kvt, kg, t0, p.Skv); dot_tile<D>(dos, kvt, dp);"),
+    ("flash_bwd.cu", "f32 dK/dV: the group's last q head left out of the sum",
+     "for (int hd = 0; hd < group; ++hd) {  // the group's q heads, in order",
+     "for (int hd = 0; hd < group - 1; ++hd) {"),
     ("w4_matmul.cu", "bf16: the high plane's scales from the next group (the last one's own)",
      "const size_t src = ok ? size_t(g0 + slot + plane * hi_goff) * p.n + col : 0;",
      "const size_t src = ok ? size_t(min(g0 + slot + plane * (hi_goff + 1), "
@@ -3373,7 +3519,8 @@ def phase_faults(st):
     """Bind each _FaultBuilds library in place of the committed one as its
     build ends and rerun that kernel's main-shape and coverage checks while
     the other builds go on: every fault must fail them, a fault of the
-    d=256 backward ("d=256 ..." in flash_bwd.cu) a d=256 coverage case by
+    d=256 backward ("d=256 ..." in flash_bwd.cu) or of the f32 kernels that
+    run every head dim, d=256 too ("f32 ..."), a d=256 coverage case by
     10x or more. The builds are main()'s, started after the build phase, or
     started here on every core."""
     import concurrent.futures
@@ -3400,6 +3547,12 @@ def phase_faults(st):
             build_s = max(build_s, fut.result())
             what, src, _, lib = builds[futures[fut]]
             t_check = time.perf_counter()
+            # Every other source's kernels from the committed library: the
+            # backward's checks run the forward (o, lse), which a planted
+            # forward fault left bound would corrupt on both sides.
+            for kerns in kernels.values():
+                for kern in kerns:
+                    kern._fn = None
             variant = ctypes.CDLL(str(lib))
             for kern in kernels[src]:
                 fn = getattr(variant, kern.symbol)
@@ -3407,11 +3560,13 @@ def phase_faults(st):
                 kern._fn = fn
             main, cov = _fault_checks(src)
             worst = max([max(r) for r in main.values()] + list(cov.values()))
-            # A fault of the d=256 backward must fail a d=256 case by 10x.
+            # A fault of the d=256 backward or of the f32 kernels must fail
+            # a d=256 case by 10x.
             d256 = None
-            if src == "flash_bwd" and what.startswith("d=256"):
-                d256 = max(cov[f"flash_bwd{i}"] for i, c in enumerate(FLASH_BWD_COVERAGE)
-                           if c[5] == 256)
+            if src == "flash_bwd" and what.startswith(("d=256", "f32")):
+                d256 = max([cov[f"flash_bwd{i}"] for i, c in enumerate(FLASH_BWD_COVERAGE)
+                            if c[5] == 256]
+                           + [cov[f"flash_bwd_grid{i}"] for i in range(len(FLASH_BWD_GRID))])
             rows[futures[fut]] = {
                 "source": src, "fault": what, "main_err_over_tol": main,
                 "coverage_failing": sorted(k for k, r in cov.items() if r > 1.0),
@@ -7168,20 +7323,37 @@ def phase_train(st):
 # 6.9 GB each, the logits 30-40 GB, the activations ~8-28 GB. The gradient
 # check: the same width at 2 layers (one sliding, one full) on 5120 tokens
 # (the window still bites; the reference's S x S tensors are 1.7 GB each).
-TRAIN_GEMMA2 = dict(tokens=8192, layers=8, steps=4, check_layers=2, check_tokens=5120)
+TRAIN_GEMMA2 = dict(tokens=8192, layers=8, steps=4, check_layers=2, check_tokens=5120,
+                    dtype="bfloat16", grad_rel_tol=TRAIN["grad_rel_tol"], loss_rel_tol=1e-5)
+# The same in f32 (phase_train_gemma2_f32), depth cut to 4 layers (2
+# sliding, 2 full): weights and gradients take 10.5 GB each ((4 x 198.2M +
+# 2 x 917.5M) params x 4 B); the 4 f32 layers' activations equal 8 bf16
+# layers', whose phase peaked at 60.9 GB with 13.8 GB of weights and
+# gradients, so ~21 + 47 = 68 GB. At 8 f32 layers it passes 80 GB; above 76
+# GB measured, cut to 2 layers (never fewer tokens: they keep the window
+# biting). Gradient tolerance: f32 on both sides, which differ only in the
+# attention's summation order (the kernels' against mha_masked_reference's
+# materialized softmax): the linear bound of two orders over the longest
+# sum, 2 (5120 + 256) 2^-24 = 6.4e-4 of the sums' magnitudes, rounded up to
+# 2^-10 of each leaf's largest entry (bf16's gate is 2^-4). The first
+# step's loss: the same kernels on the same weights as loss_fn without
+# grad, within 1e-6.
+TRAIN_GEMMA2_F32 = dict(TRAIN_GEMMA2, layers=4, dtype="float32", grad_rel_tol=2.0**-10,
+                        loss_rel_tol=1e-6)
 
 
-def phase_train_gemma2(st):
-    """sgd_train_step of LlamaConfig.gemma2_9b() at full width, depth cut
-    to TRAIN_GEMMA2["layers"] (bf16, attention_impl="flash", random weights
-    from seed 0), on one batch of 8192 random tokens, TRAIN_GEMMA2["steps"]
-    steps at TRAIN's lr (tokens/s over the steps after the first): every
-    forward through row 5 and every backward through rows 6 and 7 at
-    head_dim 256 (softcap 50, the window on the even layers). Then the same
-    width cut to 2 layers on 5120 tokens: one step's gradient of every leaf
-    through the kernels against autograd through the float golden
-    (attention_impl="reference"), each within TRAIN["grad_rel_tol"] of the
-    leaf's largest entry."""
+def _train_gemma2_run(st, phase, tg):
+    """sgd_train_step of LlamaConfig.gemma2_9b() in tg["dtype"] at full
+    width, depth cut to tg["layers"] (attention_impl="flash", random weights
+    from seed 0), on one batch of 8192 random tokens, tg["steps"] steps at
+    TRAIN's lr (tokens/s over the steps after the first): every forward
+    through row 5 and every backward through rows 6 and 7 at head_dim 256
+    (softcap 50, the window on the even layers), the route of each backward
+    launch recorded (head_dim and bf16 flag). Then the same width cut to 2
+    layers on 5120 tokens: one step's gradient of every leaf through the
+    kernels against autograd through the float golden (attention_impl=
+    "reference"), each within tg["grad_rel_tol"] of the leaf's largest
+    entry."""
     import torch
     from quantizedmha_tpu_torch.models import llama
     from quantizedmha_tpu_torch.ops import flash_attention as fa
@@ -7190,8 +7362,9 @@ def phase_train_gemma2(st):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    tg = TRAIN_GEMMA2
-    full = llama.LlamaConfig.gemma2_9b()
+    dtype = getattr(torch, tg["dtype"])
+    bf16 = dtype == torch.bfloat16
+    full = dataclasses.replace(llama.LlamaConfig.gemma2_9b(), dtype=dtype)
 
     def cut(layers):
         return dataclasses.replace(full, num_layers=layers,
@@ -7202,6 +7375,9 @@ def phase_train_gemma2(st):
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    leaves = [x for x in _flat_tree(params).values() if isinstance(x, torch.Tensor)]
+    weights_gb = sum(x.numel() * x.element_size() for x in leaves) / 1e9
+    del leaves
     g = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (1, tg["tokens"]), generator=g, device="cuda",
                            dtype=torch.int32)
@@ -7212,25 +7388,36 @@ def phase_train_gemma2(st):
                "flash_bwd_dkv": fa.FLASH_BWD_DKV, "flash_bwd_dq": fa.FLASH_BWD_DQ,
                "flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P,
                "flash_int8_fwd[bf16_p]": fa8.FLASH_BF16_P}
+    routes = []  # (head_dim, bf16 flag) of each backward launch built
+    bwd_launch = fa._flash_bwd_launch
+
+    def recorded(*a, **kw):
+        out = bwd_launch(*a, **kw)
+        routes.extend((args[-9], args[-2]) for _, args in out[0])
+        return out
     for kern in kernels.values():
         kern.reset()
     losses, step_ms = [], []
-    for _ in range(steps):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        start.record()
-        params, loss = llama.sgd_train_step(cfg, params, tokens, lr=lr)
-        end.record()
-        torch.cuda.synchronize()
-        step_ms.append(start.elapsed_time(end))
-        losses.append(float(loss))
+    with _Patched((fa, "_flash_bwd_launch", recorded)):
+        for _ in range(steps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            params, loss = llama.sgd_train_step(cfg, params, tokens, lr=lr)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
     launches = {name: kern.launches for name, kern in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {"flash_fwd[bf16]": L * steps, "flash_fwd[f32]": 0, "flash_bwd_dkv": L * steps,
-            "flash_bwd_dq": L * steps, "flash_int8_fwd[int8_p]": 0, "flash_int8_fwd[bf16_p]": 0}
-    for name in ("flash_fwd[bf16]", "flash_bwd_dkv", "flash_bwd_dq"):
+    fwd = "flash_fwd[bf16]" if bf16 else "flash_fwd[f32]"
+    want = {name: 0 for name in kernels}
+    want.update({fwd: L * steps, "flash_bwd_dkv": L * steps, "flash_bwd_dq": L * steps})
+    routes_ok = routes == [(cfg.hd, int(bf16))] * (2 * L * steps)
+    key = "launches_d256" if bf16 else "launches_d256_f32"
+    for name in (fwd, "flash_bwd_dkv", "flash_bwd_dq"):
         st["launches"][name] = st["launches"].get(name, 0) + launches[name]
-        st["launches_d256"][name] = st["launches_d256"].get(name, 0) + launches[name]
+        st[key][name] = st[key].get(name, 0) + launches[name]
     finite = all(bool(torch.isfinite(t).all()) for t in
                  [params[k] for k in params if k != "layers"] + list(params["layers"].values()))
     del params
@@ -7255,23 +7442,39 @@ def phase_train_gemma2(st):
     del grads
     torch.cuda.empty_cache()
 
-    ok = (launches == want and finite and grads_finite
+    ok = (launches == want and routes_ok and finite and grads_finite
           and all(math.isfinite(x) for x in losses)
-          and abs(losses[0] - loss_direct) <= 1e-5 * abs(loss_direct)
+          and abs(losses[0] - loss_direct) <= tg["loss_rel_tol"] * abs(loss_direct)
           and all(b < a for a, b in zip(losses, losses[1:]))
-          and max(grad_rel.values()) <= TRAIN["grad_rel_tol"])
+          and max(grad_rel.values()) <= tg["grad_rel_tol"])
     step_s = sum(step_ms[1:]) / len(step_ms[1:]) / 1e3
-    emit({"phase": "train_gemma2", "ok": ok, "model": "gemma2_9b", "attention_impl": "flash",
+    emit({"phase": phase, "ok": ok, "model": "gemma2_9b", "attention_impl": "flash",
           "layers": L, "layers_published": full.num_layers, "windows": list(cfg.layer_windows),
-          "weights": "bf16", "init_s": init_s, "batch": 1, "tokens": tg["tokens"], "lr": lr,
-          "steps": steps, "losses": losses, "loss_no_grad": loss_direct, "step_ms": step_ms,
+          "weights": tg["dtype"], "weights_gb": weights_gb, "init_s": init_s, "batch": 1,
+          "tokens": tg["tokens"], "lr": lr, "steps": steps, "losses": losses,
+          "loss_no_grad": loss_direct, "loss_rel_tol": tg["loss_rel_tol"], "step_ms": step_ms,
           "tokens_per_s_after_first": tg["tokens"] / step_s, "weights_finite": finite,
-          "launches": launches, "launches_expected": want, "peak_mem_gb": peak_gb,
+          "launches": launches, "launches_expected": want,
+          "bwd_routes_ok": routes_ok, "bwd_routes": sorted(set(routes)),
+          "peak_mem_gb": peak_gb,
           "grad_check_layers": tg["check_layers"], "grad_check_tokens": tg["check_tokens"],
-          "grad_rel_err_vs_reference": grad_rel, "grad_rel_tol": TRAIN["grad_rel_tol"],
+          "grad_rel_err_vs_reference": grad_rel, "grad_rel_tol": tg["grad_rel_tol"],
           "gpu": st["gpu"]})
     if not ok:
-        raise AssertionError("train_gemma2 phase failed its checks")
+        raise AssertionError(f"{phase} phase failed its checks")
+
+
+def phase_train_gemma2(st):
+    """Gemma-2-9B trained in bf16 at full width, 8 layers (TRAIN_GEMMA2,
+    _train_gemma2_run), within TRAIN["grad_rel_tol"] of the float golden."""
+    _train_gemma2_run(st, "train_gemma2", TRAIN_GEMMA2)
+
+
+def phase_train_gemma2_f32(st):
+    """Gemma-2-9B trained in f32 at full width, 4 layers (TRAIN_GEMMA2_F32,
+    _train_gemma2_run): rows 5, 6 and 7 on their f32 routes at head_dim 256,
+    the gradients within 2^-10 of the float golden's."""
+    _train_gemma2_run(st, "train_gemma2_f32", TRAIN_GEMMA2_F32)
 
 
 # Training across ranks (phase_train_parallel): 4 processes on GPU 0 joined
@@ -7737,7 +7940,8 @@ def _train_parallel_kernels(c):
                  "kv_offset": off}
         out["flash_fwd[bf16]"][name] = {"err_over_tol": max(ratios), **shape}
         dl = (torch.randn((1, H, S), generator=g, device="cuda") if dlse else None)
-        _, _, bwd_ratios, _, _, _, same = _flash_bwd_check(q, k, v, offsets, do, dl, causal=True)
+        _, _, bwd_ratios, _, _, _, same, _ = _flash_bwd_check(q, k, v, offsets, do, dl,
+                                                              causal=True)
         for kern, ratio in (("flash_bwd_dkv", max(bwd_ratios[1:])),
                             ("flash_bwd_dq", bwd_ratios[0])):
             out[kern][name] = {"err_over_tol": ratio if same else float("inf"),
@@ -8301,7 +8505,7 @@ def main(argv=None) -> int:
                                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             e.update({k: c[k] for k in ("also_replaces", "mqa", "serve_flash", "library_note",
                                         "library_backend", "library_f32", "solve", "serve_w4",
-                                        "prefill_bench", "gemma2") if k in c})
+                                        "prefill_bench", "gemma2", "train_f32") if k in c})
             if "gemma2" in c:  # its launches: serve_hybrid's at head_dim 256 (f32:
                 # serve_gemma2_f32's, in each f32 sub-entry)
                 e["gemma2"] = dict(c["gemma2"], launches=st["launches_d256"].get(name, 0))
@@ -8323,7 +8527,7 @@ def main(argv=None) -> int:
         idle = [e["name"] for e in entries if e["launches"] == 0]
         if ({"solve", "serve", "serve_w4", "serve_flash", "serve_mixed", "serve_hybrid",
              "serve_hybrid_mixed", "serve_gemma2_f32", "serve_spec", "serve_hf", "train",
-             "train_gemma2"}
+             "train_gemma2", "train_gemma2_f32"}
                 <= set(phases) and idle):
             print(f"chip_smoke: kernels never launched on a main path: {idle}",
                   file=sys.stderr)

@@ -68,11 +68,42 @@
 // skips its per-pair work and adds zeros. Each wgmma sequence is waited on
 // before its results are read: the score products do not yet overlap the
 // per-pair work (warp specialisation and TMA are later work).
-// f32: 256 threads, each owning 4 x 4 of a 64 x 64 score tile and 4 rows x
-// d/16 columns of a 64-row accumulator on the CUDA cores, P and dS through
-// shared memory, as the first version.
 //
-// d=256 (bf16 only: Gemma-2's training path; f32 is not built). What bounds
+// f32 (flash_bwd_dkv_f32_kernel, flash_bwd_dq_f32_kernel, every head dim;
+// Gemma-2 trained in f32 at d=256). What bounds them: at Gemma-2-9B's
+// training shape (below) dK/dV does 1.1e12 flop and dQ 8.3e11 (8.2e11 and
+// 6.2e11 under the 4096 window) as true f32 FMAs on the CUDA cores, 16.4 /
+// 12.3 ms and 12.4 / 9.3 ms at 67 TFLOP/s; the bytes (~0.5 GB) are far
+// below. 256 threads, each owning 4 x 4 of a 64 x 64 score tile and 4 rows
+// x d/16 columns of a 64-row accumulator; P and dS go through shared
+// memory. The layout is set by d=256: [64][260] f32 tiles are 66,560 bytes
+// each, so dQ's Q, dO, K, V and dS would take 284,160 bytes and dK/dV's K,
+// V, Q, dO, Pᵀ and dSᵀ 301,568, over the 232,448 a block may have. So each
+// kernel keeps one tile that takes turns (land(): cp.async, waited on and
+// barriered), 217,600 bytes at d=256 (119,296 at 128), one block of 8
+// warps an SM: dQ (Q, dO resident) lands V, keeps dP = dO·Vᵀ in registers,
+// then lands K in the same tile for S, dS and dQ += dS·K (two landings a
+// key tile); dK/dV (K, V resident) lands Q for Sᵀ, dO for dPᵀ (both kept in
+// registers), writes Pᵀ for dV += Pᵀ·dO, then dSᵀ over Pᵀ and Q again for
+// dK += dSᵀ·Q (three landings a step: Pᵀ and dSᵀ side by side would need
+// 235,008 bytes). The same layout runs every head dim: the sums run in the
+// same order as with K, V (dQ) or Q, dO (dK/dV) resident side by side. A
+// dK/dV thread holds 2·4·d/16 f32 of accumulators (128 at d=256) beside 32
+// of Sᵀ and dPᵀ and 32 of float4 operands, inside the 255 registers of a
+// 256-thread block (the bf16 kernels' split into two warp groups by column
+// halves was not needed: ptxas -v on the H100, sm_90a, at d=256 254
+// registers for dK/dV and 248-250 for dQ, 0 bytes of spill). At the
+// training shape dK/dV runs at 2.1x the CUDA cores' bound and dQ at 2.1x
+// (34.98 / 26.39 ms, NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py's
+// kernels phase). Not chosen: 32-key dK/dV blocks with Q and dO resident
+// (twice the blocks re-reading each Q/dO tile). The landings are not
+// overlapped with the products (the tile is in use until the next lands),
+// the softcap branch is a template argument, tiles wholly above the
+// diagonal or behind the window are never landed, and the grid runs the
+// heaviest tiles first (key tile 0 in dK/dV, the last q tile in dQ). No
+// atomics: dK and dV sum the group's q heads in order in registers.
+//
+// d=256 bf16 (Gemma-2's bf16 training path). What bounds
 // it: at the Gemma-2-9B training shape (B=1, H=16, Hkv=8, S=8192, causal,
 // softcap 50) dK/dV does 1.1e12 flop and dQ 8.3e11 over the visible pairs,
 // 1.11 and 0.83 ms at 989 TFLOP/s (0.83 and 0.63 ms under the 4096 window);
@@ -175,14 +206,13 @@ __device__ __forceinline__ bool pair_valid(const Params& p, int qloc, int kloc, 
   return valid;
 }
 
-// (p, ds) of one pair from its raw dot Q·K (dot) and dO·V (dp). CAP: 1 or 0
-// when the caller knows at compile time whether softcap is on (a runtime
-// branch inside an unrolled per-pair loop is if-converted, so tanh would
-// run for every pair), -1 to read p.has_softcap.
-template <int CAP = -1>
+// (p, ds) of one pair from its raw dot Q·K (dot) and dO·V (dp). CAP (1 or
+// 0: softcap on or off) is a compile-time choice: a runtime branch inside an
+// unrolled per-pair loop is if-converted, so tanh would run for every pair.
+template <int CAP>
 __device__ __forceinline__ float2 score_grad(const Params& p, bool valid, float dot, float dp,
                                              float lse, float di) {
-  const bool capped = CAP < 0 ? p.has_softcap != 0 : CAP == 1;
+  constexpr bool capped = CAP == 1;
   float s = dot * p.sm_scale;
   float th = 0.f;
   if (capped) {
@@ -226,20 +256,6 @@ struct Tile {
   static constexpr int NV = CPT / VW;
   using Vec = typename VecF<VW>::T;
 };
-
-// A [64][D] tile of rows r0.. of a row-major [n][D] matrix into shared
-// memory ([64][ROW]); rows past n are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, int n) {
-  constexpr int ROW = Tile<D>::ROW;
-  constexpr int CPR = D / 4;
-  for (int e = threadIdx.x; e < BR * CPR; e += NT) {
-    const int r = e / CPR, c = e % CPR;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n) x = *reinterpret_cast<const float4*>(src + size_t(r0 + r) * D + 4 * c);
-    *reinterpret_cast<float4*>(dst + r * ROW + 4 * c) = x;
-  }
-}
 
 // s[i][j] = a[4ty + i] · b[tx + 16j] over D, true f32 FMAs.
 template <int D>
@@ -335,56 +351,82 @@ __device__ __forceinline__ void load_row_stats(const Params& p, size_t bh, int r
   }
 }
 
+// ---------------------------------------------------------------------------
+// Shared memory of both f32 kernels: three [64][ROW] f32 tiles, a [64][68]
+// P/dS tile and the rows' stats (217,600 bytes at d=256, 119,296 at 128);
+// the tile that takes turns is filled by land(), whose copies are waited
+// on and barriered before it returns.
 template <int D>
-struct DqSmem {
+struct F32Smem {
   using T = Tile<D>;
-  static constexpr int FLOATS = 4 * T::SZ + BR * T::PROW + 2 * BR;  // Q, dO, K, V, dS, lse, di
+  static constexpr int BYTES = (3 * T::SZ + BR * T::PROW + 2 * BR) * 4;
+  static_assert(BYTES <= 232448, "shared memory of a block");
 };
 
+// Rows r0.. of a row-major [n][D] f32 matrix into a [64][ROW] tile by
+// cp.async (rows past n zero-filled), then every thread's copies waited on
+// and the block barriered: the tile is whole when this returns.
 template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
+__device__ __forceinline__ void land(float* dst, const float* src, int r0, int n) {
+  constexpr int ROW = Tile<D>::ROW, CPR = D / 4;
+  for (int e = threadIdx.x; e < BR * CPR; e += NT) {
+    const int r = e / CPR, c = e % CPR;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + r * ROW + 4 * c, src + size_t(ok ? r0 + r : 0) * D + 4 * c, ok);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// dQ: one block per (batch, q head, 64-row q tile), heaviest q tile first;
+// Q, dO and the rows' stats resident. Per visible key tile, V lands in the
+// one K/V tile and dP = dO·Vᵀ goes to registers; then K lands in the same
+// tile, S = Q·Kᵀ, dS is written and dQ += dS·K.
+template <int D, int CAP>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_f32_kernel(const Params p) {
   using T = Tile<D>;
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;
   float* dos = qs + T::SZ;
-  float* ks = dos + T::SZ;
-  float* vs = ks + T::SZ;
-  float* dss = vs + T::SZ;
+  float* kvt = dos + T::SZ;  // V of the key tile, then its K
+  float* dss = kvt + T::SZ;
   float* lse_s = dss + BR * T::PROW;
   float* di_s = lse_s + BR;
 
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int q0 = blockIdx.x * BR;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
+  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
   const int kvh = h / (p.H / p.Hkv);
   const int q_off = p.offs[2 * b], kv_off = p.offs[2 * b + 1];
   const size_t bh = size_t(b) * p.H + h;
   const size_t kvbase = (size_t(b) * p.Hkv + kvh) * p.Skv * D;
   const float* kg = reinterpret_cast<const float*>(p.k) + kvbase;
   const float* vg = reinterpret_cast<const float*>(p.v) + kvbase;
+  const int first_q = q_off + q0, last_q = q_off + min(q0 + BR, p.Sq) - 1;
+  auto next_run = [&](int t0) {
+    while (t0 < p.Skv &&
+           !range_should_run(p, first_q, last_q, kv_off + t0, kv_off + min(t0 + BR, p.Skv) - 1))
+      t0 += BR;
+    return t0;
+  };
 
-  load_tile<D>(qs, reinterpret_cast<const float*>(p.q) + bh * p.Sq * D, q0, p.Sq);
-  load_tile<D>(dos, reinterpret_cast<const float*>(p.dout) + bh * p.Sq * D, q0, p.Sq);
   load_row_stats(p, bh, q0, lse_s, di_s);
-
+  land<D>(qs, reinterpret_cast<const float*>(p.q) + bh * p.Sq * D, q0, p.Sq);
+  land<D>(dos, reinterpret_cast<const float*>(p.dout) + bh * p.Sq * D, q0, p.Sq);
   float acc[4][T::CPT];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < T::CPT; ++c) acc[i][c] = 0.f;
 
-  const int first_q = q_off + q0, last_q = q_off + min(q0 + BR, p.Sq) - 1;
-  for (int t0 = 0; t0 < p.Skv; t0 += BR) {
-    if (!range_should_run(p, first_q, last_q, kv_off + t0, kv_off + min(t0 + BR, p.Skv) - 1))
-      continue;
-    __syncthreads();  // every thread is done with the last tile's K and dS
-    load_tile<D>(ks, kg, t0, p.Skv);
-    load_tile<D>(vs, vg, t0, p.Skv);
-    __syncthreads();
+  for (int t0 = next_run(0); t0 < p.Skv; t0 = next_run(t0 + BR)) {
+    land<D>(kvt, vg, t0, p.Skv);
     float s[4][4], dp[4][4];
-    dot_tile<D>(qs, ks, s);
-    dot_tile<D>(dos, vs, dp);
+    dot_tile<D>(dos, kvt, dp);  // dP = dO·Vᵀ
+    __syncthreads();            // every thread is done with V
+    land<D>(kvt, kg, t0, p.Skv);
+    dot_tile<D>(qs, kvt, s);    // S = Q·Kᵀ
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i;
@@ -392,68 +434,70 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
       for (int j = 0; j < 4; ++j) {
         const int key = tx + 16 * j;
         const bool valid = pair_valid(p, q0 + r, t0 + key, q_off, kv_off);
-        dss[r * T::PROW + key] = score_grad(p, valid, s[i][j], dp[i][j], lse_s[r], di_s[r]).y;
+        const float ds = score_grad<CAP>(p, valid, s[i][j], dp[i][j], lse_s[r], di_s[r]).y;
+        dss[r * T::PROW + key] = ds;
       }
     }
-    __syncthreads();  // the dS tile is complete
-    acc_tile<D>(dss, ks, acc);  // dQ += dS·K
+    __syncthreads();            // the dS tile is complete
+    acc_tile<D>(dss, kvt, acc); // dQ += dS·K
+    __syncthreads();            // every thread is done with K and dS
   }
   store_rows<D>(reinterpret_cast<float*>(p.dq) + bh * p.Sq * D, q0, p.Sq, acc);
 }
 
-template <int D>
-struct DkvSmem {
-  using T = Tile<D>;
-  static constexpr int FLOATS = 4 * T::SZ + 2 * BR * T::PROW + 2 * BR;  // K, V, Q, dO, Pᵀ, dSᵀ, lse, di
-};
-
-template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
+// dK/dV: one block per (batch, kv head, 64-key tile), key tile 0 (the
+// heaviest under the causal mask) first; K and V resident. Per visible (q
+// head, q tile) of the GQA group, in order: Q lands and Sᵀ = K·Qᵀ goes to
+// registers; dO lands in Q's tile and dPᵀ = V·dOᵀ goes to registers; p and
+// ds in place, Pᵀ written and dV += Pᵀ·dO; dSᵀ written over Pᵀ, Q lands
+// again and dK += dSᵀ·Q.
+template <int D, int CAP>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_f32_kernel(const Params p) {
   using T = Tile<D>;
   extern __shared__ __align__(16) float sm[];
   float* ks = sm;
   float* vs = ks + T::SZ;
-  float* qs = vs + T::SZ;
-  float* dos = qs + T::SZ;
-  float* pts = dos + T::SZ;
-  float* dsts = pts + BR * T::PROW;
-  float* lse_s = dsts + BR * T::PROW;
+  float* qd = vs + T::SZ;  // Q of the step, then its dO, then its Q again
+  float* pds = qd + T::SZ; // Pᵀ of the step, then its dSᵀ [key][q row]
+  float* lse_s = pds + BR * T::PROW;
   float* di_s = lse_s + BR;
 
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int k0 = blockIdx.x * BR;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int k0 = blockIdx.y * BR;
+  const int kvh = blockIdx.x % p.Hkv, b = blockIdx.x / p.Hkv;
   const int group = p.H / p.Hkv;
   const int q_off = p.offs[2 * b], kv_off = p.offs[2 * b + 1];
   const size_t kvbase = (size_t(b) * p.Hkv + kvh) * p.Skv * D;
+  const int first_kv = kv_off + k0, last_kv = kv_off + min(k0 + BR, p.Skv) - 1;
+  auto next_q = [&](int q0) {
+    while (q0 < p.Sq &&
+           !range_should_run(p, q_off + q0, q_off + min(q0 + BR, p.Sq) - 1, first_kv, last_kv))
+      q0 += BR;
+    return q0;
+  };
 
-  load_tile<D>(ks, reinterpret_cast<const float*>(p.k) + kvbase, k0, p.Skv);
-  load_tile<D>(vs, reinterpret_cast<const float*>(p.v) + kvbase, k0, p.Skv);
-
+  land<D>(ks, reinterpret_cast<const float*>(p.k) + kvbase, k0, p.Skv);
+  land<D>(vs, reinterpret_cast<const float*>(p.v) + kvbase, k0, p.Skv);
   float acc_k[4][T::CPT], acc_v[4][T::CPT];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < T::CPT; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
-  const int first_kv = kv_off + k0, last_kv = kv_off + min(k0 + BR, p.Skv) - 1;
-  for (int g = 0; g < group; ++g) {
-    const size_t bh = size_t(b) * p.H + kvh * group + g;
+  for (int hd = 0; hd < group; ++hd) {  // the group's q heads, in order
+    const size_t bh = size_t(b) * p.H + size_t(kvh) * group + hd;
     const float* qg = reinterpret_cast<const float*>(p.q) + bh * p.Sq * D;
     const float* dog = reinterpret_cast<const float*>(p.dout) + bh * p.Sq * D;
-    for (int q0 = 0; q0 < p.Sq; q0 += BR) {
-      if (!range_should_run(p, q_off + q0, q_off + min(q0 + BR, p.Sq) - 1, first_kv, last_kv))
-        continue;
-      __syncthreads();  // every thread is done with the last q tile, Pᵀ and dSᵀ
-      load_tile<D>(qs, qg, q0, p.Sq);
-      load_tile<D>(dos, dog, q0, p.Sq);
+    for (int q0 = next_q(0); q0 < p.Sq; q0 = next_q(q0 + BR)) {
+      __syncthreads();  // every thread is done with the last step's Q, dSᵀ and stats
       load_row_stats(p, bh, q0, lse_s, di_s);
-      __syncthreads();
+      land<D>(qd, qg, q0, p.Sq);
       // Transposed tiles: st[i][j] pairs key 4ty + i with q row tx + 16j.
       float st[4][4], dpt[4][4];
-      dot_tile<D>(ks, qs, st);
-      dot_tile<D>(vs, dos, dpt);
+      dot_tile<D>(ks, qd, st);   // Sᵀ = K·Qᵀ
+      __syncthreads();           // every thread is done with Q
+      land<D>(qd, dog, q0, p.Sq);
+      dot_tile<D>(vs, qd, dpt);  // dPᵀ = V·dOᵀ
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int key = ty * 4 + i;
@@ -461,14 +505,20 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
         for (int j = 0; j < 4; ++j) {
           const int r = tx + 16 * j;
           const bool valid = pair_valid(p, q0 + r, k0 + key, q_off, kv_off);
-          const float2 pd = score_grad(p, valid, st[i][j], dpt[i][j], lse_s[r], di_s[r]);
-          pts[key * T::PROW + r] = pd.x;
-          dsts[key * T::PROW + r] = pd.y;
+          const float2 pd = score_grad<CAP>(p, valid, st[i][j], dpt[i][j], lse_s[r], di_s[r]);
+          pds[key * T::PROW + r] = pd.x;  // Pᵀ
+          dpt[i][j] = pd.y;               // dSᵀ, kept for after dV
         }
       }
-      __syncthreads();  // Pᵀ and dSᵀ are complete
-      acc_tile<D>(pts, dos, acc_v);   // dV += Pᵀ·dO
-      acc_tile<D>(dsts, qs, acc_k);   // dK += dSᵀ·Q
+      __syncthreads();                // Pᵀ is complete
+      acc_tile<D>(pds, qd, acc_v);    // dV += Pᵀ·dO
+      __syncthreads();                // every thread is done with Pᵀ and dO
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) pds[(ty * 4 + i) * T::PROW + tx + 16 * j] = dpt[i][j];
+      land<D>(qd, qg, q0, p.Sq);      // Q again; its barrier also completes dSᵀ
+      acc_tile<D>(pds, qd, acc_k);    // dK += dSᵀ·Q
     }
   }
   store_rows<D>(reinterpret_cast<float*>(p.dk) + kvbase, k0, p.Skv, acc_k);
@@ -1243,27 +1293,6 @@ __global__ void __launch_bounds__(NTKV, 1) flash_bwd_dq_d256_kernel(const Params
 // ---------------------------------------------------------------------------
 
 template <int D>
-cudaError_t launch_f32(const Params& p, bool dkv, cudaStream_t stream) {
-  cudaError_t err;
-  if (dkv) {
-    constexpr int smem = DkvSmem<D>::FLOATS * 4;
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((p.Skv + BR - 1) / BR, p.Hkv, p.B);
-    flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(p);
-  } else {
-    constexpr int smem = DqSmem<D>::FLOATS * 4;
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((p.Sq + BR - 1) / BR, p.H, p.B);
-    flash_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(p);
-  }
-  return cudaGetLastError();
-}
-
-template <int D>
 cudaError_t launch_bf16(const Params& p, bool dkv, cudaStream_t stream) {
   cudaError_t err;
   if (dkv) {
@@ -1302,13 +1331,31 @@ cudaError_t launch_bf16_d256(const Params& p, bool dkv, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D, int CAP>
+cudaError_t launch_f32_cap(const Params& p, bool dkv, cudaStream_t stream) {
+  constexpr int smem = F32Smem<D>::BYTES;
+  const auto kernel = dkv ? flash_bwd_dkv_f32_kernel<D, CAP> : flash_bwd_dq_f32_kernel<D, CAP>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid = dkv ? dim3(p.Hkv * p.B, (p.Skv + BR - 1) / BR)
+                        : dim3(p.H * p.B, (p.Sq + BR - 1) / BR);
+  kernel<<<grid, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const Params& p, bool dkv, cudaStream_t stream) {
+  return p.has_softcap ? launch_f32_cap<D, 1>(p, dkv, stream)
+                       : launch_f32_cap<D, 0>(p, dkv, stream);
+}
+
 cudaError_t launch_d(const Params& p, int D, bool bf16, bool dkv, cudaStream_t s) {
   switch (D) {
     case 32: return bf16 ? launch_bf16<32>(p, dkv, s) : launch_f32<32>(p, dkv, s);
     case 64: return bf16 ? launch_bf16<64>(p, dkv, s) : launch_f32<64>(p, dkv, s);
     case 128: return bf16 ? launch_bf16<128>(p, dkv, s) : launch_f32<128>(p, dkv, s);
-    // f32 at d=256 is not built: the wrapper raises before a launch.
-    case 256: return bf16 ? launch_bf16_d256(p, dkv, s) : cudaErrorInvalidValue;
+    case 256: return bf16 ? launch_bf16_d256(p, dkv, s) : launch_f32<256>(p, dkv, s);
     default: return cudaErrorInvalidValue;
   }
 }

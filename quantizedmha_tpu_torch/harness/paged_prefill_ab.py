@@ -3,7 +3,8 @@ parent commit unpacked beside this one (`git archive <commit> | tar -x -C
 build/parent`), against this tree's, in one process.
 
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --parent build/parent \\
-        [--source paged_prefill|paged_decode|flash_fwd|w4_matmul|flash_int8_fwd] [--out ab.json]
+        [--source paged_prefill|paged_decode|flash_fwd|w4_matmul|flash_int8_fwd|flash_bwd] \\
+        [--out ab.json]
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source paged_decode \\
         --variants quantizedmha_tpu_torch/harness/decode_ablations.json
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source flash_fwd \\
@@ -93,6 +94,18 @@ the file.
   one's bits (output and lse).
 - ptxas registers and spill bytes of each library's kernels.
 
+--source flash_bwd (csrc/flash_bwd.cu, rows 6-7):
+- Both kernels (dK/dV, then dQ) at the train step's shape (1 x 32 x 2048 x
+  128, 8 kv heads, causal) in f32 and in bf16, and at train_gemma2_f32's
+  full layer (1 x 16 x 8192 x 256, 8 kv heads, causal, softcap 50, a
+  dlse) in f32: each kernel's ms in turns (10 launches; 3 at 8192),
+  err_over_tol (dq, dk, dv) against this tree's plain version under
+  chip_smoke.py's flash_bwd_tolerances, whether each library gives the
+  same bits twice and this one's bits (required in bf16).
+- Every FLASH_BWD_COVERAGE and FLASH_BWD_GRID case of chip_smoke.py:
+  whether each library gives this one's bits (required in bf16).
+- ptxas registers and spill bytes of each library's kernels.
+
 Prints one JSON object (and writes it to --out); exits 1 when a library
 fails its check, or where a route is to keep the parent's bits and does
 not.
@@ -114,7 +127,7 @@ import torch
 REPO = Path(__file__).resolve().parents[2]
 OPS = {"paged_prefill": "paged_prefill", "paged_decode": "decode",
        "flash_fwd": "flash_attention", "w4_matmul": "w4_matmul",
-       "flash_int8_fwd": "flash_attention_int8"}
+       "flash_int8_fwd": "flash_attention_int8", "flash_bwd": "flash_attention"}
 # The wrapper's launch function, where it is not _<source>_launch.
 LAUNCH = {"flash_int8_fwd": "_flash_int8_launch"}
 
@@ -190,7 +203,7 @@ def _trees(source: str, parent=None, variants=None):
                                             paged_prefill, w4_matmul)
     this = {"paged_prefill": paged_prefill, "paged_decode": decode,
             "flash_fwd": flash_attention, "w4_matmul": w4_matmul,
-            "flash_int8_fwd": flash_attention_int8}[source]
+            "flash_int8_fwd": flash_attention_int8, "flash_bwd": flash_attention}[source]
     libs = []
     if parent is not None:
         libs.append(("parent", _ops_module(parent, source, f"_ab_parent_{source}"),
@@ -659,6 +672,87 @@ def _flash_int8_ab(trees, g, result):
     return ok and all(result["bf16_p_same_bits"].values())
 
 
+# Rows 6-7's shapes: (B, H, Hkv, S, D, dtype, softcap, dlse), causal.
+FLASH_BWD_MAIN = {"train (f32)": (1, 32, 8, 2048, 128, torch.float32, None, False),
+                  "train (bf16)": (1, 32, 8, 2048, 128, torch.bfloat16, None, False),
+                  "train_gemma2_f32 full layer": (1, 16, 8, 8192, 256, torch.float32, 50.0,
+                                                  True)}
+
+
+def _flash_bwd_ab(trees, g, result):
+    import chip_smoke as cs
+    from quantizedmha_tpu_torch.ops import flash_attention as fa
+    result["ptxas"] = {w: cs._ptxas_kernels(lib.with_suffix(".log").read_text())
+                       for w, (_, _, lib) in trees.items()}
+
+    def launch(which, q, k, v, o, lse, do, offsets, dlse, kw):
+        """(grads, [(function, ctypes args) of dK/dV, of dQ], kept operands):
+        both launches through a tree's wrapper and library, run once."""
+        module, fns, _ = trees[which]
+        launches, grads, keep = module._flash_bwd_launch(q, k, v, o, lse, do, offsets, dlse,
+                                                         **kw)
+        calls = [(fns[kernel.symbol], args) for kernel, args in launches]
+        for fn, args in calls:
+            err = fn(*args)
+            if err:
+                raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
+        torch.cuda.synchronize()
+        return grads, calls, keep
+
+    ok = True
+    for name, (B, H, Hkv, S, D, dt, cap, with_dlse) in FLASH_BWD_MAIN.items():
+        q = torch.randn((B, H, S, D), generator=g, device="cuda").to(dt)
+        k, v = torch.randn((2, B, Hkv, S, D), generator=g, device="cuda").to(dt)
+        do = torch.randn((B, H, S, D), generator=g, device="cuda").to(dt)
+        dlse = torch.randn((B, H, S), generator=g, device="cuda") if with_dlse else None
+        offsets = fa._offsets(0, 0, B, q.device)
+        kw = dict(sm_scale=D**-0.5, causal=True, window=None, softcap=cap, sinks=0)
+        o, lse = fa._flash_fwd_cuda(q, k, v, offsets, block_kv=min(1024, S),
+                                    save_residuals=True, **kw)
+        plain = fa._flash_bwd_plain(q, k, v, o, lse, do, offsets, dlse, **kw)
+        tols = cs.flash_bwd_tolerances(q, k, v, o, lse, do, dlse, offsets, plain, **kw)
+        row, calls, outs = {}, {}, {}
+        for which in trees:
+            grads, calls[which], keep = launch(which, q, k, v, o, lse, do, offsets, dlse, kw)
+            outs[which] = (grads, keep)
+            same = cs._same_bits_again(lambda: [fn(*a) for fn, a in calls[which]], list(grads))
+            row[which] = {"err_over_tol": [cs.err_over_tol(x, p, t)
+                                           for x, p, t in zip(grads, plain, tols)],
+                          "same_bits_twice": same}
+            ok &= max(row[which]["err_over_tol"]) <= 1.0 and same
+        row["same_bits_as_this"] = {
+            w: all(torch.equal(a, b) for a, b in zip(x[0], outs["this"][0]))
+            for w, x in outs.items()}
+        if dt == torch.bfloat16:  # (the f32 route is held to its tolerance)
+            ok &= all(row["same_bits_as_this"].values())
+        for i, kern in enumerate(("dkv", "dq")):  # each kernel's ms in turns
+            row[kern] = {w: {} for w in trees}
+            _timed_turns({w: (calls[w][i],) for w in trees}, row[kern],
+                         iters=10 if S <= 2048 else 3)
+        result["main"][name] = row
+        del q, k, v, do, o, lse, plain, tols, calls, outs
+    # Every coverage case and grid case: whether each library gives this
+    # one's bits (dq, dk, dv); the bf16 cases must.
+    result["coverage_same_bits"], bf16_cases = {}, []
+    cases = [(f"flash_bwd{i}", c) for i, c in enumerate(cs.FLASH_BWD_COVERAGE)]
+    cases += [(f"flash_bwd_grid{i}", c) for i, c in enumerate(cs.FLASH_BWD_GRID)]
+    for name, case in cases:
+        if name.startswith("flash_bwd_grid"):
+            q, k, v, do, dlse, offsets = cs.flash_bwd_grid_inputs(g, case)
+            masks = dict(causal=True, window=case[-1], sinks=0, softcap=50.0)
+        else:
+            q, k, v, do, dlse, offsets, masks = cs.flash_bwd_coverage_inputs(g, case)
+        if q.dtype == torch.bfloat16:
+            bf16_cases.append(name)
+        kw = dict(sm_scale=q.shape[-1] ** -0.5, **masks)
+        o, lse = fa._flash_fwd_cuda(q, k, v, offsets, block_kv=min(1024, k.shape[2]),
+                                    save_residuals=True, **kw)
+        outs = {w: launch(w, q, k, v, o, lse, do, offsets, dlse, kw) for w in trees}
+        result["coverage_same_bits"][name] = all(
+            torch.equal(a, b) for x in outs.values() for a, b in zip(x[0], outs["this"][0]))
+    return ok and all(result["coverage_same_bits"][name] for name in bf16_cases)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path,
@@ -691,7 +785,7 @@ def main(argv=None) -> int:
               "variants": variants, "source": args.source, "main": {}}
     ab = {"paged_prefill": _prefill_ab, "paged_decode": _decode_ab,
           "flash_fwd": _flash_fwd_ab, "w4_matmul": _w4_ab,
-          "flash_int8_fwd": _flash_int8_ab}[args.source]
+          "flash_int8_fwd": _flash_int8_ab, "flash_bwd": _flash_bwd_ab}[args.source]
     result["ok"] = bool(ab(trees, g, result))
     text = json.dumps(result)
     if args.out is not None:

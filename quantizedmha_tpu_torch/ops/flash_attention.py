@@ -29,10 +29,9 @@ P). Under autograd the call is a `torch.autograd.Function` whose backward
 is `csrc/flash_bwd.cu`'s dK/dV and dQ kernels (TPU `_bwd_dkv_kernel`,
 `_bwd_dq_kernel`) on a CUDA tensor and `_flash_bwd_plain` on a CPU one. In
 bf16 the backward runs on the tensor cores with P and dS rounded to bf16
-as the operands of dV, dK and dQ (the TPU's Precision.DEFAULT), at head_dim
-256 too (Gemma-2's training path); in f32 it runs every product in f32
-(Precision.HIGHEST), at head_dim 256 not yet (it raises: ROADMAP.md queue
-2 item 3b).
+as the operands of dV, dK and dQ (the TPU's Precision.DEFAULT); in f32 it
+runs every product as a true f32 FMA on the CUDA cores (Precision.HIGHEST).
+Both take head_dim 256 (Gemma-2's training path, in bf16 and in f32).
 """
 
 from __future__ import annotations
@@ -57,11 +56,8 @@ _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
 # both stand for `_fwd_kernel`.
 FLASH_FWD_BF16 = cuda_lib.CudaKernel("flash_fwd", "flash_fwd", _ARGS)
 FLASH_FWD_F32 = cuda_lib.CudaKernel("flash_fwd", "flash_fwd", _ARGS)
+# head_dim 256 (Gemma-2): the forward and the backward in bf16 and f32.
 _HEAD_DIMS = (32, 64, 128, 256)
-# head_dim 256 (Gemma-2): the forward in bf16 and f32, the backward in bf16
-# (the serving paths' and the bf16 training path's); the f32 backward there
-# is still to build.
-_D256_BWD_TODO = "(ROADMAP.md queue 2 item 3b, the f32 backward at head_dim 256)"
 
 
 def validate_masking(causal: bool, window, sinks: int) -> None:
@@ -356,9 +352,6 @@ def _flash_bwd_launch(q, k, v, o, lse, do, offsets, dlse=None, *, sm_scale, caus
         raise ValueError(f"the CUDA flash backward takes head_dim in {_HEAD_DIMS}, got {D}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if D == 256 and q.dtype == torch.float32:
-        raise NotImplementedError(f"the CUDA f32 flash backward at head_dim 256 is not built "
-                                  f"yet {_D256_BWD_TODO}")
     if any(x.dtype != q.dtype for x in (k, v, do)):
         raise ValueError("q, k, v and the output gradient must share a dtype")
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))

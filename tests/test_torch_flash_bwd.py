@@ -353,3 +353,54 @@ def test_chip_smoke_flash_bwd_check_holds_jax_and_catches_faults(dtype):
     assert chip_smoke.err_over_tol(dv_fault, plain[2], tols[2]) > 5.0
     shifted = tfa._flash_bwd_plain(tq, tk, tv, o, lse, tdo, tfa._offsets(1, 0, b, "cpu"), **kw)
     assert max(chip_smoke.err_over_tol(g, p, t) for g, p, t in zip(shifted, plain, tols)) > 5.0
+
+
+
+@pytest.mark.parametrize("data", ["random", "grid"])
+def test_chip_smoke_flash_bwd_check_f32_d256_holds_jax_and_sees_bf16_ds(data, monkeypatch):
+    """The card's gate on the f32 backward at d=256 (Gemma-2 trained in
+    f32): chip_smoke.flash_bwd_tolerances in f32, at 1 x 4/2 heads x 64
+    tokens with softcap 50, a window of 30 and a dlse cotangent, holds JAX's
+    _bwd_pallas (interpret mode, Precision.HIGHEST: another summation order)
+    against _flash_bwd_plain, and rejects the plain version with dS rounded
+    to bf16 before the second products (what the f32 route must never do)
+    in dQ and dK. On random normal inputs the bound of two summation orders
+    over 256 products leaves the rounding just over it (> 1); on
+    chip_smoke's grid (flash_bwd_grid_inputs: exact raw dots, held with
+    exact_dots) by more than 10x, as the faults phase requires of a d=256
+    fault."""
+    import chip_smoke
+
+    d, s, sm = 256, 64, 256 ** -0.5
+    if data == "grid":
+        case = (1, 4, 2, s, s, 30)
+        q, k, v, do, dlse, _ = (x.numpy() for x in chip_smoke.flash_bwd_grid_inputs(
+            torch.Generator().manual_seed(41), case, device="cpu"))
+    else:
+        q, k, v, do = _inputs(1, 4, 2, s, s, d, seed=41)
+        dlse = np.random.default_rng(42).normal(0, 1, (1, 4, s)).astype(np.float32)
+    masks = dict(window=30, softcap=50.0, sinks=0)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    o, lse = jfa._fwd(jq, jk, jv, sm_scale=sm, causal=True, block_q=None, block_kv=None,
+                      save_residuals=True, q_offset=0, kv_offset=0, **masks)
+    want = jfa._bwd_pallas(sm, True, jq, jk, jv, o, lse, jdo, dlse=jnp.asarray(dlse),
+                           q_offset=0, kv_offset=0, **masks)
+    tq, tk, tv, to, tlse, tdo = (torch.from_numpy(np.array(x)) for x in (q, k, v, o, lse, do))
+    offs, tdlse = tfa._offsets(0, 0, 1, "cpu"), torch.from_numpy(dlse)
+    kw = dict(sm_scale=sm, causal=True, **masks)
+    plain = tfa._flash_bwd_plain(tq, tk, tv, to, tlse, tdo, offs, tdlse, **kw)
+    tols = chip_smoke.flash_bwd_tolerances(tq, tk, tv, to, tlse, tdo, tdlse, offs, plain,
+                                           exact_dots=data == "grid", **kw)
+    for g, p, t, n in zip(want, plain, tols, "qkv"):
+        got = torch.from_numpy(np.array(g, np.float32))
+        assert chip_smoke.err_over_tol(got, p, t) <= 1.0, f"d{n}"
+    pairs = tfa._bwd_pairs
+
+    def ds_in_bf16(*a, **kw):
+        p, dp, ds = pairs(*a, **kw)
+        return p, dp, ds.to(torch.bfloat16).float()
+    monkeypatch.setattr(tfa, "_bwd_pairs", ds_in_bf16)
+    rounded = tfa._flash_bwd_plain(tq, tk, tv, to, tlse, tdo, offs, tdlse, **kw)
+    floor = 10.0 if data == "grid" else 1.0
+    for i in (0, 1):  # dQ = dS·K, dK = dSᵀQ
+        assert chip_smoke.err_over_tol(rounded[i], plain[i], tols[i]) > floor, "dqk"[i]

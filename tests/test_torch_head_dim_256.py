@@ -2,9 +2,9 @@
 wrappers admit it for the routes the serving paths take (rows 3 and 12,
 the paged decode; rows 10 and 11, the paged prefill with bf16 and f32 q;
 row 5, the flash forward in bf16 and f32; row 1, the INT8 flash forward
-with int8 P) and the bf16 training path's (rows 6 and 7, the bf16 flash
-backward), every other route raises and names its ROADMAP item (row 2,
-the int8 flash with bf16 P, and the f32 backward), and the plain versions,
+with int8 P) and the training paths' (rows 6 and 7, the flash backward in
+bf16 and f32), the one other route raises and names its ROADMAP item (row
+2, the int8 flash with bf16 P), and the plain versions,
 which the kernels are held to on the card, agree with the JAX package's
 Pallas kernels (interpret mode) at d=256.
 
@@ -39,7 +39,6 @@ jfa = importlib.import_module("quantizedmha_tpu.ops.flash_attention")
 D = 256
 TOL = 1e-5
 ROW2_ITEM = "ROADMAP.md queue 2 item 2"
-BWD_F32_ITEM = "ROADMAP.md queue 2 item 3b"
 
 
 def test_serving_routes_admit_head_dim_256(monkeypatch):
@@ -81,25 +80,22 @@ def test_serving_routes_admit_head_dim_256(monkeypatch):
 
 
 def test_routes_left_out_raise_naming_their_item(monkeypatch):
-    """The f32 flash backward and the INT8 flash forward with bf16 P (row
-    2) refuse head_dim 256 before any launch, each naming its ROADMAP item
-    (on the CPU tensors here, as they would on the card). The bf16 flash
-    backward (rows 6 and 7, the training path's) builds its launches at D =
-    256 (the stream stubbed)."""
+    """The INT8 flash forward with bf16 P (row 2) refuses head_dim 256
+    before any launch, naming its ROADMAP item (on the CPU tensors here, as
+    it would on the card). The flash backward (rows 6 and 7, the training
+    paths') builds both launches at D = 256 (the stream stubbed), in f32
+    with the bf16 flag 0 and in bf16 with it 1."""
     q = torch.zeros((1, 2, 8, D))
     kv = torch.zeros((1, 1, 8, D))
     offs = _offsets(0, 0, 1, q.device)
     masks = dict(window=None, softcap=None, sinks=0)
-    with pytest.raises(NotImplementedError, match=BWD_F32_ITEM):
-        tfa._flash_bwd_launch(q, kv, kv, q, torch.zeros((1, 2, 8)), q, offs, sm_scale=D**-0.5,
-                              causal=True, **masks)
     monkeypatch.setattr(cuda_lib, "stream_of", lambda t: 0)
-    qb = q.to(torch.bfloat16)
-    launches, _, _ = tfa._flash_bwd_launch(qb, kv.to(torch.bfloat16), kv.to(torch.bfloat16), qb,
-                                           torch.zeros((1, 2, 8)), qb, offs, sm_scale=D**-0.5,
-                                           causal=True, **masks)
-    assert [k for k, _ in launches] == [tfa.FLASH_BWD_DKV, tfa.FLASH_BWD_DQ]
-    assert all(args[-9] == D and args[-2] == 1 for _, args in launches)
+    for dt, flag in ((torch.float32, 0), (torch.bfloat16, 1)):
+        qd, kvd = q.to(dt), kv.to(dt)
+        launches, _, _ = tfa._flash_bwd_launch(qd, kvd, kvd, qd, torch.zeros((1, 2, 8)), qd, offs,
+                                               sm_scale=D**-0.5, causal=True, **masks)
+        assert [k for k, _ in launches] == [tfa.FLASH_BWD_DKV, tfa.FLASH_BWD_DQ]
+        assert all(args[-9] == D and args[-2] == flag for _, args in launches)
     k8 = torch.zeros((1, 1, 8, D), dtype=torch.int8)
     with pytest.raises(NotImplementedError, match=ROW2_ITEM):  # row 2: bf16 P
         tfa8._flash_int8_launch(q, k8, torch.ones((1, 1, 1)), k8, torch.ones((1, 1, 1)), offs,

@@ -145,13 +145,16 @@ def test_bwd_plain_matches_bwd_pallas_at_256(dtype):
         _close(g, gw, dtype, f"d{n}")
 
 
-def test_bf16_launch_carries_head_dim_256(monkeypatch):
-    """The bf16 backward at d=256 builds both launches (no card needed; the
-    stream is stubbed): dK/dV then dQ, each with D = 256, the bf16 flag,
-    Gemma-2's masks and softcap, and outputs of the inputs' shapes."""
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_launch_carries_head_dim_256(name, monkeypatch):
+    """The backward at d=256, f32 and bf16, builds both launches (no card
+    needed; the stream is stubbed): dK/dV then dQ, each with D = 256, the
+    bf16 flag of the dtype (0 in f32: the CUDA-core kernels), Gemma-2's
+    masks and softcap, and outputs of the inputs' shapes and dtype."""
     monkeypatch.setattr(cuda_lib, "stream_of", lambda t: 0)
-    q = torch.zeros((1, 4, 48, D), dtype=torch.bfloat16)
-    kv = torch.zeros((1, 2, 48, D), dtype=torch.bfloat16)
+    dtype = DTYPES[name][0]
+    q = torch.zeros((1, 4, 48, D), dtype=dtype)
+    kv = torch.zeros((1, 2, 48, D), dtype=dtype)
     launches, (dq, dk, dv), _ = tfa._flash_bwd_launch(
         q, kv, kv, q, torch.zeros((1, 4, 48)), q, tfa._offsets(0, 0, 1, q.device),
         torch.zeros((1, 4, 48)), sm_scale=D**-0.5, causal=True, window=16, softcap=50.0,
@@ -161,6 +164,8 @@ def test_bf16_launch_carries_head_dim_256(monkeypatch):
         assert kernel.launches == 0
         # (B, H, Hkv, Sq, Skv, D, sm_scale, has_softcap, softcap, causal,
         #  window, sinks, bf16, stream) end each argument list.
-        assert args[-14:-8] == (1, 4, 2, 48, 48, D) and args[-7:-1] == (1, 50.0, 1, 16, 0, 1)
+        assert args[-14:-8] == (1, 4, 2, 48, 48, D)
+        assert args[-7:-1] == (1, 50.0, 1, 16, 0, int(dtype == torch.bfloat16))
     assert dq.shape == q.shape and dk.shape == dv.shape == kv.shape
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
 
