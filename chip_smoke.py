@@ -23,10 +23,13 @@ result line:
            that makes the raw dots exact (FLASH_BWD_GRID: a bf16-rounded P
            or dS shows there), each pair launched twice (the same bits
            both times, or the check fails), and so is every INT8 flash
-           launch (both numerics modes at their main shapes, the int8-P
-           one at serve's 256-token, serve_w4's 512-token and the prefill
-           bench's 2048-token prefill, and
-           every FLASH_COVERAGE case), every float flash launch (the
+           launch (the three numerics modes at their main shapes: int8 P
+           at serve's 256-token, serve_w4's 512-token and the prefill
+           bench's 2048-token prefill, bf16 P with l over the bf16 P'
+           (mode 1) and over the f32 P' (mode 2) at solve's shape; every
+           FLASH_COVERAGE case, and FLASH_ONE_SIDED's, where the two bf16-P
+           modes' l differ by more than 10x their tolerance), every float
+           flash launch (the
            f32 route's split planes filled with NaN before its first,
            so that a plane element left unwritten shows; its own
            coverage cases and FLASH_FWD_PIECES, built so that a dropped
@@ -39,8 +42,10 @@ result line:
            kernel / plain / library times (CUDA events) and the least time
            the card could take (bound). Rows 3, 5 and 10 also at head_dim
            256, serve_hybrid's Gemma-2 shapes (each entry's "gemma2"), and
-           and row 1 (int8 P) at serve_hf's Gemma-2 shapes ("full": 2048
+           row 1 (int8 P) at serve_hf's Gemma-2 shapes ("full": 2048
            tokens, "sliding": 8192 under the 4096 window, "f32": f32 q),
+           mode 1 at the same three (block_kv 512, the transposed route's)
+           and mode 2 at "full" (block_kv 1024, the standard route's),
            rows 6 and 7 at train_gemma2's ("full": 8192 tokens causal,
            "sliding": under the 4096 window, both softcap 50 with a dlse;
            SDPA's bf16 backward beside them) and in f32 at
@@ -63,6 +68,18 @@ result line:
            256, "fa_d256"): time, relative RMS error against the float
            golden with each rung's limit, and the constant-input gate
            (all-ones -> exactly 1.0).
+  int8_modes  each INT8 numerics mode through the port's public entry
+           points (INT8_MODES), the quantize prepass and the routing
+           included: flash_attention_int8 at Gemma-2-9B's attention width
+           (16 q / 8 kv heads of 256, softcap 50, bf16) and 2048 tokens with
+           transposed=True (mode 1) and with summode="vpu" too (mode 2), at
+           8192 tokens under the 4096 window (mode 1), and on the standard
+           route with pv_dtype="bf16" (mode 2); flash_attention_int8_t at
+           the reference workload (N=8192, h=32, d=32, f32) with summode
+           "mxu" and "vpu". Gates: exactly one launch of the mode's kernel
+           and none of the others', the output within flash_tolerances of
+           the plain version, relative RMS error against the float golden
+           <= 3%, all-ones inputs giving ones within 1e-6. Prints ms.
   harness  the reference driver, `harness.cli.run(["--kernel", "all",
            ...])` at the same workload with a temporary cache and JSON
            report: every rung checked against the float golden, then
@@ -373,9 +390,9 @@ result line:
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 zeroed just before each main path (each solve rung, the harness run,
-serve, serve's prefill bench, serve_w8a8 and its prefill bench, each
-serve_w4 batch, serve_flash, serve_mixed, serve_hybrid, serve_hybrid_mixed,
-serve_gemma2_f32's two runs, serve_spec's four runs, train's, train_gemma2's and
+each int8_modes call, serve, serve's prefill bench, serve_w8a8 and its
+prefill bench, each serve_w4 batch, serve_flash, serve_mixed,
+serve_hybrid, serve_hybrid_mixed, serve_gemma2_f32's two runs, serve_spec's four runs, train's, train_gemma2's and
 train_gemma2_f32's steps, each of
 parallel's rings and its
 one-rank group, and in every rank of serve_tp's, serve_cp's and
@@ -406,8 +423,8 @@ REFERENCE_L4_MS = 7.70  # the reference study's fa_tc_int8_b on an NVIDIA L4
 SOLVE_REL_RMS_TOL = 0.03  # int8 solve vs the float golden (phase_solve)
 PREFILL_BENCH_LEN = 2048  # serving_bench --prefill's prompt (phase_serve)
 
-PHASES = ("build", "kernels", "solve", "harness", "serve", "serve_w8a8", "serve_w4",
-          "serve_flash", "serve_mixed", "serve_hybrid", "serve_hybrid_mixed",
+PHASES = ("build", "kernels", "solve", "harness", "int8_modes", "serve", "serve_w8a8",
+          "serve_w4", "serve_flash", "serve_mixed", "serve_hybrid", "serve_hybrid_mixed",
           "serve_gemma2_f32", "serve_spec",
           "serve_hf", "train", "train_gemma2", "train_gemma2_f32", "train_parallel", "parallel",
           "serve_tp", "serve_cp", "faults")
@@ -477,13 +494,15 @@ def flash_tolerances(o_plain, lse_plain, l, v_i8, v_scales, block_kv, mode):
     version's exp(s - shift), so a P' within those ulps of a rounding
     boundary can round the other way: an int8 P by one unit, a bf16 P by
     one bf16 ulp (<= 0.5, as P' <= 127). One flip of key j moves the row's
-    output by at most max|v| / l (int8 P: P·V moves by |v_j|; bf16 P: P·V
-    and l move together, by at most 0.5 |v_j - o|), where max|v| is taken
-    over the row's (batch, kv head) and l is the row's final P' sum; two
-    flips are allowed. 1e-5 max|v| covers the f32 summation order and the
-    ulps of P' itself; a bf16 output adds one bf16 ulp of |o|. lse moves by at most
-    0.5 / l a flip in the bf16 P mode (l sums the rounded P), otherwise only
-    by f32 rounding."""
+    output by at most max|v| / l, where max|v| is taken over the row's
+    (batch, kv head) and l is the row's final P' sum: mode 0 (int8 P), P·V
+    moves by |v_j| and l not at all; mode 1 (bf16 P, l over it), P·V and l
+    move together, o by at most 0.5 |v_j - o| / l; mode 2 (bf16 P, l over
+    the f32 P'), P·V moves by at most 0.5 |v_j| and l not at all. Two flips
+    are allowed. 1e-5 max|v| covers the f32 summation order and the ulps of
+    P' itself; a bf16 output adds one bf16 ulp of |o|. lse moves by at most
+    0.5 / l a flip in mode 1 (l sums the rounded P); in modes 0 and 2 l sums
+    the f32 P', so only by f32 rounding."""
     import torch
     from quantizedmha_tpu_torch.ops.quantize import dequantize_kv_blocks
     group = o_plain.shape[1] // v_i8.shape[1]
@@ -1184,6 +1203,10 @@ def _paged_prefill_case(g, *, replaces):
 # sequence), window + sinks with skipped tiles, softcap on mask-free tiles,
 # d = 32, 64 and 128, f32 and bf16 q; each draws from its own generator
 # (FIRST_INT8P_CASE), so that the cases after FLASH_COVERAGE keep theirs.
+# Then d=256 with int8 P, and the bf16-P kernel at d=256 (one consumer of
+# 64 rows, Q and K as 128-byte halves, P·V two m64n128 products, MODE_BF16_P's
+# l from its own ones product) and MODE_BF16_P_F32L (l over the f32 P') at
+# every head dim.
 FLASH_COVERAGE = (
     (2, 4, 2, 100, 192, 192, 32, 64, False, None, 0, None, 1, False, None),
     (2, 4, 2, 100, 192, 192, 64, 96, True, None, 0, None, 0, True, None),
@@ -1218,8 +1241,66 @@ FLASH_COVERAGE = (
     (2, 4, 2, 96, 192, 192, 256, 64, True, None, 0, 50.0, 0, True, ((70, 10), (0, 40))),
     (1, 8, 1, 70, 128, 128, 256, 128, False, None, 0, None, 0, True, None),
     (2, 2, 1, 130, 256, 256, 256, 128, True, None, 0, None, 0, False, (0, 100)),
+    # d=256 with bf16 P, modes 1 and 2 in turn: odd lengths with kv_len <
+    # Skv and softcap, window + sinks, offsets per sequence, GQA 8 not
+    # causal, f32 and bf16 q in both modes; mode 2 over two quant blocks the
+    # second sequence's offset masks. Then mode 2 at d = 32, 64 and 128.
+    (1, 4, 2, 77, 200, 190, 256, 200, True, None, 0, 50.0, 1, True, None),
+    (1, 4, 2, 77, 200, 190, 256, 200, True, None, 0, 50.0, 2, False, None),
+    (1, 4, 2, 300, 512, 512, 256, 256, True, 64, 4, None, 1, False, None),
+    (1, 4, 2, 300, 512, 512, 256, 256, True, 64, 4, None, 2, True, None),
+    (2, 4, 2, 96, 192, 192, 256, 64, True, None, 0, 50.0, 1, False, ((70, 10), (0, 40))),
+    (2, 4, 2, 96, 192, 192, 256, 64, True, None, 0, 50.0, 2, True, ((70, 10), (0, 40))),
+    (1, 8, 1, 70, 128, 128, 256, 128, False, None, 0, None, 1, True, None),
+    (1, 8, 1, 70, 128, 128, 256, 128, False, None, 0, None, 2, False, None),
+    (2, 2, 1, 130, 256, 256, 256, 128, True, None, 0, None, 2, False, (0, 100)),
+    (1, 2, 2, 150, 256, 256, 32, 64, True, None, 0, 20.0, 2, False, None),
+    (2, 4, 2, 96, 192, 192, 64, 96, True, 40, 4, None, 2, True, ((70, 10), (0, 40))),
+    (1, 4, 4, 200, 384, 384, 128, 384, False, None, 0, None, 2, False, None),
 )
 FIRST_INT8P_CASE = 17
+# The bf16-P modes told apart: (B, H, Hkv, S, D, block_kv, causal, mode),
+# f32 q (a bf16 output's rounding would hide the difference). Every row
+# sees key 0 at the row max and every other key at one score whose P'
+# (about 100.2) rounds down to bf16 by 0.2 (one_sided_inputs), and V is one
+# value: mode 1's l sums the rounded P', so o = v, while mode 2's sums the
+# f32 P' and o sits about 2^-9 |v| below, far outside flash_tolerances'
+# 2 max|v| / l once a row sees hundreds of keys. Each case is held to its
+# own mode's plain version; a kernel with the other mode's l fails it.
+FLASH_ONE_SIDED = ((1, 4, 2, 1024, 32, 512, False, 1), (1, 4, 2, 1024, 32, 512, False, 2),
+                   (1, 2, 1, 768, 256, 256, True, 1), (1, 2, 1, 768, 256, 256, True, 2))
+ONE_SIDED_P = 100.2  # P' of every key below the row max: bf16 spacing 0.5 there
+
+
+def one_sided_inputs(case, device="cuda"):
+    """(q, k_i8, k_scales, v_i8, v_scales, offsets, kw) of a
+    FLASH_ONE_SIDED case (kw: the plain version's keywords with lse). q
+    is 127 in column 0 and 0 elsewhere (Q quantizes to itself, scale 1);
+    K is 127 in column 1 of every key (a block scale of 1), 127 in column 0
+    of key 0 and 126 in every other key's, integers elsewhere; so S = 127 ·
+    127 at key 0 and 127 · 126 at the others, and sm_scale puts the others'
+    P' = 127 exp(-127 sm_scale) at ONE_SIDED_P. V is 0.75 everywhere."""
+    import torch
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
+    B, H, Hkv, S, D, bkv, causal, mode = case
+    g = torch.Generator().manual_seed(S + D + mode)
+    q = torch.zeros((B, H, S, D))
+    q[..., 0] = 127.0
+    k = torch.randint(-127, 128, (B, Hkv, S, D), generator=g).float()
+    k[..., 0] = 126.0
+    k[..., 0, 0] = 127.0
+    k[..., 1] = 127.0
+    v = torch.full((B, Hkv, S, D), 0.75)
+    sm = float(torch.tensor(math.log(127.0 / ONE_SIDED_P) / 127.0, dtype=torch.float32))
+    k_i8, ks = quantize_kv_blocks(k, bkv)
+    v_i8, vs = quantize_kv_blocks(v, bkv)
+    assert torch.equal(k_i8.float(), k) and bool((ks == 1.0).all())
+    kw = dict(sm_scale=sm, causal=causal, kv_len=S, block_kv=bkv, scale_clamp=1e-8,
+              p_scale=127.0, window=None, softcap=None, sinks=0, mode=mode,
+              save_residuals=True)
+    return tuple(x.to(device) for x in (q, k_i8, ks, v_i8, vs)) + (
+        fa8._offsets(0, 0, B, device), kw)
 #   (B, Hq, Hkv, D, page, window, sinks, softcap, bf16 q, table slots,
 #    lengths (None: drawn from 1 to a full table), scores far below zero)
 # The first three hold tables of 6 slots (one split); the rest hold 20-40
@@ -1422,15 +1503,21 @@ def flash_coverage_inputs(g, case, device="cuda"):
 
 
 def _flash_coverage_ratios(g):
-    """FLASH_COVERAGE: the INT8 flash kernel against plain on the card,
-    each case launched twice, {case: [output, lse] err_over_tol} (a third
-    entry, inf, when the second launch's bits differ)."""
+    """FLASH_COVERAGE and FLASH_ONE_SIDED: the INT8 flash kernel against
+    plain on the card, each case launched twice, {case: [output, lse]
+    err_over_tol} (a third entry, inf, when the second launch's bits
+    differ)."""
     import torch
     from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
     ratios = {}
-    for i, case in enumerate(FLASH_COVERAGE):
-        gi = g if i < FIRST_INT8P_CASE else torch.Generator(device="cuda").manual_seed(i)
-        *operands, kw = flash_coverage_inputs(gi, case)
+    cases = [(f"fa8_{i}", c) for i, c in enumerate(FLASH_COVERAGE)]
+    cases += [(f"fa8_onesided{i}", c) for i, c in enumerate(FLASH_ONE_SIDED)]
+    for i, (name, case) in enumerate(cases):
+        if name.startswith("fa8_onesided"):
+            *operands, kw = one_sided_inputs(case)
+        else:
+            gi = g if i < FIRST_INT8P_CASE else torch.Generator(device="cuda").manual_seed(i)
+            *operands, kw = flash_coverage_inputs(gi, case)
         kernel, args, (out, lse), _operands = fa8._flash_int8_launch(*operands, **kw)
         kernel(*args)
         torch.cuda.synchronize()
@@ -1440,9 +1527,9 @@ def _flash_coverage_ratios(g):
             *operands, **{k: x for k, x in kw.items() if k != "save_residuals"})
         tol, lse_tol = flash_tolerances(p_out, p_lse, l, operands[3], operands[4],
                                         kw["block_kv"], kw["mode"])
-        ratios[f"fa8_{i}"] = [err_over_tol(out, p_out, tol), err_over_tol(lse, p_lse, lse_tol)]
+        ratios[name] = [err_over_tol(out, p_out, tol), err_over_tol(lse, p_lse, lse_tol)]
         if not same:
-            ratios[f"fa8_{i}"].append(float("inf"))
+            ratios[name].append(float("inf"))
     return ratios
 
 
@@ -1698,15 +1785,17 @@ def _int8p_window_pairs(S, window):
     return sum(min(i + 1, window) for i in range(S)) if window else S * (S + 1) // 2
 
 
-def _gemma2_int8p(g):
-    """Row 1 (int8 P) at d=256, serve_hf's prefill: Gemma-2's attention
-    (GEMMA2_ATTN: 16 q over 8 kv heads, sm_scale 256^-0.5, softcap 50),
-    block_kv 1024 as pick_blocks gives it: "full", a 2048-token bucket in
-    bf16; "sliding", 8192 tokens under the 4096 window (eight quant blocks,
-    the window biting); "f32", the full shape with f32 q. Each launched
-    twice (the same bits), held to _flash_int8_plain within
-    flash_tolerances; SDPA in bf16 (no softcap: it has none) on the same
-    K/V with the window in its mask."""
+def _gemma2_int8(g, mode=0, block_kv=1024, kinds=("full", "sliding", "f32")):
+    """An INT8 flash mode at d=256 (row 1's int8 P at serve_hf's prefill,
+    block_kv 1024 as pick_blocks gives it; the bf16-P modes at int8_modes'
+    calls: mode 1 on the transposed route, block_kv 512 as pick_blocks_t
+    gives it, mode 2 on the standard route): Gemma-2's attention
+    (GEMMA2_ATTN: 16 q over 8 kv heads, sm_scale 256^-0.5, softcap 50):
+    "full", a 2048-token bucket in bf16; "sliding", 8192 tokens under the
+    4096 window (quant blocks the window skips); "f32", the full shape with
+    f32 q. Each launched twice (the same bits), held to _flash_int8_plain
+    within flash_tolerances; SDPA in bf16 (no softcap: it has none) on the
+    same K/V with the window in its mask."""
     import torch
     from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
     from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
@@ -1716,14 +1805,16 @@ def _gemma2_int8p(g):
     for kind, S, window, dt in (("full", 2048, None, torch.bfloat16),
                                 ("sliding", 8192, ga["window"], torch.bfloat16),
                                 ("f32", 2048, None, torch.float32)):
+        if kind not in kinds:
+            continue
         q = torch.randn((1, Hq, S, D), generator=g, device="cuda").to(dt)
         k, v = torch.randn((2, 1, Hkv, S, D), generator=g, device="cuda").to(dt)
-        bkv = min(1024, S)
+        bkv = min(block_kv, S)
         k_i8, ks = quantize_kv_blocks(k, bkv)
         v_i8, vs = quantize_kv_blocks(v, bkv)
         operands = (q, k_i8, ks, v_i8, vs, fa8._offsets(0, 0, 1, q.device))
         kw = dict(sm_scale=D**-0.5, causal=True, kv_len=S, block_kv=bkv, scale_clamp=1e-8,
-                  p_scale=127.0, window=window, softcap=cap, sinks=0, mode=0,
+                  p_scale=127.0, window=window, softcap=cap, sinks=0, mode=mode,
                   save_residuals=True)
         kernel, args, (o, lse), _keep = fa8._flash_int8_launch(*operands, **kw)
         kernel(*args)
@@ -1732,7 +1823,7 @@ def _gemma2_int8p(g):
         p_o, p_lse = fa8._flash_int8_plain(*operands, **kw)
         _, _, l = fa8._flash_int8_plain_state(
             *operands, **{x: y for x, y in kw.items() if x != "save_residuals"})
-        tol, lse_tol = flash_tolerances(p_o, p_lse, l, v_i8, vs, bkv, 0)
+        tol, lse_tol = flash_tolerances(p_o, p_lse, l, v_i8, vs, bkv, mode)
         ratios = [err_over_tol(o, p_o, tol), err_over_tol(lse, p_lse, lse_tol)]
         if not same:
             ratios.append(float("inf"))
@@ -1750,7 +1841,8 @@ def _gemma2_int8p(g):
                    "window": window, "softcap": cap, "block_kv": bkv, "q": str(dt)},
             nbytes=(2 * q.numel() * q.element_size() + 2 * k_i8.numel() + 2 * ks.numel() * 4
                     + Hq * S * 4),
-            ops={"int8": 2 * 2 * pairs * D, "exp": pairs},
+            ops={"int8": 2 * (2 if mode == 0 else 1) * pairs * D,
+                 "bf16": 0 if mode == 0 else 2 * pairs * D, "exp": pairs},
             library=lambda: _sdpa(qb, kb, vb, enable_gqa=True, **sdpa_kw))
         del q, k, v, qb, kb, vb, k_i8, v_i8, o, p_o, l, tol, mask
         torch.cuda.empty_cache()
@@ -1843,7 +1935,11 @@ def _gemma2_kernels():
             library=lambda: _sdpa_decode(q, *clean, lengths, tables, window=window))
     _gemma2_verify_and_int4(g, out)
     _gemma2_f32(torch.Generator(device="cuda").manual_seed(363), out)
-    out["flash_int8_fwd[int8_p]"] = _gemma2_int8p(torch.Generator(device="cuda").manual_seed(361))
+    out["flash_int8_fwd[int8_p]"] = _gemma2_int8(torch.Generator(device="cuda").manual_seed(361))
+    out["flash_int8_fwd[bf16_p]"] = _gemma2_int8(torch.Generator(device="cuda").manual_seed(364),
+                                                 mode=1, block_kv=512)
+    out["flash_int8_fwd[bf16_p_f32l]"] = _gemma2_int8(
+        torch.Generator(device="cuda").manual_seed(365), mode=2, kinds=("full",))
     out.update(_gemma2_bwd(torch.Generator(device="cuda").manual_seed(362)))
     return out
 
@@ -2977,11 +3073,19 @@ def phase_kernels(st):
     int8_p["serve_w4"] = {k: w4_prefill[k] for k in sub_keys}
     int8_p["prefill_bench"] = {k: bench_prefill[k] for k in sub_keys}
     int8_p["ok"] = int8_p["ok"] and w4_prefill["ok"] and bench_prefill["ok"]
+    # The bf16-P modes at solve's shape: mode 1 (solve's fa_int8) and mode 2
+    # (int8_modes' flash_attention_int8_t(summode="vpu") twin), which also
+    # stands for the standard kernel's pv_dtype="bf16".
+    bf16_p_f32l = _flash_case("flash_int8_fwd[bf16_p_f32l]", 2, qs, ks, vs, 512, False,
+                              replaces="quantizedmha_tpu/ops/flash_attention_int8.py:437",
+                              library=True)
+    bf16_p_f32l["also_replaces"] = "quantizedmha_tpu/ops/flash_attention_int8.py:80"
     cases = [
         int8_p,
         _flash_case("flash_int8_fwd[bf16_p]", 1, qs, ks, vs, 512, False,
                     replaces="quantizedmha_tpu/ops/flash_attention_int8.py:437",
                     library=True),
+        bf16_p_f32l,
     ]
     # DECODE_MAIN: serve's shape is the entry; the same CUDA kernel stands
     # for the per-kv-head grid form used for MQA (serve_tp's tp=8 ranks give
@@ -3025,7 +3129,7 @@ def phase_kernels(st):
     # The training step's backward: rows 6 (dK/dV) and 7 (dQ).
     cases += _flash_bwd_cases(g)
     # Rows 3, 5 and 10 at head_dim 256, serve_hybrid's Gemma-2 shapes; row
-    # 1 at serve_hf's.
+    # 1 at serve_hf's, rows 1-2's bf16-P modes at int8_modes'.
     by_name = {c["name"]: c for c in cases}
     for name, subs in _gemma2_kernels().items():
         by_name[name]["gemma2"] = subs
@@ -3071,7 +3175,7 @@ PLANTED_FAULTS = (
     ("mma_bf16.cuh", "d=256: P·V's second column half against V's first (O's columns 128-255)",
      "wgmma_rs_m64n128(*reinterpret_cast<float(*)[16][4]>(&acc[16]), a, m + (2 * SW_ROWS * 64 * 2 >> 4), 1);",
      "wgmma_rs_m64n128(*reinterpret_cast<float(*)[16][4]>(&acc[16]), a, m, 1);",
-     ("flash_fwd", "paged_prefill")),
+     ("flash_fwd", "paged_prefill", "flash_int8_fwd")),
     ("flash_fwd.cu", "f32: Q's third piece dropped (S without q2·k0)",
      "qk(2, 0);  // q2·k0: Q's third piece", ";"),
     ("flash_fwd.cu", "f32: K's third piece dropped (S without q0·k2)",
@@ -3286,6 +3390,15 @@ PLANTED_FAULTS = (
     ("flash_int8_fwd.cu", "d=256 int8 P: acc in shared memory not rescaled by alpha (rows g)",
      "        x.x = fmaf(x.x, alpha[0], static_cast<float>(pvi[j][0]) * vsc);",
      "        x.x = fmaf(x.x, 1.f, static_cast<float>(pvi[j][0]) * vsc);"),
+    ("flash_int8_fwd.cu", "d=256 bf16 P: the ones product (l) dropped for the last k16 step",
+     "for (int kk = 0; kk < 4; ++kk) wgmma_rs_m64n8<0>(pl, a[kk], ones, 1);",
+     "for (int kk = 0; kk < 3; ++kk) wgmma_rs_m64n8<0>(pl, a[kk], ones, 1);"),
+    ("flash_int8_fwd.cu", "bf16 P, f32 l: l sums the bf16-rounded P', not the f32 P'",
+     "if constexpr (F32L) lsum[r] += pe[0] + pe[1];  // l over the f32 P'",
+     "if constexpr (F32L) lsum[r] += __low2float(pb) + __high2float(pb);"),
+    ("flash_int8_fwd.cu", "bf16 P, f32 l: the quad sum of l misses one lane (t ^ 3)",
+     "ls += __shfl_xor_sync(0xffffffffu, ls, 2);",
+     "ls += __shfl_xor_sync(0xffffffffu, lsum[r], 2);"),
     ("flash_fwd.cu", "d=256 f32: O's second column half (columns 128-255) left unwritten",
      "for (int c4 = 0; c4 < T::CPT; c4 += 4)  // columns 4tx + 16c4 .. + 3",
      "for (int c4 = 0; c4 < T::CPT / 2; c4 += 4)  // columns 4tx + 16c4 .. + 3"),
@@ -3539,7 +3652,7 @@ def phase_faults(st):
                "paged_decode": (dec.PAGED_DECODE, dec.PAGED_DECODE_INT4),
                "flash_bwd": (fa.FLASH_BWD_DKV, fa.FLASH_BWD_DQ),
                "w4_matmul": (w4.W4_MATMUL,),
-               "flash_int8_fwd": (fa8.FLASH_INT8_P, fa8.FLASH_BF16_P)}
+               "flash_int8_fwd": (fa8.FLASH_INT8_P, fa8.FLASH_BF16_P, fa8.FLASH_BF16_P_F32L)}
     rows = {}
     build_s = 0.0
     try:
@@ -3680,6 +3793,105 @@ def _solve_rung(kernel, q, k, v, ref, ones, st, h=32):
     return {"ok": ok, "ms": ms, "launches": launches, "rel_rms_err_vs_reference": rel_rms,
             "rel_rms_tol": tol, "ones_max_dev": const_dev, "ones_tol": 1e-6,
             "shape": {"N": N, "d_model": d_model, "h": h, "head_dim": d_model // h}}
+
+
+# int8_modes: each INT8 numerics mode through the public entry points.
+#   (label, entry, (B, Hq, Hkv, S, D), bf16 inputs, keywords, kernel name,
+#    route: "t" transposed, block_kv 512 by pick_blocks_t, or "std", 1024 by
+#    pick_blocks): Gemma-2-9B's attention
+# (GEMMA2_ATTN) at 2048 tokens on the transposed route (mode 1, then its
+# summode="vpu" twin, mode 2) and at 8192 under the 4096 window, the
+# standard route with pv_dtype="bf16" (mode 2, block_kv 1024), and the
+# reference workload (N=8192, h=32, d=32, f32) through
+# flash_attention_int8_t with summode "mxu" and "vpu".
+INT8_MODES = (
+    ("gemma2 transposed mxu", "flash_attention_int8", (1, 16, 8, 2048, 256), True,
+     dict(causal=True, logit_softcap=50.0, transposed=True), "flash_int8_fwd[bf16_p]", "t"),
+    ("gemma2 transposed vpu", "flash_attention_int8", (1, 16, 8, 2048, 256), True,
+     dict(causal=True, logit_softcap=50.0, transposed=True, summode="vpu"),
+     "flash_int8_fwd[bf16_p_f32l]", "t"),
+    ("gemma2 transposed mxu window", "flash_attention_int8", (1, 16, 8, 8192, 256), True,
+     dict(causal=True, logit_softcap=50.0, transposed=True, window=4096),
+     "flash_int8_fwd[bf16_p]", "t"),
+    ("gemma2 standard bf16 P", "flash_attention_int8", (1, 16, 8, 2048, 256), True,
+     dict(causal=True, logit_softcap=50.0, pv_dtype="bf16"), "flash_int8_fwd[bf16_p_f32l]",
+     "std"),
+    ("solve shape mxu", "flash_attention_int8_t", (1, 32, 32, 8192, 32), False,
+     dict(summode="mxu"), "flash_int8_fwd[bf16_p]", "t"),
+    ("solve shape vpu", "flash_attention_int8_t", (1, 32, 32, 8192, 32), False,
+     dict(summode="vpu"), "flash_int8_fwd[bf16_p_f32l]", "t"),
+)
+
+
+def phase_int8_modes(st):
+    """Each INT8_MODES call through the port's public API (the quantize
+    prepass and the routing included), the launch counts zeroed just
+    before and read just after. Gates: exactly one launch of its mode's
+    kernel and none of the others; the output within flash_tolerances of
+    _flash_int8_plain on the K/V quantized as the route quantizes them;
+    relative RMS error against the float golden (mha_masked_reference)
+    <= SOLVE_REL_RMS_TOL; all-ones inputs giving ones within 1e-6. Prints
+    each call's ms (CUDA events, the prepass included)."""
+    import torch
+    from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
+    from quantizedmha_tpu_torch.reference.mha import mha_masked_reference
+    dev = st.get("device", "cuda")
+    counters = {"flash_int8_fwd[int8_p]": fa8.FLASH_INT8_P,
+                "flash_int8_fwd[bf16_p]": fa8.FLASH_BF16_P,
+                "flash_int8_fwd[bf16_p_f32l]": fa8.FLASH_BF16_P_F32L}
+    g = torch.Generator(device=dev).manual_seed(25)
+    rows, ok = [], True
+    for label, entry, (B, Hq, Hkv, S, D), bf16, kw, name, route in INT8_MODES:
+        fn = getattr(fa8, entry)
+        dt = torch.bfloat16 if bf16 else torch.float32
+        q = torch.randn((B, Hq, S, D), generator=g, device=dev).to(dt)
+        k, v = torch.randn((2, B, Hkv, S, D), generator=g, device=dev).to(dt)
+        for c in counters.values():
+            c.reset()
+        out = fn(q, k, v, **kw)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        mode = 2 if name.endswith("f32l]") else 1
+        bkv = (fa8.pick_blocks_t if route == "t" else fa8.pick_blocks)(S, S, D)[1]
+        k_i8, ks, v_i8, vs = fa8._quantize_padded(k, v, bkv, 1e-8)
+        pkw = dict(sm_scale=D**-0.5, causal=kw.get("causal", False), kv_len=S, block_kv=bkv,
+                   scale_clamp=1e-8, p_scale=127.0, window=kw.get("window"),
+                   softcap=kw.get("logit_softcap"), sinks=0, mode=mode)
+        operands = (q, k_i8, ks, v_i8, vs, fa8._offsets(0, 0, B, dev))
+        plain = fa8._flash_int8_plain(*operands, save_residuals=False, **pkw)
+        _, _, l = fa8._flash_int8_plain_state(*operands, **pkw)
+        tol, _ = flash_tolerances(plain, None, l, v_i8, vs, bkv, mode)
+        ratio = err_over_tol(out, plain, tol)
+        del plain, l, tol, k_i8, v_i8
+        ref = mha_masked_reference(q.float(), k.float(), v.float(), sm_scale=D**-0.5,
+                                   causal=pkw["causal"], window=pkw["window"],
+                                   softcap=pkw["softcap"])
+        rel_rms = ((out.float() - ref).norm() / ref.norm()).item()
+        del ref
+        ones = torch.ones_like(q)
+        ones_dev = (fn(ones, ones[:, :Hkv], ones[:, :Hkv], **kw).float() - 1.0).abs().max().item()
+        ms = cuda_ms(lambda: fn(q, k, v, **kw), iters=5) if dev == "cuda" else None
+        want = {n: int(n == name) for n in counters}
+        row_ok = (launches == want and ratio <= 1.0 and rel_rms <= SOLVE_REL_RMS_TOL
+                  and ones_dev <= 1e-6 and tuple(out.shape) == (B, Hq, S, D)
+                  and bool(torch.isfinite(out.float()).all()))
+        rows.append({"call": label, "entry": entry, "kwargs": kw, "kernel": name, "mode": mode,
+                     "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D, "q": str(dt),
+                               "block_kv": bkv},
+                     "launches": launches, "err_over_tol": ratio, "rel_rms_err": rel_rms,
+                     "rel_rms_tol": SOLVE_REL_RMS_TOL, "ones_max_dev": ones_dev, "ms": ms,
+                     "ok": row_ok})
+        ok &= row_ok
+        st["launches"][name] = st["launches"].get(name, 0) + launches[name]
+        if D == 256:
+            st["launches_d256"][name] = st["launches_d256"].get(name, 0) + launches[name]
+        del q, k, v, out, ones
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    emit({"phase": "int8_modes", "ok": ok, "calls": rows})
+    if not ok:
+        raise AssertionError("an INT8 numerics mode failed its checks")
 
 
 # The harness phase: the kernel counter each rung of the reference driver
@@ -8525,9 +8737,9 @@ def main(argv=None) -> int:
             entries.append(e)
         emit({"kernels": entries})
         idle = [e["name"] for e in entries if e["launches"] == 0]
-        if ({"solve", "serve", "serve_w4", "serve_flash", "serve_mixed", "serve_hybrid",
-             "serve_hybrid_mixed", "serve_gemma2_f32", "serve_spec", "serve_hf", "train",
-             "train_gemma2", "train_gemma2_f32"}
+        if ({"solve", "int8_modes", "serve", "serve_w4", "serve_flash", "serve_mixed",
+             "serve_hybrid", "serve_hybrid_mixed", "serve_gemma2_f32", "serve_spec", "serve_hf",
+             "train", "train_gemma2", "train_gemma2_f32"}
                 <= set(phases) and idle):
             print(f"chip_smoke: kernels never launched on a main path: {idle}",
                   file=sys.stderr)

@@ -2,12 +2,17 @@
 //
 // Replaces two Pallas TPU kernels of the JAX package:
 //   * quantizedmha_tpu/ops/flash_attention_int8.py:80  _int8_fwd_kernel
-//     (MODE_INT8_P: P rounded to int8, int8 x int8 P·V in int32, l sums
-//     the f32 P'), kernel flash_int8_int8p_kernel
 //   * quantizedmha_tpu/ops/flash_attention_int8.py:437 _int8_fwd_kernel_t
-//     (MODE_BF16_P: P' cast to bf16, bf16 x int8 P·V in f32, l sums the
-//     bf16-rounded P' — the numerics of its default summode="mxu"), kernel
-//     flash_int8_bf16p_kernel
+// in their three numerics modes, whichever kernel and flags ask for them:
+//   * MODE_INT8_P (pv_dtype="int8"): P rounded to int8, int8 x int8 P·V in
+//     int32, l sums the f32 P'; kernel flash_int8_int8p_kernel.
+//   * MODE_BF16_P (_int8_fwd_kernel_t's default, summode="mxu"): P' cast to
+//     bf16, bf16 x int8 P·V in f32, l sums the bf16-rounded P' on the
+//     tensor cores; kernel flash_int8_bf16p_kernel<F32L = false>.
+//   * MODE_BF16_P_F32L (pv_dtype="bf16" with summode="vpu": the standard
+//     kernel's bf16 P, or the transposed kernel's "vpu" sum): P·V as
+//     MODE_BF16_P's, l sums the f32 P' as MODE_INT8_P's; kernel
+//     flash_int8_bf16p_kernel<F32L = true>.
 // The TPU kernel pair differ in orientation AND numerics; here the route
 // chooses only the numerics mode, the layout is the same.
 //
@@ -43,8 +48,8 @@
 // block's chain of items (two a visible 64-key tile, ~1 µs each, mostly
 // handoffs) the other half.
 //
-// MODE_BF16_P (flash_int8_bf16p_kernel): a block is (batch, q head, 128 q
-// rows) and its warpgroups specialise (setmaxnreg). One producer warpgroup
+// MODE_BF16_P and MODE_BF16_P_F32L (flash_int8_bf16p_kernel): a block is
+// (batch, q head, 128 q rows) and its warpgroups specialise (setmaxnreg). One producer warpgroup
 // walks the block's items without a break at a sweep or a quant block: for
 // each quant block, its key tiles for the max sweep, then the same tiles
 // for the exp sweep, each into the next stage of a ring (4 at d <= 64, 3
@@ -60,9 +65,17 @@
 // issued and waited for. The quant block's pv is folded in at its end,
 // acc = acc·α + pv·vsc. Mask and softcap choices are compile-time per tile
 // and per warp; tiles that no row of the block sees are never copied. d=32
-// runs two blocks an SM. No atomics: the same bits every launch. What
-// bounds it at solve's shape (harness/flash_int8_fwd_variants.json's
-// knock-outs, PERF.md): each item's chain of handoff, wgmma and wait, not
+// runs two blocks an SM. MODE_BF16_P_F32L: the product against V alone
+// (N = D), l summed from the f32 P' on the CUDA cores before the bf16
+// packing, two FADDs a pair of scores. d=256 (both modes): one consumer of
+// 64 rows beside the producer, two stages, no setmaxnreg, Q and K rows as
+// two 128-byte halves (sw8_d, s8_desc_d, as MODE_INT8_P's), the bf16 V
+// tile four 64-column blocks, P·V two m64n128 products a k16 step
+// (mma_bf16.cuh's wgmma_rs), and MODE_BF16_P's l from a constant 1 KB
+// tile of ones through an m64n8 product of its own (N = 264 would take two
+// products anyway): 211-213 KB of shared memory, acc in it as at every
+// d. No atomics: the same bits every launch. What bounds it at solve's
+// shape (harness/flash_int8_fwd_variants.json's knock-outs, PERF.md): each item's chain of handoff, wgmma and wait, not
 // the SFU; the max sweep's items alone cost a quarter of the time.
 //
 // MODE_INT8_P (flash_int8_int8p_kernel): the same walk and ring, with the
@@ -89,8 +102,7 @@
 // walk is never split across blocks: P' depends on the running max over
 // every quant block so far, which sets which P rounds up. No atomics: the
 // same bits every launch.
-//   d=256 (Gemma-2, MODE_INT8_P only; MODE_BF16_P raises there, ROADMAP.md
-//   queue 2 item 2): a Q or K row is 256 bytes, stored as two 128-byte
+//   d=256 (Gemma-2): a Q or K row is 256 bytes, stored as two 128-byte
 //   halves, each a tile of its own in wgmma_s8.cuh's layout (sw8_d), so
 //   S = Qq·Kqᵀ is 8 k32 steps of the m64n64 product, steps 4-7 at the
 //   second halves' descriptors (s8_desc_d). P·V at N = 256 is two m64n128
@@ -118,6 +130,7 @@ namespace {
 constexpr int BKV = 64;   // kv positions per shared-memory tile
 constexpr int MODE_INT8_P = 0;
 constexpr int MODE_BF16_P = 1;
+constexpr int MODE_BF16_P_F32L = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr uint32_t BF16_ONES = 0x3F803F80u;  // two bf16 1.0: the ones column that sums l
 
@@ -192,19 +205,46 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ---------------------------------------------------------------------------
-// MODE_BF16_P: wgmma, a producer warpgroup and two consumer warpgroups.
+// Byte offset of 16-byte chunk c of row r in an int8 tile of ROWS rows of
+// D bytes: a row wider than 128 bytes (d=256) is stored as 128-byte halves,
+// each half a tile of ROWS rows of its own (wgmma_s8.cuh's layout).
+template <int D, int ROWS>
+__device__ __forceinline__ int sw8_d(int r, int c) {
+  if constexpr (D <= 128) {
+    return sw8(r, c);
+  } else {
+    return (c >> 3) * (ROWS * S8_ROW) + sw8(r, c & 7);
+  }
+}
 
-template <int D>
+// Descriptor of k32 step kc of such a tile: at d=256 steps 4-7 read the
+// second half.
+template <int D, int ROWS>
+__device__ __forceinline__ uint64_t s8_desc_d(const int8_t* tile, int kc) {
+  if constexpr (D <= 128) {
+    return s8_desc(tile, kc);
+  } else {
+    return s8_desc(tile + (kc >> 2) * (ROWS * S8_ROW), kc & 3);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// MODE_BF16_P and MODE_BF16_P_F32L (F32L): wgmma, a producer warpgroup and
+// two consumer warpgroups (one at d=256).
+
+template <int D, bool F32L>
 struct Bf16pRing {
   // Consumer warpgroups (64 q rows each) and blocks an SM: at d=32, bound
   // by the exponentials, two blocks share an SM and fill each other's
   // waits; above, one block whose consumers hold the wider accumulators.
-  static constexpr int CONSUMERS = 2;
+  // d=256 (WIDE): one consumer (pv alone is 128 registers a thread), two
+  // stages, no setmaxnreg (256 threads may hold 255 registers each).
+  static constexpr bool WIDE = D == 256;
+  static constexpr int CONSUMERS = WIDE ? 1 : 2;
   static constexpr int ROWS = 64 * CONSUMERS;        // q rows of a block
   static constexpr int BLOCKS = D == 32 ? 2 : 1;
   static constexpr int NTB = 128 * (1 + CONSUMERS);  // threads; all meet at a handoff
-  static constexpr int STAGES = D == 128 ? 3 : 4;    // stages in the ring
+  static constexpr int STAGES = WIDE ? 2 : D == 128 ? 3 : 4;  // stages in the ring
   // Items in flight beyond the one handed over. The producer hands item n
   // over before it waits for stage n + LAG to be free, and a consumer holds
   // at most one stage (an exp-sweep item's, whose P·V is in flight) while
@@ -221,25 +261,36 @@ struct Bf16pRing {
   static constexpr int FULL = 1, EMPTY = FULL + CONSUMERS * STAGES;
   static constexpr int FULL_THREADS = 256;  // the producer and one consumer
   static_assert(EMPTY + STAGES <= 16, "16 named barriers");
-  // A stage: the K tile (int8, wgmma_s8.cuh's layout), then the bf16
-  // [V | 1] tile (mma_bf16.cuh's layout, D + 8 columns in 64-column
-  // blocks). Shared memory: each consumer's Q tile, the stages, each
-  // stage's raw int8 V rows as copied, the q rows' scales, acc, m and l
-  // (touched once a quant block, so they leave the registers to the
-  // sweeps); 1 KB to align.
-  static constexpr int VBLOCKS = (D + 8 + 63) / 64;
-  static constexpr int STAGE = S8_TILE + VBLOCKS * SW_ROWS * 64 * 2;
+  // Where MODE_BF16_P's l comes from: at d <= 128 a block of ones beside
+  // V in every stage ([V | 1], N = D + 8); at d=256, where N = 264 would
+  // take two products anyway, one constant 1 KB tile of ones that a
+  // product of its own (m64n8) reads. MODE_BF16_P_F32L sums l on the CUDA
+  // cores and has neither.
+  static constexpr bool ONES_IN_V = !F32L && !WIDE, ONES_TILE = !F32L && WIDE;
+  // A stage: the K tile (int8, wgmma_s8.cuh's layout; at d=256 two
+  // 128-byte halves of a row, sw8_d), then the bf16 V tile (mma_bf16.cuh's
+  // layout, D columns and the ones block in 64-column blocks). Shared
+  // memory: each consumer's Q tile, the stages, each stage's raw int8 V
+  // rows as copied, the q rows' scales, acc, m and l (touched once a quant
+  // block, so they leave the registers to the sweeps), the ones tile; 1 KB
+  // to align.
+  static constexpr int VBLOCKS = (D + (ONES_IN_V ? 8 : 0) + 63) / 64;
+  static constexpr int QTILE = (D > 128 ? 2 : 1) * S8_TILE;  // a Q or K tile
+  static constexpr int STAGE = QTILE + VBLOCKS * SW_ROWS * 64 * 2;
   static constexpr int RAW = 64 * D;
   static constexpr int CPT = D / 32;  // 16-byte chunks of a K or V tile a producer thread copies
-  static constexpr int KV_OFF = CONSUMERS * S8_TILE;
+  static constexpr int KV_OFF = CONSUMERS * QTILE;
   static constexpr int RAW_OFF = KV_OFF + STAGES * STAGE;
   static constexpr int SQ_OFF = RAW_OFF + STAGES * RAW;
   static constexpr int ACC_OFF = SQ_OFF + ROWS * 4;
   static constexpr int ML_OFF = ACC_OFF + 128 * CONSUMERS * D / 8 * 16;
-  static constexpr int BYTES = ML_OFF + 128 * CONSUMERS * 16 + 1024;
+  static constexpr int ONES_OFF = (ML_OFF + 128 * CONSUMERS * 16 + 1023) / 1024 * 1024;
+  static constexpr int BYTES =
+      ONES_TILE ? ONES_OFF + 1024 + 1024 : ML_OFF + 128 * CONSUMERS * 16 + 1024;
+  static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
-// The f32 of an s32 score, exact (|s| <= 128·127² < 2^24): one I2F, which
+// The f32 of an s32 score, exact (|s| <= 256·127² < 2^24): one I2F, which
 // the A/B call timed ahead of the magic-number form (an integer add to the
 // bits of 1.5·2^23, then less 1.5·2^23: two instructions).
 __device__ __forceinline__ float s32_to_f32(int s) { return static_cast<float>(s); }
@@ -263,21 +314,24 @@ __device__ __forceinline__ uint2 v_to_bf16(uint32_t w) {
 // that some row of the block sees, once for the max sweep and once for the
 // exp sweep; each such item takes the next stage of the ring. Warpgroup 0,
 // the producer, copies each item's K rows into its stage and, for the exp
-// sweep, its V rows, which it converts to bf16 beside the stage's column
-// block of ones. The consumers (consumer c holds block rows 64c..64c+63;
-// warp w of each owns 16 of them) run S = Qq·Kqᵀ on wgmma for every item,
-// the integer row max over the max sweep, then P' and pv += P'·[V | 1] over
-// the exp sweep, and fold each quant block into acc and l at its end.
-template <int D, bool QBF16>
-__global__ void __launch_bounds__(Bf16pRing<D>::NTB, Bf16pRing<D>::BLOCKS)
+// sweep, its V rows, which it converts to bf16 (beside the stage's column
+// block of ones at d <= 128 in MODE_BF16_P). The consumers (consumer c
+// holds block rows 64c..64c+63; warp w of each owns 16 of them) run S =
+// Qq·Kqᵀ on wgmma for every item, the integer row max over the max sweep,
+// then P' and pv += P'·[V | 1] over the exp sweep (F32L: pv += P'·V, and l
+// over the f32 P' on the CUDA cores before P' is packed, each lane's keys,
+// quad sums at the quant block's end, as MODE_INT8_P's l), and fold each
+// quant block into acc and l at its end.
+template <int D, bool QBF16, bool F32L>
+__global__ void __launch_bounds__(Bf16pRing<D, F32L>::NTB, Bf16pRing<D, F32L>::BLOCKS)
     flash_int8_bf16p_kernel(const Params p) {
-  using R = Bf16pRing<D>;
+  using R = Bf16pRing<D, F32L>;
   constexpr int ND = D / 8;  // n8 tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = align_1k(smem_raw);
   auto k_tile = [&](int s) { return reinterpret_cast<int8_t*>(smem + R::KV_OFF + s * R::STAGE); };
   auto v_tile = [&](int s) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + R::KV_OFF + s * R::STAGE + S8_TILE);
+    return reinterpret_cast<__nv_bfloat16*>(smem + R::KV_OFF + s * R::STAGE + R::QTILE);
   };
 
   const int tid = threadIdx.x, wg = tid >> 7, gtid = tid & 127;
@@ -329,12 +383,12 @@ __global__ void __launch_bounds__(Bf16pRing<D>::NTB, Bf16pRing<D>::BLOCKS)
 #pragma unroll
       for (int o = 16; o >= 1; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
       const float scale = fmaxf(amax, p.scale_clamp) / 127.0f;
-      int8_t* qrow = reinterpret_cast<int8_t*>(smem) + (r / 64) * S8_TILE;
+      int8_t* qrow = reinterpret_cast<int8_t*>(smem) + (r / 64) * R::QTILE;
 #pragma unroll
       for (int j = 0; j < D / 32; ++j) {
         float qv = rintf(x[j] / scale);
         qv = fminf(fmaxf(qv, -127.f), 127.f);
-        qrow[sw8(r % 64, 2 * j + (lane >> 4)) + (lane & 15)] = static_cast<int8_t>(qv);
+        qrow[sw8_d<D, 64>(r % 64, 2 * j + (lane >> 4)) + (lane & 15)] = static_cast<int8_t>(qv);
       }
       if (lane == 0) reinterpret_cast<float*>(smem + R::SQ_OFF)[r] = scale;
     }
@@ -346,15 +400,22 @@ __global__ void __launch_bounds__(Bf16pRing<D>::NTB, Bf16pRing<D>::BLOCKS)
     // Producer: item n into stage n % STAGES once the consumers handed that
     // stage back; handed over LAG items later, when its copies have landed
     // (and its V is converted).
-    setmaxnreg_dec<R::PRODUCER_REGS>();
+    if constexpr (!R::WIDE) setmaxnreg_dec<R::PRODUCER_REGS>();
     const size_t kvbase = (size_t(b) * p.Hkv + kvh) * p.Skv * D;
     const int8_t* kg = p.k + kvbase;
     const int8_t* vg = p.v + kvbase;
     int8_t* raw = reinterpret_cast<int8_t*>(smem + R::RAW_OFF);
-    // The ones block of every stage's [V | 1] tile (n8 tile D / 8), once.
-    for (int e = gtid; e < R::STAGES * 64; e += 128)
-      *reinterpret_cast<uint4*>(v_tile(e / 64) + sw(e % 64, D / 8)) =
-          make_uint4(BF16_ONES, BF16_ONES, BF16_ONES, BF16_ONES);
+    // The ones block of every stage's [V | 1] tile (n8 tile D / 8), or the
+    // ones tile, once.
+    if constexpr (R::ONES_IN_V) {
+      for (int e = gtid; e < R::STAGES * 64; e += 128)
+        *reinterpret_cast<uint4*>(v_tile(e / 64) + sw(e % 64, D / 8)) =
+            make_uint4(BF16_ONES, BF16_ONES, BF16_ONES, BF16_ONES);
+    }
+    if constexpr (R::ONES_TILE) {
+      const uint4 ones4 = make_uint4(BF16_ONES, BF16_ONES, BF16_ONES, BF16_ONES);
+      if (gtid < 64) reinterpret_cast<uint4*>(smem + R::ONES_OFF)[gtid] = ones4;
+    }
     // Each thread copies, and converts, the same chunks of every tile: its
     // own cp.async wait is all the conversion needs.
     auto issue = [&](int t0, int kend, bool with_v, int s) {
@@ -363,7 +424,7 @@ __global__ void __launch_bounds__(Bf16pRing<D>::NTB, Bf16pRing<D>::BLOCKS)
         const int e = gtid + 128 * i, r = e / (D / 16), c = e % (D / 16);
         const bool ok = t0 + r < kend;  // zero past the quant block's end
         const size_t src = size_t(ok ? t0 + r : 0) * D + 16 * c;
-        cp_async16(k_tile(s) + sw8(r, c), kg + src, ok);
+        cp_async16(k_tile(s) + sw8_d<D, 64>(r, c), kg + src, ok);
         if (with_v) cp_async16(raw + s * R::RAW + 16 * e, vg + src, ok);
       }
       cp_async_commit();
@@ -416,10 +477,10 @@ __global__ void __launch_bounds__(Bf16pRing<D>::NTB, Bf16pRing<D>::BLOCKS)
   }
 
   // Consumers.
-  setmaxnreg_inc<R::CONSUMER_REGS>();
+  if constexpr (!R::WIDE) setmaxnreg_inc<R::CONSUMER_REGS>();
   const int cw = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  int8_t* qs = reinterpret_cast<int8_t*>(smem) + cw * S8_TILE;
+  int8_t* qs = reinterpret_cast<int8_t*>(smem) + cw * R::QTILE;
   float* sqs = reinterpret_cast<float*>(smem + R::SQ_OFF) + 64 * cw;
   const int rbase = q0 + 64 * cw + 16 * warp;  // this warp's first q row
   const int qpos_r[2] = {q_off + rbase + g, q_off + rbase + g + 8};
@@ -433,8 +494,10 @@ __global__ void __launch_bounds__(Bf16pRing<D>::NTB, Bf16pRing<D>::BLOCKS)
 #pragma unroll
   for (int c = 0; c < ND; ++c) acc4[c * R::CONSUMERS * 128] = make_float4(0.f, 0.f, 0.f, 0.f);
   *ml = make_float4(-INFINITY, -INFINITY, 0.f, 0.f);
-  float pv[ND + 1][4];  // P'·[V | 1] over the quant block's exp sweep
-  uint32_t a[4][4];     // P' in bf16: register A of k16 step kk (keys 16kk..16kk+15)
+  float pv[R::ONES_IN_V ? ND + 1 : ND][4];  // P'·[V | 1] (or P'·V) over a quant block
+  float pl[1][4];    // ONES_TILE: P'·1, l of the quant block's exp sweep
+  float lsum[2];     // F32L: this lane's sums of the f32 P' of rows g and g + 8
+  uint32_t a[4][4];  // P' in bf16: register A of k16 step kk (keys 16kk..16kk+15)
 
   // Item n of the walk sits in stage n % STAGES.
   auto full = [&](int n) {
@@ -449,7 +512,8 @@ __global__ void __launch_bounds__(Bf16pRing<D>::NTB, Bf16pRing<D>::BLOCKS)
     wgmma_fence();
     fence_operands(sc);
 #pragma unroll
-    for (int kc = 0; kc < D / 32; ++kc) wgmma_s8_m64n64(sc, s8_desc(qs, kc), s8_desc(kt, kc), kc);
+    for (int kc = 0; kc < D / 32; ++kc)
+      wgmma_s8_m64n64(sc, s8_desc_d<D, 64>(qs, kc), s8_desc_d<D, 64>(kt, kc), kc);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(sc);
@@ -552,9 +616,12 @@ __global__ void __launch_bounds__(Bf16pRing<D>::NTB, Bf16pRing<D>::BLOCKS)
             }
             const __nv_bfloat162 pb = __floats2bfloat162_rn(pe[0], pe[1]);
             a[kk][2 * hh + r] = *reinterpret_cast<const uint32_t*>(&pb);
+            if constexpr (F32L) lsum[r] += pe[0] + pe[1];  // l over the f32 P'
           }
     };
     zero(pv);
+    if constexpr (R::ONES_TILE) zero(pl);
+    if constexpr (F32L) lsum[0] = lsum[1] = 0.f;
     for (int t0 = t_first; t0 < kb1; t0 = next_run(t0 + BKV, kb1), ++n) {  // exp sweep
       int sc[8][4];
       full(n);
@@ -580,18 +647,45 @@ __global__ void __launch_bounds__(Bf16pRing<D>::NTB, Bf16pRing<D>::BLOCKS)
       const __nv_bfloat16* vt = v_tile(n % R::STAGES);
       wgmma_fence();
       fence_operands(pv);
+      if constexpr (R::ONES_IN_V) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(pv, a[kk], tile_desc_mn(vt, 16 * kk));
+        for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(pv, a[kk], tile_desc_mn(vt, 16 * kk));
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(pv, a[kk], tile_desc_mn(vt, 16 * kk));
+      }
+      if constexpr (R::ONES_TILE) {
+        const uint64_t ones = sw128_desc(smem + R::ONES_OFF);  // 8 rows of ones, K-major
+        fence_operands(pl);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_m64n8<0>(pl, a[kk], ones, 1);
+      }
       wgmma_commit();
     }
     wgmma_wait<0>();
     fence_operands(pv);
     fence_operands(a);
+    if constexpr (R::ONES_TILE) fence_operands(pl);
     release(n - 1);
-    // (every column of the ones block holds the row's whole sum)
+    // l of the quant block: every column of the ones block (or tile) holds
+    // the row's whole sum; F32L's lanes t = 0..3 of a quad each hold a
+    // quarter of the row's keys.
+    float lb[2];
+    if constexpr (F32L) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float ls = lsum[r] + __shfl_xor_sync(0xffffffffu, lsum[r], 1);
+        ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+        lb[r] = ls;
+      }
+    } else if constexpr (R::ONES_TILE) {
+      lb[0] = pl[0][0], lb[1] = pl[0][2];
+    } else {
+      lb[0] = pv[ND][0], lb[1] = pv[ND][2];
+    }
     const float v_scale = p.vs[sidx];
     const float4 mlf = *ml;
-    *ml = make_float4(mlf.x, mlf.y, alpha[0] * mlf.z + pv[ND][0], alpha[1] * mlf.w + pv[ND][2]);
+    *ml = make_float4(mlf.x, mlf.y, alpha[0] * mlf.z + lb[0], alpha[1] * mlf.w + lb[1]);
 #pragma unroll
     for (int c = 0; c < ND; ++c) {
       const float4 x = acc4[c * R::CONSUMERS * 128];
@@ -679,29 +773,6 @@ struct Int8pRing {
   static constexpr int BYTES = SQ_OFF + ROWS * 4 + 1024;
   static_assert(BYTES <= 232448, "shared memory of one block");
 };
-
-// Byte offset of 16-byte chunk c of row r in an int8 tile of ROWS rows of
-// D bytes: a row wider than 128 bytes (d=256) is stored as 128-byte halves,
-// each half a tile of ROWS rows of its own (wgmma_s8.cuh's layout).
-template <int D, int ROWS>
-__device__ __forceinline__ int sw8_d(int r, int c) {
-  if constexpr (D <= 128) {
-    return sw8(r, c);
-  } else {
-    return (c >> 3) * (ROWS * S8_ROW) + sw8(r, c & 7);
-  }
-}
-
-// Descriptor of k32 step kc of such a tile: at d=256 steps 4-7 read the
-// second half.
-template <int D, int ROWS>
-__device__ __forceinline__ uint64_t s8_desc_d(const int8_t* tile, int kc) {
-  if constexpr (D <= 128) {
-    return s8_desc(tile, kc);
-  } else {
-    return s8_desc(tile + (kc >> 2) * (ROWS * S8_ROW), kc & 3);
-  }
-}
 
 // pvi += P·V over k32 step kc of the stage's Vᵀ: at d=256 two m64n128
 // products, the second over Vᵀ's rows 128-255 (O's columns 128-255).
@@ -1290,35 +1361,32 @@ cudaError_t launch_int8_p(Params p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D, bool QBF16>
+template <int D, bool QBF16, bool F32L>
 cudaError_t launch_bf16_p(const Params& p, cudaStream_t stream) {
-  using R = Bf16pRing<D>;
+  using R = Bf16pRing<D, F32L>;
   constexpr int smem = R::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_int8_bf16p_kernel<D, QBF16>,
+  cudaError_t err = cudaFuncSetAttribute(flash_int8_bf16p_kernel<D, QBF16, F32L>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = unsigned((p.Sq + R::ROWS - 1) / R::ROWS) * p.H * p.B;
-  flash_int8_bf16p_kernel<D, QBF16><<<blocks, R::NTB, smem, stream>>>(p);
+  flash_int8_bf16p_kernel<D, QBF16, F32L><<<blocks, R::NTB, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t dispatch_mode(const Params& p, int mode, int q_bf16, cudaStream_t stream) {
-  if constexpr (D == 256) {
-    // MODE_INT8_P alone at d=256 (MODE_BF16_P: ROADMAP.md queue 2 item 2).
-    if (mode != MODE_INT8_P) return cudaErrorInvalidValue;
-  }
   if (mode == MODE_INT8_P) {
     constexpr int CONSUMERS = 1;  // consumer warpgroups of an int8-P block
     constexpr int TILE_KEYS = 64;  // keys of an int8-P item
     return q_bf16 ? launch_int8_p<D, true, CONSUMERS, TILE_KEYS>(p, stream)
                   : launch_int8_p<D, false, CONSUMERS, TILE_KEYS>(p, stream);
   }
-  if constexpr (D == 256) {
-    return cudaErrorInvalidValue;
-  } else {
-    return q_bf16 ? launch_bf16_p<D, true>(p, stream) : launch_bf16_p<D, false>(p, stream);
+  if (mode == MODE_BF16_P) {
+    return q_bf16 ? launch_bf16_p<D, true, false>(p, stream)
+                  : launch_bf16_p<D, false, false>(p, stream);
   }
+  return q_bf16 ? launch_bf16_p<D, true, true>(p, stream)
+                : launch_bf16_p<D, false, true>(p, stream);
 }
 
 }  // namespace
@@ -1358,7 +1426,7 @@ extern "C" int flash_int8_fwd(const void* q, const void* k, const void* v, const
   p.mask_kv_tail = mask_kv_tail;
   p.mask_value = mask_value;
   p.mask_half = mask_half;
-  if (mode < MODE_INT8_P || mode > MODE_BF16_P) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode < MODE_INT8_P || mode > MODE_BF16_P_F32L) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {

@@ -79,19 +79,24 @@ the file.
 
 --source flash_int8_fwd (csrc/flash_int8_fwd.cu, rows 1-2):
 - MODE_BF16_P (row 2) at solve's fa_int8 shape (1 x 32 x 8192 x 32, f32 q,
-  block_kv 512, not causal): ms in turns (20 launches; graph_ms: 20
-  launches in one CUDA graph, replayed), err_over_tol against this tree's
-  plain version under chip_smoke.py's flash_tolerances, whether each
-  library gives the same bits twice, SDPA's ms (bf16, the first backend
-  that takes the inputs) and the bound; whether the parent's library gives
-  this one's bits.
+  block_kv 512, not causal) and at d=128 (1 x 32 x 4096 x 128, the same
+  otherwise): ms in turns (20 launches; graph_ms: 20 launches in one CUDA
+  graph, replayed), err_over_tol against this tree's plain version under
+  chip_smoke.py's flash_tolerances, whether each library gives the same
+  bits twice, SDPA's ms (bf16, the first backend that takes the inputs)
+  and the bound; whether the parent's library gives this one's bits.
 - MODE_INT8_P (row 1) at the serve prefill's shape (1 x 32 x 256 x 128,
   8 kv heads, bf16 q, block_kv 256, causal) and serve_w4's (the same at
   512 tokens, block_kv 512), timed the same way.
-- Every MODE_INT8_P case of chip_smoke.py's FLASH_COVERAGE: each
-  library's err_over_tol (output, lse) and whether it gives the same bits
-  twice; every MODE_BF16_P case: whether the parent's library gives this
-  one's bits (output and lse).
+- MODE_BF16_P_F32L at solve's shape, and both bf16-P modes at Gemma-2's
+  full layer (1 x 16 x 2048 x 256, 8 kv heads, bf16 q, causal, softcap
+  50; block_kv 512 for MODE_BF16_P, 1024 for MODE_BF16_P_F32L), timed the
+  same way by the libraries that have the route (a parent from before
+  them has neither).
+- Every MODE_BF16_P case of chip_smoke.py's FLASH_COVERAGE at d <= 128:
+  whether the parent's library gives this one's bits (output and lse);
+  every other case: each library's err_over_tol (output, lse) and whether
+  it gives the same bits twice.
 - ptxas registers and spill bytes of each library's kernels.
 
 --source flash_bwd (csrc/flash_bwd.cu, rows 6-7):
@@ -596,6 +601,13 @@ def _w4_ab(trees, g, result):
     return ok and all(result["f32_same_bits"].values())
 
 
+def _parent_has(mode, D):
+    """Whether a parent tree from before MODE_BF16_P_F32L and the bf16-P
+    kernel at d=256 has the route (the A/B of those routes times this
+    tree's library and its variants alone)."""
+    return mode == 0 or (mode == 1 and D <= 128)
+
+
 def _flash_int8_ab(trees, g, result):
     import chip_smoke as cs
     from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
@@ -604,11 +616,20 @@ def _flash_int8_ab(trees, g, result):
     result["ptxas"] = {w: cs._ptxas_kernels(lib.with_suffix(".log").read_text())
                        for w, (_, _, lib) in trees.items()}
     ok = True
-    # (mode, q shape, kv heads, q dtype, block_kv, causal)
-    mains = {"solve fa_int8 (bf16_p)": (1, (1, 32, 8192, 32), 32, torch.float32, 512, False),
-             "serve prefill (int8_p)": (0, (1, 32, 256, 128), 8, torch.bfloat16, 256, True),
-             "serve_w4 prefill (int8_p)": (0, (1, 32, 512, 128), 8, torch.bfloat16, 512, True)}
-    for name, (mode, shape, hkv, dt, bkv, causal) in mains.items():
+    # (mode, q shape, kv heads, q dtype, block_kv, causal, softcap)
+    mains = {"solve fa_int8 (bf16_p)": (1, (1, 32, 8192, 32), 32, torch.float32, 512, False,
+                                        None),
+             "d=128 not causal (bf16_p)": (1, (1, 32, 4096, 128), 32, torch.float32, 512, False,
+                                           None),
+             "serve prefill (int8_p)": (0, (1, 32, 256, 128), 8, torch.bfloat16, 256, True, None),
+             "serve_w4 prefill (int8_p)": (0, (1, 32, 512, 128), 8, torch.bfloat16, 512, True,
+                                           None),
+             "solve shape (bf16_p_f32l)": (2, (1, 32, 8192, 32), 32, torch.float32, 512, False,
+                                           None),
+             "gemma2 full (bf16_p)": (1, (1, 16, 2048, 256), 8, torch.bfloat16, 512, True, 50.0),
+             "gemma2 full (bf16_p_f32l)": (2, (1, 16, 2048, 256), 8, torch.bfloat16, 1024, True,
+                                           50.0)}
+    for name, (mode, shape, hkv, dt, bkv, causal, cap) in mains.items():
         B, H, S, D = shape
         q = torch.randn(shape, generator=g, device="cuda").to(dt)
         k, v = torch.randn((2, B, hkv, S, D), generator=g, device="cuda").to(dt)
@@ -616,12 +637,14 @@ def _flash_int8_ab(trees, g, result):
         v_i8, vs = quantize_kv_blocks(v, bkv)
         operands = (q, k_i8, ks, v_i8, vs, fa8._offsets(0, 0, B, q.device))
         kw = dict(sm_scale=D**-0.5, causal=causal, kv_len=S, block_kv=bkv, scale_clamp=1e-8,
-                  p_scale=127.0, window=None, softcap=None, sinks=0, mode=mode)
+                  p_scale=127.0, window=None, softcap=cap, sinks=0, mode=mode)
         p_out = fa8._flash_int8_plain(*operands, save_residuals=False, **kw)
         _, _, l = fa8._flash_int8_plain_state(*operands, **kw)
         tol, _ = cs.flash_tolerances(p_out, None, l, v_i8, vs, bkv, mode)
         row, calls, outs = {}, {}, {}
         for which, launch in launchers.items():
+            if which == "parent" and not _parent_has(mode, D):
+                continue
             (o, _), call, keep = launch(operands, save_residuals=False, **kw)
             calls[which] = (call, (o, keep))
             outs[which] = o
@@ -634,8 +657,9 @@ def _flash_int8_ab(trees, g, result):
             ok &= row["same_bits_as_this"].get("parent", True)
         _timed_turns(calls, row, iters=20)
         for which, (module, fns, _) in trees.items():
-            row[which]["graph_ms"] = _graph_ms(module, fns, "flash_int8_fwd", operands,
-                                               dict(save_residuals=False, **kw))
+            if which in row:
+                row[which]["graph_ms"] = _graph_ms(module, fns, "flash_int8_fwd", operands,
+                                                   dict(save_residuals=False, **kw))
         qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
         row["sdpa_ms"], row["sdpa_backend"] = cs._sdpa(qb, kb, vb, is_causal=causal,
                                                        enable_gqa=hkv != H)
@@ -646,12 +670,15 @@ def _flash_int8_ab(trees, g, result):
         row["bound_ms"], row["bound_by"] = cs.bound(nbytes, ops)
         result["main"][name] = row
         del q, k, v, qb, kb, vb, calls, outs
-    # The coverage cases: MODE_INT8_P's held to the plain version (the same
-    # bits twice), MODE_BF16_P's to the parent's bits.
-    result["int8_p_coverage"], result["bf16_p_same_bits"] = {}, {}
+    # The coverage cases: MODE_BF16_P's at d <= 128 held to the parent's
+    # bits; the others (MODE_INT8_P, MODE_BF16_P at d=256, MODE_BF16_P_F32L)
+    # to the plain version (the same bits twice), each by every library
+    # that has its route.
+    result["plain_coverage"], result["bf16_p_same_bits"] = {}, {}
     for i, case in enumerate(cs.FLASH_COVERAGE):
         *operands, kw = cs.flash_coverage_inputs(g, case)
-        if case[12] == 1:
+        mode, D = case[12], case[6]
+        if mode == 1 and D <= 128:
             outs = [launchers[w](operands, **kw)[0] for w in ("parent", "this") if w in launchers]
             result["bf16_p_same_bits"][f"fa8_{i}"] = all(
                 torch.equal(a, b) for other in outs[1:] for a, b in zip(outs[0], other))
@@ -660,9 +687,11 @@ def _flash_int8_ab(trees, g, result):
         _, _, l = fa8._flash_int8_plain_state(
             *operands, **{k: x for k, x in kw.items() if k != "save_residuals"})
         tol, lse_tol = cs.flash_tolerances(p_out, p_lse, l, operands[3], operands[4],
-                                           kw["block_kv"], 0)
-        row = result["int8_p_coverage"][f"fa8_{i}"] = {}
+                                           kw["block_kv"], mode)
+        row = result["plain_coverage"][f"fa8_{i}"] = {}
         for which, launch in launchers.items():
+            if which == "parent" and not _parent_has(mode, D):
+                continue
             (o, lse), call, _keep = launch(operands, **kw)
             same = cs._same_bits_again(lambda: call[0](*call[1]), [o, lse])
             row[which] = [cs.err_over_tol(o, p_out, tol), cs.err_over_tol(lse, p_lse, lse_tol),

@@ -4,14 +4,18 @@ quantizedmha_tpu/ops/flash_attention_int8.py).
 Per (q row, kv quant block): S = Qq·Kqᵀ in integers with Q quantized per
 row and K/V per (head, block); dequantize, optional softcap and masks;
 online softmax in f32 with ln(p_static_scale) folded into the running max
-so P' lies in (0, p_static_scale]; then one of two numerics modes:
+so P' lies in (0, p_static_scale]; then one of three numerics modes:
 
-  * "int8" P (the standard orientation's default, `_int8_fwd_kernel` in
-    the JAX package): P = round(P'), int8·int8 P·V in int32, l sums f32 P'.
-  * "bf16" P (the transposed orientation's default, `_int8_fwd_kernel_t`):
-    P' cast to bf16, bf16·int8 P·V in f32, l sums the same bf16 P'
-    (summode "mxu"). Its summode "vpu" variant (l summing the f32 P') is
-    not ported yet and raises (ROADMAP.md queue 1 item 2).
+  * mode 0, "int8" P with summode "vpu" (the standard orientation's
+    default, `_int8_fwd_kernel` in the JAX package, and
+    `_int8_fwd_kernel_t` with pv_dtype "int8"): P = round(P'), int8·int8
+    P·V in int32, l sums the f32 P'.
+  * mode 1, "bf16" P with summode "mxu" (the transposed orientation's
+    default, `_int8_fwd_kernel_t`): P' cast to bf16, bf16·int8 P·V in f32,
+    l sums the same bf16 P' (the ones row of its product).
+  * mode 2, "bf16" P with summode "vpu" (`_int8_fwd_kernel` with pv_dtype
+    "bf16", and `_int8_fwd_kernel_t` with summode "vpu"): P·V as mode 1's,
+    l sums the f32 P' as mode 0's.
 
 On a CUDA tensor every entry point launches the hand-written kernel in
 `csrc/flash_int8_fwd.cu`; on a CPU tensor it runs `_flash_int8_plain`, the
@@ -39,18 +43,20 @@ from quantizedmha_tpu_torch.ops.flash_attention import (
 )
 from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks, true_div
 
-_MODES = {("int8", "vpu"): 0, ("bf16", "mxu"): 1}
+_MODES = {("int8", "vpu"): 0, ("bf16", "mxu"): 1, ("bf16", "vpu"): 2}
 
 _ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
          + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_float]
          + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
          + [ctypes.c_void_p])
-# One launch counter per numerics mode: mode 0 stands for the JAX
-# package's `_int8_fwd_kernel`, mode 1 for `_int8_fwd_kernel_t`.
+# One launch counter per numerics mode (the module docstring's modes 0,
+# 1 and 2): int8 P, bf16 P with l over the bf16 P', bf16 P with l over
+# the f32 P'.
 FLASH_INT8_P = cuda_lib.CudaKernel("flash_int8_fwd", "flash_int8_fwd", _ARGS)
 FLASH_BF16_P = cuda_lib.CudaKernel("flash_int8_fwd", "flash_int8_fwd", _ARGS)
-_KERNEL_OF_MODE = {0: FLASH_INT8_P, 1: FLASH_BF16_P}
-_HEAD_DIMS = (32, 64, 128, 256)  # 256: int8 P (mode 0) alone
+FLASH_BF16_P_F32L = cuda_lib.CudaKernel("flash_int8_fwd", "flash_int8_fwd", _ARGS)
+_KERNEL_OF_MODE = {0: FLASH_INT8_P, 1: FLASH_BF16_P, 2: FLASH_BF16_P_F32L}
+_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def _flash_int8_plain_state(q, k_i8, k_scales, v_i8, v_scales, offsets, *, sm_scale,
@@ -58,8 +64,10 @@ def _flash_int8_plain_state(q, k_i8, k_scales, v_i8, v_scales, offsets, *, sm_sc
                             softcap, sinks, mode):
     """The kernel's algorithm, step by step, over whole tensors: per-row Q
     quantization, then the online softmax at exactly block_kv granularity.
-    Integer products are taken in float64 (exact); the bf16-P product in
-    float32 with TF32 off (bf16·int8 products are exact in f32). A block
+    Integer products are taken in float64 (exact); the bf16-P products
+    (modes 1 and 2) in float32 with TF32 off (bf16·int8 products are exact
+    in f32). l sums, per quant block, the f32 P' (modes 0 and 2) or its
+    bf16 rounding (mode 1). A block
     masked for every row of every sequence is skipped, as the kernel skips
     it (block_should_run over the batch's widest position ranges).
     Returns the final state: acc [B, H, Sq, D], m and l [B, H, Sq, 1]."""
@@ -116,7 +124,7 @@ def _flash_int8_plain_state(q, k_i8, k_scales, v_i8, v_scales, offsets, *, sm_sc
             pv = (torch.round(p).double() @ v_rep[:, :, kb].double()).float()
         else:
             pb = p.to(torch.bfloat16).float()
-            l = alpha * l + pb.sum(dim=-1, keepdim=True)
+            l = alpha * l + (pb if mode == 1 else p).sum(dim=-1, keepdim=True)
             pv = pb @ v_rep[:, :, kb].float()
         acc = acc * alpha + pv * vs_rep[:, :, j][:, :, None, None]
         m = m_next
@@ -143,10 +151,6 @@ def _flash_int8_launch(q, k_i8, k_scales, v_i8, v_scales, offsets, *, sm_scale,
     """Checked operands of one kernel launch: (kernel, ctypes args, outputs)."""
     B, H, Sq, D = q.shape
     Hkv, Skv = k_i8.shape[1], k_i8.shape[2]
-    if D == 256 and mode == 1:
-        raise NotImplementedError(
-            "the CUDA int8 attention with bf16 P (the transposed route) at head_dim 256 is "
-            "not built yet (ROADMAP.md queue 2 item 2, row 2 at d=256)")
     if D not in _HEAD_DIMS:
         raise ValueError(f"the CUDA int8 attention takes head_dim in {_HEAD_DIMS}, got {D}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -195,10 +199,6 @@ def _prequant(q, k_i8, k_scales, v_i8, v_scales, *, kv_len, sm_scale, causal,
               pv_dtype, summode):
     refuse_grad(_NO_GRAD, q, k_scales, v_scales)
     validate_masking(causal, window, attention_sinks)
-    if (pv_dtype, summode) == ("bf16", "vpu"):
-        raise NotImplementedError(
-            "bf16 P with l summing the f32 P (summode='vpu') is not ported yet "
-            "(ROADMAP.md queue 1 item 2); use summode='mxu'")
     if (pv_dtype, summode) not in _MODES:
         raise ValueError(f"unsupported pv_dtype/summode {pv_dtype!r}/{summode!r}")
     batch, heads, q_len, head_dim = q.shape
@@ -265,6 +265,8 @@ def flash_attention_int8_prequant(
     kv_len: true (unpadded) kv length. q_offset/kv_offset: global positions
     for causal masking (ints or [batch] tensors), default end-aligned.
     block_q is accepted for signature parity; it has no numerical effect.
+    pv_dtype: "int8" (mode 0) or "bf16" (mode 2: bf16 P with l over the
+    f32 P', as the JAX package's standard kernel computes it).
     Returns o (q's dtype), plus lse [batch, heads, q_len] with
     save_residuals.
     """
@@ -317,7 +319,8 @@ def flash_attention_int8_t_prequant(
     summode: Optional[str] = None,
 ):
     """The transposed route's numerics over PRE-quantized K/V: bf16 P by
-    default, l summing that bf16 P (summode "mxu"). Same arguments as
+    default, l summing that bf16 P (summode "mxu", mode 1) or the f32 P'
+    (summode "vpu", mode 2); pv_dtype "int8" is mode 0. Same arguments as
     flash_attention_int8_prequant; block_kv is implied by k_scales."""
     del block_q
     if summode is None:
@@ -410,9 +413,12 @@ def flash_attention_int8(
     out. K/V are block-quantized in an O(S*D) prepass. GQA: k/v may carry
     fewer heads than q. The route follows the JAX package
     (flash_attention_int8.py:956): head_dim <= 64, or head_dim <= 128 and
-    not causal, takes the transposed route's numerics (bf16 P, block_kv
-    512); otherwise the standard route's (int8 P, block_kv 1024).
-    Not differentiable (refuse_grad).
+    not causal, takes the transposed route (`_int8_fwd_kernel_t`, block_kv
+    512): bf16 P with summode "mxu" (mode 1) or "vpu" (mode 2), or int8 P
+    (mode 0); otherwise the standard route (`_int8_fwd_kernel`, block_kv
+    1024 by pick_blocks): int8 P (mode 0) or, with pv_dtype "bf16", mode 2.
+    `transposed` forces a route at any head dim. Not differentiable
+    (refuse_grad).
     """
     if q.ndim != 4:
         raise ValueError(f"expected [batch, heads, seq, head_dim], got {tuple(q.shape)}")

@@ -30,6 +30,7 @@ from quantizedmha_tpu_torch.models.convert import params_from_numpy
 from quantizedmha_tpu_torch.serving import llama_adapter as tad
 from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
 from quantizedmha_tpu_torch.serving.kv_cache import PageAllocator
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 COUNTERS = ("requests_admitted", "prefill_tokens", "prefix_cache_hits",
             "prefix_tokens_reused", "prefill_chunks_interleaved", "pages_trimmed")

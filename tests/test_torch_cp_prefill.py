@@ -28,6 +28,7 @@ from quantizedmha_tpu_torch.parallel import make_mesh, record_collectives
 from quantizedmha_tpu_torch.profiling.collectives import audit_events
 from quantizedmha_tpu_torch.serving import llama_adapter as LA
 from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORLD = 4
 N = 128

@@ -24,6 +24,7 @@ from quantizedmha_tpu.ops.decode import paged_decode_attention as jdecode
 from quantizedmha_tpu.ops.decode import paged_decode_attention_int4 as jdecode4
 from quantizedmha_tpu_torch.ops import decode as tdec
 from quantizedmha_tpu_torch.ops.decode import decode_splits
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 PAGE, MAX_PAGES = 16, 24  # decode_splits(3, 2, 24, 16) == (6, 4)

@@ -28,6 +28,7 @@ from quantizedmha_tpu_torch.models import llama as tl
 from quantizedmha_tpu_torch.models.convert import params_from_numpy
 from quantizedmha_tpu_torch.ops import flash_attention as tfa
 from quantizedmha_tpu_torch.ops.unfused import unfused_mha
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (the JAX package's ops/__init__ re-exports a function under this name)
 jfa = importlib.import_module("quantizedmha_tpu.ops.flash_attention")

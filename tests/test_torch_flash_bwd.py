@@ -26,6 +26,7 @@ import torch
 from quantizedmha_tpu.reference import mha as jref
 from quantizedmha_tpu_torch.ops import flash_attention as tfa
 from quantizedmha_tpu_torch.reference import mha as tref
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (the JAX package's ops/__init__ re-exports a function under this name)
 jfa = importlib.import_module("quantizedmha_tpu.ops.flash_attention")

@@ -36,6 +36,7 @@ import torch
 
 import chip_smoke
 from quantizedmha_tpu_torch.ops import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jfa = importlib.import_module("quantizedmha_tpu.ops.flash_attention")
 

@@ -23,6 +23,7 @@ from quantizedmha_tpu_torch.ops import flash_attention_int8 as tfa
 from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
 from quantizedmha_tpu_torch.reference import mha as tref
 from quantizedmha_tpu_torch.reference import quant_ref as tqref
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (the JAX package's ops/__init__ re-exports a function under this name)
 jfa = importlib.import_module("quantizedmha_tpu.ops.flash_attention_int8")
@@ -68,9 +69,9 @@ def test_flash_attention_int8_matches_jax(name):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=_tol(v))
 
 
-@pytest.mark.parametrize("pv_dtype,summode", [("int8", "vpu"), ("bf16", "mxu")])
+@pytest.mark.parametrize("pv_dtype,summode", [("int8", "vpu"), ("bf16", "mxu"), ("bf16", "vpu")])
 def test_numerics_modes_match_jax(pv_dtype, summode):
-    """Both ported numerics variants, forced through the transposed route."""
+    """The three numerics modes, forced through the transposed route."""
     q, k, v = _qkv(1, 2, 1, 64, 64, 32, seed=11)
     kw = dict(causal=True, block_kv=32, transposed=True, pv_dtype=pv_dtype, summode=summode)
     got = tfa.flash_attention_int8(*_t(q, k, v), **kw)
@@ -80,12 +81,50 @@ def test_numerics_modes_match_jax(pv_dtype, summode):
 
 @pytest.mark.parametrize("transposed", [True, False])
 def test_bf16_p_with_f32_l_is_not_ported(transposed):
-    """bf16 P with l summing the f32 P (summode "vpu") has no kernel yet: it
-    raises, naming the roadmap, on either route."""
-    q, k, v = _t(*_qkv(1, 2, 1, 64, 64, 32, seed=11))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_attention_int8(q, k, v, causal=True, transposed=transposed,
-                                 pv_dtype="bf16", summode="vpu" if transposed else None)
+    """bf16 P with l summing the f32 P' (mode 2) on either route, at d=64
+    and d=128: the transposed kernel with summode "vpu" and the standard
+    kernel with pv_dtype "bf16" (each route forced). The port equals the
+    plain version in mode 2 bit for bit, differs from mode 1's, and holds
+    JAX's within one P-rounding flip."""
+    for d in (64, 128):
+        q, k, v = _t(*_qkv(1, 2, 1, 64, 64, d, seed=11))
+        kw = dict(causal=True, block_kv=32, transposed=transposed, pv_dtype="bf16",
+                  summode="vpu" if transposed else None)
+        got = tfa.flash_attention_int8(q, k, v, **kw)
+        want = jfa.flash_attention_int8(*_j(q.numpy(), k.numpy(), v.numpy()), **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=_tol(v.numpy()))
+        kq, ks = quantize_kv_blocks(k, 32)
+        vq, vs = quantize_kv_blocks(v, 32)
+        pkw = dict(sm_scale=d**-0.5, causal=True, kv_len=64, block_kv=32, scale_clamp=1e-8,
+                   p_scale=127.0, window=None, softcap=None, sinks=0, save_residuals=False)
+        offs = tfa._offsets(0, 0, 1, "cpu")
+        assert torch.equal(got, tfa._flash_int8_plain(q, kq, ks, vq, vs, offs, mode=2, **pkw))
+        assert not torch.equal(got, tfa._flash_int8_plain(q, kq, ks, vq, vs, offs, mode=1,
+                                                          **pkw))
+
+
+@pytest.mark.parametrize("mode", [1, 2])
+def test_one_sided_rounding_tells_the_bf16_p_modes_apart(mode):
+    """chip_smoke.one_sided_inputs at d=32 (512 keys; every P' but the row
+    max's rounds down to bf16 by 0.2): the port's plain version in each
+    bf16-P mode equals JAX's transposed kernel with the matching summode
+    (mode 1 "mxu", mode 2 "vpu") within chip_smoke.flash_tolerances, and
+    the other mode's plain version misses that tolerance by more than 10x."""
+    import chip_smoke
+
+    case = (1, 2, 1, 512, 32, 512, False, mode)
+    q, kq, ks, vq, vs, offs, kw = chip_smoke.one_sided_inputs(case, "cpu")
+    kw = {k: x for k, x in kw.items() if k != "save_residuals"}
+    o = tfa._flash_int8_plain(q, kq, ks, vq, vs, offs, save_residuals=False, **kw)
+    _, _, l = tfa._flash_int8_plain_state(q, kq, ks, vq, vs, offs, **kw)
+    tol, _ = chip_smoke.flash_tolerances(o, None, l, vq, vs, 512, mode)
+    jo = jfa.flash_attention_int8_t_prequant(
+        jnp.asarray(q.numpy()), *_j(kq.numpy(), ks.numpy(), vq.numpy(), vs.numpy()),
+        sm_scale=kw["sm_scale"], summode="mxu" if mode == 1 else "vpu")
+    assert chip_smoke.err_over_tol(torch.from_numpy(np.array(jo)), o, tol) <= 1.0
+    other = tfa._flash_int8_plain(q, kq, ks, vq, vs, offs, save_residuals=False,
+                                  **dict(kw, mode=3 - mode))
+    assert chip_smoke.err_over_tol(other, o, tol) > 10.0
 
 
 @pytest.mark.parametrize("mode", [0, 1])

@@ -42,6 +42,7 @@ import chip_smoke
 import test_torch_flash_int8_tiles as bf16p_tiles
 from quantizedmha_tpu_torch.ops import flash_attention_int8 as tfa
 from quantizedmha_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE, block_should_run
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jfa = importlib.import_module("quantizedmha_tpu.ops.flash_attention_int8")
 

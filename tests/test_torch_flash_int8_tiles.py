@@ -1,13 +1,20 @@
-"""The INT8 flash forward's bf16-P route (csrc/flash_int8_fwd.cu MODE_BF16_P,
-TPU kernel 2) on the CPU: its edge cases against JAX, and its walk emulated.
+"""The INT8 flash forward's bf16-P routes (csrc/flash_int8_fwd.cu
+MODE_BF16_P and MODE_BF16_P_F32L, TPU kernels 2 and, with bf16 P, 1) on the
+CPU: their edge cases against JAX, and their walk emulated.
 
 The CUDA kernel holds 128 q rows a block (two consumers of 64, warps of
-16) and walks, per quant block, the 64-key tiles of it that some row of
-the block sees (the last one clipped at the block's end), twice: a max
-sweep on the int32 scores, then an exp sweep that recomputes S, takes
-P' = 2^(fma(s, f·log2 e, −shift·log2 e)) with s converted to f32 by a
-magic number, rounds P' to bf16 and sums P'·[V | 1] per quant block (l on
-the ones column), folded in at the block's end as acc·α + pv·vsc. Here:
+16; at d=256 one consumer of 64) and walks, per quant block, the 64-key
+tiles of it that some row of the block sees (the last one clipped at the
+block's end), twice: a max sweep on the int32 scores, then an exp sweep
+that recomputes S (at d=256 from the two 128-byte halves of Q and K),
+takes P' = 2^(fma(s, f·log2 e, −shift·log2 e)) with s converted to f32 by
+a magic number, rounds P' to bf16 and sums P'·V per quant block (at d=256
+two products of 128 columns), folded in at the block's end as acc·α +
+pv·vsc. l: MODE_BF16_P sums the bf16 P' on the tensor cores (the ones
+column of [V | 1], at d=256 a product of its own against a ones tile);
+MODE_BF16_P_F32L sums the f32 P' on the CUDA cores, lane t of a quad the
+keys 8j + 2t and 8j + 2t + 1 of each n8 tile, the quad's sums added at
+the block's end. Here:
 
 - chip_smoke.py's MODE_BF16_P FLASH_COVERAGE cases from the tenth on
   (q rows not a multiple of 128, block_kv of 64, 96, 320 and 512, Skv under
@@ -24,7 +31,9 @@ the ones column), folded in at the block's end as acc·α + pv·vsc. Here:
   the two quantizers give other int8 Q are left out of that comparison,
   and must be under 2% of the rows.
 - `_walk`, the kernel's algorithm in PyTorch, equal to the plain version
-  within the same tolerance on those cases.
+  within the same tolerance on those cases, and on the cases that hold the
+  d=256 instances and MODE_BF16_P_F32L (NEW_MODE_CASES) and on
+  chip_smoke.FLASH_ONE_SIDED's.
 - The magic-number conversion equals float(s) for every |s| <= 128·127².
 - Each planted fault of the kernel in chip_smoke.PLANTED_FAULTS as a switch
   of `_walk`: each must miss the tolerance by more than 5x.
@@ -43,13 +52,18 @@ import chip_smoke
 from quantizedmha_tpu_torch.ops import flash_attention_int8 as tfa
 from quantizedmha_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE, block_should_run
 from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jfa = importlib.import_module("quantizedmha_tpu.ops.flash_attention_int8")
 
 BK = 64      # the kernel's key tile
 ROWS = 128   # q rows of a block
 LOG2E = 1.4426950408889634
-NEW_CASES = {i: c for i, c in enumerate(chip_smoke.FLASH_COVERAGE) if i >= 9 and c[12] == 1}
+NEW_CASES = {i: c for i, c in enumerate(chip_smoke.FLASH_COVERAGE)
+             if i >= 9 and c[12] == 1 and c[6] <= 128}
+# MODE_BF16_P at d=256 and MODE_BF16_P_F32L at every head dim.
+NEW_MODE_CASES = {i: c for i, c in enumerate(chip_smoke.FLASH_COVERAGE)
+                  if c[12] == 2 or (c[12] == 1 and c[6] == 256)}
 
 
 def _inputs(case, seed):
@@ -161,10 +175,20 @@ def _pair_valid(kw, qpos, kpos, kloc, mask_tail):
     return valid
 
 
+def _lane_of_key(n):
+    """Lane t of a quad whose S accumulator holds key j of a tile (keys
+    8c + 2t and 8c + 2t + 1 of n8 tile c), for keys 0..n-1."""
+    return (torch.arange(n) % 8) // 2
+
+
 def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
-    """The bf16-P kernel's algorithm block by block, (o, lse); `fault`
-    plants the analogue of one of its PLANTED_FAULTS lines."""
+    """The bf16-P kernel's algorithm block by block, (o, lse), in the mode
+    kw names; `fault` plants the analogue of one of its PLANTED_FAULTS
+    lines. l is kept per lane of the quad ([rows, 4]): the same in every
+    lane but where the quad sum misses one."""
     B, H, Sq, D = q.shape
+    ROWS = 64 if D == 256 else 128  # q rows of a block
+    f32l = kw["mode"] == 2
     Hkv, Skv = k_i8.shape[1], k_i8.shape[2]
     G, nkv, bkv = H // Hkv, Skv // kw["block_kv"], kw["block_kv"]
     mask_tail = kw["kv_len"] < Skv
@@ -191,7 +215,7 @@ def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
                 qpos = q_off + rows
                 first_q, last_q = q_off + q0, q_off + min(q0 + ROWS, Sq) - 1
                 m = torch.full((ROWS,), float("-inf"))
-                l = torch.zeros(ROWS)
+                l = torch.zeros(ROWS, 4)
                 acc = torch.zeros(ROWS, D)
                 items = []  # the walk: (quant block, t0) of every item, both sweeps
                 for j in range(nkv):
@@ -261,6 +285,8 @@ def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
                     # Sweep 2.
                     pv = torch.zeros(ROWS, D)
                     pv_ones = torch.zeros(ROWS)
+                    l_lane = torch.zeros(ROWS, 4)  # F32L: each lane's sum of the f32 P'
+                    lane = _lane_of_key(BK)
                     for t0 in tiles:
                         tend = min(t0 + BK, kb1)
                         kt, vt = tile_of(t0, kb1)
@@ -275,6 +301,8 @@ def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
                         if fault == "s8_k_step" and D > 32:
                             S = sum(Q[:, 16 * c:16 * c + 32] @ kt[:, 16 * c:16 * c + 32].T
                                     for c in range(D // 32))
+                        elif D == 256:  # k32 steps 0-3 from the first halves, 4-7 the second
+                            S = Q[:, :128] @ kt[:, :128].T + Q[:, 128:] @ kt[:, 128:].T
                         else:
                             S = Q @ kt.T
                         kloc = t0 + torch.arange(BK)
@@ -305,19 +333,38 @@ def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
                                 pe = torch.where(keep, pe, torch.zeros_like(pe))
                             P[r] = pe
                         Pb = P.to(torch.bfloat16).float()
-                        pv += Pb @ vt
-                        if fault != "ones_dropped":
+                        if D == 256:  # two m64n128 products
+                            pv[:, :128] += Pb @ vt[:, :128]
+                            half = slice(0, 128) if fault == "pv_half" else slice(128, 256)
+                            pv[:, 128:] += Pb @ vt[:, half]
+                        else:
+                            pv += Pb @ vt
+                        if f32l:
+                            summed = Pb if fault == "l_bf16" else P
+                            for t in range(4):
+                                l_lane[:, t] += summed[:, lane == t].sum(dim=1)
+                        elif fault == "ones_last_k16":  # the ones product of keys 48-63 dropped
+                            pv_ones += Pb[:, :48].sum(dim=1)
+                        elif fault != "ones_dropped":
                             pv_ones += Pb.sum(dim=1)
                     a_rows = alpha.clone()
                     if fault == "no_rescale":  # rows g of each warp keep acc unscaled
                         a_rows[(torch.arange(ROWS) % 16) < 8] = 1.0
                     acc = acc * a_rows[:, None] + pv * vsc
-                    l = alpha * l + pv_ones
+                    if f32l:  # lane t's quad sum (the fault's misses lane t ^ 3)
+                        lb = l_lane.sum(dim=1, keepdim=True).expand(ROWS, 4)
+                        if fault == "quad_lane":
+                            lb = lb - l_lane[:, [3, 2, 1, 0]]
+                    else:
+                        lb = pv_ones[:, None].expand(ROWS, 4)
+                    l = alpha[:, None] * l + lb
                     m = m_next
+                # Column c of o is lane (c % 8) // 2's; lse is lane 0's.
                 l_inv = torch.where(l == 0, torch.ones_like(l), 1.0 / l)
-                o[b, h, rows[exists]] = (acc * l_inv[:, None])[exists].to(q.dtype)
+                o[b, h, rows[exists]] = (acc * l_inv[:, _lane_of_key(D)])[exists].to(q.dtype)
+                l0 = l[:, 0]
                 lse[b, h, rows[exists]] = torch.where(
-                    l > 0, m + torch.log(l) - ln_p, torch.full_like(l, float("-inf")))[exists]
+                    l0 > 0, m + torch.log(l0) - ln_p, torch.full_like(l0, float("-inf")))[exists]
     return o, lse
 
 
@@ -331,6 +378,41 @@ def test_plain_matches_jax_on_new_coverage_cases(i):
     keep = ~ties
     assert chip_smoke.err_over_tol(jo[keep], o[keep], tol.expand_as(o)[keep]) <= 1.0
     assert chip_smoke.err_over_tol(jlse[keep], lse[keep], lse_tol[keep]) <= 1.0
+
+
+# A d=256 MODE_BF16_P case, a d=256 and a d=64 MODE_BF16_P_F32L case (GQA
+# with offsets per sequence, softcap, window + sinks between them), and
+# the one-sided cases at d=32.
+WALK_MODE_CASES = [min(i for i, c in NEW_MODE_CASES.items() if c[12] == 1),
+                   min(i for i, c in NEW_MODE_CASES.items() if c[12] == 2),
+                   min(i for i, c in NEW_MODE_CASES.items() if c[12] == 2 and c[6] == 64)]
+ONE_SIDED_SMALL = [c[:3] + (512,) + c[4:] for c in chip_smoke.FLASH_ONE_SIDED if c[4] == 32]
+
+
+@pytest.mark.parametrize("i", WALK_MODE_CASES, ids=lambda i: f"fa8_{i}")
+def test_walk_matches_plain_on_new_modes(i):
+    """The walk of MODE_BF16_P at d=256 and of MODE_BF16_P_F32L, against
+    the plain version in the case's mode."""
+    inputs = _inputs(NEW_MODE_CASES[i], seed=300 + i)
+    o, lse, tol, lse_tol = _plain(*inputs)
+    wo, wlse = _walk(*inputs)
+    assert chip_smoke.err_over_tol(wo, o, tol) <= 1.0
+    assert chip_smoke.err_over_tol(wlse, lse, lse_tol) <= 1.0
+
+
+@pytest.mark.parametrize("case", ONE_SIDED_SMALL, ids=lambda c: f"mode{c[-1]}")
+def test_walk_holds_the_one_sided_cases(case):
+    """On a one-sided case (chip_smoke.one_sided_inputs, 512 keys), the
+    walk in the case's mode meets its plain version's tolerance and the
+    walk in the other bf16-P mode misses it by more than 10x."""
+    *operands, kw = chip_smoke.one_sided_inputs(case, "cpu")
+    kw = {k: x for k, x in kw.items() if k != "save_residuals"}
+    o, lse, tol, lse_tol = _plain(*operands, kw)
+    wo, wlse = _walk(*operands, kw)
+    assert chip_smoke.err_over_tol(wo, o, tol) <= 1.0
+    assert chip_smoke.err_over_tol(wlse, lse, lse_tol) <= 1.0
+    other, _ = _walk(*operands, dict(kw, mode=3 - kw["mode"]))
+    assert chip_smoke.err_over_tol(other, o, tol) > 10.0
 
 
 @pytest.mark.parametrize("i", sorted(NEW_CASES), ids=lambda i: f"fa8_{i}")
@@ -399,7 +481,43 @@ def test_planted_fault_analogues_miss_the_tolerance(fault):
     assert worst > 5.0 or math.isinf(worst)
 
 
+# The faults of the d=256 instances and of MODE_BF16_P_F32L, each at a case
+# of its own: (PLANTED_FAULTS line, case). The f32-l sum over the bf16 P'
+# moves l by under one bf16 ulp of P' a key, so only a one-sided case shows
+# it.
+MODE_FAULTS = {
+    "pv_half": ("d=256: P·V's second column half against V's first (O's columns 128-255)",
+                (1, 2, 1, 70, 192, 192, 256, 96, True, None, 0, None, 1, False, None)),
+    "ones_last_k16": ("d=256 bf16 P: the ones product (l) dropped for the last k16 step",
+                      (1, 2, 1, 70, 192, 192, 256, 96, True, None, 0, None, 1, False, None)),
+    "l_bf16": ("bf16 P, f32 l: l sums the bf16-rounded P', not the f32 P'", ONE_SIDED_SMALL[1]),
+    "quad_lane": ("bf16 P, f32 l: the quad sum of l misses one lane (t ^ 3)",
+                  (1, 2, 1, 70, 192, 192, 64, 96, True, None, 0, None, 2, False, None)),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(MODE_FAULTS))
+def test_planted_mode_fault_analogues_miss_the_tolerance(fault):
+    what, case = MODE_FAULTS[fault]
+    line = [f for f in chip_smoke.PLANTED_FAULTS if f[1] == what]
+    assert len(line) == 1 and (line[0][0] == "flash_int8_fwd.cu"
+                               or "flash_int8_fwd" in line[0][4])
+    if len(case) == 8:
+        *operands, kw = chip_smoke.one_sided_inputs(case, "cpu")
+        inputs = (*operands, {k: x for k, x in kw.items() if k != "save_residuals"})
+    else:
+        inputs = _inputs(case, seed=9)
+    o, lse, tol, lse_tol = _plain(*inputs)
+    wo, wlse = _walk(*inputs, fault=fault)
+    worst = max(chip_smoke.err_over_tol(wo, o, tol), chip_smoke.err_over_tol(wlse, lse, lse_tol))
+    assert worst > 5.0 or math.isinf(worst)
+
+
 def test_every_planted_fault_has_an_analogue():
     lines = [f[1] for f in chip_smoke.PLANTED_FAULTS
              if f[0] in ("flash_int8_fwd.cu", "wgmma_s8.cuh") and f[1].startswith("bf16 P:")]
     assert sorted(lines) == sorted(FAULTS.values())
+    mode_lines = [f[1] for f in chip_smoke.PLANTED_FAULTS
+                  if (f[0] == "flash_int8_fwd.cu" and f[1].startswith(("d=256 bf16 P", "bf16 P,")))
+                  or (f[0] != "flash_int8_fwd.cu" and "flash_int8_fwd" in (f[4:] or [()])[0])]
+    assert sorted(mode_lines) == sorted(w for w, _ in MODE_FAULTS.values())

@@ -2,11 +2,11 @@
 wrappers admit it for the routes the serving paths take (rows 3 and 12,
 the paged decode; rows 10 and 11, the paged prefill with bf16 and f32 q;
 row 5, the flash forward in bf16 and f32; row 1, the INT8 flash forward
-with int8 P) and the training paths' (rows 6 and 7, the flash backward in
-bf16 and f32), the one other route raises and names its ROADMAP item (row
-2, the int8 flash with bf16 P), and the plain versions,
-which the kernels are held to on the card, agree with the JAX package's
-Pallas kernels (interpret mode) at d=256.
+with int8 P), the training paths' (rows 6 and 7, the flash backward in
+bf16 and f32) and the INT8 flash forward's bf16-P modes (rows 1-2: l over
+the bf16 P' or over the f32 P'), so that no route raises, and the plain
+versions, which the kernels are held to on the card, agree with the JAX
+package's Pallas kernels (interpret mode) at d=256.
 
 Tolerances as in test_torch_decode.py, test_torch_paged_prefill.py and
 test_torch_flash.py: f32 from the same int8 pages, summation order only,
@@ -34,11 +34,11 @@ from quantizedmha_tpu_torch.ops import flash_attention as tfa
 from quantizedmha_tpu_torch.ops import flash_attention_int8 as tfa8
 from quantizedmha_tpu_torch.ops import paged_prefill as tpp
 from quantizedmha_tpu_torch.ops.flash_attention import _offsets
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jfa = importlib.import_module("quantizedmha_tpu.ops.flash_attention")
 D = 256
 TOL = 1e-5
-ROW2_ITEM = "ROADMAP.md queue 2 item 2"
 
 
 def test_serving_routes_admit_head_dim_256(monkeypatch):
@@ -80,11 +80,11 @@ def test_serving_routes_admit_head_dim_256(monkeypatch):
 
 
 def test_routes_left_out_raise_naming_their_item(monkeypatch):
-    """The INT8 flash forward with bf16 P (row 2) refuses head_dim 256
-    before any launch, naming its ROADMAP item (on the CPU tensors here, as
-    it would on the card). The flash backward (rows 6 and 7, the training
-    paths') builds both launches at D = 256 (the stream stubbed), in f32
-    with the bf16 flag 0 and in bf16 with it 1."""
+    """No route is left out at head_dim 256: the INT8 flash forward with
+    bf16 P builds its launch in both modes (1: l over the bf16 P', 2: l
+    over the f32 P'), each on its own counter, and the flash backward (rows
+    6 and 7, the training paths') builds both launches at D = 256 (the
+    stream stubbed), in f32 with the bf16 flag 0 and in bf16 with it 1."""
     q = torch.zeros((1, 2, 8, D))
     kv = torch.zeros((1, 1, 8, D))
     offs = _offsets(0, 0, 1, q.device)
@@ -97,11 +97,13 @@ def test_routes_left_out_raise_naming_their_item(monkeypatch):
         assert [k for k, _ in launches] == [tfa.FLASH_BWD_DKV, tfa.FLASH_BWD_DQ]
         assert all(args[-9] == D and args[-2] == flag for _, args in launches)
     k8 = torch.zeros((1, 1, 8, D), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match=ROW2_ITEM):  # row 2: bf16 P
-        tfa8._flash_int8_launch(q, k8, torch.ones((1, 1, 1)), k8, torch.ones((1, 1, 1)), offs,
-                                sm_scale=D**-0.5, causal=False, kv_len=8, block_kv=8,
-                                scale_clamp=1e-8, p_scale=127.0, mode=1, save_residuals=False,
-                                **masks)
+    for mode, counter in ((1, tfa8.FLASH_BF16_P), (2, tfa8.FLASH_BF16_P_F32L)):
+        kernel, args, (o, lse), _ = tfa8._flash_int8_launch(
+            q, k8, torch.ones((1, 1, 1)), k8, torch.ones((1, 1, 1)), offs, sm_scale=D**-0.5,
+            causal=False, kv_len=8, block_kv=8, scale_clamp=1e-8, p_scale=127.0, mode=mode,
+            save_residuals=False, **masks)
+        assert kernel is counter and kernel.launches == 0
+        assert args[14] == D and args[-3] == mode and o.shape == q.shape and lse is None
 
 
 def _pages(rng, hkv, num_pages, page):
@@ -155,29 +157,42 @@ def test_flash_forward_plain_matches_jax_at_256():
                                rtol=2.0**-7, atol=2.0**-8 * float(np.abs(v).max()))
 
 
-@pytest.mark.parametrize("case", ["causal", "window_sinks"])
+# The INT8 flash forward's routes at d=256: (numerics mode, the route's
+# keywords). "causal" and "window_sinks": the default route at d > 128,
+# _int8_fwd_kernel with int8 P (mode 0); "std_bf16p": the same kernel with
+# pv_dtype="bf16" (mode 2); "t_mxu" and "t_vpu": _int8_fwd_kernel_t forced
+# by transposed=True, l over the bf16 P' (mode 1) or over the f32 P' (mode
+# 2), with the window and sinks in turn.
+INT8_ROUTES_256 = {"causal": (0, {}), "window_sinks": (0, dict(window=40, attention_sinks=4)),
+                   "std_bf16p": (2, dict(pv_dtype="bf16")),
+                   "t_mxu": (1, dict(transposed=True, window=40, attention_sinks=4)),
+                   "t_vpu": (2, dict(transposed=True, summode="vpu"))}
+
+
+@pytest.mark.parametrize("case", list(INT8_ROUTES_256))
 def test_flash_int8_plain_matches_jax_at_256(case):
-    """Row 1's plain version (int8 P) against JAX's flash_attention_int8,
-    whose default route at d > 128 is _int8_fwd_kernel (interpret mode):
-    GQA 2, sm_scale 256^-0.5, softcap 50, quant blocks of 32 (two of them,
-    so the softmax steps); causal, and a window of 40 with 4 sinks."""
+    """Rows 1-2's plain version in the route's numerics mode against JAX's
+    flash_attention_int8 with the same keywords (Pallas in interpret
+    mode): GQA 2, sm_scale 256^-0.5, softcap 50, quant blocks of 32 (two of
+    them, so the softmax steps), causal, S=64; the port's output is the
+    plain version's in that mode bit for bit."""
+    mode, route = INT8_ROUTES_256[case]
     rng = np.random.default_rng(3 + len(case))
     S = 64
     q = rng.normal(0, 2.0, (1, 4, S, D)).astype(np.float32)
     k, v = rng.normal(0, 1.0, (2, 1, 2, S, D)).astype(np.float32)
-    masks = dict(window=40, attention_sinks=4) if case == "window_sinks" else {}
-    kw = dict(sm_scale=D**-0.5, causal=True, block_kv=32, logit_softcap=50.0, **masks)
+    kw = dict(sm_scale=D**-0.5, causal=True, block_kv=32, logit_softcap=50.0, **route)
     got = tfa8.flash_attention_int8(*(torch.from_numpy(x) for x in (q, k, v)), **kw)
     want = torch.from_numpy(np.array(jfa8(*(jnp.asarray(x) for x in (q, k, v)), **kw)))
     k_i8, ks = tfa8.quantize_kv_blocks(torch.from_numpy(k), 32)
     v_i8, vs = tfa8.quantize_kv_blocks(torch.from_numpy(v), 32)
     pkw = dict(sm_scale=D**-0.5, causal=True, kv_len=S, block_kv=32, scale_clamp=1e-8,
-               p_scale=127.0, window=masks.get("window"), softcap=50.0,
-               sinks=masks.get("attention_sinks", 0), mode=0)
+               p_scale=127.0, window=route.get("window"), softcap=50.0,
+               sinks=route.get("attention_sinks", 0), mode=mode)
     operands = (torch.from_numpy(q), k_i8, ks, v_i8, vs, _offsets(0, 0, 1, "cpu"))
     plain = tfa8._flash_int8_plain(*operands, save_residuals=False, **pkw)
     _, _, l = tfa8._flash_int8_plain_state(*operands, **pkw)
-    tol, _ = chip_smoke.flash_tolerances(plain, None, l, v_i8, vs, 32, 0)
+    tol, _ = chip_smoke.flash_tolerances(plain, None, l, v_i8, vs, 32, mode)
     assert torch.equal(got, plain)
     keep = ~bf16p_tiles._tie_rows(torch.from_numpy(q))
     assert keep.float().mean() > 0.95

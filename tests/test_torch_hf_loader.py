@@ -23,6 +23,7 @@
 
 import dataclasses
 import json
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +36,7 @@ from quantizedmha_tpu_torch.models import hf_loader as th
 from quantizedmha_tpu_torch.models import llama as tl
 from quantizedmha_tpu_torch.quant.weights import QuantizedWeight, QuantizedWeight4
 from quantizedmha_tpu_torch.serving.sharded import expand_param_specs, shard_params, tp_param_specs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = JConfig.tiny(num_layers=2, head_dim=16)
 LOGIT_TOL = 2e-3
@@ -200,6 +202,9 @@ def test_unpermute_rope_matches_jax():
 def _hf_checkpoint(tmp_path, family, seed):
     """(path, transformers' logits) of a tiny random model of `family`
     saved with save_pretrained, and the tokens."""
+    # transformers' torch models alone: importing TensorFlow beside them
+    # took about half of transformers' import time.
+    os.environ.setdefault("USE_TF", "0")
     tfs = pytest.importorskip("transformers")
     common = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
                   num_attention_heads=4, num_key_value_heads=2, rope_theta=10000.0,

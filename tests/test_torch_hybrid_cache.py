@@ -30,6 +30,7 @@ from quantizedmha_tpu.serving import llama_adapter as jad
 from quantizedmha_tpu_torch.models import llama as tl
 from quantizedmha_tpu_torch.models.convert import params_from_numpy
 from quantizedmha_tpu_torch.serving import llama_adapter as tad
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PAGE = 4
 

@@ -22,6 +22,7 @@ from quantizedmha_tpu_torch.models.convert import params_from_numpy
 from quantizedmha_tpu_torch.quant.weights import quantize_llama_params
 from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
 from test_torch_hybrid_cache import PAGE, hybrid_models, numpy_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 COUNTERS = ("requests_admitted", "prefill_tokens", "prefix_cache_hits",
             "prefix_tokens_reused", "pages_trimmed", "decode_steps")

@@ -27,6 +27,7 @@ from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
 from quantizedmha_tpu_torch.serving.kv_cache import MixedPageAllocator
 from quantizedmha_tpu_torch.serving.mixed_kv import MixedPagedKVState
 from test_torch_hybrid_cache import PAGE, hybrid_models
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PATTERN = (8, None, 8, None)
 COUNTERS = ("requests_admitted", "prefill_tokens", "prefill_chunks_interleaved",

@@ -24,6 +24,7 @@ from quantizedmha_tpu.quant import weights as jw
 from quantizedmha_tpu_torch.models import llama as tl
 from quantizedmha_tpu_torch.models.convert import params_from_numpy
 from quantizedmha_tpu_torch.quant import weights as tw
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def to_numpy_tree(t):
@@ -130,8 +131,9 @@ def test_init_params_shapes_match_jax():
 
 def test_unported_paths_raise():
     """w8a8 is ported (tests/test_torch_w8a8.py); an unknown mode still
-    raises as JAX's does, and the INT8 attention's bf16-P / f32-l numerics
-    (summode="vpu") still refuse, naming their ROADMAP item."""
+    raises as JAX's does. The INT8 attention's bf16-P / f32-l numerics
+    (summode="vpu"), which refused before they were ported, run and give
+    JAX's output (all-ones inputs: exactly 1)."""
     q = tw.quantize_weight(torch.ones(4, 4))
     with pytest.raises(ValueError, match="mode"):
         tw.qdense(torch.ones(1, 4), q, mode="w4a4")
@@ -139,5 +141,8 @@ def test_unported_paths_raise():
         jw.qdense(jnp.ones((1, 4)), jw.quantize_weight(jnp.ones((4, 4))), mode="w4a4")
     from quantizedmha_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
     x = torch.ones(1, 1, 8, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention_int8(x, x, x, pv_dtype="bf16", summode="vpu")
+    got = flash_attention_int8(x, x, x, pv_dtype="bf16", summode="vpu")
+    from quantizedmha_tpu.ops.flash_attention_int8 import flash_attention_int8 as jfa8
+    want = jfa8(jnp.ones((1, 1, 8, 32)), jnp.ones((1, 1, 8, 32)), jnp.ones((1, 1, 8, 32)),
+                pv_dtype="bf16", summode="vpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)

@@ -24,6 +24,7 @@ from quantizedmha_tpu.serving.engine import EngineConfig as JEngineConfig
 from quantizedmha_tpu_torch.models import llama as tl
 from quantizedmha_tpu_torch.models.convert import params_from_numpy
 from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PAGE = 4
 COUNTERS = ("requests_admitted", "prefill_tokens", "prefill_chunks_interleaved",

@@ -32,6 +32,7 @@ from quantizedmha_tpu_torch.ops.paged_prefill import paged_prefill_attention_int
 from quantizedmha_tpu_torch.parallel.combine import merge_two_partials as tmerge
 from quantizedmha_tpu_torch.serving import kv_cache as tkv
 from quantizedmha_tpu_torch.serving import mixed_kv as tmx
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 

@@ -18,6 +18,7 @@ import torch
 from quantizedmha_tpu.ops.paged_prefill import paged_prefill_attention as jprefill
 from quantizedmha_tpu_torch.ops.decode import paged_decode_attention as tdecode
 from quantizedmha_tpu_torch.ops.paged_prefill import paged_prefill_attention as tprefill
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 

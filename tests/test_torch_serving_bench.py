@@ -26,6 +26,7 @@ from quantizedmha_tpu_torch.models import llama as tl
 from quantizedmha_tpu_torch.ops import w4_matmul as tm
 from quantizedmha_tpu_torch.profiling.roofline import ChipSpec
 from quantizedmha_tpu_torch.quant import weights as tw
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(num_layers=2, num_heads=4, num_kv_heads=2, attention_impl="flash_int8")
 

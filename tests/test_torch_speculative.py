@@ -36,6 +36,7 @@ from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
 from quantizedmha_tpu_torch.serving.sampling import SamplingParams, rejection_sample, warp_logits
 from quantizedmha_tpu_torch.serving.speculative import SpecConfig, SpecDecodeEngine
 from test_torch_hybrid_cache import numpy_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BASE = dict(num_pages=64, page_size=16, max_batch=3, prefill_buckets=(16, 32),
             max_new_tokens=10, max_pages_per_seq=8)

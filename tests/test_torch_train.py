@@ -27,6 +27,7 @@ from quantizedmha_tpu.models import llama as jl
 from quantizedmha_tpu_torch.models import llama as tl
 from quantizedmha_tpu_torch.models.convert import params_from_numpy, params_to_numpy
 from quantizedmha_tpu_torch.ops import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LR = 1e-2
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
@@ -48,8 +49,11 @@ def jax_runs(tokens):
         cfg = jl.LlamaConfig.tiny(dtype=jdt)
         params = jl.init_params(cfg, jax.random.PRNGKey(0))
         toks = jnp.asarray(tokens)
-        loss, grads = jax.value_and_grad(lambda p: jl.loss_fn(cfg, p, toks))(params)
-        new, step_loss = jl.sgd_train_step(cfg, params, toks, lr=LR)
+        # Under one jit: interpret-mode Pallas runs eagerly several times
+        # slower, and one program compiles the two calls' shared work once.
+        (loss, grads), (new, step_loss) = jax.jit(lambda p: (
+            jax.value_and_grad(lambda q: jl.loss_fn(cfg, q, toks))(p),
+            jl.sgd_train_step(cfg, p, toks, lr=LR)))(params)
         to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
         out[name] = (to_np(params), float(loss), to_np(grads), to_np(new), float(step_loss))
     return out

@@ -28,6 +28,7 @@ from quantizedmha_tpu_torch.models import llama as tl
 from quantizedmha_tpu_torch.models.convert import params_from_numpy
 from quantizedmha_tpu_torch.quant import weights as tw
 from quantizedmha_tpu_torch.serving.engine import Engine, EngineConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 K, N = 64, 48
 
