@@ -385,8 +385,8 @@ result line:
            start after build, niced, on all but two cores, behind those
            phases) and bound in place of the committed kernels as each
            build ends, their checks rerun: every fault must fail them (a
-           fault of flash_bwd.cu's d=256 kernels a d=256 coverage case by
-           10x or more).
+           fault of flash_bwd.cu's d=256 kernels or of the d=256 int8-P
+           forward a d=256 case by 10x or more).
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 zeroed just before each main path (each solve rung, the harness run,
@@ -1186,7 +1186,8 @@ def _paged_prefill_case(g, *, replaces):
 # numerics modes at every head dim, both q dtypes and lse.
 #   (B, H, Hkv, Sq, Skv, kv_len, D, block_kv, causal, window, sinks,
 #    softcap, mode, bf16 q, offsets: None for end-aligned, a q offset per
-#    sequence, or a (q offset, kv offset) pair per sequence)
+#    sequence, or a (q offset, kv offset) pair per sequence[, a scale of
+#    K's keys 0-31 of every 64-key tile])
 # The cases from the tenth on hold MODE_BF16_P's wgmma kernel (128 q rows a
 # block; 64-key tiles walked per quant block, twice) at its edges: q rows
 # not a multiple of 128, block_kv of 64, 96, 320 and 512 (tiles clipped at
@@ -1257,6 +1258,16 @@ FLASH_COVERAGE = (
     (1, 2, 2, 150, 256, 256, 32, 64, True, None, 0, 20.0, 2, False, None),
     (2, 4, 2, 96, 192, 192, 64, 96, True, 40, 4, None, 2, True, ((70, 10), (0, 40))),
     (1, 4, 4, 200, 384, 384, 128, 384, False, None, 0, None, 2, False, None),
+    # d=256 with int8 P, cases that tell the two consumers' key halves
+    # apart (a 16th element scales K's keys 0-31 of every 64-key tile
+    # before quantization): every row's block max in keys 32-63 of its
+    # tiles (K's first halves at a quarter) over three quant blocks with
+    # softcap; a 40-key window, whose rows see one half of a tile and not
+    # the other; kv_len ending inside a tile's first half (keys 192-199 of
+    # the last quant block, keys 224-255 all past it).
+    (1, 4, 2, 160, 384, 384, 256, 128, True, None, 0, 50.0, 0, True, None, 0.25),
+    (1, 4, 4, 128, 320, 320, 256, 320, True, 40, 0, None, 0, False, None),
+    (2, 2, 1, 100, 256, 200, 256, 128, True, None, 0, None, 0, True, None),
 )
 FIRST_INT8P_CASE = 17
 # The bf16-P modes told apart: (B, H, Hkv, S, D, block_kv, causal, mode),
@@ -1484,10 +1495,13 @@ def flash_coverage_inputs(g, case, device="cuda"):
     from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
     from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
     (B, H, Hkv, Sq, Skv, kv_len, D, bkv, causal, window, sinks, cap, mode, qbf16,
-     offs) = case
+     offs, *k_lo) = case
     dt = torch.bfloat16 if qbf16 else torch.float32
     q = (torch.randn((B, H, Sq, D), generator=g, device=device) * 2).to(dt)
     kv = torch.randn((2, B, Hkv, Skv, D), generator=g, device=device).to(dt)
+    if k_lo:  # K's keys 0-31 of every 64-key tile scaled
+        lo = (torch.arange(Skv, device=device) % 64 < 32)[:, None]
+        kv[0] = torch.where(lo, kv[0] * k_lo[0], kv[0])
     k_i8, ks = quantize_kv_blocks(kv[0], bkv)
     v_i8, vs = quantize_kv_blocks(kv[1], bkv)
     if offs is None:
@@ -3385,11 +3399,23 @@ PLANTED_FAULTS = (
      "    return s8_desc(tile + (kc >> 2) * (ROWS * S8_ROW), kc & 3);",
      "    return s8_desc(tile, kc & 3);"),
     ("flash_int8_fwd.cu", "d=256 int8 P: P·V's second column half against Vᵀ's first (O's columns 128-255)",
-     "                     s8_desc(vt + 128 * S8_ROW, kc));",
-     "                     s8_desc(vt, kc));"),
-    ("flash_int8_fwd.cu", "d=256 int8 P: acc in shared memory not rescaled by alpha (rows g)",
-     "        x.x = fmaf(x.x, alpha[0], static_cast<float>(pvi[j][0]) * vsc);",
-     "        x.x = fmaf(x.x, 1.f, static_cast<float>(pvi[j][0]) * vsc);"),
+     "        const int8_t* vh = vt_of(n % R::STAGES) + 128 * cw * S8_ROW;  // Vᵀ of O's columns 128cw..",
+     "        const int8_t* vh = vt_of(n % R::STAGES);  // Vᵀ of O's columns 128cw.."),
+    ("flash_int8_fwd.cu", "d=256 int8 P: each consumer's P·V against the other's V columns",
+     "        const int8_t* vh = vt_of(n % R::STAGES) + 128 * cw * S8_ROW;  // Vᵀ of O's columns 128cw..",
+     "        const int8_t* vh = vt_of(n % R::STAGES) + 128 * (1 - cw) * S8_ROW;"),
+    ("flash_int8_fwd.cu", "d=256 int8 P: acc in registers not rescaled by alpha (rows g, even columns)",
+     "        acc[j][0] = fmaf(acc[j][0], alpha[0], static_cast<float>(pvh[j][0]) * vscale);",
+     "        acc[j][0] = fmaf(acc[j][0], 1.f, static_cast<float>(pvh[j][0]) * vscale);"),
+    ("flash_int8_fwd.cu", "d=256 int8 P: the second consumer's P half never written (stale bytes)",
+     "            *reinterpret_cast<uint32_t*>(pt + sw8(16 * warp + g + 8 * r, 4 * pb + 2 * cw + hh) +",
+     "            if (cw == 0) *reinterpret_cast<uint32_t*>(pt + sw8(16 * warp + g + 8 * r, 4 * pb + 2 * cw + hh) +"),
+    ("flash_int8_fwd.cu", "d=256 int8 P: the row-max exchange skipped (each consumer its own keys' max)",
+     "        const int imr = max(im[r], xo.x);",
+     "        const int imr = im[r];"),
+    ("flash_int8_fwd.cu", "d=256 int8 P: the other consumer's share of l not added at the end",
+     "    for (int r = 0; r < 2; ++r) l[r] += xl[64 * (1 - cw) + 16 * warp + g + 8 * r];",
+     "    for (int r = 0; r < 2; ++r) l[r] += 0.f * xl[64 * (1 - cw) + 16 * warp + g + 8 * r];"),
     ("flash_int8_fwd.cu", "d=256 bf16 P: the ones product (l) dropped for the last k16 step",
      "for (int kk = 0; kk < 4; ++kk) wgmma_rs_m64n8<0>(pl, a[kk], ones, 1);",
      "for (int kk = 0; kk < 3; ++kk) wgmma_rs_m64n8<0>(pl, a[kk], ones, 1);"),
@@ -3634,8 +3660,10 @@ def phase_faults(st):
     the other builds go on: every fault must fail them, a fault of the
     d=256 backward ("d=256 ..." in flash_bwd.cu) or of the f32 kernels that
     run every head dim, d=256 too ("f32 ..."), a d=256 coverage case by
-    10x or more. The builds are main()'s, started after the build phase, or
-    started here on every core."""
+    10x or more, and so must a fault of the d=256 int8-P forward ("d=256
+    int8 P: ...", a d=256 int8-P coverage case or serve_hf's prefill). The
+    builds are main()'s, started after the build phase, or started here on
+    every core."""
     import concurrent.futures
     import ctypes
     from quantizedmha_tpu_torch.ops import decode as dec
@@ -3673,13 +3701,16 @@ def phase_faults(st):
                 kern._fn = fn
             main, cov = _fault_checks(src)
             worst = max([max(r) for r in main.values()] + list(cov.values()))
-            # A fault of the d=256 backward or of the f32 kernels must fail
-            # a d=256 case by 10x.
+            # A fault of the d=256 backward, of the f32 kernels or of the
+            # d=256 int8-P forward must fail a d=256 case by 10x.
             d256 = None
             if src == "flash_bwd" and what.startswith(("d=256", "f32")):
                 d256 = max([cov[f"flash_bwd{i}"] for i, c in enumerate(FLASH_BWD_COVERAGE)
                             if c[5] == 256]
                            + [cov[f"flash_bwd_grid{i}"] for i in range(len(FLASH_BWD_GRID))])
+            elif src == "flash_int8_fwd" and what.startswith("d=256 int8 P"):
+                d256 = max([cov[f"fa8_{i}"] for i, c in enumerate(FLASH_COVERAGE)
+                            if c[6] == 256 and c[12] == 0] + main["serve_hf prefill"])
             rows[futures[fut]] = {
                 "source": src, "fault": what, "main_err_over_tol": main,
                 "coverage_failing": sorted(k for k, r in cov.items() if r > 1.0),

@@ -46,7 +46,11 @@
 // knock-outs, PERF.md): at 256 tokens the launch, Q's loads and divisions
 // before the first item and the epilogue take half the time, the heaviest
 // block's chain of items (two a visible 64-key tile, ~1 µs each, mostly
-// handoffs) the other half.
+// handoffs) the other half. At Gemma-2's full layer (d=256, 16 q heads,
+// 2048 tokens, softcap) the time spreads over the walk: the softcap's
+// per-score chain (32 SASS instructions a score, harness/sass_count.py;
+// 0.032 ms on the CUDA cores), the max sweep, P·V, the copies and Vᵀ's
+// transposes each 10-20% (the int8p_d256_ knock-outs, PERF.md).
 //
 // MODE_BF16_P and MODE_BF16_P_F32L (flash_int8_bf16p_kernel): a block is
 // (batch, q head, 128 q rows) and its warpgroups specialise (setmaxnreg). One producer warpgroup
@@ -104,14 +108,23 @@
 // same bits every launch.
 //   d=256 (Gemma-2): a Q or K row is 256 bytes, stored as two 128-byte
 //   halves, each a tile of its own in wgmma_s8.cuh's layout (sw8_d), so
-//   S = Qq·Kqᵀ is 8 k32 steps of the m64n64 product, steps 4-7 at the
-//   second halves' descriptors (s8_desc_d). P·V at N = 256 is two m64n128
-//   products a k32 step, the second against Vᵀ's rows 128-255 (pv_step).
-//   pvi alone is 128 registers a consumer thread, so acc (64 x 256 f32)
-//   lives in shared memory, each thread's own float4s, read and written
-//   once a quant block (and by the epilogue); one block of a producer and
-//   one consumer an SM, no setmaxnreg (256 threads may hold 255 registers
-//   each), two stages of 64 KB (K, V's rows, Vᵀ): 209 KB of shared memory.
+//   S = Qq·Kqᵀ takes 8 k32 steps, steps 4-7 at the second halves'
+//   descriptors (s8_desc_d). pvi over all 256 columns would be 128
+//   registers a thread, so a block of 64 rows runs two consumers beside
+//   the producer (SPLIT, setmaxnreg 56 / 224, one block an SM): consumer c
+//   takes keys 32c..32c+31 of every 64-key tile, S as m64n32, the int32
+//   row max (the two exchange theirs through shared memory once a quant
+//   block, so that both fold with the same m), P' and its f32 sum l_c,
+//   and writes P, rounded, into its half of a P tile in shared memory
+//   (k32 step c of the register A's key order, double-buffered by exp
+//   item); after a named barrier between the two, it runs pvi_c += P·V of
+//   O's columns 128c..128c+127, one m64n128 s8 wgmma a k32 step with A and
+//   B from shared memory (Vᵀ's rows 128c..). pvi_c and acc_c are 64
+//   registers each, acc stays in registers, l = l_0 + l_1 at the end.
+//   The next item's S is issued before this item's per-score work, so
+//   that the tensor cores run it beside the CUDA cores.
+//   Three stages of 64 KB (K, V's rows, Vᵀ), the P tile, one Q tile: 220
+//   KB of shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -728,63 +741,83 @@ __global__ void __launch_bounds__(Bf16pRing<D, F32L>::NTB, Bf16pRing<D, F32L>::B
 
 template <int D, int C, int TK>
 struct Int8pRing {
-  // Consumer warpgroups (64 block rows each), keys an item (a tile: 64 or
-  // 128) and blocks an SM: one consumer a block and 64-key tiles, two
-  // blocks an SM (the serving prefill's few blocks spread over every SM,
-  // a light block beside a heavy one); else one block an SM. d=256 (WIDE):
-  // one consumer, one block an SM, acc in shared memory, two stages.
-  static constexpr bool WIDE = D == 256;
+  // Consumer warpgroups, keys an item (a tile: 64 or 128) and blocks an SM.
+  // d <= 128: each consumer holds 64 block rows of its own; one consumer a
+  // block and 64-key tiles take two blocks an SM (the serving prefill's few
+  // blocks spread over every SM, a light block beside a heavy one); else
+  // one block an SM. d=256 (SPLIT): two consumers over the same 64 rows,
+  // consumer c the keys 32c..32c+31 of every tile and O's columns
+  // 128c..128c+127, one block an SM, three stages.
+  static constexpr bool SPLIT = D == 256;
   static constexpr int CONSUMERS = C;
-  static constexpr int ROWS = 64 * C;                // q heads x q positions
-  static constexpr int BLOCKS = C == 1 && TK == 64 && !WIDE ? 2 : 1;
-  static_assert(BLOCKS == 2 || C == 2 || WIDE, "one consumer takes two blocks an SM");
-  static_assert(!WIDE || (C == 1 && TK == 64), "d=256: one consumer, 64-key tiles");
+  static constexpr int ROWS = SPLIT ? 64 : 64 * C;   // q heads x q positions
+  static constexpr int BLOCKS = C == 1 && TK == 64 ? 2 : 1;
+  static_assert(BLOCKS == 2 || C == 2, "one consumer takes two blocks an SM");
+  static_assert(!SPLIT || (C == 2 && TK == 64), "d=256: two consumers, 64-key tiles");
   static constexpr int NTB = 128 * (1 + C);          // threads; all meet at a handoff
-  static constexpr int STAGES = WIDE ? 2 : TK == 64 && C == 2 ? 4 : 3;  // stages in the ring
+  static constexpr int STAGES = SPLIT ? 3 : TK == 64 && C == 2 ? 4 : 3;  // stages in the ring
   static constexpr int KCPT = TK * D / 2048;  // 16-byte chunks of a K tile a producer thread copies
   // Items in flight beyond the one handed over (as Bf16pRing's LAG); the
   // 4-key x 16-byte units of a V tile.
   static constexpr int LAG = STAGES - 1, VUNITS = TK * D / 64;
   // The registers of a producer and of a consumer thread (setmaxnreg; the
-  // launch gives each thread 65536 / (NTB * BLOCKS), rounded down to 8).
-  // WIDE takes no setmaxnreg: its 256 threads may each hold 255.
-  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = C == 1 ? 216 : 232;
+  // launch gives each thread 65536 / (NTB * BLOCKS), rounded down to 8;
+  // SPLIT's producer addresses a d=256 tile's 8 K and 2 V units a thread).
+  static constexpr int PRODUCER_REGS = SPLIT ? 56 : 40;
+  static constexpr int CONSUMER_REGS = C == 1 ? 216 : SPLIT ? 224 : 232;
   static_assert(PRODUCER_REGS + C * CONSUMER_REGS <=
                 (1 + C) * (65536 / (NTB * BLOCKS) / 8 * 8), "register budget");
   // Named barriers (0 is __syncthreads): stage s holds an item for consumer
   // c (FULL + C·s + c), stage s is free again (EMPTY + s), consumer c's Q
-  // tile is in place (QREADY + c).
+  // tile is in place (QREADY + c; SPLIT: QREADY, both halves of the rows).
+  // SPLIT's consumers meet on their own: an item's P tile is written
+  // (PREADY), their row maxes or l are exchanged (XCHG).
   static constexpr int FULL = 1, EMPTY = FULL + C * STAGES, QREADY = EMPTY + STAGES;
+  static constexpr int PREADY = QREADY + 1, XCHG = QREADY + 2;
   static constexpr int FULL_THREADS = 256;  // the producer and one consumer
-  static_assert(QREADY + C <= 16, "16 named barriers");
+  static_assert(QREADY + C <= 16 && (!SPLIT || XCHG < 16), "16 named barriers");
   // A stage: the K tile and V's rows as copied (TK rows each, int8,
   // wgmma_s8.cuh's layout; KH 128-byte halves of a row, sw8_d), then Vᵀ: D
   // rows (one a column of V) of 128 bytes, the tile's keys in the first
   // TK, in the order P's register A takes them. Shared memory: each
-  // consumer's Q tile, the stages, WIDE's acc (each consumer thread's ND
-  // float4s, threads side by side), the rows' scales; 1 KB to align.
+  // consumer's Q tile (SPLIT: one), the stages, SPLIT's P tile (an s8 tile
+  // whose rows hold an exp item's P in bytes 64(e % 2).. for the e-th exp
+  // item, keys in Vᵀ's order: the A of both consumers' P·V) and exchange
+  // slots (the row maxes of two quant blocks in turn, int2 [2][2][64]; l,
+  // float [2][64]), the rows' scales; 1 KB to align.
   static constexpr int KH = D > 128 ? D / 128 : 1;
   static constexpr int QTILE = KH * S8_TILE;
   static constexpr int TILE = KH * TK * S8_ROW;
   static constexpr int STAGE = 2 * TILE + D * S8_ROW;
-  static constexpr int KV_OFF = C * QTILE;
-  static constexpr int ACC_OFF = KV_OFF + STAGES * STAGE;
-  static constexpr int SQ_OFF = ACC_OFF + (WIDE ? C * 64 * D * 4 : 0);
+  static constexpr int KV_OFF = (SPLIT ? 1 : C) * QTILE;
+  static constexpr int PT_OFF = KV_OFF + STAGES * STAGE;
+  static constexpr int XCH_OFF = PT_OFF + (SPLIT ? S8_TILE : 0);
+  static constexpr int SQ_OFF = XCH_OFF + (SPLIT ? 2 * 2 * 64 * 8 + 2 * 64 * 4 : 0);
   static constexpr int BYTES = SQ_OFF + ROWS * 4 + 1024;
   static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
-// pvi += P·V over k32 step kc of the stage's Vᵀ: at d=256 two m64n128
-// products, the second over Vᵀ's rows 128-255 (O's columns 128-255).
-template <int D>
-__device__ __forceinline__ void pv_step(int (&pvi)[D / 8][4], const uint32_t (&a)[4],
-                                        const int8_t* vt, int kc) {
-  if constexpr (D == 256) {
-    wgmma_s8_pv<128>(*reinterpret_cast<int(*)[16][4]>(&pvi[0]), a, s8_desc(vt, kc));
-    wgmma_s8_pv<128>(*reinterpret_cast<int(*)[16][4]>(&pvi[16]), a,
-                     s8_desc(vt + 128 * S8_ROW, kc));
+// x / c rounded as IEEE division rounds it, given rc = 1/c rounded, with
+// no slow-path branch: q = x·rc is within an ulp of x/c, and one FMA with
+// the exact remainder x − c·q rounds to x/c (Markstein's theorem), short of
+// underflow or overflow, which a softcapped score never nears.
+__device__ __forceinline__ float div_rn(float x, float c, float rc) {
+  const float q = __fmul_rn(x, rc);
+  return fmaf(fmaf(-c, q, x), rc, q);
+}
+
+// P' of an int32 score s of a row (f its dequantization factor, shift = m
+// - ln p_scale; fl2 = f·log2 e, sh2 = shift·log2 e; rcap = 1 / softcap):
+// with softcap expf of the softcapped score less the shift (the bits of
+// dequant's), else one exp2 of one FMA.
+template <bool CAP>
+__device__ __forceinline__ float p_prime(const Params& p, int s, float f, float shift, float fl2,
+                                         float sh2, float rcap) {
+  if constexpr (CAP) {
+    const float x = __fmul_rn(static_cast<float>(s), f);
+    return expf(__fsub_rn(p.softcap * tanhf(div_rn(x, p.softcap, rcap)), shift));
   } else {
-    wgmma_s8_pv<D>(pvi, a, s8_desc(vt, kc));
+    return ex2(fmaf(s32_to_f32(s), fl2, -sh2));
   }
 }
 
@@ -885,14 +918,20 @@ __device__ __forceinline__ void load_q_part(const void* q, size_t row, int part,
 // wgmma for every item, the integer row max over the max sweep, then P',
 // l and pvi += P·V over the exp sweep (P rounded to int8 as the register A
 // of an s8 wgmma against Vᵀ), and fold each quant block into acc and l at
-// its end.
+// its end. At d=256 (SPLIT) the two consumers share the block's 64 rows:
+// consumer c takes keys 32c..32c+31 of every tile (S as m64n32, the row
+// max, which the two exchange once a quant block, P' and its share of l,
+// which they add at the end) and O's columns 128c..128c+127 (P·V as one
+// m64n128 a k32 step, A from a P tile in shared memory that both write an
+// item, B Vᵀ's rows 128c..), so that acc stays in registers.
 //
 // Vᵀ's key order: S's accumulator gives lane t of a warp keys 8j + 2t and
 // 8j + 2t + 1 of n8 tile j, and the s8 register A wants k columns 4t..4t+3
 // (a0, a1) and 16 + 4t.. (a2, a3) of each k32 step. A thread packs the P
 // of tiles 4c + 2h and 4c + 2h + 1 into the four k columns 16h + 4t..: so
 // k column 32c + 16h + 4t + 2i + u of Vᵀ holds V's key 32c + 16h + 8i +
-// 2t + u (the product's sum over k does not care about the order).
+// 2t + u (the product's sum over k does not care about the order). SPLIT's
+// P tile takes the same order: consumer c writes the words of k32 step c.
 template <int D, bool QBF16, int C, int TK>
 __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>::BLOCKS)
     flash_int8_int8p_kernel(const Params p) {
@@ -929,7 +968,7 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
     // Producer: item n into stage n % STAGES once the consumers handed that
     // stage back; handed over LAG items later, when its copies have landed
     // (and its V is transposed).
-    if constexpr (!R::WIDE) setmaxnreg_dec<R::PRODUCER_REGS>();
+    setmaxnreg_dec<R::PRODUCER_REGS>();
     const size_t kvbase = (size_t(b) * p.Hkv + kvh) * p.Skv * D;
     const int8_t* kg = p.k + kvbase;
     const int8_t* vg = p.v + kvbase;
@@ -1027,41 +1066,45 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
   }
 
   // Consumers.
-  if constexpr (!R::WIDE) setmaxnreg_inc<R::CONSUMER_REGS>();
+  setmaxnreg_inc<R::CONSUMER_REGS>();
   const int cw = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  int8_t* qs = reinterpret_cast<int8_t*>(smem) + cw * R::QTILE;
-  float* sqs = reinterpret_cast<float*>(smem + R::SQ_OFF) + 64 * cw;
-  const int wrow = 64 * cw + 16 * warp;  // this warp's first block row
+  const int cq = R::SPLIT ? 0 : cw;  // the consumer's block rows: 64cq..64cq+63
+  int8_t* qs = reinterpret_cast<int8_t*>(smem) + cq * R::QTILE;
+  float* sqs = reinterpret_cast<float*>(smem + R::SQ_OFF) + 64 * cq;
+  const int wrow = 64 * cq + 16 * warp;  // this warp's first block row
 
   // ---- Q: per-row symmetric int8 quantization of this warp's 16 rows
   // (IEEE division, round half to even, clipped to ±127) into the
   // consumer's s8 tile; rows that do not exist are 0. Eight lanes a row,
   // four rows at a time: every load first, then four short chains of
-  // shuffles and divisions side by side.
+  // shuffles and divisions side by side. SPLIT: consumer c's warp w takes
+  // rows 8c..8c+7 of the 16 that warp w of both consumers holds.
   {
     constexpr int E = D / 8;  // elements of a row a lane takes
     constexpr int PE = E < 16 / (QBF16 ? 2 : 4) ? E : 16 / (QBF16 ? 2 : 4);  // a piece's
     constexpr int NP = E / PE;
+    constexpr int QITS = R::SPLIT ? 2 : 4;  // four rows at a time
+    const int qr0 = R::SPLIT ? 8 * cw : 0;  // the first of them of the warp's 16
     const int sub = lane >> 3, part = lane & 7;
     const bool vec = (reinterpret_cast<uintptr_t>(p.q) & 15) == 0;
-    float x[4][E];
+    float x[QITS][E];
 #pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int br = wrow + 4 * it + sub;
+    for (int it = 0; it < QITS; ++it) {
+      const int br = wrow + qr0 + 4 * it + sub;
       const size_t row = ((size_t(b) * p.H + kvh * p.G + hc * p.GB + br / p.NQ) * p.Sq + q0 +
                           br % p.NQ) * D;
       load_q_part<QBF16, PE, NP>(p.q, row, part, row_exists(p, hc, q0, br), vec, x[it]);
     }
 #pragma unroll
-    for (int it = 0; it < 4; ++it) {
+    for (int it = 0; it < QITS; ++it) {
       float amax = 0.f;
 #pragma unroll
       for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(x[it][e]));
 #pragma unroll
       for (int o = 1; o <= 4; o <<= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
       const float scale = fmaxf(amax, p.scale_clamp) / 127.0f;
-      const int rr = 16 * warp + 4 * it + sub;  // the row in the consumer's tile
+      const int rr = 16 * warp + qr0 + 4 * it + sub;  // the row in the consumer's tile
 #pragma unroll
       for (int i = 0; i < NP; ++i) {
         uint32_t w[PE / 4];
@@ -1083,7 +1126,11 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
       if (part == 0) sqs[rr] = scale;
     }
     fence_async_shared();
-    bar_sync(R::QREADY + cw, 128);
+    if constexpr (R::SPLIT) {
+      bar_sync(R::QREADY, 256);
+    } else {
+      bar_sync(R::QREADY + cw, 128);
+    }
   }
   // This thread's rows g and g + 8 of its warp's 16: their positions and
   // scales; the positions the warp's rows that exist span.
@@ -1098,15 +1145,11 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
   const int wlo = wspan.x, whi = wspan.y;
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  // acc: in registers (the C fragment of pvi's n8 tiles), or WIDE's in
-  // shared memory (n8 tile j at acc4[128j], the same four values a thread).
-  float acc[R::WIDE ? 1 : ND][4];
+  // acc: the C fragment of pvi's n8 tiles (SPLIT: of O's columns
+  // 128cw..128cw+127, OND of them), in registers.
+  constexpr int OND = R::SPLIT ? ND / 2 : ND;
+  float acc[OND][4];
   zero(acc);
-  float4* acc4 = reinterpret_cast<float4*>(smem + R::ACC_OFF) + 128 * ND * cw + gtid;
-  if constexpr (R::WIDE) {
-#pragma unroll
-    for (int j = 0; j < ND; ++j) acc4[128 * j] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
   int pvi[ND][4];    // P·V of the quant block's exp sweep, exact in int32
   uint32_t a[TK / 32][4];  // P of an exp item: register A of k32 step c (keys 32c..32c+31)
 
@@ -1128,6 +1171,222 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
   };
 
   int n = 0;
+  if constexpr (R::SPLIT) {
+    // d=256: this consumer's keys of every tile are kh..kh + 31: their S,
+    // row max, P' and l; its P·V is O's columns 128cw..128cw+127, from the P
+    // tile that both consumers write. Each item's S is waited for at the
+    // item's start (with the P·V before it), and the next item's (within
+    // the quant block) issued at once, so that it runs on the tensor cores
+    // beside this item's work on the CUDA cores.
+    const int kh = 32 * cw;
+    const float rcap = 1.f / p.softcap;  // (rounded: div_rn's reciprocal)
+    int8_t* pt = reinterpret_cast<int8_t*>(smem + R::PT_OFF);
+    int2* xmax = reinterpret_cast<int2*>(smem + R::XCH_OFF);  // [slot][consumer][row]
+    float* xl = reinterpret_cast<float*>(smem + R::XCH_OFF + 2 * 2 * 64 * 8);  // [consumer][row]
+    int pvh[OND][4];  // P·V of the quant block's exp sweep (O's column half), exact in int32
+    // S of this item (sc) and of the next, in flight (sn): sc[j][e] is row
+    // g + 8(e >> 1), key kh + 8j + 2t + (e & 1) of the tile.
+    int sc[4][4], sn[4][4];
+    auto issue_s = [&](int n) {
+      const int8_t* kt = k_of(n % R::STAGES) + kh * S8_ROW;
+      wgmma_fence();
+      fence_operands(sn);
+#pragma unroll
+      for (int kc = 0; kc < D / 32; ++kc)
+        wgmma_s8_m64n32(sn, s8_desc_d<D, 64>(qs, kc), s8_desc_d<D, TK>(kt, kc), kc);
+      wgmma_commit();
+    };
+    auto landed = [&]() {  // every product issued so far has landed: sc
+      wgmma_wait<0>();
+      fence_operands(sn);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = sn[j][e];
+    };
+    // This consumer's keys [h0, h1) of a tile as the warp's rows see them:
+    // 0 none there (past the quant block), 1 every one masked, 2 some
+    // masked, 3 none masked.
+    auto half_kind = [&](int h0, int h1) {
+      if (h0 >= h1) return 0;
+      if (!range_should_run(p, wlo, whi, kv_off + h0, kv_off + h1 - 1)) return 1;
+      return h1 - h0 == 32 && range_unmasked(p, wlo, whi, kv_off + h0, kv_off + h1 - 1, h1 - 1)
+                 ? 3 : 2;
+    };
+    int nq = 0, np = 0;  // quant blocks and exp items walked
+    for (int qb = 0; qb < p.nkv; ++qb) {
+      const int kb0 = qb * p.block_kv, kb1 = kb0 + p.block_kv;
+      const int t_first = next_run(kb0, kb1);
+      if (t_first >= kb1) continue;  // (no row of the block sees it)
+      const size_t sidx = (size_t(b) * p.Hkv + kvh) * p.nkv + qb;
+      const float kss = p.ks[sidx] * p.sm_scale;
+      const float fr[2] = {sq_r[0] * kss, sq_r[1] * kss};
+
+      // Sweep 1: the row max over this consumer's keys; the last item
+      // issues the exp sweep's first S.
+      int imax[2] = {INT_MIN, INT_MIN};
+      bool any_masked[2] = {false, false};
+      auto max_half = [&](auto unmasked_tag, int h0, int h1) {
+        constexpr bool UNMASKED = decltype(unmasked_tag)::value;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, kloc = h0 + 8 * j + 2 * t + (e & 1);
+            if (UNMASKED) {
+              imax[r] = max(imax[r], sc[j][e]);
+            } else if (kloc < h1) {  // (keys past the quant block are absent)
+              if (pair_valid(p, qp[r], kv_off + kloc, kloc)) {
+                imax[r] = max(imax[r], sc[j][e]);
+              } else {
+                any_masked[r] = true;
+              }
+            }
+          }
+      };
+      full(n);
+      issue_s(n);
+      for (int t0 = t_first; t0 < kb1; ++n) {
+        landed();
+        const int t1 = next_run(t0 + TK, kb1);  // (its loop not across a product in flight)
+        release(n);
+        full(n + 1);
+        issue_s(n + 1);
+        const int h0 = t0 + kh, h1 = min(h0 + 32, min(t0 + TK, kb1));
+        const int kind = half_kind(h0, h1);
+        if (kind == 1) {
+          any_masked[0] = any_masked[1] = true;  // every present score of the warp's half is masked
+        } else if (kind == 3) {
+          max_half(std::true_type{}, h0, h1);
+        } else if (kind == 2) {
+          max_half(std::false_type{}, h0, h1);
+        }
+        t0 = t1;
+      }
+      // The row max over both halves: each consumer's through this quant
+      // block's exchange slot (two in turn: a slot is written again only
+      // after both consumers passed the next block's exchange).
+      int2* xm = xmax + 128 * (nq++ & 1);
+      int im[2];
+      bool am[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        im[r] = quad_imax(imax[r]);
+        am[r] = quad_max(any_masked[r] ? 1.f : 0.f) > 0.f;
+        if (t == 0) xm[64 * cw + 16 * warp + g + 8 * r] = make_int2(im[r], am[r]);
+      }
+      bar_sync(R::XCHG, 256);
+      float m_next[2], alpha[2], shift[2], fl2[2], sh2[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int2 xo = xm[64 * (1 - cw) + 16 * warp + g + 8 * r];  // the other half's
+        const int imr = max(im[r], xo.x);
+        const bool amr = am[r] || xo.y;
+        const float mc = imr != INT_MIN ? dequant(p, imr, fr[r]) : (amr ? p.mask_value : -INFINITY);
+        m_next[r] = fmaxf(m[r], mc);
+        alpha[r] = m_next[r] == -INFINITY ? 1.f : expf(m[r] - m_next[r]);
+        shift[r] = m_next[r] - p.ln_p;
+        fl2[r] = fr[r] * LOG2E;
+        sh2[r] = shift[r] * LOG2E;
+      }
+
+      // Sweep 2: P' over this consumer's keys and its f32 sum; P, rounded,
+      // into the item's bytes of the P tile (keys in Vᵀ's order: word 2hh
+      // + r of a thread at k columns 32cw + 16hh + 4t.., as the register A
+      // of d <= 128 holds it); once both halves are in, pvh += P·Vᵀ's rows
+      // 128cw.. (A and B from shared memory).
+      float ls[2] = {0.f, 0.f};
+      uint32_t w[4];
+      auto exp_half = [&](auto unmasked_tag, auto cap_tag, int h0, int h1) {
+        constexpr bool UNMASKED = decltype(unmasked_tag)::value;
+        constexpr bool CAP = decltype(cap_tag)::value;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float pe[4];  // keys h0 + 8j + 2t + (u & 1) of tile j = 2hh + (u >> 1)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int j = 2 * hh + (u >> 1);
+              float x = p_prime<CAP>(p, sc[j][2 * r + (u & 1)], fr[r], shift[r], fl2[r], sh2[r],
+                                     rcap);
+              if (!UNMASKED) {
+                const int kloc = h0 + 8 * j + 2 * t + (u & 1);
+                x = kloc < h1 && pair_valid(p, qp[r], kv_off + kloc, kloc) ? x : 0.f;
+              }
+              pe[u] = x;
+            }
+            ls[r] += (pe[0] + pe[1]) + (pe[2] + pe[3]);
+            w[2 * hh + r] = pack_p(pe);
+          }
+      };
+#pragma unroll
+      for (int j = 0; j < OND; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pvh[j][e] = 0;
+      for (int t0 = t_first; t0 < kb1; ++n, ++np) {
+        landed();  // (and the item before's P·V)
+        const int t1 = next_run(t0 + TK, kb1);
+        if (t0 != t_first) release(n - 1);
+        if (t1 < kb1) full(n + 1);
+        issue_s(t1 < kb1 ? n + 1 : n);  // (the last item: its own S again, nothing waits)
+        const int h0 = t0 + kh, h1 = min(h0 + 32, min(t0 + TK, kb1));
+        const int kind = half_kind(h0, h1);
+        if (kind >= 2) {
+          with_tags(kind == 3, p.has_softcap, [&](auto unmasked_tag, auto cap_tag) {
+            exp_half(unmasked_tag, cap_tag, h0, h1);
+          });
+        } else {
+          w[0] = w[1] = w[2] = w[3] = 0u;  // no key of the half, or every one masked
+        }
+        const int pb = np & 1;  // the item's bytes of the P tile: 64pb..64pb+63
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<uint32_t*>(pt + sw8(16 * warp + g + 8 * r, 4 * pb + 2 * cw + hh) +
+                                         4 * t) = w[2 * hh + r];
+        fence_async_shared();
+        bar_sync(R::PREADY, 256);  // (a P tile's bytes are written again two exp items on,
+                                   // once both consumers waited for this P·V)
+        const int8_t* vh = vt_of(n % R::STAGES) + 128 * cw * S8_ROW;  // Vᵀ of O's columns 128cw..
+        wgmma_fence();
+        fence_operands(pvh);
+#pragma unroll
+        for (int kc = 0; kc < 2; ++kc)
+          wgmma_s8_m64n128(pvh, s8_desc(pt, 2 * pb + kc), s8_desc(vh, kc), 1);
+        wgmma_commit();
+        t0 = t1;
+      }
+      wgmma_wait<0>();
+      fence_operands(pvh);
+      fence_operands(sn);
+      release(n - 1);
+      const float vscale = p.vs[sidx];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = fmaf(alpha[r], l[r], quad_sum(ls[r]));  // this consumer's keys' share of l
+        m[r] = m_next[r];
+      }
+#pragma unroll
+      for (int j = 0; j < OND; ++j) {
+        acc[j][0] = fmaf(acc[j][0], alpha[0], static_cast<float>(pvh[j][0]) * vscale);
+        acc[j][1] = fmaf(acc[j][1], alpha[0], static_cast<float>(pvh[j][1]) * vscale);
+        acc[j][2] = fmaf(acc[j][2], alpha[1], static_cast<float>(pvh[j][2]) * vscale);
+        acc[j][3] = fmaf(acc[j][3], alpha[1], static_cast<float>(pvh[j][3]) * vscale);
+      }
+    }
+    // l over both halves: each consumer's share through the exchange
+    // slots, after which every S of both has landed (Q's tile is free for
+    // the epilogue).
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) xl[64 * cw + 16 * warp + g + 8 * r] = l[r];
+    }
+    bar_sync(R::XCHG, 256);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] += xl[64 * (1 - cw) + 16 * warp + g + 8 * r];
+  } else  // d <= 128: one consumer walks every key of its rows
   for (int qb = 0; qb < p.nkv; ++qb) {
     const int kb0 = qb * p.block_kv;
     const int kb1 = kb0 + p.block_kv;
@@ -1251,7 +1510,7 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
       wgmma_fence();
       fence_operands(pvi);
 #pragma unroll
-      for (int kc = 0; kc < TK / 32; ++kc) pv_step<D>(pvi, a[kc], vt, kc);
+      for (int kc = 0; kc < TK / 32; ++kc) wgmma_s8_pv<D>(pvi, a[kc], s8_desc(vt, kc));
       wgmma_commit();
     }
     wgmma_wait<0>();
@@ -1266,53 +1525,37 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
       l[r] = fmaf(alpha[r], l[r], quad_sum(lsum[r]));
       m[r] = m_next[r];
     }
-    if constexpr (R::WIDE) {
 #pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        float4 x = acc4[128 * j];
-        x.x = fmaf(x.x, alpha[0], static_cast<float>(pvi[j][0]) * vsc);
-        x.y = fmaf(x.y, alpha[0], static_cast<float>(pvi[j][1]) * vsc);
-        x.z = fmaf(x.z, alpha[1], static_cast<float>(pvi[j][2]) * vsc);
-        x.w = fmaf(x.w, alpha[1], static_cast<float>(pvi[j][3]) * vsc);
-        acc4[128 * j] = x;
-      }
-    } else {
+    for (int j = 0; j < ND; ++j)
 #pragma unroll
-      for (int j = 0; j < ND; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[j][e] = fmaf(acc[j][e], alpha[e >> 1], static_cast<float>(pvi[j][e]) * vsc);
-    }
+      for (int e = 0; e < 4; ++e)
+        acc[j][e] = fmaf(acc[j][e], alpha[e >> 1], static_cast<float>(pvi[j][e]) * vsc);
   }
 
   // ---- Epilogue: o = acc / l (l == 0 -> o = 0); lse = m + log l - ln p.
   // Each warp stages its 16 rows through its rows of the consumer's Q tile
-  // (free once the last S landed), 128 bytes of each row at a time, and
-  // writes them out 16 bytes a lane, whole rows side by side.
+  // (free once the last S landed; SPLIT: consumer c's through the tile's
+  // 128-byte half c), 128 bytes of each row at a time, and writes them out
+  // 16 bytes a lane, whole rows side by side: the OD columns from oc0.
   using OT = std::conditional_t<QBF16, __nv_bfloat16, float>;
-  constexpr int CP = 128 / int(sizeof(OT));                      // columns a pass
-  constexpr int CPR = (D < CP ? D : CP) * int(sizeof(OT)) / 16;  // 16-byte chunks of a row a pass
-  unsigned char* st = reinterpret_cast<unsigned char*>(qs) + 16 * warp * S8_ROW;
+  constexpr int OD = 8 * OND;
+  const int oc0 = R::SPLIT ? OD * cw : 0;
+  constexpr int CP = 128 / int(sizeof(OT));                        // columns a pass
+  constexpr int CPR = (OD < CP ? OD : CP) * int(sizeof(OT)) / 16;  // 16-byte chunks of a row a pass
+  unsigned char* st = reinterpret_cast<unsigned char*>(qs) + (R::SPLIT ? cw * S8_TILE : 0) +
+                      16 * warp * S8_ROW;
   float l_inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) l_inv[r] = l[r] == 0.f ? 1.f : 1.f / l[r];
 #pragma unroll
-  for (int ps = 0; ps < (D + CP - 1) / CP; ++ps) {
+  for (int ps = 0; ps < (OD + CP - 1) / CP; ++ps) {
 #pragma unroll
-    for (int j = ps * CP / 8; j < ND && j < (ps + 1) * CP / 8; ++j)
+    for (int j = ps * CP / 8; j < OND && j < (ps + 1) * CP / 8; ++j)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = g + 8 * r, at = (8 * j + 2 * t - ps * CP) * int(sizeof(OT));
         unsigned char* dst = st + row * S8_ROW + (((at >> 4) ^ (row & 7)) << 4) + (at & 15);
-        float a0, a1;
-        if constexpr (R::WIDE) {
-          const float4 x = acc4[128 * j];
-          a0 = r ? x.z : x.x;
-          a1 = r ? x.w : x.y;
-        } else {
-          a0 = acc[j][2 * r];
-          a1 = acc[j][2 * r + 1];
-        }
+        const float a0 = acc[j][2 * r], a1 = acc[j][2 * r + 1];
         const float o0 = a0 * l_inv[r], o1 = a1 * l_inv[r];
         if constexpr (QBF16) {
           *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(o0, o1);
@@ -1327,13 +1570,13 @@ __global__ void __launch_bounds__(Int8pRing<D, C, TK>::NTB, Int8pRing<D, C, TK>:
       if (!row_exists(p, hc, q0, br)) continue;
       const size_t orow = (size_t(b) * p.H + kvh * p.G + hc * p.GB + br / p.NQ) * p.Sq + q0 +
                           br % p.NQ;
-      OT* dst = reinterpret_cast<OT*>(p.o) + orow * D + ps * CP + 16 / int(sizeof(OT)) * c;
+      OT* dst = reinterpret_cast<OT*>(p.o) + orow * D + oc0 + ps * CP + 16 / int(sizeof(OT)) * c;
       *reinterpret_cast<uint4*>(dst) =
           *reinterpret_cast<const uint4*>(st + row * S8_ROW + ((c ^ (row & 7)) << 4));
     }
     __syncwarp();
   }
-  if (p.lse != nullptr && t == 0) {
+  if (p.lse != nullptr && t == 0 && (!R::SPLIT || cw == 0)) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int br = wrow + g + 8 * r;
@@ -1378,8 +1621,9 @@ cudaError_t dispatch_mode(const Params& p, int mode, int q_bf16, cudaStream_t st
   if (mode == MODE_INT8_P) {
     constexpr int CONSUMERS = 1;  // consumer warpgroups of an int8-P block
     constexpr int TILE_KEYS = 64;  // keys of an int8-P item
-    return q_bf16 ? launch_int8_p<D, true, CONSUMERS, TILE_KEYS>(p, stream)
-                  : launch_int8_p<D, false, CONSUMERS, TILE_KEYS>(p, stream);
+    constexpr int C = D == 256 ? 2 : CONSUMERS;  // d=256: two over the same rows (SPLIT)
+    return q_bf16 ? launch_int8_p<D, true, C, TILE_KEYS>(p, stream)
+                  : launch_int8_p<D, false, C, TILE_KEYS>(p, stream);
   }
   if (mode == MODE_BF16_P) {
     return q_bf16 ? launch_bf16_p<D, true, false>(p, stream)

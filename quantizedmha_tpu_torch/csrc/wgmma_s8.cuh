@@ -57,6 +57,22 @@ __device__ __forceinline__ void wgmma_s8_m64n64(int (&d)[8][4], uint64_t a, uint
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// D[64 x 32] (+)= A·Bᵀ in s32, as wgmma_s8_m64n64 with B of 32 rows (half
+// of a 64-key tile: the d=256 int8-P consumers' scores).
+__device__ __forceinline__ void wgmma_s8_m64n32(int (&d)[4][4], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // D[64 x 128] (+)= A·Bᵀ in s32, as wgmma_s8_m64n64 with B of 128 rows.
 __device__ __forceinline__ void wgmma_s8_m64n128(int (&d)[16][4], uint64_t a, uint64_t b,
                                                  int accumulate) {

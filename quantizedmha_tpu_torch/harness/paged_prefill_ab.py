@@ -13,7 +13,8 @@ build/parent`), against this tree's, in one process.
         --parent build/parent --variants quantizedmha_tpu_torch/harness/w4_matmul_variants.json
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source flash_int8_fwd \\
         --parent build/parent --variants quantizedmha_tpu_torch/harness/flash_int8_fwd_variants.json \\
-        [--only int8p_one_consumer int8p_knockout_no_exp ...]
+        [--only int8p_one_consumer int8p_knockout_no_exp ...] [--mains "gemma2 full (int8_p)" ...]
+        [--variants-on parent]
 
 Each library is launched through its own tree's wrapper (`ops/<op>.py`'s
 `_*_launch`, loaded from that tree), so a change of the C signature is
@@ -23,7 +24,9 @@ A/B'd as well; both are built with this tree's cuda_lib.NVCC_FLAGS. With
 timed in turns against this tree's, beside the parent when one is given
 (a variant that knocks a phase out fails its check by design: its
 err_over_tol is reported, not gated); --only keeps the named variants of
-the file.
+the file; --variants-on parent edits the parent's source instead, and
+launches it through the parent's wrapper
+(harness/flash_int8_fwd_pr25_knockouts.json: PR 25's row 1 at d=256).
 
 --source paged_prefill (csrc/paged_prefill.cu):
 - Rows 10 (`paged_prefill`) and 11 (`paged_prefill_int4`) at chip_smoke.py's
@@ -87,16 +90,21 @@ the file.
   and the bound; whether the parent's library gives this one's bits.
 - MODE_INT8_P (row 1) at the serve prefill's shape (1 x 32 x 256 x 128,
   8 kv heads, bf16 q, block_kv 256, causal) and serve_w4's (the same at
-  512 tokens, block_kv 512), timed the same way.
+  512 tokens, block_kv 512), timed the same way, and at Gemma-2's full
+  layer (1 x 16 x 2048 x 256, 8 kv heads, bf16 q, causal, block_kv 1024,
+  softcap 50, and without softcap), its sliding layer (8192 tokens under
+  the 4096 window) and its full layer with f32 q. --mains keeps the named
+  shapes.
 - MODE_BF16_P_F32L at solve's shape, and both bf16-P modes at Gemma-2's
   full layer (1 x 16 x 2048 x 256, 8 kv heads, bf16 q, causal, softcap
   50; block_kv 512 for MODE_BF16_P, 1024 for MODE_BF16_P_F32L), timed the
   same way by the libraries that have the route (a parent from before
   them has neither).
-- Every MODE_BF16_P case of chip_smoke.py's FLASH_COVERAGE at d <= 128:
-  whether the parent's library gives this one's bits (output and lse);
-  every other case: each library's err_over_tol (output, lse) and whether
-  it gives the same bits twice.
+- Every MODE_BF16_P and MODE_INT8_P case of chip_smoke.py's
+  FLASH_COVERAGE at d <= 128: whether the parent's library gives this
+  one's bits (output and lse; so at the main shapes at d <= 128); every
+  MODE_INT8_P and every other case: each library's err_over_tol (output,
+  lse) and whether it gives the same bits twice.
 - ptxas registers and spill bytes of each library's kernels.
 
 --source flash_bwd (csrc/flash_bwd.cu, rows 6-7):
@@ -183,14 +191,14 @@ def _build_parent(parent: Path, source: str):
     return _nvcc_build(parent / "quantizedmha_tpu_torch" / "csrc" / f"{source}.cu", out)
 
 
-def _build_variant(name: str, edits, source: str):
-    """This tree's csrc/ copied with one source's lines replaced; its build
-    started."""
+def _build_variant(name: str, edits, source: str, csrc=None):
+    """A tree's csrc/ (this tree's unless `csrc`) copied with one source's
+    lines replaced; its build started."""
     import shutil
     from quantizedmha_tpu_torch.ops import cuda_lib
     out = cuda_lib.BUILD_DIR / "variants" / name
     shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(cuda_lib.CSRC, out)
+    shutil.copytree(csrc or cuda_lib.CSRC, out)
     text = (out / f"{source}.cu").read_text()
     for old, new in edits:
         if text.count(old) != 1:
@@ -200,9 +208,11 @@ def _build_variant(name: str, edits, source: str):
     return _nvcc_build(out / f"{source}.cu", out / f"lib{source}.so")
 
 
-def _trees(source: str, parent=None, variants=None):
+def _trees(source: str, parent=None, variants=None, variants_on="this"):
     """{"parent" | variant name | "this": (ops module, bound functions,
-    library)}; every library built at once."""
+    library)}; every library built at once. The variants edit this tree's
+    source, or the parent's (variants_on="parent"), and launch through that
+    tree's wrapper."""
     from quantizedmha_tpu_torch.ops import cuda_lib
     from quantizedmha_tpu_torch.ops import (decode, flash_attention, flash_attention_int8,
                                             paged_prefill, w4_matmul)
@@ -211,10 +221,13 @@ def _trees(source: str, parent=None, variants=None):
             "flash_int8_fwd": flash_attention_int8, "flash_bwd": flash_attention}[source]
     libs = []
     if parent is not None:
-        libs.append(("parent", _ops_module(parent, source, f"_ab_parent_{source}"),
-                     _build_parent(parent, source)))
+        parent_module = _ops_module(parent, source, f"_ab_parent_{source}")
+        libs.append(("parent", parent_module, _build_parent(parent, source)))
+    on_parent = variants_on == "parent"
     for name, edits in (variants or {}).items():
-        libs.append((name, this, _build_variant(name, edits, source)))
+        libs.append((name, parent_module if on_parent else this,
+                     _build_variant(name, edits, source,
+                                    parent / "quantizedmha_tpu_torch" / "csrc" if on_parent else None)))
     cuda_lib.build_all([source])
     libs = [(which, module, _built(build)) for which, module, build in libs]
     libs.append(("this", this, cuda_lib.library_path(source)))
@@ -608,7 +621,7 @@ def _parent_has(mode, D):
     return mode == 0 or (mode == 1 and D <= 128)
 
 
-def _flash_int8_ab(trees, g, result):
+def _flash_int8_ab(trees, g, result, mains_only=None):
     import chip_smoke as cs
     from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
     from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
@@ -616,7 +629,7 @@ def _flash_int8_ab(trees, g, result):
     result["ptxas"] = {w: cs._ptxas_kernels(lib.with_suffix(".log").read_text())
                        for w, (_, _, lib) in trees.items()}
     ok = True
-    # (mode, q shape, kv heads, q dtype, block_kv, causal, softcap)
+    # (mode, q shape, kv heads, q dtype, block_kv, causal, softcap[, window])
     mains = {"solve fa_int8 (bf16_p)": (1, (1, 32, 8192, 32), 32, torch.float32, 512, False,
                                         None),
              "d=128 not causal (bf16_p)": (1, (1, 32, 4096, 128), 32, torch.float32, 512, False,
@@ -628,8 +641,18 @@ def _flash_int8_ab(trees, g, result):
                                            None),
              "gemma2 full (bf16_p)": (1, (1, 16, 2048, 256), 8, torch.bfloat16, 512, True, 50.0),
              "gemma2 full (bf16_p_f32l)": (2, (1, 16, 2048, 256), 8, torch.bfloat16, 1024, True,
-                                           50.0)}
-    for name, (mode, shape, hkv, dt, bkv, causal, cap) in mains.items():
+                                           50.0),
+             "gemma2 full (int8_p)": (0, (1, 16, 2048, 256), 8, torch.bfloat16, 1024, True, 50.0),
+             "gemma2 full no softcap (int8_p)": (0, (1, 16, 2048, 256), 8, torch.bfloat16, 1024,
+                                                 True, None),
+             "gemma2 sliding (int8_p)": (0, (1, 16, 8192, 256), 8, torch.bfloat16, 1024, True,
+                                         50.0, 4096),
+             "gemma2 full f32 q (int8_p)": (0, (1, 16, 2048, 256), 8, torch.float32, 1024, True,
+                                            50.0)}
+    if mains_only:
+        mains = {name: mains[name] for name in mains_only}
+    for name, (mode, shape, hkv, dt, bkv, causal, cap, *window) in mains.items():
+        window = window[0] if window else None
         B, H, S, D = shape
         q = torch.randn(shape, generator=g, device="cuda").to(dt)
         k, v = torch.randn((2, B, hkv, S, D), generator=g, device="cuda").to(dt)
@@ -637,7 +660,7 @@ def _flash_int8_ab(trees, g, result):
         v_i8, vs = quantize_kv_blocks(v, bkv)
         operands = (q, k_i8, ks, v_i8, vs, fa8._offsets(0, 0, B, q.device))
         kw = dict(sm_scale=D**-0.5, causal=causal, kv_len=S, block_kv=bkv, scale_clamp=1e-8,
-                  p_scale=127.0, window=None, softcap=cap, sinks=0, mode=mode)
+                  p_scale=127.0, window=window, softcap=cap, sinks=0, mode=mode)
         p_out = fa8._flash_int8_plain(*operands, save_residuals=False, **kw)
         _, _, l = fa8._flash_int8_plain_state(*operands, **kw)
         tol, _ = cs.flash_tolerances(p_out, None, l, v_i8, vs, bkv, mode)
@@ -653,7 +676,7 @@ def _flash_int8_ab(trees, g, result):
             if which in ("this", "parent"):
                 ok &= row[which]["err_over_tol"] <= 1.0 and same
         row["same_bits_as_this"] = {w: torch.equal(o, outs["this"]) for w, o in outs.items()}
-        if mode == 1:  # (row 2 keeps the parent's kernel)
+        if mode == 1 or D <= 128:  # (rows 1-2 keep the parent's kernel there)
             ok &= row["same_bits_as_this"].get("parent", True)
         _timed_turns(calls, row, iters=20)
         for which, (module, fns, _) in trees.items():
@@ -661,28 +684,34 @@ def _flash_int8_ab(trees, g, result):
                 row[which]["graph_ms"] = _graph_ms(module, fns, "flash_int8_fwd", operands,
                                                    dict(save_residuals=False, **kw))
         qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
-        row["sdpa_ms"], row["sdpa_backend"] = cs._sdpa(qb, kb, vb, is_causal=causal,
-                                                       enable_gqa=hkv != H)
-        pairs = B * H * cs._visible_pairs(S, S, causal)
+        if window is None:
+            sdpa_kw = dict(is_causal=causal)
+            pairs = B * H * cs._visible_pairs(S, S, causal)
+        else:
+            i = torch.arange(S, device="cuda")
+            sdpa_kw = dict(attn_mask=(i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window))
+            pairs = B * H * cs._int8p_window_pairs(S, window)
+        row["sdpa_ms"], row["sdpa_backend"] = cs._sdpa(qb, kb, vb, enable_gqa=hkv != H, **sdpa_kw)
         nbytes = q.numel() * q.element_size() * 2 + 2 * k_i8.numel() + 2 * ks.numel() * 4
         ops = {"int8": 2 * pairs * D * (2 if mode == 0 else 1),
                "bf16": 0 if mode == 0 else 2 * pairs * D, "exp": pairs}
         row["bound_ms"], row["bound_by"] = cs.bound(nbytes, ops)
         result["main"][name] = row
         del q, k, v, qb, kb, vb, calls, outs
-    # The coverage cases: MODE_BF16_P's at d <= 128 held to the parent's
-    # bits; the others (MODE_INT8_P, MODE_BF16_P at d=256, MODE_BF16_P_F32L)
+    # The coverage cases: MODE_BF16_P's and MODE_INT8_P's at d <= 128 held
+    # to the parent's bits; the others (and MODE_INT8_P's at d <= 128 too)
     # to the plain version (the same bits twice), each by every library
     # that has its route.
-    result["plain_coverage"], result["bf16_p_same_bits"] = {}, {}
+    result["plain_coverage"], result["parent_bits"] = {}, {}
     for i, case in enumerate(cs.FLASH_COVERAGE):
         *operands, kw = cs.flash_coverage_inputs(g, case)
         mode, D = case[12], case[6]
-        if mode == 1 and D <= 128:
+        if mode in (0, 1) and D <= 128:
             outs = [launchers[w](operands, **kw)[0] for w in ("parent", "this") if w in launchers]
-            result["bf16_p_same_bits"][f"fa8_{i}"] = all(
+            result["parent_bits"][f"fa8_{i}"] = all(
                 torch.equal(a, b) for other in outs[1:] for a, b in zip(outs[0], other))
-            continue
+            if mode == 1:
+                continue
         p_out, p_lse = fa8._flash_int8_plain(*operands, **kw)
         _, _, l = fa8._flash_int8_plain_state(
             *operands, **{k: x for k, x in kw.items() if k != "save_residuals"})
@@ -698,7 +727,7 @@ def _flash_int8_ab(trees, g, result):
                           same]
             if which in ("this", "parent"):
                 ok &= max(row[which][:2]) <= 1.0 and same
-    return ok and all(result["bf16_p_same_bits"].values())
+    return ok and all(result["parent_bits"].values())
 
 
 # Rows 6-7's shapes: (B, H, Hkv, S, D, dtype, softcap, dlse), causal.
@@ -791,6 +820,10 @@ def main(argv=None) -> int:
                     help="JSON {name: [[line, replacement], ...]} of this tree's source "
                          "(paged_decode, flash_fwd, w4_matmul, flash_int8_fwd)")
     ap.add_argument("--only", nargs="+", help="the variants of --variants to build")
+    ap.add_argument("--variants-on", choices=("this", "parent"), default="this",
+                    help="the tree whose source the variants edit (parent: needs --parent)")
+    ap.add_argument("--mains", nargs="+",
+                    help="flash_int8_fwd: the main shapes to time (default: every one)")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if args.parent is None and args.variants is None:
@@ -798,6 +831,8 @@ def main(argv=None) -> int:
     if args.variants is not None and args.source == "paged_prefill":
         ap.error("--variants takes --source paged_decode, flash_fwd, w4_matmul or "
                  "flash_int8_fwd")
+    if args.variants_on == "parent" and args.parent is None:
+        ap.error("--variants-on parent needs --parent")
     if not torch.cuda.is_available():
         print("paged_prefill_ab: no CUDA device is available", file=sys.stderr)
         return 2
@@ -808,14 +843,17 @@ def main(argv=None) -> int:
     variants = json.loads(args.variants.read_text()) if args.variants else None
     if variants is not None and args.only:
         variants = {name: variants[name] for name in args.only}
-    trees = _trees(args.source, args.parent and args.parent.resolve(), variants)
+    trees = _trees(args.source, args.parent and args.parent.resolve(), variants, args.variants_on)
     g = torch.Generator(device="cuda").manual_seed(1)
     result = {"gpu": cs.gpu_line(), "parent": args.parent and str(args.parent),
               "variants": variants, "source": args.source, "main": {}}
     ab = {"paged_prefill": _prefill_ab, "paged_decode": _decode_ab,
           "flash_fwd": _flash_fwd_ab, "w4_matmul": _w4_ab,
           "flash_int8_fwd": _flash_int8_ab, "flash_bwd": _flash_bwd_ab}[args.source]
-    result["ok"] = bool(ab(trees, g, result))
+    if args.source == "flash_int8_fwd":
+        result["ok"] = bool(ab(trees, g, result, args.mains))
+    else:
+        result["ok"] = bool(ab(trees, g, result))
     text = json.dumps(result)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

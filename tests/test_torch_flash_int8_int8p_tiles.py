@@ -13,12 +13,17 @@ transposes. Here:
 - The layout: S's accumulator fragments packed into the s8 register A and
   the producer's Vᵀ (its byte permutes, its key order and the 128-byte
   swizzle) emulated thread by thread; the product they make equals
-  round(P') @ V exactly in int32, at d = 32, 64, 128 and 256 (V's rows as
-  two 128-byte halves, P·V as two m64n128 products, the second over Vᵀ's
-  rows 128-255). S = Qq·Kqᵀ read through the k32 steps' descriptors from
-  the swizzled tiles equals the integer product, at d=256 over both
-  128-byte halves of each row.
-- The walk: `_walk`, the kernel's algorithm block by block, against JAX's
+  round(P') @ V exactly in int32, at d = 32, 64 and 128. At d=256 (V's
+  rows as two 128-byte halves) two consumers share the rows: consumer c
+  writes the P of keys 32c..32c+31 as those words into its half of an
+  item's 64 bytes of a swizzled P tile, and its P·V reads A from that tile
+  and B from Vᵀ's rows 128c..128c+127 (O's columns 128c..); the two
+  products side by side equal round(P') @ V too. S = Qq·Kqᵀ read through
+  the k32 steps' descriptors from the swizzled tiles equals the integer
+  product, at d=256 over both 128-byte halves of each row.
+- The walk: `_walk`, the kernel's algorithm block by block (at d=256 each
+  consumer's keys, the row maxes exchanged, its share of l added at the
+  end), against JAX's
   flash_attention_int8_prequant(pv_dtype="int8") in interpret mode (a
   causal GQA prefill with block_kv = S, and window + sinks), and against
   the plain version on chip_smoke.py's MODE_INT8_P FLASH_COVERAGE cases,
@@ -32,6 +37,7 @@ transposes. Here:
 
 import importlib
 import math
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -166,17 +172,55 @@ def _register_a(pe, fault=None):
     return a
 
 
-def _pv_product(pe, v_tile, fault=None):
-    """The int32 P·V of one exp item: register A against the K-major Vᵀ
-    tile that s8_desc names (row n, k byte kk at chunk kk / 16); at d=256
-    two products, the second from Vᵀ's row 128 on (the planted fault's from
-    row 0 again)."""
+def _p_tile(pe, pb, fault=None):
+    """The P tile (64 rows of 128 bytes, swizzled) after both d=256
+    consumers wrote an exp item's P into bytes 64pb..64pb+63 of each row:
+    consumer c's thread (w, 4g + t) writes word 2hh + r, byte u the P of key
+    32c + 16hh + 8(u >> 1) + 2t + (u & 1) of row 16w + g + 8r, at chunk 4pb
+    + 2c + hh, byte 4t (the planted fault: consumer 1 writes nothing, its
+    bytes stale, zero here)."""
+    p8 = _round_p(pe)
+    tile = bytearray(64 * 128)
+    for c in range(2):
+        if fault == "p_half_stale" and c == 1:
+            continue
+        for w in range(4):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for hh in range(2):
+                    for r in range(2):
+                        row = 16 * w + g + 8 * r
+                        at = _sw8(row, 4 * pb + 2 * c + hh) + 4 * t
+                        for u in range(4):
+                            key = 32 * c + 16 * hh + 8 * (u >> 1) + 2 * t + (u & 1)
+                            tile[at + u] = int(p8[row, key])
+    return tile
+
+
+def _pv_product(pe, v_tile, fault=None, pb=0):
+    """The int32 P·V of one exp item against the K-major Vᵀ tile that
+    s8_desc names (row n, k byte kk at chunk kk / 16): at d <= 128 from the
+    register A; at d=256 consumer c's A from the P tile's bytes 64pb.. (k32
+    step kc at 64pb + 32kc), against Vᵀ's rows 128c..128c+127 for O's
+    columns 128c.. (the planted faults: consumer 1 against rows 0-127, or
+    each consumer against the other's)."""
     D = v_tile.shape[1]
     vt = np.frombuffer(bytes(_vt_tile(v_tile, fault)), np.int8).astype(np.int64)
     b = np.array([[vt[_sw8(n, kk // 16) + kk % 16] for kk in range(BK)] for n in range(D)])
-    if D == 256 and fault == "pv_half":
-        b[128:] = b[:128]
-    return _register_a(pe, fault) @ b.T
+    if D <= 128:
+        return _register_a(pe, fault) @ b.T
+    tile = np.frombuffer(bytes(_p_tile(pe, pb, fault)), np.int8).astype(np.int64)
+    a = np.array([[tile[_sw8(row, (64 * pb + kk) // 16) + kk % 16] for kk in range(BK)]
+                  for row in range(64)])
+    out = np.zeros((64, D), np.int64)
+    for c in range(2):
+        first = 128 * c  # Vᵀ's first row of consumer c's product
+        if fault == "pv_half" and c == 1:
+            first = 0
+        elif fault == "pv_swapped":
+            first = 128 * (1 - c)
+        out[:, 128 * c:128 * c + 128] = a @ b[first:first + 128].T
+    return out
 
 
 def _layout_inputs(D, seed):
@@ -190,9 +234,12 @@ def _layout_inputs(D, seed):
 
 @pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_register_a_against_vt_is_round_p_times_v(D):
+    """At d=256: the P tile's two halves and the column halves, through
+    either of an item's 64 bytes of the tile."""
     pe, v = _layout_inputs(D, seed=D)
     want = np.rint(pe.astype(np.float64)).astype(np.int64) @ v
-    np.testing.assert_array_equal(_pv_product(pe, v), want)
+    for pb in (0, 1) if D == 256 else (0,):
+        np.testing.assert_array_equal(_pv_product(pe, v, pb=pb), want)
 
 
 @pytest.mark.parametrize("D", [64, 128, 256])
@@ -211,11 +258,46 @@ def test_byte_permutes_transpose_a_4x4_block():
     assert cols == [0x30201000, 0x31211101, 0x32221202, 0x33231303]
 
 
+def _round_f32(x):
+    """An exact rational rounded to the nearest float32, ties to even
+    (normal range)."""
+    f = np.float32(float(x))
+    near = [np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))]
+    return min(near, key=lambda c: (abs(Fraction(float(c)) - x), int(c.view(np.uint32)) & 1))
+
+
+def _fma(a, b, c):
+    """fmaf: a·b + c rounded once."""
+    return _round_f32(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+
+
+@pytest.mark.parametrize("c", [50.0, 30.0, 20.0, 3.0, 1.0 / 3.0, 49.999996])
+def test_branch_free_division_rounds_as_ieee_division(c):
+    """div_rn of flash_int8_fwd.cu (the d=256 softcap's x / softcap): q =
+    x·rc, then one FMA with the exact remainder, equals IEEE x / c, here
+    on dequantized scores from 2^-20 to 2^12 and on the halfway cases the
+    quotient's last bit decides."""
+    c = np.float32(c)
+    rc = np.float32(1) / c
+    rng = np.random.default_rng(int(c * 1000))
+    xs = (rng.uniform(-1, 1, 1500) * np.exp2(rng.uniform(-20, 12, 1500))).astype(np.float32)
+    q = (xs / c).astype(np.float32)
+    ties = (q.astype(np.float64) * np.float64(c)).astype(np.float32)  # x near c·q exactly
+    for x in np.concatenate([xs, ties]):
+        q0 = np.float32(x * rc)
+        got = _fma(_fma(-c, q0, x), rc, q0)
+        assert got == np.float32(x / c), (x, c)
+
+
 # --- the walk -----------------------------------------------------------------
 
 def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
     """The int8-P kernel's algorithm block by block, (o, lse); `fault`
-    plants the analogue of one of its PLANTED_FAULTS lines."""
+    plants the analogue of one of its PLANTED_FAULTS lines. At d <= 128 one
+    consumer takes every key of a tile and every column of O; at d=256 two:
+    consumer c keys 32c..32c+31 of each tile (its masks taken over them)
+    and O's columns 128c.., their row maxes exchanged once a quant block,
+    each consumer's share of l added at the end."""
     B, H, Sq, D = q.shape
     Hkv, Skv = k_i8.shape[1], k_i8.shape[2]
     G, nkv, bkv = H // Hkv, Skv // kw["block_kv"], kw["block_kv"]
@@ -228,6 +310,9 @@ def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
     o = torch.full((B, H, Sq, D), float("nan"), dtype=q.dtype)
     lse = torch.full((B, H, Sq), float("nan"))
     f32 = bf16p_tiles._f32
+    halves = [(0, BK)] if D <= 128 else [(0, 32), (32, 32)]  # a consumer's keys of a tile
+    nc = len(halves)
+    cols = [slice(D // nc * c, D // nc * (c + 1)) for c in range(nc)]  # its columns of O
 
     def scores(Q, kt):
         """S of an item; at d=256 the planted fault's k32 steps 4-7 read the
@@ -267,27 +352,34 @@ def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
                     kt[:n], vt[:n] = K[t0:t0 + n], V[t0:t0 + n]
                     return kt, vt
 
-                def warp_mask(w, t0, tend, unmasked_lo=None):
-                    """(runs, keep [16, 64]) of warp w on the tile."""
+                def warp_mask(w, h0, h1, width, unmasked_lo=None):
+                    """(runs, keep [16, width]) of warp w on a consumer's keys
+                    h0..h0 + width - 1, of which [h0, h1) are present."""
                     wq0 = q_off + q0 + 16 * w
                     if not block_should_run(kw["causal"], kw["window"], kw["sinks"], wq0,
-                                            wq0 + 15, kv_off + t0, kv_off + tend - 1):
+                                            wq0 + 15, kv_off + h0, kv_off + h1 - 1):
                         return False, None
-                    kloc = t0 + torch.arange(BK)
+                    kloc = h0 + torch.arange(width)
                     lo = wq0 if unmasked_lo is None else unmasked_lo
-                    if tend - t0 == BK and bf16p_tiles._range_unmasked(
-                            kw, lo, wq0 + 15, kv_off + t0, kv_off + tend - 1, tend - 1, mask_tail):
-                        return True, torch.ones(16, BK, dtype=torch.bool)
+                    if h1 - h0 == width and bf16p_tiles._range_unmasked(
+                            kw, lo, wq0 + 15, kv_off + h0, kv_off + h1 - 1, h1 - 1, mask_tail):
+                        return True, torch.ones(16, width, dtype=torch.bool)
                     r = slice(16 * w, 16 * w + 16)
                     keep = bf16p_tiles._pair_valid(kw, qpos[r], kv_off + kloc, kloc, mask_tail)
                     if fault != "tail_kept":
-                        keep &= (kloc < tend)[None, :]
+                        keep &= (kloc < h1)[None, :]
                     return True, keep
+
+                def parts(t0, tend):
+                    """(consumer, its first key in the tile, width, h0, h1) of
+                    the consumers with keys of the tile."""
+                    return [(c, off, width, t0 + off, min(t0 + off + width, tend))
+                            for c, (off, width) in enumerate(halves) if t0 + off < tend]
 
                 exp_order = [(kb1, t0) for _, kb1, tiles in items for t0 in tiles]
                 item = 0
-                m = torch.full((ROWS,), float("-inf"))
-                l = torch.zeros(ROWS)
+                m = torch.full((nc, ROWS), float("-inf"))
+                l = torch.zeros(nc, ROWS)
                 acc = torch.zeros(ROWS, D)
                 for j, kb1, tiles in items:
                     if not tiles:
@@ -296,23 +388,28 @@ def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
                     vj = min(j + 1, nkv - 1) if fault == "vsc_next" else j
                     vsc = float(vs[b, h // G, vj])
                     f = f32(sq_r.double() * kss)
-                    # Sweep 1.
-                    imax = torch.full((ROWS,), -2**31, dtype=torch.int64)
-                    any_masked = torch.zeros(ROWS, dtype=torch.bool)
+                    # Sweep 1, each consumer over its keys.
+                    imax = torch.full((nc, ROWS), -2**31, dtype=torch.int64)
+                    any_masked = torch.zeros(nc, ROWS, dtype=torch.bool)
                     for t0 in tiles:
                         tend = min(t0 + BK, kb1)
                         S = scores(Q, tile_of(t0, kb1)[0])
-                        kloc = t0 + torch.arange(BK)
-                        for w in range(ROWS // 16):
-                            r = slice(16 * w, 16 * w + 16)
-                            runs, keep = warp_mask(w, t0, tend)
-                            if not runs:
-                                any_masked[r] = True
-                                continue
-                            present = (kloc < tend)[None, :]
-                            any_masked[r] |= (present & ~keep).any(dim=1)
-                            s = torch.where(keep & present, S[r], torch.full_like(S[r], -2**31))
-                            imax[r] = torch.maximum(imax[r], s.amax(dim=1))
+                        for c, off, width, h0, h1 in parts(t0, tend):
+                            kloc = h0 + torch.arange(width)
+                            for w in range(ROWS // 16):
+                                r = slice(16 * w, 16 * w + 16)
+                                runs, keep = warp_mask(w, h0, h1, width)
+                                if not runs:
+                                    any_masked[c, r] = True
+                                    continue
+                                present = (kloc < h1)[None, :]
+                                any_masked[c, r] |= (present & ~keep).any(dim=1)
+                                s = torch.where(keep & present, S[r, off:off + width],
+                                                torch.full((16, width), -2**31))
+                                imax[c, r] = torch.maximum(imax[c, r], s.amax(dim=1))
+                    if fault != "max_unshared":  # the exchange: both fold with one m
+                        imax = imax.amax(dim=0, keepdim=True).expand(nc, ROWS)
+                        any_masked = any_masked.any(dim=0, keepdim=True).expand(nc, ROWS)
                     seen = imax != -2**31
                     mc = torch.where(any_masked, torch.tensor(DEFAULT_MASK_VALUE),
                                      torch.tensor(float("-inf")))
@@ -320,14 +417,14 @@ def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
                     if kw["softcap"] is not None:
                         dq = kw["softcap"] * torch.tanh(dq / kw["softcap"])
                     m_next = torch.maximum(m, torch.where(seen, dq, mc))
-                    alpha = torch.where(m_next == float("-inf"), torch.ones(ROWS),
+                    alpha = torch.where(m_next == float("-inf"), torch.ones(()),
                                         torch.exp(m - m_next))
                     shift = m_next - math.log(127.0)
                     f2 = f32(f.double() * LOG2E)
                     shift2 = f32(shift.double() * LOG2E)
                     # Sweep 2.
                     pvi = torch.zeros(ROWS, D, dtype=torch.int64)
-                    lsum = torch.zeros(ROWS)
+                    lsum = torch.zeros(nc, ROWS)
                     for t0 in tiles:
                         tend = min(t0 + BK, kb1)
                         kt, vt = tile_of(t0, kb1)
@@ -337,26 +434,38 @@ def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
                         item += 1
                         S = scores(Q, kt)
                         P = torch.zeros(ROWS, BK)
-                        for w in range(ROWS // 16):
-                            r = slice(16 * w, 16 * w + 16)
-                            lo = q_off + q0 + 16 * w + 15 if fault == "unmasked_from_last_row" else None
-                            runs, keep = warp_mask(w, t0, tend, lo)
-                            if not runs:
-                                continue
-                            if kw["softcap"] is not None:
-                                x = f32(S[r].double() * f[r, None].double())
-                                x = kw["softcap"] * torch.tanh(x / kw["softcap"])
-                                pe = torch.exp(x - shift[r, None])
-                            else:
-                                pe = torch.exp2(f32(S[r].double() * f2[r, None].double()
-                                                    - shift2[r, None].double()))
-                            P[r] = torch.where(keep, pe, torch.zeros_like(pe))
+                        for c, off, width, h0, h1 in parts(t0, tend):
+                            for w in range(ROWS // 16):
+                                r = slice(16 * w, 16 * w + 16)
+                                lo = q_off + q0 + 16 * w + 15 if fault == "unmasked_from_last_row" else None
+                                runs, keep = warp_mask(w, h0, h1, width, lo)
+                                if not runs:
+                                    continue
+                                Sc = S[r, off:off + width].double()
+                                if kw["softcap"] is not None:
+                                    x = f32(Sc * f[r, None].double())
+                                    x = kw["softcap"] * torch.tanh(x / kw["softcap"])
+                                    pe = torch.exp(x - shift[c, r, None])
+                                else:
+                                    pe = torch.exp2(f32(Sc * f2[r, None].double()
+                                                        - shift2[c, r, None].double()))
+                                P[r, off:off + width] = torch.where(keep, pe, torch.zeros_like(pe))
                         P8 = torch.from_numpy(_round_p(P.numpy(), fault))
-                        lsum += (P8.float() if fault == "l_rounded" else P).sum(dim=1)
+                        for c, (off, width) in enumerate(halves):
+                            lsum[c] += (P8.float() if fault == "l_rounded" else P)[
+                                :, off:off + width].sum(dim=1)
+                        if fault == "p_half_stale" and D == 256:  # consumer 1's bytes never written
+                            P8[:, 32:] = 0
                         pvi += P8 @ vt
                         if fault == "pv_half" and D == 256:  # O's columns 128-255 from V's 0-127
                             pvi[:, 128:] += P8 @ (vt[:, :128] - vt[:, 128:])
-                    a_acc = (torch.ones(ROWS) if fault == "no_alpha" else alpha)[:, None]
+                        if fault == "pv_swapped" and D == 256:  # each half from the other's V
+                            pvi = pvi - P8 @ vt + P8 @ torch.cat([vt[:, 128:], vt[:, :128]], 1)
+                    a_acc = torch.zeros(ROWS, D)
+                    for c in range(nc):
+                        a_acc[:, cols[c]] = alpha[c][:, None]
+                    if fault == "no_alpha":
+                        a_acc[:] = 1.0
                     if fault == "wide_no_alpha" and D == 256:  # rows g, columns 2t: not rescaled
                         rows_g = (torch.arange(ROWS) % 16 < 8)[:, None]
                         even = (torch.arange(D) % 2 == 0)[None, :]
@@ -364,10 +473,17 @@ def _walk(q, k_i8, ks, v_i8, vs, offsets, kw, fault=None):
                     acc = acc * a_acc + pvi.float() * vsc
                     l = alpha * l + lsum
                     m = m_next
-                l_inv = torch.where(l == 0, torch.ones_like(l), 1.0 / l)
-                o[b, h, rows[exists]] = (acc * l_inv[:, None])[exists].to(q.dtype)
+                # Each consumer's l: its own share and the other's (the
+                # planted fault: its own alone); lse from consumer 0's.
+                lc = l if fault == "l_other_dropped" else l.sum(dim=0, keepdim=True).expand(nc, ROWS)
+                out = torch.zeros(ROWS, D)
+                for c in range(nc):
+                    l_inv = torch.where(lc[c] == 0, torch.ones(()), 1.0 / lc[c])
+                    out[:, cols[c]] = acc[:, cols[c]] * l_inv[:, None]
+                o[b, h, rows[exists]] = out[exists].to(q.dtype)
                 lse[b, h, rows[exists]] = torch.where(
-                    l > 0, m + torch.log(l) - ln_p, torch.full_like(l, float("-inf")))[exists]
+                    lc[0] > 0, m[0] + torch.log(lc[0]) - ln_p,
+                    torch.full_like(lc[0], float("-inf")))[exists]
     return o, lse
 
 
@@ -435,6 +551,44 @@ def test_coverage_holds_the_kernels_edges():
     assert any(c[11] is not None and not c[8] for c in cases)
     assert {c[6] for c in cases} == {32, 64, 128, 256}
     assert {c[13] for c in cases} == {False, True}
+    # d=256's two consumers: rows whose block max lies in keys 32-63 of the
+    # tiles, a window under a tile (one half of it seen, the other not),
+    # kv_len inside a tile's first half.
+    d256 = [c for c in cases if c[6] == 256]
+    assert any(len(c) > 15 and c[15] < 1 for c in d256)
+    assert any(c[9] is not None and c[9] < BK and not c[10] for c in d256)
+    assert any(c[5] < c[4] and 0 < c[5] % BK < 32 for c in d256)
+
+
+def test_coverage_max_lies_in_the_second_key_halves():
+    """The d=256 case with K's keys 0-31 of each tile scaled down: the
+    block max of nearly every row that sees a key 32-63 of some tile lies
+    in such a key, so that the first consumer's own max is not the row's."""
+    (i, case), = [(i, c) for i, c in INT8P_CASES.items() if len(c) > 15]
+    q, k_i8, ks, v_i8, vs, offsets, kw = bf16p_tiles._inputs(case, seed=300 + i)
+    B, H, Sq, D = q.shape
+    G, Skv, bkv = H // k_i8.shape[1], k_i8.shape[2], kw["block_kv"]
+    qf = q.float()
+    sq = tfa.true_div(torch.clamp(qf.abs().amax(dim=-1, keepdim=True), min=kw["scale_clamp"]),
+                      127.0)
+    q_int = torch.clamp(torch.round(qf / sq), -127, 127).to(torch.int64)
+    kloc = torch.arange(Skv)
+    second = kloc % BK >= 32
+    hits = total = 0
+    for b in range(B):
+        qpos = int(offsets[b, 0]) + torch.arange(Sq)
+        valid = bf16p_tiles._pair_valid(kw, qpos, kloc + int(offsets[b, 1]), kloc, False)
+        for h in range(H):
+            S = q_int[b, h] @ k_i8[b, h // G].to(torch.int64).T
+            for kb0 in range(0, Skv, bkv):
+                blk = slice(kb0, kb0 + bkv)
+                vis = valid[:, blk]
+                rows = (vis & second[None, blk]).any(dim=1)
+                s = torch.where(vis, S[:, blk], torch.full_like(S[:, blk], -2**40))
+                at = s.argmax(dim=1) + kb0
+                hits += int((second[at] & rows).sum())
+                total += int(rows.sum())
+    assert total > 1000 and hits >= 0.98 * total
 
 
 # --- the planted faults -------------------------------------------------------
@@ -453,9 +607,14 @@ FAULTS = {
 FAULTS_D256 = {
     "s_half": "d=256 int8 P: S's k32 steps 4-7 read the first 128-byte halves of Q and K",
     "pv_half": "d=256 int8 P: P·V's second column half against Vᵀ's first (O's columns 128-255)",
-    "wide_no_alpha": "d=256 int8 P: acc in shared memory not rescaled by alpha (rows g)",
+    "pv_swapped": "d=256 int8 P: each consumer's P·V against the other's V columns",
+    "wide_no_alpha": "d=256 int8 P: acc in registers not rescaled by alpha (rows g, even columns)",
+    "p_half_stale": "d=256 int8 P: the second consumer's P half never written (stale bytes)",
+    "max_unshared": "d=256 int8 P: the row-max exchange skipped (each consumer its own keys' max)",
+    "l_other_dropped": "d=256 int8 P: the other consumer's share of l not added at the end",
 }
 LAYOUT_FAULTS = {"vt_shift", "p_trunc"}
+LAYOUT_FAULTS_D256 = {"pv_half", "pv_swapped", "p_half_stale"}
 # Causal GQA, d=64, quant blocks of 96 keys (tiles clipped at each block's
 # end) and a second sequence whose first 40 rows see no key.
 FAULT_CASE = (2, 4, 2, 100, 288, 288, 64, 96, True, None, 0, None, 0, False,
@@ -489,7 +648,7 @@ def test_planted_d256_fault_analogues_break_the_layout_or_the_walk(fault):
     if fault == "s_half":
         Q, K = rng.integers(-127, 128, (2, 64, 256))
         assert not np.array_equal(_s_product(Q, K, fault), Q @ K.T)
-    if fault == "pv_half":
+    if fault in LAYOUT_FAULTS_D256:
         pe, v = _layout_inputs(256, seed=6)
         assert not np.array_equal(_pv_product(pe, v, fault), _pv_product(pe, v))
     inputs = bf16p_tiles._inputs(FAULT_CASE_D256, seed=8)

@@ -70,10 +70,12 @@ def _inputs(case, seed):
     """(q, k_i8, k_scales, v_i8, v_scales, offsets, kw) of a coverage case
     from numpy; kw holds the plain version's keywords."""
     (B, H, Hkv, Sq, Skv, kv_len, D, bkv, causal, window, sinks, cap, mode, bf16,
-     offs) = case
+     offs, *k_lo) = case
     rng = np.random.default_rng(seed)
     q = rng.normal(0, 2.0, (B, H, Sq, D)).astype(np.float32)
     k, v = rng.normal(0, 1.0, (2, B, Hkv, Skv, D)).astype(np.float32)
+    if k_lo:  # K's keys 0-31 of every 64-key tile scaled (chip_smoke.flash_coverage_inputs)
+        k[..., np.arange(Skv) % 64 < 32, :] *= np.float32(k_lo[0])
     tq = torch.from_numpy(q).to(torch.bfloat16 if bf16 else torch.float32)
     k_i8, ks = quantize_kv_blocks(torch.from_numpy(k), bkv)
     v_i8, vs = quantize_kv_blocks(torch.from_numpy(v), bkv)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from quantizedmha_tpu.harness import timing as jtiming
+from quantizedmha_tpu_torch.harness import sass_count
 from quantizedmha_tpu_torch.harness import timing as ttiming
 
 # Both profiling packages export a `roofline` function that shadows the
@@ -126,3 +127,24 @@ def test_attention_achievable_is_the_busiest_unit():
     with pytest.raises(ValueError, match="SFU"):
         troof.attention_achievable(1.0, batch=1, heads=1, q_len=8, kv_len=8, head_dim=8,
                                    chip=troof.ChipSpec("test", 1.0, 2.0, 3.0))
+
+
+def test_sass_count_takes_the_d256_int8p_instances_alone():
+    """sass_count's parser counts each d=256 int8-P instance's instruction
+    lines, keyed from the kernel's name on (the anonymous namespace's hash
+    differs from build to build), and nothing of the other kernels."""
+    text = """
+	code for sm_90a
+		Function : _ZN50_GLOBAL__N__70522b75_17_flash_int8_fwd_cu_6a5bd2e523flash_int8_int8p_kernelILi256ELb1ELi2ELi64EEEvNS_6ParamsE
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                     /* 0x00000a00ff017b82 */
+                                                                              /* 0x000fe20000000800 */
+        /*0010*/              @!P0 BRA 0x920 ;                                /* 0xfffffffc0 */
+        /*0020*/                   EXIT ;                                     /* 0x000000000 */
+		..........
+		Function : _ZN50_GLOBAL__N__11111111_17_flash_int8_fwd_cu_6a5bd2e523flash_int8_int8p_kernelILi128ELb1ELi1ELi64EEEvNS_6ParamsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                     /* 0x00000a00ff017b82 */
+"""
+    assert sass_count.count_instructions(text) == {
+        "flash_int8_int8p_kernelILi256ELb1ELi2ELi64EEEvNS_6ParamsE": 3}
+
