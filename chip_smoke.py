@@ -386,7 +386,8 @@ result line:
            phases) and bound in place of the committed kernels as each
            build ends, their checks rerun: every fault must fail them (a
            fault of flash_bwd.cu's d=256 kernels or of the d=256 int8-P
-           forward a d=256 case by 10x or more).
+           forward a d=256 case by 10x or more, one of the d=256 bf16-P
+           forward a d=256 bf16-P case).
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 zeroed just before each main path (each solve rung, the harness run,
@@ -888,20 +889,21 @@ def _dense_kv(pages, scales, tables, Hq, dtype=None):
     return x.repeat_interleave(Hq // Hkv, dim=1)
 
 
-def _sdpa_decode(q, k_pages, v_pages, k_scales, v_scales, lengths, tables, window=None):
-    """(ms, backend) of SDPA in bf16 for one decode step on the same K/V
-    dequantized beforehand (untimed), each sequence's length (and, given a
-    window, its last `window` keys) as a mask: the yardstick of the paged
-    decode kernels."""
+def _sdpa_decode(q, k_pages, v_pages, k_scales, v_scales, lengths, tables, window=None,
+                 dtype=None):
+    """(ms, backend) of SDPA in bf16 (or `dtype`) for one decode step on the
+    same K/V dequantized beforehand (untimed), each sequence's length (and,
+    given a window, its last `window` keys) as a mask: the yardstick of the
+    paged decode kernels."""
     import torch
-    Hq = q.shape[1]
-    kd = _dense_kv(k_pages, k_scales, tables, Hq)
-    vd = _dense_kv(v_pages, v_scales, tables, Hq)
+    Hq, dtype = q.shape[1], dtype or torch.bfloat16
+    kd = _dense_kv(k_pages, k_scales, tables, Hq, dtype=dtype)
+    vd = _dense_kv(v_pages, v_scales, tables, Hq, dtype=dtype)
     kpos = torch.arange(kd.shape[2], device=q.device)[None, :]
     mask = kpos < lengths[:, None].long()
     if window is not None:
         mask &= kpos >= lengths[:, None].long() - window
-    out = _sdpa(q[:, :, None].to(torch.bfloat16), kd, vd, attn_mask=mask[:, None, None])
+    out = _sdpa(q[:, :, None].to(dtype), kd, vd, attn_mask=mask[:, None, None])
     del kd, vd
     return out
 
@@ -1204,10 +1206,11 @@ def _paged_prefill_case(g, *, replaces):
 # sequence), window + sinks with skipped tiles, softcap on mask-free tiles,
 # d = 32, 64 and 128, f32 and bf16 q; each draws from its own generator
 # (FIRST_INT8P_CASE), so that the cases after FLASH_COVERAGE keep theirs.
-# Then d=256 with int8 P, and the bf16-P kernel at d=256 (one consumer of
-# 64 rows, Q and K as 128-byte halves, P·V two m64n128 products, MODE_BF16_P's
-# l from its own ones product) and MODE_BF16_P_F32L (l over the f32 P') at
-# every head dim.
+# Then d=256 with int8 P, and the bf16-P kernel at d=256 (two consumers
+# over the same 64 rows, each a key half of every tile and O's column
+# half, Q and K as 128-byte halves, P·V from a bf16 P tile, MODE_BF16_P's l
+# from each consumer's ones product) and MODE_BF16_P_F32L (l over the f32
+# P') at every head dim.
 FLASH_COVERAGE = (
     (2, 4, 2, 100, 192, 192, 32, 64, False, None, 0, None, 1, False, None),
     (2, 4, 2, 100, 192, 192, 64, 96, True, None, 0, None, 0, True, None),
@@ -1268,6 +1271,14 @@ FLASH_COVERAGE = (
     (1, 4, 2, 160, 384, 384, 256, 128, True, None, 0, 50.0, 0, True, None, 0.25),
     (1, 4, 4, 128, 320, 320, 256, 320, True, 40, 0, None, 0, False, None),
     (2, 2, 1, 100, 256, 200, 256, 128, True, None, 0, None, 0, True, None),
+    # The same edges with bf16 P, whose d=256 kernel splits each tile's
+    # keys between two consumers as well: the rows' maxes in keys 32-63 in
+    # both modes (mode 2 with f32 q), the 40-key window in mode 2, kv_len
+    # inside a tile's first half in mode 1.
+    (1, 4, 2, 160, 384, 384, 256, 128, True, None, 0, 50.0, 1, True, None, 0.25),
+    (1, 4, 2, 160, 384, 384, 256, 128, True, None, 0, 50.0, 2, False, None, 0.25),
+    (1, 4, 4, 128, 320, 320, 256, 320, True, 40, 0, None, 2, False, None),
+    (2, 2, 1, 100, 256, 200, 256, 128, True, None, 0, None, 1, True, None),
 )
 FIRST_INT8P_CASE = 17
 # The bf16-P modes told apart: (B, H, Hkv, S, D, block_kv, causal, mode),
@@ -1863,6 +1874,33 @@ def _gemma2_int8(g, mode=0, block_kv=1024, kinds=("full", "sliding", "f32")):
     return out
 
 
+def _cuda_core_bounds(st):
+    """The d=256 INT8 flash sub-entries (rows 1-2's "gemma2": full, sliding,
+    f32 q) with the bound that their per-score work sets on the CUDA cores:
+    harness/sass_count.py's instructions a score of the instance (the built
+    library against the copy main() built with that work emptied) x the
+    pairs, over every lane of the card at its max SM clock; and the
+    kernel's time over it."""
+    import torch
+    from quantizedmha_tpu_torch.harness import sass_count
+    from quantizedmha_tpu_torch.ops import cuda_lib
+    per = sass_count.per_score(cuda_lib.library_path("flash_int8_fwd"), st.pop("sass_build"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = sass_count.clock_mhz()
+    for name, prefix in (("flash_int8_fwd[int8_p]", "flash_int8_int8p_kernelILi256ELb{q}E"),
+                         ("flash_int8_fwd[bf16_p]", "flash_int8_bf16p_kernelILi256ELb{q}ELb0E"),
+                         ("flash_int8_fwd[bf16_p_f32l]",
+                          "flash_int8_bf16p_kernelILi256ELb{q}ELb1E")):
+        for sub in st["kernels"].get(name, {}).get("gemma2", {}).values():
+            shape = sub["shape"]
+            head = prefix.format(q=int(shape["q"] == "torch.bfloat16"))
+            n = next(x for k, x in per.items() if k.startswith(head))
+            pairs = shape["Hq"] * _int8p_window_pairs(shape["S"], shape["window"])
+            sub["instructions_a_score"] = n
+            sub["bound_cuda_cores_ms"] = sass_count.cuda_core_ms(pairs, n, sms, mhz)
+            sub["over_bound_cuda_cores"] = sub["ms"] / sub["bound_cuda_cores_ms"]
+
+
 def _gemma2_kernels():
     """Rows 3, 5 (bf16) and 10 (bf16 q) at serve_hybrid's shapes
     (GEMMA2_ATTN), each layer kind: {kernel name: {"full": sub-entry,
@@ -2042,8 +2080,8 @@ def _f32_bounds(sub, nbytes, passes, pairs, D, products=2):
 
 
 def _gemma2_f32(g, out):
-    """Rows 5, 10 and 11 in f32 at head_dim 256, serve_gemma2_f32's shapes
-    (GEMMA2_ATTN), into _gemma2_kernels' entries: row 5 ("flash_fwd[f32]")
+    """Rows 5, 10, 11, 3 and 12 in f32 at head_dim 256, serve_gemma2_f32's
+    shapes (GEMMA2_ATTN), into _gemma2_kernels' entries: row 5 ("flash_fwd[f32]")
     "full_f32", a 2048-token bucket, causal, softcap 50, and "sliding_f32",
     8192 tokens under the 4096 window (the tiles wholly behind it
     skipped); rows 10 and 11 with f32 q, "full_f32" and "sliding_f32", a
@@ -2055,10 +2093,12 @@ def _gemma2_f32(g, out):
     route runs; three for rows 10-11, whose int8 / int4 K and V are exact in
     bf16), or the bytes, whichever is larger; beside it the kernel's own
     route, the f32 FMAs on the CUDA cores ("bound_cuda_cores_ms"), 4·d
-    operations a visible pair. Library: SDPA in f32 (TF32 off)
-    on the same K/V, expanded to the q heads (and dequantized, for the paged
-    kernels) beforehand, each kind's window in its mask; the backend that
-    took it is named."""
+    operations a visible pair. Rows 3 and 12 with f32 q, "full_f32": the
+    decode batches of their bf16-q "full" entries (three INT8 sequences of
+    364, 1864 and 6064 tokens; four INT4 of 0 to 5808), bound by their
+    bytes. Library: SDPA in f32 (TF32 off) on the same K/V, expanded to the
+    q heads (and dequantized, for the paged kernels) beforehand, each
+    kind's window in its mask; the backend that took it is named."""
     import torch
     from quantizedmha_tpu_torch.ops.flash_attention import _offsets
     ga = GEMMA2_ATTN
@@ -2128,6 +2168,26 @@ def _gemma2_f32(g, out):
             _f32_bounds(out[name][kind], nbytes, 3, pairs, D)
             del kd, vd, cache, clean, qc, o, p_o, mask
             torch.cuda.empty_cache()
+    for name, int4, lens in (("paged_decode", False, (364, 1864, 6064)),
+                             ("paged_decode_int4", True, (0, 108, 1608, 5808))):
+        case = (len(lens), Hq, Hkv, P, None, cap, 64, lens, False, int4, False)
+        q, cache, lengths, tables, clean, masks = _d256_decode_inputs(g, case)
+        o, p_o, r, launch, plain = _d256_check(q, cache, lengths, tables, int4=int4, clean=clean,
+                                               **masks)
+        ctx = int(lengths.sum())
+        pages = sum(-(-int(n) // P) for n in lengths.tolist())
+        subs = D256_SUBS if int4 else 1
+        out[name]["full_f32"] = _gemma2_sub(
+            o, p_o, r, launch, plain,
+            shape={"B": len(lens), "Hq": Hq, "Hkv": Hkv, "D": D, "page": P, "subs": subs,
+                   "max_pages": 64, "lengths": list(lens), "window": None, "softcap": cap,
+                   "q": "float32", "save_residuals": True},
+            nbytes=(q.numel() * 4 * 2 + len(lens) * Hq * 4 + 2 * ctx * Hkv * (D // 2 if int4 else D)
+                    + 2 * pages * Hkv * subs * 4 + tables.numel() * 4),
+            ops={"fp32": 2 * 2 * ctx * Hq * D, "exp": ctx * Hq},
+            library=lambda: _sdpa_decode(q, *clean, lengths, tables, dtype=torch.float32))
+        del q, cache, clean, o, p_o
+        torch.cuda.empty_cache()
 
 
 def _coverage():
@@ -3189,7 +3249,7 @@ PLANTED_FAULTS = (
     ("mma_bf16.cuh", "d=256: P·V's second column half against V's first (O's columns 128-255)",
      "wgmma_rs_m64n128(*reinterpret_cast<float(*)[16][4]>(&acc[16]), a, m + (2 * SW_ROWS * 64 * 2 >> 4), 1);",
      "wgmma_rs_m64n128(*reinterpret_cast<float(*)[16][4]>(&acc[16]), a, m, 1);",
-     ("flash_fwd", "paged_prefill", "flash_int8_fwd")),
+     ("flash_fwd", "paged_prefill")),
     ("flash_fwd.cu", "f32: Q's third piece dropped (S without q2·k0)",
      "qk(2, 0);  // q2·k0: Q's third piece", ";"),
     ("flash_fwd.cu", "f32: K's third piece dropped (S without q0·k2)",
@@ -3354,8 +3414,8 @@ PLANTED_FAULTS = (
      "          make_uint4(BF16_ONES, BF16_ONES, BF16_ONES, BF16_ONES);",
      "          make_uint4(0u, 0u, 0u, 0u);"),
     ("flash_int8_fwd.cu", "bf16 P: an item's K and V copied into the next stage (stale reads)",
-     "          issue(t0, kb1, sweep == 1, s);",
-     "          issue(t0, kb1, sweep == 1, (n + 1) % R::STAGES);"),
+     "          issue(t0, kb1, sweep == 1, n);",
+     "          issue(t0, kb1, sweep == 1, n + 1);"),
     ("flash_int8_fwd.cu", "bf16 P: V scale of the next quant block",
      "    const float v_scale = p.vs[sidx];",
      "    const float v_scale = p.vs[qb + 1 < p.nkv ? sidx + 1 : sidx];"),
@@ -3417,8 +3477,26 @@ PLANTED_FAULTS = (
      "    for (int r = 0; r < 2; ++r) l[r] += xl[64 * (1 - cw) + 16 * warp + g + 8 * r];",
      "    for (int r = 0; r < 2; ++r) l[r] += 0.f * xl[64 * (1 - cw) + 16 * warp + g + 8 * r];"),
     ("flash_int8_fwd.cu", "d=256 bf16 P: the ones product (l) dropped for the last k16 step",
-     "for (int kk = 0; kk < 4; ++kk) wgmma_rs_m64n8<0>(pl, a[kk], ones, 1);",
-     "for (int kk = 0; kk < 3; ++kk) wgmma_rs_m64n8<0>(pl, a[kk], ones, 1);"),
+     "for (int kk = 0; kk < 2; ++kk) wgmma_rs_m64n8<0>(pl, a[kk], ones, kk | more);",
+     "for (int kk = 0; kk < 1; ++kk) wgmma_rs_m64n8<0>(pl, a[kk], ones, kk | more);"),
+    ("flash_int8_fwd.cu", "d=256 bf16 P: P·V's second column half against V's first (O's columns 128-255)",
+     "        const __nv_bfloat16* vh = v_tile(n % R::STAGES) + 2 * cw * SW_ROWS * 64;",
+     "        const __nv_bfloat16* vh = v_tile(n % R::STAGES);"),
+    ("flash_int8_fwd.cu", "d=256 bf16 P: each consumer's P·V against the other's V columns",
+     "        const __nv_bfloat16* vh = v_tile(n % R::STAGES) + 2 * cw * SW_ROWS * 64;",
+     "        const __nv_bfloat16* vh = v_tile(n % R::STAGES) + 2 * (1 - cw) * SW_ROWS * 64;"),
+    ("flash_int8_fwd.cu", "d=256 bf16 P: acc in registers not rescaled by alpha (rows g, even columns)",
+     "        acc[j][0] = acc[j][0] * alpha[0] + pv[j][0] * vs_b;",
+     "        acc[j][0] = acc[j][0] + pv[j][0] * vs_b;"),
+    ("flash_int8_fwd.cu", "d=256 bf16 P: the second consumer's P half never written (stale bytes)",
+     "              *reinterpret_cast<uint32_t*>(pb + sw(16 * warp + g + 8 * r, 4 * cw + 2 * kk + hh) +",
+     "              if (cw == 0) *reinterpret_cast<uint32_t*>(pb + sw(16 * warp + g + 8 * r, 4 * cw + 2 * kk + hh) +"),
+    ("flash_int8_fwd.cu", "d=256 bf16 P: the row-max exchange skipped (each consumer its own keys' max)",
+     "        const int imr = max(xo.x, im[r]);",
+     "        const int imr = im[r];"),
+    ("flash_int8_fwd.cu", "d=256 bf16 P: the other consumer's share of l not added at the end",
+     "    for (int r = 0; r < 2; ++r) l[r] += xl[64 - 64 * cw + 16 * warp + g + 8 * r];",
+     "    for (int r = 0; r < 2; ++r) l[r] += 0.f * xl[64 - 64 * cw + 16 * warp + g + 8 * r];"),
     ("flash_int8_fwd.cu", "bf16 P, f32 l: l sums the bf16-rounded P', not the f32 P'",
      "if constexpr (F32L) lsum[r] += pe[0] + pe[1];  // l over the f32 P'",
      "if constexpr (F32L) lsum[r] += __low2float(pb) + __high2float(pb);"),
@@ -3661,9 +3739,10 @@ def phase_faults(st):
     d=256 backward ("d=256 ..." in flash_bwd.cu) or of the f32 kernels that
     run every head dim, d=256 too ("f32 ..."), a d=256 coverage case by
     10x or more, and so must a fault of the d=256 int8-P forward ("d=256
-    int8 P: ...", a d=256 int8-P coverage case or serve_hf's prefill). The
-    builds are main()'s, started after the build phase, or started here on
-    every core."""
+    int8 P: ...", a d=256 int8-P coverage case or serve_hf's prefill) and
+    one of the d=256 bf16-P forward ("d=256 bf16 P: ...", a d=256 bf16-P
+    coverage case). The builds are main()'s, started after the build phase,
+    or started here on every core."""
     import concurrent.futures
     import ctypes
     from quantizedmha_tpu_torch.ops import decode as dec
@@ -3702,7 +3781,8 @@ def phase_faults(st):
             main, cov = _fault_checks(src)
             worst = max([max(r) for r in main.values()] + list(cov.values()))
             # A fault of the d=256 backward, of the f32 kernels or of the
-            # d=256 int8-P forward must fail a d=256 case by 10x.
+            # d=256 int8-P or bf16-P forward must fail a d=256 case by 10x
+            # (the bf16-P ones a d=256 bf16-P case).
             d256 = None
             if src == "flash_bwd" and what.startswith(("d=256", "f32")):
                 d256 = max([cov[f"flash_bwd{i}"] for i, c in enumerate(FLASH_BWD_COVERAGE)
@@ -3711,6 +3791,9 @@ def phase_faults(st):
             elif src == "flash_int8_fwd" and what.startswith("d=256 int8 P"):
                 d256 = max([cov[f"fa8_{i}"] for i, c in enumerate(FLASH_COVERAGE)
                             if c[6] == 256 and c[12] == 0] + main["serve_hf prefill"])
+            elif src == "flash_int8_fwd" and what.startswith("d=256 bf16 P"):
+                d256 = max(cov[f"fa8_{i}"] for i, c in enumerate(FLASH_COVERAGE)
+                           if c[6] == 256 and c[12] != 0)
             rows[futures[fut]] = {
                 "source": src, "fault": what, "main_err_over_tol": main,
                 "coverage_failing": sorted(k for k, r in cov.items() if r > 1.0),
@@ -8722,6 +8805,7 @@ def main(argv=None) -> int:
     st = {"launches": {}, "launches_d256": {}, "launches_d256_f32": {}, "profile": args.profile,
           "keep_serve_params": "serve_w8a8" in phases}
     seconds = {}
+    ran = False
     try:
         for name in PHASES:
             if name not in phases:
@@ -8737,11 +8821,23 @@ def main(argv=None) -> int:
             if name == "build" and "faults" in phases and len(phases) > 2:
                 # The faults phase's builds, behind the other phases (_FaultBuilds).
                 st["fault_builds"] = _FaultBuilds(max(1, (os.cpu_count() or 8) - 2), nice=True)
+            if name == "build" and "kernels" in phases:
+                # The d=256 INT8 flash walks' per-score work emptied, for the
+                # CUDA cores' bound (_cuda_core_bounds), behind the other phases.
+                from quantizedmha_tpu_torch.harness import sass_count
+                from quantizedmha_tpu_torch.ops import cuda_lib
+                st["sass_build"] = sass_count.start_emptied(
+                    cuda_lib.CSRC, cuda_lib.BUILD_DIR / "sass_emptied", nice=True)
+        ran = True
     finally:
         if "fault_builds" in st:
             st.pop("fault_builds").stop()
+        if "sass_build" in st and not ran:
+            from quantizedmha_tpu_torch.harness import sass_count
+            sass_count.stop(st.pop("sass_build"))
     emit({"phase_seconds": seconds, "total": round(sum(seconds.values()), 1)})
     if "kernels" in st:
+        _cuda_core_bounds(st)
         entries = []
         for name, c in st["kernels"].items():
             e = {k: c[k] for k in ("name", "route", "source", "replaces", "max_abs_err",

@@ -71,16 +71,30 @@
 // and per warp; tiles that no row of the block sees are never copied. d=32
 // runs two blocks an SM. MODE_BF16_P_F32L: the product against V alone
 // (N = D), l summed from the f32 P' on the CUDA cores before the bf16
-// packing, two FADDs a pair of scores. d=256 (both modes): one consumer of
-// 64 rows beside the producer, two stages, no setmaxnreg, Q and K rows as
-// two 128-byte halves (sw8_d, s8_desc_d, as MODE_INT8_P's), the bf16 V
-// tile four 64-column blocks, P·V two m64n128 products a k16 step
-// (mma_bf16.cuh's wgmma_rs), and MODE_BF16_P's l from a constant 1 KB
-// tile of ones through an m64n8 product of its own (N = 264 would take two
-// products anyway): 211-213 KB of shared memory, acc in it as at every
-// d. No atomics: the same bits every launch. What bounds it at solve's
-// shape (harness/flash_int8_fwd_variants.json's knock-outs, PERF.md): each item's chain of handoff, wgmma and wait, not
-// the SFU; the max sweep's items alone cost a quarter of the time.
+// packing, two FADDs a pair of scores. No atomics: the same bits every
+// launch. What bounds it at solve's shape
+// (harness/flash_int8_fwd_variants.json's knock-outs, PERF.md): each
+// item's chain of handoff, wgmma and wait, not the SFU; the max sweep's
+// items alone cost a quarter of the time.
+//   d=256 (Gemma-2, both modes; WIDE): a Q or K row is two 128-byte
+//   halves (sw8_d, s8_desc_d, as MODE_INT8_P's), the bf16 V tile four
+//   64-column blocks. pv over all 256 columns would be 128 registers a
+//   thread, so the two consumers share the block's 64 rows (setmaxnreg 56
+//   / 224, three stages): consumer c takes keys 32c..32c+31 of every tile
+//   (S as m64n32, the int32 row max, exchanged through shared memory once a
+//   quant block so that both fold with one m, P' through p_prime: the
+//   softcap's division without its slow-path branch) and writes bf16(P')
+//   into its half of a double-buffered bf16 P tile (64 rows x 64 keys, a
+//   K-major A); after a named barrier between the two, pv_c += P'·V over
+//   all 64 keys for O's columns 128c..128c+127, four m64n128 products with
+//   A and B from shared memory (V's column blocks 2c, 2c + 1). pv_c and
+//   acc_c are 64 registers each; acc stays in registers. l_c is the
+//   consumer's share (MODE_BF16_P: an m64n8 product of its bf16 P', the
+//   register A, against a 1 KB tile of ones; MODE_BF16_P_F32L: its lanes'
+//   f32 P' on the CUDA cores), l = l_0 + l_1 at the end. The next item's S
+//   is issued before this item's per-score work. The producer hands each
+//   item over as soon as it lands, before it waits for the next stage, and
+//   its raw V rows take one slot: 196-197 KB of shared memory.
 //
 // MODE_INT8_P (flash_int8_int8p_kernel): the same walk and ring, with the
 // products in s8 on wgmma. A block is (batch, kv head, GB q heads, a q
@@ -250,56 +264,69 @@ struct Bf16pRing {
   // Consumer warpgroups (64 q rows each) and blocks an SM: at d=32, bound
   // by the exponentials, two blocks share an SM and fill each other's
   // waits; above, one block whose consumers hold the wider accumulators.
-  // d=256 (WIDE): one consumer (pv alone is 128 registers a thread), two
-  // stages, no setmaxnreg (256 threads may hold 255 registers each).
+  // d=256 (WIDE): pv over all 256 columns would be 128 registers a thread,
+  // so the two consumers share the block's 64 rows, consumer c the keys
+  // 32c..32c+31 of every tile and O's columns 128c..128c+127 (setmaxnreg
+  // 56 / 224, three stages).
   static constexpr bool WIDE = D == 256;
-  static constexpr int CONSUMERS = WIDE ? 1 : 2;
-  static constexpr int ROWS = 64 * CONSUMERS;        // q rows of a block
+  static constexpr int CONSUMERS = 2;
+  static constexpr int ROWS = WIDE ? 64 : 64 * CONSUMERS;  // q rows of a block
   static constexpr int BLOCKS = D == 32 ? 2 : 1;
   static constexpr int NTB = 128 * (1 + CONSUMERS);  // threads; all meet at a handoff
-  static constexpr int STAGES = WIDE ? 2 : D == 128 ? 3 : 4;  // stages in the ring
+  static constexpr int STAGES = D >= 128 ? 3 : 4;  // stages in the ring
   // Items in flight beyond the one handed over. The producer hands item n
   // over before it waits for stage n + LAG to be free, and a consumer holds
   // at most one stage (an exp-sweep item's, whose P·V is in flight) while
   // it waits for the next item: so item n is handed over once item n - 2
-  // is handed back, one item ahead of the consumer.
+  // is handed back, one item ahead of the consumer. (WIDE's consumers hold
+  // three stages at an exp item, P·V's, its own and the next S's; its
+  // producer hands each item over as soon as it lands.)
   static constexpr int LAG = STAGES - 1;
   // The registers of a producer and of a consumer thread (setmaxnreg; the
   // launch gives each thread 65536 / (NTB * BLOCKS), rounded down to 8).
-  static constexpr int PRODUCER_REGS = D == 32 ? 32 : 40, CONSUMER_REGS = D == 32 ? 104 : 232;
+  static constexpr int PRODUCER_REGS = D == 32 ? 32 : WIDE ? 56 : 40;
+  static constexpr int CONSUMER_REGS = D == 32 ? 104 : WIDE ? 224 : 232;
   static_assert(PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <=
                 (1 + CONSUMERS) * (65536 / (NTB * BLOCKS) / 8 * 8), "register budget");
   // Named barriers (0 is __syncthreads): stage s holds an item for consumer
-  // c (FULL + CONSUMERS·s + c), stage s is free again (EMPTY + s).
+  // c (FULL + CONSUMERS·s + c), stage s is free again (EMPTY + s). WIDE's
+  // consumers meet on their own: an item's P tile is written (PREADY),
+  // their row maxes or l are exchanged (XCHG).
   static constexpr int FULL = 1, EMPTY = FULL + CONSUMERS * STAGES;
+  static constexpr int PREADY = EMPTY + STAGES, XCHG = PREADY + 1;
   static constexpr int FULL_THREADS = 256;  // the producer and one consumer
-  static_assert(EMPTY + STAGES <= 16, "16 named barriers");
+  static_assert(EMPTY + STAGES <= 16 && (!WIDE || XCHG < 16), "16 named barriers");
   // Where MODE_BF16_P's l comes from: at d <= 128 a block of ones beside
-  // V in every stage ([V | 1], N = D + 8); at d=256, where N = 264 would
-  // take two products anyway, one constant 1 KB tile of ones that a
-  // product of its own (m64n8) reads. MODE_BF16_P_F32L sums l on the CUDA
+  // V in every stage ([V | 1], N = D + 8); at d=256 one constant 1 KB tile
+  // of ones, against which each consumer's P' of its keys (the register A)
+  // runs a product of its own (m64n8). MODE_BF16_P_F32L sums l on the CUDA
   // cores and has neither.
   static constexpr bool ONES_IN_V = !F32L && !WIDE, ONES_TILE = !F32L && WIDE;
   // A stage: the K tile (int8, wgmma_s8.cuh's layout; at d=256 two
   // 128-byte halves of a row, sw8_d), then the bf16 V tile (mma_bf16.cuh's
   // layout, D columns and the ones block in 64-column blocks). Shared
-  // memory: each consumer's Q tile, the stages, each stage's raw int8 V
-  // rows as copied, the q rows' scales, acc, m and l (touched once a quant
-  // block, so they leave the registers to the sweeps), the ones tile; 1 KB
-  // to align.
+  // memory: each consumer's Q tile (WIDE: one), the stages, the raw int8 V
+  // rows as copied (a slot a stage; WIDE: one, since the producer converts
+  // item n's before it copies item n + 1's), WIDE's P tile (two
+  // bf16 tiles of 64 rows x 64 keys, an exp item's P' in turn: the A of
+  // both consumers' P·V), the ones tile and exchange slots (the row maxes
+  // of two quant blocks in turn, int2 [2][2][64]; l, float [2][64]), the q
+  // rows' scales; at d <= 128 acc, m and l (touched once a quant block, so
+  // they leave the registers to the sweeps); 1 KB to align.
   static constexpr int VBLOCKS = (D + (ONES_IN_V ? 8 : 0) + 63) / 64;
   static constexpr int QTILE = (D > 128 ? 2 : 1) * S8_TILE;  // a Q or K tile
   static constexpr int STAGE = QTILE + VBLOCKS * SW_ROWS * 64 * 2;
-  static constexpr int RAW = 64 * D;
+  static constexpr int RAW = 64 * D, RAW_SLOTS = WIDE ? 1 : STAGES;
   static constexpr int CPT = D / 32;  // 16-byte chunks of a K or V tile a producer thread copies
-  static constexpr int KV_OFF = CONSUMERS * QTILE;
+  static constexpr int KV_OFF = (WIDE ? 1 : CONSUMERS) * QTILE;
   static constexpr int RAW_OFF = KV_OFF + STAGES * STAGE;
-  static constexpr int SQ_OFF = RAW_OFF + STAGES * RAW;
+  static constexpr int PT_OFF = RAW_OFF + RAW_SLOTS * RAW;
+  static constexpr int ONES_OFF = PT_OFF + (WIDE ? 2 * SW_ROWS * 64 * 2 : 0);
+  static constexpr int XCH_OFF = ONES_OFF + (ONES_TILE ? 1024 : 0);
+  static constexpr int SQ_OFF = XCH_OFF + (WIDE ? 2 * 2 * 64 * 8 + 2 * 64 * 4 : 0);
   static constexpr int ACC_OFF = SQ_OFF + ROWS * 4;
   static constexpr int ML_OFF = ACC_OFF + 128 * CONSUMERS * D / 8 * 16;
-  static constexpr int ONES_OFF = (ML_OFF + 128 * CONSUMERS * 16 + 1023) / 1024 * 1024;
-  static constexpr int BYTES =
-      ONES_TILE ? ONES_OFF + 1024 + 1024 : ML_OFF + 128 * CONSUMERS * 16 + 1024;
+  static constexpr int BYTES = WIDE ? ACC_OFF + 1024 : ML_OFF + 128 * CONSUMERS * 16 + 1024;
   static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
@@ -307,6 +334,30 @@ struct Bf16pRing {
 // the A/B call timed ahead of the magic-number form (an integer add to the
 // bits of 1.5·2^23, then less 1.5·2^23: two instructions).
 __device__ __forceinline__ float s32_to_f32(int s) { return static_cast<float>(s); }
+
+// x / c rounded as IEEE division rounds it, given rc = 1/c rounded, with
+// no slow-path branch: q = x·rc is within an ulp of x/c, and one FMA with
+// the exact remainder x − c·q rounds to x/c (Markstein's theorem), short of
+// underflow or overflow, which a softcapped score never nears.
+__device__ __forceinline__ float div_rn(float x, float c, float rc) {
+  const float q = __fmul_rn(x, rc);
+  return fmaf(fmaf(-c, q, x), rc, q);
+}
+
+// P' of an int32 score s of a row (f its dequantization factor, shift = m
+// - ln p_scale; fl2 = f·log2 e, sh2 = shift·log2 e; rcap = 1 / softcap):
+// with softcap expf of the softcapped score less the shift (the bits of
+// dequant's), else one exp2 of one FMA.
+template <bool CAP>
+__device__ __forceinline__ float p_prime(const Params& p, int s, float f, float shift, float fl2,
+                                         float sh2, float rcap) {
+  if constexpr (CAP) {
+    const float x = __fmul_rn(static_cast<float>(s), f);
+    return expf(__fsub_rn(p.softcap * tanhf(div_rn(x, p.softcap, rcap)), shift));
+  } else {
+    return ex2(fmaf(s32_to_f32(s), fl2, -sh2));
+  }
+}
 
 // Four int8 (one 32-bit word) as four bf16 (two pairs, byte 0 in the low
 // half), exactly (|x| <= 128 is a bf16): each byte, biased to unsigned u,
@@ -334,7 +385,13 @@ __device__ __forceinline__ uint2 v_to_bf16(uint32_t w) {
 // then P' and pv += P'·[V | 1] over the exp sweep (F32L: pv += P'·V, and l
 // over the f32 P' on the CUDA cores before P' is packed, each lane's keys,
 // quad sums at the quant block's end, as MODE_INT8_P's l), and fold each
-// quant block into acc and l at its end.
+// quant block into acc and l at its end. At d=256 (WIDE) the two consumers
+// share the block's 64 rows: consumer c takes keys 32c..32c+31 of every
+// tile (S as m64n32, the row max, which the two exchange once a quant
+// block, P' and its share of l, which they add at the end) and O's columns
+// 128c..128c+127 (P·V as four m64n128 products, A from a bf16 P tile that
+// both write an item, B V's column blocks 2c and 2c + 1), so that acc
+// stays in registers.
 template <int D, bool QBF16, bool F32L>
 __global__ void __launch_bounds__(Bf16pRing<D, F32L>::NTB, Bf16pRing<D, F32L>::BLOCKS)
     flash_int8_bf16p_kernel(const Params p) {
@@ -411,13 +468,16 @@ __global__ void __launch_bounds__(Bf16pRing<D, F32L>::NTB, Bf16pRing<D, F32L>::B
 
   if (wg == 0) {
     // Producer: item n into stage n % STAGES once the consumers handed that
-    // stage back; handed over LAG items later, when its copies have landed
-    // (and its V is converted).
-    if constexpr (!R::WIDE) setmaxnreg_dec<R::PRODUCER_REGS>();
+    // stage back; handed over LAG items later (WIDE: one), when its copies
+    // have landed (and its V is converted).
+    setmaxnreg_dec<R::PRODUCER_REGS>();
     const size_t kvbase = (size_t(b) * p.Hkv + kvh) * p.Skv * D;
     const int8_t* kg = p.k + kvbase;
     const int8_t* vg = p.v + kvbase;
-    int8_t* raw = reinterpret_cast<int8_t*>(smem + R::RAW_OFF);
+    // Item n's raw V rows.
+    auto raw = [&](int n) {
+      return reinterpret_cast<int8_t*>(smem + R::RAW_OFF) + n % R::RAW_SLOTS * R::RAW;
+    };
     // The ones block of every stage's [V | 1] tile (n8 tile D / 8), or the
     // ones tile, once.
     if constexpr (R::ONES_IN_V) {
@@ -430,24 +490,28 @@ __global__ void __launch_bounds__(Bf16pRing<D, F32L>::NTB, Bf16pRing<D, F32L>::B
       if (gtid < 64) reinterpret_cast<uint4*>(smem + R::ONES_OFF)[gtid] = ones4;
     }
     // Each thread copies, and converts, the same chunks of every tile: its
-    // own cp.async wait is all the conversion needs.
-    auto issue = [&](int t0, int kend, bool with_v, int s) {
+    // own cp.async wait is all the conversion needs (and its conversion's
+    // stores, which need every load's value, precede its next copies into
+    // the slot). Item n sits in stage n % STAGES.
+    auto issue = [&](int t0, int kend, bool with_v, int n) {
+      const int s = n % R::STAGES;
 #pragma unroll
       for (int i = 0; i < R::CPT; ++i) {
         const int e = gtid + 128 * i, r = e / (D / 16), c = e % (D / 16);
         const bool ok = t0 + r < kend;  // zero past the quant block's end
         const size_t src = size_t(ok ? t0 + r : 0) * D + 16 * c;
         cp_async16(k_tile(s) + sw8_d<D, 64>(r, c), kg + src, ok);
-        if (with_v) cp_async16(raw + s * R::RAW + 16 * e, vg + src, ok);
+        if (with_v) cp_async16(raw(n) + 16 * e, vg + src, ok);
       }
       cp_async_commit();
     };
-    auto hand_over = [&](int s, bool with_v) {
+    auto hand_over = [&](int n, bool with_v) {
+      const int s = n % R::STAGES;
       if (with_v) {
 #pragma unroll
         for (int i = 0; i < R::CPT; ++i) {
           const int e = gtid + 128 * i, r = e / (D / 16), c = e % (D / 16);
-          const uint4 w = *reinterpret_cast<const uint4*>(raw + s * R::RAW + 16 * e);
+          const uint4 w = *reinterpret_cast<const uint4*>(raw(n) + 16 * e);
           const uint2 x0 = v_to_bf16(w.x), x1 = v_to_bf16(w.y);
           const uint2 x2 = v_to_bf16(w.z), x3 = v_to_bf16(w.w);
           *reinterpret_cast<uint4*>(v_tile(s) + sw(r, 2 * c)) = make_uint4(x0.x, x0.y, x1.x, x1.y);
@@ -468,21 +532,31 @@ __global__ void __launch_bounds__(Bf16pRing<D, F32L>::NTB, Bf16pRing<D, F32L>::B
       for (int sweep = 0; sweep < 2; ++sweep) {
         for (int t0 = t_first; t0 < kb1; t0 = next_run(t0 + BKV, kb1), ++n) {
           const int s = n % R::STAGES;
-          if (n >= R::LAG) {
+          if constexpr (R::WIDE) {
+            // Item n - 1 handed over once it lands, before stage s is
+            // waited for: a consumer at exp item n - 2 releases stage s
+            // (item n - 3's) and waits for item n - 1 right after; were
+            // item n - 1 converted only after that release, its conversion
+            // would hold the consumer every item.
+            if (n >= 1) {
+              cp_async_wait<0>();
+              hand_over(n - 1, (v_items >> ((n - 1) % R::STAGES)) & 1u);
+            }
+          } else if (n >= R::LAG) {
             cp_async_wait<R::LAG - 1>();
             const int j = (n - R::LAG) % R::STAGES;
-            hand_over(j, (v_items >> j) & 1u);  // item n - LAG landed
+            hand_over(n - R::LAG, (v_items >> j) & 1u);  // item n - LAG landed
           }
           if (n >= R::STAGES) bar_sync(R::EMPTY + s, R::NTB);  // the consumers are done with s
-          issue(t0, kb1, sweep == 1, s);
+          issue(t0, kb1, sweep == 1, n);
           v_items = (v_items & ~(1u << s)) | (uint32_t(sweep) << s);
         }
       }
     }
     cp_async_wait_all();
-    for (int j = max(n - R::LAG, 0); j < n; ++j) {
+    for (int j = max(n - (R::WIDE ? 1 : R::LAG), 0); j < n; ++j) {
       const int s = j % R::STAGES;
-      hand_over(s, (v_items >> s) & 1u);
+      hand_over(j, (v_items >> s) & 1u);
     }
     // The consumers hand back every stage: wait for the last ones.
     for (int j = max(n - R::STAGES, 0); j < n; ++j) bar_sync(R::EMPTY + j % R::STAGES, R::NTB);
@@ -490,9 +564,294 @@ __global__ void __launch_bounds__(Bf16pRing<D, F32L>::NTB, Bf16pRing<D, F32L>::B
   }
 
   // Consumers.
-  if constexpr (!R::WIDE) setmaxnreg_inc<R::CONSUMER_REGS>();
+  setmaxnreg_inc<R::CONSUMER_REGS>();
   const int cw = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  // Item n of the walk sits in stage n % STAGES.
+  auto full = [&](int n) {
+    bar_sync(R::FULL + R::CONSUMERS * (n % R::STAGES) + cw, R::FULL_THREADS);
+  };
+  auto release = [&](int n) { bar_arrive(R::EMPTY + n % R::STAGES, R::NTB); };
+
+  if constexpr (R::WIDE) {
+    // d=256: both consumers hold the block's 64 rows (warp w rows 16w..);
+    // this one's keys of every tile are kh..kh + 31: their S, row max, P'
+    // and its share of l; its P·V is O's columns 128cw..128cw+127, from the
+    // P tile that both write. Each item's S is waited for at the item's
+    // start (with the P·V before it), and the next item's (within the
+    // quant block) issued at once, so that it runs on the tensor cores
+    // beside this item's work on the CUDA cores.
+    const int8_t* qs = reinterpret_cast<const int8_t*>(smem);
+    const float* sqs = reinterpret_cast<const float*>(smem + R::SQ_OFF);
+    const int rbase = q0 + 16 * warp;  // this warp's first q row
+    const int qpos_r[2] = {q_off + rbase + g, q_off + rbase + g + 8};
+    const int wq_first = q_off + rbase, wq_last = wq_first + 15;
+    const int kh = 32 * cw;
+    const float rcap = 1.f / p.softcap;  // (rounded: div_rn's reciprocal)
+    __nv_bfloat16* pt = reinterpret_cast<__nv_bfloat16*>(smem + R::PT_OFF);
+    int2* xmax = reinterpret_cast<int2*>(smem + R::XCH_OFF);  // [slot][consumer][row]
+    float* xl = reinterpret_cast<float*>(smem + R::XCH_OFF + 2 * 2 * 64 * 8);  // [consumer][row]
+    constexpr int OND = ND / 2;  // n8 tiles of O's column half
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float acc[OND][4];  // O's column half, in registers
+    zero(acc);
+    float pv[OND][4];   // P'·V of the quant block's exp sweep (the column half)
+    float pl[1][4];     // ONES_TILE: P'·1 over this consumer's keys
+    uint32_t a[2][4] = {};  // P' of this consumer's keys in bf16: register A of k16 step kk
+    // S of this item (sc) and of the next, in flight (sn): sc[j][e] is row
+    // g + 8(e >> 1), key kh + 8j + 2t + (e & 1) of the tile.
+    int sc[4][4], sn[4][4];
+    auto issue_s = [&](int n) {
+      const int8_t* kt = k_tile(n % R::STAGES) + kh * S8_ROW;
+      wgmma_fence();
+      fence_operands(sn);
+#pragma unroll
+      for (int kc = 0; kc < D / 32; ++kc)
+        wgmma_s8_m64n32(sn, s8_desc_d<D, 64>(qs, kc), s8_desc_d<D, 64>(kt, kc), kc);
+      wgmma_commit();
+    };
+    auto landed = [&]() {  // every product issued so far has landed: sc
+      wgmma_wait<0>();
+      fence_operands(sn);
+      if constexpr (R::ONES_TILE) fence_operands(a);  // (P' held until the ones product landed)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = sn[j][e];
+    };
+    // This consumer's keys [h0, h1) of a tile as the warp's rows see them:
+    // 0 none there (past the quant block), 1 every one masked, 2 some
+    // masked, 3 none masked.
+    auto half_kind = [&](int h0, int h1) {
+      if (h0 >= h1) return 0;
+      if (!range_should_run(p, wq_first, wq_last, kv_off + h0, kv_off + h1 - 1)) return 1;
+      return h1 - h0 == 32 &&
+                     range_unmasked(p, wq_first, wq_last, kv_off + h0, kv_off + h1 - 1, h1 - 1)
+                 ? 3 : 2;
+    };
+    int n = 0, nq = 0, np = 0;  // items, quant blocks and exp items walked
+    for (int qb = 0; qb < p.nkv; ++qb) {
+      const int kb0 = qb * p.block_kv, kb1 = kb0 + p.block_kv;
+      const int t_first = next_run(kb0, kb1);
+      if (t_first >= kb1) continue;  // (no row of the block sees it)
+      const size_t sidx = (size_t(b) * p.Hkv + kvh) * p.nkv + qb;
+      const float kss = p.ks[sidx] * p.sm_scale;
+      const float f_r[2] = {sqs[16 * warp + g] * kss, sqs[16 * warp + g + 8] * kss};
+
+      // Sweep 1: the row max over this consumer's keys; the last item
+      // issues the exp sweep's first S.
+      int imax[2] = {INT_MIN, INT_MIN};
+      bool any_masked[2] = {false, false};
+      auto max_half = [&](auto unmasked_tag, int h0, int h1) {
+        constexpr bool UNMASKED = decltype(unmasked_tag)::value;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, kloc = h0 + 8 * j + 2 * t + (e & 1);
+            if (UNMASKED) {
+              imax[r] = max(imax[r], sc[j][e]);
+            } else if (kloc < h1) {  // (keys past the quant block are absent)
+              if (pair_valid(p, qpos_r[r], kv_off + kloc, kloc)) {
+                imax[r] = max(imax[r], sc[j][e]);
+              } else {
+                any_masked[r] = true;
+              }
+            }
+          }
+      };
+      full(n);
+      issue_s(n);
+      for (int t0 = t_first; t0 < kb1; ++n) {  // max sweep
+        landed();
+        const int t1 = next_run(t0 + BKV, kb1);  // (its loop not across a product in flight)
+        release(n);
+        full(n + 1);
+        issue_s(n + 1);
+        const int h0 = t0 + kh, h1 = min(h0 + 32, min(t0 + BKV, kb1));
+        const int kind = half_kind(h0, h1);
+        if (kind == 1) {
+          any_masked[0] = any_masked[1] = true;  // every present score of the warp's half is masked
+        } else if (kind == 3) {
+          max_half(std::true_type{}, h0, h1);
+        } else if (kind == 2) {
+          max_half(std::false_type{}, h0, h1);
+        }
+        t0 = t1;
+      }
+      // The row max over both halves: each consumer's through this quant
+      // block's exchange slot (two in turn: a slot is written again only
+      // after both consumers passed the next block's exchange).
+      int2* xm = xmax + 128 * (nq++ & 1);
+      int im[2];
+      bool am[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        im[r] = quad_imax(imax[r]);
+        am[r] = quad_max(any_masked[r] ? 1.f : 0.f) > 0.f;
+        if (t == 0) xm[64 * cw + 16 * warp + g + 8 * r] = make_int2(im[r], am[r]);
+      }
+      bar_sync(R::XCHG, 256);
+      float m_next[2], alpha[2], shift[2], fl2[2], sh2[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int2 xo = xm[64 * (1 - cw) + 16 * warp + g + 8 * r];  // the other half's
+        const int imr = max(xo.x, im[r]);
+        const bool amr = am[r] || xo.y;
+        const float mc = imr != INT_MIN ? dequant(p, imr, f_r[r]) : (amr ? p.mask_value : -INFINITY);
+        m_next[r] = fmaxf(m[r], mc);
+        alpha[r] = m_next[r] == -INFINITY ? 1.f : expf(m[r] - m_next[r]);
+        shift[r] = m_next[r] - p.ln_p;
+        fl2[r] = f_r[r] * LOG2E;
+        sh2[r] = shift[r] * LOG2E;
+      }
+
+      // Sweep 2: P' over this consumer's keys (F32L: and its f32 sum), in
+      // bf16 into the item's P tile (word 2hh + r of k16 step kk at keys kh
+      // + 16kk + 8hh + 2t.., rows g + 8r: the register A of the ones
+      // product too); once both halves are in, pv += P'·V's columns
+      // 128cw.. (A and B from shared memory), and MODE_BF16_P's pl += P'·1
+      // over its own keys (the register A).
+      float ls[2] = {0.f, 0.f};
+      auto exp_half = [&](auto unmasked_tag, auto cap_tag, int h0, int h1) {
+        constexpr bool UNMASKED = decltype(unmasked_tag)::value;
+        constexpr bool CAP = decltype(cap_tag)::value;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int j = 2 * kk + hh;
+              float pe[2];  // keys h0 + 8j + 2t + u
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                float x = p_prime<CAP>(p, sc[j][2 * r + u], f_r[r], shift[r], fl2[r], sh2[r], rcap);
+                if (!UNMASKED) {
+                  const int kloc = h0 + 8 * j + 2 * t + u;
+                  x = kloc < h1 && pair_valid(p, qpos_r[r], kv_off + kloc, kloc) ? x : 0.f;
+                }
+                pe[u] = x;
+              }
+              const __nv_bfloat162 pb = __floats2bfloat162_rn(pe[0], pe[1]);
+              a[kk][2 * hh + r] = *reinterpret_cast<const uint32_t*>(&pb);
+              if constexpr (F32L) ls[r] += pe[0] + pe[1];  // l over the f32 P'
+            }
+      };
+      // (pv and pl are not zeroed: the quant block's first products
+      // overwrite them, so that no instruction but a wgmma defines them
+      // while an S is in flight; ptxas would serialize every wgmma.)
+      for (int t0 = t_first; t0 < kb1; ++n, ++np) {  // exp sweep
+        landed();  // (and the item before's P·V)
+        const int t1 = next_run(t0 + BKV, kb1);
+        if (t0 != t_first) release(n - 1);
+        if (t1 < kb1) full(n + 1);
+        issue_s(t1 < kb1 ? n + 1 : n);  // (the last item: its own S again, nothing waits)
+        const int h0 = t0 + kh, h1 = min(h0 + 32, min(t0 + BKV, kb1));
+        const int kind = half_kind(h0, h1);
+        if (kind >= 2) {
+          with_tags(kind == 3, p.has_softcap, [&](auto unmasked_tag, auto cap_tag) {
+            exp_half(unmasked_tag, cap_tag, h0, h1);
+          });
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[kk][i] = 0u;  // no key of the half, or every one masked
+        }
+        __nv_bfloat16* pb = pt + (np & 1) * SW_ROWS * 64;  // the item's P tile
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              *reinterpret_cast<uint32_t*>(pb + sw(16 * warp + g + 8 * r, 4 * cw + 2 * kk + hh) +
+                                           2 * t) = a[kk][2 * hh + r];
+        fence_async_shared();
+        bar_sync(R::PREADY, 256);  // (a P tile is written again two exp items on,
+                                   // once both consumers waited for this P·V)
+        // V's 64-column blocks 2cw and 2cw + 1: O's columns 128cw..
+        const __nv_bfloat16* vh = v_tile(n % R::STAGES) + 2 * cw * SW_ROWS * 64;
+        wgmma_fence();
+        fence_operands(pv);
+        const int more = t0 != t_first;  // (0: the block's first item overwrites)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_m64n128(pv, tile_desc(pb, 0, kk), tile_desc_mn(vh, 16 * kk), kk | more);
+        if constexpr (R::ONES_TILE) {
+          const uint64_t ones = sw128_desc(smem + R::ONES_OFF);  // 8 rows of ones, K-major
+          fence_operands(pl);
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) wgmma_rs_m64n8<0>(pl, a[kk], ones, kk | more);
+        }
+        wgmma_commit();
+        t0 = t1;
+      }
+      wgmma_wait<0>();
+      fence_operands(pv);
+      fence_operands(sn);
+      if constexpr (R::ONES_TILE) {
+        fence_operands(a);
+        fence_operands(pl);
+      }
+      release(n - 1);
+      // This consumer's share of the quant block's l: F32L's lanes t =
+      // 0..3 of a quad each hold a quarter of its keys; every column of the
+      // ones product the whole share.
+      float lb[2];
+      if constexpr (F32L) {
+        lb[0] = quad_sum(ls[0]), lb[1] = quad_sum(ls[1]);
+      } else {
+        lb[0] = pl[0][0], lb[1] = pl[0][2];
+      }
+      const float vs_b = p.vs[sidx];  // the quant block's V scale
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = alpha[r] * l[r] + lb[r];
+        m[r] = m_next[r];
+      }
+#pragma unroll
+      for (int j = 0; j < OND; ++j) {
+        acc[j][0] = acc[j][0] * alpha[0] + pv[j][0] * vs_b;
+        acc[j][1] = acc[j][1] * alpha[0] + pv[j][1] * vs_b;
+        acc[j][2] = acc[j][2] * alpha[1] + pv[j][2] * vs_b;
+        acc[j][3] = acc[j][3] * alpha[1] + pv[j][3] * vs_b;
+      }
+    }
+    // l over both halves: each consumer's share through the exchange slots.
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) xl[64 * cw + 16 * warp + g + 8 * r] = l[r];
+    }
+    bar_sync(R::XCHG, 256);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] += xl[64 - 64 * cw + 16 * warp + g + 8 * r];
+
+    // ---- Epilogue: o = acc / l (l == 0 -> o = 0) of O's column half; lse
+    // = m + log l - ln p (consumer 0).
+    const size_t obase = (size_t(b) * p.H + h) * p.Sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rbase + g + 8 * r;
+      if (row >= p.Sq) continue;
+      const float l_inv = l[r] == 0.f ? 1.f : 1.f / l[r];
+#pragma unroll
+      for (int j = 0; j < OND; ++j) {
+        const float o0 = acc[j][2 * r] * l_inv, o1 = acc[j][2 * r + 1] * l_inv;
+        const size_t idx = (obase + row) * D + 128 * cw + 8 * j + 2 * t;
+        if (QBF16) {
+          *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(p.o) + idx) =
+              __floats2bfloat162_rn(o0, o1);
+        } else {
+          *reinterpret_cast<float2*>(reinterpret_cast<float*>(p.o) + idx) = make_float2(o0, o1);
+        }
+      }
+      if (p.lse != nullptr && t == 0 && cw == 0) {
+        p.lse[obase + row] = l[r] > 0.f ? m[r] + logf(l[r]) - p.ln_p : -INFINITY;
+      }
+    }
+  } else {  // d <= 128: each consumer walks every key of its own 64 rows
   int8_t* qs = reinterpret_cast<int8_t*>(smem) + cw * R::QTILE;
   float* sqs = reinterpret_cast<float*>(smem + R::SQ_OFF) + 64 * cw;
   const int rbase = q0 + 64 * cw + 16 * warp;  // this warp's first q row
@@ -508,15 +867,9 @@ __global__ void __launch_bounds__(Bf16pRing<D, F32L>::NTB, Bf16pRing<D, F32L>::B
   for (int c = 0; c < ND; ++c) acc4[c * R::CONSUMERS * 128] = make_float4(0.f, 0.f, 0.f, 0.f);
   *ml = make_float4(-INFINITY, -INFINITY, 0.f, 0.f);
   float pv[R::ONES_IN_V ? ND + 1 : ND][4];  // P'·[V | 1] (or P'·V) over a quant block
-  float pl[1][4];    // ONES_TILE: P'·1, l of the quant block's exp sweep
   float lsum[2];     // F32L: this lane's sums of the f32 P' of rows g and g + 8
   uint32_t a[4][4];  // P' in bf16: register A of k16 step kk (keys 16kk..16kk+15)
 
-  // Item n of the walk sits in stage n % STAGES.
-  auto full = [&](int n) {
-    bar_sync(R::FULL + R::CONSUMERS * (n % R::STAGES) + cw, R::FULL_THREADS);
-  };
-  auto release = [&](int n) { bar_arrive(R::EMPTY + n % R::STAGES, R::NTB); };
   // S = Qq·Kqᵀ of item n, issued and waited for: sc[j][e] is row g + 8(e >>
   // 1), key 8j + 2t + (e & 1) of the tile (each item's sc is new, so that
   // its registers are free between items).
@@ -633,7 +986,6 @@ __global__ void __launch_bounds__(Bf16pRing<D, F32L>::NTB, Bf16pRing<D, F32L>::B
           }
     };
     zero(pv);
-    if constexpr (R::ONES_TILE) zero(pl);
     if constexpr (F32L) lsum[0] = lsum[1] = 0.f;
     for (int t0 = t_first; t0 < kb1; t0 = next_run(t0 + BKV, kb1), ++n) {  // exp sweep
       int sc[8][4];
@@ -667,20 +1019,13 @@ __global__ void __launch_bounds__(Bf16pRing<D, F32L>::NTB, Bf16pRing<D, F32L>::B
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(pv, a[kk], tile_desc_mn(vt, 16 * kk));
       }
-      if constexpr (R::ONES_TILE) {
-        const uint64_t ones = sw128_desc(smem + R::ONES_OFF);  // 8 rows of ones, K-major
-        fence_operands(pl);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs_m64n8<0>(pl, a[kk], ones, 1);
-      }
       wgmma_commit();
     }
     wgmma_wait<0>();
     fence_operands(pv);
     fence_operands(a);
-    if constexpr (R::ONES_TILE) fence_operands(pl);
     release(n - 1);
-    // l of the quant block: every column of the ones block (or tile) holds
+    // l of the quant block: every column of the ones block holds
     // the row's whole sum; F32L's lanes t = 0..3 of a quad each hold a
     // quarter of the row's keys.
     float lb[2];
@@ -691,8 +1036,6 @@ __global__ void __launch_bounds__(Bf16pRing<D, F32L>::NTB, Bf16pRing<D, F32L>::B
         ls += __shfl_xor_sync(0xffffffffu, ls, 2);
         lb[r] = ls;
       }
-    } else if constexpr (R::ONES_TILE) {
-      lb[0] = pl[0][0], lb[1] = pl[0][2];
     } else {
       lb[0] = pv[ND][0], lb[1] = pv[ND][2];
     }
@@ -733,6 +1076,7 @@ __global__ void __launch_bounds__(Bf16pRing<D, F32L>::NTB, Bf16pRing<D, F32L>::B
       p.lse[obase + row] = l[r] > 0.f ? m[r] + logf(l[r]) - p.ln_p : -INFINITY;
     }
   }
+  }  // d <= 128
 }
 
 // ---------------------------------------------------------------------------
@@ -796,30 +1140,6 @@ struct Int8pRing {
   static constexpr int BYTES = SQ_OFF + ROWS * 4 + 1024;
   static_assert(BYTES <= 232448, "shared memory of one block");
 };
-
-// x / c rounded as IEEE division rounds it, given rc = 1/c rounded, with
-// no slow-path branch: q = x·rc is within an ulp of x/c, and one FMA with
-// the exact remainder x − c·q rounds to x/c (Markstein's theorem), short of
-// underflow or overflow, which a softcapped score never nears.
-__device__ __forceinline__ float div_rn(float x, float c, float rc) {
-  const float q = __fmul_rn(x, rc);
-  return fmaf(fmaf(-c, q, x), rc, q);
-}
-
-// P' of an int32 score s of a row (f its dequantization factor, shift = m
-// - ln p_scale; fl2 = f·log2 e, sh2 = shift·log2 e; rcap = 1 / softcap):
-// with softcap expf of the softcapped score less the shift (the bits of
-// dequant's), else one exp2 of one FMA.
-template <bool CAP>
-__device__ __forceinline__ float p_prime(const Params& p, int s, float f, float shift, float fl2,
-                                         float sh2, float rcap) {
-  if constexpr (CAP) {
-    const float x = __fmul_rn(static_cast<float>(s), f);
-    return expf(__fsub_rn(p.softcap * tanhf(div_rn(x, p.softcap, rcap)), shift));
-  } else {
-    return ex2(fmaf(s32_to_f32(s), fl2, -sh2));
-  }
-}
 
 // Block row r holds q head kvh·G + hc·GB + r / NQ at q position q0 + r % NQ
 // (GB heads of the group a block, NQ = ROWS / GB positions); the row exists

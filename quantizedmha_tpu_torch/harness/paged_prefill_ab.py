@@ -219,7 +219,7 @@ def _trees(source: str, parent=None, variants=None, variants_on="this"):
     this = {"paged_prefill": paged_prefill, "paged_decode": decode,
             "flash_fwd": flash_attention, "w4_matmul": w4_matmul,
             "flash_int8_fwd": flash_attention_int8, "flash_bwd": flash_attention}[source]
-    libs = []
+    libs, t0 = [], time.perf_counter()
     if parent is not None:
         parent_module = _ops_module(parent, source, f"_ab_parent_{source}")
         libs.append(("parent", parent_module, _build_parent(parent, source)))
@@ -230,6 +230,8 @@ def _trees(source: str, parent=None, variants=None, variants_on="this"):
                                     parent / "quantizedmha_tpu_torch" / "csrc" if on_parent else None)))
     cuda_lib.build_all([source])
     libs = [(which, module, _built(build)) for which, module, build in libs]
+    print(f"paged_prefill_ab: {len(libs) + 1} libraries built in {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr, flush=True)
     libs.append(("this", this, cuda_lib.library_path(source)))
     out = {}
     for which, module, lib in libs:
@@ -614,20 +616,23 @@ def _w4_ab(trees, g, result):
     return ok and all(result["f32_same_bits"].values())
 
 
-def _parent_has(mode, D):
-    """Whether a parent tree from before MODE_BF16_P_F32L and the bf16-P
-    kernel at d=256 has the route (the A/B of those routes times this
-    tree's library and its variants alone)."""
-    return mode == 0 or (mode == 1 and D <= 128)
+def _parent_has(module, mode, D):
+    """Whether a parent tree (its ops module) has the route: MODE_INT8_P and
+    MODE_BF16_P at d <= 128 every tree; MODE_BF16_P_F32L, and both bf16-P
+    modes at d=256, the trees that have MODE_BF16_P_F32L's counter (they
+    came together). Where it has not, the A/B of the route times this
+    tree's library and its variants alone."""
+    return mode == 0 or (mode == 1 and D <= 128) or hasattr(module, "FLASH_BF16_P_F32L")
 
 
-def _flash_int8_ab(trees, g, result, mains_only=None):
+def _flash_int8_ab(trees, g, result, mains_only=None, out=None):
     import chip_smoke as cs
     from quantizedmha_tpu_torch.ops import flash_attention_int8 as fa8
     from quantizedmha_tpu_torch.ops.quantize import quantize_kv_blocks
     launchers = {w: _launcher(m, f, "flash_int8_fwd") for w, (m, f, _) in trees.items()}
     result["ptxas"] = {w: cs._ptxas_kernels(lib.with_suffix(".log").read_text())
                        for w, (_, _, lib) in trees.items()}
+    t_start = time.perf_counter()
     ok = True
     # (mode, q shape, kv heads, q dtype, block_kv, causal, softcap[, window])
     mains = {"solve fa_int8 (bf16_p)": (1, (1, 32, 8192, 32), 32, torch.float32, 512, False,
@@ -640,6 +645,12 @@ def _flash_int8_ab(trees, g, result, mains_only=None):
              "solve shape (bf16_p_f32l)": (2, (1, 32, 8192, 32), 32, torch.float32, 512, False,
                                            None),
              "gemma2 full (bf16_p)": (1, (1, 16, 2048, 256), 8, torch.bfloat16, 512, True, 50.0),
+             "gemma2 full no softcap (bf16_p)": (1, (1, 16, 2048, 256), 8, torch.bfloat16, 512,
+                                                 True, None),
+             "gemma2 sliding (bf16_p)": (1, (1, 16, 8192, 256), 8, torch.bfloat16, 512, True,
+                                         50.0, 4096),
+             "gemma2 full f32 q (bf16_p)": (1, (1, 16, 2048, 256), 8, torch.float32, 512, True,
+                                            50.0),
              "gemma2 full (bf16_p_f32l)": (2, (1, 16, 2048, 256), 8, torch.bfloat16, 1024, True,
                                            50.0),
              "gemma2 full (int8_p)": (0, (1, 16, 2048, 256), 8, torch.bfloat16, 1024, True, 50.0),
@@ -666,7 +677,7 @@ def _flash_int8_ab(trees, g, result, mains_only=None):
         tol, _ = cs.flash_tolerances(p_out, None, l, v_i8, vs, bkv, mode)
         row, calls, outs = {}, {}, {}
         for which, launch in launchers.items():
-            if which == "parent" and not _parent_has(mode, D):
+            if which == "parent" and not _parent_has(trees["parent"][0], mode, D):
                 continue
             (o, _), call, keep = launch(operands, save_residuals=False, **kw)
             calls[which] = (call, (o, keep))
@@ -676,7 +687,7 @@ def _flash_int8_ab(trees, g, result, mains_only=None):
             if which in ("this", "parent"):
                 ok &= row[which]["err_over_tol"] <= 1.0 and same
         row["same_bits_as_this"] = {w: torch.equal(o, outs["this"]) for w, o in outs.items()}
-        if mode == 1 or D <= 128:  # (rows 1-2 keep the parent's kernel there)
+        if D <= 128:  # (rows 1-2 keep the parent's kernels there; d=256 is held to the plain)
             ok &= row["same_bits_as_this"].get("parent", True)
         _timed_turns(calls, row, iters=20)
         for which, (module, fns, _) in trees.items():
@@ -697,17 +708,22 @@ def _flash_int8_ab(trees, g, result, mains_only=None):
                "bf16": 0 if mode == 0 else 2 * pairs * D, "exp": pairs}
         row["bound_ms"], row["bound_by"] = cs.bound(nbytes, ops)
         result["main"][name] = row
+        print(f"paged_prefill_ab: {name} at {time.perf_counter() - t_start:.1f} s",
+              file=sys.stderr, flush=True)
+        if out is not None:  # (each main as it ends: a later hang keeps them)
+            _write(out, result)
         del q, k, v, qb, kb, vb, calls, outs
-    # The coverage cases: MODE_BF16_P's and MODE_INT8_P's at d <= 128 held
-    # to the parent's bits; the others (and MODE_INT8_P's at d <= 128 too)
-    # to the plain version (the same bits twice), each by every library
+    # The coverage cases: every mode's at d <= 128 held to the parent's bits
+    # (where the parent has the route); every case but MODE_BF16_P's at d <=
+    # 128 to the plain version (the same bits twice), each by every library
     # that has its route.
     result["plain_coverage"], result["parent_bits"] = {}, {}
     for i, case in enumerate(cs.FLASH_COVERAGE):
         *operands, kw = cs.flash_coverage_inputs(g, case)
         mode, D = case[12], case[6]
-        if mode in (0, 1) and D <= 128:
-            outs = [launchers[w](operands, **kw)[0] for w in ("parent", "this") if w in launchers]
+        if D <= 128:
+            outs = [launchers[w](operands, **kw)[0] for w in ("parent", "this")
+                    if w in launchers and (w == "this" or _parent_has(trees[w][0], mode, D))]
             result["parent_bits"][f"fa8_{i}"] = all(
                 torch.equal(a, b) for other in outs[1:] for a, b in zip(outs[0], other))
             if mode == 1:
@@ -719,7 +735,7 @@ def _flash_int8_ab(trees, g, result, mains_only=None):
                                            kw["block_kv"], mode)
         row = result["plain_coverage"][f"fa8_{i}"] = {}
         for which, launch in launchers.items():
-            if which == "parent" and not _parent_has(mode, D):
+            if which == "parent" and not _parent_has(trees["parent"][0], mode, D):
                 continue
             (o, lse), call, _keep = launch(operands, **kw)
             same = cs._same_bits_again(lambda: call[0](*call[1]), [o, lse])
@@ -811,6 +827,11 @@ def _flash_bwd_ab(trees, g, result):
     return ok and all(result["coverage_same_bits"][name] for name in bf16_cases)
 
 
+def _write(path, result):
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(result) + "\n")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path,
@@ -851,14 +872,12 @@ def main(argv=None) -> int:
           "flash_fwd": _flash_fwd_ab, "w4_matmul": _w4_ab,
           "flash_int8_fwd": _flash_int8_ab, "flash_bwd": _flash_bwd_ab}[args.source]
     if args.source == "flash_int8_fwd":
-        result["ok"] = bool(ab(trees, g, result, args.mains))
+        result["ok"] = bool(ab(trees, g, result, args.mains, args.out))
     else:
         result["ok"] = bool(ab(trees, g, result))
-    text = json.dumps(result)
     if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(text + "\n")
-    print(text, flush=True)
+        _write(args.out, result)
+    print(json.dumps(result), flush=True)
     return 0 if result["ok"] else 1
 
 

@@ -148,3 +148,35 @@ def test_sass_count_takes_the_d256_int8p_instances_alone():
     assert sass_count.count_instructions(text) == {
         "flash_int8_int8p_kernelILi256ELb1ELi2ELi64EEEvNS_6ParamsE": 3}
 
+
+def test_sass_count_empties_each_d256_walk_and_names_its_mode():
+    """sass_count empties the unmasked softcap instance of both d=256 walks
+    of csrc/flash_int8_fwd.cu (int8 P and bf16 P, 16 scores a consumer
+    thread an item each), and maps each d=256 instance to its numerics
+    mode by its template arguments (<256, QBF16, F32L> for bf16 P)."""
+    import pathlib
+    src = pathlib.Path(sass_count.__file__).resolve().parents[1] / "csrc" / "flash_int8_fwd.cu"
+    text, scores = sass_count.emptied(src.read_text())
+    assert scores == {"int8_p": 16, "bf16_p": 16}
+    assert text.count(sass_count.RETURN) == 2
+    assert [sass_count.family(k) for k in (
+        "flash_int8_int8p_kernelILi256ELb0ELi2ELi64EEEvNS_6ParamsE",
+        "flash_int8_bf16p_kernelILi256ELb1ELb0EEvNS_6ParamsE",
+        "flash_int8_bf16p_kernelILi256ELb0ELb1EEvNS_6ParamsE")] == [
+        "int8_p", "bf16_p", "bf16_p_f32l"]
+    assert sass_count.cuda_core_ms(132 * 4 * 32 * 1000, 1.0, 132, 1.0) == pytest.approx(1.0)
+
+
+
+def test_flash_int8_variants_name_committed_lines():
+    """Each variant of harness/flash_int8_fwd_variants.json replaces lines
+    that occur exactly once in csrc/flash_int8_fwd.cu, as the A/B requires
+    before it builds the copy."""
+    import json
+    import pathlib
+    pkg = pathlib.Path(sass_count.__file__).resolve().parents[1]
+    src = (pkg / "csrc" / "flash_int8_fwd.cu").read_text()
+    variants = json.loads((pkg / "harness" / "flash_int8_fwd_variants.json").read_text())
+    for name, edits in variants.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and new != old, name
