@@ -26,6 +26,23 @@
 //   It is what the TPU kernel's Precision.DEFAULT dots do (one bf16 pass,
 //   P rounded to bf16); the plain version follows the f32 numerics of its
 //   CPU (interpret) semantics.
+//   Split key walk (bf16 q, S = splits > 1; ops/paged_prefill.py's
+//   prefill_splits, which the plain version cuts too): block (..., split s)
+//   walks only keys [s·K, (s+1)·K), K = pages_per_split · P a multiple of
+//   the 64-key tile, from zero state and writes its unnormalised f32 acc,
+//   m and l; prefill_merge_kernel then takes a row's splits in split order:
+//   M = max m, w_s = exp(m_s − M) (a split with m = -inf saw nothing and is
+//   skipped), o = Σ w_s·acc_s / Σ w_s·l_s in q's dtype (0 where that sum
+//   is 0), lse = M + log(max(Σ w_s·l_s, 1e-38)) or -inf where it is 0. P is
+//   then rounded to bf16 relative to each split's own running max m_s:
+//   split s adds bf16(p_j^s · v_scale_j) · v_j with p_j^s = exp(x_j − m_s),
+//   within 2^-8 · p_j^s |v_scale_j v_j| of the exact term (the rounding is
+//   relative, whatever the scale: bf16 has f32's exponent range), and
+//   w_s · p_j^s = exp(x_j − M) = p_j, the one walk's p under its final max.
+//   So the merged output is within 2^-8 · Σ_j p_j |v_j| / l of the exact
+//   one, l = Σ_s w_s·l_s = Σ_j p_j: one walk's bound, plus the merge's f32
+//   rescale (a few ulps). l still sums the f32 p, so lse only sees the
+//   summation order. With S = 1 nothing of this runs.
 //   f32 q (CUDA cores, f32_tile.cuh): q times sm_scale in f32, true f32
 //   FMAs for both products, P·V as (p · v_scale) · v in f32: the plain
 //   version up to the f32 summation order and a few ulps of exp/tanh.
@@ -76,6 +93,15 @@
 // tiles (the end of the chunk) first. 164 KB of shared memory at d=128, one
 // block of 16 warps an SM. Every block writes its own rows in a fixed
 // reduction order: no atomics, the same bits every launch.
+//   Small q tiles (speculative verify: 4 sequences of k + 1 = 5 rows at
+//   Gemma-2's 16 q / 8 kv heads are 32 blocks for 132 SMs, each walking its
+//   sequence's whole context one tile after another): the split key walk
+//   above gives each of a sequence's splits a block of its own, the grid's
+//   second index, and the merge runs in the same C entry. A split that
+//   holds no tile its rows can see (past a short sequence's length, or
+//   wholly behind the window) writes m = -inf, l = 0 and exits before it
+//   loads Q. With S = 1 the launch, the walk and the epilogue are the
+//   unsplit kernel's.
 //   d=256 (Gemma-2, bf16 q): a consumer's 64 x 256 f32 accumulator
 //   alone is 128 registers a thread, and each bf16 K/V stage is 64 KB. So
 //   one consumer of 64 rows (setmaxnreg 240) and the same two producers,
@@ -118,27 +144,33 @@ struct Params {
   const int* tables;     // [B, max_pages]
   void* o;               // [B, Hq, C, D], q's dtype
   float* lse;            // [B, Hq, C] or nullptr
+  float* part;           // splits > 1: [splits, B, Hq, C, D] unnormalised sums
+  float* ml;             //   and [2, splits, B, Hq, C] their m and l
   int B, Hq, Hkv, C, num_pages, P, max_pages, G, BQ, subs;
+  int splits, split_keys;  // split s walks keys [s·split_keys, (s+1)·split_keys)
   float sm_scale, softcap, mask_value, mask_half;
   int has_softcap, window, sinks;  // window < 0: none
 };
 
 // A block's q tile in its sequence: row r holds q head kvh*G + r / BQ at
-// chunk position q0 + r % BQ.
+// chunk position q0 + r % BQ; of its keys, split `split`'s.
 struct Rows {
   int qlo;              // global position of the tile's first row
-  int kend;             // keys [0, kend) can be visible to the tile
+  int kstart;           // the split's first key (a tile boundary)
+  int kend;             // keys [kstart, kend) can be visible to the tile
   const int* table;     // the sequence's block-table row
   size_t head_pages;    // first page of this kv head
 };
 
-__device__ __forceinline__ Rows block_rows(const Params& p, int b, int kvh, int q0) {
+__device__ __forceinline__ Rows block_rows(const Params& p, int b, int kvh, int q0, int split) {
   Rows s;
   const int length = p.lengths[b];
   const int qstart = p.qstarts[b];
   s.qlo = qstart + q0;
   const int qhi = qstart + min(q0 + p.BQ, p.C) - 1;
+  s.kstart = split * p.split_keys;
   s.kend = min(min(qhi + 1, length), p.max_pages * p.P);
+  if (p.splits > 1) s.kend = min(s.kend, s.kstart + p.split_keys);
   s.table = p.tables + size_t(b) * p.max_pages;
   s.head_pages = size_t(p.num_pages) * kvh;
   return s;
@@ -236,7 +268,7 @@ __global__ void __launch_bounds__(NT) paged_prefill_f32_kernel(const Params p) {
   const int q0 = blockIdx.x * p.BQ;  // first q position (chunk-relative) of the tile
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  const Rows rows = block_rows(p, b, kvh, q0);
+  const Rows rows = block_rows(p, b, kvh, q0, 0);
   const int kend = rows.kend;
 
   auto issue = [&](int t0, int buf) {
@@ -378,6 +410,10 @@ struct Bf16Smem {
   static constexpr int CR = RB / 16;           // its 16-byte chunks
   static constexpr int STAGE = BK * RB;        // bytes of one raw K or V tile
   static constexpr int PER = (BK * CR + 127) / 128;  // raw chunks of a tile a producer thread
+  // The producer's copy loop unrolled by 2 where a thread issues 8 chunks
+  // (int8 at d=256): unrolled whole, its addresses spilled at 56 registers
+  // a producer thread, and the d=256 chunk ran 1.12x slower (PERF.md).
+  static constexpr int COPY_UNROLL = PER > 4 ? 2 : PER;
   // Each consumer's Q tile, then per producer's stage a K and a V tile
   // (swizzled bf16, 1024-byte aligned); per producer RAWS raw stages of K
   // and V bytes and their keys' K and V scales; per stage the keys' K and
@@ -492,7 +528,7 @@ __global__ void __launch_bounds__(Bf16Block<D>::NTB, 1) paged_prefill_bf16_kerne
   const int ntiles = (p.C + p.BQ - 1) / p.BQ;
   const int q0 = (ntiles - 1 - int(blockIdx.x / heads)) * p.BQ;
   const int kvh = blockIdx.x % p.Hkv, b = (blockIdx.x % heads) / p.Hkv;
-  const Rows rows = block_rows(p, b, kvh, q0);
+  const Rows rows = block_rows(p, b, kvh, q0, blockIdx.y);
   // The walk's tile after the one after t0: a producer's next tile.
   auto skip_one = [&](int t0) {
     const int t1 = next_run(p, rows, t0 + BK);
@@ -510,7 +546,7 @@ __global__ void __launch_bounds__(Bf16Block<D>::NTB, 1) paged_prefill_bf16_kerne
     // context).
     auto issue = [&](int t0, int buf) {
       int8_t* rk = raw + 2 * buf * S::STAGE;
-#pragma unroll
+#pragma unroll (S::COPY_UNROLL)
       for (int k = 0; k < S::PER; ++k) {
         const int e = gtid + 128 * k, r = e / S::CR, c = e % S::CR;
         if (e >= BK * S::CR) break;
@@ -531,7 +567,7 @@ __global__ void __launch_bounds__(Bf16Block<D>::NTB, 1) paged_prefill_bf16_kerne
       }
       cp_async_commit();
     };
-    int t0 = next_run(p, rows, 0);
+    int t0 = next_run(p, rows, rows.kstart);
     if (wg == 1 && t0 < rows.kend) t0 = next_run(p, rows, t0 + BK);
     if (t0 < rows.kend) issue(t0, 0);
     for (int i = 0; t0 < rows.kend; ++i) {
@@ -562,6 +598,22 @@ __global__ void __launch_bounds__(Bf16Block<D>::NTB, 1) paged_prefill_bf16_kerne
   setmaxnreg_inc<K::CONSUMER_REGS>();
   const int cw = wg - PRODUCERS, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  if (p.splits > 1 && next_run(p, rows, rows.kstart) >= rows.kend) {
+    // An empty split: m = -inf and l = 0; the merge never reads its sums.
+    // (Split scratch row: split · plane + the row; l's plane follows the
+    // splits' m.)
+    const size_t plane = size_t(p.B) * p.Hq * p.C;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * cw + 16 * warp + g + 8 * h;
+      const int gi = r / p.BQ, qi = q0 + r % p.BQ;
+      if (t != 0 || gi >= p.G || qi >= p.C) continue;
+      const size_t slot = blockIdx.y * plane + (size_t(b) * p.Hq + kvh * p.G + gi) * p.C + qi;
+      p.ml[slot] = -INFINITY;
+      p.ml[p.splits * plane + slot] = 0.f;
+    }
+    return;
+  }
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem) + cw * T::TILE;
   // This consumer's 64 Q rows (block rows 64cw..), unscaled bf16; rows past
   // the group or the chunk are 0.
@@ -657,7 +709,7 @@ __global__ void __launch_bounds__(Bf16Block<D>::NTB, 1) paged_prefill_bf16_kerne
     }
   };
 
-  int t0 = next_run(p, rows, 0);
+  int t0 = next_run(p, rows, rows.kstart);
   for (int i = 0; t0 < rows.kend; ++i) {
     const int s = i % PRODUCERS;
     const int tn = next_run(p, rows, t0 + BK);
@@ -738,6 +790,20 @@ __global__ void __launch_bounds__(Bf16Block<D>::NTB, 1) paged_prefill_bf16_kerne
     if (gi >= p.G || qi >= p.C) continue;
     const size_t row = (size_t(b) * p.Hq + kvh * p.G + gi) * p.C + qi;
     const float l_inv = lrow[h] == 0.f ? 1.f : 1.f / lrow[h];
+    if (p.splits > 1) {
+      // This split's unnormalised sums, m and l, for the merge.
+      const size_t plane = size_t(p.B) * p.Hq * p.C;
+      const size_t slot = blockIdx.y * plane + row;
+      float* pr = p.part + slot * D;
+#pragma unroll
+      for (int c = 0; c < T::ND; ++c)
+        *reinterpret_cast<float2*>(pr + 8 * c + 2 * t) = make_float2(acc[c][2 * h], acc[c][2 * h + 1]);
+      if (t == 0) {
+        p.ml[slot] = m[h];
+        p.ml[p.splits * plane + slot] = lrow[h];
+      }
+      continue;
+    }
     __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(p.o) + row * D;
 #pragma unroll
     for (int c = 0; c < T::ND; ++c)
@@ -746,6 +812,34 @@ __global__ void __launch_bounds__(Bf16Block<D>::NTB, 1) paged_prefill_bf16_kerne
     if (p.lse != nullptr && t == 0) {
       p.lse[row] = lrow[h] == 0.f ? -INFINITY : m[h] + logf(fmaxf(lrow[h], 1e-38f));
     }
+  }
+}
+
+// One block per row (sequence, q head, q position), a thread per column:
+// the row's splits merged by lse in split order (bf16 q). A split with m =
+// -inf saw nothing: it is skipped before exp (-inf - -inf is NaN) and its
+// sums are never read.
+template <int D>
+__global__ void __launch_bounds__(D) prefill_merge_kernel(const Params p) {
+  const int d = threadIdx.x;
+  const size_t plane = size_t(p.B) * p.Hq * p.C;
+  const size_t row = blockIdx.x;
+  const float* m = p.ml + row;
+  const float* l = m + size_t(p.splits) * plane;
+  float mx = -INFINITY;
+  for (int s = 0; s < p.splits; ++s) mx = fmaxf(mx, m[s * plane]);
+  float lsum = 0.f, acc = 0.f;
+  for (int s = 0; s < p.splits; ++s) {
+    const float ms = m[s * plane];
+    if (ms == -INFINITY) continue;
+    const float w = expf(ms - mx);
+    lsum += w * l[s * plane];
+    acc += w * p.part[(s * plane + row) * D + d];
+  }
+  reinterpret_cast<__nv_bfloat16*>(p.o)[row * D + d] =
+      __float2bfloat16_rn(acc * (lsum == 0.f ? 1.f : 1.f / lsum));
+  if (d == 0 && p.lse != nullptr) {
+    p.lse[row] = lsum == 0.f ? -INFINITY : mx + logf(fmaxf(lsum, 1e-38f));
   }
 }
 
@@ -759,7 +853,11 @@ cudaError_t launch_bf16(Params p, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   p.BQ = Bf16Block<D>::BROWS / p.G;
   const unsigned blocks = unsigned((p.C + p.BQ - 1) / p.BQ) * p.Hkv * p.B;
-  paged_prefill_bf16_kernel<D, INT4><<<blocks, Bf16Block<D>::NTB, smem, stream>>>(p);
+  paged_prefill_bf16_kernel<D, INT4>
+      <<<dim3(blocks, p.splits), Bf16Block<D>::NTB, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  prefill_merge_kernel<D><<<unsigned(p.B * p.Hq * p.C), D, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -778,7 +876,9 @@ cudaError_t launch(Params p, bool q_bf16, cudaStream_t stream) {
 
 template <bool INT4>
 int dispatch(const Params& p, int D, int q_bf16, void* stream) {
-  if (p.G < 1 || p.G > ROWS || p.subs < 1 || p.P % p.subs) {
+  if (p.G < 1 || p.G > ROWS || p.subs < 1 || p.P % p.subs || p.splits < 1 ||
+      (p.splits > 1 && (!q_bf16 || p.part == nullptr || p.ml == nullptr ||
+                        p.split_keys < BK || p.split_keys % BK))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (p.B == 0 || p.C == 0) return 0;
@@ -796,8 +896,9 @@ int dispatch(const Params& p, int D, int q_bf16, void* stream) {
 
 Params make_params(const void* q, const void* kp, const void* vp, const void* ks,
                    const void* vs, const void* lengths, const void* qstarts, const void* tables,
-                   void* o, void* lse, int B, int Hq, int Hkv, int C, int num_pages, int P,
-                   int max_pages, int subs, float sm_scale, int has_softcap, float softcap,
+                   void* o, void* lse, void* part, void* ml, int B, int Hq, int Hkv, int C,
+                   int num_pages, int P, int max_pages, int subs, int splits,
+                   int pages_per_split, float sm_scale, int has_softcap, float softcap,
                    int window, int sinks, float mask_value, float mask_half) {
   Params p;
   p.q = q;
@@ -810,6 +911,10 @@ Params make_params(const void* q, const void* kp, const void* vp, const void* ks
   p.tables = static_cast<const int*>(tables);
   p.o = o;
   p.lse = static_cast<float*>(lse);
+  p.part = static_cast<float*>(part);
+  p.ml = static_cast<float*>(ml);
+  p.splits = splits;
+  p.split_keys = pages_per_split * P;
   p.B = B;
   p.Hq = Hq;
   p.Hkv = Hkv;
@@ -832,29 +937,37 @@ Params make_params(const void* q, const void* kp, const void* vp, const void* ks
 
 }  // namespace
 
+// part [splits, B, Hq, C, D] and ml [2, splits, B, Hq, C] f32 scratch (NULL
+// when splits == 1; splits > 1 takes bf16 q); split s walks logical pages
+// [s * pages_per_split, (s + 1) * pages_per_split), a whole number of
+// 64-key tiles.
 extern "C" int paged_prefill(const void* q, const void* kp, const void* vp, const void* ks,
                              const void* vs, const void* lengths, const void* qstarts,
-                             const void* tables, void* o, void* lse, int B, int Hq, int Hkv,
-                             int C, int num_pages, int P, int max_pages, int D, float sm_scale,
-                             int has_softcap, float softcap, int window, int sinks,
-                             float mask_value, float mask_half, int q_bf16, void* stream) {
-  const Params p = make_params(q, kp, vp, ks, vs, lengths, qstarts, tables, o, lse, B, Hq, Hkv,
-                               C, num_pages, P, max_pages, 1, sm_scale, has_softcap, softcap,
-                               window, sinks, mask_value, mask_half);
+                             const void* tables, void* o, void* lse, void* part, void* ml, int B,
+                             int Hq, int Hkv, int C, int num_pages, int P, int max_pages, int D,
+                             int splits, int pages_per_split, float sm_scale, int has_softcap,
+                             float softcap, int window, int sinks, float mask_value,
+                             float mask_half, int q_bf16, void* stream) {
+  const Params p = make_params(q, kp, vp, ks, vs, lengths, qstarts, tables, o, lse, part, ml, B,
+                               Hq, Hkv, C, num_pages, P, max_pages, 1, splits, pages_per_split,
+                               sm_scale, has_softcap, softcap, window, sinks, mask_value,
+                               mask_half);
   return dispatch<false>(p, D, q_bf16, stream);
 }
 
 // INT4 pages [Hkv, num_pages, P, D/2], scales [Hkv, num_pages, subs].
 extern "C" int paged_prefill_int4(const void* q, const void* kp, const void* vp, const void* ks,
                                   const void* vs, const void* lengths, const void* qstarts,
-                                  const void* tables, void* o, void* lse, int B, int Hq,
-                                  int Hkv, int C, int num_pages, int P, int max_pages, int D,
-                                  int subs, float sm_scale, int has_softcap, float softcap,
-                                  int window, int sinks, float mask_value, float mask_half,
-                                  int q_bf16, void* stream) {
-  const Params p = make_params(q, kp, vp, ks, vs, lengths, qstarts, tables, o, lse, B, Hq, Hkv,
-                               C, num_pages, P, max_pages, subs, sm_scale, has_softcap, softcap,
-                               window, sinks, mask_value, mask_half);
+                                  const void* tables, void* o, void* lse, void* part, void* ml,
+                                  int B, int Hq, int Hkv, int C, int num_pages, int P,
+                                  int max_pages, int D, int subs, int splits,
+                                  int pages_per_split, float sm_scale, int has_softcap,
+                                  float softcap, int window, int sinks, float mask_value,
+                                  float mask_half, int q_bf16, void* stream) {
+  const Params p = make_params(q, kp, vp, ks, vs, lengths, qstarts, tables, o, lse, part, ml, B,
+                               Hq, Hkv, C, num_pages, P, max_pages, subs, splits,
+                               pages_per_split, sm_scale, has_softcap, softcap, window, sinks,
+                               mask_value, mask_half);
   return dispatch<true>(p, D, q_bf16, stream);
 }
 

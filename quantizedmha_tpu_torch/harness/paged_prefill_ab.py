@@ -5,6 +5,9 @@ build/parent`), against this tree's, in one process.
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --parent build/parent \\
         [--source paged_prefill|paged_decode|flash_fwd|w4_matmul|flash_int8_fwd|flash_bwd] \\
         [--out ab.json]
+    python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source paged_prefill \\
+        --parent build/parent [--split-targets 528 924 1056] [--rounds 5] \\
+        [--variants quantizedmha_tpu_torch/harness/paged_prefill_variants.json]
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source paged_decode \\
         --variants quantizedmha_tpu_torch/harness/decode_ablations.json
     python -m quantizedmha_tpu_torch.harness.paged_prefill_ab --source flash_fwd \\
@@ -30,12 +33,27 @@ launches it through the parent's wrapper
 
 --source paged_prefill (csrc/paged_prefill.cu):
 - Rows 10 (`paged_prefill`) and 11 (`paged_prefill_int4`) at chip_smoke.py's
-  main shapes, bf16 q: each library's ms in turns (parent, this, this,
-  parent; CUDA events over 20 launches) and its err_over_tol against the
-  plain version under chip_smoke.py's tolerance.
+  main shapes and row 10 at serve_hybrid's d=256 chunk (2048 rows at 4096
+  of context, softcap 50), bf16 q, where prefill_splits gives S = 1: each
+  library's ms in turns (parent, this, this, parent; CUDA events over 20
+  launches) and its err_over_tol against the plain version under
+  chip_smoke.py's tolerance.
+- Row 10 at verify's shapes (VERIFY_MAIN: Gemma-2's full layer at the
+  coverage's 41-slot table and at serve_spec's 64 slots, its sliding
+  layer, Llama-3-8B's heads at 8 sequences, serve_tp's rank at 8 q / 2 kv
+  heads), where this tree takes the split key walk: the splits, each
+  library's ms in turns and err_over_tol against this tree's plain version
+  (which cuts the same splits), this library's bits twice, SDPA's ms on the
+  dequantized K/V and the bound; with --split-targets, this library at
+  prefill_splits' cut for each target_blocks, in turns (the sweep that
+  chose SPLIT_TARGET_BLOCKS). --rounds repeats each shape's turns.
 - Both routes, bf16 q and q taken in f32, at each main shape and at every
-  paged prefill coverage case of chip_smoke.py (INT8 and INT4): whether
-  the two libraries give the same bits (output and lse).
+  paged prefill coverage case of chip_smoke.py (INT8 and INT4) where
+  prefill_splits gives S = 1: whether the libraries give the same bits
+  (output and lse); at the bf16 cases where S > 1, each library's
+  err_over_tol.
+- ptxas registers and spill bytes of each library's kernels, and its
+  serialized-wgmma warnings (C7514, C7515).
 
 --source paged_decode (csrc/paged_decode.cu):
 - Rows 3 (serve's shape and serve_flash's deep decode), 4 (MQA) and 12
@@ -257,38 +275,50 @@ def _launcher(module, fns, source):
     return launch
 
 
-def _timed_turns(calls, row, iters):
+def _timed_turns(calls, row, iters, rounds=1):
     """ms of each library's call in turns: the others, this, this, the
-    others in reverse (parent, this, this, parent)."""
+    others in reverse (parent, this, this, parent), `rounds` times."""
     import chip_smoke as cs
     others = [w for w in calls if w != "this"]
-    for which in others + ["this", "this"] + others[::-1]:
+    for which in (others + ["this", "this"] + others[::-1]) * rounds:
         fn, fargs = calls[which][0]
         row[which].setdefault("ms", []).append(cs.cuda_ms(lambda: fn(*fargs), iters=iters))
     if "parent" in calls:
         row["speedup"] = min(row["parent"]["ms"]) / max(row["this"]["ms"])
 
 
-def _prefill_ab(trees, g, result):
+# Row 10 at verify's shapes (VERIFY_COVERAGE tuples, table slots or None):
+# Gemma-2's full layer at the coverage's table and at serve_spec's 64 slots,
+# its sliding layer (the slots behind the window on the scrap page), Llama-3-8B
+# at 8 sequences, and serve_tp's rank (8 q / 2 kv heads).
+VERIFY_MAIN = {"verify gemma2 full": (1, None), "verify gemma2 full (64 slots)": (1, 64),
+               "verify gemma2 sliding": (0, None), "verify d128 (8 seqs)": (5, None),
+               "verify serve_tp d128": ("tp", None)}
+
+
+def _prefill_ab(trees, g, result, split_targets=None, rounds=1):
     import chip_smoke as cs
     from quantizedmha_tpu_torch.ops import paged_prefill as pp
     launchers = {w: _launcher(m, f, "paged_prefill") for w, (m, f, _) in trees.items()}
+    result["ptxas"] = {w: _ptxas(lib) for w, (_, _, lib) in trees.items()}
     q8, cache8, len8, st8, tab8 = cs._paged_main_inputs(g)
     q4, cache4, len4, tab4, st4 = cs._int4_prefill_main_inputs(g)
-    mains = {"paged_prefill": ((q8, cache8, len8, st8, tab8), False),
-             "paged_prefill_int4": ((q4, cache4, len4, st4, tab4), True)}
     nomask = dict(window=None, sinks=0, softcap=None)
+    mains = {"paged_prefill": ((q8, cache8, len8, st8, tab8), False, nomask),
+             "paged_prefill_int4": ((q4, cache4, len4, st4, tab4), True, nomask),
+             "gemma2 chunk (d=256)": (_gemma2_chunk(g), False,
+                                      dict(nomask, softcap=cs.GEMMA2_ATTN["softcap"]))}
     result["f32_same_bits"], result["bf16_same_bits"] = {}, {}
     ok = True
-    for name, (inputs, int4) in mains.items():
+    for name, (inputs, int4, masks) in mains.items():
         q, cache, lengths, q_starts, tables = inputs
         operands = (q, *cache, lengths, q_starts, tables)
-        kw = dict(sm_scale=q.shape[-1] ** -0.5, save_residuals=True, **nomask)
+        kw = dict(sm_scale=q.shape[-1] ** -0.5, save_residuals=True, **masks)
         plain_fn = pp._paged_prefill_int4_plain if int4 else pp._paged_prefill_plain
         plain = plain_fn(*operands, **kw)
         w_abs = cs.prefill_w_abs(q, cache, lengths, q_starts, tables, int4=int4, **kw)
         tols = (cs.int4_tolerances if int4 else cs.paged_prefill_tolerances)(
-            q, *cache, *plain, sm_scale=kw["sm_scale"], softcap=None, w_abs=w_abs)
+            q, *cache, *plain, sm_scale=kw["sm_scale"], softcap=masks["softcap"], w_abs=w_abs)
         row, calls = {}, {}
         for which, launch in launchers.items():
             # calls holds each launch's outputs and operands while it is timed.
@@ -298,25 +328,132 @@ def _prefill_ab(trees, g, result):
                                            cs.err_over_tol(lse, plain[1], tols[1])]}
             ok &= max(row[which]["err_over_tol"]) <= 1.0
         result["bf16_same_bits"][name] = _same_bits(calls)
-        _timed_turns(calls, row, iters=20)
+        _timed_turns(calls, row, iters=20, rounds=rounds)
+        row["splits"] = list(_splits(pp, q, cache, tables))
         result["main"][name] = row
         # The f32 route at the main shape.
         f32 = (q.float(), *operands[1:])
         outs = [launch(f32, int4=int4, **kw)[0] for launch in launchers.values()]
-        result["f32_same_bits"][name] = all(torch.equal(a, b) for a, b in zip(*outs))
+        result["f32_same_bits"][name] = _all_equal(outs)
+    ok &= _verify_ab(launchers, result, split_targets, rounds)
+    # The coverage cases: where prefill_splits gives S = 1, every library's
+    # bits; where S > 1 (this tree's split walk, the parent's one walk),
+    # each library's err_over_tol against this tree's plain version.
     cases = ([(f"paged_prefill{i}", c, False) for i, c in enumerate(cs.PAGED_PREFILL_COVERAGE)]
              + [(f"paged_prefill_int4_{i}", c, True)
                 for i, c in enumerate(cs.PREFILL_INT4_COVERAGE)])
+    result["bf16_split_err_over_tol"] = {}
     for route, dt in (("f32_same_bits", torch.float32), ("bf16_same_bits", torch.bfloat16)):
         for name, case, int4 in cases:
             q, cache, lengths, q_starts, tables, masks = cs.paged_prefill_coverage_inputs(
                 g, case, int4=int4, q_dtype=dt)
+            operands = (q, *cache, lengths, q_starts, tables)
             kw = dict(sm_scale=q.shape[-1] ** -0.5, save_residuals=True, **masks)
-            outs = [launch((q, *cache, lengths, q_starts, tables), int4=int4, **kw)[0]
-                    for launch in launchers.values()]
-            result[route][name] = all(torch.equal(a, b) for a, b in zip(*outs))
+            outs = {w: launch(operands, int4=int4, **kw)[0] for w, launch in launchers.items()}
+            if _splits(pp, q, cache, tables)[0] == 1:
+                result[route][name] = _all_equal(list(outs.values()))
+                continue
+            plain = (pp._paged_prefill_int4_plain if int4 else pp._paged_prefill_plain)(
+                *operands, **kw)
+            w_abs = cs.prefill_w_abs(q, cache, lengths, q_starts, tables, int4=int4, **kw)
+            tols = (cs.int4_tolerances if int4 else cs.paged_prefill_tolerances)(
+                q, *cache, *plain, sm_scale=kw["sm_scale"], softcap=masks["softcap"],
+                w_abs=w_abs)
+            errs = {w: [cs.err_over_tol(x, p, t) for x, p, t in zip(o, plain, tols)]
+                    for w, o in outs.items()}
+            result["bf16_split_err_over_tol"][name] = errs
+            ok &= all(max(e) <= 1.0 for e in errs.values())
     return (ok and all(result["f32_same_bits"].values())
             and all(result["bf16_same_bits"].values()))
+
+
+def _gemma2_chunk(g):
+    """(q, cache, lengths, q_starts, tables) of serve_hybrid's full-layer
+    chunk at d=256: 2048 rows at 4096 of context, Gemma-2's heads."""
+    import chip_smoke as cs
+    ga = cs.GEMMA2_ATTN
+    Hq, Hkv, D, P = (ga[x] for x in ("Hq", "Hkv", "D", "P"))
+    C, q0 = 2048, 4096
+    n_pages = (q0 + C) // P
+    cache = cs._paged_cache(g, Hkv, n_pages + 1, P, D)
+    tables = (torch.randperm(n_pages, generator=g, device="cuda") + 1)[None].to(torch.int32)
+    q = torch.randn((1, Hq, C, D), generator=g, device="cuda").to(torch.bfloat16)
+    return (q, cache, torch.tensor([q0 + C], dtype=torch.int32, device="cuda"),
+            torch.tensor([q0], dtype=torch.int32, device="cuda"), tables)
+
+
+def _all_equal(outs):
+    """Whether every library's outputs (a tuple each) are the first's bits."""
+    return all(torch.equal(a, b) for other in outs[1:] for a, b in zip(outs[0], other))
+
+
+def _ptxas(lib):
+    """A library's ptxas report: {kernel: [registers, spill store bytes]}
+    and its serialized-wgmma warnings (C7514, C7515)."""
+    import re
+    import chip_smoke as cs
+    log = lib.with_suffix(".log").read_text()
+    return {"kernels": cs._ptxas_kernels(log), "C7514": len(re.findall("C7514", log)),
+            "C7515": len(re.findall("C7515", log))}
+
+
+def _splits(pp, q, cache, tables, **kw):
+    """prefill_splits of this tree at a launch's shapes."""
+    B, Hq, C, D = q.shape
+    Hkv, P = cache[0].shape[0], cache[0].shape[2]
+    return pp.prefill_splits(B, Hkv, C, Hq // Hkv, D, tables.shape[1], P, q.dtype, **kw)
+
+
+def _verify_ab(launchers, result, split_targets, rounds=1):
+    """VERIFY_MAIN: each library's ms in turns (20 launches), err_over_tol
+    against this tree's plain version (which cuts this tree's splits), this
+    library's bits twice, SDPA's ms and the bound; with split_targets, this
+    library at prefill_splits' cut for each target, in turns (ascending,
+    then descending)."""
+    import chip_smoke as cs
+    from quantizedmha_tpu_torch.ops import paged_prefill as pp
+    ok = True
+    for name, (which, slots) in VERIFY_MAIN.items():
+        g = torch.Generator(device="cuda").manual_seed(380 + (0 if which == "tp" else which))
+        case = cs.VERIFY_TP["case"] if which == "tp" else cs.VERIFY_COVERAGE[which]
+        slots = cs.VERIFY_TP["slots"] if which == "tp" else slots
+        q, cache, lengths, q_starts, tables, clean, masks = cs.verify_coverage_inputs(
+            g, case, slots)
+        operands = (q, *cache, lengths, q_starts, tables)
+        kw = dict(sm_scale=q.shape[-1] ** -0.5, save_residuals=True, **masks)
+        plain = pp._paged_prefill_plain(*operands, **kw)
+        w_abs = cs.prefill_w_abs(q, clean, lengths, q_starts, tables, **kw)
+        tols = cs.paged_prefill_tolerances(q, *clean, *plain, sm_scale=kw["sm_scale"],
+                                           softcap=masks["softcap"], w_abs=w_abs)
+        row, calls = {"splits": list(_splits(pp, q, cache, tables)),
+                      "lengths": lengths.tolist(), "max_pages": tables.shape[1]}, {}
+        for which_lib, launch in launchers.items():
+            (o, lse), call, keep = launch(operands, **kw)
+            calls[which_lib] = (call, (o, lse, keep))
+            row[which_lib] = {"err_over_tol": [cs.err_over_tol(o, plain[0], tols[0]),
+                                               cs.err_over_tol(lse, plain[1], tols[1])]}
+            ok &= max(row[which_lib]["err_over_tol"]) <= 1.0
+        row["this"]["same_bits_twice"] = cs._same_bits_again(
+            lambda: calls["this"][0][0](*calls["this"][0][1]), calls["this"][1][:2])
+        ok &= row["this"]["same_bits_twice"]
+        _timed_turns(calls, row, iters=20, rounds=rounds)
+        nbytes, ops, library = cs.verify_yardsticks(q, clean, lengths, q_starts, tables,
+                                                    masks["window"])
+        row["bound_ms"], row["bound_by"] = cs.bound(nbytes, ops)
+        row["sdpa_ms"], row["sdpa_backend"] = library()
+        if split_targets:
+            make = launchers["this"]
+            sweep = {}
+            for target in list(split_targets) + list(split_targets)[::-1]:
+                splits = _splits(pp, q, cache, tables, target_blocks=target)
+                (o, _), (fn, fargs), keep = make(operands, splits=splits, **kw)
+                sweep.setdefault(str(target), {"splits": list(splits), "ms": []})["ms"].append(
+                    cs.cuda_ms(lambda: fn(*fargs), iters=20))
+                del keep
+            row["split_sweep"] = sweep
+        result["main"][name] = row
+        del calls
+    return ok
 
 
 def _same_bits(calls):
@@ -838,20 +975,21 @@ def main(argv=None) -> int:
                     help="root of the other tree (holds quantizedmha_tpu_torch/csrc)")
     ap.add_argument("--source", choices=sorted(OPS), default="paged_prefill")
     ap.add_argument("--variants", type=Path,
-                    help="JSON {name: [[line, replacement], ...]} of this tree's source "
-                         "(paged_decode, flash_fwd, w4_matmul, flash_int8_fwd)")
+                    help="JSON {name: [[line, replacement], ...]} of this tree's source")
     ap.add_argument("--only", nargs="+", help="the variants of --variants to build")
     ap.add_argument("--variants-on", choices=("this", "parent"), default="this",
                     help="the tree whose source the variants edit (parent: needs --parent)")
     ap.add_argument("--mains", nargs="+",
                     help="flash_int8_fwd: the main shapes to time (default: every one)")
+    ap.add_argument("--split-targets", nargs="+", type=int,
+                    help="paged_prefill: prefill_splits' target_blocks to sweep at the "
+                         "verify shapes, this tree's library")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="paged_prefill: rounds of timed turns at each main and verify shape")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if args.parent is None and args.variants is None:
         ap.error("give --parent, --variants or both")
-    if args.variants is not None and args.source == "paged_prefill":
-        ap.error("--variants takes --source paged_decode, flash_fwd, w4_matmul or "
-                 "flash_int8_fwd")
     if args.variants_on == "parent" and args.parent is None:
         ap.error("--variants-on parent needs --parent")
     if not torch.cuda.is_available():
@@ -873,6 +1011,8 @@ def main(argv=None) -> int:
           "flash_int8_fwd": _flash_int8_ab, "flash_bwd": _flash_bwd_ab}[args.source]
     if args.source == "flash_int8_fwd":
         result["ok"] = bool(ab(trees, g, result, args.mains, args.out))
+    elif args.source == "paged_prefill":
+        result["ok"] = bool(ab(trees, g, result, args.split_targets, args.rounds))
     else:
         result["ok"] = bool(ab(trees, g, result))
     if args.out is not None:

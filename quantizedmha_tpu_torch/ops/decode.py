@@ -71,11 +71,12 @@ def decode_splits(batch: int, num_kv_heads: int, max_pages: int,
 
 
 def _merge_splits(states, q_dtype, shape, save_residuals):
-    """The kernel's merge of one row's splits, in split order: M the
-    largest m; a split that ran weighs w = exp(m - M) (a split with m =
-    -inf held no visible page: it is skipped, its sums never read);
-    o = sum w acc / sum w l (an l of 0 gives o = 0) and lse = M +
-    log(sum w l) (-inf when 0)."""
+    """The kernels' merge of one row's splits (paged decode and paged
+    prefill), in split order: M the largest m; a split that ran weighs w =
+    exp(m - M) (a split with m = -inf held no visible page: it is skipped,
+    its sums never read); o = sum w acc / sum w l (an l of 0 gives o = 0)
+    and lse = M + log(sum w l) (-inf when 0). states: (m, l, acc) a split,
+    m and l [..., 1], acc [..., D]; o takes `shape`, lse shape[:-1]."""
     inf = float("-inf")
     mx = torch.stack([m for m, _, _ in states]).amax(dim=0)
     l_sum = torch.zeros_like(mx)
@@ -91,7 +92,7 @@ def _merge_splits(states, q_dtype, shape, save_residuals):
         return o
     lse = torch.where(l_sum == 0.0, torch.full_like(l_sum, inf),
                       mx + torch.log(torch.clamp(l_sum, min=1e-38)))
-    return o, lse.reshape(shape[:2])
+    return o, lse.reshape(shape[:-1])
 
 
 def _decode_walk(q, num_kv_heads, lengths, block_tables, page_size, load_page, *, sm_scale,

@@ -26,29 +26,39 @@ ms on an H100. f32 q runs true f32 FMAs on the CUDA cores, the plain
 version up to the summation order, at every head dim (at 256, Gemma-2
 served in f32, V's f32 tile takes K's place once a tile's scores are done,
 so that the raw page stages still fit in shared memory).
+
+A bf16 launch whose grid would leave the card short of blocks (speculative
+verify: a few sequences of k + 1 rows) cuts each sequence's key walk into
+the splits of `prefill_splits`, contiguous ranges of whole pages and key
+tiles, each walked from zero state by blocks of their own; the kernel's
+merge, in the same C entry, then combines a row's splits by lse in split
+order, as the paged decode does. The plain version cuts the same splits
+and merges them by the same rule (ops/decode._merge_splits).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import math
+from typing import Optional, Tuple
 
 import torch
 
 from quantizedmha_tpu_torch.ops import cuda_lib
 from quantizedmha_tpu_torch.ops._autograd import refuse_grad
 from quantizedmha_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE, validate_masking
-from quantizedmha_tpu_torch.ops.decode import _int4_page, int4_scales
+from quantizedmha_tpu_torch.ops.decode import _int4_page, _merge_splits, int4_scales
 from quantizedmha_tpu_torch.ops.quantize import true_div
 
 PAGED_PREFILL = cuda_lib.CudaKernel(
     "paged_prefill", "paged_prefill",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 PAGED_PREFILL_INT4 = cuda_lib.CudaKernel(
     "paged_prefill", "paged_prefill_int4",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _HEAD_DIMS = (32, 64, 128, 256)  # 256: Gemma-2, bf16 and f32 q
@@ -57,32 +67,97 @@ _MAX_GROUP = 64  # the kernel holds a whole GQA group in its 64 q rows
 # jax.grad through its paged_prefill_attention(_int4) raises.
 _NO_GRAD = ("paged prefill attention is not differentiable (jax.grad through the "
             "JAX package's paged_prefill_attention fails too)")
+# prefill_splits leaves a grid of FILL_BLOCKS or more as it is (a block
+# resident on each of the H100's 132 SMs), and cuts a smaller one's key
+# walks to aim at SPLIT_TARGET_BLOCKS blocks, seven waves of one block an
+# SM (the sweep at verify's shapes that chose it: harness/paged_prefill_ab.py
+# --split-targets, PERF.md); a split is a whole number of the kernel's
+# 64-key tiles (BK in csrc/paged_prefill.cu).
+FILL_BLOCKS = 132
+SPLIT_TARGET_BLOCKS = 7 * 132
+_TILE_KEYS = 64
+# Launches of each entry that took the split key walk (S > 1), beside the
+# entries' own launch counts; a serving run resets and reads it.
+split_launches = {"paged_prefill": 0, "paged_prefill_int4": 0}
+
+
+def bf16_block_rows(head_dim: int) -> int:
+    """q rows of one bf16 block: Bf16Block<D>::BROWS in
+    csrc/paged_prefill.cu (one consumer warpgroup of 64 rows at d=256, two
+    otherwise)."""
+    return 64 if head_dim == 256 else 128
+
+
+@functools.lru_cache(maxsize=None)
+def prefill_splits(batch: int, num_kv_heads: int, q_len: int, group: int, head_dim: int,
+                   max_pages: int, page_size: int, q_dtype: torch.dtype,
+                   target_blocks: int = SPLIT_TARGET_BLOCKS) -> Tuple[int, int]:
+    """(S, pages_per_split) of the bf16 kernel's split key walk: split s
+    walks the logical pages [s * pages_per_split, (s + 1) *
+    pages_per_split) of each sequence's block table (max_pages slots wide).
+    A pure function of the shapes: no device query and no look at the
+    lengths, so a launch needs no host sync and the plain version cuts the
+    same splits. S = 1 for f32 q and wherever the unsplit grid, batch x kv
+    heads x ceil(q_len / (block rows / group)) blocks, already fills the
+    card (FILL_BLOCKS); otherwise the table is cut into about target_blocks
+    / that many ranges, each a whole number of pages and of 64-key tiles."""
+    if q_dtype != torch.bfloat16:
+        return 1, max_pages
+    rows = max(bf16_block_rows(head_dim) // group, 1)
+    blocks = batch * num_kv_heads * -(-q_len // rows)
+    if blocks >= FILL_BLOCKS:
+        return 1, max_pages
+    unit = math.lcm(page_size, _TILE_KEYS) // page_size  # pages of a tile-aligned range
+    want = -(-target_blocks // max(blocks, 1))
+    per = -(-max(-(-max_pages // want), 1) // unit) * unit
+    if per >= max_pages:
+        return 1, max_pages
+    return -(-max_pages // per), per
 
 
 def _prefill_walk(q, num_kv_heads, lengths, q_starts, block_tables, page_size, load_page,
-                  *, sm_scale, window, softcap, sinks, save_residuals):
+                  *, sm_scale, window, softcap, sinks, save_residuals, splits=None):
     """The kernel's page walk in PyTorch, vectorized over sequences and kv
-    heads with each GQA group's q heads flattened into one row operand:
-    per logical page, f32 scores, softcap, masks (kpos <= qpos, kpos <
-    length, the window and sinks), the online softmax with dead rows
-    zeroed, acc = acc·alpha + P·V with the V scales. A page no row of a
-    sequence can see leaves that sequence's state untouched, as the kernels
-    skip it. load_page(page ids [B]) -> (k [B, Hkv, P, D] f32, k scales
-    broadcasting to [B, Hkv, 1, P], pv(p) -> [B, Hkv, G*C, D])."""
+    heads with each GQA group's q heads flattened into one row operand.
+    Each split of `splits` (default prefill_splits of the shapes) walks its
+    logical pages from zero state: per page f32 scores, softcap, masks
+    (kpos <= qpos, kpos < length, the window and sinks), the online softmax
+    with dead rows zeroed, acc = acc·alpha + P·V with the V scales. A page
+    no row of a sequence can see leaves that sequence's state untouched, as
+    the kernels skip it. Then the splits are merged (decode._merge_splits;
+    one split gives acc / l). load_page(page ids [B]) -> (k [B, Hkv, P, D]
+    f32, k scales broadcasting to [B, Hkv, 1, P], pv(p) -> [B, Hkv, G*C,
+    D])."""
     torch.backends.cuda.matmul.allow_tf32 = False
     B, Hq, C, D = q.shape
     Hkv, P = num_kv_heads, page_size
     G = Hq // Hkv
     dev = q.device
+    max_pages = block_tables.shape[1]
+    n_splits, per = splits or prefill_splits(B, Hkv, C, G, D, max_pages, P, q.dtype)
     lengths, q_starts = lengths.long(), q_starts.long()
     qg = q.float().reshape(B, Hkv, G * C, D) * sm_scale
     qpos = (q_starts[:, None] + torch.arange(C, device=dev)).repeat(1, G)  # [B, G*C]
-    m = torch.full((B, Hkv, G * C, 1), float("-inf"), device=dev)
-    l = torch.zeros((B, Hkv, G * C, 1), device=dev)
-    acc = torch.zeros((B, Hkv, G * C, D), device=dev)
     last_q = q_starts + C - 1
-    n_pages = min(int(((lengths.max() + P - 1) // P).item()), block_tables.shape[1])
-    for i in range(n_pages):
+    n_pages = min(int(((lengths.max() + P - 1) // P).item()), max_pages)
+    states = []
+    for split in range(n_splits):
+        states.append(_walk_pages(qg, range(split * per, min((split + 1) * per, n_pages)),
+                                  lengths, q_starts, last_q, qpos, block_tables, P, load_page,
+                                  window=window, softcap=softcap, sinks=sinks))
+    return _merge_splits(states, q.dtype, (B, Hq, C, D), save_residuals)
+
+
+def _walk_pages(qg, pages, lengths, q_starts, last_q, qpos, block_tables, P, load_page, *,
+                window, softcap, sinks):
+    """One split of _prefill_walk from zero state over its logical pages:
+    (m, l, acc) [B, Hkv, G*C, 1 | 1 | D]."""
+    B, Hkv, rows, D = qg.shape
+    dev = qg.device
+    m = torch.full((B, Hkv, rows, 1), float("-inf"), device=dev)
+    l = torch.zeros((B, Hkv, rows, 1), device=dev)
+    acc = torch.zeros((B, Hkv, rows, D), device=dev)
+    for i in pages:
         base = i * P
         run = (base <= last_q) & (base < lengths)                     # [B]
         if window is not None:
@@ -113,13 +188,7 @@ def _prefill_walk(q, num_kv_heads, lengths, q_starts, block_tables, page_size, l
         m = torch.where(sel, m_next, m)
         l = torch.where(sel, l_new, l)
         acc = torch.where(sel, acc_new, acc)
-    l_inv = torch.where(l == 0.0, torch.ones_like(l), 1.0 / l)
-    o = (acc * l_inv).reshape(B, Hq, C, D).to(q.dtype)
-    if not save_residuals:
-        return o
-    lse = torch.where(l == 0.0, torch.full_like(l, float("-inf")),
-                      m + torch.log(torch.clamp(l, min=1e-38)))
-    return o, lse.reshape(B, Hq, C)
+    return m, l, acc
 
 
 def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts,
@@ -155,10 +224,11 @@ def _paged_prefill_int4_plain(q, k_pages, v_pages, k_scales, v_scales, lengths, 
 
 def _paged_prefill_launch(q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts,
                           block_tables, *, sm_scale, window, softcap, sinks,
-                          save_residuals, int4=False):
+                          save_residuals, int4=False, splits=None):
     """Checked operands of one kernel launch: (kernel, ctypes args,
-    outputs, operands). int4: nibble-packed pages [Hkv, num_pages, P, D/2]
-    with scales [Hkv, num_pages, subs]."""
+    outputs, operands and scratch). int4: nibble-packed pages [Hkv,
+    num_pages, P, D/2] with scales [Hkv, num_pages, subs]. splits: (S,
+    pages_per_split), default prefill_splits of the shapes."""
     B, Hq, C, D = q.shape
     Hkv, num_pages, P, _ = k_pages.shape
     if D not in _HEAD_DIMS:
@@ -183,24 +253,38 @@ def _paged_prefill_launch(q, k_pages, v_pages, k_scales, v_scales, lengths, q_st
     o = torch.empty_like(q)
     lse = (torch.empty((B, Hq, C), dtype=torch.float32, device=q.device)
            if save_residuals else None)
+    max_pages = block_tables.shape[1]
+    n_splits, per = splits or prefill_splits(B, Hkv, C, Hq // Hkv, D, max_pages, P, q.dtype)
+    # The splits' f32 scratch, one allocation: unnormalised sums [S, B, Hq,
+    # C, D], then m and l [2, S, B, Hq, C].
     ptr = cuda_lib.ptr
-    dims = (B, Hq, Hkv, C, num_pages, P, block_tables.shape[1], D)
+    scratch = part = ml = None
+    if n_splits > 1:
+        rows = n_splits * B * Hq * C
+        scratch = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
+        part = ptr(scratch, 16)
+        ml = part + rows * D * 4
+    dims = (B, Hq, Hkv, C, num_pages, P, max_pages, D)
     if int4:
         dims += (k_scales.shape[-1],)
     args = (ptr(q, 16), ptr(k_pages, 16), ptr(v_pages, 16), ptr(k_scales), ptr(v_scales),
-            ptr(lengths), ptr(q_starts), ptr(block_tables), ptr(o, 16), ptr(lse), *dims,
-            sm_scale, int(softcap is not None), float(softcap or 0.0),
+            ptr(lengths), ptr(q_starts), ptr(block_tables), ptr(o, 16), ptr(lse), part, ml,
+            *dims, n_splits, per, sm_scale, int(softcap is not None), float(softcap or 0.0),
             -1 if window is None else int(window), int(sinks),
             DEFAULT_MASK_VALUE, DEFAULT_MASK_VALUE * 0.5, int(q.dtype == torch.bfloat16),
             cuda_lib.stream_of(q))
-    keep = (q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts, block_tables)
+    # The operand and scratch tensors ride along so they outlive every
+    # launch of args.
+    keep = (q, k_pages, v_pages, k_scales, v_scales, lengths, q_starts, block_tables, scratch)
     return PAGED_PREFILL_INT4 if int4 else PAGED_PREFILL, args, (o, lse), keep
 
 
 def _paged_prefill_cuda(*operands, save_residuals, **kw):
-    kernel, args, (o, lse), _ = _paged_prefill_launch(
+    kernel, args, (o, lse), keep = _paged_prefill_launch(
         *operands, save_residuals=save_residuals, **kw)
     kernel(*args)
+    if keep[-1] is not None:  # the splits' scratch: S > 1
+        split_launches[kernel.symbol] += 1
     return (o, lse) if save_residuals else o
 
 

@@ -76,7 +76,7 @@ def test_serving_routes_admit_head_dim_256(monkeypatch):
             qf, pages, pages, scales, scales, one * 8, one * 0, tables, sm_scale=D**-0.5,
             save_residuals=True, int4=int4, **masks)
         assert kernel is kern and kernel.launches == 0
-        assert args[17] == D and args[-2] == 0 and o.dtype == torch.float32
+        assert args[19] == D and args[-2] == 0 and o.dtype == torch.float32
 
 
 def test_routes_left_out_raise_naming_their_item(monkeypatch):
